@@ -1,0 +1,156 @@
+"""Command-line entry point of the port, with the JAX CLI's contract:
+
+    python -m lorastencil_tpu_torch.cli <shape> <m> <n> <steps> [options]
+
+Counterpart of ``lorastencil_tpu/cli.py``: the same positional arguments,
+fill modes and ``--check`` (fp64 ground truth at the float32 tolerance
+1e-5 relative to the grid's largest value), plus ``--device cuda|cpu``.
+On ``cuda`` the run is timed with CUDA events; ``cpu`` runs the kernels'
+plain PyTorch twins and is not timed.  The JAX CLI's flags and values the
+port does not run yet are refused with the ROADMAP item that will port
+them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+
+import numpy as np
+
+from lorastencil_tpu.models.shapes import ALL_SHAPES, get_shape
+from lorastencil_tpu.utils import reference
+
+from . import engine
+from .utils import metrics
+
+
+def make_input(spec, interior, fill: str, seed: int = 0) -> np.ndarray:
+    """The JAX CLI's fills: random integers (the reference's rand() %
+    100), a row-major index ramp, or ones; halo zero except 'random'."""
+    shape = spec.padded_shape(interior)
+    if fill == "random":
+        return reference.random_padded(spec, interior, seed=seed)
+    grid = np.zeros(shape, dtype=np.float64)
+    it = reference.interior_slices(spec, shape)
+    if fill == "index":
+        grid[it] = np.arange(int(np.prod(interior))).reshape(interior)
+    else:  # ones
+        grid[it] = 1.0
+    return grid
+
+
+def _parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="lorastencil_tpu_torch",
+        description="low-rank stencils on PyTorch / CUDA")
+    p.add_argument("shape", choices=sorted(ALL_SHAPES))
+    p.add_argument("sizes", type=int, nargs="+",
+                   help="interior sizes then steps")
+    p.add_argument("--fill", choices=["random", "index", "ones"],
+                   default="random")
+    p.add_argument("--check", action="store_true",
+                   help="verify against the fp64 ground truth")
+    p.add_argument("--backend", choices=["auto", "pallas", "xla"],
+                   default="auto",
+                   help="auto/pallas: the CUDA kernel; xla: the plain "
+                        "separable step")
+    p.add_argument("--algorithm", choices=engine.ALGORITHM_NAMES,
+                   default="auto",
+                   help="auto, mxu_hybrid1, vpu_roll and vpu all run the "
+                        "one exact fp32 kernel")
+    p.add_argument("--fused-steps", type=int, default=None)
+    p.add_argument("--precision", choices=["highest", "default"],
+                   default="highest")
+    p.add_argument("--dtype",
+                   choices=["float32", "bfloat16", "float64", "df64"],
+                   default="float32")
+    p.add_argument("--boundary",
+                   choices=["dirichlet0", "periodic", "reflect"],
+                   default="dirichlet0")
+    p.add_argument("--tile", type=int, nargs=2, default=None)
+    p.add_argument("--mesh", type=int, nargs="+", default=None,
+                   metavar="D")
+    p.add_argument("--no-overlap", action="store_true")
+    p.add_argument("--autotune", action="store_true")
+    p.add_argument("--repeats", type=int, default=3)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--json", action="store_true", help="emit JSON metrics")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    return p
+
+
+def main(argv=None) -> int:
+    p = _parser()
+    args = p.parse_args(argv)
+    if args.mesh is not None or args.no_overlap:
+        p.error("--mesh / --no-overlap: the sharded engines are not "
+                "ported yet (ROADMAP A11)")
+    if args.autotune:
+        p.error("--autotune is not ported yet (ROADMAP A12)")
+    spec = get_shape(args.shape)
+    if len(args.sizes) != spec.ndim + 1:
+        p.error(f"{args.shape} needs {spec.ndim} size(s) + steps, got "
+                f"{len(args.sizes)} numbers")
+    interior = tuple(args.sizes[: spec.ndim])
+    steps = args.sizes[spec.ndim]
+    try:
+        eng = engine.StencilEngine.for_shape(
+            args.shape, interior, device=args.device,
+            backend=args.backend, dtype=args.dtype,
+            precision=args.precision, algorithm=args.algorithm,
+            fused_steps=args.fused_steps,
+            tile=tuple(args.tile) if args.tile else None,
+            boundary=args.boundary)
+    except (NotImplementedError, RuntimeError) as e:
+        p.error(str(e))  # a config not ported yet, or no CUDA device
+    print(f"INFO: shape = {spec.name}, sizes = {interior}, steps = "
+          f"{steps}, device = {eng.device}", flush=True)
+    grid0 = make_input(spec, interior, args.fill, args.seed)
+
+    if eng.device.type == "cuda":
+        secs, _ = metrics.time_run(
+            lambda: eng.run_checksum(grid0, steps), repeats=args.repeats)
+        res = metrics.bench_result(spec, interior, steps, secs,
+                                   f"cuda-{eng.backend}", args.precision,
+                                   args.repeats)
+        print(res.human(), flush=True)
+        if args.json:
+            print(res.json(), flush=True)
+    else:
+        print("INFO: not timed (--device cpu runs the plain PyTorch "
+              "twins; timing needs a CUDA device)", flush=True)
+    if args.check:
+        return _check(spec, grid0, steps, eng.run)
+    return 0
+
+
+def _check(spec, grid0, steps, run_fn) -> int:
+    """fp64 ground-truth comparison at the float32 tolerance of the JAX
+    CLI (``lorastencil_tpu/cli.py`` ``_check``)."""
+    print("\nChecking correctness ...", flush=True)
+    want = reference.run(grid0, spec, steps)
+    got = run_fn(grid0, steps).cpu().numpy().astype(np.float64)
+    scale = max(1.0, float(np.abs(want).max()))
+    limit = float(np.finfo(np.float32).max)
+    if not np.isfinite(scale) or scale > limit:
+        print(f"FAILED: ground truth reaches {scale:.2e}, beyond the "
+              f"float32 range -- use fewer --check steps (values grow by "
+              f"sum|coeffs| per step)")
+        return 1
+    diff = np.abs(got - want)
+    rel = float(diff.max()) / scale
+    tol = 1e-5  # fp32 compute against the fp64 ground truth
+    bad = np.argwhere(~(diff <= tol * scale))  # NaN counts as mismatch
+    for idx in bad[:10]:
+        print(f"mismatch at {tuple(int(i) for i in idx)}: "
+              f"got {got[tuple(idx)]}, want {want[tuple(idx)]}")
+    if len(bad):
+        print(f"FAILED: {len(bad)} mismatches (max rel err {rel:.2e})")
+        return 1
+    print(f"Correct! (max rel err {rel:.2e})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,60 @@
+"""Plain PyTorch stencil steps on the reference-padded layout.
+
+Counterpart of ``lorastencil_tpu/ops/xla_ref.py`` (``dense_step``,
+``separable_step``):
+
+* ``dense_step``     -- one shifted slice-add per nonzero coefficient: the
+                        naive stencil, the baseline ``chip_smoke.py`` times
+                        the kernel against, and (in float64) its on-card
+                        ground truth;
+* ``separable_step`` -- per-term axis convs plus the residue, the
+                        ``backend='xla'`` path of the engine.
+
+Both write the stencil into the interior and zero the halo (the
+reference's multi-step semantics, ``utils/reference.py``).  Neither uses a
+matmul or a convolution routine, so TF32 cannot enter on a GPU.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from lorastencil_tpu.models.shapes import StencilSpec
+
+from .band_gemm import apply_spec
+
+
+def _interior(spec: StencilSpec, shape):
+    if len(shape) != 2 or spec.ndim != 2:
+        raise ValueError(
+            f"grid is {len(shape)}-D; the port's reference steps are 2-D "
+            f"and {spec.name!r} is {spec.ndim}-D")
+    return tuple(slice(h, s - h) for h, s in zip(spec.halo, shape))
+
+
+def dense_step(grid, spec: StencilSpec):
+    """Naive stencil: one shifted slice per nonzero tap, in ``grid``'s
+    dtype."""
+    S = spec.dense_coeffs()
+    r = spec.radius
+    it = _interior(spec, grid.shape)
+    acc = None
+    for idx in np.argwhere(np.abs(S) > 0):
+        w = float(S[tuple(idx)])
+        src = tuple(slice(sl.start + int(i) - r, sl.stop + int(i) - r)
+                    for sl, i in zip(it, idx))
+        v = w * grid[src]
+        acc = v if acc is None else acc + v
+    out = torch.zeros_like(grid)
+    out[it] = acc
+    return out
+
+
+def separable_step(grid, spec: StencilSpec):
+    """Axis-separated stencil: per-term column then row convs, then the
+    residue (``band_gemm.apply_spec`` on the whole padded array)."""
+    it = _interior(spec, grid.shape)
+    out = torch.zeros_like(grid)
+    out[it] = apply_spec(grid, spec, spec.halo)
+    return out
