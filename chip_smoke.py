@@ -1,37 +1,63 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch / CUDA port's main path once on an NVIDIA GPU.
+"""Drive the PyTorch / CUDA port's main paths once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
-The main path is the JAX package's flagship (bench.py): star2d1r,
-fp32-exact, dirichlet0, 8192^2 interior, through
-``lorastencil_tpu_torch.engine.StencilEngine`` and its CUDA kernel
-(``lorastencil_tpu_torch/csrc/stencil2d.cu``, replacing the Pallas kernel
-``lorastencil_tpu/ops/pallas_2d.py::_stencil2d_kernel``).  Phases, each
-printing one line and raising on failure:
+Two paths, each through ``lorastencil_tpu_torch.engine.StencilEngine`` and
+its hand-written CUDA kernel:
+
+* 2-D, the JAX package's flagship (bench.py): star2d1r, fp32-exact,
+  dirichlet0, 8192^2 interior, one step per pass, through
+  ``csrc/stencil2d.cu`` (replacing
+  ``lorastencil_tpu/ops/pallas_2d.py::_stencil2d_kernel``);
+* 3-D, the reference artifact's 3-D configurations: star3d1r and box3d1r at
+  256^3, two fused steps per pass (the engine's default), through
+  ``csrc/stencil3d.cu`` (replacing
+  ``lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel``).
+
+Phases, each printing one line or more and raising on failure:
 
 1. the card (nvidia-smi name and power limit), torch and nvcc versions;
-   the kernel built from the checkout's sources;
-2. the kernel against its plain PyTorch twin on the card, for star2d1r
+   both kernels built from the checkout's sources, the two nvcc runs
+   started together;
+2. the 2-D kernel against its plain PyTorch twin on the card, for star2d1r
    and box2d1r at an interior the (32, 128) tile divides, one it does not,
-   and the main path's 8192^2: integer fill bit for bit at 1 and 2 steps;
-   the fill times pi/100 within rel 1e-6 after 4 steps (the kernel fuses
-   multiply-adds, the twin rounds each product);
-3. the slice end to end: ``run`` of 2 steps at 8192^2 equal bit for bit to
-   a float64 dense stencil on the card (every partial sum is an integer
-   below 2**24), with the launch counter at exactly 2; a 256x384 grid at
-   4 steps within rel 1e-5 of the fp64 ground truth (the CLI's float32
+   and 8192^2: integer fill bit for bit at 1 and 2 steps; the fill times
+   pi/100 within rel 1e-6 after 4 steps (the kernel fuses multiply-adds,
+   the twin rounds each product);
+3. the 2-D path end to end: ``run`` of 2 steps at 8192^2 equal bit for bit
+   to a float64 dense stencil on the card (every partial sum is an integer
+   below 2**24), with exactly 2 launches counted from zero; a 256x384 grid
+   at 4 steps within rel 1e-5 of the fp64 ground truth (the CLI's float32
    tolerance);
 4. 256 steps at 8192^2 timed with CUDA events (warmup, best of 3) through
-   ``run_internal`` and through the naive dense stencil; GStencil/s counts
-   star2d1r's x3 fuse factor.
+   ``run_internal`` and through the naive dense stencil (GStencil/s counts
+   star2d1r's x3 fuse factor); one ``F.conv2d`` with the dense 7x7
+   coefficients (TF32 off) as the library yardstick, and the step's bound;
+5. the 3-D kernel against its twin, for star3d1r and box3d1r at (6, 20,
+   150), (37, 45, 130) (the (32, 64) tile divides neither plane axis) and
+   256^3, at K = 1, 2 and 4 fused steps per pass: integer fill bit for bit
+   after one and two passes; pi/100 fill within rel 1e-6 after 4 steps,
+   printing whether it was bit-equal (every 3-D registry tap is a power of
+   two, so the two should agree bit for bit on any fill);
+6. the 3-D path end to end at 256^3 for both shapes: the engine resolves
+   to 'vpu' at k = 2; ``run`` of 2 steps (1 launch) and of 3 steps (2
+   launches: a pass of 2 and the remainder pass of 1) each bit for bit
+   against a float64 dense stencil on the card; a (24, 40, 200) grid at 4
+   steps within rel 1e-5 of the fp64 ground truth;
+7. 64 steps at 256^3 for both shapes through ``run_internal`` and through
+   the naive dense stencil; the kernel's and the twin's time per pass;
+   one ``F.conv3d`` step with the dense 3x3x3 coefficients (TF32 off); the
+   pass's bound.
 
-It then prints the kernels' JSON record and, last, the device record.
-It needs one CUDA device and exits non-zero without one.  JAX is never
-imported; the shared NumPy modules of ``lorastencil_tpu`` (the stencil
-registry, the fp64 ground truth, the GStencil/s record) are.
+It then prints the kernels' JSON record and, last, the device record.  It
+needs one CUDA device and exits non-zero without one.  Neither JAX nor any
+part of ``lorastencil_tpu`` is imported: the port carries its own stencil
+registry and fp64 ground truth, and the script fails if either package
+was loaded.
 """
 
+import concurrent.futures
 import json
 import subprocess
 import sys
@@ -42,8 +68,15 @@ import torch
 
 INTERIOR = (8192, 8192)
 BENCH_STEPS = 256
-SOURCE = "lorastencil_tpu_torch/csrc/stencil2d.cu"
-REPLACES = "lorastencil_tpu/ops/pallas_2d.py:127"
+INTERIOR_3D = (256, 256, 256)
+BENCH_STEPS_3D = 64
+SOURCES = {"stencil2d": "lorastencil_tpu_torch/csrc/stencil2d.cu",
+           "stencil3d": "lorastencil_tpu_torch/csrc/stencil3d.cu"}
+REPLACES = {"stencil2d": "lorastencil_tpu/ops/pallas_2d.py:127",
+            "stencil3d": "lorastencil_tpu/ops/pallas_3d.py:118"}
+# NVIDIA H100 SXM data sheet, at the full 700 W power limit
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_FLOPS = 67e12
 
 
 def card_line() -> str:
@@ -52,6 +85,39 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def reset_counts():
+    from lorastencil_tpu_torch.ops import stencil2d, stencil3d
+
+    stencil2d.stencil2d_step.launches = 0
+    stencil3d.stencil3d_step.launches = 0
+
+
+def counts():
+    from lorastencil_tpu_torch.ops import stencil2d, stencil3d
+
+    return {"stencil2d": stencil2d.stencil2d_step.launches,
+            "stencil3d": stencil3d.stencil3d_step.launches}
+
+
+def build_kernels():
+    """Phase 1's builds, both nvcc runs at once; returns {name: (seconds,
+    ptxas register lines)}."""
+    from lorastencil_tpu_torch.ops import _cuda_build
+
+    def one(name):
+        t0 = time.perf_counter()
+        lib = _cuda_build.build(name)
+        secs = time.perf_counter() - t0
+        with open(lib + ".log") as f:
+            ptxas = [ln.strip() for ln in f if "registers" in ln
+                     or "spill" in ln]
+        return secs, ptxas
+
+    with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
+        futs = {name: pool.submit(one, name) for name in SOURCES}
+        return {name: fut.result() for name, fut in futs.items()}
 
 
 def port_layout(spec, interior):
@@ -63,21 +129,33 @@ def port_layout(spec, interior):
                     guard=guard_2d(spec.halo, spec.radius))
 
 
-def run_steps(step, x, spec, lay, steps):
-    """``steps`` passes of a kernel wrapper or its twin, with the engine's
-    donor rotation."""
+def port_layout_3d(spec, interior, K):
+    from lorastencil_tpu_torch.ops.layout import (Layout3D, default_tile_3d,
+                                                  guard_3d)
+
+    return Layout3D(interior=interior, halo=spec.halo,
+                    tile=default_tile_3d(*interior[1:]),
+                    guard=guard_3d(spec.halo, K * spec.radius))
+
+
+def run_steps(step, x, spec, lay, steps, k=1):
+    """``steps`` timesteps of a kernel wrapper or its twin in passes of
+    ``k``, with the engine's donor rotation."""
     from lorastencil_tpu_torch.engine import ping_pong_loop
 
-    return ping_pong_loop(lambda cur, donor: step(cur, donor, spec, lay),
-                          x, steps)
+    def one(cur, donor, depth):
+        kw = {"fused_steps": depth} if depth > 1 else {}
+        return step(cur, donor, spec, lay, **kw)
+
+    return ping_pong_loop(one, x, steps, k)
 
 
 def check_kernel(name, interior, device):
     """Phase 2 for one shape and size; returns the max abs and rel errors
     of the pi/100 fill after 1 and 4 steps."""
-    from lorastencil_tpu.models.shapes import get_shape
-    from lorastencil_tpu.utils import reference
+    from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil2d
+    from lorastencil_tpu_torch.utils import reference
 
     spec = get_shape(name)
     lay = port_layout(spec, interior)
@@ -109,37 +187,46 @@ def check_kernel(name, interior, device):
     return errs
 
 
-def time_step(spec, lay, device, calls=20):
-    """Per-call device ms of the kernel and of its plain twin, one step
-    each, at the layout's shape (uniform [0, 0.01) fill)."""
-    from lorastencil_tpu_torch.ops import stencil2d
+def time_calls(fns, x, donor, calls):
+    """Per-call device ms of each ``fn(x, donor)`` in ``fns`` (a dict),
+    timed in turns fns..., then the same again reversed, best of the
+    two."""
     from lorastencil_tpu_torch.utils import metrics
+
+    def loop(fn):
+        for _ in range(calls):
+            fn(x, donor)
+
+    order = list(fns) + list(reversed(list(fns)))
+    ms = {}
+    for name in order:
+        secs, _ = metrics.time_run(loop, fns[name], repeats=3, warmup=1)
+        ms[name] = min(ms.get(name, float("inf")), secs / calls * 1e3)
+    return ms
+
+
+def time_step(spec, lay, device, calls=20):
+    """Per-call device ms of the 2-D kernel and of its plain twin, one
+    step each, at the layout's shape (uniform [0, 0.01) fill)."""
+    from lorastencil_tpu_torch.ops import stencil2d
 
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.rand(lay.shape, generator=gen, device=device) * 0.01
-    donor = torch.zeros_like(x)
-
-    def loop(step):
-        for _ in range(calls):
-            step(x, donor, spec, lay)
-
-    ms = {}
-    for name, fn in (("plain", stencil2d.stencil2d_step_plain),
-                     ("kernel", stencil2d.stencil2d_step),
-                     ("kernel2", stencil2d.stencil2d_step),
-                     ("plain2", stencil2d.stencil2d_step_plain)):
-        secs, _ = metrics.time_run(loop, fn, repeats=3, warmup=1)
-        ms[name] = secs / calls * 1e3
-    return min(ms["kernel"], ms["kernel2"]), min(ms["plain"], ms["plain2"])
+    ms = time_calls({
+        "plain": lambda a, b: stencil2d.stencil2d_step_plain(a, b, spec,
+                                                             lay),
+        "kernel": lambda a, b: stencil2d.stencil2d_step(a, b, spec, lay)},
+        x, torch.zeros_like(x), calls)
+    return ms["kernel"], ms["plain"]
 
 
 def main_path(device):
-    """Phase 3: the slice end to end at 8192^2; returns the number of
-    kernel launches counted during ``run``."""
-    from lorastencil_tpu.models.shapes import get_shape
-    from lorastencil_tpu.utils import reference
+    """Phase 3: the 2-D path end to end at 8192^2; returns the launch
+    counts of ``run`` and the small grid's rel err."""
     from lorastencil_tpu_torch import engine
-    from lorastencil_tpu_torch.ops import stencil2d, torch_ref
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import torch_ref
+    from lorastencil_tpu_torch.utils import reference
 
     spec = get_shape("star2d1r")
     eng = engine.StencilEngine.for_shape("star2d1r", INTERIOR, device=device)
@@ -150,13 +237,13 @@ def main_path(device):
     want = torch.from_numpy(g0).to(device)  # float64
     for _ in range(2):
         want = torch_ref.dense_step(want, spec)
-    stencil2d.stencil2d_step.launches = 0
+    reset_counts()
     out = eng.run(g0, 2)
     torch.cuda.synchronize()
-    launches = stencil2d.stencil2d_step.launches
-    if launches != 2:
-        raise AssertionError(f"main path launched the kernel {launches} "
-                             f"times for 2 steps")
+    launches = counts()
+    if launches["stencil2d"] != 2:
+        raise AssertionError(f"2-D path launched its kernel "
+                             f"{launches['stencil2d']} times for 2 steps")
     if tuple(out.shape) != spec.padded_shape(INTERIOR):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -180,13 +267,67 @@ def main_path(device):
     return launches, rel
 
 
+def count_run(eng, state, steps, kernel, expect):
+    """Launches of ``kernel`` in one untimed ``run_internal`` of ``steps``
+    steps, counted from zero; raises unless it is ``expect``."""
+    reset_counts()
+    eng.run_internal(state, steps)
+    torch.cuda.synchronize()
+    got = counts()[kernel]
+    if got != expect:
+        raise AssertionError(f"{steps} steps launched {kernel} {got} times,"
+                             f" expected {expect}")
+    return got
+
+
+def step_flops(spec) -> int:
+    """fp32 operations per cell of one step in separable form: a
+    multiply-add (2 operations) per nonzero tap on every axis of every
+    term, an add per term, a multiply-add per residue point."""
+    mads = sum(sum(1 for w in taps if w != 0.0) for term in spec.terms
+               for taps in term.taps if taps is not None)
+    return 2 * mads + len(spec.terms) + 2 * len(spec.residue)
+
+
+def bound_ms(spec, interior, steps_per_pass):
+    """Least time of one pass: each input cell read once and each output
+    cell written once (float32) over the memory rate, or its operations
+    over the fp32 rate, whichever is larger."""
+    cells = int(np.prod(interior))
+    t_bytes = 2 * 4 * cells / PEAK_BYTES_PER_S
+    t_ops = cells * steps_per_pass * step_flops(spec) / PEAK_FP32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def library_ms(spec, interior, device):
+    """One cuDNN convolution with the dense coefficients (TF32 off) on
+    the interior and a radius-deep margin: one step of the same function
+    (cross-correlation, as the stencil is).  The port never calls it."""
+    import torch.nn.functional as F
+
+    from lorastencil_tpu_torch.utils import metrics
+
+    r = spec.radius
+    w = torch.tensor(spec.dense_coeffs(), dtype=torch.float32,
+                     device=device)[None, None]
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand((1, 1) + tuple(s + 2 * r for s in interior),
+                   generator=gen, device=device) * 0.01
+    conv = F.conv3d if spec.ndim == 3 else F.conv2d
+    secs, out = metrics.time_run(lambda: conv(x, w), repeats=3, warmup=1)
+    if tuple(out.shape[2:]) != tuple(interior):
+        raise AssertionError(f"library conv gave {tuple(out.shape)}")
+    return secs * 1e3
+
+
 def bench(device, card):
-    """Phase 4: kernel path and naive dense stencil, 256 steps each.
+    """Phase 4: 2-D kernel path and naive dense stencil, 256 steps each.
     Values grow 100x per step and overflow to inf/NaN after ~20 steps of
     the [0, 0.01) fill; fp32 arithmetic on inf/NaN runs at the same speed
     on this card, so the times stand (correctness is phases 2-3)."""
-    from lorastencil_tpu.models.shapes import get_shape
     from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import torch_ref
     from lorastencil_tpu_torch.utils import metrics
 
@@ -199,6 +340,7 @@ def bench(device, card):
                                repeats=3, warmup=1)
     res = metrics.bench_result(spec, INTERIOR, BENCH_STEPS, secs,
                                "cuda-stencil2d", "fp32-exact", 3)
+    launches = count_run(eng, state, BENCH_STEPS, "stencil2d", BENCH_STEPS)
     del state
     grid = torch.rand(spec.padded_shape(INTERIOR), generator=gen,
                       device=device) * 0.01
@@ -216,14 +358,162 @@ def bench(device, card):
               f"x{BENCH_STEPS}: {r.time_ms} ms, {r.gstencil_per_s} "
               f"GStencil/s (x3 fused) [{card}]", flush=True)
     print(f"phase 4: vs_baseline {res.gstencil_per_s / base.gstencil_per_s}"
-          f" [{card}]", flush=True)
+          f"; {launches} launches per {BENCH_STEPS}-step run [{card}]",
+          flush=True)
     return res, base
+
+
+def check_kernel_3d(name, interior, K, device):
+    """Phase 5 for one shape, size and depth; returns (abs err, rel err,
+    bit-equal) of the pi/100 fill after 4 steps."""
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil3d
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = get_shape(name)
+    lay = port_layout_3d(spec, interior, K)
+    g0 = reference.random_padded(spec, interior, seed=1)
+    x = lay.to_internal(g0, device=device)
+    for passes in (1, 2):
+        got = run_steps(stencil3d.stencil3d_step, x, spec, lay, passes * K, K)
+        want = run_steps(stencil3d.stencil3d_step_plain, x, spec, lay,
+                         passes * K, K)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(
+                f"{name} {interior} K={K}: kernel differs from its twin at "
+                f"{bad} cells after {passes} passes (integer fill)")
+    x = lay.to_internal(g0 * (np.pi / 100), device=device)
+    got = run_steps(stencil3d.stencil3d_step, x, spec, lay, 4, K)
+    want = run_steps(stencil3d.stencil3d_step_plain, x, spec, lay, 4, K)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} {interior} K={K}: non-finite output")
+    abs_err = (got - want).abs().max().item()
+    rel = abs_err / want.abs().max().item()
+    if rel > 1e-6:
+        raise AssertionError(
+            f"{name} {interior} K={K}: rel err {rel:.3e} > 1e-6 after 4 "
+            f"steps (pi/100 fill)")
+    return abs_err, rel, bool(torch.equal(got, want))
+
+
+def main_path_3d(name, device):
+    """Phase 6 for one shape: returns the launch counts of ``run`` at 2
+    and 3 steps and the small grid's rel err."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import torch_ref
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = get_shape(name)
+    eng = engine.StencilEngine.for_shape(name, INTERIOR_3D, device=device)
+    if (eng.algorithm, eng.backend, eng._fused_k()) != ("vpu", "pallas", 2):
+        raise AssertionError(
+            f"{name} resolved to {eng.algorithm}/{eng.backend} at "
+            f"k={eng._fused_k()}")
+    g0 = reference.random_padded(spec, INTERIOR_3D, seed=0)
+    want = torch_ref.dense_step(torch.from_numpy(g0).to(device), spec)
+    launches = {}
+    for steps, expect in ((2, 1), (3, 2)):
+        want = torch_ref.dense_step(want, spec)  # float64, `steps` steps
+        reset_counts()
+        out = eng.run(g0, steps)
+        torch.cuda.synchronize()
+        launches[steps] = counts()
+        if launches[steps]["stencil3d"] != expect:
+            raise AssertionError(
+                f"{name}: run({steps}) launched the 3-D kernel "
+                f"{launches[steps]['stencil3d']} times, expected {expect}")
+        if tuple(out.shape) != spec.padded_shape(INTERIOR_3D):
+            raise AssertionError(f"{name}: output shape {tuple(out.shape)}")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{name}: output is not finite")
+        if not torch.equal(out.double(), want):
+            bad = (out.double() != want).sum().item()
+            raise AssertionError(
+                f"{name}: run({steps}) differs from the float64 dense "
+                f"stencil at {bad} cells")
+        del out
+    del want
+
+    small = (24, 40, 200)
+    g1 = reference.random_padded(spec, small, seed=2)
+    want = reference.run(g1, spec, 4)
+    got = engine.StencilEngine.for_shape(name, small, device=device).run(g1,
+                                                                         4)
+    rel = (np.abs(got.cpu().numpy().astype(np.float64) - want).max()
+           / np.abs(want).max())
+    if not rel <= 1e-5:
+        raise AssertionError(f"{name} {small} x4: rel err {rel:.3e} > 1e-5")
+    return launches, rel
+
+
+def bench_3d(name, device, card):
+    """Phase 7 for one shape: 64 steps through ``run_internal`` and
+    through the naive dense stencil; the kernel's and the twin's ms per
+    pass at the engine's k; returns the GStencil/s records and the
+    per-pass times."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil3d, torch_ref
+    from lorastencil_tpu_torch.utils import metrics
+
+    spec = get_shape(name)
+    eng = engine.StencilEngine.for_shape(name, INTERIOR_3D, device=device)
+    k, lay = eng._fused_k(), eng.layout
+    gen = torch.Generator(device=device).manual_seed(0)
+    state = torch.rand(lay.shape, generator=gen, device=device) * 0.01
+    secs, _ = metrics.time_run(eng.run_internal, state, BENCH_STEPS_3D,
+                               repeats=3, warmup=1)
+    res = metrics.bench_result(spec, INTERIOR_3D, BENCH_STEPS_3D, secs,
+                               "cuda-stencil3d", "fp32-exact", 3)
+    launches = count_run(eng, state, BENCH_STEPS_3D, "stencil3d",
+                         BENCH_STEPS_3D // k)
+    ms = time_calls({
+        "plain": lambda a, b: stencil3d.stencil3d_step_plain(
+            a, b, spec, lay, fused_steps=k),
+        "kernel": lambda a, b: stencil3d.stencil3d_step(
+            a, b, spec, lay, fused_steps=k)},
+        state, torch.zeros_like(state), calls=10)
+    del state
+    grid = torch.rand(spec.padded_shape(INTERIOR_3D), generator=gen,
+                      device=device) * 0.01
+
+    def naive(g):
+        for _ in range(BENCH_STEPS_3D):
+            g = torch_ref.dense_step(g, spec)
+        return g
+
+    bsecs, _ = metrics.time_run(naive, grid, repeats=3, warmup=1)
+    base = metrics.bench_result(spec, INTERIOR_3D, BENCH_STEPS_3D, bsecs,
+                                "torch-naive", "fp32", 3)
+    del grid
+    dims = "x".join(str(s) for s in INTERIOR_3D)
+    for label, r in (("kernel", res), ("naive", base)):
+        print(f"phase 7: {label} {name} {dims} x{BENCH_STEPS_3D}: "
+              f"{r.time_ms} ms, {r.gstencil_per_s} GStencil/s [{card}]",
+              flush=True)
+    print(f"phase 7: {name} vs_baseline "
+          f"{res.gstencil_per_s / base.gstencil_per_s}; {launches} launches "
+          f"per {BENCH_STEPS_3D}-step run; one pass of k={k} "
+          f"steps: kernel {ms['kernel']} ms, plain twin {ms['plain']} ms "
+          f"[{card}]", flush=True)
+    return res, base, ms["kernel"], ms["plain"]
+
+
+def loaded_reference_modules():
+    return sorted(m for m in sys.modules
+                  if m == "jax" or m.startswith("jax.")
+                  or m == "lorastencil_tpu"
+                  or m.startswith("lorastencil_tpu."))
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import _cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -236,16 +526,13 @@ def main() -> int:
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[-1]
     t0 = time.perf_counter()
-    lib = _cuda_build.build("stencil2d")
-    build_s = time.perf_counter() - t0
-    with open(lib + ".log") as f:
-        ptxas = [ln.strip() for ln in f if "registers" in ln
-                 or "spill" in ln]
+    builds = build_kernels()
     print(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda}),"
-          f" {nvcc}; built {SOURCE} in {build_s:.1f} s: "
-          f"{' | '.join(ptxas)}", flush=True)
-
-    from lorastencil_tpu.models.shapes import get_shape
+          f" {nvcc}; built both kernels in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    for name, (secs, ptxas) in builds.items():
+        print(f"phase 1: {SOURCES[name]} {secs:.1f} s: {' | '.join(ptxas)}",
+              flush=True)
 
     main_errs = None
     for name in ("star2d1r", "box2d1r"):
@@ -256,25 +543,75 @@ def main() -> int:
             print(f"phase 2: {name} {interior}: integer fill bit-exact at "
                   f"1-2 steps; pi/100 fill rel err {errs[1][1]:.3e} (1 "
                   f"step), {errs[4][1]:.3e} (4 steps) <= 1e-6", flush=True)
-    spec = get_shape("star2d1r")
-    ms, plain_ms = time_step(spec, port_layout(spec, INTERIOR), device)
-    print(f"phase 2: one step at 8192^2: kernel {ms} ms, plain twin "
-          f"{plain_ms} ms [{card}]", flush=True)
+    spec2 = get_shape("star2d1r")
+    ms2, plain_ms2 = time_step(spec2, port_layout(spec2, INTERIOR), device)
+    print(f"phase 2: one step at 8192^2: kernel {ms2} ms, plain twin "
+          f"{plain_ms2} ms [{card}]", flush=True)
 
-    launches, rel = main_path(device)
+    launches2, rel = main_path(device)
     print(f"phase 3: run(8192^2, 2 steps) bit-exact against float64 on "
-          f"the card with {launches} kernel launches; 256x384 x4 rel err "
+          f"the card, launches {launches2}; 256x384 x4 rel err "
           f"{rel:.3e} <= 1e-5", flush=True)
 
     bench(device, card)
+    lib2 = library_ms(spec2, INTERIOR, device)
+    bound2, by2 = bound_ms(spec2, INTERIOR, 1)
+    print(f"phase 4: one step at 8192^2: F.conv2d 7x7 {lib2} ms; bound "
+          f"{bound2} ms ({by2}) [{card}]", flush=True)
 
-    if "jax" in sys.modules:
-        raise AssertionError("JAX was imported")
-    print(json.dumps({"kernels": [{
-        "name": "stencil2d_step", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": main_errs[1][0], "ms": ms, "plain_ms": plain_ms}]}),
-        flush=True)
+    main_errs_3d = {}
+    for name in ("star3d1r", "box3d1r"):
+        for interior in ((6, 20, 150), (37, 45, 130), INTERIOR_3D):
+            for K in (1, 2, 4):
+                abs_err, rel, same = check_kernel_3d(name, interior, K,
+                                                     device)
+                if interior == INTERIOR_3D and K == 2:
+                    main_errs_3d[name] = abs_err
+                print(f"phase 5: {name} {interior} K={K}: integer fill "
+                      f"bit-exact after 1-2 passes; pi/100 fill rel err "
+                      f"{rel:.3e} after 4 steps (<= 1e-6), bit-equal "
+                      f"{same}", flush=True)
+
+    paths_3d = {}
+    for name in ("star3d1r", "box3d1r"):
+        launches, rel = main_path_3d(name, device)
+        paths_3d[name] = launches
+        print(f"phase 6: {name} {INTERIOR_3D}: 'vpu' at k=2; run(2) and "
+              f"run(3) bit-exact against float64 on the card, launches "
+              f"{launches}; (24, 40, 200) x4 rel err {rel:.3e} <= 1e-5",
+              flush=True)
+
+    timing_3d = {}
+    for name in ("star3d1r", "box3d1r"):
+        spec3 = get_shape(name)
+        _, _, ms3, plain_ms3 = bench_3d(name, device, card)
+        lib3 = library_ms(spec3, INTERIOR_3D, device)
+        bound3, by3 = bound_ms(spec3, INTERIOR_3D, 2)
+        timing_3d[name] = (ms3, plain_ms3, lib3, bound3, by3)
+        print(f"phase 7: {name} one step at 256^3: F.conv3d 3x3x3 {lib3} "
+              f"ms; bound of one k=2 pass {bound3} ms ({by3}) [{card}]",
+              flush=True)
+
+    loaded = loaded_reference_modules()
+    if loaded:
+        raise AssertionError(f"the reference packages were imported: "
+                             f"{loaded}")
+    kernels = [{
+        "name": "stencil2d_step", "route": "cuda",
+        "source": SOURCES["stencil2d"], "replaces": REPLACES["stencil2d"],
+        "launches": launches2["stencil2d"], "max_abs_err": main_errs[1][0],
+        "ms": ms2, "plain_ms": plain_ms2, "bound_ms": bound2,
+        "bound_by": by2, "library_ms": lib2}]
+    for name in ("star3d1r", "box3d1r"):
+        ms3, plain_ms3, lib3, bound3, by3 = timing_3d[name]
+        kernels.append({
+            "name": f"stencil3d_step[{name}]", "route": "cuda",
+            "source": SOURCES["stencil3d"], "replaces": REPLACES["stencil3d"],
+            "launches": paths_3d[name][3]["stencil3d"],
+            "max_abs_err": main_errs_3d[name], "ms": ms3,
+            "plain_ms": plain_ms3, "bound_ms": bound3, "bound_by": by3,
+            "library_ms": lib3, "steps_per_launch": 2, "library_steps": 1})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,10 +1,12 @@
 """Command-line entry point of the port, with the JAX CLI's contract:
 
     python -m lorastencil_tpu_torch.cli <shape> <m> <n> <steps> [options]
+    python -m lorastencil_tpu_torch.cli <shape> <h> <m> <n> <steps> [options]
 
 Counterpart of ``lorastencil_tpu/cli.py``: the same positional arguments,
-fill modes and ``--check`` (fp64 ground truth at the float32 tolerance
-1e-5 relative to the grid's largest value), plus ``--device cuda|cpu``.
+fill modes and ``--check`` (the port's fp64 ground truth,
+``utils/reference.py``, at the float32 tolerance 1e-5 relative to the
+grid's largest value), plus ``--device cuda|cpu``.
 On ``cuda`` the run is timed with CUDA events; ``cpu`` runs the kernels'
 plain PyTorch twins and is not timed.  The JAX CLI's flags and values the
 port does not run yet are refused with the ROADMAP item that will port
@@ -18,8 +20,8 @@ import sys
 
 import numpy as np
 
-from lorastencil_tpu.models.shapes import ALL_SHAPES, get_shape
-from lorastencil_tpu.utils import reference
+from .models.shapes import ALL_SHAPES, get_shape
+from .utils import reference
 
 from . import engine
 from .utils import metrics

@@ -1,11 +1,17 @@
-"""Carry 2-D state from the JAX package into the port.
+"""Carry stencil parameters and state from the JAX package into the port.
+
+A system whose parameters are stencil coefficients carries its "weights"
+across as a spec: ``spec_from_jax`` rebuilds the port's ``StencilSpec``
+from a JAX spec's fields, so both packages compute with the same
+coefficients.
 
 The JAX engine keeps its state in its own internal layout
-(``lorastencil_tpu/ops/layout.py`` ``Layout2D``: an (8, 128)-aligned guard
-and TPU tile round-up); the port's layout has its own guard and tile.
-Both hold the same reference-padded array at the same place relative to
-their origin, so carrying state across re-embeds that array.  The stencil
-parameters need no conversion: both packages run the same ``StencilSpec``.
+(``lorastencil_tpu/ops/layout.py`` ``Layout2D`` / ``Layout3D``: an
+(8, 128)-aligned guard and TPU tile round-up); the port's layouts have
+their own guard and tile.  Both hold the same reference-padded array at
+the same place relative to their origin, so carrying state across
+re-embeds that array.  Nothing here imports the JAX package: the JAX
+objects are read through their fields only.
 """
 
 from __future__ import annotations
@@ -13,20 +19,41 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .ops.layout import Layout2D
+from .models.shapes import SeparableTerm, StencilSpec
 
 
-def state_from_jax(internal: np.ndarray, jax_layout, port_layout: Layout2D,
+def spec_from_jax(jax_spec) -> StencilSpec:
+    """The port's ``StencilSpec`` with the fields of a JAX
+    ``lorastencil_tpu.models.shapes.StencilSpec`` (name, ndim, radius,
+    halo, terms, residue, fuse_factor), coefficients as Python floats."""
+
+    def taps(t):
+        return None if t is None else tuple(float(w) for w in t)
+
+    return StencilSpec(
+        name=str(jax_spec.name), ndim=int(jax_spec.ndim),
+        radius=int(jax_spec.radius),
+        halo=tuple(int(h) for h in jax_spec.halo),
+        terms=tuple(SeparableTerm(taps=tuple(taps(t) for t in term.taps))
+                    for term in jax_spec.terms),
+        residue=tuple((tuple(int(o) for o in off), float(w))
+                      for off, w in jax_spec.residue),
+        fuse_factor=int(jax_spec.fuse_factor))
+
+
+def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
                    device=None) -> torch.Tensor:
     """Re-embed a JAX internal-layout buffer (as a NumPy array) into a
     new port internal buffer on ``device``.
 
-    ``jax_layout`` is the JAX ``Layout2D`` the buffer was made with; only
-    its ``interior``, ``halo`` and ``origin`` are read, so this module
-    needs no JAX.  Raises if the two layouts hold different grids, or if
-    the buffer holds nonzero values outside the padded array (the JAX
-    kernels keep the rest of the ring and the round-up cells zero, so
-    such values mean the buffer is not a valid state)."""
+    ``jax_layout`` is the JAX ``Layout2D`` or ``Layout3D`` the buffer was
+    made with (origin ``(8, 128)`` or ``(zguard, 8, 128)``); only its
+    ``interior``, ``halo`` and ``origin`` are read.  ``port_layout`` is the
+    port's layout of the same dimension.  Raises if the two layouts hold
+    different grids, or if the buffer holds nonzero values outside the
+    padded array (the JAX kernels keep the rest of the ring and the
+    round-up cells zero, so such values mean the buffer is not a valid
+    state)."""
     buf = np.asarray(internal)
     if (tuple(jax_layout.interior) != tuple(port_layout.interior)
             or tuple(jax_layout.halo) != tuple(port_layout.halo)):
@@ -34,10 +61,8 @@ def state_from_jax(internal: np.ndarray, jax_layout, port_layout: Layout2D,
             f"layouts disagree: JAX interior/halo {jax_layout.interior}/"
             f"{jax_layout.halo}, port {port_layout.interior}/"
             f"{port_layout.halo}")
-    m, n = jax_layout.interior
-    hm, hn = jax_layout.halo
-    r0, c0 = jax_layout.origin
-    box = (slice(r0 - hm, r0 + m + hm), slice(c0 - hn, c0 + n + hn))
+    box = tuple(slice(o - h, o + e + h) for o, e, h in
+                zip(jax_layout.origin, jax_layout.interior, jax_layout.halo))
     rest = buf.copy()
     rest[box] = 0
     if np.any(rest != 0):

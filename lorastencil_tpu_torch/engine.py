@@ -7,13 +7,19 @@ fields and defaults), ``resolve_algorithm``, ``ping_pong_loop`` and
 
     eng = StencilEngine.for_shape("star2d1r", (8192, 8192))  # on "cuda"
     out_padded = eng.run(in_padded, steps=4)
+    eng3 = StencilEngine.for_shape("box3d1r", (256, 256, 256))
 
-What this engine runs: 2-D shapes whose fused depth resolves to one step
-(star2d1r, box2d1r, box2d3r), float32, dirichlet0, ``backend`` "auto" /
-"pallas" (the CUDA kernel of ``ops/stencil2d.py``; its plain twin on a
-CPU tensor) or "xla" (``ops/torch_ref.separable_step``).  Every other
-accepted value of the JAX engine raises ``NotImplementedError`` naming the
-ROADMAP item that will port it.
+What this engine runs, float32, dirichlet0, ``backend`` "auto" / "pallas"
+(a CUDA kernel; its plain twin on a CPU tensor) or "xla"
+(``ops/torch_ref.separable_step``):
+  * 2-D shapes whose fused depth resolves to one step (star2d1r, box2d1r,
+    box2d3r) through ``ops/stencil2d.py``;
+  * 3-D shapes (star3d1r, box3d1r) at the JAX engine's fused depth
+    ``k = min(fused_steps_3d, 8 // radius)`` (2 by default) through
+    ``ops/stencil3d.py``: ``steps // k`` passes of k steps, then one pass
+    of ``steps % k``.
+Every other accepted value of the JAX engine raises
+``NotImplementedError`` naming the ROADMAP item that will port it.
 
 ``device`` defaults to "cuda" and raises when CUDA is absent: the engine
 never moves to the CPU by itself.  ``device="cpu"`` runs the plain twins.
@@ -29,10 +35,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from lorastencil_tpu.models.shapes import StencilSpec, get_shape
+from .models.shapes import StencilSpec, get_shape
 
-from .ops import stencil2d, torch_ref
-from .ops.layout import Layout2D, default_tile_2d, guard_2d
+from .ops import stencil2d, stencil3d, torch_ref
+from .ops.layout import (Layout2D, Layout3D, default_tile_2d,
+                         default_tile_3d, guard_2d, guard_3d)
 
 ALGORITHM_NAMES = ("auto", "vpu", "vpu_roll", "mxu", "mxu_split",
                    "mxu_hybrid", "mxu_hybrid1", "mxu_hybrid1r",
@@ -40,17 +47,21 @@ ALGORITHM_NAMES = ("auto", "vpu", "vpu_roll", "mxu", "mxu_split",
 
 
 def resolve_algorithm(spec: StencilSpec, name: str) -> str:
-    """Resolve algorithm='auto' for the port's 2-D float32 path to
-    'mxu_hybrid1', as the JAX engine does for every 2-D float32 spec;
-    like 'vpu_roll' and 'vpu' it runs the one exact fp32 CUDA kernel.
-    (The JAX engine's other resolutions, for 1-D, 3-D, bf16 and fp64,
-    arrive with those ROADMAP items.)"""
-    del spec
-    return "mxu_hybrid1" if name == "auto" else name
+    """Resolve algorithm='auto' as the JAX engine does for float32:
+    'vpu' for 3-D, 'mxu_hybrid1' for 2-D; like the other exact fp32
+    names they run the one CUDA kernel of their dimension.  (The JAX
+    engine's other resolutions, for 1-D, bf16 and fp64, arrive with
+    those ROADMAP items.)"""
+    if name != "auto":
+        return name
+    return "vpu" if spec.ndim == 3 else "mxu_hybrid1"
 
 
-def ping_pong_loop(step_fn, state, steps: int):
-    """Run ``steps`` passes of ``step_fn(cur, donor) -> out``.
+def ping_pong_loop(step_fn, state, steps: int, k: int = 1):
+    """Run ``steps`` timesteps as ``steps // k`` passes of
+    ``step_fn(cur, donor, k) -> out`` and then, if ``steps % k``, one
+    pass of ``step_fn(cur, donor, steps % k)`` (the JAX engine's
+    remainder pass).
 
     Two zero buffers are made here and alternate as the donor, so the
     input ``state`` is read but never written: its guard ring holds the
@@ -60,10 +71,12 @@ def ping_pong_loop(step_fn, state, steps: int):
     """
     if steps == 0:
         return state
+    passes, rem = divmod(steps, k)
+    depths = [k] * passes + ([rem] if rem else [])
     bufs = (torch.zeros_like(state), torch.zeros_like(state))
     cur = state
-    for i in range(steps):
-        cur = step_fn(cur, bufs[i % 2])
+    for i, depth in enumerate(depths):
+        cur = step_fn(cur, bufs[i % 2], depth)
     return cur
 
 
@@ -121,11 +134,14 @@ class StencilEngine:
         self.dtype = torch.float32
         self.backend = "xla" if config.backend == "xla" else "pallas"
         self.algorithm = resolve_algorithm(spec, config.algorithm)
-        if self.algorithm in stencil2d.UNPORTED_ALGORITHMS:
+        kernel = stencil3d if spec.ndim == 3 else stencil2d
+        if self.algorithm in kernel.UNPORTED_ALGORITHMS:
             raise _not_ported(f"algorithm {self.algorithm!r}", "B13")
-        if self.algorithm not in stencil2d.ALGORITHMS:
-            raise ValueError(f"unknown algorithm {self.algorithm!r}")
-        if self._fused_k() != 1:
+        if self.algorithm not in kernel.ALGORITHMS:
+            raise ValueError(
+                f"algorithm {self.algorithm!r} has no {spec.ndim}-D path; "
+                f"the port runs {kernel.ALGORITHMS}")
+        if spec.ndim == 2 and self._fused_k() != 1:
             raise _not_ported(
                 f"{spec.name} at fused_steps={self._fused_k()} (k > 1)",
                 "B2")
@@ -135,8 +151,6 @@ class StencilEngine:
     def _validate(spec: StencilSpec, config: EngineConfig):
         if spec.ndim == 1:
             raise _not_ported("1-D stencils", "A7")
-        if spec.ndim == 3:
-            raise _not_ported("3-D stencils", "A8")
         if config.dtype in ("bfloat16", "float64"):
             raise _not_ported(f"dtype {config.dtype!r}", "A6")
         if config.dtype == "df64":
@@ -187,9 +201,13 @@ class StencilEngine:
         raise _not_ported("StencilEngine.for_coeffs", "A6")
 
     def _fused_k(self) -> int:
-        """The JAX engine's 2-D fused-depth rule (extent fusion)."""
+        """The JAX engine's fused-depth rules: 3-D
+        ``min(max(1, fused_steps_3d), 8 // radius)``; 2-D extent fusion."""
         if self.backend == "xla":
             return 1
+        if self.spec.ndim == 3:
+            return max(1, min(self.config.fused_steps_3d,
+                              8 // self.spec.radius))
         k = self.config.fused_steps
         if k is None:
             few_terms = (not self.spec.residue
@@ -198,20 +216,35 @@ class StencilEngine:
             k = 2 if few_terms else 1
         return max(1, k)
 
-    def _build_layout(self) -> Layout2D:
-        tile = self.config.tile or default_tile_2d(*self.interior)
-        layout = Layout2D(
-            interior=self.interior, halo=self.spec.halo,
-            tile=tuple(int(t) for t in tile),
-            guard=guard_2d(self.spec.halo, self.spec.radius))
+    def _build_layout(self):
+        reach = self._fused_k() * self.spec.radius
+        if self.spec.ndim == 3:
+            tile = self.config.tile or default_tile_3d(*self.interior[1:])
+            layout = Layout3D(
+                interior=self.interior, halo=self.spec.halo,
+                tile=tuple(int(t) for t in tile),
+                guard=guard_3d(self.spec.halo, reach))
+        else:
+            tile = self.config.tile or default_tile_2d(*self.interior)
+            layout = Layout2D(
+                interior=self.interior, halo=self.spec.halo,
+                tile=tuple(int(t) for t in tile),
+                guard=guard_2d(self.spec.halo, reach))
         layout.validate()
         return layout
 
-    def _step_internal(self, cur, donor):
+    def _step_internal(self, cur, donor, fused_k: int = 1):
         if self.backend == "xla":
-            return torch_ref.separable_step(cur, self.spec)
+            for _ in range(fused_k):
+                cur = torch_ref.separable_step(cur, self.spec)
+            return cur
+        if self.spec.ndim == 3:
+            return stencil3d.stencil3d_step(
+                cur, donor, self.spec, self.layout,
+                algorithm=self.algorithm, fused_steps=fused_k)
         return stencil2d.stencil2d_step(cur, donor, self.spec, self.layout,
-                                        algorithm=self.algorithm)
+                                        algorithm=self.algorithm,
+                                        fused_steps=fused_k)
 
     # -- public API -------------------------------------------------------
     def to_internal(self, padded):
@@ -231,7 +264,8 @@ class StencilEngine:
     def run_internal(self, state, steps: int):
         """``steps`` timesteps on internal state; ``state`` is read, not
         written (the result lives in one of two new buffers)."""
-        return ping_pong_loop(self._step_internal, state, steps)
+        return ping_pong_loop(self._step_internal, state, steps,
+                              self._fused_k())
 
     def run(self, padded, steps: int):
         """Reference-semantics run on a user padded array (NumPy or

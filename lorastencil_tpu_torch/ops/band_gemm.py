@@ -8,13 +8,16 @@ window, letting wrap garbage creep into the guard margin.  Here every
 operand is an exact shifted slice of the window, and there is no matmul,
 so TF32 cannot enter on a GPU.
 
-This is the arithmetic of the CUDA kernel (``csrc/stencil2d.cu``) written
-with tensor ops, in the kernel's order: per term a column-axis conv
-(``taps[-1]``) then a row-axis conv (``taps[-2]``), taps in ascending
-offset, zero taps skipped, a ``None`` axis the identity; then the sparse
-residue point by point.  The kernel fuses each multiply-add (``fmaf``), so
-on data whose products round the two agree to fp32 rounding, and bit for
-bit on integer data below 2**24.
+This is the arithmetic of the CUDA kernels (``csrc/stencil2d.cu``, and
+per 3-D term ``conv_plane`` for ``csrc/stencil3d.cu``) written with tensor
+ops, in the kernels' order: per term a column-axis conv (``taps[-1]``)
+then a row-axis conv (``taps[-2]``), taps in ascending offset, zero taps
+skipped, a ``None`` axis the identity; then the sparse residue point by
+point.  The kernels fuse each multiply-add (``fmaf``), so on data whose
+products round the two agree to fp32 rounding, and bit for bit on integer
+data below 2**24 -- and on any data where every tap is a power of two
+(all of the 3-D registry's), since an exact product makes an FMA equal to
+a multiply then an add.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from lorastencil_tpu.models.shapes import StencilSpec
+from ..models.shapes import StencilSpec
 
 
 def _conv_1axis(src, taps: Sequence[float], axis: int, start: int,
@@ -43,6 +46,26 @@ def _half(taps: Optional[Sequence[float]]) -> int:
     return 0 if taps is None else (len(taps) - 1) // 2
 
 
+def conv_plane(X, rt: Optional[Sequence[float]],
+               ct: Optional[Sequence[float]], halo: Tuple[int, int]):
+    """One separable term's in-plane conv on the last two axes of ``X``
+    (extent ``(R + 2*hr, C + 2*hc)`` there, any leading axes): the column
+    conv ``ct`` over the rows the row conv will read, then the row conv
+    ``rt``; ``None`` is the identity along that axis.  Returns the
+    ``(R, C)`` centre, or None when every tap is zero."""
+    hr, hc = halo
+    R, C = X.shape[-2] - 2 * hr, X.shape[-1] - 2 * hc
+    rr, rc = _half(rt), _half(ct)
+    rows = X.narrow(-2, hr - rr, R + 2 * rr)
+    if ct is None:
+        Y = rows.narrow(-1, hc, C)
+    else:
+        Y = _conv_1axis(rows, ct, -1, hc - rc, C)
+    if Y is None or rt is None:
+        return Y
+    return _conv_1axis(Y, rt, -2, 0, R)
+
+
 def apply_spec(X, spec: StencilSpec, halo: Tuple[int, int]):
     """One stencil application on window ``X`` of extent
     ``(R + 2*hr, C + 2*hc)``; returns the ``(R, C)`` centre.  Needs
@@ -51,17 +74,7 @@ def apply_spec(X, spec: StencilSpec, halo: Tuple[int, int]):
     R, C = X.shape[0] - 2 * hr, X.shape[1] - 2 * hc
     acc = None
     for term in spec.terms:
-        rt, ct = term.taps[-2], term.taps[-1]
-        rr, rc = _half(rt), _half(ct)
-        # column conv over the rows the row conv will read
-        rows = X.narrow(0, hr - rr, R + 2 * rr)
-        if ct is None:
-            Y = rows.narrow(1, hc, C)
-        else:
-            Y = _conv_1axis(rows, ct, 1, hc - rc, C)
-        if Y is None:
-            continue
-        Z = Y if rt is None else _conv_1axis(Y, rt, 0, 0, R)
+        Z = conv_plane(X, term.taps[-2], term.taps[-1], halo)
         if Z is not None:
             acc = Z if acc is None else acc + Z
     for (dr, dc), w in spec.residue:
@@ -69,6 +82,51 @@ def apply_spec(X, spec: StencilSpec, halo: Tuple[int, int]):
         acc = v if acc is None else acc + v
     if acc is None:
         return X.new_zeros((R, C))
+    return acc
+
+
+def apply_spec_3d(P, spec: StencilSpec):
+    """One 3-D stencil application on a block ``P`` with a margin of
+    ``spec.radius`` on every axis; returns the ``(Z, R, C)`` centre.
+
+    The sum per cell, in ``csrc/stencil3d.cu``'s order (that of
+    ``pallas_3d._stencil3d_kernel``'s ``combine_plane``): the centre
+    terms' plane convs; each buffered term's plane convs of planes
+    z - rz .. z + rz (every plane's conv computed once) times its z taps;
+    each identity term's z-shifted planes times its z taps; then the
+    residue point by point."""
+    r = spec.radius
+    Z, R, C = (s - 2 * r for s in P.shape)
+    acc = None
+
+    def add(v):
+        nonlocal acc
+        if v is not None:
+            acc = v if acc is None else acc + v
+
+    def z_taps(tz):
+        rz = _half(tz)
+        return [(dz, float(tz[rz + dz])) for dz in range(-rz, rz + 1)
+                if tz[rz + dz] != 0.0]
+
+    by_class = {c: [t for t in spec.terms if term_class(t) == c]
+                for c in (CENTRE, BUFFERED, IDENTITY_Z)}
+    for t in by_class[CENTRE]:
+        add(conv_plane(P.narrow(0, r, Z), t.taps[1], t.taps[2], (r, r)))
+    for t in by_class[BUFFERED]:
+        conv = conv_plane(P, t.taps[1], t.taps[2], (r, r))
+        if conv is not None:
+            for dz, w in z_taps(t.taps[0]):
+                add(w * conv.narrow(0, r + dz, Z))
+    plane = P[:, r: r + R, r: r + C]
+    for t in by_class[IDENTITY_Z]:
+        for dz, w in z_taps(t.taps[0]):
+            add(w * plane.narrow(0, r + dz, Z))
+    for (dz, dr, dc), w in spec.residue:
+        add(float(w) * P[r + dz: r + dz + Z, r + dr: r + dr + R,
+                         r + dc: r + dc + C])
+    if acc is None:
+        return P.new_zeros((Z, R, C))
     return acc
 
 
@@ -81,14 +139,35 @@ def mask_to_interior(val, m: int, n: int):
     return val
 
 
+# 3-D term classes (lorastencil_tpu/ops/pallas_3d.py _classify_terms)
+CENTRE, IDENTITY_Z, BUFFERED = 0, 1, 2
+
+
+def term_class(term) -> int:
+    """A 3-D term's class: CENTRE (no z taps), IDENTITY_Z (z taps only,
+    star3d1r's z +- 1 planes) or BUFFERED (z taps with an in-plane conv,
+    box3d1r: each plane's conv is computed once and reused)."""
+    tz, rt, ct = term.taps
+    if tz is None:
+        return CENTRE
+    return IDENTITY_Z if rt is None and ct is None else BUFFERED
+
+
 def plan_array(spec: StencilSpec) -> "torch.Tensor":
-    """The CUDA kernel's tap and residue table, float32, with W = 2r+1:
+    """The CUDA kernels' tap and residue table, float32, with W = 2r+1.
+    2-D (``csrc/stencil2d.cu``):
 
         per term:  has_col, has_row, col taps[W], row taps[W]
         per point: dr, dc, w
 
+    3-D (``csrc/stencil3d.cu``):
+
+        per term:  class, has_col, has_row, z taps[W], col taps[W],
+                   row taps[W]
+        per point: dz, dr, dc, w
+
     Taps are centred in W; a ``None`` axis has flag 0 and zero taps.
-    Small integers (flags, offsets) are exact in float32."""
+    Small integers (classes, flags, offsets) are exact in float32."""
     r = spec.radius
     W = 2 * r + 1
     vals = []
@@ -104,10 +183,14 @@ def plan_array(spec: StencilSpec) -> "torch.Tensor":
 
     for term in spec.terms:
         rt, ct = term.taps[-2], term.taps[-1]
+        if spec.ndim == 3:
+            vals.append(float(term_class(term)))
         vals += [float(ct is not None), float(rt is not None)]
+        if spec.ndim == 3:
+            vals += centred(term.taps[0])
         vals += centred(ct) + centred(rt)
-    for (dr, dc), w in spec.residue:
-        if max(abs(dr), abs(dc)) > r:
+    for off, w in spec.residue:
+        if max(abs(o) for o in off) > r:
             raise ValueError(f"{spec.name}: residue offset beyond radius")
-        vals += [float(dr), float(dc), float(w)]
+        vals += [float(o) for o in off] + [float(w)]
     return torch.tensor(vals, dtype=torch.float32)

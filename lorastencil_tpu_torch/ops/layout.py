@@ -1,8 +1,9 @@
-"""Internal 2-D grid layout on torch tensors.
+"""Internal 2-D and 3-D grid layouts on torch tensors.
 
-Counterpart of ``lorastencil_tpu/ops/layout.py`` (``Layout2D`` and
-``default_tile_2d``).  The user-facing state is the reference-padded array
-(interior + halo, ``(m + 2*hm, n + 2*hn)``); internally it is re-embedded
+Counterpart of ``lorastencil_tpu/ops/layout.py`` (``Layout2D``,
+``default_tile_2d``, ``Layout3D`` and ``default_tile_3d``).  The
+user-facing state is the reference-padded array (interior + halo,
+``(m + 2*hm, n + 2*hn)``); internally it is re-embedded
 into a buffer with a zero guard ring and an interior rounded up to whole
 tiles:
 
@@ -26,8 +27,10 @@ from typing import Tuple
 
 import torch
 
-# The CUDA kernel's block tile (csrc/stencil2d.cu: kTileRows, kTileCols).
+# The CUDA kernels' block tiles (csrc/stencil2d.cu: kTileRows, kTileCols;
+# the largest in-plane tile of csrc/stencil3d.cu, ops/stencil3d.py).
 TILE_2D = (32, 128)
+TILE_3D = (32, 64)
 GUARD_ALIGN = 4  # cells: 16 bytes of float32
 
 
@@ -99,6 +102,72 @@ class Layout2D:
         return buf[r0 - hm: r0 + m + hm, c0 - hn: c0 + n + hn]
 
 
+@dataclasses.dataclass(frozen=True)
+class Layout3D:
+    """The 3-D internal layout: z planes are not rounded up, the plane is
+    rounded up to whole (TM, TN) tiles as in ``Layout2D``:
+
+        z:     [ zg | h interior planes | zg ]
+        rows:  [ gr | interior rows (rounded up to TM) | gr ]
+        cols:  [ gc | interior cols (rounded up to TN) | gc ]
+
+    Counterpart of the JAX ``Layout3D`` (origin ``(zguard, 8, 128)``),
+    with the port's own guard ``(zg, gr, gc)`` (``guard_3d``)."""
+
+    interior: Tuple[int, int, int]  # (h, m, n)
+    halo: Tuple[int, int, int]
+    tile: Tuple[int, int]  # (TM, TN): the in-plane round-up granule
+    guard: Tuple[int, int, int]
+
+    @property
+    def grid(self) -> Tuple[int, int]:
+        _, m, n = self.interior
+        return (_cdiv(m, self.tile[0]), _cdiv(n, self.tile[1]))
+
+    @property
+    def origin(self) -> Tuple[int, int, int]:
+        """Internal coordinates of interior cell (0, 0, 0)."""
+        return self.guard
+
+    @property
+    def rounded(self) -> Tuple[int, int, int]:
+        """Interior extent with the plane rounded up to whole tiles."""
+        gi, gj = self.grid
+        return (self.interior[0], gi * self.tile[0], gj * self.tile[1])
+
+    @property
+    def shape(self) -> Tuple[int, int, int]:
+        return tuple(e + 2 * g for e, g in zip(self.rounded, self.guard))
+
+    def validate(self):
+        if min(self.tile) < 1:
+            raise ValueError(f"tile must be positive, got {self.tile}")
+        if any(h > g for h, g in zip(self.halo, self.guard)):
+            raise ValueError(
+                f"halo {self.halo} must fit in the guard {self.guard}")
+
+    def _box(self):
+        return tuple(slice(o - h, o + e + h) for o, e, h in
+                     zip(self.origin, self.interior, self.halo))
+
+    def to_internal(self, padded, dtype=torch.float32, device=None):
+        """Embed a user padded array (NumPy or torch) into a new internal
+        buffer; the user halo goes into the guard ring."""
+        src = torch.as_tensor(padded, dtype=dtype, device=device)
+        want = tuple(e + 2 * h for e, h in zip(self.interior, self.halo))
+        if tuple(src.shape) != want:
+            raise ValueError(
+                f"padded array has shape {tuple(src.shape)}, layout "
+                f"expects {want}")
+        buf = torch.zeros(self.shape, dtype=dtype, device=src.device)
+        buf[self._box()] = src
+        return buf
+
+    def from_internal(self, buf):
+        """The user padded array as a view of the internal buffer."""
+        return buf[self._box()]
+
+
 def default_tile_2d(m: int, n: int) -> Tuple[int, int]:
     """The port's tile: the CUDA kernel's block tile, whatever the grid
     size (the kernel masks its ragged edge itself, so the tile only
@@ -112,3 +181,18 @@ def guard_2d(halo: Tuple[int, int], reach: int) -> Tuple[int, int]:
     pass (fused steps x radius), rounded up to ``GUARD_ALIGN`` cells."""
     return tuple(GUARD_ALIGN * _cdiv(max(h, reach, 1), GUARD_ALIGN)
                  for h in halo)
+
+
+def default_tile_3d(m: int, n: int) -> Tuple[int, int]:
+    """The port's 3-D tile: the CUDA kernel's largest block tile,
+    whatever the plane size (the kernel masks its ragged edge itself)."""
+    del m, n
+    return TILE_3D
+
+
+def guard_3d(halo: Tuple[int, int, int],
+             reach: int) -> Tuple[int, int, int]:
+    """Guard per axis: at least the user halo and the reach of one pass
+    (fused steps x radius); z planes as they are, the plane axes rounded
+    up to ``GUARD_ALIGN`` cells as in ``guard_2d``."""
+    return (max(halo[0], reach, 1),) + guard_2d(halo[1:], reach)

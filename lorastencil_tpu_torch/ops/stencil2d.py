@@ -21,7 +21,7 @@ import functools
 
 import torch
 
-from lorastencil_tpu.models.shapes import StencilSpec
+from ..models.shapes import StencilSpec
 
 from . import _cuda_build
 from .band_gemm import apply_spec, mask_to_interior, plan_array

@@ -1,0 +1,253 @@
+"""K fused 3-D stencil steps on the internal layout: the CUDA kernel's wrapper.
+
+Counterpart of ``lorastencil_tpu/ops/pallas_3d.py`` ``stencil3d_step``
+(kernel ``_stencil3d_kernel``).  On a CUDA tensor ``stencil3d_step``
+launches the hand-written kernel ``csrc/stencil3d.cu`` or raises; only a CPU
+tensor runs the plain PyTorch twin, ``stencil3d_step_plain``, which is also
+callable directly (the tests and ``chip_smoke.py`` hold the kernel against it
+on the card).
+
+``algorithm``: the TPU kernel's exact-fp32 variants ``'vpu'``,
+``'vpu_roll'`` and ``'mxu_hybrid1'`` differ only in how they use the TPU's
+vector and matrix units; here all three run the one fp32 CUDA-core kernel.
+``'mxu'`` (banded matmuls at Mosaic precision) is still to be ported
+(ROADMAP B13).  ``conv_carry`` is accepted and has no effect: on the TPU it
+reuses plane convs across slabs with bit-identical output, and the CUDA
+kernel's z-march computes each plane's conv once by construction.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..models.shapes import StencilSpec
+from . import _cuda_build
+from .band_gemm import (BUFFERED, CENTRE, IDENTITY_Z, apply_spec_3d,
+                        plan_array, term_class)
+from .layout import Layout3D
+
+ALGORITHMS = ("vpu", "vpu_roll", "mxu_hybrid1")
+UNPORTED_ALGORITHMS = ("mxu",)  # ROADMAP B13
+MAX_RADIUS = 8  # csrc/stencil3d.cu kMaxRadius
+MAX_FUSED = 8  # csrc/stencil3d.cu kMaxK
+MAX_PLAN = 4096  # csrc/stencil3d.cu kMaxPlan
+MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
+# in-plane block tiles, largest first; all divide the layout's TILE_3D
+BLOCK_TILES = ((32, 64), (16, 64), (16, 32), (8, 32), (8, 16))
+Z_CHUNKS = (64, 32, 16)  # output planes per block, largest first
+
+
+def _classify_terms(spec: StencilSpec):
+    """Term indices by class, as ``pallas_3d._classify_terms``: buffered
+    (z taps with an in-plane conv), identity-z (z taps only), centre (no
+    z taps)."""
+    classes = [term_class(t) for t in spec.terms]
+    return tuple([i for i, c in enumerate(classes) if c == want]
+                 for want in (BUFFERED, IDENTITY_Z, CENTRE))
+
+
+def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
+           fused_steps: int, bounds, region):
+    if algorithm in UNPORTED_ALGORITHMS:
+        raise NotImplementedError(
+            f"algorithm {algorithm!r} is not ported yet (ROADMAP B13); "
+            f"the port runs {ALGORITHMS} through one exact fp32 kernel")
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}")
+    if bounds is not None:
+        raise NotImplementedError(
+            "bounds (ghost rings, domain decomposition) are not ported yet "
+            "(ROADMAP A6)")
+    if region is not None:
+        raise NotImplementedError(
+            "region (the overlapped sharded engine) is not ported yet "
+            "(ROADMAP A11)")
+    if spec.ndim != 3:
+        raise ValueError(f"{spec.name} is {spec.ndim}-D, not 3-D")
+    if not 1 <= spec.radius <= MAX_RADIUS:
+        raise ValueError(
+            f"radius {spec.radius} outside the kernel's range "
+            f"[1, {MAX_RADIUS}]")
+    if not 1 <= fused_steps <= MAX_FUSED:
+        raise ValueError(
+            f"fused_steps {fused_steps} outside [1, {MAX_FUSED}]")
+    layout.validate()
+    reach = fused_steps * spec.radius
+    if min(layout.guard) < reach:
+        raise ValueError(
+            f"guard {layout.guard} is narrower than the pass's reach "
+            f"{reach} (fused_steps x radius)")
+    for name, t in (("cur", cur), ("donor", donor)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != layout.shape:
+            raise ValueError(
+                f"{name} has shape {tuple(t.shape)}, layout is "
+                f"{layout.shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if cur.device != donor.device:
+        raise ValueError(
+            f"cur on {cur.device} but donor on {donor.device}")
+    if cur.data_ptr() == donor.data_ptr():
+        raise ValueError("donor must be a different buffer from cur")
+
+
+def stencil3d_step_plain(cur, donor, spec: StencilSpec, layout: Layout3D,
+                         fused_steps: int = 1):
+    """The kernel's plain PyTorch twin: the same K-level pass with tensor
+    ops on whatever device ``cur`` is on, each level masked to the global
+    interior.  Writes the rounded interior of ``donor`` in place (zero
+    beyond the true interior) and returns it; the guard ring of ``donor``
+    is left as it is."""
+    K, r = fused_steps, spec.radius
+    h, m, n = layout.interior
+    _, mr, nr = layout.rounded
+    z0, r0, c0 = layout.origin
+    e = K * r
+    level = cur[z0 - e: z0 + h + e, r0 - e: r0 + mr + e, c0 - e: c0 + nr + e]
+    for L in range(1, K + 1):
+        e = (K - L) * r  # the level's extent beyond the rounded interior
+        full = apply_spec_3d(level, spec)
+        inside = (slice(e, e + h), slice(e, e + m), slice(e, e + n))
+        level = torch.zeros_like(full)
+        level[inside] = full[inside]
+    donor[z0: z0 + h, r0: r0 + mr, c0: c0 + nr] = level
+    return donor
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_buffer(spec: StencilSpec, device: torch.device):
+    """The tap/residue table on ``device``, built once per (spec,
+    device) and never per step."""
+    plan = plan_array(spec)
+    if plan.numel() > MAX_PLAN:
+        raise ValueError(
+            f"{spec.name}: tap table of {plan.numel()} floats exceeds the "
+            f"kernel's cap {MAX_PLAN}")
+    return plan.to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The kernel library, built and bound once per process."""
+    lib = _cuda_build.load("stencil3d")
+    lib.ls_stencil3d_smem_bytes.restype = ctypes.c_longlong
+    lib.ls_stencil3d_smem_bytes.argtypes = [ctypes.c_int] * 7
+    fn = lib.ls_stencil3d_step
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 21
+                   + [ctypes.c_void_p])
+    return lib
+
+
+def _term_mix(spec: StencilSpec):
+    """(buffered terms, planes per level ring): a level keeps 2r+1 planes
+    when a centre or identity term or the residue reads them, else only
+    the plane whose convs are being taken."""
+    buffered, identity, centre = _classify_terms(spec)
+    ring = 2 * spec.radius + 1 if (identity or centre or spec.residue) else 1
+    return len(buffered), ring
+
+
+@functools.lru_cache(maxsize=None)
+def plan_pass(spec: StencilSpec, fused_steps: int):
+    """(K, block tile) of the kernel's passes for ``fused_steps`` levels:
+    the largest tile whose shared-memory rings fit at that K, and if none
+    fits, the largest K <= ``fused_steps`` for which one does (the
+    wrapper then runs several passes)."""
+    lib = _lib()
+    n_buf, ring = _term_mix(spec)
+    plan_len = plan_array(spec).numel()
+    for K in range(fused_steps, 0, -1):
+        for bm, bn in BLOCK_TILES:
+            need = lib.ls_stencil3d_smem_bytes(spec.radius, K, bm, bn,
+                                               n_buf, ring, plan_len)
+            if 0 <= need <= MAX_SMEM:
+                return K, (bm, bn)
+    raise ValueError(
+        f"{spec.name}: no block tile fits the kernel's shared memory even "
+        f"at one step per pass")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def _z_chunk(layout: Layout3D, tile, device: torch.device) -> int:
+    """Output planes per block: the largest chunk that still gives every
+    SM a block, else the smallest.  A block recomputes K*r planes of
+    lookback at each end of its chunk, so longer chunks cost less."""
+    h, mr, nr = layout.rounded
+    tiles = -(-mr // tile[0]) * -(-nr // tile[1])
+    for zc in Z_CHUNKS:
+        if tiles * -(-h // zc) >= _sm_count(device):
+            return zc
+    return Z_CHUNKS[-1]
+
+
+def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile):
+    lib = _lib()
+    plan = _plan_buffer(spec, cur.device)
+    n_buf, ring = _term_mix(spec)
+    nz, rows, pitch = layout.shape
+    z0, r0, c0 = layout.origin
+    h, m, n = layout.interior
+    _, mr, nr = layout.rounded
+    zc = _z_chunk(layout, tile, cur.device)
+    with torch.cuda.device(cur.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.ls_stencil3d_step(
+            cur.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.numel(),
+            len(spec.terms), spec.radius, len(spec.residue), n_buf, ring, K,
+            nz, rows, pitch, z0, r0, c0, h, m, n, mr, nr, tile[0], tile[1],
+            zc, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"stencil3d kernel launch failed: CUDA error {err}")
+    stencil3d_step.launches += 1
+    return out
+
+
+def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
+                   algorithm: str = "vpu", fused_steps: int = 1,
+                   conv_carry=None, bounds=None, region=None):
+    """``fused_steps`` timesteps on the internal layout: reads ``cur``,
+    writes the rounded interior of ``donor`` in place and returns
+    ``donor``.
+
+    ``donor``'s guard ring must be zero; it stays untouched, which is
+    what makes the halo decay.  A CUDA tensor runs the CUDA kernel (or
+    raises); a CPU tensor runs ``stencil3d_step_plain``.  One launch does
+    all ``fused_steps`` levels when a block's shared-memory rings fit at
+    that depth (every depth the engine picks for the registry's shapes);
+    otherwise it runs passes of the largest depth that fits, through one
+    extra zero-ringed buffer, and the launch counter shows each pass.
+    ``bounds`` and ``region`` are not ported (ROADMAP A6, A11)."""
+    del conv_carry  # bit-identical by contract; see the module docstring
+    _check(cur, donor, spec, layout, algorithm, fused_steps, bounds, region)
+    if cur.device.type == "cpu":
+        return stencil3d_step_plain(cur, donor, spec, layout, fused_steps)
+    if cur.device.type != "cuda":
+        raise ValueError(f"no stencil3d kernel for device {cur.device}")
+    K, tile = plan_pass(spec, fused_steps)
+    depths = [K] * (fused_steps // K) + (
+        [fused_steps % K] if fused_steps % K else [])
+    if len(depths) == 1:
+        return _launch(cur, donor, spec, layout, K, tile)
+    # alternate donor and a scratch buffer so the last pass lands in donor
+    bufs = (donor, torch.zeros_like(donor))
+    src = cur
+    for i, k in enumerate(depths):
+        dst = bufs[(len(depths) - 1 - i) % 2]
+        _launch(src, dst, spec, layout, k,
+                tile if k == K else plan_pass(spec, k)[1])
+        src = dst
+    return donor
+
+
+stencil3d_step.launches = 0  # kernel launches, for chip_smoke.py

@@ -10,9 +10,10 @@ Counterpart of ``lorastencil_tpu/ops/xla_ref.py`` (``dense_step``,
 * ``separable_step`` -- per-term axis convs plus the residue, the
                         ``backend='xla'`` path of the engine.
 
-Both write the stencil into the interior and zero the halo (the
-reference's multi-step semantics, ``utils/reference.py``).  Neither uses a
-matmul or a convolution routine, so TF32 cannot enter on a GPU.
+Both take 2-D and 3-D grids, write the stencil into the interior and zero
+the halo (the reference's multi-step semantics, ``utils/reference.py``).
+Neither uses a matmul or a convolution routine, so TF32 cannot enter on a
+GPU.
 """
 
 from __future__ import annotations
@@ -20,16 +21,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lorastencil_tpu.models.shapes import StencilSpec
+from ..models.shapes import StencilSpec
 
-from .band_gemm import apply_spec
+from .band_gemm import apply_spec, apply_spec_3d
 
 
 def _interior(spec: StencilSpec, shape):
-    if len(shape) != 2 or spec.ndim != 2:
+    if len(shape) != spec.ndim or spec.ndim not in (2, 3):
         raise ValueError(
             f"grid is {len(shape)}-D; the port's reference steps are 2-D "
-            f"and {spec.name!r} is {spec.ndim}-D")
+            f"or 3-D and {spec.name!r} is {spec.ndim}-D")
     return tuple(slice(h, s - h) for h, s in zip(spec.halo, shape))
 
 
@@ -53,8 +54,16 @@ def dense_step(grid, spec: StencilSpec):
 
 def separable_step(grid, spec: StencilSpec):
     """Axis-separated stencil: per-term column then row convs, then the
-    residue (``band_gemm.apply_spec`` on the whole padded array)."""
+    residue (``band_gemm.apply_spec`` on the whole padded array; in 3-D
+    ``band_gemm.apply_spec_3d`` on the interior and a radius-deep
+    margin)."""
     it = _interior(spec, grid.shape)
     out = torch.zeros_like(grid)
-    out[it] = apply_spec(grid, spec, spec.halo)
+    if spec.ndim == 2:
+        out[it] = apply_spec(grid, spec, spec.halo)
+    else:
+        r = spec.radius
+        out[it] = apply_spec_3d(
+            grid[tuple(slice(sl.start - r, sl.stop + r) for sl in it)],
+            spec)
     return out

@@ -1,23 +1,27 @@
-"""The CUDA kernel (lorastencil_tpu_torch/csrc/stencil2d.cu) on the card against
-its plain PyTorch twin, at small sizes.  Needs an NVIDIA GPU with nvcc (the
-kernel is built from source at first use); elsewhere every test here skips.
+"""The CUDA kernels (lorastencil_tpu_torch/csrc/stencil2d.cu, stencil3d.cu) on the
+card against their plain PyTorch twins, at small sizes.  Needs an NVIDIA GPU
+with nvcc (the kernels are built from source at first use); elsewhere every test
+here skips.
 
-    python -m pytest tests/test_torch_cuda.py -q -n 0 -m cuda
+    python -m pytest tests/test_torch_cuda.py -q -n 0 -m cuda --noconftest
 
 Tolerances: the integer fill is exact (every partial sum is an integer below
 2**24), so kernel and twin agree bit for bit at 1 and 2 steps.  On the pi/100
-fill the kernel fuses each multiply-add and the twin rounds products
-separately: rel <= 1e-6 of the largest value after 4 steps."""
+fill the 2-D kernel fuses each multiply-add and the twin rounds products
+separately: rel <= 1e-6 of the largest value after 4 steps.  Every 3-D tap is a
+power of two, so each product is exact and the 3-D kernel, which sums in its
+twin's order, agrees with it bit for bit on any fill."""
 
 import numpy as np
 import pytest
 import torch
 
-from lorastencil_tpu.models.shapes import get_shape
-from lorastencil_tpu.utils import reference
 from lorastencil_tpu_torch import engine
-from lorastencil_tpu_torch.ops import stencil2d
-from lorastencil_tpu_torch.ops.layout import Layout2D, default_tile_2d, guard_2d
+from lorastencil_tpu_torch.models.shapes import get_shape
+from lorastencil_tpu_torch.ops import stencil2d, stencil3d
+from lorastencil_tpu_torch.ops.layout import (Layout2D, Layout3D, default_tile_2d,
+                                              default_tile_3d, guard_2d, guard_3d)
+from lorastencil_tpu_torch.utils import reference
 
 pytestmark = pytest.mark.cuda
 
@@ -31,8 +35,11 @@ def cuda():
     return torch.device("cuda")
 
 
-def _steps(step, cur, spec, lay, steps):
-    return engine.ping_pong_loop(lambda c, d: step(c, d, spec, lay), cur, steps)
+def _steps(step, cur, spec, lay, steps, k=1):
+    def one(c, d, depth):
+        return step(c, d, spec, lay, **({"fused_steps": depth} if depth > 1 else {}))
+
+    return engine.ping_pong_loop(one, cur, steps, k)
 
 
 @pytest.mark.parametrize("interior", [(96, 256), (100, 131), (37, 45)])
@@ -83,3 +90,50 @@ def test_refused_launches_raise(cuda):
     with pytest.raises(ValueError):
         stencil2d.stencil2d_step(cur, donor.cpu(), spec, lay)
     assert stencil2d.stencil2d_step.launches == before
+
+
+@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("interior", [(6, 20, 150), (37, 45, 130), (40, 64, 128)])
+@pytest.mark.parametrize("name", ["star3d1r", "box3d1r"])
+def test_3d_kernel_matches_plain_twin(cuda, name, interior, K):
+    spec = get_shape(name)
+    lay = Layout3D(interior=interior, halo=spec.halo, tile=default_tile_3d(*interior[1:]),
+                   guard=guard_3d(spec.halo, K * spec.radius))
+    g0 = reference.random_padded(spec, interior, seed=3)
+    for fill, steps_list in ((g0, (K, 2 * K)), (g0 * (np.pi / 100), (4,))):
+        x = lay.to_internal(fill, device=cuda)
+        for steps in steps_list:
+            got = _steps(stencil3d.stencil3d_step, x, spec, lay, steps, K)
+            want = _steps(stencil3d.stencil3d_step_plain, x, spec, lay, steps, K)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want)
+            if fill is g0 and steps <= 2:
+                assert np.array_equal(lay.from_internal(got).cpu().numpy(),
+                                      reference.run(g0, spec, steps))
+
+
+@pytest.mark.parametrize("name", ["star3d1r", "box3d1r"])
+def test_3d_engine_counts_its_launches(cuda, name):
+    interior = (20, 40, 200)
+    eng = engine.StencilEngine.for_shape(name, interior, device=cuda)
+    g0 = reference.random_padded(eng.spec, interior, seed=1)
+    for steps, launches in ((2, 1), (3, 2), (5, 3)):
+        before = stencil3d.stencil3d_step.launches
+        out = eng.run(g0, steps)
+        assert stencil3d.stencil3d_step.launches - before == launches
+        assert out.is_cuda
+        want = reference.run(g0, eng.spec, steps)
+        assert np.abs(out.cpu().numpy() - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def test_3d_refused_launches_raise(cuda):
+    spec = get_shape("star3d1r")
+    lay = Layout3D(interior=(4, 32, 64), halo=spec.halo, tile=(32, 64), guard=(2, 4, 4))
+    cur = torch.zeros(lay.shape, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        stencil3d.stencil3d_step(cur.transpose(1, 2).contiguous().transpose(1, 2),
+                                 torch.zeros_like(cur), spec, lay)
+    before = stencil3d.stencil3d_step.launches
+    with pytest.raises(ValueError):
+        stencil3d.stencil3d_step(cur, torch.zeros(lay.shape), spec, lay)
+    assert stencil3d.stencil3d_step.launches == before

@@ -12,10 +12,11 @@ import pytest
 import torch
 
 from lorastencil_tpu import engine as jax_engine
-from lorastencil_tpu.models.shapes import get_shape
-from lorastencil_tpu.utils import reference
+from lorastencil_tpu.models.shapes import get_shape as jax_get_shape
 from lorastencil_tpu_torch import cli, engine
+from lorastencil_tpu_torch.models.shapes import get_shape
 from lorastencil_tpu_torch.ops import stencil2d
+from lorastencil_tpu_torch.utils import reference
 
 SHAPES = ["star2d1r", "box2d1r", "box2d3r"]
 
@@ -100,7 +101,7 @@ def test_launches_count_only_kernel_launches():
     ("star2d1r", {"algorithm": "mxu_split"}, "B13"),
     ("star2d1r", {"residue_mxu": "on"}, "B2"),
     ("1d1r", {}, "A7"),
-    ("star3d1r", {}, "A8"),
+    ("box3d1r", {"dtype": "bfloat16"}, "A6"),
 ])
 def test_unsupported_configs_name_their_roadmap_item(name, kw, item):
     interior = {1: (256,), 2: (16, 16), 3: (8, 16, 16)}[get_shape(name).ndim]
@@ -125,11 +126,10 @@ def test_unported_entry_points_and_bad_values_raise():
 
 
 def test_resolve_algorithm_matches_jax():
-    for name in ["star2d1r", "star2d3r", "box2d1r", "box2d3r"]:
-        spec = get_shape(name)
+    for name in ["star2d1r", "star2d3r", "box2d1r", "box2d3r", "star3d1r", "box3d1r"]:
         for alg in ("auto", "vpu", "mxu_hybrid1"):
-            assert (engine.resolve_algorithm(spec, alg)
-                    == jax_engine.resolve_algorithm(spec, alg))
+            assert (engine.resolve_algorithm(get_shape(name), alg)
+                    == jax_engine.resolve_algorithm(jax_get_shape(name), alg))
 
 
 def test_cuda_device_raises_without_cuda():

@@ -12,13 +12,14 @@ import pytest
 import torch
 
 from lorastencil_tpu import engine as jax_engine
-from lorastencil_tpu.models.shapes import get_shape
+from lorastencil_tpu.models.shapes import get_shape as jax_get_shape
 from lorastencil_tpu.ops import pallas_2d
 from lorastencil_tpu.ops.layout import Layout2D as JaxLayout2D
-from lorastencil_tpu.utils import reference
 from lorastencil_tpu_torch import convert, engine
+from lorastencil_tpu_torch.models.shapes import get_shape
 from lorastencil_tpu_torch.ops import stencil2d
 from lorastencil_tpu_torch.ops.layout import Layout2D, default_tile_2d, guard_2d
+from lorastencil_tpu_torch.utils import reference
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -99,7 +100,8 @@ def test_convert_feeds_the_kernel_from_a_pallas_step():
     jl = JaxLayout2D(interior=interior, halo=spec.halo, tile=(24, 256))
     g0 = reference.random_padded(spec, interior, seed=4)
     x = jl.to_internal(g0)
-    s1 = pallas_2d.stencil2d_step(x, jnp.zeros_like(x), spec, jl, interpret=True,
+    s1 = pallas_2d.stencil2d_step(x, jnp.zeros_like(x), jax_get_shape("box2d3r"), jl,
+                                  interpret=True,
                                   algorithm="mxu_hybrid1", fused_steps=1)
     pl = Layout2D(interior=interior, halo=spec.halo, tile=(32, 128), guard=(4, 4))
     cur = convert.state_from_jax(np.asarray(s1), jl, pl)

@@ -14,13 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from lorastencil_tpu.models.shapes import get_shape
+from lorastencil_tpu.models.shapes import get_shape as jax_get_shape
 from lorastencil_tpu.ops import pallas_2d, xla_ref
 from lorastencil_tpu.ops.layout import Layout2D as JaxLayout2D
 from lorastencil_tpu.ops.layout import default_tile_2d as jax_default_tile
-from lorastencil_tpu.utils import reference
+from lorastencil_tpu_torch.models.shapes import get_shape
 from lorastencil_tpu_torch.ops import band_gemm, stencil2d, torch_ref
 from lorastencil_tpu_torch.ops.layout import Layout2D
+from lorastencil_tpu_torch.utils import reference
 
 
 def _layouts(spec, interior, tile=None):
@@ -38,7 +39,7 @@ def test_step_matches_pallas_kernel_bit_for_bit(name, interior):
     g0 = reference.random_padded(spec, interior, seed=7)
     x = np.asarray(jl.to_internal(g0))
     want = np.asarray(pallas_2d.stencil2d_step(
-        jnp.asarray(x), jnp.zeros_like(x), spec, jl, interpret=True,
+        jnp.asarray(x), jnp.zeros_like(x), jax_get_shape(name), jl, interpret=True,
         algorithm="mxu_hybrid1", fused_steps=1))
     cur = torch.from_numpy(x.copy())
     donor = torch.zeros_like(cur)
@@ -91,7 +92,8 @@ def test_reference_steps_match_xla_ref(fn, jax_fn, name):
     spec = get_shape(name)
     g0 = reference.random_padded(spec, (24, 40), seed=11)
     got = fn(torch.from_numpy(g0.astype(np.float32)), spec).numpy()
-    assert np.array_equal(got, np.asarray(jax_fn(jnp.asarray(g0, jnp.float32), spec)))
+    want = np.asarray(jax_fn(jnp.asarray(g0, jnp.float32), jax_get_shape(name)))
+    assert np.array_equal(got, want)
     assert np.array_equal(got, reference.run(g0, spec, 1))
 
 
