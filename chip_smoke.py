@@ -3,8 +3,8 @@
 
     python3 chip_smoke.py
 
-Two paths, each through ``lorastencil_tpu_torch.engine.StencilEngine`` and
-its hand-written CUDA kernel:
+Three paths, each through ``lorastencil_tpu_torch.engine.StencilEngine`` and
+its hand-written CUDA kernels:
 
 * 2-D, the JAX package's flagship (bench.py): star2d1r, fp32-exact,
   dirichlet0, 8192^2 interior, one step per pass, through
@@ -13,13 +13,18 @@ its hand-written CUDA kernel:
 * 3-D, the reference artifact's 3-D configurations: star3d1r and box3d1r at
   256^3, two fused steps per pass (the engine's default), through
   ``csrc/stencil3d.cu`` (replacing
-  ``lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel``).
+  ``lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel``);
+* 1-D, the reference artifact's 1-D configurations: 1d1r 4096 x 64 (all
+  steps in one cooperative launch) and 1d2r 1,000,000 x 256 (passes of
+  three fused steps), through ``csrc/stencil1d.cu``, whose two kernels in
+  their narrow and wide instantiations replace the four TPU kernels of
+  ``lorastencil_tpu/ops/pallas_1d.py``.
 
 Phases, each printing one line or more and raising on failure:
 
 1. the card (nvidia-smi name and power limit), torch and nvcc versions;
-   both kernels built from the checkout's sources, the two nvcc runs
-   started together;
+   the three sources built from the checkout, the nvcc runs started
+   together;
 2. the 2-D kernel against its plain PyTorch twin on the card, for star2d1r
    and box2d1r at an interior the (32, 128) tile divides, one it does not,
    and 8192^2: integer fill bit for bit at 1 and 2 steps; the fill times
@@ -48,7 +53,31 @@ Phases, each printing one line or more and raising on failure:
 7. 64 steps at 256^3 for both shapes through ``run_internal`` and through
    the naive dense stencil; the kernel's and the twin's time per pass;
    one ``F.conv3d`` step with the dense 3x3x3 coefficients (TF32 off); the
-   pass's bound.
+   pass's bound;
+8. each 1-D wrapper against its twin on the card: 1d1r and 1d2r at 4096,
+   3001 (a ragged tile) and 1,000,000, and the wide kernels with
+   ``for_coeffs`` taps of radius 40 and 127 at 100,000; passes at k = 1, the
+   engine's default k and the largest legal k, resident runs over 2*refresh
+   + 3 steps (two halo reloads and a tail); the integer fill bit for bit at
+   1-2 steps and after one and two full passes, the pi/100 fill within rel
+   1e-6 after 4 steps (the kernels round each product and sum on their own,
+   in their twins' order, so both are bit for bit; the registry taps
+   overflow fp32 to inf in the deepest wide passes, where the two agree
+   too);
+9. the 1-D path end to end, launches counted from zero: 1d1r 4096 resolves
+   to 'mxu' and one resident launch per run; 1d2r 1,000,000 to passes of
+   the narrow kernel at k = 3 (``run(.., 2)`` one remainder launch,
+   ``run(.., 7)`` three); algorithm 'vpu' to the wide counterparts
+   (resident at 4096, passes of 2 at 1,000,000); 2 steps bit for bit
+   against a float64 dense stencil on the card, 7 steps of the pi/100 fill
+   within rel 1e-5;
+10. 1d1r 4096 x 64, 1d2r 1,000,000 x 256 and 1d2r 16,777,216 x 256 through
+   ``run_internal`` and through the naive dense stencil (GStencil/s with the
+   x3 / x2 fuse factors); per kernel its device time per pass or run (a
+   CUDA graph of back-to-back passes, so the host's launch cost is left
+   out), its twin's, one ``F.conv1d`` step with the dense taps (TF32 off)
+   and its bound; the wrapper's host time per launch with the device idle,
+   and the device's idle share of the 1,000,000-cell run.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -71,9 +100,19 @@ BENCH_STEPS = 256
 INTERIOR_3D = (256, 256, 256)
 BENCH_STEPS_3D = 64
 SOURCES = {"stencil2d": "lorastencil_tpu_torch/csrc/stencil2d.cu",
-           "stencil3d": "lorastencil_tpu_torch/csrc/stencil3d.cu"}
+           "stencil3d": "lorastencil_tpu_torch/csrc/stencil3d.cu",
+           "stencil1d": "lorastencil_tpu_torch/csrc/stencil1d.cu"}
 REPLACES = {"stencil2d": "lorastencil_tpu/ops/pallas_2d.py:127",
-            "stencil3d": "lorastencil_tpu/ops/pallas_3d.py:118"}
+            "stencil3d": "lorastencil_tpu/ops/pallas_3d.py:118",
+            "stencil1d_lanes_step": "lorastencil_tpu/ops/pallas_1d.py:348",
+            "stencil1d_step": "lorastencil_tpu/ops/pallas_1d.py:97",
+            "stencil1d_resident_lanes": "lorastencil_tpu/ops/pallas_1d.py:600",
+            "stencil1d_resident": "lorastencil_tpu/ops/pallas_1d.py:542"}
+KERNELS_1D = ("stencil1d_lanes_step", "stencil1d_step",
+              "stencil1d_resident_lanes", "stencil1d_resident")
+N_1D = 1_000_000
+N_1D_LARGE = 16_777_216
+N_1D_SMALL = 4096
 # NVIDIA H100 SXM data sheet, at the full 700 W power limit
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
@@ -87,22 +126,25 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def reset_counts():
-    from lorastencil_tpu_torch.ops import stencil2d, stencil3d
+def _wrappers():
+    from lorastencil_tpu_torch.ops import stencil1d, stencil2d, stencil3d
 
-    stencil2d.stencil2d_step.launches = 0
-    stencil3d.stencil3d_step.launches = 0
+    return dict({"stencil2d": stencil2d.stencil2d_step,
+                 "stencil3d": stencil3d.stencil3d_step},
+                **{name: getattr(stencil1d, name) for name in KERNELS_1D})
+
+
+def reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
 
 
 def counts():
-    from lorastencil_tpu_torch.ops import stencil2d, stencil3d
-
-    return {"stencil2d": stencil2d.stencil2d_step.launches,
-            "stencil3d": stencil3d.stencil3d_step.launches}
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def build_kernels():
-    """Phase 1's builds, both nvcc runs at once; returns {name: (seconds,
+    """Phase 1's builds, the nvcc runs at once; returns {name: (seconds,
     ptxas register lines)}."""
     from lorastencil_tpu_torch.ops import _cuda_build
 
@@ -502,6 +544,302 @@ def bench_3d(name, device, card):
     return res, base, ms["kernel"], ms["plain"]
 
 
+def spec_1d(name):
+    """A registry 1-D shape, or ``for_coeffs`` taps "r40" / "r127": integers
+    in [-3, 3] over 256, whose sum of magnitudes (~1.7) keeps values finite
+    over the deepest passes."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+
+    if name.startswith("r"):
+        r = int(name[1:])
+        taps = np.random.default_rng(r).integers(-3, 4, 2 * r + 1) / 256.0
+        taps[0] = taps[-1] = 1.0 / 256.0  # effective radius r
+        return engine.StencilEngine.for_coeffs(taps, (64,), name=name,
+                                               device="cpu").spec
+    return get_shape(name)
+
+
+def layout_1d(spec, n, reach):
+    from lorastencil_tpu_torch.ops.layout import TILE_1D, Layout1D, guard_1d
+
+    return Layout1D(interior=n, halo=spec.halo[0], tile=TILE_1D,
+                    guard=guard_1d(spec.halo[0], reach))
+
+
+def check_kernels_1d(name, n, device):
+    """Phase 8 for one spec and size: every wrapper that takes the spec
+    against its twin; returns {kernel: max abs err of the pi/100 fill after
+    4 steps at the engine's k (runs: 2*refresh + 3 steps)}."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = spec_1d(name)
+    r = s1.effective_radius(spec)
+    g0 = reference.random_padded(spec, (n,), seed=1)
+    cases = [("stencil1d_step", s1.stencil1d_step_plain, (1, 2, s1.MAX_FUSED))]
+    runs = [("stencil1d_resident", s1.stencil1d_resident_plain, 1)]
+    if r <= s1.MAX_LANES_REACH:
+        cases.append(("stencil1d_lanes_step", s1.stencil1d_lanes_step_plain,
+                      (1, max(1, 12 // r), s1.MAX_LANES_REACH // r)))
+        runs.append(("stencil1d_resident_lanes",
+                     s1.stencil1d_resident_lanes_plain, s1.lanes_refresh(r)))
+    errs = {}
+
+    def agree(got, want, what):
+        torch.cuda.synchronize()
+        if bool(torch.isnan(want).any()):
+            raise AssertionError(f"{what}: the twin gave NaN")
+        if not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(f"{what}: kernel differs from its twin at "
+                                 f"{bad} cells")
+        return (got - want).abs().max().item()
+
+    for kernel, plain, ks in cases:
+        wrapper = getattr(s1, kernel)
+        for k in sorted(set(ks)):
+            lay = layout_1d(spec, n, k * r)
+            x = lay.to_internal(g0, device=device)
+            for steps in sorted({1, 2, k, 2 * k}):
+                agree(run_steps(wrapper, x, spec, lay, steps, k),
+                      run_steps(plain, x, spec, lay, steps, k),
+                      f"{kernel} {name} {n} k={k} x{steps} (integer fill)")
+            x = lay.to_internal(g0 * (np.pi / 100), device=device)
+            err = agree(run_steps(wrapper, x, spec, lay, 4, k),
+                        run_steps(plain, x, spec, lay, 4, k),
+                        f"{kernel} {name} {n} k={k} x4 (pi/100 fill)")
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+    for kernel, plain, refresh in runs:
+        wrapper = getattr(s1, kernel)
+        lay = layout_1d(spec, n, refresh * r)
+        for fill, steps_list in ((g0, (1, 2, 2 * refresh + 3)),
+                                 (g0 * (np.pi / 100), (4, 2 * refresh + 3))):
+            x = lay.to_internal(fill, device=device)
+            keep = x.clone()
+            for steps in steps_list:
+                err = agree(wrapper(x, spec, lay, steps),
+                            plain(x, spec, lay, steps),
+                            f"{kernel} {name} {n} x{steps}")
+                if fill is not g0:
+                    errs[kernel] = max(errs.get(kernel, 0.0), err)
+            if not torch.equal(x, keep):
+                raise AssertionError(f"{kernel} wrote its input")
+    return errs
+
+
+def main_path_1d(device):
+    """Phase 9: the 1-D path end to end; returns the launches of each 1-D
+    kernel over the phase, counted from zero, and a line per case."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import torch_ref
+    from lorastencil_tpu_torch.utils import reference
+
+    cases = (("1d1r", N_1D_SMALL, {}, "mxu", "resident_lanes",
+              "stencil1d_resident_lanes", 4, (1, 1)),
+             ("1d2r", N_1D, {}, "mxu", "lanes", "stencil1d_lanes_step", 3,
+              (1, 3)),
+             ("1d1r", N_1D_SMALL, {"algorithm": "vpu"}, "vpu", "resident",
+              "stencil1d_resident", 2, (1, 1)),
+             ("1d2r", N_1D, {"algorithm": "vpu"}, "vpu", "flat",
+              "stencil1d_step", 2, (1, 4)))
+    lines = []
+    reset_counts()
+    for name, n, kw, alg, path, kernel, k, expect in cases:
+        eng = engine.StencilEngine.for_shape(name, (n,), device=device, **kw)
+        got = (eng.algorithm, eng.path, eng._fused_k())
+        if got != (alg, path, k):
+            raise AssertionError(f"{name} {n} {kw} resolved to {got}")
+        spec = eng.spec
+        g0 = reference.random_padded(spec, (n,), seed=0)
+        for steps, want_launches in zip((2, 7), expect):
+            fill = g0 if steps == 2 else g0 * (np.pi / 100)
+            want = torch.from_numpy(fill).to(device)  # float64
+            for _ in range(steps):
+                want = torch_ref.dense_step(want, spec)
+            before = counts()
+            out = eng.run(fill, steps)
+            torch.cuda.synchronize()
+            launched = {key: v - before[key] for key, v in counts().items()
+                        if v != before[key]}
+            if launched != {kernel: want_launches}:
+                raise AssertionError(f"{name} {n} {kw} run({steps}) "
+                                     f"launched {launched}")
+            if tuple(out.shape) != spec.padded_shape((n,)):
+                raise AssertionError(f"output shape {tuple(out.shape)}")
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"{name} {n}: output is not finite")
+            if steps == 2 and not torch.equal(out.double(), want):
+                bad = (out.double() != want).sum().item()
+                raise AssertionError(
+                    f"{name} {n} {kw}: run(2) differs from the float64 "
+                    f"dense stencil at {bad} cells")
+            rel = ((out.double() - want).abs().max()
+                   / want.abs().max()).item()
+            if not rel <= 1e-5:
+                raise AssertionError(f"{name} {n} {kw}: run({steps}) rel "
+                                     f"err {rel:.3e} > 1e-5")
+            lines.append(f"{name} {n} {kw or ''} -> {alg}/{path} k={k}: "
+                         f"run({steps}) {launched[kernel]} launch(es) of "
+                         f"{kernel}, rel err {rel:.3e}")
+    launches = counts()
+    for kernel in KERNELS_1D:
+        if launches[kernel] == 0:
+            raise AssertionError(f"the 1-D path never launched {kernel}")
+    return {kernel: launches[kernel] for kernel in KERNELS_1D}, lines
+
+
+def graph_ms(fn, calls=20):
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, replayed (best of 3), so the host's launch work is left out."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    best = float("inf")
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / calls)
+    return best
+
+
+def host_us_per_launch(fn, calls=200):
+    """Median wall time of one call of ``fn`` with the device idle before
+    it (synchronized), in microseconds."""
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return float(np.median(times)) * 1e6
+
+
+def conv1d_ms(spec, n, device):
+    """One cuDNN ``F.conv1d`` step with the dense taps (TF32 off) on the
+    interior and a radius-deep margin, device ms (a CUDA graph of 20)."""
+    import torch.nn.functional as F
+
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+
+    taps = s1.dense_taps(spec)
+    w = torch.tensor(taps, dtype=torch.float32, device=device)[None, None]
+    gen = torch.Generator(device=device).manual_seed(0)
+    x = torch.rand((1, 1, n + len(taps) - 1), generator=gen,
+                   device=device) * 0.01
+    if tuple(F.conv1d(x, w).shape) != (1, 1, n):
+        raise AssertionError("library conv1d has the wrong shape")
+    return graph_ms(lambda: F.conv1d(x, w))
+
+
+def bench_1d(device, card):
+    """Phase 10: the three 1-D configurations through ``run_internal`` and
+    the naive dense stencil, and per kernel its device time, its twin's,
+    the library step and the bound; returns the kernels' timing records."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.ops import torch_ref
+    from lorastencil_tpu_torch.utils import metrics
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    runs = {}
+    for name, n, steps in (("1d1r", N_1D_SMALL, 64), ("1d2r", N_1D, 256),
+                           ("1d2r", N_1D_LARGE, 256)):
+        eng = engine.StencilEngine.for_shape(name, (n,), device=device)
+        state = torch.rand(eng.layout.shape, generator=gen,
+                           device=device) * 0.01
+        secs, _ = metrics.time_run(eng.run_internal, state, steps,
+                                   repeats=3, warmup=1)
+        res = metrics.bench_result(eng.spec, (n,), steps, secs,
+                                   "cuda-stencil1d", "fp32-exact", 3)
+        kernel = ("stencil1d_resident_lanes" if eng.path == "resident_lanes"
+                  else "stencil1d_lanes_step")
+        launches = count_run(eng, state, steps, kernel,
+                             1 if eng.path == "resident_lanes"
+                             else -(-steps // eng._fused_k()))
+        del state
+        grid = torch.rand(eng.spec.padded_shape((n,)), generator=gen,
+                          device=device) * 0.01
+
+        def naive(g, spec=eng.spec, steps=steps):
+            for _ in range(steps):
+                g = torch_ref.dense_step(g, spec)
+            return g
+
+        bsecs, _ = metrics.time_run(naive, grid, repeats=3, warmup=1)
+        base = metrics.bench_result(eng.spec, (n,), steps, bsecs,
+                                    "torch-naive", "fp32", 3)
+        del grid
+        runs[(name, n)] = (res, launches)
+        for label, r in (("kernel", res), ("naive", base)):
+            print(f"phase 10: {label} {name} {n} x{steps}: {r.time_ms} ms, "
+                  f"{r.gstencil_per_s} GStencil/s (x{r.fuse_factor} fused) "
+                  f"[{card}]", flush=True)
+        print(f"phase 10: {name} {n} vs_baseline "
+              f"{res.gstencil_per_s / base.gstencil_per_s}; {launches} "
+              f"launches of {kernel} per {steps}-step run [{card}]",
+              flush=True)
+
+    timing = {}
+    for kernel, name, n, kw, steps in (
+            ("stencil1d_lanes_step", "1d2r", N_1D, {}, None),
+            ("stencil1d_step", "1d2r", N_1D, {"algorithm": "vpu"}, None),
+            ("stencil1d_resident_lanes", "1d1r", N_1D_SMALL, {}, 64),
+            ("stencil1d_resident", "1d1r", N_1D_SMALL, {"algorithm": "vpu"},
+             64)):
+        eng = engine.StencilEngine.for_shape(name, (n,), device=device, **kw)
+        spec, lay, k = eng.spec, eng.layout, eng._fused_k()
+        x = torch.rand(lay.shape, generator=gen, device=device) * 0.01
+        donor = torch.zeros_like(x)
+        wrapper = getattr(s1, kernel)
+        plain = getattr(s1, kernel + "_plain")
+        if steps is None:  # a pass of k steps
+            one = lambda: wrapper(x, donor, spec, lay, fused_steps=k)
+            twin = lambda: plain(x, donor, spec, lay, fused_steps=k)
+            per = k
+        else:  # a whole run in one cooperative launch
+            one = lambda: wrapper(x, spec, lay, steps)
+            twin = lambda: plain(x, spec, lay, steps)
+            per = steps
+        ms, plain_ms = graph_ms(one), graph_ms(twin, 3)
+        host_us = host_us_per_launch(one)
+        bound, by = bound_ms(spec, (n,), per)
+        lib = conv1d_ms(spec, n, device)
+        timing[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by=by, library_ms=lib,
+                              steps_per_launch=per, library_steps=1,
+                              shape=f"{name} {n} {kw or ''}".strip(),
+                              host_us_per_launch=host_us)
+        print(f"phase 10: {kernel} at {name} {n} {kw or ''}, {per} steps "
+              f"per launch: kernel {ms} ms (device), plain twin {plain_ms} "
+              f"ms, F.conv1d one step {lib} ms, bound {bound} ms ({by}); "
+              f"host {host_us} us per launch with the device idle [{card}]",
+              flush=True)
+        del x, donor
+    res, launches = runs[("1d2r", N_1D)]
+    busy = launches * timing["stencil1d_lanes_step"]["ms"] / res.time_ms
+    print(f"phase 10: 1d2r {N_1D} x256: {launches} passes x "
+          f"{timing['stencil1d_lanes_step']['ms']} ms of kernel in "
+          f"{res.time_ms} ms: device busy {busy}, idle {1 - busy} [{card}]",
+          flush=True)
+    return timing
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -528,7 +866,7 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = build_kernels()
     print(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda}),"
-          f" {nvcc}; built both kernels in "
+          f" {nvcc}; built {len(builds)} sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     for name, (secs, ptxas) in builds.items():
         print(f"phase 1: {SOURCES[name]} {secs:.1f} s: {' | '.join(ptxas)}",
@@ -592,6 +930,28 @@ def main() -> int:
               f"ms; bound of one k=2 pass {bound3} ms ({by3}) [{card}]",
               flush=True)
 
+    errs_1d = {}
+    for name, sizes in (("1d1r", (N_1D_SMALL, 3001, N_1D)),
+                        ("1d2r", (N_1D_SMALL, 3001, N_1D)),
+                        ("r40", (100_000,)), ("r127", (100_000,))):
+        for n in sizes:
+            errs = check_kernels_1d(name, n, device)
+            for kernel, err in errs.items():
+                errs_1d[kernel] = max(errs_1d.get(kernel, 0.0), err)
+            print(f"phase 8: {name} {n}: {sorted(errs)} bit-exact against "
+                  f"their twins (integer fill at 1-2 steps and one and two "
+                  f"passes of k = 1, default, largest; pi/100 fill after 4 "
+                  f"steps and 2*refresh+3 steps), max abs err "
+                  f"{max(errs.values())}", flush=True)
+
+    launches_1d, lines = main_path_1d(device)
+    for line in lines:
+        print(f"phase 9: {line}", flush=True)
+    print(f"phase 9: launches over the phase, counted from zero: "
+          f"{launches_1d}", flush=True)
+
+    timing_1d = bench_1d(device, card)
+
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the reference packages were imported: "
@@ -611,6 +971,11 @@ def main() -> int:
             "max_abs_err": main_errs_3d[name], "ms": ms3,
             "plain_ms": plain_ms3, "bound_ms": bound3, "bound_by": by3,
             "library_ms": lib3, "steps_per_launch": 2, "library_steps": 1})
+    for kernel in KERNELS_1D:
+        kernels.append(dict({
+            "name": kernel, "route": "cuda", "source": SOURCES["stencil1d"],
+            "replaces": REPLACES[kernel], "launches": launches_1d[kernel],
+            "max_abs_err": errs_1d[kernel]}, **timing_1d[kernel]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
 """Command-line entry point of the port, with the JAX CLI's contract:
 
+    python -m lorastencil_tpu_torch.cli <shape> <n> <steps> [options]
     python -m lorastencil_tpu_torch.cli <shape> <m> <n> <steps> [options]
     python -m lorastencil_tpu_torch.cli <shape> <h> <m> <n> <steps> [options]
 
@@ -59,8 +60,9 @@ def _parser() -> argparse.ArgumentParser:
                         "separable step")
     p.add_argument("--algorithm", choices=engine.ALGORITHM_NAMES,
                    default="auto",
-                   help="auto, mxu_hybrid1, vpu_roll and vpu all run the "
-                        "one exact fp32 kernel")
+                   help="2-D/3-D: auto, mxu_hybrid1, vpu_roll and vpu run "
+                        "the one exact fp32 kernel; 1-D: auto (mxu) and "
+                        "vpu_roll the narrow kernels, the others the wide")
     p.add_argument("--fused-steps", type=int, default=None)
     p.add_argument("--precision", choices=["highest", "default"],
                    default="highest")

@@ -6,9 +6,10 @@ from a JAX spec's fields, so both packages compute with the same
 coefficients.
 
 The JAX engine keeps its state in its own internal layout
-(``lorastencil_tpu/ops/layout.py`` ``Layout2D`` / ``Layout3D``: an
-(8, 128)-aligned guard and TPU tile round-up); the port's layouts have
-their own guard and tile.  Both hold the same reference-padded array at
+(``lorastencil_tpu/ops/layout.py`` ``Layout1D`` / ``Layout1DLanes`` /
+``Layout2D`` / ``Layout3D``: an (8, 128)-aligned guard and TPU tile
+round-up, and in 1-D rows of 128 lanes); the port's layouts have their own
+guard and tile.  Both hold the same reference-padded array at
 the same place relative to their origin, so carrying state across
 re-embeds that array.  Nothing here imports the JAX package: the JAX
 objects are read through their fields only.
@@ -41,20 +42,55 @@ def spec_from_jax(jax_spec) -> StencilSpec:
         fuse_factor=int(jax_spec.fuse_factor))
 
 
+def _padded_1d(buf: np.ndarray, jax_layout):
+    """(the reference-padded array held by a JAX 1-D buffer, a copy of the
+    buffer's other cells with that array zeroed): the latter must be all
+    zero."""
+    n, h = int(jax_layout.interior), int(jax_layout.halo)
+    if hasattr(jax_layout, "lane_halo"):
+        # Layout1DLanes: each 128-lane group holds `stride` payload cells
+        # after `lane_halo` halo lanes; halo lanes are stale by contract
+        lh = int(jax_layout.lane_halo)
+        stride = 128 - 2 * lh
+        flat = buf.reshape(-1, 128)[:, lh: lh + stride].reshape(-1)
+        base = int(jax_layout.guard_rows) * (int(jax_layout.width) // 128) \
+            * stride
+    else:
+        flat = buf.reshape(-1)  # Layout1D: origin guard_rows * 128
+        base = int(jax_layout.origin)
+    rest = flat.copy()
+    rest[base - h: base + n + h] = 0
+    return flat[base - h: base + n + h], rest
+
+
 def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
                    device=None) -> torch.Tensor:
     """Re-embed a JAX internal-layout buffer (as a NumPy array) into a
     new port internal buffer on ``device``.
 
     ``jax_layout`` is the JAX ``Layout2D`` or ``Layout3D`` the buffer was
-    made with (origin ``(8, 128)`` or ``(zguard, 8, 128)``); only its
-    ``interior``, ``halo`` and ``origin`` are read.  ``port_layout`` is the
-    port's layout of the same dimension.  Raises if the two layouts hold
+    made with (origin ``(8, 128)`` or ``(zguard, 8, 128)``; only its
+    ``interior``, ``halo`` and ``origin`` are read), or a JAX ``Layout1D``
+    (flat rows of 128 lanes) or ``Layout1DLanes`` (only the payload lanes
+    are read).  ``port_layout`` is the port's layout of the same
+    dimension.  Raises if the two layouts hold
     different grids, or if the buffer holds nonzero values outside the
     padded array (the JAX kernels keep the rest of the ring and the
     round-up cells zero, so such values mean the buffer is not a valid
     state)."""
     buf = np.asarray(internal)
+    if not hasattr(port_layout.interior, "__len__"):  # 1-D
+        if (int(jax_layout.interior), int(jax_layout.halo)) != (
+                port_layout.interior, port_layout.halo):
+            raise ValueError(
+                f"layouts disagree: JAX interior/halo {jax_layout.interior}/"
+                f"{jax_layout.halo}, port {port_layout.interior}/"
+                f"{port_layout.halo}")
+        padded, rest = _padded_1d(buf, jax_layout)
+        if np.any(rest != 0):
+            raise ValueError(
+                "JAX buffer holds nonzero values outside its padded array")
+        return port_layout.to_internal(padded.copy(), device=device)
     if (tuple(jax_layout.interior) != tuple(port_layout.interior)
             or tuple(jax_layout.halo) != tuple(port_layout.halo)):
         raise ValueError(

@@ -8,10 +8,15 @@ fields and defaults), ``resolve_algorithm``, ``ping_pong_loop`` and
     eng = StencilEngine.for_shape("star2d1r", (8192, 8192))  # on "cuda"
     out_padded = eng.run(in_padded, steps=4)
     eng3 = StencilEngine.for_shape("box3d1r", (256, 256, 256))
+    eng1 = StencilEngine.for_shape("1d2r", (1_000_000,))
 
 What this engine runs, float32, dirichlet0, ``backend`` "auto" / "pallas"
 (a CUDA kernel; its plain twin on a CPU tensor) or "xla"
 (``ops/torch_ref.separable_step``):
+  * 1-D shapes (1d1r, 1d2r, ``for_coeffs`` taps up to radius 127) through
+    ``ops/stencil1d.py``, with the JAX engine's dispatch (see
+    ``_build_layout_1d``): small grids run all steps in one launch, large
+    ones ``ping_pong_loop`` passes of the JAX engine's fused depth;
   * 2-D shapes whose fused depth resolves to one step (star2d1r, box2d1r,
     box2d3r) through ``ops/stencil2d.py``;
   * 3-D shapes (star3d1r, box3d1r) at the JAX engine's fused depth
@@ -35,11 +40,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .models.shapes import StencilSpec, get_shape
+from .models.shapes import SeparableTerm, StencilSpec, get_shape
 
-from .ops import stencil2d, stencil3d, torch_ref
-from .ops.layout import (Layout2D, Layout3D, default_tile_2d,
-                         default_tile_3d, guard_2d, guard_3d)
+from .ops import stencil1d, stencil2d, stencil3d, torch_ref
+from .ops.layout import (TILE_1D, Layout1D, Layout2D, Layout3D,
+                         default_tile_2d, default_tile_3d, guard_1d, guard_2d,
+                         guard_3d)
 
 ALGORITHM_NAMES = ("auto", "vpu", "vpu_roll", "mxu", "mxu_split",
                    "mxu_hybrid", "mxu_hybrid1", "mxu_hybrid1r",
@@ -48,13 +54,13 @@ ALGORITHM_NAMES = ("auto", "vpu", "vpu_roll", "mxu", "mxu_split",
 
 def resolve_algorithm(spec: StencilSpec, name: str) -> str:
     """Resolve algorithm='auto' as the JAX engine does for float32:
-    'vpu' for 3-D, 'mxu_hybrid1' for 2-D; like the other exact fp32
-    names they run the one CUDA kernel of their dimension.  (The JAX
-    engine's other resolutions, for 1-D, bf16 and fp64, arrive with
-    those ROADMAP items.)"""
+    'mxu' for 1-D, 'mxu_hybrid1' for 2-D, 'vpu' for 3-D; like the other
+    exact fp32 names they run the CUDA kernels of their dimension.  (The
+    JAX engine's other resolutions, for bf16 and fp64, arrive with those
+    ROADMAP items.)"""
     if name != "auto":
         return name
-    return "vpu" if spec.ndim == 3 else "mxu_hybrid1"
+    return {1: "mxu", 2: "mxu_hybrid1", 3: "vpu"}[spec.ndim]
 
 
 def ping_pong_loop(step_fn, state, steps: int, k: int = 1):
@@ -84,7 +90,10 @@ def ping_pong_loop(step_fn, state, steps: int, k: int = 1):
 class EngineConfig:
     """The JAX engine's configuration, field for field (see
     ``lorastencil_tpu.engine.EngineConfig`` for what each one means).
-    ``StencilEngine`` says which values the port runs."""
+    ``StencilEngine`` says which values the port runs.  ``lanes_width``
+    and ``lanes_tile_rows`` are accepted and change nothing: they shape the
+    TPU's overlapped-lanes 1-D layout, which the port's flat ``Layout1D``
+    replaces (``ops/layout.py``)."""
 
     dtype: str = "float32"
     precision: str = "highest"
@@ -134,23 +143,27 @@ class StencilEngine:
         self.dtype = torch.float32
         self.backend = "xla" if config.backend == "xla" else "pallas"
         self.algorithm = resolve_algorithm(spec, config.algorithm)
-        kernel = stencil3d if spec.ndim == 3 else stencil2d
-        if self.algorithm in kernel.UNPORTED_ALGORITHMS:
-            raise _not_ported(f"algorithm {self.algorithm!r}", "B13")
-        if self.algorithm not in kernel.ALGORITHMS:
-            raise ValueError(
-                f"algorithm {self.algorithm!r} has no {spec.ndim}-D path; "
-                f"the port runs {kernel.ALGORITHMS}")
+        if spec.ndim > 1:  # 1-D: every name runs (the JAX dispatch)
+            kernel = stencil3d if spec.ndim == 3 else stencil2d
+            if self.algorithm in kernel.UNPORTED_ALGORITHMS:
+                raise _not_ported(f"algorithm {self.algorithm!r}", "B13")
+            if self.algorithm not in kernel.ALGORITHMS:
+                raise ValueError(
+                    f"algorithm {self.algorithm!r} has no {spec.ndim}-D "
+                    f"path; the port runs {kernel.ALGORITHMS}")
         if spec.ndim == 2 and self._fused_k() != 1:
             raise _not_ported(
                 f"{spec.name} at fused_steps={self._fused_k()} (k > 1)",
                 "B2")
-        self.layout = self._build_layout()
+        # the 1-D kernel: "resident_lanes", "resident", "lanes" or "flat"
+        self.path = None
+        if spec.ndim == 1:
+            self.layout, self.path = self._build_layout_1d()
+        else:
+            self.layout = self._build_layout()
 
     @staticmethod
     def _validate(spec: StencilSpec, config: EngineConfig):
-        if spec.ndim == 1:
-            raise _not_ported("1-D stencils", "A7")
         if config.dtype in ("bfloat16", "float64"):
             raise _not_ported(f"dtype {config.dtype!r}", "A6")
         if config.dtype == "df64":
@@ -171,6 +184,10 @@ class StencilEngine:
                 f"{config.precision!r}")
         if config.algorithm not in ALGORITHM_NAMES:
             raise ValueError(f"unknown algorithm {config.algorithm!r}")
+        if config.fusion == "skew" and spec.ndim == 1:
+            raise ValueError(
+                "fusion='skew' is the 2-D time-skewed path; use "
+                "fused_steps elsewhere")
         if config.fusion == "skew":
             raise _not_ported("fusion='skew'", "B11")
         if config.fusion not in ("auto", "extent"):
@@ -197,14 +214,49 @@ class StencilEngine:
                    device=device)
 
     @classmethod
-    def for_coeffs(cls, *args, **kw):
-        raise _not_ported("StencilEngine.for_coeffs", "A6")
+    def for_coeffs(cls, coeffs, interior, name: str = "custom", halo=None,
+                   fuse_factor: int = 1, device="cuda",
+                   **kw) -> "StencilEngine":
+        """Engine for a dense coefficient array.  1-D: a vector of taps
+        (odd length, radius up to 127), as the JAX engine builds it; 2-D
+        and 3-D (the low-rank decompositions, and their ``max_rank``) are
+        not ported yet."""
+        S = np.asarray(coeffs, dtype=np.float64)
+        if S.ndim != 1:
+            raise _not_ported(f"StencilEngine.for_coeffs in {S.ndim}-D", "A6")
+        if S.size % 2 != 1:
+            raise ValueError(f"1-D taps must have odd length, got {S.size}")
+        radius = (S.size - 1) // 2
+        spec = StencilSpec(
+            name=name, ndim=1, radius=radius,
+            halo=tuple(halo) if halo is not None else (radius,),
+            terms=(SeparableTerm(taps=(tuple(float(w) for w in S),)),),
+            residue=(), fuse_factor=fuse_factor)
+        cfg_kw = {k: v for k, v in kw.items()
+                  if k in EngineConfig.__dataclass_fields__}
+        return cls(spec, interior, EngineConfig(**cfg_kw), device=device)
 
     def _fused_k(self) -> int:
-        """The JAX engine's fused-depth rules: 3-D
+        """The JAX engine's fused-depth rules: 1-D (see below); 3-D
         ``min(max(1, fused_steps_3d), 8 // radius)``; 2-D extent fusion."""
         if self.backend == "xla":
             return 1
+        if self.spec.ndim == 1:
+            # 'mxu' (the default): max(1, 12 // r_eff), the TPU's measured
+            # optimum; else 2.  The lanes kernels cap k * r_eff at 32
+            # (the resident run at its refresh), the flat pass k at 64.
+            r_eff = stencil1d.effective_radius(self.spec)
+            k = self.config.fused_steps
+            if k is None:
+                k = (max(1, 12 // max(1, r_eff)) if self.algorithm == "mxu"
+                     else 2)
+            k = max(1, k)
+            path = getattr(self, "path", None)
+            if path == "lanes":
+                return min(k, stencil1d.MAX_LANES_REACH // r_eff)
+            if path == "resident_lanes":
+                return min(k, stencil1d.lanes_refresh(r_eff))
+            return min(k, stencil1d.MAX_FUSED)
         if self.spec.ndim == 3:
             return max(1, min(self.config.fused_steps_3d,
                               8 // self.spec.radius))
@@ -233,11 +285,58 @@ class StencilEngine:
         layout.validate()
         return layout
 
+    def _build_layout_1d(self):
+        """(layout, path): the JAX engine's 1-D dispatch
+        (``lorastencil_tpu/engine.py`` ``_build_layout`` and
+        ``_run_internal``), branch for branch:
+
+        * r_eff in [1, 32] and algorithm 'mxu' (auto) or 'vpu_roll'
+          ("lanes ok"): a grid whose state fits ``RESIDENT_LANES_BYTES``
+          runs all steps in one ``stencil1d_resident_lanes`` launch, else
+          passes of ``stencil1d_lanes_step``;
+        * otherwise (other algorithms, wider taps): a grid whose state
+          fits ``RESIDENT_BYTES`` runs one ``stencil1d_resident`` launch,
+          else passes of ``stencil1d_step``.
+
+        The two caps are the JAX engine's numbers (2 MiB, 512 KiB), kept
+        so that both engines take the same branch at the BASELINE sizes
+        (1d1r 4096 resident, 1d2r 1,000,000 tiled) and under 'vpu';
+        re-tuning them for the H100 is later work.  The test is the
+        port's own, on the port's layout."""
+        spec = self.spec
+        n, halo = self.interior[0], spec.halo[0]
+        r_eff = stencil1d.effective_radius(spec)
+
+        def layout(reach):
+            lay = Layout1D(interior=n, halo=halo, tile=TILE_1D,
+                           guard=guard_1d(halo, reach))
+            lay.validate()
+            return lay
+
+        if self.backend == "xla":
+            return layout(0), "flat"
+        lanes_ok = (1 <= r_eff <= stencil1d.MAX_LANES_REACH
+                    and self.algorithm in ("mxu", "vpu_roll"))
+        if lanes_ok:
+            lay = layout(stencil1d.lanes_refresh(r_eff) * r_eff)
+            if stencil1d.fits_resident_lanes(lay):
+                return lay, "resident_lanes"
+            self.path = "lanes"  # for _fused_k's lanes clamp
+            return layout(self._fused_k() * r_eff), "lanes"
+        lay = layout(self._fused_k() * r_eff)
+        return lay, ("resident" if stencil1d.fits_resident(lay) else "flat")
+
     def _step_internal(self, cur, donor, fused_k: int = 1):
         if self.backend == "xla":
             for _ in range(fused_k):
                 cur = torch_ref.separable_step(cur, self.spec)
             return cur
+        if self.path == "lanes":
+            return stencil1d.stencil1d_lanes_step(
+                cur, donor, self.spec, self.layout, fused_steps=fused_k)
+        if self.spec.ndim == 1:
+            return stencil1d.stencil1d_step(cur, donor, self.spec,
+                                            self.layout, fused_steps=fused_k)
         if self.spec.ndim == 3:
             return stencil3d.stencil3d_step(
                 cur, donor, self.spec, self.layout,
@@ -263,7 +362,14 @@ class StencilEngine:
 
     def run_internal(self, state, steps: int):
         """``steps`` timesteps on internal state; ``state`` is read, not
-        written (the result lives in one of two new buffers)."""
+        written (the result lives in one of two new buffers).  1-D small
+        grids run every step in one resident launch."""
+        if steps > 0 and self.path == "resident_lanes":
+            return stencil1d.stencil1d_resident_lanes(
+                state, self.spec, self.layout, steps)
+        if steps > 0 and self.path == "resident":
+            return stencil1d.stencil1d_resident(state, self.spec, self.layout,
+                                                steps)
         return ping_pong_loop(self._step_internal, state, steps,
                               self._fused_k())
 

@@ -1,7 +1,8 @@
-"""Internal 2-D and 3-D grid layouts on torch tensors.
+"""Internal 1-D, 2-D and 3-D grid layouts on torch tensors.
 
-Counterpart of ``lorastencil_tpu/ops/layout.py`` (``Layout2D``,
-``default_tile_2d``, ``Layout3D`` and ``default_tile_3d``).  The
+Counterpart of ``lorastencil_tpu/ops/layout.py`` (``Layout1D``,
+``Layout2D``, ``default_tile_2d``, ``Layout3D`` and ``default_tile_3d``;
+``Layout1DLanes`` has no counterpart, see ``Layout1D``).  The
 user-facing state is the reference-padded array (interior + halo,
 ``(m + 2*hm, n + 2*hn)``); internally it is re-embedded
 into a buffer with a zero guard ring and an interior rounded up to whole
@@ -28,7 +29,9 @@ from typing import Tuple
 import torch
 
 # The CUDA kernels' block tiles (csrc/stencil2d.cu: kTileRows, kTileCols;
-# the largest in-plane tile of csrc/stencil3d.cu, ops/stencil3d.py).
+# the largest in-plane tile of csrc/stencil3d.cu, ops/stencil3d.py;
+# csrc/stencil1d.cu: kTile).
+TILE_1D = 2048
 TILE_2D = (32, 128)
 TILE_3D = (32, 64)
 GUARD_ALIGN = 4  # cells: 16 bytes of float32
@@ -36,6 +39,68 @@ GUARD_ALIGN = 4  # cells: 16 bytes of float32
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout1D:
+    """The 1-D internal layout, one flat buffer for every 1-D kernel:
+
+        [ guard | interior (rounded up to ``tile``) | guard ]
+
+    Counterpart of the JAX ``Layout1D`` (rows of 128 lanes, origin
+    ``guard_rows * 128``) and of its ``Layout1DLanes``, whose duplicated
+    halo lanes exist because a TPU shift is a 128-lane roll.  On the card a
+    shift is an address offset, so the port keeps no duplicated lanes; the
+    guard (``guard_1d``) only has to cover the user halo and a pass's
+    reach."""
+
+    interior: int  # n
+    halo: int
+    tile: int  # the round-up granule (cells)
+    guard: int
+
+    @property
+    def grid(self) -> Tuple[int]:
+        return (_cdiv(self.interior, self.tile),)
+
+    @property
+    def origin(self) -> int:
+        """Buffer index of interior cell 0."""
+        return self.guard
+
+    @property
+    def rounded(self) -> int:
+        """Interior extent rounded up to whole tiles."""
+        return self.grid[0] * self.tile
+
+    @property
+    def shape(self) -> Tuple[int]:
+        return (self.guard + self.rounded + self.guard,)
+
+    def validate(self):
+        if self.tile < 1:
+            raise ValueError(f"tile must be positive, got {self.tile}")
+        if self.halo > self.guard:
+            raise ValueError(
+                f"halo {self.halo} must fit in the guard {self.guard}")
+
+    def to_internal(self, padded, dtype=torch.float32, device=None):
+        """Embed a user padded array (NumPy or torch) into a new internal
+        buffer; the user halo goes into the guard."""
+        n, h = self.interior, self.halo
+        src = torch.as_tensor(padded, dtype=dtype, device=device)
+        if tuple(src.shape) != (n + 2 * h,):
+            raise ValueError(
+                f"padded array has shape {tuple(src.shape)}, layout "
+                f"expects {(n + 2 * h,)}")
+        buf = torch.zeros(self.shape, dtype=dtype, device=src.device)
+        buf[self.origin - h: self.origin + n + h] = src
+        return buf
+
+    def from_internal(self, buf):
+        """The user padded array as a view of the internal buffer."""
+        n, h = self.interior, self.halo
+        return buf[self.origin - h: self.origin + n + h]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -174,6 +239,13 @@ def default_tile_2d(m: int, n: int) -> Tuple[int, int]:
     decides how far the interior is rounded up)."""
     del m, n
     return TILE_2D
+
+
+def guard_1d(halo: int, reach: int) -> int:
+    """The 1-D guard: at least the user halo and the reach of one pass
+    (fused steps x effective radius), rounded up to ``GUARD_ALIGN`` cells
+    as in ``guard_2d``."""
+    return GUARD_ALIGN * _cdiv(max(halo, reach, 1), GUARD_ALIGN)
 
 
 def guard_2d(halo: Tuple[int, int], reach: int) -> Tuple[int, int]:

@@ -1,0 +1,365 @@
+"""1-D stencil passes and whole runs on the internal layout: the CUDA kernels'
+wrappers.
+
+Counterpart of ``lorastencil_tpu/ops/pallas_1d.py``.  Its four TPU kernels
+become two hand-written CUDA kernels in ``csrc/stencil1d.cu``, each with a
+narrow and a wide instantiation:
+
+* ``stencil1d_lanes_step``: a pass, narrow (``_stencil1d_lanes_kernel``);
+* ``stencil1d_step``: a pass, wide (``_stencil1d_kernel``);
+* ``stencil1d_resident_lanes``: a run, narrow
+  (``_stencil1d_resident_lanes_kernel``);
+* ``stencil1d_resident``: a run, wide (``_stencil1d_resident_kernel``).
+
+A pass runs ``fused_steps`` steps and writes the donor; a run does all
+``steps`` in one cooperative launch and returns a new buffer.  *Narrow*
+takes an effective radius up to 32 (the TPU's overlapped-lanes kernels:
+taps in registers, a symmetric tap pair summed before its one multiply, as
+``pallas_1d._conv_lanes``); *wide* takes any radius up to 127 (the flat
+kernels: taps in a loop, +d then -d, as ``pallas_1d._conv_flat``).  Every
+substep zeroes the cells outside the interior [0, n).
+
+On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
+tensor runs the plain twin (``*_plain``), which sums in the kernel's order.
+The kernels round every product and sum on its own (no FMA), so a twin
+agrees with its kernel bit for bit on any data.  The lanes wrappers accept
+``algorithm`` 'mxu' and 'vpu' (on the TPU: banded matmuls or lane rolls,
+the same function): both run the one fp32 kernel.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from ..models.shapes import StencilSpec
+from . import _cuda_build
+from .layout import Layout1D
+
+MAX_RADIUS = 127  # csrc/stencil1d.cu kMaxRadius (pallas_1d._dense_taps)
+# the lanes kernels' cap on the effective radius and on a pass's reach
+# fused_steps * r_eff (the JAX Layout1DLanes.build clamp k * r_eff <= 32)
+MAX_LANES_REACH = 32
+MAX_FUSED = 64  # the flat pass's depth cap (the JAX engine's min(k, 64))
+LANES_ALGORITHMS = ("mxu", "vpu")
+# whole-run byte caps of the JAX engine (pallas_1d.RESIDENT_LANES_BYTES,
+# RESIDENT_BYTES), applied by the port's engine to the port's layout
+RESIDENT_LANES_BYTES = 2 * 2**20
+RESIDENT_BYTES = 512 * 2**10
+
+
+@functools.lru_cache(maxsize=None)
+def dense_taps(spec: StencilSpec):
+    """Flat dense taps of a 1-D spec (terms and residue collapsed), as
+    ``pallas_1d._dense_taps``."""
+    if spec.ndim != 1:
+        raise ValueError(f"{spec.name} is {spec.ndim}-D, not 1-D")
+    taps = tuple(float(t) for t in spec.dense_coeffs())
+    if len(taps) > 2 * MAX_RADIUS + 1:
+        raise ValueError(
+            f"{spec.name}: 1-D radius {spec.radius} exceeds {MAX_RADIUS}")
+    return taps
+
+
+@functools.lru_cache(maxsize=None)
+def effective_radius(spec: StencilSpec) -> int:
+    """Largest |offset| with a nonzero tap (1d1r's 9 taps have zero ends,
+    so its radius here is 3, not 4), as ``pallas_1d.effective_radius``."""
+    taps = dense_taps(spec)
+    r = (len(taps) - 1) // 2
+    return max((abs(d - r) for d, w in enumerate(taps) if w != 0.0),
+               default=0)
+
+
+@functools.lru_cache(maxsize=None)
+def _taps(spec: StencilSpec):
+    """(taps trimmed to the effective radius, effective radius)."""
+    taps, r = dense_taps(spec), effective_radius(spec)
+    mid = (len(taps) - 1) // 2
+    return taps[mid - r: mid + r + 1], r
+
+
+def lanes_refresh(r_eff: int) -> int:
+    """Steps between the resident lanes run's halo reloads: the TPU
+    kernel's fixup interval ``lane_halo // r_eff`` with ``lane_halo =
+    min(8, 32 // r_eff) * r_eff``."""
+    return min(8, MAX_LANES_REACH // r_eff)
+
+
+def fits_resident(layout, itemsize: int = 4) -> bool:
+    """The flat whole-run branch's size test (``pallas_1d.fits_resident``'s
+    512 KiB cap) on the port's layout."""
+    return (isinstance(layout, Layout1D)
+            and layout.shape[0] * itemsize <= RESIDENT_BYTES)
+
+
+def fits_resident_lanes(layout, itemsize: int = 4) -> bool:
+    """The lanes whole-run branch's size test (``pallas_1d.
+    fits_resident_lanes``'s 2 MiB cap) on the port's layout."""
+    return (isinstance(layout, Layout1D)
+            and layout.shape[0] * itemsize <= RESIDENT_LANES_BYTES)
+
+
+# -- plain twins -------------------------------------------------------------
+def _conv(x, taps, r: int, pairs: bool):
+    """One substep's sums over ``x`` (the cells and r more on each side):
+    centre, then d = 1..r; ``pairs`` adds an equal (+d, -d) pair as one
+    product of the pair's sum.  Zero taps are skipped."""
+    length = x.shape[0] - 2 * r
+
+    def sh(d):
+        return x[r + d: r + d + length]
+
+    acc = taps[r] * sh(0) if taps[r] != 0.0 else None
+    for d in range(1, r + 1):
+        wp, wm = taps[r + d], taps[r - d]
+        if pairs and wp != 0.0 and wp == wm:
+            terms = (wp * (sh(d) + sh(-d)),)
+        else:
+            terms = tuple(w * sh(s) for w, s in ((wp, d), (wm, -d))
+                          if w != 0.0)
+        for v in terms:
+            acc = v if acc is None else acc + v
+    return x.new_zeros(length) if acc is None else acc
+
+
+def _run_plain(cur, spec: StencilSpec, layout: Layout1D, steps: int,
+               pairs: bool):
+    """``steps`` masked substeps; returns the rounded interior."""
+    taps, r = _taps(spec)
+    o, n, nr = layout.origin, layout.interior, layout.rounded
+    x = cur[o - r: o + nr + r]
+    for s in range(steps):
+        val = _conv(x, taps, r, pairs)
+        val[n:] = 0
+        if s == steps - 1:
+            return val
+        x = torch.nn.functional.pad(val, (r, r))  # zero beyond [0, n)
+
+
+def stencil1d_lanes_step_plain(cur, donor, spec: StencilSpec,
+                               layout: Layout1D, fused_steps: int = 1):
+    """The narrow pass's twin: writes the rounded interior of ``donor``
+    and returns it; ``donor``'s guard is left as it is."""
+    o, nr = layout.origin, layout.rounded
+    donor[o: o + nr] = _run_plain(cur, spec, layout, fused_steps, True)
+    return donor
+
+
+def stencil1d_step_plain(cur, donor, spec: StencilSpec, layout: Layout1D,
+                         fused_steps: int = 1):
+    """The wide pass's twin (see ``stencil1d_lanes_step_plain``)."""
+    o, nr = layout.origin, layout.rounded
+    donor[o: o + nr] = _run_plain(cur, spec, layout, fused_steps, False)
+    return donor
+
+
+def stencil1d_resident_lanes_plain(cur, spec: StencilSpec, layout: Layout1D,
+                                   steps: int):
+    """The narrow run's twin: a new buffer with a zero guard.  The run's
+    chunks and halo reloads change no value, so the twin steps the whole
+    interior."""
+    out = torch.zeros_like(cur)
+    o, nr = layout.origin, layout.rounded
+    out[o: o + nr] = _run_plain(cur, spec, layout, steps, True)
+    return out
+
+
+def stencil1d_resident_plain(cur, spec: StencilSpec, layout: Layout1D,
+                             steps: int):
+    """The wide run's twin (see ``stencil1d_resident_lanes_plain``)."""
+    out = torch.zeros_like(cur)
+    o, nr = layout.origin, layout.rounded
+    out[o: o + nr] = _run_plain(cur, spec, layout, steps, False)
+    return out
+
+
+# -- the kernels -------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The kernel library, built and bound once per process."""
+    lib = _cuda_build.load("stencil1d")
+    lib.ls_stencil1d_pass.restype = ctypes.c_int
+    lib.ls_stencil1d_pass.argtypes = ([ctypes.c_void_p] * 3
+                                      + [ctypes.c_int] * 7
+                                      + [ctypes.c_void_p])
+    lib.ls_stencil1d_resident.restype = ctypes.c_int
+    lib.ls_stencil1d_resident.argtypes = ([ctypes.c_void_p] * 4
+                                          + [ctypes.c_int] * 8
+                                          + [ctypes.c_void_p])
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _taps_buffer(spec: StencilSpec, device: torch.device):
+    """The trimmed taps on ``device``, made once per (spec, device)."""
+    return torch.tensor(_taps(spec)[0], dtype=torch.float32, device=device)
+
+
+def _check(cur, spec: StencilSpec, layout: Layout1D, reach: int,
+           donor=None):
+    if spec.ndim != 1:
+        raise ValueError(f"{spec.name} is {spec.ndim}-D, not 1-D")
+    if not isinstance(layout, Layout1D):
+        raise TypeError(f"layout must be a Layout1D, got {type(layout)}")
+    layout.validate()
+    if layout.guard < reach:
+        raise ValueError(
+            f"guard {layout.guard} is narrower than the reach {reach} "
+            f"(fused steps x effective radius)")
+    if layout.shape[0] >= 2**31:
+        raise ValueError(f"layout of {layout.shape[0]} cells exceeds 2**31")
+    for name, t in (("cur", cur), ("donor", donor)):
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if tuple(t.shape) != layout.shape:
+            raise ValueError(
+                f"{name} has shape {tuple(t.shape)}, layout is "
+                f"{layout.shape}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if donor is not None:
+        if cur.device != donor.device:
+            raise ValueError(
+                f"cur on {cur.device} but donor on {donor.device}")
+        if cur.data_ptr() == donor.data_ptr():
+            raise ValueError("donor must be a different buffer from cur")
+    if cur.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no stencil1d kernel for device {cur.device}")
+
+
+def _check_lanes(spec: StencilSpec, algorithm: str, reach_steps: int):
+    if algorithm not in LANES_ALGORITHMS:
+        raise ValueError(
+            f"algorithm must be one of {LANES_ALGORITHMS}, got "
+            f"{algorithm!r}")
+    r = effective_radius(spec)
+    if not 1 <= r <= MAX_LANES_REACH:
+        raise ValueError(
+            f"{spec.name}: effective radius {r} outside the lanes kernels' "
+            f"range [1, {MAX_LANES_REACH}]; stencil1d_step takes it")
+    if reach_steps * r > MAX_LANES_REACH:
+        raise ValueError(
+            f"{reach_steps} steps per pass need k*r_eff = "
+            f"{reach_steps * r} > {MAX_LANES_REACH}")
+    return r
+
+
+def _refuse_unported(bounds, region):
+    if bounds is not None:
+        raise NotImplementedError(
+            "bounds (ghost rings, domain decomposition) are not ported yet "
+            "(ROADMAP A6)")
+    if region is not None:
+        raise NotImplementedError(
+            "region (the overlapped sharded engine) is not ported yet "
+            "(ROADMAP A11)")
+
+
+def _pass(cur, donor, spec, layout, k: int, narrow: bool):
+    lib = _lib()
+    taps = _taps_buffer(spec, cur.device)
+    with torch.cuda.device(cur.device):
+        err = lib.ls_stencil1d_pass(
+            cur.data_ptr(), donor.data_ptr(), taps.data_ptr(),
+            effective_radius(spec), k, int(narrow), layout.shape[0],
+            layout.origin, layout.interior, layout.rounded,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stencil1d pass launch failed: CUDA error {err}")
+    return donor
+
+
+def _run(cur, spec, layout, steps: int, refresh: int, narrow: bool):
+    lib = _lib()
+    taps = _taps_buffer(spec, cur.device)
+    outs = (torch.zeros_like(cur), torch.zeros_like(cur))
+    with torch.cuda.device(cur.device):
+        err = lib.ls_stencil1d_resident(
+            cur.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
+            taps.data_ptr(), effective_radius(spec), steps, refresh,
+            int(narrow), layout.shape[0], layout.origin, layout.interior,
+            layout.rounded, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"stencil1d resident launch failed: CUDA error {err}")
+    phases = -(-steps // refresh)
+    return outs[(phases - 1) % 2]
+
+
+def stencil1d_lanes_step(cur, donor, spec: StencilSpec, layout: Layout1D,
+                         fused_steps: int = 1, algorithm: str = "vpu",
+                         bounds=None, region=None):
+    """``fused_steps`` timesteps in one narrow pass: reads ``cur``, writes
+    the rounded interior of ``donor`` (whose guard must be zero and stays
+    untouched) and returns ``donor``.  Needs an effective radius r_eff <=
+    32 and ``fused_steps * r_eff <= 32``, as the TPU kernel's lane halo."""
+    _refuse_unported(bounds, region)
+    r = _check_lanes(spec, algorithm, fused_steps)
+    if fused_steps < 1:
+        raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+    _check(cur, spec, layout, fused_steps * r, donor)
+    if cur.device.type == "cpu":
+        return stencil1d_lanes_step_plain(cur, donor, spec, layout,
+                                          fused_steps)
+    _pass(cur, donor, spec, layout, fused_steps, True)
+    stencil1d_lanes_step.launches += 1
+    return donor
+
+
+def stencil1d_step(cur, donor, spec: StencilSpec, layout: Layout1D,
+                   fused_steps: int = 1, bounds=None, region=None):
+    """``fused_steps`` timesteps in one wide pass (any radius up to 127,
+    ``fused_steps`` up to 64); see ``stencil1d_lanes_step``."""
+    _refuse_unported(bounds, region)
+    if not 1 <= fused_steps <= MAX_FUSED:
+        raise ValueError(
+            f"fused_steps {fused_steps} outside [1, {MAX_FUSED}]")
+    _check(cur, spec, layout, fused_steps * effective_radius(spec), donor)
+    if cur.device.type == "cpu":
+        return stencil1d_step_plain(cur, donor, spec, layout, fused_steps)
+    _pass(cur, donor, spec, layout, fused_steps, False)
+    stencil1d_step.launches += 1
+    return donor
+
+
+def stencil1d_resident_lanes(cur, spec: StencilSpec, layout: Layout1D,
+                             steps: int, algorithm: str = "mxu"):
+    """All ``steps`` timesteps in one narrow cooperative launch, the halo
+    reloaded every ``lanes_refresh(r_eff)`` steps; reads ``cur`` and
+    returns a new buffer.  Raises if the card cannot hold the grid's
+    blocks at once (no fallback to passes)."""
+    r = _check_lanes(spec, algorithm, 1)
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    _check(cur, spec, layout, r)
+    if cur.device.type == "cpu":
+        return stencil1d_resident_lanes_plain(cur, spec, layout, steps)
+    out = _run(cur, spec, layout, steps, lanes_refresh(r), True)
+    stencil1d_resident_lanes.launches += 1
+    return out
+
+
+def stencil1d_resident(cur, spec: StencilSpec, layout: Layout1D, steps: int):
+    """All ``steps`` timesteps in one wide cooperative launch with a grid
+    sync every step (the flat TPU kernel steps the whole grid); see
+    ``stencil1d_resident_lanes``."""
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    _check(cur, spec, layout, effective_radius(spec))
+    if cur.device.type == "cpu":
+        return stencil1d_resident_plain(cur, spec, layout, steps)
+    out = _run(cur, spec, layout, steps, 1, False)
+    stencil1d_resident.launches += 1
+    return out
+
+
+# kernel launches, for chip_smoke.py
+stencil1d_lanes_step.launches = 0
+stencil1d_step.launches = 0
+stencil1d_resident_lanes.launches = 0
+stencil1d_resident.launches = 0

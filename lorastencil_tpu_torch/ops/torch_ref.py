@@ -10,8 +10,8 @@ Counterpart of ``lorastencil_tpu/ops/xla_ref.py`` (``dense_step``,
 * ``separable_step`` -- per-term axis convs plus the residue, the
                         ``backend='xla'`` path of the engine.
 
-Both take 2-D and 3-D grids, write the stencil into the interior and zero
-the halo (the reference's multi-step semantics, ``utils/reference.py``).
+Both take 1-D, 2-D and 3-D grids, write the stencil into the interior and
+zero the halo (the reference's multi-step semantics, ``utils/reference.py``).
 Neither uses a matmul or a convolution routine, so TF32 cannot enter on a
 GPU.
 """
@@ -23,14 +23,13 @@ import torch
 
 from ..models.shapes import StencilSpec
 
-from .band_gemm import apply_spec, apply_spec_3d
+from .band_gemm import _conv_1axis, apply_spec, apply_spec_3d
 
 
 def _interior(spec: StencilSpec, shape):
-    if len(shape) != spec.ndim or spec.ndim not in (2, 3):
+    if len(shape) != spec.ndim:
         raise ValueError(
-            f"grid is {len(shape)}-D; the port's reference steps are 2-D "
-            f"or 3-D and {spec.name!r} is {spec.ndim}-D")
+            f"grid is {len(shape)}-D and {spec.name!r} is {spec.ndim}-D")
     return tuple(slice(h, s - h) for h, s in zip(spec.halo, shape))
 
 
@@ -55,11 +54,29 @@ def dense_step(grid, spec: StencilSpec):
 def separable_step(grid, spec: StencilSpec):
     """Axis-separated stencil: per-term column then row convs, then the
     residue (``band_gemm.apply_spec`` on the whole padded array; in 3-D
-    ``band_gemm.apply_spec_3d`` on the interior and a radius-deep
-    margin)."""
+    ``band_gemm.apply_spec_3d`` on the interior and a radius-deep margin;
+    in 1-D each term's taps, then the residue, as ``xla_ref``)."""
     it = _interior(spec, grid.shape)
     out = torch.zeros_like(grid)
-    if spec.ndim == 2:
+    if spec.ndim == 1:
+        (sl,) = it
+        n = sl.stop - sl.start
+        acc = None
+        for term in spec.terms:
+            (taps,) = term.taps
+            if taps is None:
+                v = grid[sl]
+            else:
+                v = _conv_1axis(grid, taps, 0, sl.start - len(taps) // 2, n)
+                if v is None:
+                    continue
+            acc = v if acc is None else acc + v
+        for (d,), w in spec.residue:
+            v = float(w) * grid[sl.start + d: sl.stop + d]
+            acc = v if acc is None else acc + v
+        if acc is not None:
+            out[it] = acc
+    elif spec.ndim == 2:
         out[it] = apply_spec(grid, spec, spec.halo)
     else:
         r = spec.radius

@@ -1,5 +1,5 @@
-"""The CUDA kernels (lorastencil_tpu_torch/csrc/stencil2d.cu, stencil3d.cu) on the
-card against their plain PyTorch twins, at small sizes.  Needs an NVIDIA GPU
+"""The CUDA kernels (lorastencil_tpu_torch/csrc/stencil2d.cu, stencil3d.cu,
+stencil1d.cu) on the card against their plain PyTorch twins, at small sizes.  Needs an NVIDIA GPU
 with nvcc (the kernels are built from source at first use); elsewhere every test
 here skips.
 
@@ -10,7 +10,8 @@ Tolerances: the integer fill is exact (every partial sum is an integer below
 fill the 2-D kernel fuses each multiply-add and the twin rounds products
 separately: rel <= 1e-6 of the largest value after 4 steps.  Every 3-D tap is a
 power of two, so each product is exact and the 3-D kernel, which sums in its
-twin's order, agrees with it bit for bit on any fill."""
+twin's order, agrees with it bit for bit on any fill.  The 1-D kernels round each
+product and sum on its own, in their twins' order: bit for bit on any fill."""
 
 import numpy as np
 import pytest
@@ -18,9 +19,10 @@ import torch
 
 from lorastencil_tpu_torch import engine
 from lorastencil_tpu_torch.models.shapes import get_shape
-from lorastencil_tpu_torch.ops import stencil2d, stencil3d
-from lorastencil_tpu_torch.ops.layout import (Layout2D, Layout3D, default_tile_2d,
-                                              default_tile_3d, guard_2d, guard_3d)
+from lorastencil_tpu_torch.ops import stencil1d, stencil2d, stencil3d
+from lorastencil_tpu_torch.ops.layout import (TILE_1D, Layout1D, Layout2D, Layout3D,
+                                              default_tile_2d, default_tile_3d, guard_1d,
+                                              guard_2d, guard_3d)
 from lorastencil_tpu_torch.utils import reference
 
 pytestmark = pytest.mark.cuda
@@ -137,3 +139,78 @@ def test_3d_refused_launches_raise(cuda):
     with pytest.raises(ValueError):
         stencil3d.stencil3d_step(cur, torch.zeros(lay.shape), spec, lay)
     assert stencil3d.stencil3d_step.launches == before
+
+
+def _spec_1d(name):
+    if name == "r40":  # taps / 256: values stay finite over deep passes
+        taps = np.random.default_rng(40).integers(-3, 4, 81) / 256.0
+        return engine.StencilEngine.for_coeffs(taps, (64,), device="cpu").spec
+    return get_shape(name)
+
+
+@pytest.mark.parametrize("n", [4096, 3001, 100_000])
+@pytest.mark.parametrize("name", ["1d1r", "1d2r", "r40"])
+def test_1d_kernels_match_plain_twins(cuda, name, n):
+    """Each 1-D wrapper against its twin: passes at k = 1, 2 and the largest
+    legal k (one and two passes), whole runs over 2*refresh + 3 steps."""
+    spec = _spec_1d(name)
+    r = stencil1d.effective_radius(spec)
+    g0 = reference.random_padded(spec, (n,), seed=3)
+    narrow = r <= stencil1d.MAX_LANES_REACH
+    passes = [(stencil1d.stencil1d_step, stencil1d.stencil1d_step_plain, 64)]
+    runs = [(stencil1d.stencil1d_resident, stencil1d.stencil1d_resident_plain, 1)]
+    if narrow:
+        passes.append((stencil1d.stencil1d_lanes_step, stencil1d.stencil1d_lanes_step_plain,
+                       stencil1d.MAX_LANES_REACH // r))
+        runs.append((stencil1d.stencil1d_resident_lanes,
+                     stencil1d.stencil1d_resident_lanes_plain, stencil1d.lanes_refresh(r)))
+    for fill in (g0, g0 * (np.pi / 100)):
+        for step, plain, kmax in passes:
+            for k in (1, 2, kmax):
+                lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], k * r))
+                x = lay.to_internal(fill, device=cuda)
+                for steps in (k, 2 * k):
+                    got = _steps(step, x, spec, lay, steps, k)
+                    want = _steps(plain, x, spec, lay, steps, k)
+                    torch.cuda.synchronize()
+                    assert not bool(torch.isnan(want).any())
+                    assert torch.equal(got, want)
+        for run, plain, refresh in runs:
+            lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], refresh * r))
+            x = lay.to_internal(fill, device=cuda)
+            keep = x.clone()
+            for steps in (1, 2, 2 * refresh + 3):
+                got = run(x, spec, lay, steps)
+                torch.cuda.synchronize()
+                assert torch.equal(got, plain(x, spec, lay, steps)) and torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("name,n,kw,counter,launches", [
+    ("1d1r", 4096, {}, "stencil1d_resident_lanes", {2: 1, 7: 1}),
+    ("1d2r", 600_000, {}, "stencil1d_lanes_step", {2: 1, 7: 3}),
+    ("1d2r", 4096, {"algorithm": "vpu"}, "stencil1d_resident", {2: 1, 7: 1}),
+    ("1d2r", 600_000, {"algorithm": "vpu"}, "stencil1d_step", {2: 1, 7: 4}),
+])
+def test_1d_engine_counts_its_launches(cuda, name, n, kw, counter, launches):
+    eng = engine.StencilEngine.for_shape(name, (n,), device=cuda, **kw)
+    fn = getattr(stencil1d, counter)
+    g0 = reference.random_padded(eng.spec, (n,), seed=1)
+    for steps, expect in launches.items():
+        before = fn.launches
+        out = eng.run(g0, steps)
+        assert fn.launches - before == expect and out.is_cuda
+        want = reference.run(g0, eng.spec, steps)
+        assert np.abs(out.cpu().numpy() - want).max() <= 1e-6 * np.abs(want).max()
+
+
+def test_1d_refused_launches_raise(cuda):
+    spec = get_shape("1d2r")
+    n = 4_000_000  # a resident chunk per SM too large for shared memory
+    lay = Layout1D(n, 4, TILE_1D, guard_1d(4, 32))
+    x = torch.zeros(lay.shape, device=cuda)
+    before = stencil1d.stencil1d_resident_lanes.launches
+    with pytest.raises(RuntimeError, match="resident launch failed"):
+        stencil1d.stencil1d_resident_lanes(x, spec, lay, 3)
+    assert stencil1d.stencil1d_resident_lanes.launches == before
+    with pytest.raises(ValueError):
+        stencil1d.stencil1d_step(x, torch.zeros(lay.shape), spec, lay)

@@ -100,7 +100,7 @@ def test_launches_count_only_kernel_launches():
     ("star2d1r", {"fusion": "skew"}, "B11"),
     ("star2d1r", {"algorithm": "mxu_split"}, "B13"),
     ("star2d1r", {"residue_mxu": "on"}, "B2"),
-    ("1d1r", {}, "A7"),
+    ("1d1r", {"dtype": "df64"}, "A9"),
     ("box3d1r", {"dtype": "bfloat16"}, "A6"),
 ])
 def test_unsupported_configs_name_their_roadmap_item(name, kw, item):
@@ -126,7 +126,8 @@ def test_unported_entry_points_and_bad_values_raise():
 
 
 def test_resolve_algorithm_matches_jax():
-    for name in ["star2d1r", "star2d3r", "box2d1r", "box2d3r", "star3d1r", "box3d1r"]:
+    for name in ["1d1r", "1d2r", "star2d1r", "star2d3r", "box2d1r", "box2d3r", "star3d1r",
+                 "box3d1r"]:
         for alg in ("auto", "vpu", "mxu_hybrid1"):
             assert (engine.resolve_algorithm(get_shape(name), alg)
                     == jax_engine.resolve_algorithm(jax_get_shape(name), alg))
@@ -153,7 +154,7 @@ def test_cli_check_passes_on_cpu(capsys):
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--dtype", "bfloat16"], "A6"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--mesh", "2", "2"], "A11"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--autotune"], "A12"),
-    (["1d1r", "4096", "2", "--device", "cpu"], "A7"),
+    (["1d1r", "4096", "2", "--device", "cpu", "--dtype", "df64"], "A9"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
