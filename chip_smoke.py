@@ -18,7 +18,13 @@ its hand-written CUDA kernels:
   steps in one cooperative launch) and 1d2r 1,000,000 x 256 (passes of
   three fused steps), through ``csrc/stencil1d.cu``, whose two kernels in
   their narrow and wide instantiations replace the four TPU kernels of
-  ``lorastencil_tpu/ops/pallas_1d.py``.
+  ``lorastencil_tpu/ops/pallas_1d.py``;
+* the fp64-grade tier, 1-D and 2-D, dtypes 'df64' and 'float64': the
+  float64 instances of ``csrc/stencil2d.cu`` (replacing
+  ``pallas_df64._df64_kernel``) and ``csrc/stencil1d.cu`` (narrow pass,
+  wide pass and narrow run, replacing the three kernels of
+  ``lorastencil_tpu/ops/pallas_df64_1d.py``), in native double where the
+  TPU computes on error-free fp32 pairs.
 
 Phases, each printing one line or more and raising on failure:
 
@@ -77,7 +83,29 @@ Phases, each printing one line or more and raising on failure:
    CUDA graph of back-to-back passes, so the host's launch cost is left
    out), its twin's, one ``F.conv1d`` step with the dense taps (TF32 off)
    and its bound; the wrapper's host time per launch with the device idle,
-   and the device's idle share of the 1,000,000-cell run.
+   and the device's idle share of the 1,000,000-cell run;
+11. each fp64 kernel against its fp64 twin on the card: the 2-D instance for
+   star2d1r, box2d1r and box2d3r at 1000^2 and 8192^2; the 1-D instances
+   for 1d1r and 1d2r at 4096, 3001 and 16,777,216 and ``for_coeffs`` taps
+   of radius 40 and 127 at 100,000 (passes at k = 1, 2 and the largest k
+   whose window fits shared memory in fp64, runs over 2*refresh + 3 steps
+   where the grid's blocks can all be resident); the integer fill bit for
+   bit at 1-2 steps, the pi/100 fill's relative error after 4 steps
+   printed beside its limit 1e-13 (the fp64 kernels round each product
+   and sum on their own, in their twins' order: it should be 0);
+12. each fp64 engine path, for 'df64' and for 'float64', launches counted
+   from zero over the phase: star2d1r 8192^2 and box2d3r 4096^2 (the 2-D
+   instance), 1d1r 4096 (the narrow run), 1d2r 16,777,216 (narrow passes,
+   k = 1 in df64 and 2 in float64), ``for_coeffs`` r = 40 at 100,000 (wide
+   passes) and, float64 only, at 3001 (the wide run); ``run(.., 2)`` of the
+   integer fill bit for bit against a float64 dense stencil on the card,
+   ``run(.., 4)`` of the pi/100 fill within rel 1e-13 of it;
+13. df64 star2d1r 8192^2 x 32, box2d3r 4096^2 x 32, 1d1r 4096 x 64 and
+   1d2r 16,777,216 x 256 through ``run_internal`` and through the naive
+   dense stencil in float64 (GStencil/s, vs_baseline); per fp64 kernel its
+   device time, its twin's, one float64 ``F.conv2d`` / ``F.conv1d`` step
+   (the library yardstick) and its bound: 8-byte cells over the memory
+   rate, or the operations over the card's fp64 CUDA-core rate.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -103,6 +131,11 @@ SOURCES = {"stencil2d": "lorastencil_tpu_torch/csrc/stencil2d.cu",
            "stencil3d": "lorastencil_tpu_torch/csrc/stencil3d.cu",
            "stencil1d": "lorastencil_tpu_torch/csrc/stencil1d.cu"}
 REPLACES = {"stencil2d": "lorastencil_tpu/ops/pallas_2d.py:127",
+            "df64_step": "lorastencil_tpu/ops/pallas_df64.py:419",
+            "df64_1d_step": "lorastencil_tpu/ops/pallas_df64_1d.py:135",
+            "df64_1d_flat_step": "lorastencil_tpu/ops/pallas_df64_1d.py:312",
+            "stencil1d_resident_pair":
+                "lorastencil_tpu/ops/pallas_df64_1d.py:475",
             "stencil3d": "lorastencil_tpu/ops/pallas_3d.py:118",
             "stencil1d_lanes_step": "lorastencil_tpu/ops/pallas_1d.py:348",
             "stencil1d_step": "lorastencil_tpu/ops/pallas_1d.py:97",
@@ -110,12 +143,21 @@ REPLACES = {"stencil2d": "lorastencil_tpu/ops/pallas_2d.py:127",
             "stencil1d_resident": "lorastencil_tpu/ops/pallas_1d.py:542"}
 KERNELS_1D = ("stencil1d_lanes_step", "stencil1d_step",
               "stencil1d_resident_lanes", "stencil1d_resident")
+# the JAX df64 kernels -> the port's wrapper whose float64 instance replaces
+# each (a wrapper counts its float32 and float64 launches apart)
+KERNELS_FP64_1D = {"df64_1d_step": "stencil1d_lanes_step",
+                   "df64_1d_flat_step": "stencil1d_step",
+                   "stencil1d_resident_pair": "stencil1d_resident_lanes"}
+KERNELS_FP64 = ("df64_step",) + tuple(KERNELS_FP64_1D)
 N_1D = 1_000_000
 N_1D_LARGE = 16_777_216
 N_1D_SMALL = 4096
-# NVIDIA H100 SXM data sheet, at the full 700 W power limit
+# NVIDIA H100 SXM data sheet, at the full 700 W power limit: HBM3, fp32 and
+# fp64 on CUDA cores (fp64 on the tensor cores is 67 TFLOP/s, which the fp64
+# kernels do not use)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
 
 
 def card_line() -> str:
@@ -126,21 +168,33 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _wrappers():
+def _counters():
+    """{kernel: (wrapper, the attribute that counts its launches)}: float32
+    instances count in ``launches``, float64 ones in ``launches_f64`` (the
+    wide run's float64 instance, which replaces no df64 kernel, as
+    "stencil1d_resident_f64")."""
     from lorastencil_tpu_torch.ops import stencil1d, stencil2d, stencil3d
 
-    return dict({"stencil2d": stencil2d.stencil2d_step,
-                 "stencil3d": stencil3d.stencil3d_step},
-                **{name: getattr(stencil1d, name) for name in KERNELS_1D})
+    out = {"stencil2d": (stencil2d.stencil2d_step, "launches"),
+           "stencil3d": (stencil3d.stencil3d_step, "launches"),
+           "df64_step": (stencil2d.stencil2d_step, "launches_f64"),
+           "stencil1d_resident_f64": (stencil1d.stencil1d_resident,
+                                      "launches_f64")}
+    out.update({name: (getattr(stencil1d, name), "launches")
+                for name in KERNELS_1D})
+    out.update({name: (getattr(stencil1d, wrapper), "launches_f64")
+                for name, wrapper in KERNELS_FP64_1D.items()})
+    return out
 
 
 def reset_counts():
-    for fn in _wrappers().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def counts():
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 def build_kernels():
@@ -322,40 +376,72 @@ def count_run(eng, state, steps, kernel, expect):
     return got
 
 
+def sum_ops(weights) -> int:
+    """The fewest operations of one weighted sum {offset: weight} per cell:
+    an add to join each nonzero term after the first, and a multiply per
+    weight that is not +-1, an equal (+o, -o) pair added first and
+    multiplied once."""
+    nz = {tuple(o): w for o, w in weights.items() if w != 0.0}
+    muls = 0
+    for o, w in nz.items():
+        neg = tuple(-x for x in o)
+        if abs(w) != 1.0 and not (neg < o and nz.get(neg) == w):
+            muls += 1
+    return max(len(nz) - 1, 0) + muls
+
+
 def step_flops(spec) -> int:
-    """fp32 operations per cell of one step in separable form: a
-    multiply-add (2 operations) per nonzero tap on every axis of every
-    term, an add per term, a multiply-add per residue point."""
-    mads = sum(sum(1 for w in taps if w != 0.0) for term in spec.terms
-               for taps in term.taps if taps is not None)
-    return 2 * mads + len(spec.terms) + 2 * len(spec.residue)
+    """Operations per cell of one step, the fewest the function needs: in
+    1-D one sum over the dense taps; otherwise the separable form, a sum
+    per axis of every term, the residue's sum, and an add to join each
+    term and the residue."""
+    def axis(taps):
+        r = (len(taps) - 1) // 2
+        return {(d - r,): float(w) for d, w in enumerate(taps)}
+
+    if spec.ndim == 1:
+        return sum_ops(axis(spec.dense_coeffs()))
+    ops = sum(sum_ops(axis(taps)) for term in spec.terms
+              for taps in term.taps if taps is not None)
+    parts = len(spec.terms) + (1 if spec.residue else 0)
+    return ops + sum_ops(dict(spec.residue)) + max(parts - 1, 0)
 
 
-def bound_ms(spec, interior, steps_per_pass):
-    """Least time of one pass: each input cell read once and each output
-    cell written once (float32) over the memory rate, or its operations
-    over the fp32 rate, whichever is larger."""
+def bound_parts(spec, interior, steps_per_pass, itemsize=4):
+    """(bytes ms, operations ms) of one pass: each input cell read once and
+    each output cell written once (``itemsize`` bytes: 4 in float32, 8 in
+    float64) over the memory rate; its operations over the fp32 or fp64
+    rate."""
     cells = int(np.prod(interior))
-    t_bytes = 2 * 4 * cells / PEAK_BYTES_PER_S
-    t_ops = cells * steps_per_pass * step_flops(spec) / PEAK_FP32_FLOPS
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    t_bytes = 2 * itemsize * cells / PEAK_BYTES_PER_S
+    t_ops = cells * steps_per_pass * step_flops(spec) / (
+        PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS)
+    return t_bytes * 1e3, t_ops * 1e3
 
 
-def library_ms(spec, interior, device):
+def bound_ms(spec, interior, steps_per_pass, itemsize=4):
+    """Least time of one pass, the larger of ``bound_parts``, and which it
+    is."""
+    t_bytes, t_ops = bound_parts(spec, interior, steps_per_pass, itemsize)
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def library_ms(spec, interior, device, dtype=torch.float32):
     """One cuDNN convolution with the dense coefficients (TF32 off) on
-    the interior and a radius-deep margin: one step of the same function
-    (cross-correlation, as the stencil is).  The port never calls it."""
+    the interior and a radius-deep margin, in ``dtype``: one step of the
+    same function (cross-correlation, as the stencil is).  The port never
+    calls it."""
     import torch.nn.functional as F
 
     from lorastencil_tpu_torch.utils import metrics
 
     r = spec.radius
-    w = torch.tensor(spec.dense_coeffs(), dtype=torch.float32,
-                     device=device)[None, None]
+    w = torch.tensor(spec.dense_coeffs(), dtype=dtype, device=device)[None,
+                                                                      None]
     gen = torch.Generator(device=device).manual_seed(0)
     x = torch.rand((1, 1) + tuple(s + 2 * r for s in interior),
-                   generator=gen, device=device) * 0.01
+                   generator=gen, device=device, dtype=dtype) * 0.01
     conv = F.conv3d if spec.ndim == 3 else F.conv2d
     secs, out = metrics.time_run(lambda: conv(x, w), repeats=3, warmup=1)
     if tuple(out.shape[2:]) != tuple(interior):
@@ -730,18 +816,19 @@ def host_us_per_launch(fn, calls=200):
     return float(np.median(times)) * 1e6
 
 
-def conv1d_ms(spec, n, device):
+def conv1d_ms(spec, n, device, dtype=torch.float32):
     """One cuDNN ``F.conv1d`` step with the dense taps (TF32 off) on the
-    interior and a radius-deep margin, device ms (a CUDA graph of 20)."""
+    interior and a radius-deep margin, in ``dtype``, device ms (a CUDA
+    graph of 20)."""
     import torch.nn.functional as F
 
     from lorastencil_tpu_torch.ops import stencil1d as s1
 
     taps = s1.dense_taps(spec)
-    w = torch.tensor(taps, dtype=torch.float32, device=device)[None, None]
+    w = torch.tensor(taps, dtype=dtype, device=device)[None, None]
     gen = torch.Generator(device=device).manual_seed(0)
-    x = torch.rand((1, 1, n + len(taps) - 1), generator=gen,
-                   device=device) * 0.01
+    x = torch.rand((1, 1, n + len(taps) - 1), generator=gen, device=device,
+                   dtype=dtype) * 0.01
     if tuple(F.conv1d(x, w).shape) != (1, 1, n):
         raise AssertionError("library conv1d has the wrong shape")
     return graph_ms(lambda: F.conv1d(x, w))
@@ -819,6 +906,7 @@ def bench_1d(device, card):
         ms, plain_ms = graph_ms(one), graph_ms(twin, 3)
         host_us = host_us_per_launch(one)
         bound, by = bound_ms(spec, (n,), per)
+        parts = bound_parts(spec, (n,), per)
         lib = conv1d_ms(spec, n, device)
         timing[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                               bound_by=by, library_ms=lib,
@@ -827,7 +915,8 @@ def bench_1d(device, card):
                               host_us_per_launch=host_us)
         print(f"phase 10: {kernel} at {name} {n} {kw or ''}, {per} steps "
               f"per launch: kernel {ms} ms (device), plain twin {plain_ms} "
-              f"ms, F.conv1d one step {lib} ms, bound {bound} ms ({by}); "
+              f"ms, F.conv1d one step {lib} ms, bound {bound} ms ({by}; "
+              f"bytes {parts[0]} ms, operations {parts[1]} ms); "
               f"host {host_us} us per launch with the device idle [{card}]",
               flush=True)
         del x, donor
@@ -837,6 +926,285 @@ def bench_1d(device, card):
           f"{timing['stencil1d_lanes_step']['ms']} ms of kernel in "
           f"{res.time_ms} ms: device busy {busy}, idle {1 - busy} [{card}]",
           flush=True)
+    return timing
+
+
+def rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def check_kernel_fp64(name, interior, device):
+    """Phase 11, 2-D: the float64 instance against its twin for one shape
+    and size; returns (abs err, rel err, bit-equal) of the pi/100 fill after
+    4 steps."""
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil2d
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = get_shape(name)
+    lay = port_layout(spec, interior)
+    g0 = reference.random_padded(spec, interior, seed=1)
+    for fill, steps_list in ((g0, (1, 2)), (g0 * (np.pi / 100), (4,))):
+        x = lay.to_internal(fill, torch.float64, device)
+        for steps in steps_list:
+            got = run_steps(stencil2d.stencil2d_step, x, spec, lay, steps)
+            want = run_steps(stencil2d.stencil2d_step_plain, x, spec, lay,
+                             steps)
+            torch.cuda.synchronize()
+            if (got.dtype != torch.float64
+                    or not bool(torch.isfinite(got).all())):
+                raise AssertionError(
+                    f"{name} {interior}: fp64 output not finite")
+            if fill is g0 and not torch.equal(got, want):
+                bad = (got != want).sum().item()
+                raise AssertionError(
+                    f"{name} {interior}: fp64 kernel differs from its twin at "
+                    f"{bad} cells after {steps} steps (integer fill)")
+    rel = rel_err(got, want)
+    if not rel <= 1e-13:
+        raise AssertionError(f"{name} {interior}: fp64 rel err {rel:.3e} > "
+                             f"1e-13 after 4 steps (pi/100 fill)")
+    return (got - want).abs().max().item(), rel, bool(torch.equal(got, want))
+
+
+def check_kernels_fp64_1d(name, n, device):
+    """Phase 11, 1-D: each fp64 wrapper that takes the spec against its twin
+    (passes at k = 1, 2 and the largest k whose fp64 window fits shared
+    memory; runs where n <= 100,000, so that every block is resident);
+    returns {kernel: (max abs err, max rel err, bit-equal) of the pi/100
+    fill after 4 steps}."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = spec_1d(name)
+    r = s1.effective_radius(spec)
+    g0 = reference.random_padded(spec, (n,), seed=1)
+    kmax = min(s1.MAX_FUSED, s1.max_pass_reach(torch.float64) // r)
+    cases = [("df64_1d_flat_step", s1.stencil1d_step_plain, (1, 2, kmax))]
+    runs = [("stencil1d_resident", s1.stencil1d_resident_plain, 1)]
+    if r <= s1.MAX_LANES_REACH:
+        cases.append(("df64_1d_step", s1.stencil1d_lanes_step_plain,
+                      (1, 2, s1.MAX_LANES_REACH // r)))
+        runs.append(("stencil1d_resident_pair",
+                     s1.stencil1d_resident_lanes_plain, s1.lanes_refresh(r)))
+    if n > 100_000:
+        runs = []
+    errs = {}
+
+    def agree(got, want, what, fill):
+        torch.cuda.synchronize()
+        if got.dtype != torch.float64 or bool(torch.isnan(want).any()):
+            raise AssertionError(f"{what}: not float64, or the twin gave NaN")
+        if fill is g0 and not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(f"{what}: fp64 kernel differs from its twin "
+                                 f"at {bad} cells (integer fill)")
+        return ((got - want).abs().max().item(), rel_err(got, want),
+                bool(torch.equal(got, want)))
+
+    def keep(kernel, err):
+        old = errs.get(kernel, (0.0, 0.0, True))
+        errs[kernel] = (max(old[0], err[0]), max(old[1], err[1]),
+                        old[2] and err[2])
+
+    for kernel, plain, ks in cases:
+        wrapper = getattr(s1, KERNELS_FP64_1D[kernel])
+        for k in sorted(set(ks)):
+            lay = layout_1d(spec, n, k * r)
+            for fill, steps_list in ((g0, sorted({1, 2, k})),
+                                     (g0 * (np.pi / 100), (4,))):
+                x = lay.to_internal(fill, torch.float64, device)
+                for steps in steps_list:
+                    err = agree(run_steps(wrapper, x, spec, lay, steps, k),
+                                run_steps(plain, x, spec, lay, steps, k),
+                                f"{kernel} {name} {n} k={k} x{steps}", fill)
+                if fill is not g0:
+                    keep(kernel, err)
+    for kernel, plain, refresh in runs:
+        wrapper = getattr(s1, KERNELS_FP64_1D.get(kernel, kernel))
+        lay = layout_1d(spec, n, refresh * r)
+        for fill, steps_list in ((g0, (1, 2, 2 * refresh + 3)),
+                                 (g0 * (np.pi / 100), (4,))):
+            x = lay.to_internal(fill, torch.float64, device)
+            for steps in steps_list:
+                err = agree(wrapper(x, spec, lay, steps),
+                            plain(x, spec, lay, steps),
+                            f"{kernel} {name} {n} x{steps}", fill)
+            if fill is not g0:
+                keep(kernel, err)
+    for kernel, (_, rel, _) in errs.items():
+        if not rel <= 1e-13:
+            raise AssertionError(f"{kernel} {name} {n}: fp64 rel err "
+                                 f"{rel:.3e} > 1e-13 (pi/100 fill)")
+    return errs
+
+
+# Phase 12's engine paths: (shape or for_coeffs radius, interior, dtypes,
+# path, kernel whose count each run adds to)
+FP64_PATHS = (
+    ("star2d1r", INTERIOR, ("df64", "float64"), None, "df64_step"),
+    ("box2d3r", (4096, 4096), ("df64", "float64"), None, "df64_step"),
+    ("1d1r", (N_1D_SMALL,), ("df64", "float64"), "resident_lanes",
+     "stencil1d_resident_pair"),
+    ("1d2r", (N_1D_LARGE,), ("df64", "float64"), "lanes", "df64_1d_step"),
+    ("r40", (100_000,), ("df64", "float64"), "flat", "df64_1d_flat_step"),
+    ("r40", (3001,), ("float64",), "resident", "stencil1d_resident_f64"))
+
+
+def fp64_engine(name, interior, dtype, device):
+    from lorastencil_tpu_torch import engine
+
+    if name.startswith("r"):
+        return engine.StencilEngine.for_coeffs(
+            np.asarray(spec_1d(name).terms[0].taps[0]), interior,
+            name=name, device=device, dtype=dtype)
+    return engine.StencilEngine.for_shape(name, interior, device=device,
+                                          dtype=dtype)
+
+
+def main_path_fp64(device):
+    """Phase 12: every fp64 engine path end to end; returns the launches of
+    each fp64 kernel over the phase, counted from zero, and a line per
+    case."""
+    from lorastencil_tpu_torch.ops import torch_ref
+    from lorastencil_tpu_torch.utils import reference
+
+    lines = []
+    reset_counts()
+    for name, interior, dtypes, path, kernel in FP64_PATHS:
+        for dtype in dtypes:
+            eng = fp64_engine(name, interior, dtype, device)
+            k = eng._fused_k()
+            if eng.path != path or eng.dtype != torch.float64 or k != (
+                    1 if dtype == "df64" or len(interior) == 2 else 2):
+                raise AssertionError(f"{name} {interior} {dtype} resolved to "
+                                     f"{eng.path} at k={k}")
+            spec = eng.spec
+            g0 = reference.random_padded(spec, interior, seed=0)
+            for steps, fill in ((2, g0), (4, g0 * (np.pi / 100))):
+                want = torch.from_numpy(fill).to(device)
+                for _ in range(steps):
+                    want = torch_ref.dense_step(want, spec)
+                before = counts()
+                out = eng.run(fill, steps)
+                torch.cuda.synchronize()
+                launched = {key: v - before[key] for key, v in counts().items()
+                            if v != before[key]}
+                expect = 1 if path and "resident" in path else -(-steps // k)
+                if launched != {kernel: expect}:
+                    raise AssertionError(f"{name} {interior} {dtype} run("
+                                         f"{steps}) launched {launched}")
+                if (tuple(out.shape) != spec.padded_shape(interior)
+                        or out.dtype != torch.float64
+                        or not bool(torch.isfinite(out).all())):
+                    raise AssertionError(f"{name} {interior} {dtype}: output "
+                                         f"{tuple(out.shape)} {out.dtype}")
+                if steps == 2 and not torch.equal(out, want):
+                    bad = (out != want).sum().item()
+                    raise AssertionError(
+                        f"{name} {interior} {dtype}: run(2) differs from the "
+                        f"float64 dense stencil at {bad} cells")
+                rel = rel_err(out, want)
+                if not rel <= 1e-13:
+                    raise AssertionError(f"{name} {interior} {dtype}: run(4) "
+                                         f"rel err {rel:.3e} > 1e-13")
+                lines.append(f"{dtype} {name} {interior} -> path {eng.path} "
+                             f"k={k}: run({steps}) {expect} launch(es) of "
+                             f"{kernel}, rel err {rel:.3e}")
+                del out, want
+    launches = counts()
+    for kernel in KERNELS_FP64:
+        if launches[kernel] == 0:
+            raise AssertionError(f"the fp64 paths never launched {kernel}")
+    return {kernel: launches[kernel] for kernel in KERNELS_FP64}, lines
+
+
+def bench_fp64(device, card):
+    """Phase 13: the df64 runs through ``run_internal`` and the naive dense
+    stencil in float64, then per fp64 kernel its device time, its twin's,
+    the float64 library step and the bound; returns the kernels' timing
+    records."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.ops import stencil2d, torch_ref
+    from lorastencil_tpu_torch.utils import metrics
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, interior, steps in (("star2d1r", INTERIOR, 32),
+                                  ("box2d3r", (4096, 4096), 32),
+                                  ("1d1r", (N_1D_SMALL,), 64),
+                                  ("1d2r", (N_1D_LARGE,), 256)):
+        eng = fp64_engine(name, interior, "df64", device)
+        state = torch.rand(eng.layout.shape, generator=gen, device=device,
+                           dtype=torch.float64) * 0.01
+        secs, _ = metrics.time_run(eng.run_internal, state, steps, repeats=3,
+                                   warmup=1)
+        res = metrics.bench_result(eng.spec, interior, steps, secs,
+                                   "cuda-fp64", "df64", 3)
+        del state
+        grid = torch.rand(eng.spec.padded_shape(interior), generator=gen,
+                          device=device, dtype=torch.float64) * 0.01
+
+        def naive(g, spec=eng.spec, steps=steps):
+            for _ in range(steps):
+                g = torch_ref.dense_step(g, spec)
+            return g
+
+        bsecs, _ = metrics.time_run(naive, grid, repeats=3, warmup=1)
+        base = metrics.bench_result(eng.spec, interior, steps, bsecs,
+                                    "torch-naive", "float64", 3)
+        del grid
+        dims = "x".join(str(s) for s in interior)
+        for label, r in (("kernel", res), ("naive", base)):
+            print(f"phase 13: {label} df64 {name} {dims} x{steps}: "
+                  f"{r.time_ms} ms, {r.gstencil_per_s} GStencil/s "
+                  f"(x{r.fuse_factor} fused) [{card}]", flush=True)
+        print(f"phase 13: df64 {name} {dims} path {eng.path}: vs_baseline "
+              f"{res.gstencil_per_s / base.gstencil_per_s} [{card}]",
+              flush=True)
+
+    timing = {}
+    for kernel, name, interior, steps in (
+            ("df64_step", "star2d1r", INTERIOR, None),
+            ("df64_1d_step", "1d2r", (N_1D_LARGE,), None),
+            ("df64_1d_flat_step", "r40", (100_000,), None),
+            ("stencil1d_resident_pair", "1d1r", (N_1D_SMALL,), 64)):
+        eng = fp64_engine(name, interior, "df64", device)
+        spec, lay = eng.spec, eng.layout
+        x = torch.rand(lay.shape, generator=gen, device=device,
+                       dtype=torch.float64) * 0.01
+        donor = torch.zeros_like(x)
+        if kernel == "df64_step":
+            wrapper = stencil2d.stencil2d_step
+            plain = stencil2d.stencil2d_step_plain
+        else:
+            wrapper = getattr(s1, KERNELS_FP64_1D[kernel])
+            plain = getattr(s1, KERNELS_FP64_1D[kernel] + "_plain")
+        if steps is None:  # one step
+            one = lambda: wrapper(x, donor, spec, lay)
+            twin = lambda: plain(x, donor, spec, lay)
+            per = 1
+        else:  # a whole run in one cooperative launch
+            one = lambda: wrapper(x, spec, lay, steps)
+            twin = lambda: plain(x, spec, lay, steps)
+            per = steps
+        ms, plain_ms = graph_ms(one), graph_ms(twin, 3)
+        bound, by = bound_ms(spec, interior, per, itemsize=8)
+        parts = bound_parts(spec, interior, per, itemsize=8)
+        lib = (library_ms(spec, interior, device, torch.float64)
+               if len(interior) == 2
+               else conv1d_ms(spec, interior[0], device, torch.float64))
+        dims = "x".join(str(s) for s in interior)
+        timing[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                              bound_by=by, library_ms=lib,
+                              steps_per_launch=per, library_steps=1,
+                              shape=f"df64 {name} {dims}")
+        print(f"phase 13: {kernel} at df64 {name} {dims}, {per} step(s) per "
+              f"launch: kernel {ms} ms (device), plain twin {plain_ms} ms, "
+              f"float64 F.conv{len(interior)}d one step {lib} ms, bound "
+              f"{bound} ms ({by}; bytes {parts[0]} ms in 8-byte cells, "
+              f"operations {parts[1]} ms at {PEAK_FP64_FLOPS / 1e12:.0f} "
+              f"fp64 TFLOP/s) [{card}]", flush=True)
+        del x, donor
     return timing
 
 
@@ -952,6 +1320,36 @@ def main() -> int:
 
     timing_1d = bench_1d(device, card)
 
+    errs_fp64 = {}
+    for name in ("star2d1r", "box2d1r", "box2d3r"):
+        for interior in ((1000, 1000), INTERIOR):
+            abs_err, rel, same = check_kernel_fp64(name, interior, device)
+            if name == "star2d1r" and interior == INTERIOR:
+                errs_fp64["df64_step"] = (abs_err, rel, same)
+            print(f"phase 11: df64_step {name} {interior}: integer fill "
+                  f"bit-exact at 1-2 steps; pi/100 fill rel err {rel:.3e} "
+                  f"after 4 steps (limit 1e-13), bit-equal {same}", flush=True)
+    for name, sizes in (("1d1r", (N_1D_SMALL, 3001, N_1D_LARGE)),
+                        ("1d2r", (N_1D_SMALL, 3001, N_1D_LARGE)),
+                        ("r40", (100_000,)), ("r127", (100_000,))):
+        for n in sizes:
+            errs = check_kernels_fp64_1d(name, n, device)
+            for kernel, (abs_err, rel, same) in errs.items():
+                old = errs_fp64.get(kernel, (0.0, 0.0, True))
+                errs_fp64[kernel] = (max(old[0], abs_err), max(old[1], rel),
+                                     old[2] and same)
+                print(f"phase 11: {kernel} {name} {n}: integer fill "
+                      f"bit-exact; pi/100 fill rel err {rel:.3e} after 4 "
+                      f"steps (limit 1e-13), bit-equal {same}", flush=True)
+
+    launches_fp64, lines = main_path_fp64(device)
+    for line in lines:
+        print(f"phase 12: {line}", flush=True)
+    print(f"phase 12: launches over the phase, counted from zero: "
+          f"{launches_fp64}", flush=True)
+
+    timing_fp64 = bench_fp64(device, card)
+
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the reference packages were imported: "
@@ -976,6 +1374,14 @@ def main() -> int:
             "name": kernel, "route": "cuda", "source": SOURCES["stencil1d"],
             "replaces": REPLACES[kernel], "launches": launches_1d[kernel],
             "max_abs_err": errs_1d[kernel]}, **timing_1d[kernel]))
+    for kernel in KERNELS_FP64:
+        kernels.append(dict({
+            "name": "df64_step[star2d1r]" if kernel == "df64_step" else kernel,
+            "route": "cuda",
+            "source": SOURCES["stencil2d" if kernel == "df64_step"
+                              else "stencil1d"],
+            "replaces": REPLACES[kernel], "launches": launches_fp64[kernel],
+            "max_abs_err": errs_fp64[kernel][0]}, **timing_fp64[kernel]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

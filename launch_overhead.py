@@ -1,0 +1,111 @@
+#!/usr/bin/env python3
+"""Host time per launch of the port's fp32 wrappers, and the host-bound
+1d2r 1,000,000 x 256 run, on one CUDA device.
+
+    python3 launch_overhead.py [--root DIR] [--label NAME]
+
+``--root`` imports ``lorastencil_tpu_torch`` from another checkout (an
+unpacked older commit, say), so that two trees can be compared on one card:
+run them in turns (old, new, new, old) and compare within that session.
+
+Measured, each on the tree's own kernels (built at first use):
+
+* ``stencil1d_lanes_step`` at 1d2r 1,000,000 with the engine's fused depth
+  and ``stencil2d_step`` at star2d1r 1024^2: the wall time of one call with
+  the device idle before it (synchronized), microseconds, the median of
+  each of ``--rounds`` rounds of ``--calls`` calls and of all of them;
+* ``run_internal`` of 1d2r 1,000,000 x 256 (CUDA events, best of 5 after a
+  warmup), where that host time decides the run's time.
+
+Prints the card (name, power limit) and one JSON line.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+
+def host_us(fn, calls):
+    """Median wall time of one ``fn()`` with the device idle before it."""
+    import numpy as np
+    import torch
+
+    times = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return times, float(np.median(times)) * 1e6
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(
+        __file__)), help="checkout to import lorastencil_tpu_torch from")
+    ap.add_argument("--label", default="this tree")
+    ap.add_argument("--rounds", type=int, default=5)
+    ap.add_argument("--calls", type=int, default=200)
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.root))
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("launch_overhead: no CUDA device", file=sys.stderr)
+        return 1
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import stencil1d, stencil2d
+    from lorastencil_tpu_torch.utils import metrics
+
+    package = os.path.dirname(engine.__file__)
+    if not package.startswith(os.path.abspath(args.root)):
+        raise AssertionError(f"imported {package}, not from {args.root}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    device = torch.device("cuda")
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    n = 1_000_000
+    eng1 = engine.StencilEngine.for_shape("1d2r", (n,), device=device)
+    spec1, lay1, k = eng1.spec, eng1.layout, eng1._fused_k()
+    x1 = torch.rand(lay1.shape, generator=gen, device=device) * 0.01
+    d1 = torch.zeros_like(x1)
+    eng2 = engine.StencilEngine.for_shape("star2d1r", (1024, 1024),
+                                          device=device)
+    x2 = torch.rand(eng2.layout.shape, generator=gen, device=device) * 0.01
+    d2 = torch.zeros_like(x2)
+    calls = {
+        "stencil1d_lanes_step": lambda: stencil1d.stencil1d_lanes_step(
+            x1, d1, spec1, lay1, fused_steps=k),
+        "stencil2d_step": lambda: stencil2d.stencil2d_step(
+            x2, d2, eng2.spec, eng2.layout)}
+    out = {"label": args.label, "root": os.path.abspath(args.root),
+           "card": card, "fused_k_1d2r": k}
+    for name, fn in calls.items():
+        fn()  # builds and loads the kernel
+        rounds, every = [], []
+        for _ in range(args.rounds):
+            times, med = host_us(fn, args.calls)
+            rounds.append(med)
+            every += times
+        out[name] = {"host_us_median": float(np.median(every)) * 1e6,
+                     "host_us_round_medians": rounds}
+    secs, _ = metrics.time_run(eng1.run_internal, x1, 256, repeats=5,
+                               warmup=1)
+    out["run_1d2r_1000000x256_ms"] = secs * 1e3
+    out["launches_per_run"] = -(-256 // k)
+    print(card, flush=True)
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,8 +6,10 @@
 
 Counterpart of ``lorastencil_tpu/cli.py``: the same positional arguments,
 fill modes and ``--check`` (the port's fp64 ground truth,
-``utils/reference.py``, at the float32 tolerance 1e-5 relative to the
-grid's largest value), plus ``--device cuda|cpu``.
+``utils/reference.py``, compared in float64 at the JAX CLI's tolerance
+per dtype relative to the grid's largest value: 1e-5 for float32, 1e-12
+for float64, 1e-11 for df64), plus ``--device cuda|cpu``.  ``--dtype
+float64`` and ``df64`` run the fp64-grade tier for 1-D and 2-D shapes.
 On ``cuda`` the run is timed with CUDA events; ``cpu`` runs the kernels'
 plain PyTorch twins and is not timed.  The JAX CLI's flags and values the
 port does not run yet are refused with the ROADMAP item that will port
@@ -61,14 +63,17 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--algorithm", choices=engine.ALGORITHM_NAMES,
                    default="auto",
                    help="2-D/3-D: auto, mxu_hybrid1, vpu_roll and vpu run "
-                        "the one exact fp32 kernel; 1-D: auto (mxu) and "
-                        "vpu_roll the narrow kernels, the others the wide")
+                        "the one exact kernel of the dtype (df64 2-D: vpu, "
+                        "vpu_roll, vpu_sep); 1-D: auto (mxu) and vpu_roll "
+                        "the narrow kernels, the others the wide")
     p.add_argument("--fused-steps", type=int, default=None)
     p.add_argument("--precision", choices=["highest", "default"],
                    default="highest")
     p.add_argument("--dtype",
                    choices=["float32", "bfloat16", "float64", "df64"],
-                   default="float32")
+                   default="float32",
+                   help="float64 and df64 (1-D, 2-D): native fp64 on the "
+                        "fp64 instances of the kernels")
     p.add_argument("--boundary",
                    choices=["dirichlet0", "periodic", "reflect"],
                    default="dirichlet0")
@@ -106,8 +111,8 @@ def main(argv=None) -> int:
             fused_steps=args.fused_steps,
             tile=tuple(args.tile) if args.tile else None,
             boundary=args.boundary)
-    except (NotImplementedError, RuntimeError) as e:
-        p.error(str(e))  # a config not ported yet, or no CUDA device
+    except (NotImplementedError, RuntimeError, ValueError) as e:
+        p.error(str(e))  # a config not ported yet or refused, or no CUDA
     print(f"INFO: shape = {spec.name}, sizes = {interior}, steps = "
           f"{steps}, device = {eng.device}", flush=True)
     grid0 = make_input(spec, interior, args.fill, args.seed)
@@ -125,26 +130,32 @@ def main(argv=None) -> int:
         print("INFO: not timed (--device cpu runs the plain PyTorch "
               "twins; timing needs a CUDA device)", flush=True)
     if args.check:
-        return _check(spec, grid0, steps, eng.run)
+        return _check(spec, grid0, steps, eng.run, args.dtype)
     return 0
 
 
-def _check(spec, grid0, steps, run_fn) -> int:
-    """fp64 ground-truth comparison at the float32 tolerance of the JAX
-    CLI (``lorastencil_tpu/cli.py`` ``_check``)."""
+# the JAX CLI's tolerances: fp32 compute against the fp64 ground truth, and
+# the fp64-grade tiers with headroom (the port runs both in native fp64)
+TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "df64": 1e-11}
+
+
+def _check(spec, grid0, steps, run_fn, dtype: str = "float32") -> int:
+    """fp64 ground-truth comparison, in float64, at the JAX CLI's
+    tolerance for ``dtype`` (``lorastencil_tpu/cli.py`` ``_check``)."""
     print("\nChecking correctness ...", flush=True)
     want = reference.run(grid0, spec, steps)
     got = run_fn(grid0, steps).cpu().numpy().astype(np.float64)
     scale = max(1.0, float(np.abs(want).max()))
-    limit = float(np.finfo(np.float32).max)
+    state = np.float32 if dtype == "float32" else np.float64
+    limit = float(np.finfo(state).max)
     if not np.isfinite(scale) or scale > limit:
         print(f"FAILED: ground truth reaches {scale:.2e}, beyond the "
-              f"float32 range -- use fewer --check steps (values grow by "
+              f"{dtype} range -- use fewer --check steps (values grow by "
               f"sum|coeffs| per step)")
         return 1
     diff = np.abs(got - want)
     rel = float(diff.max()) / scale
-    tol = 1e-5  # fp32 compute against the fp64 ground truth
+    tol = TOLERANCE[dtype]
     bad = np.argwhere(~(diff <= tol * scale))  # NaN counts as mismatch
     for idx in bad[:10]:
         print(f"mismatch at {tuple(int(i) for i in idx)}: "

@@ -11,8 +11,12 @@ The JAX engine keeps its state in its own internal layout
 round-up, and in 1-D rows of 128 lanes); the port's layouts have their own
 guard and tile.  Both hold the same reference-padded array at
 the same place relative to their origin, so carrying state across
-re-embeds that array.  Nothing here imports the JAX package: the JAX
-objects are read through their fields only.
+re-embeds that array.  The JAX df64 tier keeps its state as a stacked
+``(2, *layout)`` pair of float32 planes (hi, lo); the port's fp64-grade
+state is one float64 buffer, so a pair is merged in float64 first, as
+``lorastencil_tpu/ops/df64.py`` ``merge_host`` does.  Nothing here
+imports the JAX package: the JAX objects are read through their fields
+only.
 """
 
 from __future__ import annotations
@@ -63,10 +67,19 @@ def _padded_1d(buf: np.ndarray, jax_layout):
     return flat[base - h: base + n + h], rest
 
 
+def merge_pair(state2: np.ndarray) -> np.ndarray:
+    """A stacked (2, ...) float32 (hi, lo) pair as one float64 array:
+    hi + lo, each widened to float64 first (``df64.merge_host``)."""
+    state2 = np.asarray(state2, dtype=np.float32)
+    return state2[0].astype(np.float64) + state2[1].astype(np.float64)
+
+
 def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
                    device=None) -> torch.Tensor:
     """Re-embed a JAX internal-layout buffer (as a NumPy array) into a
-    new port internal buffer on ``device``.
+    new port internal buffer on ``device``: float64 from a JAX df64 pair
+    state (``(2,) + jax_layout.shape``, merged with ``merge_pair``) or a
+    JAX float64 state, float32 from anything else.
 
     ``jax_layout`` is the JAX ``Layout2D`` or ``Layout3D`` the buffer was
     made with (origin ``(8, 128)`` or ``(zguard, 8, 128)``; only its
@@ -79,6 +92,9 @@ def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
     round-up cells zero, so such values mean the buffer is not a valid
     state)."""
     buf = np.asarray(internal)
+    if buf.shape == (2,) + tuple(jax_layout.shape):  # a df64 pair
+        buf = merge_pair(buf)
+    dtype = torch.float64 if buf.dtype == np.float64 else torch.float32
     if not hasattr(port_layout.interior, "__len__"):  # 1-D
         if (int(jax_layout.interior), int(jax_layout.halo)) != (
                 port_layout.interior, port_layout.halo):
@@ -90,7 +106,7 @@ def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
         if np.any(rest != 0):
             raise ValueError(
                 "JAX buffer holds nonzero values outside its padded array")
-        return port_layout.to_internal(padded.copy(), device=device)
+        return port_layout.to_internal(padded.copy(), dtype, device)
     if (tuple(jax_layout.interior) != tuple(port_layout.interior)
             or tuple(jax_layout.halo) != tuple(port_layout.halo)):
         raise ValueError(
@@ -105,4 +121,4 @@ def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
         raise ValueError(
             "JAX buffer holds nonzero values outside its padded array")
     # copy: a JAX array's NumPy view is read-only, which torch warns about
-    return port_layout.to_internal(buf[box].copy(), device=device)
+    return port_layout.to_internal(buf[box].copy(), dtype, device)

@@ -1,5 +1,5 @@
 // Dirichlet0 timesteps of a 1-D stencil on the port's flat internal layout
-// (ops/layout.py Layout1D), float32, on CUDA cores.
+// (ops/layout.py Layout1D), in float32 or float64, on CUDA cores.
 //
 // Replaces the four TPU kernels of lorastencil_tpu/ops/pallas_1d.py with two
 // kernels, each in a narrow and a wide instantiation:
@@ -11,6 +11,15 @@
 //              -> _stencil1d_resident_lanes_kernel (stencil1d_resident_lanes),
 //       wide, a grid sync every step
 //              -> _stencil1d_resident_kernel (stencil1d_resident).
+// Their float64 instances (the *_f64 entries) replace the fp64-grade TPU
+// kernels of lorastencil_tpu/ops/pallas_df64_1d.py, which compute on
+// error-free (hi, lo) fp32 pairs because the TPU has no fp64 unit; here the
+// arithmetic is native double:
+//       narrow pass -> _df64_1d_lanes_kernel (df64_1d_step),
+//       wide pass   -> _df64_1d_flat_kernel (df64_1d_flat_step),
+//       narrow run  -> the kernel of stencil1d_resident_pair;
+// and the wide run serves dtype float64 (pallas_1d.stencil1d_resident in
+// float64).
 // Every substep computes out[f] = sum_{|d| <= r} taps[r + d] * in[f + d] (r
 // the effective radius: the taps come trimmed of their zero ends) and zeroes
 // every cell outside the interior [0, n), the reference's halo decay.
@@ -19,13 +28,14 @@
 // the centre, then d = 1..r; narrow adds an equal pair taps[r+d] == taps[r-d]
 // as one product of the pair's sum (pallas_1d._conv_lanes), wide adds +d then
 // -d (pallas_1d._conv_flat); zero taps are skipped.  Every product and sum is
-// rounded on its own (__fmul_rn, __fadd_rn: no FMA contraction), so a kernel
-// agrees with its twin bit for bit on any data.
+// rounded on its own (__fmul_rn, __fadd_rn; __dmul_rn, __dadd_rn in fp64: no
+// FMA contraction), so a kernel agrees with its twin bit for bit on any data.
 //
-// What bounds it: a pass reads and writes 4 B per cell and does ~r+2 to 2r+1
-// operations per cell and substep, far below the card's fp32 rate, so device
-// memory bytes at large n; at n ~ 1M a pass moves 8 MB (2.4 us at 3.35 TB/s)
-// and the host's work per launch dominates.  The design:
+// What bounds it: a pass reads and writes 4 B (fp32) or 8 B (fp64) per cell
+// and does ~r+2 to 2r+1 operations per cell and substep, below the card's
+// fp32 and fp64 rates, so device memory bytes at large n; at n ~ 1M an fp32
+// pass moves 8 MB (2.4 us at 3.35 TB/s) and the host's work per launch
+// dominates.  The design:
 //   * a pass gives each block a tile of kTile cells; the block stages the
 //     tile and k*r cells each side in shared memory with coalesced loads,
 //     runs the k substeps between two shared buffers with the extent
@@ -44,10 +54,15 @@
 // Narrow instantiations have the radius as a template parameter (1..8, taps
 // in registers, loops unrolled) and one runtime-radius instantiation for
 // 9..32; wide ones take the radius at run time with the tap loop kept rolled
-// (a fully unrolled wide-radius loop makes ptxas very slow).
+// (a fully unrolled wide-radius loop makes ptxas very slow).  Shared memory
+// holds twice the bytes per cell in fp64, so a fp64 pass's reach k*r and a
+// fp64 run's chunk per block reach about half their fp32 caps: the launch
+// refuses what does not fit (and a run whose blocks cannot all be resident,
+// checked on the fp64 instantiation itself).
 //
-// C interface, loaded with ctypes: both functions launch on the given
-// stream, allocate nothing and return a cudaError_t (0 = launched).
+// C interface, loaded with ctypes: the four functions (float and double)
+// launch on the given stream, allocate nothing and return a cudaError_t
+// (0 = launched).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -66,20 +81,33 @@ constexpr int kMaxK = 64;        // fused steps per pass
 constexpr int kMinChunk = 256;   // cells per block of a run, at least
 constexpr size_t kMaxSmem = 232448;
 
-template <int R, bool kPairs>
-__device__ __forceinline__ float tap_sum(const float* x, const float* t,
-                                         int r) {
+// Products and sums rounded on their own, in either precision.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+template <typename T, int R, bool kPairs>
+__device__ __forceinline__ T tap_sum(const T* x, const T* t, int r) {
   const int rr = R > 0 ? R : r;
-  const float c = t[rr];
-  float acc = c != 0.f ? __fmul_rn(c, x[0]) : 0.f;
+  const T c = t[rr];
+  T acc = c != T(0) ? mul_rn(c, x[0]) : T(0);
   auto add = [&](int d) {
-    const float wp = t[rr + d];
-    const float wm = t[rr - d];
-    if (kPairs && wp != 0.f && wp == wm) {
-      acc = __fadd_rn(acc, __fmul_rn(wp, __fadd_rn(x[d], x[-d])));
+    const T wp = t[rr + d];
+    const T wm = t[rr - d];
+    if (kPairs && wp != T(0) && wp == wm) {
+      acc = add_rn(acc, mul_rn(wp, add_rn(x[d], x[-d])));
     } else {
-      if (wp != 0.f) acc = __fadd_rn(acc, __fmul_rn(wp, x[d]));
-      if (wm != 0.f) acc = __fadd_rn(acc, __fmul_rn(wm, x[-d]));
+      if (wp != T(0)) acc = add_rn(acc, mul_rn(wp, x[d]));
+      if (wm != T(0)) acc = add_rn(acc, mul_rn(wm, x[-d]));
     }
   };
   if constexpr (R > 0) {
@@ -95,37 +123,37 @@ __device__ __forceinline__ float tap_sum(const float* x, const float* t,
 // `steps` masked substeps on shared buffers a -> b -> a ...: `a` holds
 // interior cells [f0 - steps*r, f0 + len + steps*r) on entry; returns the
 // buffer holding cells [f0, f0 + len) at offset steps*r.
-template <int R, bool kPairs>
-__device__ __forceinline__ float* substeps(float* a, float* b, const float* t,
-                                           int r, int steps, int f0, int len,
-                                           int n) {
+template <typename T, int R, bool kPairs>
+__device__ __forceinline__ T* substeps(T* a, T* b, const T* t, int r,
+                                       int steps, int f0, int len, int n) {
   const int H = steps * r;
   for (int s = 1; s <= steps; ++s) {
     const int e = (steps - s) * r;  // this level's extent beyond the cells
     for (int i = H - e + threadIdx.x; i < H + len + e; i += kThreads) {
       const int f = f0 - H + i;
-      const float v = tap_sum<R, kPairs>(a + i, t, r);
-      b[i] = (f >= 0 && f < n) ? v : 0.f;
+      const T v = tap_sum<T, R, kPairs>(a + i, t, r);
+      b[i] = (f >= 0 && f < n) ? v : T(0);
     }
     __syncthreads();
-    float* tmp = a;
+    T* tmp = a;
     a = b;
     b = tmp;
   }
   return a;
 }
 
-template <int R, bool kPairs>
+template <typename T, int R, bool kPairs>
 __global__ void __launch_bounds__(kThreads)
-pass_kernel(const float* __restrict__ in, float* __restrict__ out,
-            const float* __restrict__ taps, int r, int k, int len,
-            int origin, int n) {
-  extern __shared__ float smem[];
+pass_kernel(const T* __restrict__ in, T* __restrict__ out,
+            const T* __restrict__ taps, int r, int k, int len, int origin,
+            int n) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int H = k * r;
   const int W = kTile + 2 * H;
-  float* s_taps = smem;
-  float* a = smem + kTapSlots;
-  float* b = a + W;
+  T* s_taps = smem;
+  T* a = smem + kTapSlots;
+  T* b = a + W;
   const int tid = threadIdx.x;
   const int t0 = blockIdx.x * kTile;  // tile origin, interior coordinates
 
@@ -133,48 +161,48 @@ pass_kernel(const float* __restrict__ in, float* __restrict__ out,
   const int g0 = origin + t0 - H;  // buffer index of window cell 0
   for (int i = tid; i < W; i += kThreads) {
     const int g = g0 + i;
-    a[i] = (g >= 0 && g < len) ? in[g] : 0.f;
+    a[i] = (g >= 0 && g < len) ? in[g] : T(0);
   }
   __syncthreads();
 
-  float* res;
+  T* res;
   if constexpr (R > 0) {
-    float t[2 * R + 1];
+    T t[2 * R + 1];
 #pragma unroll
     for (int p = 0; p < 2 * R + 1; ++p) t[p] = s_taps[p];
-    res = substeps<R, kPairs>(a, b, t, r, k, t0, kTile, n);
+    res = substeps<T, R, kPairs>(a, b, t, r, k, t0, kTile, n);
   } else {
-    res = substeps<0, kPairs>(a, b, s_taps, r, k, t0, kTile, n);
+    res = substeps<T, 0, kPairs>(a, b, s_taps, r, k, t0, kTile, n);
   }
-  float* dst = out + origin + t0;
+  T* dst = out + origin + t0;
   for (int i = tid; i < kTile; i += kThreads) dst[i] = res[H + i];
 }
 
-template <int R, bool kPairs>
+template <typename T, int R, bool kPairs>
 __global__ void __launch_bounds__(kThreads)
-resident_kernel(const float* in, float* out0, float* out1,
-                const float* __restrict__ taps, int r, int steps,
-                int refresh, int len, int origin, int n, int rounded,
-                int chunk) {
+resident_kernel(const T* in, T* out0, T* out1, const T* __restrict__ taps,
+                int r, int steps, int refresh, int len, int origin, int n,
+                int rounded, int chunk) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int HM = refresh * r;
-  float* s_taps = smem;
-  float* a = smem + kTapSlots;
-  float* b = a + chunk + 2 * HM;
+  T* s_taps = smem;
+  T* a = smem + kTapSlots;
+  T* b = a + chunk + 2 * HM;
   const int tid = threadIdx.x;
   const int c0 = blockIdx.x * chunk;  // chunk origin, interior coordinates
   const int C = min(chunk, rounded - c0);
 
   for (int p = tid; p < 2 * r + 1; p += kThreads) s_taps[p] = taps[p];
   __syncthreads();
-  float t[R > 0 ? 2 * R + 1 : 1];
+  T t[R > 0 ? 2 * R + 1 : 1];
   if constexpr (R > 0) {
 #pragma unroll
     for (int p = 0; p < 2 * R + 1; ++p) t[p] = s_taps[p];
   }
 
-  const float* src = in;
+  const T* src = in;
   int phase = 0;
   for (int done = 0; done < steps; ++phase) {
     const int ks = min(refresh, steps - done);
@@ -182,16 +210,16 @@ resident_kernel(const float* in, float* out0, float* out1,
     const int g0 = origin + c0 - H;
     for (int i = tid; i < C + 2 * H; i += kThreads) {
       const int g = g0 + i;
-      a[i] = (g >= 0 && g < len) ? __ldcg(src + g) : 0.f;
+      a[i] = (g >= 0 && g < len) ? __ldcg(src + g) : T(0);
     }
     __syncthreads();
-    float* res;
+    T* res;
     if constexpr (R > 0) {
-      res = substeps<R, kPairs>(a, b, t, r, ks, c0, C, n);
+      res = substeps<T, R, kPairs>(a, b, t, r, ks, c0, C, n);
     } else {
-      res = substeps<0, kPairs>(a, b, s_taps, r, ks, c0, C, n);
+      res = substeps<T, 0, kPairs>(a, b, s_taps, r, ks, c0, C, n);
     }
-    float* dst = (phase & 1) ? out1 : out0;
+    T* dst = (phase & 1) ? out1 : out0;
     for (int i = tid; i < C; i += kThreads) dst[origin + c0 + i] = res[H + i];
     done += ks;
     if (done < steps) {
@@ -209,26 +237,25 @@ int set_smem(const void* kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <int R, bool kPairs>
-int launch_pass(const float* in, float* out, const float* taps, int r, int k,
-                int len, int origin, int n, int rounded,
-                cudaStream_t stream) {
+template <typename T, int R, bool kPairs>
+int launch_pass(const T* in, T* out, const T* taps, int r, int k, int len,
+                int origin, int n, int rounded, cudaStream_t stream) {
   const size_t halo = 2 * static_cast<size_t>(k) * r;
-  const size_t smem = sizeof(float) * (kTapSlots + 2 * (kTile + halo));
+  const size_t smem = sizeof(T) * (kTapSlots + 2 * (kTile + halo));
   const int e = set_smem(reinterpret_cast<const void*>(
-                             pass_kernel<R, kPairs>), smem);
+                             pass_kernel<T, R, kPairs>), smem);
   if (e != 0) return e;
-  pass_kernel<R, kPairs><<<rounded / kTile, kThreads, smem, stream>>>(
+  pass_kernel<T, R, kPairs><<<rounded / kTile, kThreads, smem, stream>>>(
       in, out, taps, r, k, len, origin, n);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int R, bool kPairs>
-int launch_resident(const float* in, float* out0, float* out1,
-                    const float* taps, int r, int steps, int refresh, int len,
-                    int origin, int n, int rounded, cudaStream_t stream) {
+template <typename T, int R, bool kPairs>
+int launch_resident(const T* in, T* out0, T* out1, const T* taps, int r,
+                    int steps, int refresh, int len, int origin, int n,
+                    int rounded, cudaStream_t stream) {
   const void* kernel =
-      reinterpret_cast<const void*>(resident_kernel<R, kPairs>);
+      reinterpret_cast<const void*>(resident_kernel<T, R, kPairs>);
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -240,7 +267,7 @@ int launch_resident(const float* in, float* out0, float* out1,
   if (chunk < kMinChunk) chunk = kMinChunk;
   const int blocks = (rounded + chunk - 1) / chunk;
   const size_t smem =
-      sizeof(float) *
+      sizeof(T) *
       (kTapSlots + 2 * (chunk + 2 * static_cast<size_t>(refresh) * r));
   const int se = set_smem(kernel, smem);
   if (se != 0) return se;
@@ -257,51 +284,82 @@ int launch_resident(const float* in, float* out0, float* out1,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation for (narrow, r): narrow radii 1..8 at compile time,
+// The instantiation for (T, narrow, r): narrow radii 1..8 at compile time,
 // every other case at run time.
-#define LS_DISPATCH(FN, ...)                        \
-  if (!narrow) return FN<0, false>(__VA_ARGS__);    \
-  switch (r) {                                      \
-    case 1: return FN<1, true>(__VA_ARGS__);        \
-    case 2: return FN<2, true>(__VA_ARGS__);        \
-    case 3: return FN<3, true>(__VA_ARGS__);        \
-    case 4: return FN<4, true>(__VA_ARGS__);        \
-    case 5: return FN<5, true>(__VA_ARGS__);        \
-    case 6: return FN<6, true>(__VA_ARGS__);        \
-    case 7: return FN<7, true>(__VA_ARGS__);        \
-    case 8: return FN<8, true>(__VA_ARGS__);        \
-    default: return FN<0, true>(__VA_ARGS__);       \
+#define LS_DISPATCH(FN, T, ...)                        \
+  if (!narrow) return FN<T, 0, false>(__VA_ARGS__);    \
+  switch (r) {                                         \
+    case 1: return FN<T, 1, true>(__VA_ARGS__);        \
+    case 2: return FN<T, 2, true>(__VA_ARGS__);        \
+    case 3: return FN<T, 3, true>(__VA_ARGS__);        \
+    case 4: return FN<T, 4, true>(__VA_ARGS__);        \
+    case 5: return FN<T, 5, true>(__VA_ARGS__);        \
+    case 6: return FN<T, 6, true>(__VA_ARGS__);        \
+    case 7: return FN<T, 7, true>(__VA_ARGS__);        \
+    case 8: return FN<T, 8, true>(__VA_ARGS__);        \
+    default: return FN<T, 0, true>(__VA_ARGS__);       \
   }
-
-}  // namespace
 
 // k fused steps over the rounded interior [0, rounded) of a buffer of `len`
 // cells whose interior starts at `origin`; `rounded` is whole tiles.
-extern "C" int ls_stencil1d_pass(const float* in, float* out,
-                                 const float* taps, int r, int k, int narrow,
-                                 int len, int origin, int n, int rounded,
-                                 void* stream) {
+template <typename T>
+int pass(const T* in, T* out, const T* taps, int r, int k, int narrow,
+         int len, int origin, int n, int rounded, void* stream) {
   if (r < 0 || r > kMaxRadius || k < 1 || k > kMaxK || n < 0 ||
       rounded < n || rounded % kTile != 0 || origin < 0 ||
       origin + rounded > len)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rounded == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  LS_DISPATCH(launch_pass, in, out, taps, r, k, len, origin, n, rounded, s);
+  LS_DISPATCH(launch_pass, T, in, out, taps, r, k, len, origin, n, rounded,
+              s);
 }
 
 // All `steps` steps, the halo reloaded every `refresh` steps, into out0 and
 // out1 by turns: the result is in out0 when ceil(steps / refresh) is odd.
-extern "C" int ls_stencil1d_resident(const float* in, float* out0,
-                                     float* out1, const float* taps, int r,
-                                     int steps, int refresh, int narrow,
-                                     int len, int origin, int n, int rounded,
-                                     void* stream) {
+template <typename T>
+int resident(const T* in, T* out0, T* out1, const T* taps, int r, int steps,
+             int refresh, int narrow, int len, int origin, int n, int rounded,
+             void* stream) {
   if (r < 0 || r > kMaxRadius || steps < 1 || refresh < 1 || n < 0 ||
       rounded < n || origin < 0 || origin + rounded > len)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rounded == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  LS_DISPATCH(launch_resident, in, out0, out1, taps, r, steps, refresh, len,
-              origin, n, rounded, s);
+  LS_DISPATCH(launch_resident, T, in, out0, out1, taps, r, steps, refresh,
+              len, origin, n, rounded, s);
+}
+
+}  // namespace
+
+extern "C" int ls_stencil1d_pass(const float* in, float* out,
+                                 const float* taps, int r, int k, int narrow,
+                                 int len, int origin, int n, int rounded,
+                                 void* stream) {
+  return pass(in, out, taps, r, k, narrow, len, origin, n, rounded, stream);
+}
+
+extern "C" int ls_stencil1d_pass_f64(const double* in, double* out,
+                                     const double* taps, int r, int k,
+                                     int narrow, int len, int origin, int n,
+                                     int rounded, void* stream) {
+  return pass(in, out, taps, r, k, narrow, len, origin, n, rounded, stream);
+}
+
+extern "C" int ls_stencil1d_resident(const float* in, float* out0,
+                                     float* out1, const float* taps, int r,
+                                     int steps, int refresh, int narrow,
+                                     int len, int origin, int n, int rounded,
+                                     void* stream) {
+  return resident(in, out0, out1, taps, r, steps, refresh, narrow, len,
+                  origin, n, rounded, stream);
+}
+
+extern "C" int ls_stencil1d_resident_f64(const double* in, double* out0,
+                                         double* out1, const double* taps,
+                                         int r, int steps, int refresh,
+                                         int narrow, int len, int origin,
+                                         int n, int rounded, void* stream) {
+  return resident(in, out0, out1, taps, r, steps, refresh, narrow, len,
+                  origin, n, rounded, stream);
 }

@@ -10,9 +10,10 @@ fields and defaults), ``resolve_algorithm``, ``ping_pong_loop`` and
     eng3 = StencilEngine.for_shape("box3d1r", (256, 256, 256))
     eng1 = StencilEngine.for_shape("1d2r", (1_000_000,))
 
-What this engine runs, float32, dirichlet0, ``backend`` "auto" / "pallas"
-(a CUDA kernel; its plain twin on a CPU tensor) or "xla"
-(``ops/torch_ref.separable_step``):
+What this engine runs, dirichlet0, ``backend`` "auto" / "pallas" (a CUDA
+kernel; its plain twin on a CPU tensor) or "xla"
+(``ops/torch_ref.separable_step``), in float32 and, for 1-D and 2-D
+shapes, in the fp64-grade tier (dtype "float64" or "df64", see below):
   * 1-D shapes (1d1r, 1d2r, ``for_coeffs`` taps up to radius 127) through
     ``ops/stencil1d.py``, with the JAX engine's dispatch (see
     ``_build_layout_1d``): small grids run all steps in one launch, large
@@ -25,6 +26,18 @@ What this engine runs, float32, dirichlet0, ``backend`` "auto" / "pallas"
     of ``steps % k``.
 Every other accepted value of the JAX engine raises
 ``NotImplementedError`` naming the ROADMAP item that will port it.
+
+The fp64-grade tier.  The TPU has no fp64 unit, so the JAX engine's dtype
+"df64" carries fp64-grade values as error-free (hi, lo) fp32 pairs, and its
+dtype "float64" runs only off the TPU.  The H100 has fp64 units: here both
+dtypes hold a float64 state and run the float64 instances of the same CUDA
+kernels, in native double; the pair arithmetic is not ported.  Each keeps
+the JAX engine's dispatch: "df64" one step per pass everywhere, its 1-D
+branches (``_build_layout_1d``) and the ``df64_algorithm`` label
+(``ops/stencil2d.pick_algorithm`` in 2-D), an effective radius of 0 on the
+"xla" step; "float64" resolves "auto" to "vpu_roll" and keeps the float32
+rules for the fused depth (1 in 2-D, 2 on the 1-D lanes path).  ``run``
+returns a float64 tensor.
 
 ``device`` defaults to "cuda" and raises when CUDA is absent: the engine
 never moves to the CPU by itself.  ``device="cpu"`` runs the plain twins.
@@ -47,19 +60,23 @@ from .ops.layout import (TILE_1D, Layout1D, Layout2D, Layout3D,
                          default_tile_2d, default_tile_3d, guard_1d, guard_2d,
                          guard_3d)
 
-ALGORITHM_NAMES = ("auto", "vpu", "vpu_roll", "mxu", "mxu_split",
+ALGORITHM_NAMES = ("auto", "vpu", "vpu_roll", "vpu_sep", "mxu", "mxu_split",
                    "mxu_hybrid", "mxu_hybrid1", "mxu_hybrid1r",
                    "mxu_hybrid3")
+DTYPES = {"float32": torch.float32, "float64": torch.float64,
+          "df64": torch.float64}
 
 
-def resolve_algorithm(spec: StencilSpec, name: str) -> str:
-    """Resolve algorithm='auto' as the JAX engine does for float32:
-    'mxu' for 1-D, 'mxu_hybrid1' for 2-D, 'vpu' for 3-D; like the other
-    exact fp32 names they run the CUDA kernels of their dimension.  (The
-    JAX engine's other resolutions, for bf16 and fp64, arrive with those
-    ROADMAP items.)"""
+def resolve_algorithm(spec: StencilSpec, name: str,
+                      dtype: str = "float32") -> str:
+    """Resolve algorithm='auto' as the JAX engine does: 'vpu_roll' for
+    float64; otherwise 'mxu' for 1-D, 'mxu_hybrid1' for 2-D, 'vpu' for
+    3-D.  Like the other exact names they run the CUDA kernels of their
+    dimension.  (The bf16 resolutions arrive with that ROADMAP item.)"""
     if name != "auto":
         return name
+    if dtype == "float64":
+        return "vpu_roll"
     return {1: "mxu", 2: "mxu_hybrid1", 3: "vpu"}[spec.ndim]
 
 
@@ -91,9 +108,10 @@ class EngineConfig:
     """The JAX engine's configuration, field for field (see
     ``lorastencil_tpu.engine.EngineConfig`` for what each one means).
     ``StencilEngine`` says which values the port runs.  ``lanes_width``
-    and ``lanes_tile_rows`` are accepted and change nothing: they shape the
-    TPU's overlapped-lanes 1-D layout, which the port's flat ``Layout1D``
-    replaces (``ops/layout.py``)."""
+    and ``lanes_tile_rows`` shape the TPU's overlapped-lanes 1-D layout,
+    which the port's flat ``Layout1D`` replaces (``ops/layout.py``): they
+    change no value, and their one use is the JAX engine's, to keep a
+    df64 grid off the resident run."""
 
     dtype: str = "float32"
     precision: str = "highest"
@@ -140,10 +158,17 @@ class StencilEngine:
         self.config = config
         self._validate(spec, config)
         self.device = _device(device)
-        self.dtype = torch.float32
+        self.dtype = DTYPES[config.dtype]
+        self.df64 = config.dtype == "df64"
         self.backend = "xla" if config.backend == "xla" else "pallas"
-        self.algorithm = resolve_algorithm(spec, config.algorithm)
-        if spec.ndim > 1:  # 1-D: every name runs (the JAX dispatch)
+        self.df64_algorithm = None
+        if self.df64:
+            self._resolve_df64()
+        else:
+            self.algorithm = resolve_algorithm(spec, config.algorithm,
+                                               config.dtype)
+        self.df64_pallas = self.df64 and self.backend == "pallas"
+        if spec.ndim > 1 and not self.df64:  # 1-D: every name runs
             kernel = stencil3d if spec.ndim == 3 else stencil2d
             if self.algorithm in kernel.UNPORTED_ALGORITHMS:
                 raise _not_ported(f"algorithm {self.algorithm!r}", "B13")
@@ -164,12 +189,12 @@ class StencilEngine:
 
     @staticmethod
     def _validate(spec: StencilSpec, config: EngineConfig):
-        if config.dtype in ("bfloat16", "float64"):
+        if config.dtype == "bfloat16":
             raise _not_ported(f"dtype {config.dtype!r}", "A6")
-        if config.dtype == "df64":
-            raise _not_ported("dtype 'df64'", "A9")
-        if config.dtype != "float32":
+        if config.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {config.dtype!r}")
+        if config.dtype != "float32" and spec.ndim == 3:
+            raise _not_ported(f"dtype {config.dtype!r} in 3-D", "B10")
         if config.backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown backend {config.backend!r}")
         if config.boundary in ("periodic", "reflect"):
@@ -205,6 +230,37 @@ class StencilEngine:
                 "the port has no interpret mode: device='cpu' runs the "
                 "kernels' plain PyTorch twins")
 
+    def _resolve_df64(self):
+        """The JAX engine's df64 branch (``lorastencil_tpu/engine.py``
+        ``StencilEngine.__init__``): the kernel applies unless the backend
+        is 'xla' or, in 1-D, the effective radius is 0 (a centre tap only,
+        which then runs the 'xla' step); ``df64_algorithm`` is 'auto'
+        resolved to ``stencil2d.pick_algorithm`` in 2-D and 'vpu_roll' in
+        1-D, or the given name, which must be one the kernel takes; and
+        ``algorithm`` is what the JAX engine resolves 'auto' to."""
+        spec, config = self.spec, self.config
+        kernel = config.backend != "xla" and (
+            spec.ndim == 2 or stencil1d.effective_radius(spec) >= 1)
+        if config.backend == "pallas" and not kernel:
+            raise ValueError(
+                "no df64 kernel applies: 1-D needs an effective radius in "
+                "[1, 127]; this spec runs the plain fp64 step (backend "
+                "'auto'/'xla')")
+        if config.algorithm != "auto":
+            self.df64_algorithm = config.algorithm
+        elif kernel and spec.ndim == 2:
+            self.df64_algorithm = stencil2d.pick_algorithm(spec)
+        else:
+            self.df64_algorithm = "vpu_roll"
+        allowed = (("vpu_roll",) if spec.ndim == 1
+                   else stencil2d.DF64_ALGORITHMS)
+        if kernel and self.df64_algorithm not in allowed:
+            raise ValueError(
+                f"df64 kernel algorithm must be 'auto' or one of {allowed} "
+                f"for {spec.ndim}-D, got {config.algorithm!r}")
+        self.backend = "pallas" if kernel else "xla"
+        self.algorithm = resolve_algorithm(spec, "auto")
+
     @classmethod
     def for_shape(cls, name: str, interior, device="cuda",
                   **kw) -> "StencilEngine":
@@ -237,9 +293,10 @@ class StencilEngine:
         return cls(spec, interior, EngineConfig(**cfg_kw), device=device)
 
     def _fused_k(self) -> int:
-        """The JAX engine's fused-depth rules: 1-D (see below); 3-D
-        ``min(max(1, fused_steps_3d), 8 // radius)``; 2-D extent fusion."""
-        if self.backend == "xla":
+        """The JAX engine's fused-depth rules: 1 for 'xla' and 'df64'; 1-D
+        (see below); 3-D ``min(max(1, fused_steps_3d), 8 // radius)``; 2-D
+        extent fusion."""
+        if self.backend == "xla" or self.df64:
             return 1
         if self.spec.ndim == 1:
             # 'mxu' (the default): max(1, 12 // r_eff), the TPU's measured
@@ -264,6 +321,7 @@ class StencilEngine:
         if k is None:
             few_terms = (not self.spec.residue
                          and len(self.spec.terms) <= 2
+                         and self.dtype != torch.float64
                          and self.algorithm in ("mxu_hybrid1", "vpu_roll"))
             k = 2 if few_terms else 1
         return max(1, k)
@@ -298,14 +356,21 @@ class StencilEngine:
           fits ``RESIDENT_BYTES`` runs one ``stencil1d_resident`` launch,
           else passes of ``stencil1d_step``.
 
+        The df64 tier (one step per pass) has its own branches: r_eff in
+        [1, 32] runs the narrow run when its state fits
+        ``RESIDENT_LANES_BYTES`` and neither ``lanes_width`` nor
+        ``lanes_tile_rows`` is set, else narrow passes; r_eff in [33, 127]
+        wide passes, never a run.
+
         The two caps are the JAX engine's numbers (2 MiB, 512 KiB), kept
         so that both engines take the same branch at the BASELINE sizes
         (1d1r 4096 resident, 1d2r 1,000,000 tiled) and under 'vpu';
         re-tuning them for the H100 is later work.  The test is the
-        port's own, on the port's layout."""
+        port's own, on the port's layout, at the state's bytes per cell."""
         spec = self.spec
         n, halo = self.interior[0], spec.halo[0]
         r_eff = stencil1d.effective_radius(spec)
+        itemsize = self.dtype.itemsize
 
         def layout(reach):
             lay = Layout1D(interior=n, halo=halo, tile=TILE_1D,
@@ -315,16 +380,25 @@ class StencilEngine:
 
         if self.backend == "xla":
             return layout(0), "flat"
+        if self.df64:
+            if r_eff > stencil1d.MAX_LANES_REACH:
+                return layout(r_eff), "flat"
+            if not (self.config.lanes_width or self.config.lanes_tile_rows):
+                lay = layout(stencil1d.lanes_refresh(r_eff) * r_eff)
+                if stencil1d.fits_resident_lanes(lay, itemsize):
+                    return lay, "resident_lanes"
+            return layout(r_eff), "lanes"
         lanes_ok = (1 <= r_eff <= stencil1d.MAX_LANES_REACH
                     and self.algorithm in ("mxu", "vpu_roll"))
         if lanes_ok:
             lay = layout(stencil1d.lanes_refresh(r_eff) * r_eff)
-            if stencil1d.fits_resident_lanes(lay):
+            if stencil1d.fits_resident_lanes(lay, itemsize):
                 return lay, "resident_lanes"
             self.path = "lanes"  # for _fused_k's lanes clamp
             return layout(self._fused_k() * r_eff), "lanes"
         lay = layout(self._fused_k() * r_eff)
-        return lay, ("resident" if stencil1d.fits_resident(lay) else "flat")
+        return lay, ("resident" if stencil1d.fits_resident(lay, itemsize)
+                     else "flat")
 
     def _step_internal(self, cur, donor, fused_k: int = 1):
         if self.backend == "xla":
@@ -341,15 +415,17 @@ class StencilEngine:
             return stencil3d.stencil3d_step(
                 cur, donor, self.spec, self.layout,
                 algorithm=self.algorithm, fused_steps=fused_k)
-        return stencil2d.stencil2d_step(cur, donor, self.spec, self.layout,
-                                        algorithm=self.algorithm,
-                                        fused_steps=fused_k)
+        return stencil2d.stencil2d_step(
+            cur, donor, self.spec, self.layout,
+            algorithm=self.df64_algorithm if self.df64 else self.algorithm,
+            fused_steps=fused_k)
 
     # -- public API -------------------------------------------------------
     def to_internal(self, padded):
-        """The internal state on the engine's device: a new layout buffer,
-        or for backend 'xla' (which steps the padded layout) the padded
-        array as a float32 tensor, which no step writes to."""
+        """The internal state on the engine's device and in its dtype
+        (float32, or float64 for 'float64' and 'df64'): a new layout
+        buffer, or for backend 'xla' (which steps the padded layout) the
+        padded array as a tensor, which no step writes to."""
         if self.backend == "xla":
             return torch.as_tensor(padded, dtype=self.dtype,
                                    device=self.device)
@@ -375,8 +451,9 @@ class StencilEngine:
 
     def run(self, padded, steps: int):
         """Reference-semantics run on a user padded array (NumPy or
-        torch); returns a new float32 tensor on the engine's device.  The
-        caller's array is not modified."""
+        torch); returns a new tensor of the engine's dtype (float64 in the
+        fp64-grade tier) on the engine's device.  The caller's array is
+        not modified."""
         out = self.from_internal(
             self.run_internal(self.to_internal(padded), steps))
         return out.clone(memory_format=torch.contiguous_format)

@@ -13,11 +13,13 @@ per 3-D term ``conv_plane`` for ``csrc/stencil3d.cu``) written with tensor
 ops, in the kernels' order: per term a column-axis conv (``taps[-1]``)
 then a row-axis conv (``taps[-2]``), taps in ascending offset, zero taps
 skipped, a ``None`` axis the identity; then the sparse residue point by
-point.  The kernels fuse each multiply-add (``fmaf``), so on data whose
-products round the two agree to fp32 rounding, and bit for bit on integer
-data below 2**24 -- and on any data where every tap is a power of two
-(all of the 3-D registry's), since an exact product makes an FMA equal to
-a multiply then an add.
+point.  The fp32 kernels fuse each multiply-add (``fmaf``), so on data
+whose products round the two agree to fp32 rounding, and bit for bit on
+integer data below 2**24 -- and on any data where every tap is a power of
+two (all of the 3-D registry's), since an exact product makes an FMA equal
+to a multiply then an add.  The fp64 instance of the 2-D kernel rounds each
+product and sum on its own, so on float64 tensors the two agree bit for bit
+on any data.
 """
 
 from __future__ import annotations
@@ -153,8 +155,11 @@ def term_class(term) -> int:
     return IDENTITY_Z if rt is None and ct is None else BUFFERED
 
 
-def plan_array(spec: StencilSpec) -> "torch.Tensor":
-    """The CUDA kernels' tap and residue table, float32, with W = 2r+1.
+def plan_array(spec: StencilSpec,
+               dtype=torch.float32) -> "torch.Tensor":
+    """The CUDA kernels' tap and residue table in the state's ``dtype``
+    (float32, or float64 for the fp64 instances: fp64 taps rounded to
+    float32 would cost ~1e-8 per step), with W = 2r+1.
     2-D (``csrc/stencil2d.cu``):
 
         per term:  has_col, has_row, col taps[W], row taps[W]
@@ -167,7 +172,7 @@ def plan_array(spec: StencilSpec) -> "torch.Tensor":
         per point: dz, dr, dc, w
 
     Taps are centred in W; a ``None`` axis has flag 0 and zero taps.
-    Small integers (classes, flags, offsets) are exact in float32."""
+    Small integers (classes, flags, offsets) are exact in either dtype."""
     r = spec.radius
     W = 2 * r + 1
     vals = []
@@ -193,4 +198,4 @@ def plan_array(spec: StencilSpec) -> "torch.Tensor":
         if max(abs(o) for o in off) > r:
             raise ValueError(f"{spec.name}: residue offset beyond radius")
         vals += [float(o) for o in off] + [float(w)]
-    return torch.tensor(vals, dtype=torch.float32)
+    return torch.tensor(vals, dtype=dtype)

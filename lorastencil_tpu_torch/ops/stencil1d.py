@@ -1,15 +1,27 @@
 """1-D stencil passes and whole runs on the internal layout: the CUDA kernels'
 wrappers.
 
-Counterpart of ``lorastencil_tpu/ops/pallas_1d.py``.  Its four TPU kernels
-become two hand-written CUDA kernels in ``csrc/stencil1d.cu``, each with a
-narrow and a wide instantiation:
+Counterpart of ``lorastencil_tpu/ops/pallas_1d.py`` and
+``lorastencil_tpu/ops/pallas_df64_1d.py``.  Their seven TPU kernels become
+two hand-written CUDA kernels in ``csrc/stencil1d.cu``, each with a narrow
+and a wide instantiation, in float32 and in float64:
 
-* ``stencil1d_lanes_step``: a pass, narrow (``_stencil1d_lanes_kernel``);
-* ``stencil1d_step``: a pass, wide (``_stencil1d_kernel``);
+* ``stencil1d_lanes_step``: a pass, narrow (``_stencil1d_lanes_kernel``;
+  in float64 ``_df64_1d_lanes_kernel``);
+* ``stencil1d_step``: a pass, wide (``_stencil1d_kernel``; in float64
+  ``_df64_1d_flat_kernel``);
 * ``stencil1d_resident_lanes``: a run, narrow
-  (``_stencil1d_resident_lanes_kernel``);
-* ``stencil1d_resident``: a run, wide (``_stencil1d_resident_kernel``).
+  (``_stencil1d_resident_lanes_kernel``; in float64 the kernel of
+  ``pallas_df64_1d.stencil1d_resident_pair``);
+* ``stencil1d_resident``: a run, wide (``_stencil1d_resident_kernel``; the
+  JAX df64 tier never runs a wide run, so its float64 instance replaces
+  no df64 kernel).
+
+The TPU computes its fp64-grade tier on error-free (hi, lo) fp32 pairs
+because it has no fp64 unit; the H100 has one, so the float64 instances
+compute in native double.  Each wrapper launches the instance of its
+state's dtype and counts the launches of each instance apart:
+``launches`` in float32, ``launches_f64`` in float64.
 
 A pass runs ``fused_steps`` steps and writes the donor; a run does all
 ``steps`` in one cooperative launch and returns a new buffer.  *Narrow*
@@ -20,11 +32,12 @@ kernels: taps in a loop, +d then -d, as ``pallas_1d._conv_flat``).  Every
 substep zeroes the cells outside the interior [0, n).
 
 On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
-tensor runs the plain twin (``*_plain``), which sums in the kernel's order.
-The kernels round every product and sum on its own (no FMA), so a twin
-agrees with its kernel bit for bit on any data.  The lanes wrappers accept
-``algorithm`` 'mxu' and 'vpu' (on the TPU: banded matmuls or lane rolls,
-the same function): both run the one fp32 kernel.
+tensor runs the plain twin (``*_plain``), which sums in the kernel's order,
+in the tensor's dtype.  The kernels round every product and sum on its own
+(no FMA), so a twin agrees with its kernel bit for bit on any data.  The
+lanes wrappers accept ``algorithm`` 'mxu' and 'vpu' (on the TPU: banded
+matmuls or lane rolls, the same function): both run the one kernel of the
+dtype.
 """
 
 from __future__ import annotations
@@ -36,7 +49,7 @@ import torch
 
 from ..models.shapes import StencilSpec
 from . import _cuda_build
-from .layout import Layout1D
+from .layout import TILE_1D, Layout1D
 
 MAX_RADIUS = 127  # csrc/stencil1d.cu kMaxRadius (pallas_1d._dense_taps)
 # the lanes kernels' cap on the effective radius and on a pass's reach
@@ -48,6 +61,21 @@ LANES_ALGORITHMS = ("mxu", "vpu")
 # RESIDENT_BYTES), applied by the port's engine to the port's layout
 RESIDENT_LANES_BYTES = 2 * 2**20
 RESIDENT_BYTES = 512 * 2**10
+# csrc/stencil1d.cu: a block's shared memory (kMaxSmem bytes) holds the tap
+# slots (kTapSlots) and two windows of the tile plus k*r cells each side
+_SMEM_BYTES, _TAP_SLOTS = 232448, 2 * MAX_RADIUS + 2
+_ENTRIES = {torch.float32: ("ls_stencil1d_pass", "ls_stencil1d_resident"),
+            torch.float64: ("ls_stencil1d_pass_f64",
+                            "ls_stencil1d_resident_f64")}
+
+
+@functools.lru_cache(maxsize=None)
+def max_pass_reach(dtype) -> int:
+    """The largest reach k * r_eff of a pass in ``dtype``: 13,440 cells in
+    float32 (beyond any legal pass), 6,176 in float64 (a wide pass of r =
+    127 takes k <= 48)."""
+    cells = _SMEM_BYTES // dtype.itemsize
+    return ((cells - _TAP_SLOTS) // 2 - TILE_1D) // 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -179,23 +207,27 @@ def stencil1d_resident_plain(cur, spec: StencilSpec, layout: Layout1D,
 # -- the kernels -------------------------------------------------------------
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The kernel library, built and bound once per process."""
+    """The kernel library's entries, built and bound once per process:
+    {dtype: (pass entry, run entry)}."""
     lib = _cuda_build.load("stencil1d")
-    lib.ls_stencil1d_pass.restype = ctypes.c_int
-    lib.ls_stencil1d_pass.argtypes = ([ctypes.c_void_p] * 3
-                                      + [ctypes.c_int] * 7
-                                      + [ctypes.c_void_p])
-    lib.ls_stencil1d_resident.restype = ctypes.c_int
-    lib.ls_stencil1d_resident.argtypes = ([ctypes.c_void_p] * 4
-                                          + [ctypes.c_int] * 8
-                                          + [ctypes.c_void_p])
-    return lib
+    entries = {}
+    for dtype, (pass_name, run_name) in _ENTRIES.items():
+        pass_fn, run_fn = getattr(lib, pass_name), getattr(lib, run_name)
+        pass_fn.restype = run_fn.restype = ctypes.c_int
+        pass_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        run_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        entries[dtype] = pass_fn, run_fn
+    return entries
 
 
 @functools.lru_cache(maxsize=None)
-def _taps_buffer(spec: StencilSpec, device: torch.device):
-    """The trimmed taps on ``device``, made once per (spec, device)."""
-    return torch.tensor(_taps(spec)[0], dtype=torch.float32, device=device)
+def _taps_buffer(spec: StencilSpec, device: torch.device, dtype):
+    """The trimmed taps in the state's ``dtype`` on ``device``, made once
+    per (spec, device, dtype): fp64 taps rounded to float32 would cost
+    ~1e-8 per step."""
+    return torch.tensor(_taps(spec)[0], dtype=dtype, device=device)
 
 
 def _check(cur, spec: StencilSpec, layout: Layout1D, reach: int,
@@ -211,11 +243,13 @@ def _check(cur, spec: StencilSpec, layout: Layout1D, reach: int,
             f"(fused steps x effective radius)")
     if layout.shape[0] >= 2**31:
         raise ValueError(f"layout of {layout.shape[0]} cells exceeds 2**31")
+    if cur.dtype not in _ENTRIES:
+        raise TypeError(f"cur must be float32 or float64, got {cur.dtype}")
     for name, t in (("cur", cur), ("donor", donor)):
         if t is None:
             continue
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != cur.dtype:
+            raise TypeError(f"{name} must be {cur.dtype}, got {t.dtype}")
         if tuple(t.shape) != layout.shape:
             raise ValueError(
                 f"{name} has shape {tuple(t.shape)}, layout is "
@@ -261,10 +295,9 @@ def _refuse_unported(bounds, region):
 
 
 def _pass(cur, donor, spec, layout, k: int, narrow: bool):
-    lib = _lib()
-    taps = _taps_buffer(spec, cur.device)
+    taps = _taps_buffer(spec, cur.device, cur.dtype)
     with torch.cuda.device(cur.device):
-        err = lib.ls_stencil1d_pass(
+        err = _lib()[cur.dtype][0](
             cur.data_ptr(), donor.data_ptr(), taps.data_ptr(),
             effective_radius(spec), k, int(narrow), layout.shape[0],
             layout.origin, layout.interior, layout.rounded,
@@ -275,11 +308,10 @@ def _pass(cur, donor, spec, layout, k: int, narrow: bool):
 
 
 def _run(cur, spec, layout, steps: int, refresh: int, narrow: bool):
-    lib = _lib()
-    taps = _taps_buffer(spec, cur.device)
+    taps = _taps_buffer(spec, cur.device, cur.dtype)
     outs = (torch.zeros_like(cur), torch.zeros_like(cur))
     with torch.cuda.device(cur.device):
-        err = lib.ls_stencil1d_resident(
+        err = _lib()[cur.dtype][1](
             cur.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(),
             taps.data_ptr(), effective_radius(spec), steps, refresh,
             int(narrow), layout.shape[0], layout.origin, layout.interior,
@@ -291,13 +323,24 @@ def _run(cur, spec, layout, steps: int, refresh: int, narrow: bool):
     return outs[(phases - 1) % 2]
 
 
+def _count(wrapper, dtype):
+    """One launch more of ``wrapper``'s instance in ``dtype``."""
+    if dtype == torch.float64:
+        wrapper.launches_f64 += 1
+    else:
+        wrapper.launches += 1
+
+
 def stencil1d_lanes_step(cur, donor, spec: StencilSpec, layout: Layout1D,
                          fused_steps: int = 1, algorithm: str = "vpu",
                          bounds=None, region=None):
     """``fused_steps`` timesteps in one narrow pass: reads ``cur``, writes
     the rounded interior of ``donor`` (whose guard must be zero and stays
     untouched) and returns ``donor``.  Needs an effective radius r_eff <=
-    32 and ``fused_steps * r_eff <= 32``, as the TPU kernel's lane halo."""
+    32 and ``fused_steps * r_eff <= 32``, as the TPU kernel's lane halo.
+    On a float64 state it is the fp64-grade step of
+    ``pallas_df64_1d.df64_1d_step`` (which the JAX df64 engine runs at k =
+    1)."""
     _refuse_unported(bounds, region)
     r = _check_lanes(spec, algorithm, fused_steps)
     if fused_steps < 1:
@@ -307,23 +350,31 @@ def stencil1d_lanes_step(cur, donor, spec: StencilSpec, layout: Layout1D,
         return stencil1d_lanes_step_plain(cur, donor, spec, layout,
                                           fused_steps)
     _pass(cur, donor, spec, layout, fused_steps, True)
-    stencil1d_lanes_step.launches += 1
+    _count(stencil1d_lanes_step, cur.dtype)
     return donor
 
 
 def stencil1d_step(cur, donor, spec: StencilSpec, layout: Layout1D,
                    fused_steps: int = 1, bounds=None, region=None):
     """``fused_steps`` timesteps in one wide pass (any radius up to 127,
-    ``fused_steps`` up to 64); see ``stencil1d_lanes_step``."""
+    ``fused_steps`` up to 64, the reach within ``max_pass_reach``); see
+    ``stencil1d_lanes_step``.  On a float64 state it is the fp64-grade
+    step of ``pallas_df64_1d.df64_1d_flat_step`` (r_eff 33-127)."""
     _refuse_unported(bounds, region)
     if not 1 <= fused_steps <= MAX_FUSED:
         raise ValueError(
             f"fused_steps {fused_steps} outside [1, {MAX_FUSED}]")
-    _check(cur, spec, layout, fused_steps * effective_radius(spec), donor)
+    reach = fused_steps * effective_radius(spec)
+    _check(cur, spec, layout, reach, donor)
+    cap = max_pass_reach(cur.dtype)
+    if reach > cap:
+        raise ValueError(
+            f"a {cur.dtype} pass of reach {reach} (fused steps x effective "
+            f"radius) exceeds the kernel's shared memory ({cap})")
     if cur.device.type == "cpu":
         return stencil1d_step_plain(cur, donor, spec, layout, fused_steps)
     _pass(cur, donor, spec, layout, fused_steps, False)
-    stencil1d_step.launches += 1
+    _count(stencil1d_step, cur.dtype)
     return donor
 
 
@@ -332,7 +383,8 @@ def stencil1d_resident_lanes(cur, spec: StencilSpec, layout: Layout1D,
     """All ``steps`` timesteps in one narrow cooperative launch, the halo
     reloaded every ``lanes_refresh(r_eff)`` steps; reads ``cur`` and
     returns a new buffer.  Raises if the card cannot hold the grid's
-    blocks at once (no fallback to passes)."""
+    blocks at once (no fallback to passes).  On a float64 state it is the
+    fp64-grade run of ``pallas_df64_1d.stencil1d_resident_pair``."""
     r = _check_lanes(spec, algorithm, 1)
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
@@ -340,26 +392,27 @@ def stencil1d_resident_lanes(cur, spec: StencilSpec, layout: Layout1D,
     if cur.device.type == "cpu":
         return stencil1d_resident_lanes_plain(cur, spec, layout, steps)
     out = _run(cur, spec, layout, steps, lanes_refresh(r), True)
-    stencil1d_resident_lanes.launches += 1
+    _count(stencil1d_resident_lanes, cur.dtype)
     return out
 
 
 def stencil1d_resident(cur, spec: StencilSpec, layout: Layout1D, steps: int):
     """All ``steps`` timesteps in one wide cooperative launch with a grid
     sync every step (the flat TPU kernel steps the whole grid); see
-    ``stencil1d_resident_lanes``."""
+    ``stencil1d_resident_lanes``.  The JAX df64 tier has no wide run: the
+    float64 instance serves dtype 'float64'."""
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     _check(cur, spec, layout, effective_radius(spec))
     if cur.device.type == "cpu":
         return stencil1d_resident_plain(cur, spec, layout, steps)
     out = _run(cur, spec, layout, steps, 1, False)
-    stencil1d_resident.launches += 1
+    _count(stencil1d_resident, cur.dtype)
     return out
 
 
-# kernel launches, for chip_smoke.py
-stencil1d_lanes_step.launches = 0
-stencil1d_step.launches = 0
-stencil1d_resident_lanes.launches = 0
-stencil1d_resident.launches = 0
+# kernel launches per instance, for chip_smoke.py: float32 and float64
+for _wrapper in (stencil1d_lanes_step, stencil1d_step,
+                 stencil1d_resident_lanes, stencil1d_resident):
+    _wrapper.launches = _wrapper.launches_f64 = 0
+del _wrapper

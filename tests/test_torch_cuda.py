@@ -1,5 +1,6 @@
 """The CUDA kernels (lorastencil_tpu_torch/csrc/stencil2d.cu, stencil3d.cu,
-stencil1d.cu) on the card against their plain PyTorch twins, at small sizes.  Needs an NVIDIA GPU
+stencil1d.cu, and the float64 instances of stencil2d.cu and stencil1d.cu) on the
+card against their plain PyTorch twins, at small sizes.  Needs an NVIDIA GPU
 with nvcc (the kernels are built from source at first use); elsewhere every test
 here skips.
 
@@ -11,7 +12,9 @@ fill the 2-D kernel fuses each multiply-add and the twin rounds products
 separately: rel <= 1e-6 of the largest value after 4 steps.  Every 3-D tap is a
 power of two, so each product is exact and the 3-D kernel, which sums in its
 twin's order, agrees with it bit for bit on any fill.  The 1-D kernels round each
-product and sum on its own, in their twins' order: bit for bit on any fill."""
+product and sum on its own, in their twins' order: bit for bit on any fill.  So
+do the float64 instances of the 2-D and 1-D kernels (no FMA in fp64); the fp64
+engine paths hold 1e-13 of the fp64 ground truth after 4 steps."""
 
 import numpy as np
 import pytest
@@ -214,3 +217,101 @@ def test_1d_refused_launches_raise(cuda):
     assert stencil1d.stencil1d_resident_lanes.launches == before
     with pytest.raises(ValueError):
         stencil1d.stencil1d_step(x, torch.zeros(lay.shape), spec, lay)
+
+
+@pytest.mark.parametrize("interior", [(96, 256), (100, 131), (37, 45)])
+@pytest.mark.parametrize("name", ["star2d1r", "box2d1r", "box2d3r"])
+def test_fp64_2d_kernel_matches_plain_twin(cuda, name, interior):
+    spec = get_shape(name)
+    lay = Layout2D(interior=interior, halo=spec.halo, tile=default_tile_2d(*interior),
+                   guard=guard_2d(spec.halo, spec.radius))
+    g0 = reference.random_padded(spec, interior, seed=3)
+    before = stencil2d.stencil2d_step.launches_f64
+    for fill in (g0, g0 * (np.pi / 100)):
+        x = lay.to_internal(fill, torch.float64, cuda)
+        for steps in (1, 2, 4):
+            got = _steps(stencil2d.stencil2d_step, x, spec, lay, steps)
+            want = _steps(stencil2d.stencil2d_step_plain, x, spec, lay, steps)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float64 and torch.equal(got, want)
+            if fill is g0 and steps <= 2:
+                assert np.array_equal(lay.from_internal(got).cpu().numpy(),
+                                      reference.run(g0, spec, steps))
+    assert stencil2d.stencil2d_step.launches_f64 - before == 2 * (1 + 2 + 4)
+
+
+@pytest.mark.parametrize("n", [4096, 3001, 100_000])
+@pytest.mark.parametrize("name", ["1d1r", "1d2r", "r40"])
+def test_fp64_1d_kernels_match_plain_twins(cuda, name, n):
+    """Each 1-D wrapper on a float64 state (its fp64 instance) against its twin:
+    passes at k = 1, 2 and the largest legal k, runs over 2*refresh + 3 steps."""
+    spec = _spec_1d(name)
+    r = stencil1d.effective_radius(spec)
+    g0 = reference.random_padded(spec, (n,), seed=3)
+    kmax = min(64, stencil1d.max_pass_reach(torch.float64) // r)
+    passes = [(stencil1d.stencil1d_step, stencil1d.stencil1d_step_plain, kmax)]
+    runs = [(stencil1d.stencil1d_resident, stencil1d.stencil1d_resident_plain, 1)]
+    if r <= stencil1d.MAX_LANES_REACH:
+        passes.append((stencil1d.stencil1d_lanes_step, stencil1d.stencil1d_lanes_step_plain,
+                       stencil1d.MAX_LANES_REACH // r))
+        runs.append((stencil1d.stencil1d_resident_lanes,
+                     stencil1d.stencil1d_resident_lanes_plain, stencil1d.lanes_refresh(r)))
+    for fill in (g0, g0 * (np.pi / 100)):
+        for step, plain, k_top in passes:
+            for k in sorted({1, 2, k_top}):
+                lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], k * r))
+                x = lay.to_internal(fill, torch.float64, cuda)
+                for steps in (k, 2 * k):
+                    before = step.launches_f64
+                    got = _steps(step, x, spec, lay, steps, k)
+                    assert step.launches_f64 - before == steps // k
+                    want = _steps(plain, x, spec, lay, steps, k)
+                    torch.cuda.synchronize()
+                    assert not bool(torch.isnan(want).any())
+                    assert got.dtype == torch.float64 and torch.equal(got, want)
+        for run, plain, refresh in runs:
+            lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], refresh * r))
+            x = lay.to_internal(fill, torch.float64, cuda)
+            keep = x.clone()
+            for steps in (1, 2, 2 * refresh + 3):
+                got = run(x, spec, lay, steps)
+                torch.cuda.synchronize()
+                assert torch.equal(got, plain(x, spec, lay, steps)) and torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("dtype", ["df64", "float64"])
+@pytest.mark.parametrize("name,interior,counter,launches", [
+    ("star2d1r", (64, 200), stencil2d.stencil2d_step, {2: 2, 4: 4}),
+    ("box2d3r", (100, 131), stencil2d.stencil2d_step, {2: 2, 4: 4}),
+    ("1d1r", (4096,), stencil1d.stencil1d_resident_lanes, {2: 1, 4: 1}),
+])
+def test_fp64_engine_counts_its_launches(cuda, dtype, name, interior, counter, launches):
+    eng = engine.StencilEngine.for_shape(name, interior, device=cuda, dtype=dtype)
+    g1 = reference.random_padded(eng.spec, interior, seed=1) * (np.pi / 100)
+    for steps, expect in launches.items():
+        before = (counter.launches, counter.launches_f64)
+        out = eng.run(g1, steps)
+        assert (counter.launches, counter.launches_f64 - before[1]) == (before[0], expect)
+        assert out.is_cuda and out.dtype == torch.float64
+        want = reference.run(g1, eng.spec, steps)
+        assert np.abs(out.cpu().numpy() - want).max() <= 1e-13 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype,kw,counter,launches", [
+    ("df64", {}, "df64_1d_step", {2: 2, 7: 7}),
+    ("float64", {}, "df64_1d_step", {2: 1, 7: 4}),
+    ("df64", {"lanes_width": 256}, "df64_1d_step", {2: 2, 7: 7}),
+    ("float64", {"algorithm": "vpu"}, "df64_1d_flat_step", {2: 1, 7: 4}),
+])
+def test_fp64_1d_engine_counts_its_launches(cuda, dtype, kw, counter, launches):
+    n = 600_000
+    eng = engine.StencilEngine.for_shape("1d2r", (n,), device=cuda, dtype=dtype, **kw)
+    fn = getattr(stencil1d, {"df64_1d_step": "stencil1d_lanes_step",
+                             "df64_1d_flat_step": "stencil1d_step"}[counter])
+    g1 = reference.random_padded(eng.spec, (n,), seed=1) * (np.pi / 100)
+    for steps, expect in launches.items():
+        before = fn.launches_f64
+        out = eng.run(g1, steps)
+        assert fn.launches_f64 - before == expect and out.dtype == torch.float64
+        want = reference.run(g1, eng.spec, steps)
+        assert np.abs(out.cpu().numpy() - want).max() <= 1e-13 * np.abs(want).max()

@@ -93,14 +93,14 @@ def test_launches_count_only_kernel_launches():
     ("star2d3r", {}, "B2"),  # auto fused depth resolves to k = 2
     ("star2d1r", {"fused_steps": 2}, "B2"),
     ("star2d1r", {"dtype": "bfloat16"}, "A6"),
-    ("star2d1r", {"dtype": "float64"}, "A6"),
-    ("star2d1r", {"dtype": "df64"}, "A9"),
+    ("star2d1r", {"dtype": "float64", "boundary": "periodic"}, "A6"),
+    ("star3d1r", {"dtype": "df64"}, "B10"),
     ("star2d1r", {"boundary": "periodic"}, "A6"),
     ("star2d1r", {"boundary": "reflect"}, "A6"),
     ("star2d1r", {"fusion": "skew"}, "B11"),
     ("star2d1r", {"algorithm": "mxu_split"}, "B13"),
     ("star2d1r", {"residue_mxu": "on"}, "B2"),
-    ("1d1r", {"dtype": "df64"}, "A9"),
+    ("box3d1r", {"dtype": "float64"}, "B10"),
     ("box3d1r", {"dtype": "bfloat16"}, "A6"),
 ])
 def test_unsupported_configs_name_their_roadmap_item(name, kw, item):
@@ -154,7 +154,7 @@ def test_cli_check_passes_on_cpu(capsys):
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--dtype", "bfloat16"], "A6"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--mesh", "2", "2"], "A11"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--autotune"], "A12"),
-    (["1d1r", "4096", "2", "--device", "cpu", "--dtype", "df64"], "A9"),
+    (["star3d1r", "8", "16", "16", "2", "--device", "cpu", "--dtype", "df64"], "B10"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:

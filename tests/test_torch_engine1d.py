@@ -176,8 +176,8 @@ def test_run_keeps_input_decays_halo_and_counts_no_cpu_launches():
 
 @pytest.mark.parametrize("kw,err,match", [
     ({"dtype": "bfloat16"}, NotImplementedError, "ROADMAP A6"),
-    ({"dtype": "float64"}, NotImplementedError, "ROADMAP A6"),
-    ({"dtype": "df64"}, NotImplementedError, "ROADMAP A9"),
+    ({"dtype": "float64", "boundary": "periodic"}, NotImplementedError, "ROADMAP A6"),
+    ({"dtype": "df64", "boundary": "reflect"}, NotImplementedError, "ROADMAP A6"),
     ({"boundary": "periodic"}, NotImplementedError, "ROADMAP A6"),
     ({"boundary": "reflect"}, NotImplementedError, "ROADMAP A6"),
     ({"fusion": "skew"}, ValueError, "2-D time-skewed"),

@@ -1,6 +1,6 @@
-"""The port and chip_smoke.py import nothing of JAX and nothing of the JAX
-package (lorastencil_tpu): each is imported in a fresh interpreter, and
-chip_smoke.py refuses to run without a CUDA device."""
+"""The port, chip_smoke.py and launch_overhead.py import nothing of JAX and
+nothing of the JAX package (lorastencil_tpu): each is imported in a fresh
+interpreter, and both scripts refuse to run without a CUDA device."""
 
 import os
 import pkgutil
@@ -26,7 +26,7 @@ def test_port_modules_load_no_jax_and_no_jax_package():
     assert {"lorastencil_tpu_torch.ops.stencil3d", "lorastencil_tpu_torch.models.shapes",
             "lorastencil_tpu_torch.utils.reference", "lorastencil_tpu_torch.cli"} <= set(modules)
     code = ("import importlib, sys\n"
-            f"for name in {modules + ['chip_smoke']!r}:\n"
+            f"for name in {modules + ['chip_smoke', 'launch_overhead']!r}:\n"
             "    importlib.import_module(name)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
             "             or m == 'lorastencil_tpu' or m.startswith('lorastencil_tpu.'))\n"
@@ -57,3 +57,29 @@ def test_chip_smoke_fails_without_a_card():
                           text=True, timeout=300)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout and "no CUDA device" in proc.stderr
+
+
+def test_launch_overhead_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: launch_overhead.py would run on it")
+    proc = subprocess.run([sys.executable, "launch_overhead.py"], cwd=REPO,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode != 0 and "no CUDA device" in proc.stderr
+    assert not proc.stdout
+
+
+def test_chip_smoke_bound_counts_the_fewest_operations():
+    """A bound's operations: an add per nonzero term after the first, a multiply
+    per weight that is not +-1, an equal (+d, -d) pair added first."""
+    import chip_smoke
+    from lorastencil_tpu_torch.models.shapes import get_shape
+
+    # 1d1r taps 1 2 3 4 3 2 1: 6 adds, multiplies for 4, 3 and 2
+    assert chip_smoke.step_flops(get_shape("1d1r")) == 9
+    assert chip_smoke.step_flops(get_shape("1d2r")) == 12
+    assert chip_smoke.sum_ops({(0,): 2.0}) == 1
+    assert chip_smoke.sum_ops({(-1,): 0.5, (0,): 1.0, (1,): 0.25}) == 4
+    assert chip_smoke.sum_ops({(-1, 1): -3.0, (1, -1): -3.0, (0, 0): 0.0}) == 2
+    bound, by = chip_smoke.bound_ms(get_shape("1d1r"), (4096,), 64, itemsize=8)
+    assert by == "operations" and bound == 4096 * 64 * 9 / chip_smoke.PEAK_FP64_FLOPS * 1e3
+    assert chip_smoke.bound_ms(get_shape("star2d1r"), (8192, 8192), 1)[1] == "bytes"

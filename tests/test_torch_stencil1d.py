@@ -262,7 +262,7 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="not 1-D"):
         flat(cur, donor, get_shape("star2d1r"), lay)
     with pytest.raises(TypeError):
-        flat(cur.double(), donor.double(), spec, lay)
+        flat(cur.half(), donor.half(), spec, lay)
     with pytest.raises(ValueError, match="different buffer"):
         flat(cur, cur, spec, lay)
     with pytest.raises(ValueError, match="shape"):

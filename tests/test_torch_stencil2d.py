@@ -109,7 +109,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="unknown algorithm"):
         stencil2d.stencil2d_step(cur, donor, spec, lay, algorithm="fast")
     with pytest.raises(TypeError):
-        stencil2d.stencil2d_step(cur.double(), donor.double(), spec, lay)
+        stencil2d.stencil2d_step(cur.half(), donor.half(), spec, lay)
     with pytest.raises(ValueError, match="contiguous"):
         stencil2d.stencil2d_step(cur.t(), donor, spec, lay)
     with pytest.raises(ValueError, match="different buffer"):

@@ -251,8 +251,8 @@ def test_engine_3d_resolution_backends_and_refusals():
     with pytest.raises(ValueError, match="no 3-D path"):
         engine.StencilEngine.for_shape("star3d1r", (6, 20, 150), device="cpu",
                                        algorithm="mxu_split")
-    for dtype in ("bfloat16", "float64"):
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    for dtype, item in (("bfloat16", "A6"), ("float64", "B10"), ("df64", "B10")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             engine.StencilEngine.for_shape("star3d1r", (6, 20, 150), device="cpu", dtype=dtype)
 
 
