@@ -24,7 +24,15 @@ its hand-written CUDA kernels:
   ``pallas_df64._df64_kernel``) and ``csrc/stencil1d.cu`` (narrow pass,
   wide pass and narrow run, replacing the three kernels of
   ``lorastencil_tpu/ops/pallas_df64_1d.py``), in native double where the
-  TPU computes on error-free fp32 pairs.
+  TPU computes on error-free fp32 pairs;
+* 2-D temporal fusion: star2d3r at 8192^2, the artifact's configuration
+  whose engine default fuses two steps per pass, through the fused instance
+  of the 2-D kernel (``pallas_2d._stencil2d_kernel`` at k > 1), through the
+  time-skewed kernel (``fusion='skew'``, replacing
+  ``pallas_2d._stencil2d_skew_kernel``) and one step per pass; and the
+  opt-in whole-grid runs at 512^2, one cooperative launch for all steps
+  (replacing ``pallas_2d._stencil2d_resident_kernel`` in float32 and
+  ``pallas_df64._resident_pair_2d_kernel`` for df64).
 
 Phases, each printing one line or more and raising on failure:
 
@@ -105,7 +113,32 @@ Phases, each printing one line or more and raising on failure:
    dense stencil in float64 (GStencil/s, vs_baseline); per fp64 kernel its
    device time, its twin's, one float64 ``F.conv2d`` / ``F.conv1d`` step
    (the library yardstick) and its bound: 8-byte cells over the memory
-   rate, or the operations over the card's fp64 CUDA-core rate.
+   rate, or the operations over the card's fp64 CUDA-core rate;
+14. the fused kernel (#1 at k = 2 and 3) and the skew kernel against
+   single-step launches of the 2-D kernel (bit for bit on any fill: they
+   share its per-cell sums) and against their twins (the 0/1 fill bit for
+   bit over k steps, the pi/100 fill within rel 1e-5 in float32 and 1e-13
+   in float64 after 2k steps): star2d3r at 1000^2 and 8192^2 (k = 2),
+   box2d1r at 1000^2 (k = 3), star2d1r at 300 x 140 (ragged, two skew
+   chunks), float32 and float64; the resident kernel in float32 (star2d1r,
+   box2d3r) and float64 (star2d1r) at 512^2 against single-step launches
+   and its twin;
+15. each fused path end to end, launches counted from zero: star2d3r
+   8192^2 with the defaults (extent, k = 2), ``fusion='skew'`` and
+   ``fused_steps=1``; star2d1r and box2d3r 512^2 and df64 star2d1r 512^2
+   with the resident caps set (as ``LORASTENCIL_RESIDENT2D_KB`` and
+   ``LORASTENCIL_RESIDENT2D_PAIR_KB`` would); ``run(.., 3)`` (2 at 512^2)
+   of the integer fill bit for bit against a float64 dense stencil on the
+   card,
+   ``run(.., 4)`` of the pi/100 fill within rel 1e-5 (df64 1e-13), and 64
+   steps that must launch 32 fused passes, 32 skewed passes, 64 steps, or
+   one resident run, and no other kernel;
+16. star2d3r 8192^2 x 64 through ``run_internal`` in the three modes and
+   through the naive dense stencil; per new kernel its device time, its
+   twin's, one ``F.conv2d`` 7x7 step (TF32 off) and its bound; the
+   resident runs at 512^2 x 64 against the tiled passes (CUDA events
+   around ``run_internal``) and as one launch's device time (a CUDA
+   graph).
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -131,6 +164,9 @@ SOURCES = {"stencil2d": "lorastencil_tpu_torch/csrc/stencil2d.cu",
            "stencil3d": "lorastencil_tpu_torch/csrc/stencil3d.cu",
            "stencil1d": "lorastencil_tpu_torch/csrc/stencil1d.cu"}
 REPLACES = {"stencil2d": "lorastencil_tpu/ops/pallas_2d.py:127",
+            "stencil2d_skew": "lorastencil_tpu/ops/pallas_2d.py:686",
+            "stencil2d_resident": "lorastencil_tpu/ops/pallas_2d.py:981",
+            "stencil2d_resident_pair": "lorastencil_tpu/ops/pallas_df64.py:609",
             "df64_step": "lorastencil_tpu/ops/pallas_df64.py:419",
             "df64_1d_step": "lorastencil_tpu/ops/pallas_df64_1d.py:135",
             "df64_1d_flat_step": "lorastencil_tpu/ops/pallas_df64_1d.py:312",
@@ -172,12 +208,20 @@ def _counters():
     """{kernel: (wrapper, the attribute that counts its launches)}: float32
     instances count in ``launches``, float64 ones in ``launches_f64`` (the
     wide run's float64 instance, which replaces no df64 kernel, as
-    "stencil1d_resident_f64")."""
+    "stencil1d_resident_f64"; the 2-D resident run's float64 instance as
+    "stencil2d_resident_pair", the kernel it replaces).  The fused 2-D
+    kernel counts with the step kernel it extends, as "stencil2d"."""
     from lorastencil_tpu_torch.ops import stencil1d, stencil2d, stencil3d
 
     out = {"stencil2d": (stencil2d.stencil2d_step, "launches"),
            "stencil3d": (stencil3d.stencil3d_step, "launches"),
            "df64_step": (stencil2d.stencil2d_step, "launches_f64"),
+           "stencil2d_skew": (stencil2d.stencil2d_skew_step, "launches"),
+           "stencil2d_skew_f64": (stencil2d.stencil2d_skew_step,
+                                  "launches_f64"),
+           "stencil2d_resident": (stencil2d.stencil2d_resident, "launches"),
+           "stencil2d_resident_pair": (stencil2d.stencil2d_resident,
+                                       "launches_f64"),
            "stencil1d_resident_f64": (stencil1d.stencil1d_resident,
                                       "launches_f64")}
     out.update({name: (getattr(stencil1d, name), "launches")
@@ -1208,6 +1252,341 @@ def bench_fp64(device, card):
     return timing
 
 
+# Phases 14-16: 2-D temporal fusion.  star2d3r 8192^2 x 64 is the artifact's
+# configuration (BASELINE.md); the engine fuses it at k = 2.
+FUSED_SHAPE = "star2d3r"
+FUSED_STEPS = 64
+SMALL_2D = (512, 512)
+# Phase 14's (shape, interior, k, dtypes) for the fused and skewed kernels
+FUSED_CASES = (
+    ("star2d3r", (1000, 1000), 2, (torch.float32, torch.float64)),
+    ("star2d3r", INTERIOR, 2, (torch.float32,)),
+    ("box2d1r", (1000, 1000), 3, (torch.float32, torch.float64)),
+    ("star2d1r", (300, 140), 2, (torch.float32, torch.float64)))
+
+
+def fused_layout(spec, interior, k):
+    from lorastencil_tpu_torch.ops.layout import (Layout2D, default_tile_2d,
+                                                  guard_2d)
+
+    return Layout2D(interior=interior, halo=spec.halo,
+                    tile=default_tile_2d(*interior),
+                    guard=guard_2d(spec.halo, k * spec.radius))
+
+
+def fused_passes(kind, x, spec, lay, steps, k):
+    """``steps`` timesteps in passes of ``k`` through the fused ("fused"),
+    skewed ("skew") or single-step ("single") kernel, or their twin
+    ("*_plain": the skew kernel's is the fused pass's), with the engine's
+    donor rotation."""
+    from lorastencil_tpu_torch.engine import ping_pong_loop
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    def one(cur, donor, depth):
+        if kind == "skew" and depth > 1:
+            fn, kw = s2.stencil2d_skew_step, {"skew_steps": depth}
+        else:
+            fn = s2.stencil2d_step_plain if kind.endswith("plain") else \
+                s2.stencil2d_step
+            kw = {"fused_steps": depth}
+        return fn(cur, donor, spec, lay, **kw)
+
+    return ping_pong_loop(one, x, steps, 1 if kind == "single" else k)
+
+
+def check_fused(name, interior, k, dtype, device):
+    """Phase 14 for one shape, size, depth and dtype: the fused (#1 at k) and
+    skewed (#2) kernels against single-step launches (bit for bit on any
+    fill: the kernels share the per-cell sums) and against their twins (the
+    0/1 fill, k steps, bit for bit; the pi/100 fill, 2k steps, rel 1e-5 in
+    float32, 1e-13 in float64); returns {kernel: (max abs err, rel err)} of
+    the pi/100 fill."""
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = get_shape(name)
+    lay = fused_layout(spec, interior, k)
+    g0 = reference.random_padded(spec, interior, seed=1)
+    errs = {}
+    for integer, fill in ((True, g0 % 2), (False, g0 * (np.pi / 100))):
+        x = lay.to_internal(fill, dtype, device)
+        steps = k if integer else 2 * k
+        single = fused_passes("single", x, spec, lay, steps, k)
+        for kind in ("fused", "skew"):
+            got = fused_passes(kind, x, spec, lay, steps, k)
+            want = fused_passes(kind + "_plain", x, spec, lay, steps, k)
+            torch.cuda.synchronize()
+            what = f"{kind} {name} {interior} {dtype} k={k} x{steps}"
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"{what}: non-finite output")
+            if not torch.equal(got, single):
+                bad = (got != single).sum().item()
+                raise AssertionError(f"{what}: differs from single-step "
+                                     f"launches at {bad} cells")
+            if (integer or dtype == torch.float64) and not torch.equal(got,
+                                                                       want):
+                bad = (got != want).sum().item()
+                raise AssertionError(f"{what}: differs from its twin at "
+                                     f"{bad} cells")
+            rel = rel_err(got, want)
+            limit = 1e-13 if dtype == torch.float64 else 1e-5
+            if not rel <= limit:
+                raise AssertionError(f"{what}: rel err {rel:.3e} > {limit}")
+            if not integer:
+                errs[kind] = ((got - want).abs().max().item(), rel)
+        del x, single, got, want
+    return errs
+
+
+def check_resident(name, interior, dtype, device):
+    """Phase 14, the resident kernel (#3 in float32, #10 in float64): one
+    launch of 1, 2 and 4 steps against as many single-step launches (bit for
+    bit) and its twin (the integer fill at 1-2 steps bit for bit, the pi/100
+    fill at 4 steps rel 1e-5 in float32, 1e-13 in float64); returns (max abs
+    err, rel err) of the pi/100 fill."""
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = get_shape(name)
+    lay = fused_layout(spec, interior, 1)
+    g0 = reference.random_padded(spec, interior, seed=2)
+    for fill, steps_list in ((g0, (1, 2)), (g0 * (np.pi / 100), (4,))):
+        x = lay.to_internal(fill, dtype, device)
+        for steps in steps_list:
+            got = s2.stencil2d_resident(x, spec, lay, steps)
+            single = fused_passes("single", x, spec, lay, steps, 1)
+            want = s2.stencil2d_resident_plain(x, spec, lay, steps)
+            torch.cuda.synchronize()
+            what = f"resident {name} {interior} {dtype} x{steps}"
+            if not torch.equal(got, single):
+                raise AssertionError(f"{what}: differs from single steps")
+            if (fill is g0 or dtype == torch.float64) and not torch.equal(
+                    got, want):
+                raise AssertionError(f"{what}: differs from its twin")
+    rel = rel_err(got, want)
+    limit = 1e-13 if dtype == torch.float64 else 1e-5
+    if not rel <= limit:
+        raise AssertionError(f"{what}: rel err {rel:.3e} > {limit}")
+    return (got - want).abs().max().item(), rel
+
+
+def set_resident_caps(nbytes):
+    """The whole-grid runs' caps, as ``LORASTENCIL_RESIDENT2D_KB`` and
+    ``LORASTENCIL_RESIDENT2D_PAIR_KB`` set them (0: off, the default)."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    s2.RESIDENT_2D_BYTES = s2.RESIDENT_PAIR_2D_BYTES = nbytes
+
+
+# Phase 15's paths: (shape, interior, engine options, caps on, the kernel of
+# its 64-step run and that run's launches, the steps of the integer fill's
+# run, exact below 2**24, and its launches)
+FUSED_PATHS = (
+    ("star2d3r", INTERIOR, {}, False, "stencil2d", 32, 3, {"stencil2d": 2}),
+    ("star2d3r", INTERIOR, {"fusion": "skew"}, False, "stencil2d_skew", 32,
+     3, {"stencil2d_skew": 1, "stencil2d": 1}),
+    ("star2d3r", INTERIOR, {"fused_steps": 1}, False, "stencil2d", 64, 3,
+     {"stencil2d": 3}),
+    ("star2d1r", SMALL_2D, {}, True, "stencil2d_resident", 1, 2,
+     {"stencil2d_resident": 1}),
+    ("box2d3r", SMALL_2D, {}, True, "stencil2d_resident", 1, 2,
+     {"stencil2d_resident": 1}),
+    ("star2d1r", SMALL_2D, {"dtype": "df64"}, True,
+     "stencil2d_resident_pair", 1, 2, {"stencil2d_resident_pair": 1}))
+
+
+def main_path_fused(device):
+    """Phase 15: each fused path end to end, launches counted from zero:
+    ``run(.., 3)`` (star2d3r; 2 for the others) of the integer fill bit for
+    bit against a float64 dense stencil on the card (every partial sum an
+    integer below 2**24),
+    ``run(.., 4)`` of the pi/100 fill within rel 1e-5 (1e-13 for df64), and
+    a 64-step ``run_internal`` that must launch its kernel the expected
+    number of times and no other; returns {(shape, mode, dtype): 64-step
+    launches} and a line per path."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import torch_ref
+    from lorastencil_tpu_torch.utils import reference
+
+    launches, lines = {}, []
+    for name, interior, kw, caps, kernel, expect, n_int, run_int in \
+            FUSED_PATHS:
+        set_resident_caps(8 * 2**20 if caps else 0)
+        eng = engine.StencilEngine.for_shape(name, interior, device=device,
+                                             **kw)
+        spec = eng.spec
+        k = eng._fused_k()
+        mode = ("resident" if caps else "skew" if eng._fusion_mode() == "skew"
+                else f"extent k={k}")
+        if eng._resident_2d() != caps:
+            raise AssertionError(f"{name} {kw}: resident {eng._resident_2d()}")
+        g0 = reference.random_padded(spec, interior, seed=0)
+        for steps, fill in ((n_int, g0), (4, g0 * (np.pi / 100))):
+            want = torch.from_numpy(fill).to(device)
+            for _ in range(steps):
+                want = torch_ref.dense_step(want, spec)
+            reset_counts()
+            out = eng.run(fill, steps)
+            torch.cuda.synchronize()
+            got = {key: v for key, v in counts().items() if v}
+            if fill is g0 and got != run_int:
+                raise AssertionError(f"{name} {kw} run({steps}) launched "
+                                     f"{got}")
+            if (tuple(out.shape) != spec.padded_shape(interior)
+                    or not bool(torch.isfinite(out).all())):
+                raise AssertionError(f"{name} {kw}: output {tuple(out.shape)}")
+            if fill is g0 and not torch.equal(out.double(), want):
+                bad = (out.double() != want).sum().item()
+                raise AssertionError(f"{name} {kw}: run({steps}) differs from "
+                                     f"the float64 dense stencil at {bad} "
+                                     f"cells")
+            rel = rel_err(out.double(), want)
+            limit = 1e-13 if eng.dtype == torch.float64 else 1e-5
+            if not rel <= limit:
+                raise AssertionError(f"{name} {kw}: run(4) rel err {rel:.3e}"
+                                     f" > {limit}")
+            del out, want
+        gen = torch.Generator(device=device).manual_seed(0)
+        state = torch.rand(eng.layout.shape, generator=gen, device=device,
+                           dtype=eng.dtype) * 0.01
+        reset_counts()
+        eng.run_internal(state, FUSED_STEPS)
+        torch.cuda.synchronize()
+        got = {key: v for key, v in counts().items() if v}
+        if got != {kernel: expect}:
+            raise AssertionError(f"{name} {kw} x{FUSED_STEPS} launched {got}")
+        launches[(name, mode, kw.get("dtype", "float32"))] = expect
+        dims = "x".join(str(s) for s in interior)
+        lines.append(f"{name} {dims} {kw or 'defaults'} -> {mode}: "
+                     f"run({n_int}) {run_int} bit-exact, run(4) rel err "
+                     f"{rel:.3e}; "
+                     f"x{FUSED_STEPS}: {expect} launch(es) of {kernel}, none "
+                     f"of the others")
+        del state
+    set_resident_caps(0)
+    return launches, lines
+
+
+def bench_fused(device, card):
+    """Phase 16: star2d3r 8192^2 x 64 through ``run_internal`` in the three
+    modes (extent k = 2, skew k = 2, fused_steps = 1) and through the naive
+    dense stencil; the resident runs at 512^2 x 64 against the tiled passes;
+    per new kernel its device time, its twin's, the library step and the
+    bound; returns the kernels' timing records."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.ops import torch_ref
+    from lorastencil_tpu_torch.utils import metrics
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    spec = get_shape(FUSED_SHAPE)
+    dims = f"{INTERIOR[0]}x{INTERIOR[1]}"
+    res = {}
+    for mode, kw in (("extent", {}), ("skew", {"fusion": "skew"}),
+                     ("k=1", {"fused_steps": 1})):
+        eng = engine.StencilEngine.for_shape(FUSED_SHAPE, INTERIOR,
+                                             device=device, **kw)
+        state = torch.rand(eng.layout.shape, generator=gen,
+                           device=device) * 0.01
+        secs, _ = metrics.time_run(eng.run_internal, state, FUSED_STEPS,
+                                   repeats=3, warmup=1)
+        res[mode] = metrics.bench_result(spec, INTERIOR, FUSED_STEPS, secs,
+                                         f"cuda-stencil2d-{mode}",
+                                         "fp32-exact", 3)
+        del state
+    grid = torch.rand(spec.padded_shape(INTERIOR), generator=gen,
+                      device=device) * 0.01
+
+    def naive(g):
+        for _ in range(FUSED_STEPS):
+            g = torch_ref.dense_step(g, spec)
+        return g
+
+    bsecs, _ = metrics.time_run(naive, grid, repeats=3, warmup=1)
+    del grid
+    base = metrics.bench_result(spec, INTERIOR, FUSED_STEPS, bsecs,
+                                "torch-naive", "fp32", 3)
+    for label, r in list(res.items()) + [("naive", base)]:
+        print(f"phase 16: {label} {FUSED_SHAPE} {dims} x{FUSED_STEPS}: "
+              f"{r.time_ms} ms, {r.gstencil_per_s} GStencil/s "
+              f"(x{r.fuse_factor} fused), vs_baseline "
+              f"{r.gstencil_per_s / base.gstencil_per_s} [{card}]",
+              flush=True)
+
+    # per kernel: one k = 2 pass (fused, skew) and one k = 1 step, kernel
+    # and twin timed in turns (time_calls)
+    timing = {}
+    lay2 = fused_layout(spec, INTERIOR, 2)
+    x = torch.rand(lay2.shape, generator=gen, device=device) * 0.01
+    ms = time_calls({
+        "fused": lambda a, b: s2.stencil2d_step(a, b, spec, lay2,
+                                                fused_steps=2),
+        "skew": lambda a, b: s2.stencil2d_skew_step(a, b, spec, lay2,
+                                                    skew_steps=2),
+        "single": lambda a, b: s2.stencil2d_step(a, b, spec, lay2)},
+        x, torch.zeros_like(x), 20)
+    # the two kernels' twin: a k = 2 pass of the fused kernel's
+    plain = time_calls({
+        "twin": lambda a, b: s2.stencil2d_step_plain(a, b, spec, lay2, 2)},
+        x, torch.zeros_like(x), 3)["twin"]
+    del x
+    lib = library_ms(spec, INTERIOR, device)
+    bound, by = bound_ms(spec, INTERIOR, 2)
+    parts = bound_parts(spec, INTERIOR, 2)
+    for kernel in ("fused", "skew"):
+        timing[kernel] = dict(ms=ms[kernel], plain_ms=plain,
+                              bound_ms=bound, bound_by=by, library_ms=lib,
+                              steps_per_launch=2, library_steps=1,
+                              shape=f"{FUSED_SHAPE} {dims}")
+        print(f"phase 16: {kernel} k=2 pass at {FUSED_SHAPE} {dims}: kernel "
+              f"{ms[kernel]} ms, plain twin {plain} ms, F.conv2d 7x7 "
+              f"one step {lib} ms, bound {bound} ms ({by}; bytes {parts[0]} "
+              f"ms, operations {parts[1]} ms) [{card}]", flush=True)
+    print(f"phase 16: single k=1 step at {FUSED_SHAPE} {dims}: kernel "
+          f"{ms['single']} ms; bound of one step "
+          f"{bound_ms(spec, INTERIOR, 1)[0]} ms [{card}]", flush=True)
+
+    # the whole-grid runs at 512^2 x 64: one launch against the tiled passes
+    for kernel, name, dtype, fp64 in (
+            ("resident", "star2d1r", "float32", False),
+            ("resident_pair", "star2d1r", "df64", True)):
+        spec_r = get_shape(name)
+        lay = fused_layout(spec_r, SMALL_2D, 1)
+        tdtype = torch.float64 if fp64 else torch.float32
+        x = torch.rand(lay.shape, generator=gen, device=device,
+                       dtype=tdtype) * 0.01
+        runs = {}
+        for caps in (0, 8 * 2**20):
+            set_resident_caps(caps)
+            eng = engine.StencilEngine.for_shape(name, SMALL_2D, device=device,
+                                                 dtype=dtype)
+            secs, _ = metrics.time_run(eng.run_internal, x, FUSED_STEPS,
+                                       repeats=3, warmup=1)
+            runs["resident" if caps else "tiled"] = secs * 1e3
+        set_resident_caps(0)
+        rms = graph_ms(lambda: s2.stencil2d_resident(x, spec_r, lay,
+                                                     FUSED_STEPS), 5)
+        rplain = graph_ms(lambda: s2.stencil2d_resident_plain(
+            x, spec_r, lay, FUSED_STEPS), 2)
+        itemsize = 8 if fp64 else 4
+        rbound, rby = bound_ms(spec_r, SMALL_2D, FUSED_STEPS, itemsize)
+        rlib = library_ms(spec_r, SMALL_2D, device, tdtype)
+        timing[kernel] = dict(ms=rms, plain_ms=rplain, bound_ms=rbound,
+                              bound_by=rby, library_ms=rlib,
+                              steps_per_launch=FUSED_STEPS, library_steps=1,
+                              shape=f"{dtype} {name} 512x512")
+        print(f"phase 16: {dtype} {name} 512x512 x{FUSED_STEPS}: "
+              f"run_internal tiled ({FUSED_STEPS} launches) {runs['tiled']} "
+              f"ms, resident (1 launch) {runs['resident']} ms; the resident "
+              f"kernel {rms} ms (device), plain twin {rplain} ms, "
+              f"{'float64 ' if fp64 else ''}F.conv2d one step {rlib} ms, "
+              f"bound {rbound} ms ({rby}) [{card}]", flush=True)
+        del x
+    return timing
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -1350,6 +1729,32 @@ def main() -> int:
 
     timing_fp64 = bench_fp64(device, card)
 
+    errs_fused = {}
+    for name, interior, k, dtypes in FUSED_CASES:
+        for dtype in dtypes:
+            errs = check_fused(name, interior, k, dtype, device)
+            if name == FUSED_SHAPE and interior == INTERIOR:
+                errs_fused = errs
+            print(f"phase 14: {name} {interior} {dtype} k={k}: fused and "
+                  f"skew kernels bit-equal to single-step launches on both "
+                  f"fills and to their twins on the 0/1 fill; pi/100 fill "
+                  f"rel err fused {errs['fused'][1]:.3e}, skew "
+                  f"{errs['skew'][1]:.3e} after {2 * k} steps", flush=True)
+    errs_res = {}
+    for name, dtype in (("star2d1r", torch.float32), ("box2d3r", torch.float32),
+                        ("star2d1r", torch.float64)):
+        errs_res[(name, dtype)] = check_resident(name, SMALL_2D, dtype, device)
+        print(f"phase 14: resident {name} {SMALL_2D} {dtype}: bit-equal to "
+              f"single-step launches at 1, 2 and 4 steps and to its twin on "
+              f"the integer fill; pi/100 fill rel err "
+              f"{errs_res[(name, dtype)][1]:.3e} after 4 steps", flush=True)
+
+    launches_fused, lines = main_path_fused(device)
+    for line in lines:
+        print(f"phase 15: {line}", flush=True)
+
+    timing_fused = bench_fused(device, card)
+
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the reference packages were imported: "
@@ -1382,6 +1787,25 @@ def main() -> int:
                               else "stencil1d"],
             "replaces": REPLACES[kernel], "launches": launches_fp64[kernel],
             "max_abs_err": errs_fp64[kernel][0]}, **timing_fp64[kernel]))
+    for name, kernel, replaces, launches, err in (
+            (f"stencil2d_step[k=2, {FUSED_SHAPE}]", "fused", "stencil2d",
+             launches_fused[(FUSED_SHAPE, "extent k=2", "float32")],
+             errs_fused["fused"][0]),
+            (f"stencil2d_skew_step[{FUSED_SHAPE}]", "skew", "stencil2d_skew",
+             launches_fused[(FUSED_SHAPE, "skew", "float32")],
+             errs_fused["skew"][0]),
+            ("stencil2d_resident[star2d1r 512x512]", "resident",
+             "stencil2d_resident",
+             launches_fused[("star2d1r", "resident", "float32")],
+             errs_res[("star2d1r", torch.float32)][0]),
+            ("stencil2d_resident_pair[star2d1r 512x512]", "resident_pair",
+             "stencil2d_resident_pair",
+             launches_fused[("star2d1r", "resident", "df64")],
+             errs_res[("star2d1r", torch.float64)][0])):
+        kernels.append(dict({
+            "name": name, "route": "cuda", "source": SOURCES["stencil2d"],
+            "replaces": REPLACES[replaces], "launches": launches,
+            "max_abs_err": err}, **timing_fused[kernel]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

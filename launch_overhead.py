@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Host time per launch of the port's fp32 wrappers, and the host-bound
-1d2r 1,000,000 x 256 run, on one CUDA device.
+"""Host time per launch of the port's fp32 wrappers, the host-bound 1d2r
+1,000,000 x 256 run and the device time of the 2-D step at 8192^2, on one
+CUDA device.
 
     python3 launch_overhead.py [--root DIR] [--label NAME]
 
@@ -15,7 +16,9 @@ Measured, each on the tree's own kernels (built at first use):
   the device idle before it (synchronized), microseconds, the median of
   each of ``--rounds`` rounds of ``--calls`` calls and of all of them;
 * ``run_internal`` of 1d2r 1,000,000 x 256 (CUDA events, best of 5 after a
-  warmup), where that host time decides the run's time.
+  warmup), where that host time decides the run's time;
+* ``stencil2d_step`` at star2d1r 8192^2, device-bound: CUDA events around 20
+  back-to-back launches, best of 5 after a warmup, ms per launch.
 
 Prints the card (name, power limit) and one JSON line.
 """
@@ -102,6 +105,17 @@ def main() -> int:
                                warmup=1)
     out["run_1d2r_1000000x256_ms"] = secs * 1e3
     out["launches_per_run"] = -(-256 // k)
+    eng3 = engine.StencilEngine.for_shape("star2d1r", (8192, 8192),
+                                          device=device)
+    x3 = torch.rand(eng3.layout.shape, generator=gen, device=device) * 0.01
+    d3 = torch.zeros_like(x3)
+
+    def steps_8192():
+        for _ in range(20):
+            stencil2d.stencil2d_step(x3, d3, eng3.spec, eng3.layout)
+
+    secs, _ = metrics.time_run(steps_8192, repeats=5, warmup=1)
+    out["stencil2d_step_8192_device_ms"] = secs / 20 * 1e3
     print(card, flush=True)
     print(json.dumps(out), flush=True)
     return 0

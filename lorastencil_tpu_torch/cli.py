@@ -66,7 +66,9 @@ def _parser() -> argparse.ArgumentParser:
                         "the one exact kernel of the dtype (df64 2-D: vpu, "
                         "vpu_roll, vpu_sep); 1-D: auto (mxu) and vpu_roll "
                         "the narrow kernels, the others the wide")
-    p.add_argument("--fused-steps", type=int, default=None)
+    p.add_argument("--fused-steps", type=int, default=None,
+                   help="steps per pass (1-D, 2-D; the JAX engine's rule "
+                        "when unset)")
     p.add_argument("--precision", choices=["highest", "default"],
                    default="highest")
     p.add_argument("--dtype",

@@ -1,59 +1,92 @@
-// One dirichlet0 timestep of a 2-D low-rank stencil on the port's internal
-// layout, in float32 or float64, on CUDA cores.
+// Dirichlet0 timesteps of a 2-D low-rank stencil on the port's internal
+// layout, in float32 or float64, on CUDA cores.  Four kernels share one
+// per-cell arithmetic, so each equals the others (and its plain twin) cell
+// for cell on the same steps:
 //
-// Replaces two TPU kernels, one instance each:
-//   * float32: lorastencil_tpu/ops/pallas_2d.py::_stencil2d_kernel (driven by
-//     pallas_2d.stencil2d_step) at fused_steps=1;
-//   * float64: lorastencil_tpu/ops/pallas_df64.py::_df64_kernel (driven by
-//     pallas_df64.df64_step), the fp64-grade step the TPU computes on
-//     error-free (hi, lo) fp32 pairs because it has no fp64 unit.  The H100
-//     has one, so this instance computes in native double; it also serves
-//     dtype float64 (pallas_2d.stencil2d_step in float64).
-// For every interior cell of every tile,
+//   * the step kernel, k = 1 (ls_stencil2d_step with k = 1), and the fused
+//     kernel, k >= 2 levels per pass over device memory (the same entry with
+//     k >= 2), replace lorastencil_tpu/ops/pallas_2d.py::_stencil2d_kernel
+//     (pallas_2d.stencil2d_step, extent fusion);
+//   * the skew kernel (ls_stencil2d_skew) replaces
+//     pallas_2d.py::_stencil2d_skew_kernel (stencil2d_skew_step, time-skewed
+//     row bands);
+//   * the resident kernel (ls_stencil2d_resident), every step of a run in one
+//     cooperative launch, replaces pallas_2d.py::_stencil2d_resident_kernel
+//     (stencil2d_resident).
+//
+// Each has a float32 and a float64 instance (the *_f64 entries).  The float64
+// step replaces lorastencil_tpu/ops/pallas_df64.py::_df64_kernel (df64_step)
+// and the float64 resident run pallas_df64.py::_resident_pair_2d_kernel
+// (stencil2d_resident_pair): the TPU computes the fp64-grade tier on
+// error-free (hi, lo) fp32 pairs because it has no fp64 unit; the H100 has
+// one, so these instances compute in native double.  The float64 fused and
+// skew kernels serve dtype float64 with fused steps, as the JAX engine runs
+// pallas_2d's kernels in float64 off the TPU.
+//
+// One step, for every interior cell:
 //
 //     out = sum_terms rowconv(colconv(in)) + sum_residue w * in[p + o]
 //
-// with tile round-up cells beyond the true interior (m, n) written as zeros
-// (pallas_2d.py mask_to_interior) and the guard ring never touched, so the
-// zero-ringed output buffer carries the reference's halo decay.
+// and every cell outside the true interior [0, m) x [0, n) becomes 0 (the
+// tile round-up cells, and at fused levels the halo and guard cells:
+// pallas_2d.py mask_to_interior), so the halo feeds step 1 only and then
+// decays, as the reference's step-by-step semantics require.  The guard ring
+// of the output buffer is never written.  The order of each sum is the plain
+// twin's (ops/band_gemm.py apply_spec): per term the column conv, then the
+// row conv, taps in ascending offset, zero taps skipped; then the residue
+// point by point.  fp32 fuses each multiply-add (fmaf), so integer data agree
+// with the twin bit for bit; fp64 rounds each product and sum on its own
+// (__dmul_rn, __dadd_rn: no FMA), so it agrees bit for bit on any data.
 //
 // What bounds it: device-memory bytes.  A step reads and writes 4 B (fp32)
-// or 8 B (fp64) per cell and does ~25 operations per cell (star2d1r), below
-// the card's fp32 and fp64 rates, so the only goal is to touch each cell's
-// bytes once.  The design:
-//   * one block per (kTileRows x kTileCols) output tile stages its halo'd
-//     window in shared memory with coalesced row loads (a warp per window
-//     row, neighbouring lanes on neighbouring addresses), so each input
-//     cell comes from device memory about (1 + 2r/kTileRows)(1 + 2r/128)
-//     times;
-//   * per separable term, the column conv goes into a shared intermediate
-//     2r rows taller than the tile, the row conv reads it back, and the
-//     sparse residue reads the window, in the tap order of the plain twin
-//     (ops/band_gemm.py).  fp32 fuses each multiply-add (fmaf), so integer
-//     data agrees with the twin bit for bit; fp64 rounds each product and
-//     sum on its own (__dmul_rn, __dadd_rn: no FMA), so it agrees with the
-//     twin bit for bit on any data;
-//   * each thread keeps kRowsPerThread outputs of one column in registers
-//     and stores them once, masked to the rounded interior.
-// kTileRows is 32 in fp32 and 16 in fp64: the 8-byte window of a 32-row
-// tile would take 70 KB of shared memory at r = 1 (3 blocks per SM); at 16
-// rows it takes 37 KB (6 blocks per SM), for 2r/16 in place of 2r/32 extra
-// window rows.
-// The TPU's split-bf16 matmuls and its double-float pair arithmetic have no
-// use here: tensor cores would not lift a byte-bound step, and their
-// accumulation order could break the bit-exactness the tests hold the
-// kernel to.
+// or 8 B (fp64) per cell and does ~25-40 operations per cell (star2d1r,
+// star2d3r), below the card's fp32 and fp64 rates, so the aim is to touch
+// each cell's bytes once per pass, and, with k fused steps, once per k steps.
+// The designs:
+//   * step (k = 1): one block per (kTileRows x 128) output tile stages its
+//     halo'd window in shared memory with coalesced row loads (a warp per
+//     window row), computes the column conv into a shared intermediate 2r rows
+//     taller than the tile, the row conv and residue into kTileRows / 2
+//     register sums per thread, and stores them masked (tile_sums);
+//   * fused (k >= 2): the window grows to (kTileRows + 2kr) x (128 + 2kr);
+//     levels 1..k-1 ping-pong between two shared buffers over extents
+//     shrinking by r per level, each masked to the interior in global
+//     coordinates (level); level k is the step's tile_sums.  Shared memory
+//     grows with k*r (about three windows), so the host splits a deeper pass
+//     into launches of the largest k that fits (ops/stencil2d.py);
+//   * skew: a block owns a 128-column strip and a chunk of kChunkRows output
+//     rows and marches down it in bands of kTileRows rows.  Level j lags level
+//     j - 1 by r rows; each level keeps the last 2r rows of its previous band
+//     in shared memory as the carry, so every level row is computed once per
+//     block and only the k*r column halo is recomputed.  Blocks run in no
+//     order, so each chunk starts (k - 2) r rows early and recomputes that
+//     lookback: 64 strips of an 8192-column grid would leave half of the 132
+//     SMs idle, and 256-row chunks give 32 blocks per strip;
+//   * resident: one cooperative launch; persistent blocks loop over the
+//     step's tiles, ping-pong two device buffers (which L2 holds for small
+//     grids) and sync the grid between steps; loads bypass L1 (__ldcg), as
+//     other blocks wrote the buffer since.  The launch is refused if the
+//     occupancy query gives no resident block.
+// kTileRows is 32 in fp32 and 16 in fp64: the 8-byte window of a 32-row tile
+// would take 70 KB of shared memory at r = 1 (3 blocks per SM); at 16 rows it
+// takes 37 KB (6 blocks per SM).  The TPU's split-bf16 matmuls, cyclic rolls
+// and double-float pair arithmetic have no use here: tensor cores would not
+// lift a byte-bound step, and their accumulation order could break the
+// bit-exactness the tests hold the kernels to.
 //
 // Taps and residue come from a small device table in the state's dtype
 // (ops/band_gemm.py plan_array), staged into shared memory by every block.
 //
-// C interface, loaded with ctypes: ls_stencil2d_step (float) and
-// ls_stencil2d_step_f64 (double) launch on the given stream, allocate
-// nothing and return cudaGetLastError() (0 = launched).
+// C interface, loaded with ctypes: ls_stencil2d_step, ls_stencil2d_skew and
+// ls_stencil2d_resident (float) and their *_f64 twins (double) launch on the
+// given stream, allocate nothing and return a cudaError_t (0 = launched).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -64,6 +97,8 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRadius = 16;
 constexpr int kMaxPlan = 4096;  // entries of tap/residue table
 constexpr int kMaxGridY = 65535;
+constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may use
+constexpr int kChunkRows = 256;      // skew: output rows per block
 
 static_assert(kThreads % kTileCols == 0, "tile columns must divide threads");
 
@@ -81,63 +116,69 @@ __device__ __forceinline__ double mad(double w, double x, double y) {
   return __dadd_rn(y, __dmul_rn(w, x));
 }
 
-template <typename T, int kTileRows>
-__global__ void __launch_bounds__(kThreads)
-stencil2d_kernel(const T* __restrict__ in, T* __restrict__ out,
-                 const T* __restrict__ plan, int plan_len, int n_terms,
-                 int radius, int n_res, int rows, int pitch, int r0, int c0,
-                 int m, int n, int mr, int nr) {
-  constexpr int kRowsPerThread = kTileRows / kRowStep;  // outputs/thread
-  static_assert(kTileRows % kRowStep == 0, "row sweep must divide tile rows");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  const int R = radius;
-  const int W = 2 * R + 1;
-  const int win_rows = kTileRows + 2 * R;
-  const int win_cols = kTileCols + 2 * R;
-  T* s_win = smem;                           // win_rows x win_cols
-  T* s_col = s_win + win_rows * win_cols;    // win_rows x kTileCols
-  T* s_plan = s_col + win_rows * kTileCols;  // plan_len
+template <typename T, bool kCoherent>
+__device__ __forceinline__ T load(const T* p) {
+  if constexpr (kCoherent) {
+    return __ldcg(p);
+  } else {
+    return __ldg(p);
+  }
+}
 
-  const int tid = threadIdx.x;
-  const int i0 = blockIdx.y * kTileRows;  // tile origin, interior coords
-  const int j0 = blockIdx.x * kTileCols;
+// The stencil's table in shared memory (plan_array's layout).
+template <typename T>
+struct Plan {
+  const T* p;  // per term: has_col, has_row, col taps[W], row taps[W];
+               // then per residue point: dr, dc, w
+  int n_terms;
+  int R;
+  int n_res;
+};
 
-  for (int p = tid; p < plan_len; p += kThreads) s_plan[p] = plan[p];
-
-  // Window rows [i0 - R, i0 + kTileRows + R), cols [j0 - R, j0 + kTileCols
-  // + R) of the interior; the guard (>= R, checked by the host) keeps the
-  // start in bounds, and a tile past the rounded interior reads zeros
-  // beyond the buffer's end.
-  {
-    const int warp = tid / 32;
-    const int lane = tid % 32;
-    const int gr0 = r0 + i0 - R;
-    const int gc0 = c0 + j0 - R;
-    for (int wr = warp; wr < win_rows; wr += kWarps) {
-      const int gr = gr0 + wr;
-      T* dst = s_win + wr * win_cols;
-      if (gr < rows) {
-        const T* src = in + static_cast<size_t>(gr) * pitch;
-        for (int wc = lane; wc < win_cols; wc += 32) {
-          const int gc = gc0 + wc;
-          dst[wc] = gc < pitch ? src[gc] : T(0);
-        }
-      } else {
-        for (int wc = lane; wc < win_cols; wc += 32) dst[wc] = T(0);
+// Rows [gr0, gr0 + n_rows) x cols [gc0, gc0 + n_cols) of a (rows x pitch)
+// buffer into shared `dst` (row pitch n_cols), a warp per row with
+// neighbouring lanes on neighbouring addresses; cells outside the buffer
+// read as 0.
+template <typename T, bool kCoherent>
+__device__ void stage(const T* in, int rows, int pitch, int gr0, int gc0,
+                      T* dst, int n_rows, int n_cols) {
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  for (int wr = warp; wr < n_rows; wr += kWarps) {
+    const int gr = gr0 + wr;
+    T* d = dst + wr * n_cols;
+    if (gr >= 0 && gr < rows) {
+      const T* src = in + static_cast<size_t>(gr) * pitch;
+      for (int wc = lane; wc < n_cols; wc += 32) {
+        const int gc = gc0 + wc;
+        d[wc] = (gc >= 0 && gc < pitch) ? load<T, kCoherent>(src + gc) : T(0);
       }
+    } else {
+      for (int wc = lane; wc < n_cols; wc += 32) d[wc] = T(0);
     }
   }
-  __syncthreads();
+}
 
-  const int tx = tid % kTileCols;
-  const int ty = tid / kTileCols;
-  T acc[kRowsPerThread];
+// One step on a (kTileRows x 128) tile: the thread's sums acc[q] of output
+// row ty + q * kRowStep, column tx, where `win` (row pitch win_cols >= 128 +
+// 2R, kTileRows + 2R rows) holds the source with output cell (i, j) centred
+// at win[(i + R) * win_cols + j + R].  s_col takes (kTileRows + 2R) x 128
+// cells.  Contains barriers: every thread of the block calls it.
+template <typename T, int kTileRows>
+__device__ __forceinline__ void tile_sums(const T* win, int win_cols,
+                                          T* s_col, const Plan<T>& pl,
+                                          T (&acc)[kTileRows / kRowStep]) {
+  constexpr int kRowsPerThread = kTileRows / kRowStep;
+  const int R = pl.R;
+  const int W = 2 * R + 1;
+  const int win_rows = kTileRows + 2 * R;
+  const int tx = threadIdx.x % kTileCols;
+  const int ty = threadIdx.x / kTileCols;
 #pragma unroll
   for (int q = 0; q < kRowsPerThread; ++q) acc[q] = T(0);
 
-  const T* term = s_plan;
-  for (int t = 0; t < n_terms; ++t, term += 2 + 2 * W) {
+  const T* term = pl.p;
+  for (int t = 0; t < pl.n_terms; ++t, term += 2 + 2 * W) {
     // flags are block-uniform: the barriers below are reached by all
     const bool has_col = term[0] != T(0);
     const bool has_row = term[1] != T(0);
@@ -146,9 +187,9 @@ stencil2d_kernel(const T* __restrict__ in, T* __restrict__ out,
     const T* src;
     int src_pitch;
     if (has_col) {
-      __syncthreads();  // the previous term's row conv is done with s_col
+      __syncthreads();  // the previous reader of s_col is done with it
       for (int wr = ty; wr < win_rows; wr += kRowStep) {
-        const T* x = s_win + wr * win_cols + tx;
+        const T* x = win + wr * win_cols + tx;
         T y = T(0);
         for (int k = 0; k < W; ++k) {
           const T w = ct[k];
@@ -160,7 +201,7 @@ stencil2d_kernel(const T* __restrict__ in, T* __restrict__ out,
       src = s_col + tx;
       src_pitch = kTileCols;
     } else {
-      src = s_win + tx + R;  // identity column axis
+      src = win + tx + R;  // identity column axis
       src_pitch = win_cols;
     }
 #pragma unroll
@@ -180,78 +221,443 @@ stencil2d_kernel(const T* __restrict__ in, T* __restrict__ out,
     }
   }
 
-  const T* res = s_plan + n_terms * (2 + 2 * W);
-  for (int p = 0; p < n_res; ++p) {
+  const T* res = pl.p + pl.n_terms * (2 + 2 * W);
+  for (int p = 0; p < pl.n_res; ++p) {
     const int dr = static_cast<int>(res[3 * p]);
     const int dc = static_cast<int>(res[3 * p + 1]);
     const T w = res[3 * p + 2];
-    const T* x = s_win + (R + dr + ty) * win_cols + R + dc + tx;
+    const T* x = win + (R + dr + ty) * win_cols + R + dc + tx;
 #pragma unroll
     for (int q = 0; q < kRowsPerThread; ++q)
       acc[q] = mad(w, x[q * kRowStep * win_cols], acc[q]);
   }
+}
 
-  const int j = j0 + tx;
-  if (j >= nr) return;
+// Store tile_sums' cells of output rows i0 + ty + q * kRowStep in [lo, hi)
+// at column j (< nr): the sum inside the interior, 0 in the round-up.
+template <typename T, int kTileRows>
+__device__ __forceinline__ void store_tile(
+    T* out, int pitch, int r0, int c0, int i0, int j, int lo, int hi, int m,
+    int n, const T (&acc)[kTileRows / kRowStep]) {
   T* dst = out + static_cast<size_t>(r0) * pitch + c0 + j;
+  const int ty = threadIdx.x / kTileCols;
 #pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q) {
+  for (int q = 0; q < kTileRows / kRowStep; ++q) {
     const int i = i0 + ty + q * kRowStep;
-    if (i < mr)
-      dst[static_cast<size_t>(i) * pitch] = (i < m && j < n) ? acc[q] : T(0);
+    if (i >= lo && i < hi)
+      dst[static_cast<ptrdiff_t>(i) * pitch] =
+          (i < m && j < n) ? acc[q] : T(0);
   }
 }
 
-template <typename T>
-int launch(const T* in, T* out, const T* plan, int plan_len, int n_terms,
-           int radius, int n_res, int rows, int pitch, int r0, int c0, int m,
-           int n, int mr, int nr, void* stream) {
-  constexpr int kTileRows = tile_rows<T>();
-  const int W = 2 * radius + 1;
-  if (radius < 0 || radius > kMaxRadius || n_terms < 0 || n_res < 0 ||
-      plan_len > kMaxPlan || plan_len != n_terms * (2 + 2 * W) + 3 * n_res ||
-      r0 < radius || c0 < radius || m < 0 || n < 0 || mr < m || nr < n ||
-      r0 + mr + radius > rows || c0 + nr + radius > pitch ||
-      (mr + kTileRows - 1) / kTileRows > kMaxGridY)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (mr == 0 || nr == 0) return 0;
-  const int win_rows = kTileRows + 2 * radius;
-  const size_t smem =
-      sizeof(T) * (static_cast<size_t>(win_rows) *
-                       (kTileCols + 2 * radius + kTileCols) +
-                   plan_len);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        reinterpret_cast<const void*>(stencil2d_kernel<T, kTileRows>),
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
+// Advance a thread's (row, column) walk over a row-major extent of `cols`
+// columns by kThreads cells.
+__device__ __forceinline__ void next_cell(int& i, int& j, int cols) {
+  j += kThreads;
+  while (j >= cols) {
+    j -= cols;
+    ++i;
   }
-  const dim3 grid((nr + kTileCols - 1) / kTileCols,
-                  (mr + kTileRows - 1) / kTileRows);
-  stencil2d_kernel<T, kTileRows><<<grid, kThreads, smem,
-                                   static_cast<cudaStream_t>(stream)>>>(
-      in, out, plan, plan_len, n_terms, radius, n_res, rows, pitch, r0, c0, m,
-      n, mr, nr);
+}
+
+// One step over a (rows x cols) extent in shared memory: dst(i, j) (row pitch
+// dp) from src (row pitch sp), whose cell (i + R, j + R) is the centre of
+// dst(i, j); a cell whose interior coordinates (gi0 + i, gj0 + j) lie outside
+// [0, m) x [0, n) becomes 0.  s_col takes (rows + 2R) x cols cells.  The sums
+// are tile_sums', cell for cell.  Contains barriers and ends with one.
+template <typename T>
+__device__ void level(const T* src, int sp, T* dst, int dp, T* s_col,
+                      int rows, int cols, const Plan<T>& pl, int gi0,
+                      int gj0, int m, int n) {
+  const int R = pl.R;
+  const int W = 2 * R + 1;
+  const int i_first = threadIdx.x / cols;
+  const int j_first = threadIdx.x % cols;
+
+  const T* term = pl.p;
+  for (int t = 0; t < pl.n_terms; ++t, term += 2 + 2 * W) {
+    const bool has_col = term[0] != T(0);
+    const bool has_row = term[1] != T(0);
+    const T* ct = term + 2;
+    const T* rt = ct + W;
+    const T* src_t;
+    int pitch_t;
+    if (has_col) {
+      __syncthreads();  // the previous reader of s_col is done with it
+      for (int i = i_first, j = j_first; i < rows + 2 * R;
+           next_cell(i, j, cols)) {
+        const T* x = src + i * sp + j;
+        T y = T(0);
+        for (int k = 0; k < W; ++k) {
+          const T w = ct[k];
+          if (w != T(0)) y = mad(w, x[k], y);
+        }
+        s_col[i * cols + j] = y;
+      }
+      __syncthreads();
+      src_t = s_col;
+      pitch_t = cols;
+    } else {
+      src_t = src + R;  // identity column axis
+      pitch_t = sp;
+    }
+    for (int i = i_first, j = j_first; i < rows; next_cell(i, j, cols)) {
+      const T* y = src_t + i * pitch_t + j;
+      T z;
+      if (has_row) {
+        z = T(0);
+        for (int k = 0; k < W; ++k) {
+          const T w = rt[k];
+          if (w != T(0)) z = mad(w, y[k * pitch_t], z);
+        }
+      } else {
+        z = y[R * pitch_t];  // identity row axis
+      }
+      T* d = dst + i * dp + j;
+      *d = (t == 0 ? T(0) : *d) + z;
+    }
+  }
+
+  const T* res = pl.p + pl.n_terms * (2 + 2 * W);
+  for (int i = i_first, j = j_first; i < rows; next_cell(i, j, cols)) {
+    T* d = dst + i * dp + j;
+    T acc = pl.n_terms > 0 ? *d : T(0);
+    for (int p = 0; p < pl.n_res; ++p) {
+      const int dr = static_cast<int>(res[3 * p]);
+      const int dc = static_cast<int>(res[3 * p + 1]);
+      acc = mad(res[3 * p + 2], src[(R + dr + i) * sp + R + dc + j], acc);
+    }
+    const int gi = gi0 + i;
+    const int gj = gj0 + j;
+    *d = (gi >= 0 && gi < m && gj >= 0 && gj < n) ? acc : T(0);
+  }
+  __syncthreads();
+}
+
+struct Grid2D {
+  int rows, pitch;  // buffer shape
+  int r0, c0;       // origin of interior cell (0, 0)
+  int m, n;         // interior
+  int mr, nr;       // rounded interior
+};
+
+template <typename T>
+__device__ __forceinline__ Plan<T> stage_plan(const T* plan, int plan_len,
+                                              int n_terms, int R, int n_res,
+                                              T* s_plan) {
+  for (int p = threadIdx.x; p < plan_len; p += kThreads) s_plan[p] = plan[p];
+  return Plan<T>{s_plan, n_terms, R, n_res};
+}
+
+// k steps per block tile: the step kernel (kFused false, k = 1) and the
+// fused one (kFused true, k >= 2), compiled apart so that the step kernel
+// keeps no registers for the levels.
+template <typename T, int kTileRows, bool kFused>
+__global__ void __launch_bounds__(kThreads)
+step_kernel(const T* __restrict__ in, T* __restrict__ out,
+            const T* __restrict__ plan, int plan_len, int n_terms, int R,
+            int n_res, Grid2D g, int k) {
+  if constexpr (!kFused) k = 1;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T acc[kTileRows / kRowStep];
+  const int E = k * R;  // the pass's reach
+  const int e1 = E - R;
+  const int win_rows = kTileRows + 2 * E;
+  const int win_cols = kTileCols + 2 * E;
+  T* s_a = smem;                            // win_rows x win_cols
+  T* s_b = s_a + win_rows * win_cols;       // level buffer (k >= 2)
+  T* s_col = s_b + (kFused ? (kTileRows + 2 * e1) * (kTileCols + 2 * e1) : 0);
+  T* s_plan = s_col + win_rows * (kTileCols + 2 * e1);
+  const int i0 = blockIdx.y * kTileRows;  // tile origin, interior coords
+  const int j0 = blockIdx.x * kTileCols;
+
+  const Plan<T> pl = stage_plan(plan, plan_len, n_terms, R, n_res, s_plan);
+  // Window rows [i0 - E, i0 + kTileRows + E), cols [j0 - E, j0 + 128 + E)
+  // of the interior; the guard (>= E, checked by the host) keeps the start
+  // in bounds, and a tile past the rounded interior reads zeros beyond the
+  // buffer's end.
+  stage<T, false>(in, g.rows, g.pitch, g.r0 + i0 - E, g.c0 + j0 - E, s_a,
+                  win_rows, win_cols);
+  __syncthreads();
+
+  const T* src = s_a;
+  int src_cols = win_cols;
+  if constexpr (kFused) {
+    for (int lv = 1, e = e1; lv < k; ++lv, e -= R) {
+      T* dst = (lv % 2) ? s_b : s_a;
+      level(src, src_cols, dst, kTileCols + 2 * e, s_col, kTileRows + 2 * e,
+            kTileCols + 2 * e, pl, i0 - e, j0 - e, g.m, g.n);
+      src = dst;
+      src_cols = kTileCols + 2 * e;
+    }
+  }
+  tile_sums<T, kTileRows>(src, src_cols, s_col, pl, acc);
+  const int j = j0 + threadIdx.x % kTileCols;
+  if (j < g.nr)
+    store_tile<T, kTileRows>(out, g.pitch, g.r0, g.c0, i0, j, 0, g.mr, g.m,
+                             g.n, acc);
+}
+
+// k >= 2 time-skewed steps per block: a 128-column strip, output rows
+// [a, a + kChunkRows) of the rounded interior, bands of kTileRows rows.
+template <typename T, int kTileRows>
+__global__ void __launch_bounds__(kThreads)
+skew_kernel(const T* __restrict__ in, T* __restrict__ out,
+            const T* __restrict__ plan, int plan_len, int n_terms, int R,
+            int n_res, Grid2D g, int k) {
+  constexpr int B = kTileRows;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T acc[kTileRows / kRowStep];
+  const int band_rows = B + 2 * R;  // a level's carry of 2R rows + a band
+  const int j0 = blockIdx.x * kTileCols;
+  const int a = blockIdx.y * kChunkRows;
+  const int end = min(a + kChunkRows, g.mr);
+  // Level j (0 = the input) holds rows [T0 + t*B - j*R - 2R, T0 + (t+1)*B
+  // - j*R) at band t, over columns [j0 - (k-j) R, j0 + 128 + (k-j) R); with
+  // no rows below its first band computed, level j is right from row
+  // T0 + (j-2) R on, so T0 makes level k right from row a.
+  const int T0 = a - (k - 2) * R;
+  // level buffers L[0..k-1], then s_col, then the plan
+  T* s_col = smem;
+  for (int lv = 0; lv < k; ++lv)
+    s_col += band_rows * (kTileCols + 2 * (k - lv) * R);
+  T* s_plan = s_col + band_rows * (kTileCols + 2 * (k - 1) * R);
+  const Plan<T> pl = stage_plan(plan, plan_len, n_terms, R, n_res, s_plan);
+  // no level row below a block's first band is ever read into a stored row,
+  // but zeros keep those never-stored rows finite
+  for (T* p = smem + threadIdx.x; p < s_col; p += kThreads) *p = T(0);
+
+  for (int t = 0;; ++t) {
+    const int out_row = T0 + t * B - k * R;  // level k's band
+    if (out_row >= end) break;
+    __syncthreads();  // the previous band's readers are done
+    if (t == 0) {
+      stage<T, false>(in, g.rows, g.pitch, g.r0 + T0 - 2 * R,
+                      g.c0 + j0 - k * R, smem, band_rows,
+                      kTileCols + 2 * k * R);
+    } else {
+      // each level's last 2R rows become its carry (B >= 2R: no overlap)
+      T* buf = smem;
+      for (int lv = 0; lv < k; ++lv) {
+        const int cols = kTileCols + 2 * (k - lv) * R;
+        for (int p = threadIdx.x; p < 2 * R * cols; p += kThreads)
+          buf[p] = buf[B * cols + p];
+        buf += band_rows * cols;
+      }
+      __syncthreads();
+      stage<T, false>(in, g.rows, g.pitch, g.r0 + T0 + t * B,
+                      g.c0 + j0 - k * R, smem + 2 * R * (kTileCols + 2 * k * R),
+                      B, kTileCols + 2 * k * R);
+    }
+    __syncthreads();
+    const T* src = smem;
+    int src_cols = kTileCols + 2 * k * R;
+    T* dst = smem + band_rows * src_cols;
+    for (int lv = 1; lv < k; ++lv) {
+      const int cols = kTileCols + 2 * (k - lv) * R;
+      level(src, src_cols, dst + 2 * R * cols, cols, s_col, B, cols, pl,
+            T0 + t * B - lv * R, j0 - (k - lv) * R, g.m, g.n);
+      src = dst;
+      src_cols = cols;
+      dst += band_rows * cols;
+    }
+    tile_sums<T, kTileRows>(src, src_cols, s_col, pl, acc);
+    const int j = j0 + threadIdx.x % kTileCols;
+    if (j < g.nr)
+      store_tile<T, kTileRows>(out, g.pitch, g.r0, g.c0, out_row, j, a, end,
+                               g.m, g.n, acc);
+  }
+}
+
+// All `steps` steps in one cooperative launch: step s reads `in` (s = 0) or
+// the buffer step s - 1 wrote, and writes out0 (s even) or out1 (s odd).
+template <typename T, int kTileRows>
+__global__ void __launch_bounds__(kThreads)
+resident_kernel(const T* in, T* out0, T* out1, const T* __restrict__ plan,
+                int plan_len, int n_terms, int R, int n_res, Grid2D g,
+                int steps) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  T acc[kTileRows / kRowStep];
+  const int win_rows = kTileRows + 2 * R;
+  const int win_cols = kTileCols + 2 * R;
+  T* s_win = smem;
+  T* s_col = s_win + win_rows * win_cols;
+  T* s_plan = s_col + win_rows * kTileCols;
+  const Plan<T> pl = stage_plan(plan, plan_len, n_terms, R, n_res, s_plan);
+  const int tiles_x = (g.nr + kTileCols - 1) / kTileCols;
+  const int tiles = tiles_x * ((g.mr + kTileRows - 1) / kTileRows);
+  for (int s = 0; s < steps; ++s) {
+    const T* src = s == 0 ? in : ((s - 1) % 2 ? out1 : out0);
+    T* dst = s % 2 ? out1 : out0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int i0 = tile / tiles_x * kTileRows;
+      const int j0 = tile % tiles_x * kTileCols;
+      __syncthreads();  // the previous tile's readers are done
+      stage<T, true>(src, g.rows, g.pitch, g.r0 + i0 - R, g.c0 + j0 - R,
+                     s_win, win_rows, win_cols);
+      __syncthreads();
+      tile_sums<T, kTileRows>(s_win, win_cols, s_col, pl, acc);
+      const int j = j0 + threadIdx.x % kTileCols;
+      if (j < g.nr)
+        store_tile<T, kTileRows>(dst, g.pitch, g.r0, g.c0, i0, j, 0, g.mr,
+                                 g.m, g.n, acc);
+    }
+    if (s + 1 < steps) grid.sync();  // every tile written, every read done
+  }
+}
+
+// Shared memory of each kernel, in elements (ops/stencil2d.py repeats these).
+template <typename T>
+size_t step_cells(int k, int R, int plan_len) {
+  const size_t tm = tile_rows<T>();
+  const size_t E = static_cast<size_t>(k) * R;
+  const size_t e1 = E - R;
+  const size_t win = (tm + 2 * E) * (kTileCols + 2 * E);
+  const size_t lvl = k > 1 ? (tm + 2 * e1) * (kTileCols + 2 * e1) : 0;
+  return win + lvl + (tm + 2 * E) * (kTileCols + 2 * e1) + plan_len;
+}
+
+template <typename T>
+size_t skew_cells(int k, int R, int plan_len) {
+  const size_t band = tile_rows<T>() + 2 * static_cast<size_t>(R);
+  size_t cells = plan_len + band * (kTileCols + 2 * (k - 1) * R);
+  for (int lv = 0; lv < k; ++lv) cells += band * (kTileCols + 2 * (k - lv) * R);
+  return cells;
+}
+
+template <typename T>
+bool bad_args(int plan_len, int n_terms, int R, int n_res, const Grid2D& g,
+              int reach) {
+  const int W = 2 * R + 1;
+  return R < 0 || R > kMaxRadius || n_terms < 0 || n_res < 0 ||
+         plan_len > kMaxPlan || plan_len != n_terms * (2 + 2 * W) + 3 * n_res ||
+         g.r0 < reach || g.c0 < reach || g.m < 0 || g.n < 0 || g.mr < g.m ||
+         g.nr < g.n || g.r0 + g.mr + reach > g.rows ||
+         g.c0 + g.nr + reach > g.pitch ||
+         (g.mr + tile_rows<T>() - 1) / tile_rows<T>() > kMaxGridY;
+}
+
+int set_smem(const void* kernel, size_t smem) {
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+}
+
+template <typename T>
+int launch_step(const T* in, T* out, const T* plan, int plan_len,
+                int n_terms, int R, int n_res, Grid2D g, int k,
+                void* stream) {
+  constexpr int kTileRows = tile_rows<T>();
+  if (k < 1 || bad_args<T>(plan_len, n_terms, R, n_res, g, k * R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.mr == 0 || g.nr == 0) return 0;
+  const void* kernel =
+      k > 1 ? reinterpret_cast<const void*>(step_kernel<T, kTileRows, true>)
+            : reinterpret_cast<const void*>(step_kernel<T, kTileRows, false>);
+  const size_t smem = sizeof(T) * step_cells<T>(k, R, plan_len);
+  const int e = set_smem(kernel, smem);
+  if (e != 0) return e;
+  const dim3 grid((g.nr + kTileCols - 1) / kTileCols,
+                  (g.mr + kTileRows - 1) / kTileRows);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (k > 1)
+    step_kernel<T, kTileRows, true><<<grid, kThreads, smem, s>>>(
+        in, out, plan, plan_len, n_terms, R, n_res, g, k);
+  else
+    step_kernel<T, kTileRows, false><<<grid, kThreads, smem, s>>>(
+        in, out, plan, plan_len, n_terms, R, n_res, g, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_skew(const T* in, T* out, const T* plan, int plan_len,
+                int n_terms, int R, int n_res, Grid2D g, int k,
+                void* stream) {
+  constexpr int kTileRows = tile_rows<T>();
+  if (k < 2 || 2 * R > kTileRows ||
+      bad_args<T>(plan_len, n_terms, R, n_res, g, k * R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.mr == 0 || g.nr == 0) return 0;
+  const void* kernel =
+      reinterpret_cast<const void*>(skew_kernel<T, kTileRows>);
+  const size_t smem = sizeof(T) * skew_cells<T>(k, R, plan_len);
+  const int e = set_smem(kernel, smem);
+  if (e != 0) return e;
+  const dim3 grid((g.nr + kTileCols - 1) / kTileCols,
+                  (g.mr + kChunkRows - 1) / kChunkRows);
+  skew_kernel<T, kTileRows><<<grid, kThreads, smem,
+                              static_cast<cudaStream_t>(stream)>>>(
+      in, out, plan, plan_len, n_terms, R, n_res, g, k);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_resident(const T* in, T* out0, T* out1, const T* plan,
+                    int plan_len, int n_terms, int R, int n_res, Grid2D g,
+                    int steps, void* stream) {
+  constexpr int kTileRows = tile_rows<T>();
+  if (steps < 1 || bad_args<T>(plan_len, n_terms, R, n_res, g, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.mr == 0 || g.nr == 0) return 0;
+  const void* kernel =
+      reinterpret_cast<const void*>(resident_kernel<T, kTileRows>);
+  const size_t smem = sizeof(T) * step_cells<T>(1, R, plan_len);
+  const int se = set_smem(kernel, smem);
+  if (se != 0) return se;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                      kThreads, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (per_sm < 1)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  const int tiles = ((g.nr + kTileCols - 1) / kTileCols) *
+                    ((g.mr + kTileRows - 1) / kTileRows);
+  const int blocks = tiles < per_sm * sms ? tiles : per_sm * sms;
+  void* args[] = {&in, &out0, &out1, &plan, &plan_len, &n_terms,
+                  &R,  &n_res, &g,   &steps};
+  e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads), args,
+                                  smem, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int ls_stencil2d_step(const float* in, float* out,
-                                 const float* plan, int plan_len,
-                                 int n_terms, int radius, int n_res,
-                                 int rows, int pitch, int r0, int c0, int m,
-                                 int n, int mr, int nr, void* stream) {
-  return launch(in, out, plan, plan_len, n_terms, radius, n_res, rows, pitch,
-                r0, c0, m, n, mr, nr, stream);
-}
+// Every entry: the input buffer, output buffer(s), the plan and its counts,
+// then the buffer shape (rows, pitch), the origin of interior cell (0, 0),
+// the interior (m, n), the rounded interior (mr, nr), the steps of the
+// launch, and the stream.
+#define LS_GRID Grid2D{rows, pitch, r0, c0, m, n, mr, nr}
+#define LS_ENTRY(NAME, FN, T)                                               \
+  extern "C" int NAME(const T* in, T* out, const T* plan, int plan_len,   \
+                      int n_terms, int radius, int n_res, int rows,       \
+                      int pitch, int r0, int c0, int m, int n, int mr,    \
+                      int nr, int k, void* stream) {                      \
+    return FN(in, out, plan, plan_len, n_terms, radius, n_res, LS_GRID, k, \
+              stream);                                                    \
+  }
+LS_ENTRY(ls_stencil2d_step, launch_step<float>, float)
+LS_ENTRY(ls_stencil2d_step_f64, launch_step<double>, double)
+LS_ENTRY(ls_stencil2d_skew, launch_skew<float>, float)
+LS_ENTRY(ls_stencil2d_skew_f64, launch_skew<double>, double)
 
-extern "C" int ls_stencil2d_step_f64(const double* in, double* out,
-                                     const double* plan, int plan_len,
-                                     int n_terms, int radius, int n_res,
-                                     int rows, int pitch, int r0, int c0,
-                                     int m, int n, int mr, int nr,
-                                     void* stream) {
-  return launch(in, out, plan, plan_len, n_terms, radius, n_res, rows, pitch,
-                r0, c0, m, n, mr, nr, stream);
-}
+#define LS_RESIDENT(NAME, T)                                                \
+  extern "C" int NAME(const T* in, T* out0, T* out1, const T* plan,        \
+                      int plan_len, int n_terms, int radius, int n_res,    \
+                      int rows, int pitch, int r0, int c0, int m, int n,   \
+                      int mr, int nr, int steps, void* stream) {           \
+    return launch_resident(in, out0, out1, plan, plan_len, n_terms, radius, \
+                           n_res, LS_GRID, steps, stream);                 \
+  }
+LS_RESIDENT(ls_stencil2d_resident, float)
+LS_RESIDENT(ls_stencil2d_resident_f64, double)

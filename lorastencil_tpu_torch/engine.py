@@ -18,8 +18,18 @@ shapes, in the fp64-grade tier (dtype "float64" or "df64", see below):
     ``ops/stencil1d.py``, with the JAX engine's dispatch (see
     ``_build_layout_1d``): small grids run all steps in one launch, large
     ones ``ping_pong_loop`` passes of the JAX engine's fused depth;
-  * 2-D shapes whose fused depth resolves to one step (star2d1r, box2d1r,
-    box2d3r) through ``ops/stencil2d.py``;
+  * 2-D shapes (star2d1r, box2d1r, box2d3r, star2d3r) through
+    ``ops/stencil2d.py`` at the JAX engine's fused depth (see
+    ``_fused_k``: k = 2 for the few-term star2d3r, 1 for the others unless
+    ``fused_steps`` says otherwise), in either fusion mode: 'extent'
+    (``stencil2d_step``, k levels over shrinking extents) or 'skew'
+    (``stencil2d_skew_step``, time-skewed row bands); a remainder pass of
+    ``steps % k``; and, when the state fits the JAX package's opt-in caps
+    (``LORASTENCIL_RESIDENT2D_KB``, ``LORASTENCIL_RESIDENT2D_PAIR_KB``, both
+    off by default), every step in one ``stencil2d_resident`` launch.
+    ``fusion='auto'`` means 'extent': the JAX engine's 'auto' reads its
+    autotune cache, which the port does not have yet (ROADMAP A12), and
+    resolves 'extent' when the cache is empty;
   * 3-D shapes (star3d1r, box3d1r) at the JAX engine's fused depth
     ``k = min(fused_steps_3d, 8 // radius)`` (2 by default) through
     ``ops/stencil3d.py``: ``steps // k`` passes of k steps, then one pass
@@ -35,9 +45,14 @@ kernels, in native double; the pair arithmetic is not ported.  Each keeps
 the JAX engine's dispatch: "df64" one step per pass everywhere, its 1-D
 branches (``_build_layout_1d``) and the ``df64_algorithm`` label
 (``ops/stencil2d.pick_algorithm`` in 2-D), an effective radius of 0 on the
-"xla" step; "float64" resolves "auto" to "vpu_roll" and keeps the float32
-rules for the fused depth (1 in 2-D, 2 on the 1-D lanes path).  ``run``
+"xla" step, in 2-D the pair cap of the whole-grid run; "float64" resolves
+"auto" to "vpu_roll" and keeps the float32 rules for the fused depth (1 in
+2-D unless ``fused_steps`` is given, 2 on the 1-D lanes path).  ``run``
 returns a float64 tensor.
+
+``residue_mxu`` takes the JAX engine's values; 'on' moves the TPU kernel's
+residue onto its matrix unit, which the card has no use for: every value
+runs the same exact CUDA-core sums.
 
 ``device`` defaults to "cuda" and raises when CUDA is absent: the engine
 never moves to the CPU by itself.  ``device="cpu"`` runs the plain twins.
@@ -65,6 +80,9 @@ ALGORITHM_NAMES = ("auto", "vpu", "vpu_roll", "vpu_sep", "mxu", "mxu_split",
                    "mxu_hybrid3")
 DTYPES = {"float32": torch.float32, "float64": torch.float64,
           "df64": torch.float64}
+# the JAX 2-D layout's column guard (its LANE), which caps a 2-D pass's
+# reach k * radius in the JAX engine's fused-depth rules
+JAX_COL_GUARD = 128
 
 
 def resolve_algorithm(spec: StencilSpec, name: str,
@@ -176,10 +194,6 @@ class StencilEngine:
                 raise ValueError(
                     f"algorithm {self.algorithm!r} has no {spec.ndim}-D "
                     f"path; the port runs {kernel.ALGORITHMS}")
-        if spec.ndim == 2 and self._fused_k() != 1:
-            raise _not_ported(
-                f"{spec.name} at fused_steps={self._fused_k()} (k > 1)",
-                "B2")
         # the 1-D kernel: "resident_lanes", "resident", "lanes" or "flat"
         self.path = None
         if spec.ndim == 1:
@@ -197,6 +211,14 @@ class StencilEngine:
             raise _not_ported(f"dtype {config.dtype!r} in 3-D", "B10")
         if config.backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown backend {config.backend!r}")
+        if config.algorithm not in ALGORITHM_NAMES:
+            raise ValueError(f"unknown algorithm {config.algorithm!r}")
+        if config.fusion not in ("auto", "extent", "skew"):
+            raise ValueError(
+                f"fusion must be 'auto', 'extent' or 'skew', got "
+                f"{config.fusion!r}")
+        if config.fusion == "skew":
+            StencilEngine._validate_skew(spec, config)
         if config.boundary in ("periodic", "reflect"):
             raise _not_ported(f"boundary {config.boundary!r}", "A6")
         if config.boundary != "dirichlet0":
@@ -207,21 +229,7 @@ class StencilEngine:
             raise ValueError(
                 f"precision must be 'highest' or 'default', got "
                 f"{config.precision!r}")
-        if config.algorithm not in ALGORITHM_NAMES:
-            raise ValueError(f"unknown algorithm {config.algorithm!r}")
-        if config.fusion == "skew" and spec.ndim == 1:
-            raise ValueError(
-                "fusion='skew' is the 2-D time-skewed path; use "
-                "fused_steps elsewhere")
-        if config.fusion == "skew":
-            raise _not_ported("fusion='skew'", "B11")
-        if config.fusion not in ("auto", "extent"):
-            raise ValueError(
-                f"fusion must be 'auto', 'extent' or 'skew', got "
-                f"{config.fusion!r}")
-        if config.residue_mxu == "on":
-            raise _not_ported("residue_mxu='on'", "B2")
-        if config.residue_mxu not in ("auto", "off"):
+        if config.residue_mxu not in ("auto", "on", "off"):
             raise ValueError(
                 f"residue_mxu must be 'auto', 'on' or 'off', got "
                 f"{config.residue_mxu!r}")
@@ -229,6 +237,39 @@ class StencilEngine:
             raise ValueError(
                 "the port has no interpret mode: device='cpu' runs the "
                 "kernels' plain PyTorch twins")
+
+    @staticmethod
+    def _validate_skew(spec: StencilSpec, config: EngineConfig):
+        """The JAX engine's checks of fusion='skew', in its order and with
+        its messages.  Its algorithm is the resolved one, which for df64 is
+        'auto' resolved in float32 (the JAX engine accepts 'skew' there
+        and runs its single-step df64 passes)."""
+        if spec.ndim != 2:
+            raise ValueError(
+                "fusion='skew' is the 2-D time-skewed path; use "
+                "fused_steps/fused_steps_3d elsewhere")
+        if config.backend == "xla":
+            raise ValueError("fusion='skew' needs the Pallas backend")
+        if config.boundary != "dirichlet0":
+            raise ValueError(
+                "fusion='skew' supports dirichlet0 boundaries only "
+                "(ghost rings would need per-level ring evolution)")
+        algorithm = (resolve_algorithm(spec, "auto") if config.dtype == "df64"
+                     else resolve_algorithm(spec, config.algorithm,
+                                            config.dtype))
+        if algorithm not in stencil2d.SKEW_ALGORITHMS:
+            raise ValueError(
+                f"fusion='skew' supports algorithm 'vpu_roll' or "
+                f"'mxu_hybrid1'; resolved algorithm is {algorithm!r}")
+        if config.fused_steps is not None and config.fused_steps < 2:
+            raise ValueError(
+                "fusion='skew' needs fused_steps >= 2 (k=1 has no lag to "
+                "skew; use fusion='extent')")
+        if JAX_COL_GUARD // max(1, spec.radius) < 2:
+            raise ValueError(
+                f"fusion='skew' creeps k*radius columns into the "
+                f"{JAX_COL_GUARD}-col guard; radius {spec.radius} leaves no "
+                f"room for k >= 2")
 
     def _resolve_df64(self):
         """The JAX engine's df64 branch (``lorastencil_tpu/engine.py``
@@ -292,10 +333,24 @@ class StencilEngine:
                   if k in EngineConfig.__dataclass_fields__}
         return cls(spec, interior, EngineConfig(**cfg_kw), device=device)
 
+    def _fusion_mode(self) -> str:
+        """'skew' for fusion='skew' in 2-D, else 'extent'.  The JAX
+        engine's 'auto' adopts 'skew' only where its per-device autotune
+        cache says so; the port has no such cache yet (ROADMAP A12), so its
+        'auto' is 'extent', as the JAX engine's on an empty cache."""
+        if self.spec.ndim == 2 and self.config.fusion == "skew":
+            return "skew"
+        return "extent"
+
     def _fused_k(self) -> int:
         """The JAX engine's fused-depth rules: 1 for 'xla' and 'df64'; 1-D
         (see below); 3-D ``min(max(1, fused_steps_3d), 8 // radius)``; 2-D
-        extent fusion."""
+        skew ``min(fused_steps or 2, 128 // radius)``, 2-D extent
+        ``fused_steps`` or, unset, 2 for few-term specs without residue in
+        float32 and 1 otherwise, clamped to ``128 // radius``.  The clamp is
+        the JAX layout's 128-column guard; the port's guard is its own
+        (``guard_2d``), but the same config takes the same k and so the same
+        launches."""
         if self.backend == "xla" or self.df64:
             return 1
         if self.spec.ndim == 1:
@@ -317,6 +372,9 @@ class StencilEngine:
         if self.spec.ndim == 3:
             return max(1, min(self.config.fused_steps_3d,
                               8 // self.spec.radius))
+        r = max(1, self.spec.radius)
+        if self._fusion_mode() == "skew":
+            return min(self.config.fused_steps or 2, JAX_COL_GUARD // r)
         k = self.config.fused_steps
         if k is None:
             few_terms = (not self.spec.residue
@@ -324,7 +382,7 @@ class StencilEngine:
                          and self.dtype != torch.float64
                          and self.algorithm in ("mxu_hybrid1", "vpu_roll"))
             k = 2 if few_terms else 1
-        return max(1, k)
+        return min(max(1, k), JAX_COL_GUARD // r)
 
     def _build_layout(self):
         reach = self._fused_k() * self.spec.radius
@@ -415,10 +473,29 @@ class StencilEngine:
             return stencil3d.stencil3d_step(
                 cur, donor, self.spec, self.layout,
                 algorithm=self.algorithm, fused_steps=fused_k)
+        if self._fusion_mode() == "skew" and fused_k >= 2:
+            # a remainder pass of one step runs the extent kernel
+            return stencil2d.stencil2d_skew_step(
+                cur, donor, self.spec, self.layout,
+                algorithm=self.algorithm, skew_steps=fused_k)
         return stencil2d.stencil2d_step(
             cur, donor, self.spec, self.layout,
             algorithm=self.df64_algorithm if self.df64 else self.algorithm,
             fused_steps=fused_k)
+
+    def _resident_2d(self) -> bool:
+        """Whether a 2-D run takes every step in one ``stencil2d_resident``
+        launch: the JAX engine's rule (``_run_internal``), evaluated at run
+        time on the port's layout.  df64: the pair cap; otherwise not skew,
+        an exact algorithm, and the state under the cap."""
+        if self.spec.ndim != 2 or self.backend != "pallas":
+            return False
+        if self.df64:
+            return stencil2d.fits_resident_pair_2d(self.layout)
+        return (self._fusion_mode() != "skew"
+                and self.algorithm in ("mxu_hybrid1", "vpu_roll", "vpu")
+                and stencil2d.fits_resident_2d(self.layout,
+                                               self.dtype.itemsize))
 
     # -- public API -------------------------------------------------------
     def to_internal(self, padded):
@@ -438,13 +515,17 @@ class StencilEngine:
 
     def run_internal(self, state, steps: int):
         """``steps`` timesteps on internal state; ``state`` is read, not
-        written (the result lives in one of two new buffers).  1-D small
-        grids run every step in one resident launch."""
+        written (the result lives in a new buffer).  1-D small grids, and
+        2-D grids under the opt-in caps (``_resident_2d``), run every step
+        in one resident launch."""
         if steps > 0 and self.path == "resident_lanes":
             return stencil1d.stencil1d_resident_lanes(
                 state, self.spec, self.layout, steps)
         if steps > 0 and self.path == "resident":
             return stencil1d.stencil1d_resident(state, self.spec, self.layout,
+                                                steps)
+        if steps > 0 and self._resident_2d():
+            return stencil2d.stencil2d_resident(state, self.spec, self.layout,
                                                 steps)
         return ping_pong_loop(self._step_internal, state, steps,
                               self._fused_k())

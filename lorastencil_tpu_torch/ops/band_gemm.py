@@ -20,6 +20,16 @@ two (all of the 3-D registry's), since an exact product makes an FMA equal
 to a multiply then an add.  The fp64 instance of the 2-D kernel rounds each
 product and sum on its own, so on float64 tensors the two agree bit for bit
 on any data.
+
+The whole-grid 2-D runs keep this order too.  The JAX resident kernels
+(``pallas_2d._stencil2d_resident_kernel``, ``pallas_df64.
+_resident_pair_2d_kernel``) step with ``apply_spec_vpu_rolled``, which adds
+an equal (+d, -d) tap pair before one multiply and sums the residue by row
+groups; that order only saves TPU vector rolls.  Here every 2-D kernel --
+step, fused, skewed and resident -- runs the one per-cell sum above, so a
+resident run equals the tiled passes bit for bit on any data, and the JAX
+resident kernels to fp32 rounding (bit for bit on integer data below
+2**24, where no order rounds).
 """
 
 from __future__ import annotations
@@ -132,12 +142,16 @@ def apply_spec_3d(P, spec: StencilSpec):
     return acc
 
 
-def mask_to_interior(val, m: int, n: int):
-    """Zero, in place, the cells of an interior-origin block beyond the
-    true interior (m, n): the tile round-up cells, which would otherwise
-    feed real cells on the next step."""
-    val[m:, :] = 0.0
-    val[:, n:] = 0.0
+def mask_to_interior(val, m: int, n: int, margin: int = 0):
+    """Zero, in place, the cells of a block beyond the true interior
+    (m, n), where the block's cell (margin, margin) is interior cell
+    (0, 0): the tile round-up cells, which would otherwise feed real cells
+    on the next step, and at a fused level the ``margin`` halo and guard
+    cells around the interior (pallas_2d.py mask_to_interior)."""
+    val[:margin, :] = 0.0
+    val[margin + m:, :] = 0.0
+    val[:, :margin] = 0.0
+    val[:, margin + n:] = 0.0
     return val
 
 

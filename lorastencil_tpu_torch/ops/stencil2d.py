@@ -1,14 +1,16 @@
-"""One 2-D stencil pass on the internal layout: the CUDA kernel's wrapper.
+"""2-D stencil passes on the internal layout: the CUDA kernels' wrappers.
 
 Counterpart of ``lorastencil_tpu/ops/pallas_2d.py`` ``stencil2d_step``
-(kernel ``_stencil2d_kernel``) at ``fused_steps=1``, and of
-``lorastencil_tpu/ops/pallas_df64.py`` ``df64_step`` (kernel
-``_df64_kernel``).  ``csrc/stencil2d.cu`` has a float32 and a float64
-instance: ``stencil2d_step`` launches the one of its state's dtype.  On a
-CUDA tensor the wrapper launches or raises; only a CPU tensor runs the
-plain PyTorch twin, ``stencil2d_step_plain``, which is also callable
-directly (the tests and ``chip_smoke.py`` hold the kernels against it on
-the card).
+(kernel ``_stencil2d_kernel``, every fused depth), ``stencil2d_skew_step``
+(``_stencil2d_skew_kernel``) and ``stencil2d_resident``
+(``_stencil2d_resident_kernel``), and of ``lorastencil_tpu/ops/
+pallas_df64.py`` ``df64_step`` (``_df64_kernel``) and
+``stencil2d_resident_pair``.  ``csrc/stencil2d.cu`` has a float32 and a
+float64 instance of each kernel: a wrapper launches the one of its state's
+dtype.  On a CUDA tensor a wrapper launches or raises; only a CPU tensor
+runs the plain PyTorch twin (``*_plain``), which is also callable directly
+(the tests and ``chip_smoke.py`` hold the kernels against them on the
+card); the skew kernel's twin is the fused pass's.
 
 ``algorithm``: the TPU kernel's exact-fp32 variants ``'mxu_hybrid1'``,
 ``'vpu_roll'`` and ``'vpu'`` differ only in how they use the TPU's matrix
@@ -17,13 +19,20 @@ this one CUDA-core kernel.  The TPU's df64 variants ``'vpu'``,
 ``'vpu_roll'`` and ``'vpu_sep'`` (dense rolls, dense slices, separable
 form on (hi, lo) fp32 pairs) are likewise one native-fp64 computation:
 all three run the float64 instance.  The lossy or TPU-specific fp32
-variants are still to be ported (ROADMAP queue B).
+variants are still to be ported (ROADMAP B13).
+
+Shared memory bounds the reach of one launch: a fused pass holds about
+three (32 + 2kr) x (128 + 2kr) windows (16 rows in float64), a skewed one a
+band of every level.  A pass deeper than the largest k that fits
+(``max_fused_steps``) runs as launches of that k, each counted; the values
+do not change, because every level is masked to the interior.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import os
 
 import numpy as np
 import torch
@@ -37,13 +46,116 @@ from .layout import Layout2D
 ALGORITHMS = ("mxu_hybrid1", "vpu_roll", "vpu")
 # the names pallas_df64.df64_step takes
 DF64_ALGORITHMS = ("vpu", "vpu_roll", "vpu_sep")
-# the TPU kernel's other variants, still to be ported (ROADMAP B2, B13)
+# the names pallas_2d.stencil2d_skew_step takes
+SKEW_ALGORITHMS = ("vpu_roll", "mxu_hybrid1")
+# the TPU kernel's other variants, still to be ported (ROADMAP B13)
 UNPORTED_ALGORITHMS = ("mxu", "mxu_split", "mxu_hybrid", "mxu_hybrid1r",
                        "mxu_hybrid3")
 MAX_RADIUS = 16  # csrc/stencil2d.cu kMaxRadius
 MAX_PLAN = 4096  # csrc/stencil2d.cu kMaxPlan
-_ENTRIES = {torch.float32: "ls_stencil2d_step",
-            torch.float64: "ls_stencil2d_step_f64"}
+MAX_SMEM = 232448  # csrc/stencil2d.cu kMaxSmem: bytes a block may use
+TILE_COLS = 128  # csrc/stencil2d.cu kTileCols
+_ENTRIES = {
+    "step": {torch.float32: "ls_stencil2d_step",
+             torch.float64: "ls_stencil2d_step_f64"},
+    "skew": {torch.float32: "ls_stencil2d_skew",
+             torch.float64: "ls_stencil2d_skew_f64"},
+    "resident": {torch.float32: "ls_stencil2d_resident",
+                 torch.float64: "ls_stencil2d_resident_f64"}}
+
+# Whole-grid runs: the JAX package's caps on the internal buffer's bytes
+# (pallas_2d.RESIDENT_2D_BYTES, pallas_df64.RESIDENT_PAIR_2D_BYTES), read
+# from the same environment variables and off (0) by default.  The test is
+# the port's, on the port's layout: near a cap the two packages may choose
+# differently (ROADMAP section C).
+RESIDENT_2D_BYTES = int(os.environ.get("LORASTENCIL_RESIDENT2D_KB",
+                                       "0")) * 1024
+RESIDENT_PAIR_2D_BYTES = int(os.environ.get(
+    "LORASTENCIL_RESIDENT2D_PAIR_KB", "0")) * 1024
+
+
+def fits_resident_2d(layout, itemsize: int = 4) -> bool:
+    """Whether the float32 (or, at ``itemsize`` 8, float64) state runs all
+    its steps in one ``stencil2d_resident`` launch."""
+    if not isinstance(layout, Layout2D) or layout.extra_row_tiles:
+        return False
+    R, C = layout.shape
+    return R * C * itemsize <= RESIDENT_2D_BYTES
+
+
+def fits_resident_pair_2d(layout) -> bool:
+    """Whether a df64 state runs all its steps in one launch: the JAX
+    pair grid's 2 * R * C * 4 bytes, R * C * 8 for the float64 state."""
+    if not isinstance(layout, Layout2D) or layout.extra_row_tiles:
+        return False
+    R, C = layout.shape
+    return 2 * R * C * 4 <= RESIDENT_PAIR_2D_BYTES
+
+
+def tile_rows(dtype) -> int:
+    """Output rows of a block tile and of a skew band (csrc/stencil2d.cu
+    tile_rows): 32 in float32, 16 in float64."""
+    return 16 if dtype == torch.float64 else 32
+
+
+def plan_len(spec: StencilSpec) -> int:
+    """Entries of the kernels' tap table (``band_gemm.plan_array``)."""
+    W = 2 * spec.radius + 1
+    return len(spec.terms) * (2 + 2 * W) + 3 * len(spec.residue)
+
+
+def smem_bytes(kind: str, k: int, radius: int, n_plan: int,
+               dtype=torch.float32) -> int:
+    """Shared memory of one launch (csrc/stencil2d.cu step_cells and
+    skew_cells): ``kind`` "step" (a pass of k fused steps, or one step of
+    a resident run at k = 1) or "skew"."""
+    tm, R = tile_rows(dtype), radius
+    if kind == "skew":
+        band = tm + 2 * R
+        cells = n_plan + band * (TILE_COLS + 2 * (k - 1) * R)
+        cells += sum(band * (TILE_COLS + 2 * (k - lv) * R)
+                     for lv in range(k))
+    else:
+        E, e1 = k * R, (k - 1) * R
+        cells = ((tm + 2 * E) * (TILE_COLS + 2 * E)
+                 + ((tm + 2 * e1) * (TILE_COLS + 2 * e1) if k > 1 else 0)
+                 + (tm + 2 * E) * (TILE_COLS + 2 * e1) + n_plan)
+    return cells * (8 if dtype == torch.float64 else 4)
+
+
+@functools.lru_cache(maxsize=None)
+def max_fused_steps(kind: str, radius: int, n_plan: int,
+                    dtype=torch.float32) -> int:
+    """The deepest pass of ``kind`` one launch takes (its shared memory
+    within ``MAX_SMEM``), at least 1 ("step") or 2 ("skew"); 128 steps, the
+    engine's largest k, when the radius is 0."""
+    k = 1 if kind == "step" else 2
+    while k < 128 and smem_bytes(kind, k + 1, radius, n_plan,
+                                 dtype) <= MAX_SMEM:
+        k += 1
+    return k
+
+
+def _check_state(cur, spec: StencilSpec, layout: Layout2D, reach: int):
+    if spec.ndim != 2:
+        raise ValueError(f"{spec.name} is {spec.ndim}-D, not 2-D")
+    if spec.radius > MAX_RADIUS:
+        raise ValueError(
+            f"radius {spec.radius} exceeds the kernel's cap {MAX_RADIUS}")
+    layout.validate()
+    if min(layout.guard) < reach:
+        raise ValueError(
+            f"guard {layout.guard} is narrower than the pass's reach "
+            f"{reach} (fused steps x radius {spec.radius})")
+    if cur.dtype not in _ENTRIES["step"]:
+        raise TypeError(f"cur must be float32 or float64, got {cur.dtype}")
+    if tuple(cur.shape) != layout.shape:
+        raise ValueError(
+            f"cur has shape {tuple(cur.shape)}, layout is {layout.shape}")
+    if not cur.is_contiguous():
+        raise ValueError("cur must be contiguous")
+    if cur.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no stencil2d kernel for device {cur.device}")
 
 
 def _check(cur, donor, spec: StencilSpec, layout: Layout2D,
@@ -58,51 +170,53 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout2D,
     if algorithm not in algorithms:
         raise ValueError(f"unknown algorithm {algorithm!r}; this wrapper "
                          f"takes {algorithms}")
-    if fused_steps != 1:
-        raise NotImplementedError(
-            "fused_steps > 1 is not ported yet (ROADMAP B2)")
-    if spec.ndim != 2:
-        raise ValueError(f"{spec.name} is {spec.ndim}-D, not 2-D")
-    if spec.radius > MAX_RADIUS:
+    if fused_steps < 1:
+        raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
+    _check_state(cur, spec, layout, fused_steps * spec.radius)
+    if donor.dtype != cur.dtype:
+        raise TypeError(f"donor must be {cur.dtype}, got {donor.dtype}")
+    if tuple(donor.shape) != layout.shape:
         raise ValueError(
-            f"radius {spec.radius} exceeds the kernel's cap {MAX_RADIUS}")
-    layout.validate()
-    if min(layout.guard) < spec.radius:
-        raise ValueError(
-            f"guard {layout.guard} is narrower than radius {spec.radius}")
-    if cur.dtype not in _ENTRIES:
-        raise TypeError(f"cur must be float32 or float64, got {cur.dtype}")
-    for name, t in (("cur", cur), ("donor", donor)):
-        if t.dtype != cur.dtype:
-            raise TypeError(f"{name} must be {cur.dtype}, got {t.dtype}")
-        if tuple(t.shape) != layout.shape:
-            raise ValueError(
-                f"{name} has shape {tuple(t.shape)}, layout is "
-                f"{layout.shape}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+            f"donor has shape {tuple(donor.shape)}, layout is "
+            f"{layout.shape}")
+    if not donor.is_contiguous():
+        raise ValueError("donor must be contiguous")
     if cur.device != donor.device:
         raise ValueError(
             f"cur on {cur.device} but donor on {donor.device}")
     if cur.data_ptr() == donor.data_ptr():
         raise ValueError("donor must be a different buffer from cur")
-    if cur.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no stencil2d kernel for device {cur.device}")
 
 
-def stencil2d_step_plain(cur, donor, spec: StencilSpec, layout: Layout2D):
-    """The kernels' plain PyTorch twin: the same pass with tensor ops on
-    whatever device and dtype ``cur`` has.  Writes the rounded interior of
-    ``donor`` in place (masked to the true interior) and returns it; the
-    guard ring of ``donor`` is left as it is."""
+def stencil2d_step_plain(cur, donor, spec: StencilSpec, layout: Layout2D,
+                         fused_steps: int = 1):
+    """The step and fused kernels' plain PyTorch twin: the same pass with
+    tensor ops on whatever device and dtype ``cur`` has.  Level L = 1..k
+    steps the window at reach (k - L) r around the rounded interior and
+    zeroes its cells outside the true interior; level k is written to the
+    rounded interior of ``donor`` in place, which is returned.  The guard
+    ring of ``donor`` is left as it is."""
     r = spec.radius
     r0, c0 = layout.origin
     mr, nr = layout.rounded
-    window = cur[r0 - r: r0 + mr + r, c0 - r: c0 + nr + r]
-    val = mask_to_interior(apply_spec(window, spec, (r, r)),
-                           *layout.interior)
+    e = fused_steps * r
+    val = cur[r0 - e: r0 + mr + e, c0 - e: c0 + nr + e]
+    for _ in range(fused_steps):
+        e -= r
+        val = mask_to_interior(apply_spec(val, spec, (r, r)),
+                               *layout.interior, margin=e)
     donor[r0: r0 + mr, c0: c0 + nr] = val
     return donor
+
+
+def stencil2d_resident_plain(cur, spec: StencilSpec, layout: Layout2D,
+                             steps: int):
+    """The resident kernel's plain twin: ``steps`` single steps between
+    two new zeroed buffers; returns the last one written."""
+    bufs = (torch.zeros_like(cur), torch.zeros_like(cur))
+    for s in range(steps):
+        cur = stencil2d_step_plain(cur, bufs[s % 2], spec, layout)
+    return cur
 
 
 @functools.lru_cache(maxsize=None)
@@ -121,58 +235,137 @@ def _plan_buffer(spec: StencilSpec, device: torch.device, dtype):
 def _lib():
     """The kernel library, built and bound once per process."""
     lib = _cuda_build.load("stencil2d")
-    for entry in _ENTRIES.values():
-        fn = getattr(lib, entry)
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 12
-                       + [ctypes.c_void_p])
+    for kind, entries in _ENTRIES.items():
+        pointers = 4 if kind == "resident" else 3
+        for entry in entries.values():
+            fn = getattr(lib, entry)
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 13
+                           + [ctypes.c_void_p])
     return lib
 
 
-def _launch(cur, donor, spec: StencilSpec, layout: Layout2D):
-    """One launch of the instance of ``cur``'s dtype; raises if refused."""
+def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
+            depth: int):
+    """One launch of ``kind``'s instance of the buffers' dtype: ``depth``
+    fused steps ("step", "skew") or the steps of a run ("resident");
+    raises if refused, and counts it."""
+    cur = buffers[0]
     plan = _plan_buffer(spec, cur.device, cur.dtype)
-    n_terms, n_res = len(spec.terms), len(spec.residue)
     rows, pitch = layout.shape
     r0, c0 = layout.origin
     m, n = layout.interior
     mr, nr = layout.rounded
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), _ENTRIES[cur.dtype])(
-            cur.data_ptr(), donor.data_ptr(), plan.data_ptr(),
-            plan.numel(), n_terms, spec.radius, n_res, rows, pitch, r0,
-            c0, m, n, mr, nr, stream)
+        err = getattr(_lib(), _ENTRIES[kind][cur.dtype])(
+            *(b.data_ptr() for b in buffers), plan.data_ptr(), plan.numel(),
+            len(spec.terms), spec.radius, len(spec.residue), rows, pitch, r0,
+            c0, m, n, mr, nr, depth, stream)
     if err != 0:
         raise RuntimeError(
-            f"stencil2d kernel launch failed: CUDA error {err}")
+            f"stencil2d {kind} kernel launch failed: CUDA error {err}")
+    wrapper = {"step": stencil2d_step, "skew": stencil2d_skew_step,
+               "resident": stencil2d_resident}[kind]
+    if cur.dtype == torch.float64:
+        wrapper.launches_f64 += 1
+    else:
+        wrapper.launches += 1
+
+
+def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
+                k: int):
+    """A pass of k steps as launches of at most the k one launch takes,
+    from ``cur`` into ``donor`` and, past the first, a spare zero-guarded
+    buffer by turns; returns the buffer the last launch wrote.  A skewed
+    pass's leftover single step runs the step kernel."""
+    kmax = max_fused_steps(kind, spec.radius, plan_len(spec), cur.dtype)
+    depths = [kmax] * (k // kmax) + ([k % kmax] if k % kmax else [])
+    src, spare = cur, None
+    for i, depth in enumerate(depths):
+        if i == 0:
+            dst = donor
+        else:
+            if spare is None:
+                spare = torch.zeros_like(donor)
+            dst = spare if src is donor else donor
+        _launch(kind if depth > 1 else "step", (src, dst), spec, layout,
+                depth)
+        src = dst
+    return src
 
 
 def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
                    algorithm: str = "mxu_hybrid1", fused_steps: int = 1):
-    """One timestep on the internal layout: reads ``cur``, writes the
-    rounded interior of ``donor`` in place and returns ``donor``.
+    """``fused_steps`` timesteps on the internal layout: reads ``cur``,
+    writes the rounded interior of ``donor`` in place and returns it (past
+    ``max_fused_steps`` of one launch, the buffer the last launch wrote).
 
     ``donor``'s guard ring must be zero; it stays untouched, which is
-    what makes the halo decay after the first step.  A CUDA tensor runs
-    the kernel's instance of its dtype (or raises); a CPU tensor runs
+    what makes the halo decay after the first step.  The layout's guard
+    must cover the reach ``fused_steps * radius``.  A CUDA tensor runs the
+    kernel's instance of its dtype (or raises); a CPU tensor runs
     ``stencil2d_step_plain``.  On a float64 state (dtypes 'float64' and
-    'df64') it is the fp64-grade step of ``pallas_df64.df64_step`` and also
-    takes that wrapper's name 'vpu_sep'.  ``launches`` counts the float32
-    instance's launches, ``launches_f64`` the float64 one's."""
+    'df64') it is also the fp64-grade step of ``pallas_df64.df64_step``
+    and takes that wrapper's name 'vpu_sep'.  ``launches`` counts the
+    float32 instance's launches, ``launches_f64`` the float64 one's."""
     _check(cur, donor, spec, layout, algorithm, fused_steps)
     if cur.device.type == "cpu":
-        return stencil2d_step_plain(cur, donor, spec, layout)
-    _launch(cur, donor, spec, layout)
-    if cur.dtype == torch.float64:
-        stencil2d_step.launches_f64 += 1
-    else:
-        stencil2d_step.launches += 1
-    return donor
+        return stencil2d_step_plain(cur, donor, spec, layout, fused_steps)
+    return _split_pass("step", cur, donor, spec, layout, fused_steps)
+
+
+def stencil2d_skew_step(cur, donor, spec: StencilSpec, layout: Layout2D,
+                        algorithm: str = "vpu_roll", skew_steps: int = 2):
+    """``skew_steps`` >= 2 timesteps per pass over device memory by
+    time-skewed row bands (``pallas_2d.stencil2d_skew_step``): the same
+    values as ``stencil2d_step`` at the same depth, in another traversal.
+    Takes what that wrapper takes: algorithm 'vpu_roll' or 'mxu_hybrid1',
+    a guard covering ``skew_steps * radius`` (the port's layout, which
+    needs no extra row tiles), a band of ``tile_rows`` rows at least 2r
+    deep.  Counts its launches as ``stencil2d_step`` does.  The kernel
+    changes only the traversal, never a value, so its plain twin, which a
+    CPU tensor runs, is the fused pass's, ``stencil2d_step_plain``."""
+    if algorithm not in SKEW_ALGORITHMS:
+        raise ValueError(
+            f"skewed fusion supports algorithm 'vpu_roll' or "
+            f"'mxu_hybrid1', got {algorithm!r}")
+    if skew_steps < 2:
+        raise ValueError("skew_steps must be >= 2 (use the plain step "
+                         "for k=1)")
+    _check(cur, donor, spec, layout, algorithm, skew_steps)
+    if tile_rows(cur.dtype) < 2 * spec.radius:
+        raise ValueError(
+            f"band height (tile rows) must be >= 2 * {spec.radius}; got "
+            f"{tile_rows(cur.dtype)}")
+    if cur.device.type == "cpu":
+        return stencil2d_step_plain(cur, donor, spec, layout, skew_steps)
+    return _split_pass("skew", cur, donor, spec, layout, skew_steps)
+
+
+def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
+                       steps: int):
+    """All ``steps`` timesteps in one cooperative launch
+    (``pallas_2d.stencil2d_resident``; on a float64 state
+    ``pallas_df64.stencil2d_resident_pair``): reads ``cur`` and returns a
+    new buffer, the same values as ``steps`` single steps.  Raises if the
+    card refuses the launch (no fallback to passes); the engine takes this
+    path only under the caps ``fits_resident_2d`` and
+    ``fits_resident_pair_2d``."""
+    if steps < 1:
+        raise ValueError(f"steps must be >= 1, got {steps}")
+    _check_state(cur, spec, layout, spec.radius)
+    if cur.device.type == "cpu":
+        return stencil2d_resident_plain(cur, spec, layout, steps)
+    outs = (torch.zeros_like(cur), torch.zeros_like(cur))
+    _launch("resident", (cur,) + outs, spec, layout, steps)
+    return outs[(steps - 1) % 2]
 
 
 # kernel launches per instance, for chip_smoke.py: float32 and float64
-stencil2d_step.launches = stencil2d_step.launches_f64 = 0
+for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
+    _wrapper.launches = _wrapper.launches_f64 = 0
+del _wrapper
 
 
 # -- 'auto' for the df64 tier (pallas_df64.pick_algorithm, NumPy only) -------

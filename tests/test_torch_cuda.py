@@ -315,3 +315,138 @@ def test_fp64_1d_engine_counts_its_launches(cuda, dtype, kw, counter, launches):
         assert fn.launches_f64 - before == expect and out.dtype == torch.float64
         want = reference.run(g1, eng.spec, steps)
         assert np.abs(out.cpu().numpy() - want).max() <= 1e-13 * np.abs(want).max()
+
+
+# -- 2-D temporal fusion: the fused, skewed and resident kernels -------------------
+# Every 2-D kernel runs the same per-cell sums, so on the card a fused pass of k
+# steps, a skewed pass and a resident run each equal k single-step launches bit for
+# bit on any fill.  Against the twins: the integer 0/1 fill is exact while every
+# value stays below 2**24 (three steps of any 2-D registry shape); the pi/100 fill
+# agrees to fp32 rounding, rel <= 1e-5 after up to 13 steps (the kernels fuse
+# multiply-adds, the twin rounds each product); float64 bit for bit on any fill.
+
+
+def _layout_2d(spec, interior, k):
+    return Layout2D(interior=interior, halo=spec.halo, tile=default_tile_2d(*interior),
+                    guard=guard_2d(spec.halo, k * spec.radius))
+
+
+def _agree(got, want, exact):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype and bool(torch.isfinite(got).all())
+    if exact:
+        assert torch.equal(got, want)
+    else:
+        assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+SHAPES_FUSED = [("star2d3r", (96, 256)), ("box2d1r", (100, 131)), ("star2d1r", (37, 45)),
+                ("box2d3r", (300, 140))]
+
+
+@pytest.mark.parametrize("k", [2, 3, 4, "split"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,interior", SHAPES_FUSED)
+def test_fused_kernel_matches_single_steps_and_twin(cuda, name, interior, dtype, k):
+    """#1 at k > 1; "split": one step deeper than a launch takes, so the pass
+    runs as two launches."""
+    spec = get_shape(name)
+    kmax = stencil2d.max_fused_steps("step", spec.radius, stencil2d.plan_len(spec), dtype)
+    k = kmax + 1 if k == "split" else k
+    lay = _layout_2d(spec, interior, k)
+    g0 = reference.random_padded(spec, interior, seed=3)
+    for integer, fill in ((True, g0 % 2), (False, g0 * (np.pi / 100))):
+        x = lay.to_internal(fill, dtype, cuda)
+        keep = x.clone()
+        before = stencil2d.stencil2d_step.launches + stencil2d.stencil2d_step.launches_f64
+        got = stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay, fused_steps=k)
+        after = stencil2d.stencil2d_step.launches + stencil2d.stencil2d_step.launches_f64
+        assert after - before == -(-k // kmax)
+        _agree(got, _steps(stencil2d.stencil2d_step, x, spec, lay, k), True)
+        want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k)
+        _agree(got, want, dtype == torch.float64 or (integer and k <= 3))
+        assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,interior", SHAPES_FUSED)
+def test_skew_kernel_matches_fused_kernel_and_twin(cuda, name, interior, dtype, k):
+    spec = get_shape(name)
+    lay = _layout_2d(spec, interior, k)
+    g0 = reference.random_padded(spec, interior, seed=4)
+    for integer, fill in ((True, g0 % 2), (False, g0 * (np.pi / 100))):
+        x = lay.to_internal(fill, dtype, cuda)
+        before = stencil2d.stencil2d_skew_step.launches + \
+            stencil2d.stencil2d_skew_step.launches_f64
+        got = stencil2d.stencil2d_skew_step(x, torch.zeros_like(x), spec, lay,
+                                            skew_steps=k)
+        assert (stencil2d.stencil2d_skew_step.launches
+                + stencil2d.stencil2d_skew_step.launches_f64 - before) == 1
+        _agree(got, stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay,
+                                             fused_steps=k), True)
+        want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k)
+        _agree(got, want, dtype == torch.float64 or integer)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,interior", [("star2d1r", (512, 512)), ("box2d3r", (100, 131)),
+                                           ("star2d3r", (37, 45))])
+def test_resident_kernel_matches_single_steps_and_twin(cuda, name, interior, dtype):
+    """#3 (float32) and #10 (float64)."""
+    spec = get_shape(name)
+    lay = _layout_2d(spec, interior, 1)
+    g0 = reference.random_padded(spec, interior, seed=5)
+    for fill in (g0, g0 * (np.pi / 100)):
+        x = lay.to_internal(fill, dtype, cuda)
+        keep = x.clone()
+        for steps in (1, 2, 5):
+            before = (stencil2d.stencil2d_resident.launches,
+                      stencil2d.stencil2d_resident.launches_f64)
+            got = stencil2d.stencil2d_resident(x, spec, lay, steps)
+            after = (stencil2d.stencil2d_resident.launches,
+                     stencil2d.stencil2d_resident.launches_f64)
+            assert sum(after) - sum(before) == 1
+            assert (after[1] > before[1]) == (dtype == torch.float64)
+            _agree(got, _steps(stencil2d.stencil2d_step, x, spec, lay, steps), True)
+            if steps <= 2 or dtype == torch.float64:
+                want = stencil2d.stencil2d_resident_plain(x, spec, lay, steps)
+                _agree(got, want, dtype == torch.float64 or fill is g0)
+        assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("kw,kernel,launches", [
+    ({}, "stencil2d_step", {2: 1, 3: 2, 64: 32}),
+    ({"fusion": "skew"}, "stencil2d_skew_step", {2: 1, 3: 1, 64: 32}),
+    ({"fused_steps": 1}, "stencil2d_step", {2: 2, 3: 3, 64: 64}),
+])
+def test_star2d3r_engine_counts_its_launches(cuda, kw, kernel, launches):
+    interior = (200, 300)
+    eng = engine.StencilEngine.for_shape("star2d3r", interior, device=cuda, **kw)
+    g1 = reference.random_padded(eng.spec, interior, seed=1) * (np.pi / 100)
+    counter = getattr(stencil2d, kernel)
+    for steps, expect in launches.items():
+        before = counter.launches
+        out = eng.run(g1, steps)
+        assert counter.launches - before == expect and out.is_cuda
+        if steps <= 4:
+            want = reference.run(g1, eng.spec, steps)
+            assert np.abs(out.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("dtype,cap", [("float32", "RESIDENT_2D_BYTES"),
+                                       ("float64", "RESIDENT_2D_BYTES"),
+                                       ("df64", "RESIDENT_PAIR_2D_BYTES")])
+def test_resident_engine_runs_one_launch(cuda, dtype, cap, monkeypatch):
+    monkeypatch.setattr(stencil2d, cap, 8 * 2**20)
+    interior = (512, 512)
+    eng = engine.StencilEngine.for_shape("star2d1r", interior, device=cuda, dtype=dtype)
+    assert eng._resident_2d()
+    g1 = reference.random_padded(eng.spec, interior, seed=2) * (np.pi / 100)
+    counter = stencil2d.stencil2d_resident
+    before = counter.launches + counter.launches_f64
+    out = eng.run(g1, 4)
+    assert counter.launches + counter.launches_f64 - before == 1
+    want = reference.run(g1, eng.spec, 4)
+    tol = 1e-5 if dtype == "float32" else 1e-13
+    assert np.abs(out.cpu().numpy() - want).max() <= tol * np.abs(want).max()

@@ -188,7 +188,7 @@ def test_wrappers_take_float64_and_refuse_the_rest():
         stencil2d.stencil2d_step(cur, donor.float(), spec, lay)
     with pytest.raises(ValueError, match="unknown algorithm"):
         stencil2d.stencil2d_step(cur.float(), donor.float(), spec, lay, algorithm="vpu_sep")
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(ValueError, match="reach"):  # fused_steps * radius > guard
         stencil2d.stencil2d_step(cur, donor, spec, lay, fused_steps=2)
     # the table holds fp64 taps unrounded (a float32 table rounds 0.1)
     tenth = convert.spec_from_jax(JaxStencilSpec(
@@ -202,7 +202,7 @@ def test_wrappers_take_float64_and_refuse_the_rest():
     ({"dtype": "df64", "algorithm": "mxu_hybrid1"}, ValueError, "df64 kernel algorithm"),
     ({"dtype": "df64", "algorithm": "fast"}, ValueError, "algorithm"),
     ({"dtype": "float64", "algorithm": "vpu_sep"}, ValueError, "no 2-D path"),
-    ({"dtype": "float64", "fused_steps": 2}, NotImplementedError, "ROADMAP B2"),
+    ({"dtype": "float64", "boundary": "reflect"}, NotImplementedError, "ROADMAP A6"),
     ({"dtype": "df64", "boundary": "periodic"}, NotImplementedError, "ROADMAP A6"),
 ])
 def test_2d_fp64_configs_that_raise(kw, err, match):

@@ -90,16 +90,16 @@ def test_launches_count_only_kernel_launches():
 
 
 @pytest.mark.parametrize("name,kw,item", [
-    ("star2d3r", {}, "B2"),  # auto fused depth resolves to k = 2
-    ("star2d1r", {"fused_steps": 2}, "B2"),
+    ("star2d3r", {"algorithm": "mxu"}, "B13"),
+    ("star2d1r", {"algorithm": "mxu_hybrid3"}, "B13"),
     ("star2d1r", {"dtype": "bfloat16"}, "A6"),
     ("star2d1r", {"dtype": "float64", "boundary": "periodic"}, "A6"),
     ("star3d1r", {"dtype": "df64"}, "B10"),
     ("star2d1r", {"boundary": "periodic"}, "A6"),
     ("star2d1r", {"boundary": "reflect"}, "A6"),
-    ("star2d1r", {"fusion": "skew"}, "B11"),
+    ("star2d1r", {"fusion": "skew", "dtype": "bfloat16"}, "A6"),
     ("star2d1r", {"algorithm": "mxu_split"}, "B13"),
-    ("star2d1r", {"residue_mxu": "on"}, "B2"),
+    ("box2d3r", {"residue_mxu": "on", "dtype": "bfloat16"}, "A6"),
     ("box3d1r", {"dtype": "float64"}, "B10"),
     ("box3d1r", {"dtype": "bfloat16"}, "A6"),
 ])

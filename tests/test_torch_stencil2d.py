@@ -102,7 +102,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     lay = Layout2D(interior=(16, 16), halo=spec.halo, tile=(16, 16), guard=(4, 4))
     cur = torch.zeros(lay.shape)
     donor = torch.zeros(lay.shape)
-    with pytest.raises(NotImplementedError, match="B2"):
+    with pytest.raises(ValueError, match="reach"):  # fused_steps * radius > guard
         stencil2d.stencil2d_step(cur, donor, spec, lay, fused_steps=2)
     with pytest.raises(NotImplementedError, match="B13"):
         stencil2d.stencil2d_step(cur, donor, spec, lay, algorithm="mxu_split")
