@@ -19,12 +19,13 @@ its hand-written CUDA kernels:
   three fused steps), through ``csrc/stencil1d.cu``, whose two kernels in
   their narrow and wide instantiations replace the four TPU kernels of
   ``lorastencil_tpu/ops/pallas_1d.py``;
-* the fp64-grade tier, 1-D and 2-D, dtypes 'df64' and 'float64': the
-  float64 instances of ``csrc/stencil2d.cu`` (replacing
-  ``pallas_df64._df64_kernel``) and ``csrc/stencil1d.cu`` (narrow pass,
-  wide pass and narrow run, replacing the three kernels of
-  ``lorastencil_tpu/ops/pallas_df64_1d.py``), in native double where the
-  TPU computes on error-free fp32 pairs;
+* the fp64-grade tier, dtypes 'df64' and 'float64': the float64 instances
+  of ``csrc/stencil2d.cu`` (replacing ``pallas_df64._df64_kernel``),
+  ``csrc/stencil1d.cu`` (narrow pass, wide pass and narrow run, replacing
+  the three kernels of ``lorastencil_tpu/ops/pallas_df64_1d.py``) and
+  ``csrc/stencil3d.cu`` (replacing ``pallas_df64_3d._df64_3d_kernel``:
+  star3d1r and box3d1r at 256^3, the JAX DF64 tier's 3-D rows), in native
+  double where the TPU computes on error-free fp32 pairs;
 * 2-D temporal fusion: star2d3r at 8192^2, the artifact's configuration
   whose engine default fuses two steps per pass, through the fused instance
   of the 2-D kernel (``pallas_2d._stencil2d_kernel`` at k > 1), through the
@@ -138,7 +139,21 @@ Phases, each printing one line or more and raising on failure:
    twin's, one ``F.conv2d`` 7x7 step (TF32 off) and its bound; the
    resident runs at 512^2 x 64 against the tiled passes (CUDA events
    around ``run_internal``) and as one launch's device time (a CUDA
-   graph).
+   graph);
+17. the 3-D kernel's float64 instance against its float64 twin, for
+   star3d1r and box3d1r at (37, 45, 130) and 256^3, K = 1 and 2: the
+   integer fill bit for bit against the twin and a float64 dense stencil on
+   the card after one and two passes, the pi/100 fill's relative error
+   after 4 steps beside its limit 1e-13 (it should be 0: no FMA in fp64);
+18. the 3-D fp64 engine paths at 256^3, launches of the float64 instance
+   counted from zero over the phase: 'df64' ('vpu_sep', one step per pass)
+   and 'float64' (passes of k = 2) for both shapes, ``run(.., 2)`` of the
+   integer fill bit for bit against a float64 dense stencil on the card and
+   ``run(.., 4)`` of the pi/100 fill within rel 1e-13 of it;
+19. df64 (64 launches) and float64 (32) 256^3 x 64 through
+   ``run_internal`` and the naive dense stencil in float64; the float64
+   instance's device time per df64 pass and per float64 k = 2 pass, its
+   twin's, one float64 ``F.conv3d`` 3x3x3 step and the pass's byte bound.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -172,6 +187,7 @@ REPLACES = {"stencil2d": "lorastencil_tpu/ops/pallas_2d.py:127",
             "df64_1d_flat_step": "lorastencil_tpu/ops/pallas_df64_1d.py:312",
             "stencil1d_resident_pair":
                 "lorastencil_tpu/ops/pallas_df64_1d.py:475",
+            "df64_3d_step": "lorastencil_tpu/ops/pallas_df64_3d.py:276",
             "stencil3d": "lorastencil_tpu/ops/pallas_3d.py:118",
             "stencil1d_lanes_step": "lorastencil_tpu/ops/pallas_1d.py:348",
             "stencil1d_step": "lorastencil_tpu/ops/pallas_1d.py:97",
@@ -215,6 +231,7 @@ def _counters():
 
     out = {"stencil2d": (stencil2d.stencil2d_step, "launches"),
            "stencil3d": (stencil3d.stencil3d_step, "launches"),
+           "df64_3d_step": (stencil3d.stencil3d_step, "launches_f64"),
            "df64_step": (stencil2d.stencil2d_step, "launches_f64"),
            "stencil2d_skew": (stencil2d.stencil2d_skew_step, "launches"),
            "stencil2d_skew_f64": (stencil2d.stencil2d_skew_step,
@@ -1587,6 +1604,199 @@ def bench_fused(device, card):
     return timing
 
 
+# Phases 17-19: the 3-D fp64-grade tier, the float64 instance of the 3-D
+# kernel (replacing pallas_df64_3d.df64_3d_step), at the JAX DF64 tier's 3-D
+# rows, 256^3 x 64 (benchmarks/suite.py:125-126).
+SHAPES_3D = ("star3d1r", "box3d1r")
+
+
+def check_kernel_fp64_3d(name, interior, K, device):
+    """Phase 17 for one shape, size and depth: the float64 instance against
+    its twin after one and two passes of K (bit for bit on both fills) and,
+    on the integer fill, against a float64 dense stencil on the card; returns
+    (abs err, rel err, bit-equal) of the pi/100 fill after 4 steps."""
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil3d, torch_ref
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = get_shape(name)
+    lay = port_layout_3d(spec, interior, K)
+    g0 = reference.random_padded(spec, interior, seed=1)
+    x = lay.to_internal(g0, torch.float64, device)
+    dense = torch.from_numpy(g0).to(device)
+    for passes in (1, 2):
+        got = run_steps(stencil3d.stencil3d_step, x, spec, lay, passes * K, K)
+        want = run_steps(stencil3d.stencil3d_step_plain, x, spec, lay,
+                         passes * K, K)
+        for _ in range(K):
+            dense = torch_ref.dense_step(dense, spec)
+        torch.cuda.synchronize()
+        if got.dtype != torch.float64 or not torch.equal(got, want):
+            bad = (got != want).sum().item()
+            raise AssertionError(
+                f"{name} {interior} K={K}: fp64 kernel differs from its twin "
+                f"at {bad} cells after {passes} passes (integer fill)")
+        if not torch.equal(lay.from_internal(got), dense):
+            bad = (lay.from_internal(got) != dense).sum().item()
+            raise AssertionError(
+                f"{name} {interior} K={K}: fp64 kernel differs from the "
+                f"float64 dense stencil at {bad} cells after {passes} passes")
+    x = lay.to_internal(g0 * (np.pi / 100), torch.float64, device)
+    got = run_steps(stencil3d.stencil3d_step, x, spec, lay, 4, K)
+    want = run_steps(stencil3d.stencil3d_step_plain, x, spec, lay, 4, K)
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name} {interior} K={K}: non-finite output")
+    rel = rel_err(got, want)
+    if not rel <= 1e-13:
+        raise AssertionError(f"{name} {interior} K={K}: fp64 rel err "
+                             f"{rel:.3e} > 1e-13 after 4 steps (pi/100 fill)")
+    return (got - want).abs().max().item(), rel, bool(torch.equal(got, want))
+
+
+def main_path_fp64_3d(device):
+    """Phase 18: the df64 and float64 engines at 256^3 for both shapes, the
+    launches of the float64 instance counted from zero over the phase;
+    returns the launches of each run, the phase's total and a line per
+    case."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import torch_ref
+    from lorastencil_tpu_torch.utils import reference
+
+    lines, launches = [], {}
+    reset_counts()
+    for name in SHAPES_3D:
+        for dtype in ("df64", "float64"):
+            eng = engine.StencilEngine.for_shape(name, INTERIOR_3D,
+                                                 device=device, dtype=dtype)
+            k = eng._fused_k()
+            label = eng.df64_algorithm if eng.df64 else eng.algorithm
+            if (k, eng.backend, eng.dtype, label) != (
+                    1 if eng.df64 else 2, "pallas", torch.float64,
+                    "vpu_sep" if eng.df64 else "vpu_roll"):
+                raise AssertionError(f"{dtype} {name} resolved to {label}/"
+                                     f"{eng.backend} at k={k}")
+            spec = eng.spec
+            g0 = reference.random_padded(spec, INTERIOR_3D, seed=0)
+            for steps, fill in ((2, g0), (4, g0 * (np.pi / 100))):
+                want = torch.from_numpy(fill).to(device)
+                for _ in range(steps):
+                    want = torch_ref.dense_step(want, spec)
+                before = counts()
+                out = eng.run(fill, steps)
+                torch.cuda.synchronize()
+                launched = {key: v - before[key] for key, v in counts().items()
+                            if v != before[key]}
+                expect = -(-steps // k)
+                if launched != {"df64_3d_step": expect}:
+                    raise AssertionError(f"{dtype} {name} run({steps}) "
+                                         f"launched {launched}")
+                if (tuple(out.shape) != spec.padded_shape(INTERIOR_3D)
+                        or out.dtype != torch.float64
+                        or not bool(torch.isfinite(out).all())):
+                    raise AssertionError(f"{dtype} {name}: output "
+                                         f"{tuple(out.shape)} {out.dtype}")
+                if steps == 2 and not torch.equal(out, want):
+                    bad = (out != want).sum().item()
+                    raise AssertionError(
+                        f"{dtype} {name}: run(2) differs from the float64 "
+                        f"dense stencil at {bad} cells")
+                rel = rel_err(out, want)
+                if not rel <= 1e-13:
+                    raise AssertionError(f"{dtype} {name}: run({steps}) rel "
+                                         f"err {rel:.3e} > 1e-13")
+                launches[(name, dtype, steps)] = expect
+                lines.append(f"{dtype} {name} {INTERIOR_3D} -> "
+                             f"{label} k={k}: run({steps}) {expect} "
+                             f"launch(es) of df64_3d_step, rel err {rel:.3e}")
+                del out, want
+    total = counts()["df64_3d_step"]
+    if total == 0:
+        raise AssertionError("the 3-D fp64 paths never launched df64_3d_step")
+    return launches, total, lines
+
+
+def bench_fp64_3d(device, card):
+    """Phase 19: df64 (k = 1) and float64 (k = 2) 256^3 x 64 through
+    ``run_internal`` and the naive dense stencil in float64; per shape the
+    float64 instance's device time per df64 pass, its twin's, one float64
+    ``F.conv3d`` step and the pass's bound; returns the kernels' timing
+    records."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import stencil3d, torch_ref
+    from lorastencil_tpu_torch.utils import metrics
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    dims = "x".join(str(s) for s in INTERIOR_3D)
+    timing = {}
+    for name in SHAPES_3D:
+        res = {}
+        for dtype in ("df64", "float64"):
+            eng = engine.StencilEngine.for_shape(name, INTERIOR_3D,
+                                                 device=device, dtype=dtype)
+            state = torch.rand(eng.layout.shape, generator=gen, device=device,
+                               dtype=torch.float64) * 0.01
+            secs, _ = metrics.time_run(eng.run_internal, state,
+                                       BENCH_STEPS_3D, repeats=3, warmup=1)
+            res[dtype] = metrics.bench_result(eng.spec, INTERIOR_3D,
+                                              BENCH_STEPS_3D, secs,
+                                              "cuda-fp64", dtype, 3)
+            k = eng._fused_k()
+            res[dtype + " launches"] = count_run(
+                eng, state, BENCH_STEPS_3D, "df64_3d_step",
+                BENCH_STEPS_3D // k)
+            if dtype == "df64":
+                spec, lay = eng.spec, eng.layout
+                ms = time_calls({
+                    "plain": lambda a, b: stencil3d.stencil3d_step_plain(
+                        a, b, spec, lay),
+                    "kernel": lambda a, b: stencil3d.stencil3d_step(
+                        a, b, spec, lay, algorithm="vpu_sep")},
+                    state, torch.zeros_like(state), calls=10)
+            else:
+                lay2 = eng.layout
+                ms["k=2"] = time_calls({
+                    "kernel": lambda a, b: stencil3d.stencil3d_step(
+                        a, b, spec, lay2, fused_steps=2)},
+                    state, torch.zeros_like(state), calls=10)["kernel"]
+            del state
+        grid = torch.rand(spec.padded_shape(INTERIOR_3D), generator=gen,
+                          device=device, dtype=torch.float64) * 0.01
+
+        def naive(g, spec=spec):
+            for _ in range(BENCH_STEPS_3D):
+                g = torch_ref.dense_step(g, spec)
+            return g
+
+        bsecs, _ = metrics.time_run(naive, grid, repeats=3, warmup=1)
+        del grid
+        base = metrics.bench_result(spec, INTERIOR_3D, BENCH_STEPS_3D, bsecs,
+                                    "torch-naive", "float64", 3)
+        for label in ("df64", "float64"):
+            r = res[label]
+            print(f"phase 19: {label} {name} {dims} x{BENCH_STEPS_3D} "
+                  f"({res[label + ' launches']} launches): {r.time_ms} ms, "
+                  f"{r.gstencil_per_s} GStencil/s, vs_baseline "
+                  f"{r.gstencil_per_s / base.gstencil_per_s} [{card}]",
+                  flush=True)
+        print(f"phase 19: naive float64 {name} {dims} x{BENCH_STEPS_3D}: "
+              f"{base.time_ms} ms, {base.gstencil_per_s} GStencil/s [{card}]",
+              flush=True)
+        lib = library_ms(spec, INTERIOR_3D, device, torch.float64)
+        bound, by = bound_ms(spec, INTERIOR_3D, 1, itemsize=8)
+        parts = bound_parts(spec, INTERIOR_3D, 1, itemsize=8)
+        timing[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
+                            bound_ms=bound, bound_by=by, library_ms=lib,
+                            steps_per_launch=1, library_steps=1,
+                            shape=f"df64 {name} {dims}")
+        print(f"phase 19: df64_3d_step at df64 {name} {dims}, 1 step per "
+              f"launch: kernel {ms['kernel']} ms, plain twin {ms['plain']} "
+              f"ms, float64 F.conv3d 3x3x3 one step {lib} ms, bound {bound} "
+              f"ms ({by}; bytes {parts[0]} ms in 8-byte cells, operations "
+              f"{parts[1]} ms at {PEAK_FP64_FLOPS / 1e12:.0f} fp64 TFLOP/s); "
+              f"a float64 k=2 pass {ms['k=2']} ms [{card}]", flush=True)
+    return timing
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -1755,6 +1965,28 @@ def main() -> int:
 
     timing_fused = bench_fused(device, card)
 
+    errs_fp64_3d = {}
+    for name in SHAPES_3D:
+        for interior in ((37, 45, 130), INTERIOR_3D):
+            for K in (1, 2):
+                abs_err, rel, same = check_kernel_fp64_3d(name, interior, K,
+                                                          device)
+                if interior == INTERIOR_3D and K == 1:
+                    errs_fp64_3d[name] = abs_err
+                print(f"phase 17: df64_3d_step {name} {interior} K={K}: "
+                      f"integer fill bit-exact against its twin and a float64 "
+                      f"dense stencil after 1-2 passes; pi/100 fill rel err "
+                      f"{rel:.3e} after 4 steps (limit 1e-13), bit-equal "
+                      f"{same}", flush=True)
+
+    launches_fp64_3d, total, lines = main_path_fp64_3d(device)
+    for line in lines:
+        print(f"phase 18: {line}", flush=True)
+    print(f"phase 18: df64_3d_step launches over the phase, counted from "
+          f"zero: {total}", flush=True)
+
+    timing_fp64_3d = bench_fp64_3d(device, card)
+
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the reference packages were imported: "
@@ -1806,6 +2038,13 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES["stencil2d"],
             "replaces": REPLACES[replaces], "launches": launches,
             "max_abs_err": err}, **timing_fused[kernel]))
+    for name in SHAPES_3D:
+        kernels.append(dict({
+            "name": f"df64_3d_step[{name}]", "route": "cuda",
+            "source": SOURCES["stencil3d"],
+            "replaces": REPLACES["df64_3d_step"],
+            "launches": launches_fp64_3d[(name, "df64", 4)],
+            "max_abs_err": errs_fp64_3d[name]}, **timing_fp64_3d[name]))
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,8 @@ fill modes and ``--check`` (the port's fp64 ground truth,
 ``utils/reference.py``, compared in float64 at the JAX CLI's tolerance
 per dtype relative to the grid's largest value: 1e-5 for float32, 1e-12
 for float64, 1e-11 for df64), plus ``--device cuda|cpu``.  ``--dtype
-float64`` and ``df64`` run the fp64-grade tier for 1-D and 2-D shapes.
+float64`` and ``df64`` run the fp64-grade tier for 1-D, 2-D and 3-D
+shapes.
 On ``cuda`` the run is timed with CUDA events; ``cpu`` runs the kernels'
 plain PyTorch twins and is not timed.  The JAX CLI's flags and values the
 port does not run yet are refused with the ROADMAP item that will port
@@ -64,8 +65,10 @@ def _parser() -> argparse.ArgumentParser:
                    default="auto",
                    help="2-D/3-D: auto, mxu_hybrid1, vpu_roll and vpu run "
                         "the one exact kernel of the dtype (df64 2-D: vpu, "
-                        "vpu_roll, vpu_sep); 1-D: auto (mxu) and vpu_roll "
-                        "the narrow kernels, the others the wide")
+                        "vpu_roll, vpu_sep; df64 3-D: vpu_sep); 1-D: auto "
+                        "(mxu) and vpu_roll the narrow kernels, the others "
+                        "the wide; backend xla: every name, one plain "
+                        "step")
     p.add_argument("--fused-steps", type=int, default=None,
                    help="steps per pass (1-D, 2-D; the JAX engine's rule "
                         "when unset)")
@@ -74,8 +77,8 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype",
                    choices=["float32", "bfloat16", "float64", "df64"],
                    default="float32",
-                   help="float64 and df64 (1-D, 2-D): native fp64 on the "
-                        "fp64 instances of the kernels")
+                   help="float64 and df64: native fp64 on the fp64 "
+                        "instances of the kernels")
     p.add_argument("--boundary",
                    choices=["dirichlet0", "periodic", "reflect"],
                    default="dirichlet0")

@@ -1,10 +1,18 @@
 // K fused dirichlet0 timesteps of a 3-D low-rank stencil on the port's
-// internal layout, float32, on CUDA cores: one pass over device memory.
+// internal layout, in float32 or float64, on CUDA cores: one pass over device
+// memory.
 //
-// Replaces the TPU kernel lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel
-// (driven by pallas_3d.stencil3d_step).  Level L = 1..K of the pass turns
-// level L-1 into level L at in-plane extent (K-L)*r around the block tile;
-// each level-L plane z sums, in order (ops/band_gemm.py apply_spec_3d):
+// The float32 instance (ls_stencil3d_step) replaces the TPU kernel
+// lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel (driven by
+// pallas_3d.stencil3d_step).  The float64 instance (ls_stencil3d_step_f64)
+// serves the fp64-grade tier: it replaces
+// lorastencil_tpu/ops/pallas_df64_3d.py::_df64_3d_kernel (df64_3d_step), which
+// computes one fp64-grade step on error-free (hi, lo) fp32 pairs because the
+// TPU has no fp64 unit; the H100 has one, so this instance computes in native
+// double, and it also runs dtype float64 with fused steps, as the JAX engine
+// runs pallas_3d's kernel in float64 off the TPU.  Level L = 1..K of the pass
+// turns level L-1 into level L at in-plane extent (K-L)*r around the block
+// tile; each level-L plane z sums, in order (ops/band_gemm.py apply_spec_3d):
 //
 //     the centre terms' plane convs of plane z
 //   + each buffered term's plane convs of planes z-r..z+r times its z taps
@@ -17,10 +25,10 @@
 // with cells beyond the true interior written as zeros; the guard ring is
 // never written.
 //
-// What bounds it: device-memory bytes.  A pass must read and write 4 B per
-// interior cell (8 B per cell per K steps) and does ~10-25 flops per cell
-// per level, far below the card's fp32 rate.  The design keeps every
-// intermediate out of device memory:
+// What bounds it: device-memory bytes.  A pass must read and write 4 B
+// (float32) or 8 B (float64) per interior cell and does ~10-25 operations
+// per cell per level, far below the card's fp32 and fp64 rates.  The design
+// keeps every intermediate out of device memory:
 //   * one block owns a (bm x bn) in-plane tile and a z chunk of zc output
 //     planes, and marches z one input plane at a time; it starts K*r
 //     planes early and recomputes that lookback, because blocks run in no
@@ -35,19 +43,22 @@
 //   * each thread keeps its cells' sums of a level plane in registers and
 //     walks the terms once per plane, taps staged in registers;
 //   * the host picks the largest tile whose rings fit the 227 KB of shared
-//     memory for the pass's K (ops/stencil3d.py), and a z chunk that gives
-//     every SM work.
+//     memory for the pass's K and element size (ops/stencil3d.py; float64
+//     rings take twice the bytes), and a z chunk that gives every SM work.
 // Each input cell is read from device memory about (1 + 2Kr/zc) (1 +
 // 2Kr/bm)(1 + 2Kr/bn) times, and each output cell written once.  This
 // first kernel is not yet near that bound (PERF.md): its time goes to the
 // work inside the SM on every level plane, not to device-memory bytes.  Sums
-// are fp32 FMAs in the plain twin's order (ops/band_gemm.py), so integer
-// data agree bit for bit, and so does any data when every tap is a power
-// of two.
+// follow the plain twin's order (ops/band_gemm.py): fp32 fuses each
+// multiply-add (fmaf), so integer data agree bit for bit, and so does any
+// data when every tap is a power of two; fp64 rounds each product and sum on
+// its own (__dmul_rn, __dadd_rn: no FMA), so it agrees bit for bit on any
+// data.
 //
 // C interface, loaded with ctypes: ls_stencil3d_smem_bytes sizes a launch,
-// ls_stencil3d_step launches on the given stream, allocates nothing and
-// returns cudaGetLastError() (0 = launched).
+// ls_stencil3d_step (float) and ls_stencil3d_step_f64 (double) launch on the
+// given stream, allocate nothing and return cudaGetLastError() (0 =
+// launched).
 
 #include <cuda_runtime.h>
 
@@ -60,7 +71,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kPerThread = 10;  // cells of one level plane per thread, at most
 constexpr int kMaxRadius = 8;
 constexpr int kMaxK = 8;
-constexpr int kMaxPlan = 4096;  // floats of tap/residue table
+constexpr int kMaxPlan = 4096;  // entries of tap/residue table
 constexpr int kMaxSmem = 232448;  // bytes a block may use on sm_90
 constexpr int kMaxGrid = 65535;
 enum { kCentre = 0, kIdentityZ = 1, kBuffered = 2 };  // band_gemm.term_class
@@ -89,7 +100,7 @@ __host__ __device__ inline int level_cells(const Pass& p, int R, int L) {
   const int e = level_ext(p, R, L);
   return (p.bm + 2 * e) * (p.bn + 2 * e);
 }
-__host__ __device__ inline int plan_floats(const Pass& p) {
+__host__ __device__ inline int plan_cells(const Pass& p) {
   return (p.plan_len + 3) / 4 * 4;
 }
 // Planes in the ring of level L: the input ring holds one more, the
@@ -97,10 +108,10 @@ __host__ __device__ inline int plan_floats(const Pass& p) {
 __host__ __device__ inline int ring_slots(const Pass& p, int L) {
   return p.ring + (L == 0 ? 1 : 0);
 }
-// Float offsets into shared memory: the plan, then the level rings
+// Element offsets into shared memory: the plan, then the level rings
 // R_0..R_{K-1}, then the conv rings C_{L,b} for L = 1..K.
 __host__ __device__ inline int ring_off(const Pass& p, int R, int L) {
-  int off = plan_floats(p);
+  int off = plan_cells(p);
   for (int l = 0; l < L; ++l) off += ring_slots(p, l) * level_cells(p, R, l);
   return off;
 }
@@ -110,17 +121,31 @@ __host__ __device__ inline int conv_off(const Pass& p, int R, int L, int b) {
   for (int l = 1; l < L; ++l) off += W * p.n_buf * level_cells(p, R, l);
   return off + b * W * level_cells(p, R, L);
 }
-__host__ __device__ inline size_t smem_bytes(const Pass& p, int R) {
-  return sizeof(float) * static_cast<size_t>(conv_off(p, R, p.K + 1, 0));
+inline size_t smem_bytes(const Pass& p, int R, size_t itemsize) {
+  return itemsize * static_cast<size_t>(conv_off(p, R, p.K + 1, 0));
 }
 
-// A 4-byte asynchronous copy from device to shared memory (sm_80+); when
-// ok is false nothing is read and the destination is zeroed.
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
+// w * x + y: fused in fp32, rounded step by step in fp64.
+__device__ __forceinline__ float mad(float w, float x, float y) {
+  return fmaf(w, x, y);
+}
+__device__ __forceinline__ double mad(double w, double x, double y) {
+  return __dadd_rn(y, __dmul_rn(w, x));
+}
+
+// A one-cell asynchronous copy from device to shared memory (sm_80+), 4 or 8
+// bytes; when ok is false nothing is read and the destination is zeroed.
+__device__ __forceinline__ void cp_async_cell(float* dst, const float* src,
+                                              bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_cell(double* dst, const double* src,
+                                              bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -146,51 +171,57 @@ __device__ __forceinline__ void for_cells(int n, F&& f) {
 }
 
 // A term's in-plane taps, staged in registers for one phase.
-template <int R>
+template <typename T, int R>
 struct PlaneTaps {
-  float ct[2 * R + 1], rt[2 * R + 1];
+  T ct[2 * R + 1], rt[2 * R + 1];
   bool has_col, has_row;
-  __device__ explicit PlaneTaps(const float* term) {
+  __device__ explicit PlaneTaps(const T* term) {
     constexpr int W = 2 * R + 1;
-    has_col = term[1] != 0.f;
-    has_row = term[2] != 0.f;
+    has_col = term[1] != T(0);
+    has_row = term[2] != T(0);
 #pragma unroll
     for (int a = 0; a < W; ++a) {
       ct[a] = term[3 + W + a];
-      rt[a] = has_row ? term[3 + 2 * W + a] : (a == R ? 1.f : 0.f);
+      rt[a] = has_row ? term[3 + 2 * W + a] : T(a == R ? 1 : 0);
     }
   }
   // The conv at the cell whose centre is x in a plane of width win: the
   // column conv of each row the row conv reads, then the row conv; taps
   // ascending, zero taps skipped, a missing axis the identity.
-  __device__ float at(const float* x, int win) const {
+  __device__ T at(const T* x, int win) const {
     constexpr int W = 2 * R + 1;
-    float z = 0.f;
+    T z = T(0);
 #pragma unroll
     for (int a = 0; a < W; ++a) {
-      if (rt[a] == 0.f) continue;
-      const float* row = x + (a - R) * win;
-      float y;
+      if (rt[a] == T(0)) continue;
+      const T* row = x + (a - R) * win;
+      T y;
       if (has_col) {
-        y = 0.f;
+        y = T(0);
 #pragma unroll
         for (int b = 0; b < W; ++b)
-          if (ct[b] != 0.f) y = fmaf(ct[b], row[b - R], y);
+          if (ct[b] != T(0)) y = mad(ct[b], row[b - R], y);
       } else {
         y = row[0];
       }
-      z = has_row ? fmaf(rt[a], y, z) : y;
+      z = has_row ? mad(rt[a], y, z) : y;
     }
     return z;
   }
 };
 
-template <int R>
+template <typename T, int R>
 __global__ void __launch_bounds__(kThreads)
-stencil3d_kernel(const float* __restrict__ in, float* __restrict__ out,
-                 const float* __restrict__ plan, const Pass p) {
+stencil3d_kernel(const T* __restrict__ in, T* __restrict__ out,
+                 const T* __restrict__ plan, const Pass p) {
   constexpr int W = 2 * R + 1;
-  extern __shared__ float smem[];
+  // Dynamic shared memory: one float-typed symbol for both instances.  The
+  // kernel has no static shared memory, so the region starts at the block's
+  // shared-memory base, aligned for double.  (A byte-typed symbol, or one
+  // symbol per type reached through a function, changed the float32 code
+  // at r = 1 enough that ptxas spilled registers: ~10% of its time.)
+  extern __shared__ float smem_words[];
+  T* const smem = reinterpret_cast<T*>(smem_words);
   const int tid = threadIdx.x;
   const int K = p.K;
   const int i0 = blockIdx.y * p.bm;  // tile origin, interior coords
@@ -201,9 +232,9 @@ stencil3d_kernel(const float* __restrict__ in, float* __restrict__ out,
   const size_t plane_stride = static_cast<size_t>(p.rows) * p.pitch;
   const int tstride = term_stride(R);
 
-  float* s_plan = smem;
+  T* s_plan = smem;
   for (int q = tid; q < p.plan_len; q += kThreads) s_plan[q] = plan[q];
-  const float* s_res = s_plan + p.n_terms * tstride;
+  const T* s_res = s_plan + p.n_terms * tstride;
 
   // Level 0: input plane u (interior z = zs - K*R + u) at extent K*R,
   // copied into its ring slot with cp.async while the block computes on
@@ -213,20 +244,20 @@ stencil3d_kernel(const float* __restrict__ in, float* __restrict__ out,
     const int e = K * R;
     const int win = p.bn + 2 * e;
     const int hin = p.bm + 2 * e;
-    float* dst = smem + ring_off(p, R, 0) + (u % n_in_slots) * hin * win;
+    T* dst = smem + ring_off(p, R, 0) + (u % n_in_slots) * hin * win;
     const int gz = p.z0 + zs - e + u;
     const bool zin = gz >= 0 && gz < p.nz;
-    const float* src = in + static_cast<size_t>(zin ? gz : 0) * plane_stride;
+    const T* src = in + static_cast<size_t>(zin ? gz : 0) * plane_stride;
     const int warp = tid / 32;
     const int lane = tid % 32;
     for (int ii = warp; ii < hin; ii += kWarps) {
       const int gr = p.r0 + i0 - e + ii;
       const bool rin = zin && gr >= 0 && gr < p.rows;
-      const float* srow = src + static_cast<size_t>(rin ? gr : 0) * p.pitch;
+      const T* srow = src + static_cast<size_t>(rin ? gr : 0) * p.pitch;
       for (int jj = lane; jj < win; jj += 32) {
         const int gc = p.c0 + j0 - e + jj;
         const bool ok = rin && gc >= 0 && gc < p.pitch;
-        cp_async4(dst + ii * win + jj, ok ? srow + gc : in, ok);
+        cp_async_cell(dst + ii * win + jj, ok ? srow + gc : in, ok);
       }
     }
     cp_async_commit();
@@ -245,10 +276,10 @@ stencil3d_kernel(const float* __restrict__ in, float* __restrict__ out,
       const int cells = (p.bm + 2 * e) * wout;
       const int win = wout + 2 * R;
       const int plane_in = (p.bm + 2 * e + 2 * R) * win;
-      const float* prev = smem + ring_off(p, R, L - 1);  // ring of level L-1
+      const T* prev = smem + ring_off(p, R, L - 1);  // ring of level L-1
       const int n_prev = ring_slots(p, L - 1);
-      const float* conv0 = smem + conv_off(p, R, L, 0);
-      const int conv_stride = W * cells;  // floats per buffered term
+      const T* conv0 = smem + conv_off(p, R, L, 0);
+      const int conv_stride = W * cells;  // elements per buffered term
 
       // This thread's cells q = tid + k * kThreads of the level-L plane
       // (row-major, width wout), as offsets of their centres in a level
@@ -275,15 +306,15 @@ stencil3d_kernel(const float* __restrict__ in, float* __restrict__ out,
 
       // Conv rings: each buffered term's conv of plane w, computed once.
       if (p.n_buf > 0) {
-        const float* X = prev + (w % n_prev) * plane_in;
+        const T* X = prev + (w % n_prev) * plane_in;
         int b = 0;
         for (int t = 0; t < p.n_terms; ++t) {
-          const float* term = s_plan + t * tstride;
+          const T* term = s_plan + t * tstride;
           if (static_cast<int>(term[0]) != kBuffered) continue;
-          const PlaneTaps<R> taps(term);
-          float* C = smem + conv_off(p, R, L, b) + (w % W) * cells + tid;
+          const PlaneTaps<T, R> taps(term);
+          T* C = smem + conv_off(p, R, L, b) + (w % W) * cells + tid;
           for_cells<R>(n_mine, [&](int k) {
-            const float c = taps.at(X + cin[k], win);
+            const T c = taps.at(X + cin[k], win);
             if (k < n_mine) C[k * kThreads] = c;
           });
           ++b;
@@ -293,39 +324,39 @@ stencil3d_kernel(const float* __restrict__ in, float* __restrict__ out,
 
       const int v = w - R;  // the level-L plane this input completes
       if (v < L * R) break;  // levels >= L have nothing new yet
-      float acc[kPerThread];
+      T acc[kPerThread];
 #pragma unroll
-      for (int k = 0; k < kPerThread; ++k) acc[k] = 0.f;
+      for (int k = 0; k < kPerThread; ++k) acc[k] = T(0);
       int b = 0;
 #pragma unroll
       for (int o = 0; o < 3; ++o) {
         const int want = class_at(o);
         for (int t = 0; t < p.n_terms; ++t) {
-          const float* term = s_plan + t * tstride;
+          const T* term = s_plan + t * tstride;
           if (static_cast<int>(term[0]) != want) continue;
-          const float* zt = term + 3;
+          const T* zt = term + 3;
           if (want == kCentre) {
-            const PlaneTaps<R> taps(term);
-            const float* X = prev + (v % n_prev) * plane_in;
+            const PlaneTaps<T, R> taps(term);
+            const T* X = prev + (v % n_prev) * plane_in;
             for_cells<R>(n_mine,
                          [&](int k) { acc[k] += taps.at(X + cin[k], win); });
             continue;
           }
 #pragma unroll
           for (int dz = -R; dz <= R; ++dz) {
-            const float wz = zt[R + dz];
-            if (wz == 0.f) continue;
+            const T wz = zt[R + dz];
+            if (wz == T(0)) continue;
             if (want == kBuffered) {
-              const float* C =
+              const T* C =
                   conv0 + b * conv_stride + ((v + dz) % W) * cells + tid;
               for_cells<R>(n_mine, [&](int k) {
                 // a cell k >= n_mine reads cell 0 of the plane
-                acc[k] = fmaf(wz, C[k < n_mine ? k * kThreads : -tid], acc[k]);
+                acc[k] = mad(wz, C[k < n_mine ? k * kThreads : -tid], acc[k]);
               });
             } else {
-              const float* X = prev + ((v + dz) % n_prev) * plane_in;
+              const T* X = prev + ((v + dz) % n_prev) * plane_in;
               for_cells<R>(n_mine, [&](int k) {
-                acc[k] = fmaf(wz, X[cin[k]], acc[k]);
+                acc[k] = mad(wz, X[cin[k]], acc[k]);
               });
             }
           }
@@ -336,18 +367,18 @@ stencil3d_kernel(const float* __restrict__ in, float* __restrict__ out,
         const int dz = static_cast<int>(s_res[4 * r]);
         const int dr = static_cast<int>(s_res[4 * r + 1]);
         const int dc = static_cast<int>(s_res[4 * r + 2]);
-        const float wr = s_res[4 * r + 3];
-        const float* X = prev + ((v + dz) % n_prev) * plane_in + dr * win + dc;
+        const T wr = s_res[4 * r + 3];
+        const T* X = prev + ((v + dz) % n_prev) * plane_in + dr * win + dc;
         for_cells<R>(n_mine,
-                     [&](int k) { acc[k] = fmaf(wr, X[cin[k]], acc[k]); });
+                     [&](int k) { acc[k] = mad(wr, X[cin[k]], acc[k]); });
       }
 
       // Mask to the interior (z, rows, cols); store to the level ring, or
       // for level K to the rounded interior of the output.
       const int zv = zs - K * R + v;  // interior z of the plane
       const bool zok = zv >= 0 && zv < p.h;
-      float* dst = smem + ring_off(p, R, L) + (v % p.ring) * cells + tid;
-      float* gdst = out + static_cast<size_t>(p.z0 + zv) * plane_stride +
+      T* dst = smem + ring_off(p, R, L) + (v % p.ring) * cells + tid;
+      T* gdst = out + static_cast<size_t>(p.z0 + zv) * plane_stride +
                     static_cast<size_t>(p.r0) * p.pitch + p.c0;
       int gi = i0 - e + tid / wout;  // interior coords of cell k
       int gj = j0 - e + tid % wout;
@@ -355,9 +386,9 @@ stencil3d_kernel(const float* __restrict__ in, float* __restrict__ out,
         if (k < n_mine) {
           const bool ok = zok && gi >= 0 && gi < p.m && gj >= 0 && gj < p.n;
           if (L < K) {
-            dst[k * kThreads] = ok ? acc[k] : 0.f;
+            dst[k * kThreads] = ok ? acc[k] : T(0);
           } else if (gi < p.mr && gj < p.nr) {
-            gdst[static_cast<size_t>(gi) * p.pitch + gj] = ok ? acc[k] : 0.f;
+            gdst[static_cast<size_t>(gi) * p.pitch + gj] = ok ? acc[k] : T(0);
           }
         }
         gi += di;
@@ -386,19 +417,19 @@ bool valid(const Pass& p, int R) {
          (p.h + p.zc - 1) / p.zc <= kMaxGrid;
 }
 
-template <int R>
-int launch(const float* in, float* out, const float* plan, const Pass& p,
+template <typename T, int R>
+int launch(const T* in, T* out, const T* plan, const Pass& p,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(p, R);
+  const size_t smem = smem_bytes(p, R, sizeof(T));
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        stencil3d_kernel<R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        stencil3d_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   const dim3 grid((p.nr + p.bn - 1) / p.bn, (p.mr + p.bm - 1) / p.bm,
                   (p.h + p.zc - 1) / p.zc);
-  stencil3d_kernel<R><<<grid, kThreads, smem, stream>>>(in, out, plan, p);
+  stencil3d_kernel<T, R><<<grid, kThreads, smem, stream>>>(in, out, plan, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -429,46 +460,59 @@ Pass make_pass(int plan_len, int n_terms, int n_res, int n_buf, int ring,
   return p;
 }
 
+template <typename T>
+int step(const T* in, T* out, const T* plan, const Pass& p, int radius,
+         void* stream) {
+  if (!valid(p, radius) || smem_bytes(p, radius, sizeof(T)) > kMaxSmem ||
+      level_cells(p, radius, 1) > kPerThread * kThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.h == 0 || p.mr == 0 || p.nr == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (radius) {
+    case 1: return launch<T, 1>(in, out, plan, p, s);
+    case 2: return launch<T, 2>(in, out, plan, p, s);
+    case 3: return launch<T, 3>(in, out, plan, p, s);
+    case 4: return launch<T, 4>(in, out, plan, p, s);
+    case 5: return launch<T, 5>(in, out, plan, p, s);
+    case 6: return launch<T, 6>(in, out, plan, p, s);
+    case 7: return launch<T, 7>(in, out, plan, p, s);
+    case 8: return launch<T, 8>(in, out, plan, p, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // Shared-memory bytes of a pass with this radius, K, block tile, term mix
-// (n_buf buffered terms; ring = 1 or 2r+1 planes per level) and plan
-// length; -1 if the arguments are out of range.
+// (n_buf buffered terms; ring = 1 or 2r+1 planes per level), plan length and
+// element size (4 or 8 bytes); -1 if the arguments are out of range.
 extern "C" long long ls_stencil3d_smem_bytes(int radius, int K, int bm, int bn,
                                              int n_buf, int ring,
-                                             int plan_len) {
+                                             int plan_len, int itemsize) {
   Pass p = make_pass(plan_len, 0, 0, n_buf, ring, K, 0, 0, 0, 0, 0, 0, 0, 0,
                      0, 0, 0, bm, bn, 1);
   if (radius < 1 || radius > kMaxRadius || K < 1 || K > kMaxK || bm < 1 ||
       bn < 1 || n_buf < 0 || plan_len < 0 ||
+      (itemsize != 4 && itemsize != 8) ||
       level_cells(p, radius, 1) > kPerThread * kThreads)
     return -1;
-  return static_cast<long long>(smem_bytes(p, radius));
+  return static_cast<long long>(smem_bytes(p, radius, itemsize));
 }
 
-extern "C" int ls_stencil3d_step(const float* in, float* out,
-                                 const float* plan, int plan_len, int n_terms,
-                                 int radius, int n_res, int n_buf, int ring,
-                                 int K, int nz, int rows, int pitch, int z0,
-                                 int r0, int c0, int h, int m, int n, int mr,
-                                 int nr, int bm, int bn, int zc,
-                                 void* stream) {
-  const Pass p = make_pass(plan_len, n_terms, n_res, n_buf, ring, K, nz, rows,
-                           pitch, z0, r0, c0, h, m, n, mr, nr, bm, bn, zc);
-  if (!valid(p, radius) || smem_bytes(p, radius) > kMaxSmem ||
-      level_cells(p, radius, 1) > kPerThread * kThreads)
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (h == 0 || mr == 0 || nr == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (radius) {
-    case 1: return launch<1>(in, out, plan, p, s);
-    case 2: return launch<2>(in, out, plan, p, s);
-    case 3: return launch<3>(in, out, plan, p, s);
-    case 4: return launch<4>(in, out, plan, p, s);
-    case 5: return launch<5>(in, out, plan, p, s);
-    case 6: return launch<6>(in, out, plan, p, s);
-    case 7: return launch<7>(in, out, plan, p, s);
-    case 8: return launch<8>(in, out, plan, p, s);
+// Each entry: the input and output buffers, the plan and its counts, the term
+// mix, K, the buffer extents, the origin of interior cell (0, 0, 0), the
+// interior, the rounded plane, the block tile, the z chunk and the stream.
+#define LS_ENTRY(NAME, T)                                                     \
+  extern "C" int NAME(const T* in, T* out, const T* plan, int plan_len,     \
+                      int n_terms, int radius, int n_res, int n_buf,        \
+                      int ring, int K, int nz, int rows, int pitch, int z0, \
+                      int r0, int c0, int h, int m, int n, int mr, int nr,  \
+                      int bm, int bn, int zc, void* stream) {               \
+    return step(in, out, plan,                                              \
+                make_pass(plan_len, n_terms, n_res, n_buf, ring, K, nz,     \
+                          rows, pitch, z0, r0, c0, h, m, n, mr, nr, bm, bn, \
+                          zc),                                              \
+                radius, stream);                                            \
   }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+LS_ENTRY(ls_stencil3d_step, float)
+LS_ENTRY(ls_stencil3d_step_f64, double)

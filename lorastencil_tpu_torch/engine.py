@@ -1,19 +1,22 @@
 """High-level stencil engine of the PyTorch / CUDA port.
 
 Counterpart of ``lorastencil_tpu/engine.py``: ``EngineConfig`` (the same
-fields and defaults), ``resolve_algorithm``, ``ping_pong_loop`` and
+fields and defaults), ``resolve_algorithm``, ``ping_pong_loop``,
 ``StencilEngine`` with ``for_shape``, ``run``, ``run_checksum``,
-``run_internal``, ``to_internal`` and ``from_internal``.
+``run_internal``, ``to_internal`` and ``from_internal``, and the one-shot
+``run(padded, spec, steps, device=..., **config)``.
 
     eng = StencilEngine.for_shape("star2d1r", (8192, 8192))  # on "cuda"
     out_padded = eng.run(in_padded, steps=4)
     eng3 = StencilEngine.for_shape("box3d1r", (256, 256, 256))
     eng1 = StencilEngine.for_shape("1d2r", (1_000_000,))
+    out_padded = run(in_padded, get_shape("star3d1r"), 4, dtype="df64")
 
 What this engine runs, dirichlet0, ``backend`` "auto" / "pallas" (a CUDA
 kernel; its plain twin on a CPU tensor) or "xla"
-(``ops/torch_ref.separable_step``), in float32 and, for 1-D and 2-D
-shapes, in the fp64-grade tier (dtype "float64" or "df64", see below):
+(``ops/torch_ref.separable_step``, which takes every algorithm name the
+JAX engine takes), in float32 and in the fp64-grade tier (dtype "float64"
+or "df64", see below):
   * 1-D shapes (1d1r, 1d2r, ``for_coeffs`` taps up to radius 127) through
     ``ops/stencil1d.py``, with the JAX engine's dispatch (see
     ``_build_layout_1d``): small grids run all steps in one launch, large
@@ -31,9 +34,9 @@ shapes, in the fp64-grade tier (dtype "float64" or "df64", see below):
     autotune cache, which the port does not have yet (ROADMAP A12), and
     resolves 'extent' when the cache is empty;
   * 3-D shapes (star3d1r, box3d1r) at the JAX engine's fused depth
-    ``k = min(fused_steps_3d, 8 // radius)`` (2 by default) through
-    ``ops/stencil3d.py``: ``steps // k`` passes of k steps, then one pass
-    of ``steps % k``.
+    ``k = min(fused_steps_3d, 8 // radius)`` (2 by default; 1 for "df64")
+    through ``ops/stencil3d.py``: ``steps // k`` passes of k steps, then
+    one pass of ``steps % k``.
 Every other accepted value of the JAX engine raises
 ``NotImplementedError`` naming the ROADMAP item that will port it.
 
@@ -44,11 +47,11 @@ dtypes hold a float64 state and run the float64 instances of the same CUDA
 kernels, in native double; the pair arithmetic is not ported.  Each keeps
 the JAX engine's dispatch: "df64" one step per pass everywhere, its 1-D
 branches (``_build_layout_1d``) and the ``df64_algorithm`` label
-(``ops/stencil2d.pick_algorithm`` in 2-D), an effective radius of 0 on the
-"xla" step, in 2-D the pair cap of the whole-grid run; "float64" resolves
-"auto" to "vpu_roll" and keeps the float32 rules for the fused depth (1 in
-2-D unless ``fused_steps`` is given, 2 on the 1-D lanes path).  ``run``
-returns a float64 tensor.
+(``ops/stencil2d.pick_algorithm`` in 2-D, 'vpu_sep' in 3-D), an effective
+radius of 0 on the "xla" step, in 2-D the pair cap of the whole-grid run;
+"float64" resolves "auto" to "vpu_roll" and keeps the float32 rules for
+the fused depth (1 in 2-D unless ``fused_steps`` is given, 2 on the 1-D
+lanes path and in 3-D).  ``run`` returns a float64 tensor.
 
 ``residue_mxu`` takes the JAX engine's values; 'on' moves the TPU kernel's
 residue onto its matrix unit, which the card has no use for: every value
@@ -146,6 +149,13 @@ class EngineConfig:
     boundary: str = "dirichlet0"
 
 
+def _config(kw) -> EngineConfig:
+    """An ``EngineConfig`` of the items of ``kw`` that are its fields; the
+    rest are ignored, as the JAX engine's constructors do."""
+    return EngineConfig(**{k: v for k, v in kw.items()
+                           if k in EngineConfig.__dataclass_fields__})
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to lorastencil_tpu_torch yet (ROADMAP "
@@ -186,7 +196,8 @@ class StencilEngine:
             self.algorithm = resolve_algorithm(spec, config.algorithm,
                                                config.dtype)
         self.df64_pallas = self.df64 and self.backend == "pallas"
-        if spec.ndim > 1 and not self.df64:  # 1-D: every name runs
+        # 1-D and the 'xla' step: every name runs
+        if spec.ndim > 1 and not self.df64 and self.backend != "xla":
             kernel = stencil3d if spec.ndim == 3 else stencil2d
             if self.algorithm in kernel.UNPORTED_ALGORITHMS:
                 raise _not_ported(f"algorithm {self.algorithm!r}", "B13")
@@ -207,8 +218,6 @@ class StencilEngine:
             raise _not_ported(f"dtype {config.dtype!r}", "A6")
         if config.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {config.dtype!r}")
-        if config.dtype != "float32" and spec.ndim == 3:
-            raise _not_ported(f"dtype {config.dtype!r} in 3-D", "B10")
         if config.backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown backend {config.backend!r}")
         if config.algorithm not in ALGORITHM_NAMES:
@@ -276,12 +285,13 @@ class StencilEngine:
         ``StencilEngine.__init__``): the kernel applies unless the backend
         is 'xla' or, in 1-D, the effective radius is 0 (a centre tap only,
         which then runs the 'xla' step); ``df64_algorithm`` is 'auto'
-        resolved to ``stencil2d.pick_algorithm`` in 2-D and 'vpu_roll' in
-        1-D, or the given name, which must be one the kernel takes; and
-        ``algorithm`` is what the JAX engine resolves 'auto' to."""
+        resolved to ``stencil2d.pick_algorithm`` in 2-D, 'vpu_sep' in 3-D
+        and 'vpu_roll' in 1-D, or the given name, which must be one the
+        kernel takes; and ``algorithm`` is what the JAX engine resolves
+        'auto' to."""
         spec, config = self.spec, self.config
         kernel = config.backend != "xla" and (
-            spec.ndim == 2 or stencil1d.effective_radius(spec) >= 1)
+            spec.ndim > 1 or stencil1d.effective_radius(spec) >= 1)
         if config.backend == "pallas" and not kernel:
             raise ValueError(
                 "no df64 kernel applies: 1-D needs an effective radius in "
@@ -289,12 +299,14 @@ class StencilEngine:
                 "'auto'/'xla')")
         if config.algorithm != "auto":
             self.df64_algorithm = config.algorithm
+        elif kernel and spec.ndim == 3:
+            self.df64_algorithm = "vpu_sep"
         elif kernel and spec.ndim == 2:
             self.df64_algorithm = stencil2d.pick_algorithm(spec)
         else:
             self.df64_algorithm = "vpu_roll"
-        allowed = (("vpu_roll",) if spec.ndim == 1
-                   else stencil2d.DF64_ALGORITHMS)
+        allowed = {1: ("vpu_roll",), 2: stencil2d.DF64_ALGORITHMS,
+                   3: ("vpu_sep",)}[spec.ndim]
         if kernel and self.df64_algorithm not in allowed:
             raise ValueError(
                 f"df64 kernel algorithm must be 'auto' or one of {allowed} "
@@ -305,10 +317,7 @@ class StencilEngine:
     @classmethod
     def for_shape(cls, name: str, interior, device="cuda",
                   **kw) -> "StencilEngine":
-        cfg_kw = {k: v for k, v in kw.items()
-                  if k in EngineConfig.__dataclass_fields__}
-        return cls(get_shape(name), interior, EngineConfig(**cfg_kw),
-                   device=device)
+        return cls(get_shape(name), interior, _config(kw), device=device)
 
     @classmethod
     def for_coeffs(cls, coeffs, interior, name: str = "custom", halo=None,
@@ -329,9 +338,7 @@ class StencilEngine:
             halo=tuple(halo) if halo is not None else (radius,),
             terms=(SeparableTerm(taps=(tuple(float(w) for w in S),)),),
             residue=(), fuse_factor=fuse_factor)
-        cfg_kw = {k: v for k, v in kw.items()
-                  if k in EngineConfig.__dataclass_fields__}
-        return cls(spec, interior, EngineConfig(**cfg_kw), device=device)
+        return cls(spec, interior, _config(kw), device=device)
 
     def _fusion_mode(self) -> str:
         """'skew' for fusion='skew' in 2-D, else 'extent'.  The JAX
@@ -469,18 +476,18 @@ class StencilEngine:
         if self.spec.ndim == 1:
             return stencil1d.stencil1d_step(cur, donor, self.spec,
                                             self.layout, fused_steps=fused_k)
+        algorithm = self.df64_algorithm if self.df64 else self.algorithm
         if self.spec.ndim == 3:
             return stencil3d.stencil3d_step(
-                cur, donor, self.spec, self.layout,
-                algorithm=self.algorithm, fused_steps=fused_k)
+                cur, donor, self.spec, self.layout, algorithm=algorithm,
+                fused_steps=fused_k)
         if self._fusion_mode() == "skew" and fused_k >= 2:
             # a remainder pass of one step runs the extent kernel
             return stencil2d.stencil2d_skew_step(
                 cur, donor, self.spec, self.layout,
                 algorithm=self.algorithm, skew_steps=fused_k)
         return stencil2d.stencil2d_step(
-            cur, donor, self.spec, self.layout,
-            algorithm=self.df64_algorithm if self.df64 else self.algorithm,
+            cur, donor, self.spec, self.layout, algorithm=algorithm,
             fused_steps=fused_k)
 
     def _resident_2d(self) -> bool:
@@ -553,3 +560,14 @@ class StencilEngine:
 
     def adjoint(self):
         raise _not_ported("StencilEngine.adjoint", "A10")
+
+
+def run(padded, spec: StencilSpec, steps: int, device="cuda", **kw):
+    """One-shot run (``lorastencil_tpu.engine.run`` with ``device``): an
+    engine for ``spec`` itself (a custom spec as well as a registry one),
+    its interior taken from ``padded``'s shape less the halo; ``kw`` items
+    that are ``EngineConfig`` fields configure it, the rest are ignored."""
+    interior = tuple(int(s) - 2 * h for s, h in zip(np.shape(padded),
+                                                    spec.halo))
+    return StencilEngine(spec, interior, _config(kw),
+                         device=device).run(padded, steps)

@@ -1,19 +1,27 @@
 """K fused 3-D stencil steps on the internal layout: the CUDA kernel's wrapper.
 
 Counterpart of ``lorastencil_tpu/ops/pallas_3d.py`` ``stencil3d_step``
-(kernel ``_stencil3d_kernel``).  On a CUDA tensor ``stencil3d_step``
-launches the hand-written kernel ``csrc/stencil3d.cu`` or raises; only a CPU
-tensor runs the plain PyTorch twin, ``stencil3d_step_plain``, which is also
-callable directly (the tests and ``chip_smoke.py`` hold the kernel against it
-on the card).
+(kernel ``_stencil3d_kernel``) and, on a float64 state, of
+``lorastencil_tpu/ops/pallas_df64_3d.py`` ``df64_3d_step`` (kernel
+``_df64_3d_kernel``): ``csrc/stencil3d.cu`` has a float32 and a float64
+instance, and the wrapper launches the one of its state's dtype.  The TPU
+computes the fp64-grade tier on error-free (hi, lo) fp32 pairs because it has
+no fp64 unit; the card has one, so the float64 instance computes in native
+double.  On a CUDA tensor ``stencil3d_step`` launches the hand-written
+kernel or raises; only a CPU tensor runs the plain PyTorch twin,
+``stencil3d_step_plain`` (in the state's dtype), which is also callable
+directly (the tests and ``chip_smoke.py`` hold the kernel against it on the
+card).
 
 ``algorithm``: the TPU kernel's exact-fp32 variants ``'vpu'``,
 ``'vpu_roll'`` and ``'mxu_hybrid1'`` differ only in how they use the TPU's
-vector and matrix units; here all three run the one fp32 CUDA-core kernel.
-``'mxu'`` (banded matmuls at Mosaic precision) is still to be ported
-(ROADMAP B13).  ``conv_carry`` is accepted and has no effect: on the TPU it
-reuses plane convs across slabs with bit-identical output, and the CUDA
-kernel's z-march computes each plane's conv once by construction.
+vector and matrix units; here all three run the one CUDA-core kernel of the
+state's dtype, and a float64 state also takes the df64 kernel's name
+``'vpu_sep'`` (its separable pair slices).  ``'mxu'`` (banded matmuls at
+Mosaic precision) is still to be ported (ROADMAP B13).  ``conv_carry`` is
+accepted and has no effect: on the TPU it reuses plane convs across slabs
+with bit-identical output, and the CUDA kernel's z-march computes each
+plane's conv once by construction.
 """
 
 from __future__ import annotations
@@ -34,6 +42,9 @@ UNPORTED_ALGORITHMS = ("mxu",)  # ROADMAP B13
 MAX_RADIUS = 8  # csrc/stencil3d.cu kMaxRadius
 MAX_FUSED = 8  # csrc/stencil3d.cu kMaxK
 MAX_PLAN = 4096  # csrc/stencil3d.cu kMaxPlan
+# the instance of each state dtype
+_ENTRIES = {torch.float32: "ls_stencil3d_step",
+            torch.float64: "ls_stencil3d_step_f64"}
 MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 # in-plane block tiles, largest first; all divide the layout's TILE_3D
 BLOCK_TILES = ((32, 64), (16, 64), (16, 32), (8, 32), (8, 16))
@@ -51,12 +62,16 @@ def _classify_terms(spec: StencilSpec):
 
 def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
            fused_steps: int, bounds, region):
+    # a float64 state also takes the df64 kernel's name
+    algorithms = (ALGORITHMS + ("vpu_sep",) if cur.dtype == torch.float64
+                  else ALGORITHMS)
     if algorithm in UNPORTED_ALGORITHMS:
         raise NotImplementedError(
             f"algorithm {algorithm!r} is not ported yet (ROADMAP B13); "
-            f"the port runs {ALGORITHMS} through one exact fp32 kernel")
-    if algorithm not in ALGORITHMS:
-        raise ValueError(f"unknown algorithm {algorithm!r}")
+            f"the port runs {ALGORITHMS} through one exact kernel")
+    if algorithm not in algorithms:
+        raise ValueError(f"unknown algorithm {algorithm!r}; this wrapper "
+                         f"takes {algorithms}")
     if bounds is not None:
         raise NotImplementedError(
             "bounds (ghost rings, domain decomposition) are not ported yet "
@@ -80,9 +95,11 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
         raise ValueError(
             f"guard {layout.guard} is narrower than the pass's reach "
             f"{reach} (fused_steps x radius)")
+    if cur.dtype not in _ENTRIES:
+        raise TypeError(f"cur must be float32 or float64, got {cur.dtype}")
+    if donor.dtype != cur.dtype:
+        raise TypeError(f"donor must be {cur.dtype}, got {donor.dtype}")
     for name, t in (("cur", cur), ("donor", donor)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
         if tuple(t.shape) != layout.shape:
             raise ValueError(
                 f"{name} has shape {tuple(t.shape)}, layout is "
@@ -99,10 +116,10 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
 def stencil3d_step_plain(cur, donor, spec: StencilSpec, layout: Layout3D,
                          fused_steps: int = 1):
     """The kernel's plain PyTorch twin: the same K-level pass with tensor
-    ops on whatever device ``cur`` is on, each level masked to the global
-    interior.  Writes the rounded interior of ``donor`` in place (zero
-    beyond the true interior) and returns it; the guard ring of ``donor``
-    is left as it is."""
+    ops on whatever device and dtype ``cur`` has, each level masked to the
+    global interior.  Writes the rounded interior of ``donor`` in place
+    (zero beyond the true interior) and returns it; the guard ring of
+    ``donor`` is left as it is."""
     K, r = fused_steps, spec.radius
     h, m, n = layout.interior
     _, mr, nr = layout.rounded
@@ -120,13 +137,14 @@ def stencil3d_step_plain(cur, donor, spec: StencilSpec, layout: Layout3D,
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_buffer(spec: StencilSpec, device: torch.device):
-    """The tap/residue table on ``device``, built once per (spec,
-    device) and never per step."""
-    plan = plan_array(spec)
+def _plan_buffer(spec: StencilSpec, device: torch.device, dtype):
+    """The tap/residue table in ``dtype`` on ``device``, built once per
+    (spec, device, dtype) and never per step: fp64 taps rounded to float32
+    would cost ~1e-8 per step."""
+    plan = plan_array(spec, dtype)
     if plan.numel() > MAX_PLAN:
         raise ValueError(
-            f"{spec.name}: tap table of {plan.numel()} floats exceeds the "
+            f"{spec.name}: tap table of {plan.numel()} entries exceeds the "
             f"kernel's cap {MAX_PLAN}")
     return plan.to(device)
 
@@ -136,11 +154,12 @@ def _lib():
     """The kernel library, built and bound once per process."""
     lib = _cuda_build.load("stencil3d")
     lib.ls_stencil3d_smem_bytes.restype = ctypes.c_longlong
-    lib.ls_stencil3d_smem_bytes.argtypes = [ctypes.c_int] * 7
-    fn = lib.ls_stencil3d_step
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 21
-                   + [ctypes.c_void_p])
+    lib.ls_stencil3d_smem_bytes.argtypes = [ctypes.c_int] * 8
+    for entry in _ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 21
+                       + [ctypes.c_void_p])
     return lib
 
 
@@ -154,18 +173,20 @@ def _term_mix(spec: StencilSpec):
 
 
 @functools.lru_cache(maxsize=None)
-def plan_pass(spec: StencilSpec, fused_steps: int):
-    """(K, block tile) of the kernel's passes for ``fused_steps`` levels:
-    the largest tile whose shared-memory rings fit at that K, and if none
-    fits, the largest K <= ``fused_steps`` for which one does (the
-    wrapper then runs several passes)."""
+def plan_pass(spec: StencilSpec, fused_steps: int, itemsize: int):
+    """(K, block tile) of the kernel's passes for ``fused_steps`` levels of
+    ``itemsize``-byte cells (4 float32, 8 float64): the largest tile whose
+    shared-memory rings fit at that K, and if none fits, the largest K <=
+    ``fused_steps`` for which one does (the wrapper then runs several
+    passes)."""
     lib = _lib()
     n_buf, ring = _term_mix(spec)
     plan_len = plan_array(spec).numel()
     for K in range(fused_steps, 0, -1):
         for bm, bn in BLOCK_TILES:
             need = lib.ls_stencil3d_smem_bytes(spec.radius, K, bm, bn,
-                                               n_buf, ring, plan_len)
+                                               n_buf, ring, plan_len,
+                                               itemsize)
             if 0 <= need <= MAX_SMEM:
                 return K, (bm, bn)
     raise ValueError(
@@ -191,8 +212,9 @@ def _z_chunk(layout: Layout3D, tile, device: torch.device) -> int:
 
 
 def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile):
-    lib = _lib()
-    plan = _plan_buffer(spec, cur.device)
+    """One launch of the instance of ``cur``'s dtype; raises if refused,
+    and counts it."""
+    plan = _plan_buffer(spec, cur.device, cur.dtype)
     n_buf, ring = _term_mix(spec)
     nz, rows, pitch = layout.shape
     z0, r0, c0 = layout.origin
@@ -201,7 +223,7 @@ def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile):
     zc = _z_chunk(layout, tile, cur.device)
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.ls_stencil3d_step(
+        err = getattr(_lib(), _ENTRIES[cur.dtype])(
             cur.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.numel(),
             len(spec.terms), spec.radius, len(spec.residue), n_buf, ring, K,
             nz, rows, pitch, z0, r0, c0, h, m, n, mr, nr, tile[0], tile[1],
@@ -209,7 +231,10 @@ def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile):
     if err != 0:
         raise RuntimeError(
             f"stencil3d kernel launch failed: CUDA error {err}")
-    stencil3d_step.launches += 1
+    if cur.dtype == torch.float64:
+        stencil3d_step.launches_f64 += 1
+    else:
+        stencil3d_step.launches += 1
     return out
 
 
@@ -222,7 +247,9 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
 
     ``donor``'s guard ring must be zero; it stays untouched, which is
     what makes the halo decay.  A CUDA tensor runs the CUDA kernel (or
-    raises); a CPU tensor runs ``stencil3d_step_plain``.  One launch does
+    raises); a CPU tensor runs ``stencil3d_step_plain``.  A float32 state
+    runs the float32 instance and counts in ``launches``, a float64 state
+    the float64 one and counts in ``launches_f64``.  One launch does
     all ``fused_steps`` levels when a block's shared-memory rings fit at
     that depth (every depth the engine picks for the registry's shapes);
     otherwise it runs passes of the largest depth that fits, through one
@@ -234,7 +261,8 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
         return stencil3d_step_plain(cur, donor, spec, layout, fused_steps)
     if cur.device.type != "cuda":
         raise ValueError(f"no stencil3d kernel for device {cur.device}")
-    K, tile = plan_pass(spec, fused_steps)
+    itemsize = cur.element_size()
+    K, tile = plan_pass(spec, fused_steps, itemsize)
     depths = [K] * (fused_steps // K) + (
         [fused_steps % K] if fused_steps % K else [])
     if len(depths) == 1:
@@ -245,9 +273,10 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
     for i, k in enumerate(depths):
         dst = bufs[(len(depths) - 1 - i) % 2]
         _launch(src, dst, spec, layout, k,
-                tile if k == K else plan_pass(spec, k)[1])
+                tile if k == K else plan_pass(spec, k, itemsize)[1])
         src = dst
     return donor
 
 
-stencil3d_step.launches = 0  # kernel launches, for chip_smoke.py
+# kernel launches per instance, for chip_smoke.py: float32 and float64
+stencil3d_step.launches = stencil3d_step.launches_f64 = 0

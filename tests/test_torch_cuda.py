@@ -1,6 +1,6 @@
 """The CUDA kernels (lorastencil_tpu_torch/csrc/stencil2d.cu, stencil3d.cu,
-stencil1d.cu, and the float64 instances of stencil2d.cu and stencil1d.cu) on the
-card against their plain PyTorch twins, at small sizes.  Needs an NVIDIA GPU
+stencil1d.cu, and their float64 instances) on the card against their plain
+PyTorch twins, at small sizes.  Needs an NVIDIA GPU
 with nvcc (the kernels are built from source at first use); elsewhere every test
 here skips.
 
@@ -13,8 +13,8 @@ separately: rel <= 1e-6 of the largest value after 4 steps.  Every 3-D tap is a
 power of two, so each product is exact and the 3-D kernel, which sums in its
 twin's order, agrees with it bit for bit on any fill.  The 1-D kernels round each
 product and sum on its own, in their twins' order: bit for bit on any fill.  So
-do the float64 instances of the 2-D and 1-D kernels (no FMA in fp64); the fp64
-engine paths hold 1e-13 of the fp64 ground truth after 4 steps."""
+do the float64 instances of the 2-D, 3-D and 1-D kernels (no FMA in fp64); the
+fp64 engine paths hold 1e-13 of the fp64 ground truth after 4 steps."""
 
 import numpy as np
 import pytest
@@ -313,6 +313,46 @@ def test_fp64_1d_engine_counts_its_launches(cuda, dtype, kw, counter, launches):
         before = fn.launches_f64
         out = eng.run(g1, steps)
         assert fn.launches_f64 - before == expect and out.dtype == torch.float64
+        want = reference.run(g1, eng.spec, steps)
+        assert np.abs(out.cpu().numpy() - want).max() <= 1e-13 * np.abs(want).max()
+
+
+@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("interior", [(6, 20, 150), (37, 45, 130)])
+@pytest.mark.parametrize("name", ["star3d1r", "box3d1r"])
+def test_fp64_3d_kernel_matches_plain_twin(cuda, name, interior, K):
+    """The 3-D kernel's float64 instance (df64_3d_step's counterpart): one
+    launch per pass of K, bit for bit with its twin on any fill."""
+    spec = get_shape(name)
+    lay = Layout3D(interior=interior, halo=spec.halo, tile=default_tile_3d(*interior[1:]),
+                   guard=guard_3d(spec.halo, K * spec.radius))
+    g0 = reference.random_padded(spec, interior, seed=3)
+    for fill in (g0, g0 * (np.pi / 100)):
+        x = lay.to_internal(fill, torch.float64, cuda)
+        for steps in (K, 2 * K):
+            before = (stencil3d.stencil3d_step.launches, stencil3d.stencil3d_step.launches_f64)
+            got = _steps(stencil3d.stencil3d_step, x, spec, lay, steps, K)
+            assert (stencil3d.stencil3d_step.launches,
+                    stencil3d.stencil3d_step.launches_f64 - before[1]) == (before[0], steps // K)
+            want = _steps(stencil3d.stencil3d_step_plain, x, spec, lay, steps, K)
+            torch.cuda.synchronize()
+            assert got.dtype == torch.float64 and torch.equal(got, want)
+            if fill is g0:
+                assert np.array_equal(lay.from_internal(got).cpu().numpy(),
+                                      reference.run(g0, spec, steps))
+
+
+@pytest.mark.parametrize("dtype,launches", [("df64", {2: 2, 3: 3}), ("float64", {2: 1, 3: 2})])
+@pytest.mark.parametrize("name", ["star3d1r", "box3d1r"])
+def test_fp64_3d_engine_counts_its_launches(cuda, name, dtype, launches):
+    interior = (20, 40, 200)
+    eng = engine.StencilEngine.for_shape(name, interior, device=cuda, dtype=dtype)
+    g1 = reference.random_padded(eng.spec, interior, seed=1) * (np.pi / 100)
+    for steps, expect in launches.items():
+        before = stencil3d.stencil3d_step.launches_f64
+        out = eng.run(g1, steps)
+        assert stencil3d.stencil3d_step.launches_f64 - before == expect
+        assert out.is_cuda and out.dtype == torch.float64
         want = reference.run(g1, eng.spec, steps)
         assert np.abs(out.cpu().numpy() - want).max() <= 1e-13 * np.abs(want).max()
 

@@ -94,13 +94,13 @@ def test_launches_count_only_kernel_launches():
     ("star2d1r", {"algorithm": "mxu_hybrid3"}, "B13"),
     ("star2d1r", {"dtype": "bfloat16"}, "A6"),
     ("star2d1r", {"dtype": "float64", "boundary": "periodic"}, "A6"),
-    ("star3d1r", {"dtype": "df64"}, "B10"),
+    ("star3d1r", {"boundary": "periodic"}, "A6"),
     ("star2d1r", {"boundary": "periodic"}, "A6"),
     ("star2d1r", {"boundary": "reflect"}, "A6"),
     ("star2d1r", {"fusion": "skew", "dtype": "bfloat16"}, "A6"),
     ("star2d1r", {"algorithm": "mxu_split"}, "B13"),
     ("box2d3r", {"residue_mxu": "on", "dtype": "bfloat16"}, "A6"),
-    ("box3d1r", {"dtype": "float64"}, "B10"),
+    ("box3d1r", {"dtype": "df64", "boundary": "reflect"}, "A6"),
     ("box3d1r", {"dtype": "bfloat16"}, "A6"),
 ])
 def test_unsupported_configs_name_their_roadmap_item(name, kw, item):
@@ -154,7 +154,8 @@ def test_cli_check_passes_on_cpu(capsys):
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--dtype", "bfloat16"], "A6"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--mesh", "2", "2"], "A11"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--autotune"], "A12"),
-    (["star3d1r", "8", "16", "16", "2", "--device", "cpu", "--dtype", "df64"], "B10"),
+    (["star3d1r", "8", "16", "16", "2", "--device", "cpu", "--dtype", "df64", "--boundary",
+      "periodic"], "A6"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:

@@ -251,9 +251,14 @@ def test_engine_3d_resolution_backends_and_refusals():
     with pytest.raises(ValueError, match="no 3-D path"):
         engine.StencilEngine.for_shape("star3d1r", (6, 20, 150), device="cpu",
                                        algorithm="mxu_split")
-    for dtype, item in (("bfloat16", "A6"), ("float64", "B10"), ("df64", "B10")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            engine.StencilEngine.for_shape("star3d1r", (6, 20, 150), device="cpu", dtype=dtype)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        engine.StencilEngine.for_shape("star3d1r", (6, 20, 150), device="cpu",
+                                       dtype="bfloat16")
+    for dtype, k in (("float64", 2), ("df64", 1)):  # the fp64-grade tier runs
+        fp64 = engine.StencilEngine.for_shape("box3d1r", (6, 20, 150), device="cpu",
+                                              dtype=dtype)
+        assert fp64._fused_k() == k and fp64.backend == "pallas"
+        assert np.array_equal(fp64.run(g0, 3).numpy(), reference.run(g0, eng.spec, 3))
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
@@ -275,7 +280,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="not 3-D"):
         stencil3d.stencil3d_step(cur, donor, get_shape("star2d1r"), lay)
     with pytest.raises(TypeError):
-        stencil3d.stencil3d_step(cur.double(), donor.double(), spec, lay)
+        stencil3d.stencil3d_step(cur.half(), donor.half(), spec, lay)
     with pytest.raises(ValueError, match="different buffer"):
         stencil3d.stencil3d_step(cur, cur, spec, lay)
     with pytest.raises(ValueError, match="shape"):
