@@ -40,16 +40,18 @@ Phases, each printing one line or more and raising on failure:
 1. the card (nvidia-smi name and power limit), torch and nvcc versions;
    the three sources built from the checkout, the nvcc runs started
    together;
-2. the 2-D kernel against its plain PyTorch twin on the card, for star2d1r
-   and box2d1r at an interior the (32, 128) tile divides, one it does not,
-   and 8192^2: integer fill bit for bit at 1 and 2 steps; the fill times
-   pi/100 within rel 1e-6 after 4 steps (the kernel fuses multiply-adds,
-   the twin rounds each product);
+2. the 2-D step (the strip kernel: float32, k = 1, radius <= 4) against its
+   plain PyTorch twin on the card, for star2d1r and box2d1r at an interior
+   the (32, 128) tile divides, one it does not, and 8192^2: integer fill bit
+   for bit at 1 and 2 steps; the fill times pi/100 within rel 1e-6 after 4
+   steps (the kernel fuses multiply-adds, the twin rounds each product),
+   and bit for bit against the tile kernel it replaces at k = 1 (the same
+   sums); a radius-5 step, which the tile kernel runs, against its twin;
 3. the 2-D path end to end: ``run`` of 2 steps at 8192^2 equal bit for bit
    to a float64 dense stencil on the card (every partial sum is an integer
-   below 2**24), with exactly 2 launches counted from zero; a 256x384 grid
-   at 4 steps within rel 1e-5 of the fp64 ground truth (the CLI's float32
-   tolerance);
+   below 2**24), with exactly 2 launches of the strip kernel counted from
+   zero; a 256x384 grid at 4 steps within rel 1e-5 of the fp64 ground truth
+   (the CLI's float32 tolerance);
 4. 256 steps at 8192^2 timed with CUDA events (warmup, best of 3) through
    ``run_internal`` and through the naive dense stencil (GStencil/s counts
    star2d1r's x3 fuse factor); one ``F.conv2d`` with the dense 7x7
@@ -153,7 +155,14 @@ Phases, each printing one line or more and raising on failure:
 19. df64 (64 launches) and float64 (32) 256^3 x 64 through
    ``run_internal`` and the naive dense stencil in float64; the float64
    instance's device time per df64 pass and per float64 k = 2 pass, its
-   twin's, one float64 ``F.conv3d`` 3x3x3 step and the pass's byte bound.
+   twin's, one float64 ``F.conv3d`` 3x3x3 step and the pass's byte bound;
+20. the two kernels redesigned for Hopper, each with its registers and
+   spills from ptxas: the 2-D strip kernel's step at star2d1r 8192^2 beside
+   the tile kernel it replaces (timed in turns), its twin, ``F.conv2d``,
+   its byte bound and its share of it; the wide 1-D pass at float64 r = 40
+   x 100,000 and float32 1d2r 1,000,000 (k = 2), and at float64 r = 40 x
+   16,777,216 (134 MB a buffer), each beside one ``F.conv1d`` step, its
+   bound and its share of it.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -226,10 +235,13 @@ def _counters():
     wide run's float64 instance, which replaces no df64 kernel, as
     "stencil1d_resident_f64"; the 2-D resident run's float64 instance as
     "stencil2d_resident_pair", the kernel it replaces).  The fused 2-D
-    kernel counts with the step kernel it extends, as "stencil2d"."""
+    kernel counts with the step kernel it extends, as "stencil2d"; the
+    strip kernel's float32 steps count in both "stencil2d" and
+    "stencil2d_k1"."""
     from lorastencil_tpu_torch.ops import stencil1d, stencil2d, stencil3d
 
     out = {"stencil2d": (stencil2d.stencil2d_step, "launches"),
+           "stencil2d_k1": (stencil2d.stencil2d_step, "launches_k1"),
            "stencil3d": (stencil3d.stencil3d_step, "launches"),
            "df64_3d_step": (stencil3d.stencil3d_step, "launches_f64"),
            "df64_step": (stencil2d.stencil2d_step, "launches_f64"),
@@ -260,7 +272,7 @@ def counts():
 
 def build_kernels():
     """Phase 1's builds, the nvcc runs at once; returns {name: (seconds,
-    ptxas register lines)}."""
+    ptxas register lines, the compiler's log)}."""
     from lorastencil_tpu_torch.ops import _cuda_build
 
     def one(name):
@@ -268,9 +280,10 @@ def build_kernels():
         lib = _cuda_build.build(name)
         secs = time.perf_counter() - t0
         with open(lib + ".log") as f:
-            ptxas = [ln.strip() for ln in f if "registers" in ln
-                     or "spill" in ln]
-        return secs, ptxas
+            log = f.read().splitlines()
+        ptxas = [ln.strip() for ln in log if "registers" in ln
+                 or "spill" in ln]
+        return secs, ptxas, log
 
     with concurrent.futures.ThreadPoolExecutor(len(SOURCES)) as pool:
         futs = {name: pool.submit(one, name) for name in SOURCES}
@@ -309,7 +322,8 @@ def run_steps(step, x, spec, lay, steps, k=1):
 
 def check_kernel(name, interior, device):
     """Phase 2 for one shape and size; returns the max abs and rel errors
-    of the pi/100 fill after 1 and 4 steps."""
+    of the pi/100 fill after 1 and 4 steps.  The step runs the strip kernel,
+    which must also equal the tile kernel's step bit for bit."""
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil2d
     from lorastencil_tpu_torch.utils import reference
@@ -328,6 +342,17 @@ def check_kernel(name, interior, device):
                 f"{name} {interior}: kernel differs from its twin at "
                 f"{bad} cells after {steps} steps (integer fill)")
     x = lay.to_internal(g0 * (np.pi / 100), device=device)
+    if not stencil2d.strip_takes(spec, x.dtype):
+        raise AssertionError(f"{name}: the step does not take the strip kernel")
+    tile = torch.zeros_like(x)
+    stencil2d._launch("step", (x, tile), spec, lay, 1)
+    strip = stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay)
+    torch.cuda.synchronize()
+    if not torch.equal(strip, tile):
+        bad = (strip != tile).sum().item()
+        raise AssertionError(f"{name} {interior}: the strip kernel differs "
+                             f"from the tile kernel at {bad} cells (pi/100)")
+    del tile, strip
     errs = {}
     for steps in (1, 4):
         got = run_steps(stencil2d.stencil2d_step, x, spec, lay, steps)
@@ -342,6 +367,37 @@ def check_kernel(name, interior, device):
             f"{name} {interior}: rel err {errs[4][1]:.3e} > 1e-6 after 4 "
             f"steps (pi/100 fill)")
     return errs
+
+
+def check_wide_radius(device):
+    """Phase 2: a radius-5 step (beyond the strip kernel's radii: the tile
+    kernel) against its twin on the integer fill at 1-2 steps; returns its
+    launches of the tile kernel (1 per step, none of the strip kernel)."""
+    from lorastencil_tpu_torch.models.shapes import SeparableTerm, StencilSpec
+    from lorastencil_tpu_torch.ops import stencil2d
+    from lorastencil_tpu_torch.utils import reference
+
+    ones = (1.0,) * 11
+    spec = StencilSpec(name="box2d5r", ndim=2, radius=5, halo=(5, 5),
+                       terms=(SeparableTerm(taps=(ones, ones)),),
+                       residue=(((0, 5), 1.0), ((-5, -2), -1.0)),
+                       fuse_factor=1)
+    interior = (300, 140)
+    lay = port_layout(spec, interior)
+    x = lay.to_internal(reference.random_padded(spec, interior, seed=4),
+                        device=device)
+    reset_counts()
+    for steps in (1, 2):
+        got = run_steps(stencil2d.stencil2d_step, x, spec, lay, steps)
+        want = run_steps(stencil2d.stencil2d_step_plain, x, spec, lay, steps)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"radius 5 {interior}: the tile kernel "
+                                 f"differs from its twin after {steps} steps")
+    launched = counts()
+    if (launched["stencil2d"], launched["stencil2d_k1"]) != (3, 0):
+        raise AssertionError(f"radius 5 steps launched {launched}")
+    return launched["stencil2d"]
 
 
 def time_calls(fns, x, donor, calls):
@@ -363,8 +419,9 @@ def time_calls(fns, x, donor, calls):
 
 
 def time_step(spec, lay, device, calls=20):
-    """Per-call device ms of the 2-D kernel and of its plain twin, one
-    step each, at the layout's shape (uniform [0, 0.01) fill)."""
+    """Per-call device ms of the 2-D step (the strip kernel), of the tile
+    kernel it replaces at k = 1 and of its plain twin, one step each, at the
+    layout's shape (uniform [0, 0.01) fill), timed in turns."""
     from lorastencil_tpu_torch.ops import stencil2d
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -372,9 +429,11 @@ def time_step(spec, lay, device, calls=20):
     ms = time_calls({
         "plain": lambda a, b: stencil2d.stencil2d_step_plain(a, b, spec,
                                                              lay),
-        "kernel": lambda a, b: stencil2d.stencil2d_step(a, b, spec, lay)},
+        "kernel": lambda a, b: stencil2d.stencil2d_step(a, b, spec, lay),
+        "tile": lambda a, b: stencil2d._launch("step", (a, b), spec, lay,
+                                               1)},
         x, torch.zeros_like(x), calls)
-    return ms["kernel"], ms["plain"]
+    return ms["kernel"], ms["plain"], ms["tile"]
 
 
 def main_path(device):
@@ -398,9 +457,11 @@ def main_path(device):
     out = eng.run(g0, 2)
     torch.cuda.synchronize()
     launches = counts()
-    if launches["stencil2d"] != 2:
+    if (launches["stencil2d"], launches["stencil2d_k1"]) != (2, 2):
         raise AssertionError(f"2-D path launched its kernel "
-                             f"{launches['stencil2d']} times for 2 steps")
+                             f"{launches['stencil2d']} times, the strip "
+                             f"kernel {launches['stencil2d_k1']}, for 2 "
+                             f"steps")
     if tuple(out.shape) != spec.padded_shape(INTERIOR):
         raise AssertionError(f"output shape {tuple(out.shape)}")
     if not bool(torch.isfinite(out).all()):
@@ -1397,20 +1458,26 @@ def set_resident_caps(nbytes):
 
 
 # Phase 15's paths: (shape, interior, engine options, caps on, the kernel of
-# its 64-step run and that run's launches, the steps of the integer fill's
-# run, exact below 2**24, and its launches)
+# its 64-step run, that run's launches, the steps of the integer fill's run,
+# exact below 2**24, and its launches).  A single float32 step, the
+# remainder of an odd run or every step at fused_steps=1, runs the strip
+# kernel and counts in "stencil2d_k1" too.
 FUSED_PATHS = (
-    ("star2d3r", INTERIOR, {}, False, "stencil2d", 32, 3, {"stencil2d": 2}),
-    ("star2d3r", INTERIOR, {"fusion": "skew"}, False, "stencil2d_skew", 32,
-     3, {"stencil2d_skew": 1, "stencil2d": 1}),
-    ("star2d3r", INTERIOR, {"fused_steps": 1}, False, "stencil2d", 64, 3,
-     {"stencil2d": 3}),
-    ("star2d1r", SMALL_2D, {}, True, "stencil2d_resident", 1, 2,
-     {"stencil2d_resident": 1}),
-    ("box2d3r", SMALL_2D, {}, True, "stencil2d_resident", 1, 2,
-     {"stencil2d_resident": 1}),
+    ("star2d3r", INTERIOR, {}, False, "stencil2d", {"stencil2d": 32}, 3,
+     {"stencil2d": 2, "stencil2d_k1": 1}),
+    ("star2d3r", INTERIOR, {"fusion": "skew"}, False, "stencil2d_skew",
+     {"stencil2d_skew": 32}, 3,
+     {"stencil2d_skew": 1, "stencil2d": 1, "stencil2d_k1": 1}),
+    ("star2d3r", INTERIOR, {"fused_steps": 1}, False, "stencil2d",
+     {"stencil2d": 64, "stencil2d_k1": 64}, 3,
+     {"stencil2d": 3, "stencil2d_k1": 3}),
+    ("star2d1r", SMALL_2D, {}, True, "stencil2d_resident",
+     {"stencil2d_resident": 1}, 2, {"stencil2d_resident": 1}),
+    ("box2d3r", SMALL_2D, {}, True, "stencil2d_resident",
+     {"stencil2d_resident": 1}, 2, {"stencil2d_resident": 1}),
     ("star2d1r", SMALL_2D, {"dtype": "df64"}, True,
-     "stencil2d_resident_pair", 1, 2, {"stencil2d_resident_pair": 1}))
+     "stencil2d_resident_pair", {"stencil2d_resident_pair": 1}, 2,
+     {"stencil2d_resident_pair": 1}))
 
 
 def main_path_fused(device):
@@ -1471,15 +1538,15 @@ def main_path_fused(device):
         eng.run_internal(state, FUSED_STEPS)
         torch.cuda.synchronize()
         got = {key: v for key, v in counts().items() if v}
-        if got != {kernel: expect}:
+        if got != expect:
             raise AssertionError(f"{name} {kw} x{FUSED_STEPS} launched {got}")
-        launches[(name, mode, kw.get("dtype", "float32"))] = expect
+        launches[(name, mode, kw.get("dtype", "float32"))] = expect[kernel]
         dims = "x".join(str(s) for s in interior)
         lines.append(f"{name} {dims} {kw or 'defaults'} -> {mode}: "
                      f"run({n_int}) {run_int} bit-exact, run(4) rel err "
                      f"{rel:.3e}; "
-                     f"x{FUSED_STEPS}: {expect} launch(es) of {kernel}, none "
-                     f"of the others")
+                     f"x{FUSED_STEPS}: launches {expect}, none of the "
+                     f"others")
         del state
     set_resident_caps(0)
     return launches, lines
@@ -1797,6 +1864,90 @@ def bench_fp64_3d(device, card):
     return timing
 
 
+# Phase 20: the kernels redesigned for Hopper, csrc/stencil2d.cu strip_kernel
+# (an instantiation per radius 1-4 and term count 0-3) and csrc/stencil1d.cu
+# wide_kernel (float and double), by the mangled names ptxas reports
+PTXAS_KERNELS = {"stencil2d": r"strip_kernelILi(\d)ELi(\d)E",
+                 "stencil1d": r"wide_kernelI([fd])E"}
+
+
+def ptxas_table(log, pattern):
+    """{instantiation: (registers, spill store bytes)} of the kernels whose
+    entry name matches ``pattern``; raises on a spill."""
+    import re
+
+    table = {}
+    for i, line in enumerate(log):
+        m = re.search(pattern, line)
+        if "Compiling entry function" in line and m:
+            info = " ".join(log[i + 1: i + 4])
+            regs = re.search(r"Used (\d+) registers", info)
+            spill = re.search(r"(\d+) bytes spill stores", info)
+            table[",".join(m.groups())] = (int(regs.group(1)),
+                                           int(spill.group(1)))
+    if not table:
+        raise AssertionError(f"no ptxas lines for {pattern}")
+    spilled = {k: v for k, v in table.items() if v[1]}
+    if spilled:
+        raise AssertionError(f"{pattern} spills: {spilled}")
+    return table
+
+
+def redesigned(device, card, builds, step_ms, lib2):
+    """Phase 20: per redesigned kernel its registers and spills, device ms,
+    bound and share of it, and library ms; the 2-D step beside the tile
+    kernel it replaces (``step_ms``: phase 2's strip, tile and twin times,
+    timed in turns) and the wide pass at three sizes; returns the large
+    wide pass's record."""
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+
+    for source, pattern in PTXAS_KERNELS.items():
+        table = ptxas_table(builds[source][2], pattern)
+        print(f"phase 20: {pattern.split('I')[0]} registers per "
+              f"instantiation ({'R,terms' if source == 'stencil2d' else 'type'}"
+              f"), no spill: "
+              + " ".join(f"{k}:{v[0]}" for k, v in sorted(table.items())),
+              flush=True)
+    spec2 = get_shape("star2d1r")
+    strip, plain, tile = step_ms
+    bound2, by2 = bound_ms(spec2, INTERIOR, 1)
+    print(f"phase 20: strip kernel, star2d1r 8192^2 step: {strip} ms "
+          f"(device), {bound2 / strip:.4f} of its {bound2} ms {by2} bound; "
+          f"the tile kernel it replaces {tile} ms ({tile / strip:.4f}x); "
+          f"plain twin {plain} ms; F.conv2d 7x7 {lib2} ms [{card}]",
+          flush=True)
+    gen = torch.Generator(device=device).manual_seed(0)
+    large = None
+    for name, n, dtype, k in (("r40", 100_000, torch.float64, 1),
+                              ("1d2r", N_1D, torch.float32, 2),
+                              ("r40", N_1D_LARGE, torch.float64, 1)):
+        spec = spec_1d(name)
+        r = s1.effective_radius(spec)
+        lay = layout_1d(spec, n, k * r)
+        x = torch.rand(lay.shape, generator=gen, device=device,
+                       dtype=dtype) * 0.01
+        donor = torch.zeros_like(x)
+        ms = graph_ms(lambda: s1.stencil1d_step(x, donor, spec, lay,
+                                                fused_steps=k))
+        itemsize = dtype.itemsize
+        bound, by = bound_ms(spec, (n,), k, itemsize)
+        lib = conv1d_ms(spec, n, device, dtype)
+        tile = s1.pass_tile(lay.rounded, s1._sm_count(device.index or 0))
+        print(f"phase 20: wide_kernel {str(dtype)[6:]} {name} {n} k={k}: {ms} ms "
+              f"(device), {bound / ms:.4f} of its {bound} ms {by} bound; "
+              f"one F.conv1d step {lib} ms; {lay.rounded // tile} blocks of "
+              f"{tile} cells [{card}]", flush=True)
+        if n == N_1D_LARGE:
+            plain_ms = graph_ms(lambda: s1.stencil1d_step_plain(
+                x, donor, spec, lay, k), 2)
+            large = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                         bound_by=by, library_ms=lib, steps_per_launch=k,
+                         library_steps=1, shape=f"float64 {name} {n}")
+        del x, donor
+    return large
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -1825,7 +1976,7 @@ def main() -> int:
     print(f"phase 1: torch {torch.__version__} (CUDA {torch.version.cuda}),"
           f" {nvcc}; built {len(builds)} sources in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
-    for name, (secs, ptxas) in builds.items():
+    for name, (secs, ptxas, _) in builds.items():
         print(f"phase 1: {SOURCES[name]} {secs:.1f} s: {' | '.join(ptxas)}",
               flush=True)
 
@@ -1837,11 +1988,18 @@ def main() -> int:
                 main_errs = errs
             print(f"phase 2: {name} {interior}: integer fill bit-exact at "
                   f"1-2 steps; pi/100 fill rel err {errs[1][1]:.3e} (1 "
-                  f"step), {errs[4][1]:.3e} (4 steps) <= 1e-6", flush=True)
+                  f"step), {errs[4][1]:.3e} (4 steps) <= 1e-6; strip kernel "
+                  f"bit-equal to the tile kernel", flush=True)
+    wide_launches = check_wide_radius(device)
+    print(f"phase 2: radius 5 (300, 140): the tile kernel bit-exact against "
+          f"its twin at 1-2 steps on the integer fill, {wide_launches} "
+          f"launches, none of the strip kernel", flush=True)
     spec2 = get_shape("star2d1r")
-    ms2, plain_ms2 = time_step(spec2, port_layout(spec2, INTERIOR), device)
-    print(f"phase 2: one step at 8192^2: kernel {ms2} ms, plain twin "
-          f"{plain_ms2} ms [{card}]", flush=True)
+    ms2, plain_ms2, tile_ms2 = time_step(spec2, port_layout(spec2, INTERIOR),
+                                         device)
+    print(f"phase 2: one step at 8192^2: strip kernel {ms2} ms, the tile "
+          f"kernel it replaces {tile_ms2} ms, plain twin {plain_ms2} ms "
+          f"[{card}]", flush=True)
 
     launches2, rel = main_path(device)
     print(f"phase 3: run(8192^2, 2 steps) bit-exact against float64 on "
@@ -1987,6 +2145,9 @@ def main() -> int:
 
     timing_fp64_3d = bench_fp64_3d(device, card)
 
+    wide_large = redesigned(device, card, builds, (ms2, plain_ms2, tile_ms2),
+                            lib2)
+
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the reference packages were imported: "
@@ -1994,9 +2155,10 @@ def main() -> int:
     kernels = [{
         "name": "stencil2d_step", "route": "cuda",
         "source": SOURCES["stencil2d"], "replaces": REPLACES["stencil2d"],
-        "launches": launches2["stencil2d"], "max_abs_err": main_errs[1][0],
-        "ms": ms2, "plain_ms": plain_ms2, "bound_ms": bound2,
-        "bound_by": by2, "library_ms": lib2}]
+        "kernel": "strip_kernel", "launches": launches2["stencil2d_k1"],
+        "max_abs_err": main_errs[1][0], "ms": ms2, "plain_ms": plain_ms2,
+        "bound_ms": bound2, "bound_by": by2, "library_ms": lib2,
+        "tile_kernel_ms": tile_ms2}]
     for name in ("star3d1r", "box3d1r"):
         ms3, plain_ms3, lib3, bound3, by3 = timing_3d[name]
         kernels.append({
@@ -2038,6 +2200,12 @@ def main() -> int:
             "name": name, "route": "cuda", "source": SOURCES["stencil2d"],
             "replaces": REPLACES[replaces], "launches": launches,
             "max_abs_err": err}, **timing_fused[kernel]))
+    kernels.append(dict({
+        "name": f"df64_1d_flat_step[r40 {N_1D_LARGE}]", "route": "cuda",
+        "source": SOURCES["stencil1d"],
+        "replaces": REPLACES["df64_1d_flat_step"],
+        "launches": launches_fp64["df64_1d_flat_step"],
+        "max_abs_err": errs_fp64["df64_1d_flat_step"][0]}, **wide_large))
     for name in SHAPES_3D:
         kernels.append(dict({
             "name": f"df64_3d_step[{name}]", "route": "cuda",

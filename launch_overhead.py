@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Host time per launch of the port's fp32 wrappers, the host-bound 1d2r
-1,000,000 x 256 run and the device time of the 2-D step at 8192^2, on one
-CUDA device.
+1,000,000 x 256 run, and the device time of the 2-D step at 8192^2 and of
+the wide 1-D pass, on one CUDA device.
 
     python3 launch_overhead.py [--root DIR] [--label NAME]
 
@@ -18,7 +18,13 @@ Measured, each on the tree's own kernels (built at first use):
 * ``run_internal`` of 1d2r 1,000,000 x 256 (CUDA events, best of 5 after a
   warmup), where that host time decides the run's time;
 * ``stencil2d_step`` at star2d1r 8192^2, device-bound: CUDA events around 20
-  back-to-back launches, best of 5 after a warmup, ms per launch.
+  back-to-back launches, best of 5 after a warmup, ms per launch;
+* ``stencil1d_step``, the wide pass, in float64 at ``for_coeffs`` r = 40 x
+  100,000 (chip_smoke.py's taps) and x 16,777,216, and in float32 at 1d2r
+  1,000,000 with ``algorithm='vpu'`` (k = 2): 20 launches captured in a CUDA graph,
+  replayed (best of 3), ms per launch, so the host's work is left out;
+  beside it one float64 ``F.conv1d`` step with the same taps, timed the
+  same way.
 
 Prints the card (name, power limit) and one JSON line.
 """
@@ -44,6 +50,47 @@ def host_us(fn, calls):
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     return times, float(np.median(times)) * 1e6
+
+
+def wide_passes(engine, stencil1d, device, gen):
+    """Device ms of the wide 1-D pass: float64 r = 40 x 100,000 and x
+    16,777,216, float32 1d2r 1,000,000 at k = 2, and one float64
+    ``F.conv1d`` r = 40 step at 100,000."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from chip_smoke import graph_ms
+
+    taps = np.random.default_rng(40).integers(-3, 4, 81) / 256.0
+    taps[0] = taps[-1] = 1.0 / 256.0
+    out = {}
+    for label, eng, k in (
+            ("stencil1d_step_f64_r40_100000_ms",
+             engine.StencilEngine.for_coeffs(taps, (100_000,), name="r40",
+                                             device=device, dtype="df64"),
+             1),
+            ("stencil1d_step_f64_r40_16777216_ms",
+             engine.StencilEngine.for_coeffs(taps, (16_777_216,), name="r40",
+                                             device=device, dtype="df64"),
+             1),
+            ("stencil1d_step_1d2r_1000000_k2_ms",
+             engine.StencilEngine.for_shape("1d2r", (1_000_000,),
+                                            device=device, algorithm="vpu"),
+             2)):
+        if eng._fused_k() != k or eng.path != "flat":
+            raise AssertionError(f"{label}: path {eng.path} k "
+                                 f"{eng._fused_k()}")
+        x = torch.rand(eng.layout.shape, generator=gen, device=device,
+                       dtype=eng.dtype) * 0.01
+        donor = torch.zeros_like(x)
+        out[label] = graph_ms(lambda: stencil1d.stencil1d_step(
+            x, donor, eng.spec, eng.layout, fused_steps=k))
+        del x, donor
+    w = torch.tensor(taps, dtype=torch.float64, device=device)[None, None]
+    x = torch.rand((1, 1, 100_000 + 80), generator=gen, device=device,
+                   dtype=torch.float64) * 0.01
+    out["conv1d_f64_r40_100000_ms"] = graph_ms(lambda: F.conv1d(x, w))
+    return out
 
 
 def main() -> int:
@@ -116,6 +163,9 @@ def main() -> int:
 
     secs, _ = metrics.time_run(steps_8192, repeats=5, warmup=1)
     out["stencil2d_step_8192_device_ms"] = secs / 20 * 1e3
+    del x3, d3
+    torch.backends.cudnn.allow_tf32 = False
+    out.update(wide_passes(engine, stencil1d, device, gen))
     print(card, flush=True)
     print(json.dumps(out), flush=True)
     return 0

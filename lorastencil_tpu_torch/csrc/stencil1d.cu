@@ -35,14 +35,26 @@
 // and does ~r+2 to 2r+1 operations per cell and substep, below the card's
 // fp32 and fp64 rates, so device memory bytes at large n; at n ~ 1M an fp32
 // pass moves 8 MB (2.4 us at 3.35 TB/s) and the host's work per launch
-// dominates.  The design:
-//   * a pass gives each block a tile of kTile cells; the block stages the
-//     tile and k*r cells each side in shared memory with coalesced loads,
-//     runs the k substeps between two shared buffers with the extent
-//     shrinking by r per substep, and writes its tile to the donor (whose
-//     guard the host keeps zero).  The TPU's overlapped lanes, duplicated
-//     cells that make a shift one lane roll, have no use here: a shift is an
-//     address offset;
+// dominates.  At small n and wide radii (r = 40 x 100,000 in fp64: 1.6 MB,
+// 0.5 us of bytes) a pass is bound by latency: how many cells the card has
+// in flight, and the chain of 2r+1 dependent sums per cell.  The designs:
+//   * a wide pass (wide_kernel) gives each block a tile of 2048, 1024, 512
+//     or 256 cells, the largest that still gives the grid two blocks per SM
+//     (the host's choice, ops/stencil1d.py pass_tile), so a short grid
+//     fills the card; the block stages the tile and k*r cells each side in
+//     shared memory with 16-byte cp.async copies where the buffer's
+//     alignment allows, runs the k substeps between two shared buffers with
+//     the extent shrinking by r per substep, and writes the last substep
+//     straight to the donor (whose guard the host keeps zero).  The nonzero
+//     taps come as (offset, weight) pairs in the twin's order in a
+//     __grid_constant__ parameter (WideTaps), so every product reads its
+//     weight from the constant bank: no tap load and no zero test in the
+//     loop.  Each thread carries chains<T>() cells a block's width apart as
+//     independent sums, interleaved tap by tap, each in its own order;
+//   * a narrow pass (pass_kernel) keeps the radius at compile time and the
+//     taps in registers, one cell per thread and sweep.  The TPU's
+//     overlapped lanes, duplicated cells that make a shift one lane roll,
+//     have no use here: a shift is an address offset;
 //   * a run is one cooperative launch for all steps: each block owns a chunk
 //     of the interior, runs `refresh` steps from the chunk plus refresh*r
 //     cells each side, writes the chunk to one of two global buffers, syncs
@@ -53,21 +65,24 @@
 //
 // Narrow instantiations have the radius as a template parameter (1..8, taps
 // in registers, loops unrolled) and one runtime-radius instantiation for
-// 9..32; wide ones take the radius at run time with the tap loop kept rolled
-// (a fully unrolled wide-radius loop makes ptxas very slow).  Shared memory
-// holds twice the bytes per cell in fp64, so a fp64 pass's reach k*r and a
-// fp64 run's chunk per block reach about half their fp32 caps: the launch
-// refuses what does not fit (and a run whose blocks cannot all be resident,
-// checked on the fp64 instantiation itself).
+// 9..32; the wide run takes the radius at run time with the tap loop kept
+// rolled (a fully unrolled wide-radius loop makes ptxas very slow), as the
+// wide pass's loop over its tap pairs is.  Shared memory holds twice the
+// bytes per cell in fp64, so a fp64 pass's reach k*r and a fp64 run's chunk
+// per block reach about half their fp32 caps: the launch refuses what does
+// not fit (and a run whose blocks cannot all be resident, checked on the
+// fp64 instantiation itself).
 //
 // C interface, loaded with ctypes: the four functions (float and double)
 // launch on the given stream, allocate nothing and return a cudaError_t
-// (0 = launched).
+// (0 = launched).  A pass also takes, after the stream, a wide pass's
+// nonzero taps on the host (offsets, weights, count) and its tile.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -80,6 +95,26 @@ constexpr int kTapSlots = 2 * kMaxRadius + 2;
 constexpr int kMaxK = 64;        // fused steps per pass
 constexpr int kMinChunk = 256;   // cells per block of a run, at least
 constexpr size_t kMaxSmem = 232448;
+constexpr int kWideMaxTaps = 2 * kMaxRadius + 1;  // nonzero taps, at most
+// Cells a wide-pass thread carries at once: 4 in fp32, 2 in fp64 (on the
+// H100, 2 fp64 chains a thread ran the r = 40 passes faster than 4, at
+// 100,000 cells and at 16,777,216).
+template <typename T>
+__host__ __device__ constexpr int chains() {
+  return sizeof(T) == 8 ? 2 : 4;
+}
+
+// A wide pass's nonzero taps in the twin's order (the centre, then +d, -d
+// for d = 1..r), passed by value: 3,064 bytes in fp64 at the cap, within
+// the 4 KB of a launch's parameters.
+template <typename T>
+struct WideTaps {
+  int n;
+  int off[kWideMaxTaps];
+  T w[kWideMaxTaps];
+};
+static_assert(sizeof(WideTaps<double>) + 64 <= 4096,
+              "a wide pass's parameters must fit in 4 KB");
 
 // Products and sums rounded on their own, in either precision.
 __device__ __forceinline__ float mul_rn(float a, float b) {
@@ -178,6 +213,122 @@ pass_kernel(const T* __restrict__ in, T* __restrict__ out,
   for (int i = tid; i < kTile; i += kThreads) dst[i] = res[H + i];
 }
 
+// 16 bytes from global to shared memory, asynchronously.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src));
+}
+
+// The sums of K cells at x + idx[c]: the first nonzero tap's product, then
+// each further product added, every one rounded on its own; the chains
+// interleave tap by tap.  No nonzero tap: zeros, as the twin's.
+template <typename T, int K>
+__device__ __forceinline__ void wide_sums(const T* x, const int (&idx)[K],
+                                          const WideTaps<T>& tp,
+                                          T (&acc)[K]) {
+  if (tp.n == 0) {
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[c] = T(0);
+    return;
+  }
+  {
+    const int o = tp.off[0];
+    const T w = tp.w[0];
+#pragma unroll
+    for (int c = 0; c < K; ++c) acc[c] = mul_rn(w, x[idx[c] + o]);
+  }
+#pragma unroll 4
+  for (int e = 1; e < tp.n; ++e) {
+    const int o = tp.off[e];
+    const T w = tp.w[e];
+#pragma unroll
+    for (int c = 0; c < K; ++c)
+      acc[c] = add_rn(acc[c], mul_rn(w, x[idx[c] + o]));
+  }
+}
+
+// Shared memory of a wide pass, in cells: the staged window (its start
+// moved down to a 16-byte boundary) and, for k > 1, a second buffer.
+template <typename T>
+__host__ __device__ constexpr int wide_cells(int tile, int H, int k) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int W = tile + 2 * H;
+  return (W + 2 * V - 1) / V * V + (k > 1 ? (W + V - 1) / V * V : 0);
+}
+
+// k masked substeps over a tile of `tile` cells (blockDim.x * chains<T>());
+// the last one written to `out`.
+template <typename T>
+__global__ void __launch_bounds__(kTile / chains<T>())
+wide_kernel(const T* __restrict__ in, T* __restrict__ out,
+            const __grid_constant__ WideTaps<T> taps, int r, int k, int len,
+            int origin, int n, int tile) {
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  constexpr int K = chains<T>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int H = k * r;
+  const int W = tile + 2 * H;
+  const int t0 = blockIdx.x * tile;  // tile origin, interior coordinates
+  const int g0 = origin + t0 - H;    // buffer index of window cell 0 (>= 0)
+  const int shift = g0 % V;
+  const int a_cells = (W + 2 * V - 1) / V * V;
+
+  // window cell i at a[i]: 16-byte chunks from g0 - shift, whole chunks
+  // inside the buffer by cp.async, the rest cell by cell (0 outside it)
+  const bool vec = reinterpret_cast<uintptr_t>(in) % 16 == 0;
+  const int chunks = (shift + W + V - 1) / V;
+  for (int c = tid; c < chunks; c += nt) {
+    const int g = g0 - shift + c * V;
+    T* dst = smem + c * V;
+    if (vec && g + V <= len) {
+      cp_async16(dst, in + g);
+    } else {
+#pragma unroll
+      for (int v = 0; v < V; ++v) dst[v] = g + v < len ? in[g + v] : T(0);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  const T* src = smem + shift;
+  T* spare = smem + a_cells;
+  for (int s = 1; s <= k; ++s) {
+    const int e = (k - s) * r;  // this level's extent beyond the tile
+    const int lo = H - e;
+    const int cnt = tile + 2 * e;
+    T* dst = spare;
+    for (int base = 0; base < cnt; base += K * nt) {
+      int idx[K];
+#pragma unroll
+      for (int c = 0; c < K; ++c)
+        idx[c] = lo + min(base + c * nt + tid, cnt - 1);
+      T acc[K];
+      wide_sums(src, idx, taps, acc);
+#pragma unroll
+      for (int c = 0; c < K; ++c) {
+        if (base + c * nt + tid >= cnt) continue;
+        const int f = t0 + idx[c] - H;  // interior coordinate
+        const T v = (f >= 0 && f < n) ? acc[c] : T(0);
+        if (s == k) {
+          out[origin + f] = v;
+        } else {
+          dst[idx[c]] = v;
+        }
+      }
+    }
+    if (s < k) {
+      __syncthreads();
+      spare = const_cast<T*>(src);
+      src = dst;
+    }
+  }
+}
+
 template <typename T, int R, bool kPairs>
 __global__ void __launch_bounds__(kThreads)
 resident_kernel(const T* in, T* out0, T* out1, const T* __restrict__ taps,
@@ -250,6 +401,32 @@ int launch_pass(const T* in, T* out, const T* taps, int r, int k, int len,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A wide pass: the host's nonzero taps (off[i], w[i]), i < n_taps, copied
+// into the launch's parameters; tiles of `tile` cells.
+template <typename T>
+int launch_wide(const T* in, T* out, const int* off, const T* w, int n_taps,
+                int r, int k, int len, int origin, int n, int rounded,
+                int tile, cudaStream_t stream) {
+  if (n_taps < 0 || n_taps > 2 * r + 1 || (n_taps > 0 && (!off || !w)) ||
+      (tile != 256 && tile != 512 && tile != 1024 && tile != kTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  WideTaps<T> taps = {};
+  taps.n = n_taps;
+  for (int i = 0; i < n_taps; ++i) {
+    if (off[i] < -r || off[i] > r)
+      return static_cast<int>(cudaErrorInvalidValue);
+    taps.off[i] = off[i];
+    taps.w[i] = w[i];
+  }
+  const size_t smem = sizeof(T) * wide_cells<T>(tile, k * r, k);
+  const int e =
+      set_smem(reinterpret_cast<const void*>(wide_kernel<T>), smem);
+  if (e != 0) return e;
+  wide_kernel<T><<<rounded / tile, tile / chains<T>(), smem, stream>>>(
+      in, out, taps, r, k, len, origin, n, tile);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T, int R, bool kPairs>
 int launch_resident(const T* in, T* out0, T* out1, const T* taps, int r,
                     int steps, int refresh, int len, int origin, int n,
@@ -284,10 +461,9 @@ int launch_resident(const T* in, T* out0, T* out1, const T* taps, int r,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instantiation for (T, narrow, r): narrow radii 1..8 at compile time,
-// every other case at run time.
-#define LS_DISPATCH(FN, T, ...)                        \
-  if (!narrow) return FN<T, 0, false>(__VA_ARGS__);    \
+// The narrow instantiation for (T, r): radii 1..8 at compile time, 9..32 at
+// run time.
+#define LS_NARROW(FN, T, ...)                          \
   switch (r) {                                         \
     case 1: return FN<T, 1, true>(__VA_ARGS__);        \
     case 2: return FN<T, 2, true>(__VA_ARGS__);        \
@@ -301,18 +477,23 @@ int launch_resident(const T* in, T* out0, T* out1, const T* taps, int r,
   }
 
 // k fused steps over the rounded interior [0, rounded) of a buffer of `len`
-// cells whose interior starts at `origin`; `rounded` is whole tiles.
+// cells whose interior starts at `origin`; `rounded` is whole 2048-cell
+// tiles.  Narrow takes the taps from `taps` (device); wide from the host's
+// nonzero pairs (wide_off, wide_w), in tiles of `tile` cells.
 template <typename T>
-int pass(const T* in, T* out, const T* taps, int r, int k, int narrow,
-         int len, int origin, int n, int rounded, void* stream) {
+int pass(const T* in, T* out, const T* taps, const int* wide_off,
+         const T* wide_w, int wide_n, int r, int k, int narrow, int len,
+         int origin, int n, int rounded, int tile, void* stream) {
   if (r < 0 || r > kMaxRadius || k < 1 || k > kMaxK || n < 0 ||
-      rounded < n || rounded % kTile != 0 || origin < 0 ||
+      rounded < n || rounded % kTile != 0 || origin < k * r ||
       origin + rounded > len)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rounded == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  LS_DISPATCH(launch_pass, T, in, out, taps, r, k, len, origin, n, rounded,
-              s);
+  if (!narrow)
+    return launch_wide(in, out, wide_off, wide_w, wide_n, r, k, len, origin,
+                       n, rounded, tile, s);
+  LS_NARROW(launch_pass, T, in, out, taps, r, k, len, origin, n, rounded, s);
 }
 
 // All `steps` steps, the halo reloaded every `refresh` steps, into out0 and
@@ -326,8 +507,11 @@ int resident(const T* in, T* out0, T* out1, const T* taps, int r, int steps,
     return static_cast<int>(cudaErrorInvalidValue);
   if (rounded == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  LS_DISPATCH(launch_resident, T, in, out0, out1, taps, r, steps, refresh,
-              len, origin, n, rounded, s);
+  if (!narrow)
+    return launch_resident<T, 0, false>(in, out0, out1, taps, r, steps,
+                                        refresh, len, origin, n, rounded, s);
+  LS_NARROW(launch_resident, T, in, out0, out1, taps, r, steps, refresh, len,
+            origin, n, rounded, s);
 }
 
 }  // namespace
@@ -335,15 +519,21 @@ int resident(const T* in, T* out0, T* out1, const T* taps, int r, int steps,
 extern "C" int ls_stencil1d_pass(const float* in, float* out,
                                  const float* taps, int r, int k, int narrow,
                                  int len, int origin, int n, int rounded,
-                                 void* stream) {
-  return pass(in, out, taps, r, k, narrow, len, origin, n, rounded, stream);
+                                 void* stream, const int* wide_off,
+                                 const float* wide_w, int wide_n, int tile) {
+  return pass(in, out, taps, wide_off, wide_w, wide_n, r, k, narrow, len,
+              origin, n, rounded, tile, stream);
 }
 
 extern "C" int ls_stencil1d_pass_f64(const double* in, double* out,
                                      const double* taps, int r, int k,
                                      int narrow, int len, int origin, int n,
-                                     int rounded, void* stream) {
-  return pass(in, out, taps, r, k, narrow, len, origin, n, rounded, stream);
+                                     int rounded, void* stream,
+                                     const int* wide_off,
+                                     const double* wide_w, int wide_n,
+                                     int tile) {
+  return pass(in, out, taps, wide_off, wide_w, wide_n, r, k, narrow, len,
+              origin, n, rounded, tile, stream);
 }
 
 extern "C" int ls_stencil1d_resident(const float* in, float* out0,

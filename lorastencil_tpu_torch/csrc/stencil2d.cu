@@ -3,9 +3,12 @@
 // per-cell arithmetic, so each equals the others (and its plain twin) cell
 // for cell on the same steps:
 //
-//   * the step kernel, k = 1 (ls_stencil2d_step with k = 1), and the fused
-//     kernel, k >= 2 levels per pass over device memory (the same entry with
-//     k >= 2), replace lorastencil_tpu/ops/pallas_2d.py::_stencil2d_kernel
+//   * the strip kernel (ls_stencil2d_strip: float32, k = 1, radius 1..4, at
+//     most kStripMaxTerms terms), the step kernel (ls_stencil2d_step with
+//     k = 1: float64, and the float32 steps the strip kernel does not take)
+//     and the fused kernel, k >= 2 levels per pass over device memory (the
+//     same entry with k >= 2), replace
+//     lorastencil_tpu/ops/pallas_2d.py::_stencil2d_kernel
 //     (pallas_2d.stencil2d_step, extent fusion);
 //   * the skew kernel (ls_stencil2d_skew) replaces
 //     pallas_2d.py::_stencil2d_skew_kernel (stencil2d_skew_step, time-skewed
@@ -43,6 +46,26 @@
 // star2d3r), below the card's fp32 and fp64 rates, so the aim is to touch
 // each cell's bytes once per pass, and, with k fused steps, once per k steps.
 // The designs:
+//   * strip (float32, k = 1, radius R <= 4, at most 3 terms): the main
+//     path's step.  A warp owns 128 columns (four adjacent ones per lane)
+//     and walks down a task of rows two at a time.  Input rows come into a
+//     per-warp shared ring by 16-byte cp.async copies (4-byte ones where
+//     the layout's alignment does not allow 16), kStripAhead rows ahead of
+//     the compute; each lane reads its 12-column window of a new row with
+//     three 16-byte shared loads, computes every term's column conv of the
+//     row once, and keeps the last 2R + 2 of them per term in a register
+//     ring, so the row conv reads no shared memory and needs no barrier: a
+//     warp waits only on its own copies (__syncwarp).  The residue reads
+//     each point's 4 cells from the ring in 16-byte loads of the aligned
+//     quads around them (4-byte loads, lanes 16 bytes apart, would conflict
+//     4 ways); a point's weight, offsets and load pattern serve the row
+//     pair.  The plan comes by value in a __grid_constant__ parameter
+//     (StripPlan) under a compile-time R and term count, so each
+//     multiply-add of a term takes its weight from the constant bank; a
+//     zero tap is a uniform branch.  Rows go out as 16-byte stores.  Each
+//     warp the card holds at once takes one task, a column strip's share
+//     of its rows, so that no wave runs part full.  The sums are
+//     tile_sums', cell for cell (below);
 //   * step (k = 1): one block per (kTileRows x 128) output tile stages its
 //     halo'd window in shared memory with coalesced row loads (a warp per
 //     window row), computes the column conv into a shared intermediate 2r rows
@@ -85,6 +108,7 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -541,6 +565,369 @@ bool bad_args(int plan_len, int n_terms, int R, int n_res, const Grid2D& g,
          (g.mr + tile_rows<T>() - 1) / tile_rows<T>() > kMaxGridY;
 }
 
+// -- the strip kernel: float32 steps at k = 1, radius 1..kStripMaxRadius ----
+constexpr int kStripMaxRadius = 4;
+constexpr int kStripMaxTerms = 3;
+constexpr int kStripMaxRes = (2 * kStripMaxRadius + 1) * (2 * kStripMaxRadius + 1);
+constexpr int kStripMinRows = 32;  // output rows of a warp's task, at least
+constexpr int kStripCols = 128;  // columns of a warp's task: 4 per lane
+constexpr int kStripPad = 4;     // window columns each side (>= R)
+constexpr int kStripWindow = kStripCols + 2 * kStripPad;  // cells a row
+// a ring row: the window, and one quad that a residue load may touch past it
+constexpr int kStripRowCells = kStripWindow + 4;
+constexpr int kStripRing = 16;   // input rows a warp holds (a power of 2)
+constexpr int kStripAhead = 6;   // rows in flight ahead of the compute
+constexpr int kStripWarps = 4;   // warps per block, each on its own tasks
+constexpr int kMaxDevices = 64;
+static_assert(kStripAhead + 2 * kStripMaxRadius + 2 <= kStripRing,
+              "the ring must hold a row pair's residue rows and the rows "
+              "ahead");
+
+// plan_array's table for one R, by value: per term the flags and its W
+// column and row taps; per residue point its offsets and weight.
+template <int R>
+struct StripPlan {
+  int has_col[kStripMaxTerms];
+  int has_row[kStripMaxTerms];
+  float ct[kStripMaxTerms][2 * R + 1];
+  float rt[kStripMaxTerms][2 * R + 1];
+  int n_res;
+  int res_dr[kStripMaxRes];
+  int res_dc[kStripMaxRes];
+  float res_w[kStripMaxRes];
+};
+static_assert(sizeof(StripPlan<kStripMaxRadius>) + 128 <= 4096,
+              "the strip kernel's parameters must fit in 4 KB");
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// The lane's 4 cells of a residue point's row, at `xr` (the row's cell of
+// the lane's first column, shifted by dc): 16-byte loads from the aligned
+// quads around them (4-byte loads, lanes 16 bytes apart, would conflict 4
+// ways).  `cls` is dc & 3, uniform over the warp.
+__device__ __forceinline__ void residue_cells(const float* xr, int cls,
+                                              float (&v)[4]) {
+  const float4* q = reinterpret_cast<const float4*>(xr - cls);
+  const float4 a = q[0];
+  if (cls == 0) {
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    return;
+  }
+  const float4 b = q[1];
+  if (cls == 1) {
+    v[0] = a.y, v[1] = a.z, v[2] = a.w, v[3] = b.x;
+  } else if (cls == 2) {
+    v[0] = a.z, v[1] = a.w, v[2] = b.x, v[3] = b.y;
+  } else {
+    v[0] = a.w, v[1] = b.x, v[2] = b.y, v[3] = b.z;
+  }
+}
+
+// One float32 step per cell of rows [i0, i0 + rows) x columns
+// [j0, j0 + 128) for each task of a warp; lane l owns columns j0 + 4 l ..
+// + 3.  `vec`: every row of `in` and `out` starts its window on a 16-byte
+// boundary and nr % 4 == 0.  Rows go by pairs: a residue point's weight,
+// offsets and load pattern serve two output rows.
+// The launch bound asks for one block per SM: ptxas then gives each
+// instantiation the registers its sums need (its own occupancy target
+// spilled a few instantiations' registers).
+template <int R, int NT>
+__global__ void __launch_bounds__(kStripWarps * 32, 1)
+strip_kernel(const float* __restrict__ in, float* __restrict__ out,
+             const __grid_constant__ StripPlan<R> pl, Grid2D g, int vec,
+             int rows) {
+  constexpr int W = 2 * R + 1;
+  constexpr int Y = W + 1;  // column convs kept: a pair's 2R + 2 rows
+  __shared__ __align__(16) float
+      ring_all[kStripWarps][kStripRing][kStripRowCells];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float(*ring)[kStripRowCells] = ring_all[warp];
+  const int col_tasks = (g.nr + kStripCols - 1) / kStripCols;
+  const int tasks = col_tasks * ((g.mr + rows - 1) / rows);
+  for (int task = blockIdx.x * kStripWarps + warp; task < tasks;
+       task += gridDim.x * kStripWarps) {
+    const int i0 = task / col_tasks * rows;
+    const int j0 = task % col_tasks * kStripCols;
+    const int n_out = min(rows, g.mr - i0);
+    const int n_in = n_out + 2 * R;
+    const int gr0 = g.r0 + i0 - R;  // buffer row of input row 0 (>= 0)
+    const int gc0 = g.c0 + j0 - kStripPad;  // buffer column of window col 0
+    const int j = j0 + 4 * lane;            // the lane's first column
+    const bool inside = j + 3 < g.n;        // all 4 columns interior
+    __syncwarp();  // the previous task's reads of the ring are done
+
+    // input row s into ring slot s % kStripRing, 0 outside the buffer; one
+    // commit group per call, empty past the last row
+    auto fetch = [&](int s) {
+      if (s < n_in) {
+        float* dst = ring[s & (kStripRing - 1)];
+        const int gr = gr0 + s;
+        const float* src = in + static_cast<size_t>(gr) * g.pitch;
+        if (vec) {
+          for (int c = lane; c < kStripWindow / 4; c += 32) {
+            const int gc = gc0 + 4 * c;
+            const bool ok = gr < g.rows && gc >= 0 && gc + 4 <= g.pitch;
+            cp_async16(dst + 4 * c, ok ? src + gc : in, ok);
+          }
+        } else {
+          for (int c = lane; c < kStripWindow; c += 32) {
+            const int gc = gc0 + c;
+            const bool ok = gr < g.rows && gc >= 0 && gc < g.pitch;
+            cp_async4(dst + c, ok ? src + gc : in, ok);
+          }
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+#pragma unroll
+    for (int s = 0; s < kStripAhead; ++s) fetch(s);
+
+    // the column convs of the last Y input rows: row s at y[.][s % Y]
+    float y[NT > 0 ? NT : 1][Y][4];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int q = 0; q < Y; ++q)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) y[t][q][c] = 0.0f;
+
+    // row pairs by groups of Y rows, so that every register ring index is a
+    // constant; a row past n_in (an odd count's last pair) reads a stale
+    // slot and feeds no stored output
+    for (int s0 = 0; s0 < n_in; s0 += Y) {
+#pragma unroll
+      for (int u = 0; u < Y; u += 2) {
+        const int s = s0 + u;
+        if (s >= n_in) break;
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(kStripAhead - 2));
+        __syncwarp();  // rows s, s + 1 landed for every lane
+        fetch(s + kStripAhead);
+        fetch(s + kStripAhead + 1);
+
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          // the lane's window of row s + h: columns j - 4 .. j + 7
+          const float4* row = reinterpret_cast<const float4*>(
+              ring[(s + h) & (kStripRing - 1)] + 4 * lane);
+          float x[12];
+#pragma unroll
+          for (int v = 0; v < 3; ++v) {
+            const float4 f = row[v];
+            x[4 * v] = f.x;
+            x[4 * v + 1] = f.y;
+            x[4 * v + 2] = f.z;
+            x[4 * v + 3] = f.w;
+          }
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            if (pl.has_col[t]) {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) y[t][u + h][c] = 0.0f;
+#pragma unroll
+              for (int q = 0; q < W; ++q) {
+                const float w = pl.ct[t][q];
+                if (w != 0.0f) {
+#pragma unroll
+                  for (int c = 0; c < 4; ++c)
+                    y[t][u + h][c] =
+                        fmaf(w, x[kStripPad - R + q + c], y[t][u + h][c]);
+                }
+              }
+            } else {
+#pragma unroll
+              for (int c = 0; c < 4; ++c) y[t][u + h][c] = x[kStripPad + c];
+            }
+          }
+        }
+        if (s + 1 < 2 * R) continue;
+
+        // output rows i0 + s + h - 2R, h = 0, 1 (the first pair that reaches
+        // here may hold only h = 1): input rows s + h - 2R + q, q < W, at
+        // ring index (u + h + 2 + q) % Y
+        float acc[2][4];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[h][c] = 0.0f;
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            if (pl.has_row[t]) {
+              float z[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+              for (int q = 0; q < W; ++q) {
+                const float w = pl.rt[t][q];
+                if (w != 0.0f) {
+#pragma unroll
+                  for (int c = 0; c < 4; ++c)
+                    z[c] = fmaf(w, y[t][(u + h + 2 + q) % Y][c], z[c]);
+                }
+              }
+#pragma unroll
+              for (int c = 0; c < 4; ++c) acc[h][c] += z[c];
+            } else {
+#pragma unroll
+              for (int c = 0; c < 4; ++c)  // identity row axis
+                acc[h][c] += y[t][(u + h + 2 + R) % Y][c];
+            }
+          }
+        }
+        for (int p = 0; p < pl.n_res; ++p) {
+          const int dc = pl.res_dc[p];
+          const int r = s - R + pl.res_dr[p];  // the point's row for h = 0
+          const float w = pl.res_w[p];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float v[4];
+            residue_cells(ring[(r + h) & (kStripRing - 1)] + 4 * lane +
+                              kStripPad + dc,
+                          dc & 3, v);
+#pragma unroll
+            for (int c = 0; c < 4; ++c) acc[h][c] = fmaf(w, v[c], acc[h][c]);
+          }
+        }
+
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = s + h - 2 * R;  // output row of the task
+          if (o < 0 || o >= n_out) continue;
+          const int i = i0 + o;
+          float* dst =
+              out + static_cast<size_t>(g.r0 + i) * g.pitch + g.c0 + j;
+          if (!(inside && i < g.m)) {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (i >= g.m || j + c >= g.n) acc[h][c] = 0.0f;
+          }
+          if (vec) {
+            if (j < g.nr)
+              *reinterpret_cast<float4*>(dst) =
+                  make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (j + c < g.nr) dst[c] = acc[h][c];
+          }
+        }
+      }
+    }
+  }
+}
+
+// plan_array's float32 table (host memory) into the kernel's parameters.
+template <int R>
+bool fill_strip_plan(const float* plan, int n_terms, int n_res,
+                     StripPlan<R>& pl) {
+  constexpr int W = 2 * R + 1;
+  if (n_terms > kStripMaxTerms || n_res > kStripMaxRes) return false;
+  const float* t = plan;
+  for (int k = 0; k < n_terms; ++k, t += 2 + 2 * W) {
+    pl.has_col[k] = t[0] != 0.0f;
+    pl.has_row[k] = t[1] != 0.0f;
+    for (int q = 0; q < W; ++q) {
+      pl.ct[k][q] = t[2 + q];
+      pl.rt[k][q] = t[2 + W + q];
+    }
+  }
+  pl.n_res = n_res;
+  for (int p = 0; p < n_res; ++p) {
+    const int dr = static_cast<int>(t[3 * p]);
+    const int dc = static_cast<int>(t[3 * p + 1]);
+    if (dr < -R || dr > R || dc < -R || dc > R) return false;
+    pl.res_dr[p] = dr;
+    pl.res_dc[p] = dc;
+    pl.res_w[p] = t[3 * p + 2];
+  }
+  return true;
+}
+
+template <int R, int NT>
+int launch_strip(const float* in, float* out, const StripPlan<R>& pl,
+                 const Grid2D& g, int vec, cudaStream_t stream) {
+  // blocks the card holds at once, per device, asked once
+  static int resident[kMaxDevices];
+  const void* kernel = reinterpret_cast<const void*>(strip_kernel<R, NT>);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, kernel, kStripWarps * 32, 0);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[dev] = per_sm * sms;
+  }
+  // every warp the card holds at once takes one task of a column strip's
+  // rows, so that no wave is left part full: the column strips share the
+  // warps, each strip's rows split evenly among its share
+  const int col_tasks = (g.nr + kStripCols - 1) / kStripCols;
+  int share = resident[dev] * kStripWarps / col_tasks;
+  if (share < 1) share = 1;
+  int rows = (g.mr + share - 1) / share;
+  if (rows < kStripMinRows) rows = kStripMinRows;
+  const long tasks =
+      static_cast<long>(col_tasks) * ((g.mr + rows - 1) / rows);
+  const long want = (tasks + kStripWarps - 1) / kStripWarps;
+  const int blocks =
+      static_cast<int>(want < resident[dev] ? want : resident[dev]);
+  strip_kernel<R, NT><<<blocks, kStripWarps * 32, 0, stream>>>(in, out, pl,
+                                                               g, vec, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int R>
+int strip_terms(const float* in, float* out, const float* plan, int n_terms,
+                int n_res, const Grid2D& g, int vec, cudaStream_t stream) {
+  StripPlan<R> pl = {};
+  if (!fill_strip_plan<R>(plan, n_terms, n_res, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (n_terms) {
+    case 0: return launch_strip<R, 0>(in, out, pl, g, vec, stream);
+    case 1: return launch_strip<R, 1>(in, out, pl, g, vec, stream);
+    case 2: return launch_strip<R, 2>(in, out, pl, g, vec, stream);
+    case 3: return launch_strip<R, 3>(in, out, pl, g, vec, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// A float32 step (k = 1) by the strip kernel; `plan` is plan_array's table
+// in host memory.  Radii 1..kStripMaxRadius with at most kStripMaxTerms
+// terms, as LS_DISPATCH does 1-D's narrow radii: the radius picks the
+// instantiation; any other is refused.
+int launch_strip_step(const float* in, float* out, const float* plan,
+                      int plan_len, int n_terms, int R, int n_res, Grid2D g,
+                      int k, void* stream) {
+  if (k != 1 || !plan || bad_args<float>(plan_len, n_terms, R, n_res, g, R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.mr == 0 || g.nr == 0) return 0;
+  const int vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                  g.pitch % 4 == 0 && g.c0 % 4 == 0 && g.nr % 4 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (R) {
+    case 1: return strip_terms<1>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 2: return strip_terms<2>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 3: return strip_terms<3>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 4: return strip_terms<4>(in, out, plan, n_terms, n_res, g, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 int set_smem(const void* kernel, size_t smem) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   if (smem <= 48 * 1024) return 0;
@@ -647,6 +1034,7 @@ int launch_resident(const T* in, T* out0, T* out1, const T* plan,
               stream);                                                    \
   }
 LS_ENTRY(ls_stencil2d_step, launch_step<float>, float)
+LS_ENTRY(ls_stencil2d_strip, launch_strip_step, float)
 LS_ENTRY(ls_stencil2d_step_f64, launch_step<double>, double)
 LS_ENTRY(ls_stencil2d_skew, launch_skew<float>, float)
 LS_ENTRY(ls_stencil2d_skew_f64, launch_skew<double>, double)

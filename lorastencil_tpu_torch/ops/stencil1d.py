@@ -29,7 +29,10 @@ takes an effective radius up to 32 (the TPU's overlapped-lanes kernels:
 taps in registers, a symmetric tap pair summed before its one multiply, as
 ``pallas_1d._conv_lanes``); *wide* takes any radius up to 127 (the flat
 kernels: taps in a loop, +d then -d, as ``pallas_1d._conv_flat``).  Every
-substep zeroes the cells outside the interior [0, n).
+substep zeroes the cells outside the interior [0, n).  A wide pass gets
+its nonzero taps as (offset, weight) pairs in that order (``wide_taps``)
+by value in its launch's parameters, and tiles of ``pass_tile`` cells,
+the largest that still give the card two blocks per SM.
 
 On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
 tensor runs the plain twin (``*_plain``), which sums in the kernel's order,
@@ -63,7 +66,12 @@ RESIDENT_LANES_BYTES = 2 * 2**20
 RESIDENT_BYTES = 512 * 2**10
 # csrc/stencil1d.cu: a block's shared memory (kMaxSmem bytes) holds the tap
 # slots (kTapSlots) and two windows of the tile plus k*r cells each side
+# (the wide pass's two windows, without the tap slots, fit the same cap)
 _SMEM_BYTES, _TAP_SLOTS = 232448, 2 * MAX_RADIUS + 2
+# csrc/stencil1d.cu: a wide pass's tiles (cells per block) and the 4 KB its
+# launch's parameters, the taps' struct WideTaps among them, may take
+PASS_TILES = (TILE_1D, 1024, 512, 256)
+PARAM_LIMIT = 4096
 _ENTRIES = {torch.float32: ("ls_stencil1d_pass", "ls_stencil1d_resident"),
             torch.float64: ("ls_stencil1d_pass_f64",
                             "ls_stencil1d_resident_f64")}
@@ -107,6 +115,42 @@ def _taps(spec: StencilSpec):
     taps, r = dense_taps(spec), effective_radius(spec)
     mid = (len(taps) - 1) // 2
     return taps[mid - r: mid + r + 1], r
+
+
+@functools.lru_cache(maxsize=None)
+def wide_taps(spec: StencilSpec):
+    """A wide pass's nonzero taps as ((offset, ...), (weight, ...)) in its
+    twin's order: the centre, then for d = 1..r_eff the +d tap, then the -d
+    tap (``_conv`` with ``pairs`` off)."""
+    taps, r = _taps(spec)
+    order = [0] + [o for d in range(1, r + 1) for o in (d, -d)]
+    pairs = [(o, taps[r + o]) for o in order if taps[r + o] != 0.0]
+    return tuple(o for o, _ in pairs), tuple(w for _, w in pairs)
+
+
+def wide_param_bytes(dtype) -> int:
+    """Bytes of the wide pass's tap struct in ``dtype`` (``WideTaps``:
+    the count, the offsets, the weights at their alignment)."""
+    head = 4 * (1 + 2 * MAX_RADIUS + 1)
+    size = dtype.itemsize
+    weights_at = -(-head // size) * size
+    end = weights_at + size * (2 * MAX_RADIUS + 1)
+    return -(-end // max(4, size)) * max(4, size)
+
+
+def pass_tile(rounded: int, sms: int) -> int:
+    """Cells per block of a wide pass over ``rounded`` cells: the largest of
+    ``PASS_TILES`` that gives at least two blocks per SM, else the
+    smallest."""
+    for tile in PASS_TILES:
+        if rounded // tile >= 2 * sms:
+            return tile
+    return PASS_TILES[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def lanes_refresh(r_eff: int) -> int:
@@ -215,7 +259,7 @@ def _lib():
         pass_fn, run_fn = getattr(lib, pass_name), getattr(lib, run_name)
         pass_fn.restype = run_fn.restype = ctypes.c_int
         pass_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p]
+            ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
         run_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         entries[dtype] = pass_fn, run_fn
@@ -228,6 +272,17 @@ def _taps_buffer(spec: StencilSpec, device: torch.device, dtype):
     per (spec, device, dtype): fp64 taps rounded to float32 would cost
     ~1e-8 per step."""
     return torch.tensor(_taps(spec)[0], dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_table(spec: StencilSpec, dtype):
+    """``wide_taps`` as host arrays for the launch: (int32 offsets, weights
+    in ``dtype``, count), made once per (spec, dtype)."""
+    offsets, weights = wide_taps(spec)
+    n = len(offsets)
+    ctype = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+    return (ctypes.c_int * max(n, 1))(*offsets), \
+        (ctype * max(n, 1))(*weights), n
 
 
 def _check(cur, spec: StencilSpec, layout: Layout1D, reach: int,
@@ -295,13 +350,19 @@ def _refuse_unported(bounds, region):
 
 
 def _pass(cur, donor, spec, layout, k: int, narrow: bool):
-    taps = _taps_buffer(spec, cur.device, cur.dtype)
+    if narrow:
+        taps = _taps_buffer(spec, cur.device, cur.dtype).data_ptr()
+        off, w, n_taps, tile = None, None, 0, 0
+    else:
+        taps = None
+        off, w, n_taps = _wide_table(spec, cur.dtype)
+        tile = pass_tile(layout.rounded, _sm_count(cur.device.index))
     with torch.cuda.device(cur.device):
         err = _lib()[cur.dtype][0](
-            cur.data_ptr(), donor.data_ptr(), taps.data_ptr(),
+            cur.data_ptr(), donor.data_ptr(), taps,
             effective_radius(spec), k, int(narrow), layout.shape[0],
             layout.origin, layout.interior, layout.rounded,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, off, w, n_taps, tile)
     if err != 0:
         raise RuntimeError(f"stencil1d pass launch failed: CUDA error {err}")
     return donor

@@ -21,6 +21,15 @@ form on (hi, lo) fp32 pairs) are likewise one native-fp64 computation:
 all three run the float64 instance.  The lossy or TPU-specific fp32
 variants are still to be ported (ROADMAP B13).
 
+A float32 step (k = 1) of radius 1-4 with at most three terms, which
+is every 2-D registry shape's, runs the strip kernel (``strip_takes``):
+a warp walks down a strip of rows keeping the column convs in registers,
+its plan by value in the launch's parameters (``plan_array`` in host
+memory).  Every other step runs the tile kernel, as the fused levels and
+the float64 instance do; the two give the same values cell for cell.
+``stencil2d_step.launches`` counts both, ``launches_k1`` the strip kernel's
+alone.
+
 Shared memory bounds the reach of one launch: a fused pass holds about
 three (32 + 2kr) x (128 + 2kr) windows (16 rows in float64), a skewed one a
 band of every level.  A pass deeper than the largest k that fits
@@ -55,7 +64,11 @@ MAX_RADIUS = 16  # csrc/stencil2d.cu kMaxRadius
 MAX_PLAN = 4096  # csrc/stencil2d.cu kMaxPlan
 MAX_SMEM = 232448  # csrc/stencil2d.cu kMaxSmem: bytes a block may use
 TILE_COLS = 128  # csrc/stencil2d.cu kTileCols
+# csrc/stencil2d.cu's strip kernel: radii and terms it takes
+STRIP_RADII = (1, 2, 3, 4)
+STRIP_MAX_TERMS = 3
 _ENTRIES = {
+    "strip": {torch.float32: "ls_stencil2d_strip"},
     "step": {torch.float32: "ls_stencil2d_step",
              torch.float64: "ls_stencil2d_step_f64"},
     "skew": {torch.float32: "ls_stencil2d_skew",
@@ -96,6 +109,14 @@ def tile_rows(dtype) -> int:
     """Output rows of a block tile and of a skew band (csrc/stencil2d.cu
     tile_rows): 32 in float32, 16 in float64."""
     return 16 if dtype == torch.float64 else 32
+
+
+def strip_takes(spec: StencilSpec, dtype, depth: int = 1) -> bool:
+    """Whether a launch of ``depth`` fused steps in ``dtype`` runs the
+    strip kernel: float32, one step, radius 1-4, at most three terms."""
+    return (dtype == torch.float32 and depth == 1
+            and spec.radius in STRIP_RADII
+            and len(spec.terms) <= STRIP_MAX_TERMS)
 
 
 def plan_len(spec: StencilSpec) -> int:
@@ -232,6 +253,13 @@ def _plan_buffer(spec: StencilSpec, device: torch.device, dtype):
 
 
 @functools.lru_cache(maxsize=None)
+def _plan_host(spec: StencilSpec):
+    """The float32 tap/residue table in host memory, which the strip
+    kernel's launch copies into its parameters."""
+    return plan_array(spec, torch.float32).contiguous()
+
+
+@functools.lru_cache(maxsize=None)
 def _lib():
     """The kernel library, built and bound once per process."""
     lib = _cuda_build.load("stencil2d")
@@ -251,7 +279,8 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
     fused steps ("step", "skew") or the steps of a run ("resident");
     raises if refused, and counts it."""
     cur = buffers[0]
-    plan = _plan_buffer(spec, cur.device, cur.dtype)
+    plan = (_plan_host(spec) if kind == "strip"
+            else _plan_buffer(spec, cur.device, cur.dtype))
     rows, pitch = layout.shape
     r0, c0 = layout.origin
     m, n = layout.interior
@@ -265,12 +294,15 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
     if err != 0:
         raise RuntimeError(
             f"stencil2d {kind} kernel launch failed: CUDA error {err}")
-    wrapper = {"step": stencil2d_step, "skew": stencil2d_skew_step,
+    wrapper = {"strip": stencil2d_step, "step": stencil2d_step,
+               "skew": stencil2d_skew_step,
                "resident": stencil2d_resident}[kind]
     if cur.dtype == torch.float64:
         wrapper.launches_f64 += 1
     else:
         wrapper.launches += 1
+    if kind == "strip":
+        wrapper.launches_k1 += 1
 
 
 def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
@@ -289,8 +321,11 @@ def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
             if spare is None:
                 spare = torch.zeros_like(donor)
             dst = spare if src is donor else donor
-        _launch(kind if depth > 1 else "step", (src, dst), spec, layout,
-                depth)
+        if depth > 1:
+            one = kind
+        else:
+            one = "strip" if strip_takes(spec, cur.dtype) else "step"
+        _launch(one, (src, dst), spec, layout, depth)
         src = dst
     return src
 
@@ -308,7 +343,8 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     ``stencil2d_step_plain``.  On a float64 state (dtypes 'float64' and
     'df64') it is also the fp64-grade step of ``pallas_df64.df64_step``
     and takes that wrapper's name 'vpu_sep'.  ``launches`` counts the
-    float32 instance's launches, ``launches_f64`` the float64 one's."""
+    float32 instance's launches, ``launches_f64`` the float64 one's, and
+    ``launches_k1`` those of the float32 steps the strip kernel ran."""
     _check(cur, donor, spec, layout, algorithm, fused_steps)
     if cur.device.type == "cpu":
         return stencil2d_step_plain(cur, donor, spec, layout, fused_steps)
@@ -362,9 +398,11 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
     return outs[(steps - 1) % 2]
 
 
-# kernel launches per instance, for chip_smoke.py: float32 and float64
+# kernel launches per instance, for chip_smoke.py: float32 and float64, and
+# the strip kernel's float32 steps apart
 for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
     _wrapper.launches = _wrapper.launches_f64 = 0
+stencil2d_step.launches_k1 = 0
 del _wrapper
 
 

@@ -21,7 +21,7 @@ import pytest
 import torch
 
 from lorastencil_tpu_torch import engine
-from lorastencil_tpu_torch.models.shapes import get_shape
+from lorastencil_tpu_torch.models.shapes import SeparableTerm, StencilSpec, get_shape
 from lorastencil_tpu_torch.ops import stencil1d, stencil2d, stencil3d
 from lorastencil_tpu_torch.ops.layout import (TILE_1D, Layout1D, Layout2D, Layout3D,
                                               default_tile_2d, default_tile_3d, guard_1d,
@@ -95,6 +95,99 @@ def test_refused_launches_raise(cuda):
     with pytest.raises(ValueError):
         stencil2d.stencil2d_step(cur, donor.cpu(), spec, lay)
     assert stencil2d.stencil2d_step.launches == before
+
+
+# -- the strip kernel (float32, k = 1, radius 1-4): the tile kernel's sums ----------
+def _custom_2d(R, n_terms, n_res, seed):
+    """A 2-D spec of radius R with integer taps (zeros among them; the second
+    term's row axis and the third's column axis the identity) and n_res
+    residue points in no particular order."""
+    rng = np.random.default_rng(seed)
+
+    def taps():
+        t = rng.integers(-3, 4, 2 * R + 1).astype(np.float64)
+        t[rng.random(2 * R + 1) < 0.3] = 0.0
+        return tuple(float(v) for v in t)
+
+    terms = tuple(SeparableTerm(taps=(None if i == 1 else taps(), None if i == 2 else taps()))
+                  for i in range(n_terms))
+    residue = tuple(((int(a), int(b)), float(rng.integers(-3, 4) or 1))
+                    for a, b in rng.integers(-R, R + 1, (n_res, 2)))
+    return StencilSpec(name=f"custom_r{R}_t{n_terms}", ndim=2, radius=R, halo=(R, R),
+                       terms=terms, residue=residue, fuse_factor=1)
+
+
+STRIP_CASES = ["star2d1r", "box2d1r", "star2d3r", (1, 1, 3), (2, 2, 0), (4, 3, 9), (4, 0, 5)]
+
+
+@pytest.mark.parametrize("guard", ["aligned", (5, 7)])
+@pytest.mark.parametrize("interior", [(96, 256), (130, 131), (37, 45)])
+@pytest.mark.parametrize("case", STRIP_CASES, ids=str)
+def test_strip_kernel_equals_the_tile_kernel_on_any_fill(cuda, case, interior, guard):
+    """The strip kernel (counted in launches_k1) against the tile kernel it
+    replaces at k = 1: bit for bit on the integer, pi/100 and inf fills (NaN
+    where it has NaN), both 16-byte and 4-byte staging; the integer fill also
+    against the twin."""
+    spec = get_shape(case) if isinstance(case, str) else _custom_2d(*case, seed=sum(case))
+    assert stencil2d.strip_takes(spec, torch.float32)
+    lay = Layout2D(interior=interior, halo=spec.halo, tile=default_tile_2d(*interior),
+                   guard=guard_2d(spec.halo, spec.radius) if guard == "aligned" else guard)
+    g0 = reference.random_padded(spec, interior, seed=6)
+    pi = g0 * (np.pi / 100)
+    inf = pi.copy()
+    inf.flat[inf.size // 3] = np.inf
+    for fill in (g0, pi, inf):
+        x = lay.to_internal(fill, device=cuda)
+        before = (stencil2d.stencil2d_step.launches, stencil2d.stencil2d_step.launches_k1)
+        got = stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay)
+        assert (stencil2d.stencil2d_step.launches - before[0],
+                stencil2d.stencil2d_step.launches_k1 - before[1]) == (1, 1)
+        tile = torch.zeros_like(x)
+        stencil2d._launch("step", (x, tile), spec, lay, 1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, tile, rtol=0, atol=0, equal_nan=True)
+        if fill is g0:
+            assert torch.equal(got, stencil2d.stencil2d_step_plain(
+                x, torch.zeros_like(x), spec, lay))
+
+
+def test_steps_beyond_the_strip_radii_run_the_tile_kernel(cuda):
+    spec = _custom_2d(5, 2, 4, seed=5)
+    assert not stencil2d.strip_takes(spec, torch.float32)
+    lay = Layout2D(interior=(70, 140), halo=spec.halo, tile=default_tile_2d(70, 140),
+                   guard=guard_2d(spec.halo, spec.radius))
+    x = lay.to_internal(reference.random_padded(spec, (70, 140), seed=2), device=cuda)
+    before = (stencil2d.stencil2d_step.launches, stencil2d.stencil2d_step.launches_k1)
+    got = stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay)
+    torch.cuda.synchronize()
+    assert (stencil2d.stencil2d_step.launches - before[0],
+            stencil2d.stencil2d_step.launches_k1 - before[1]) == (1, 0)
+    assert torch.equal(got, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,n,guard", [("r40", 100_000, None), ("r40", 5001, 43),
+                                          ("1d2r", 1_000_000, None), ("1d1r", 3001, 9)])
+def test_wide_pass_on_any_fill_tile_and_alignment(cuda, name, n, guard, dtype):
+    """The wide pass at 256-cell tiles (100,000 and 5,001 cells) and 2048 (a
+    million), staged by 16-byte copies or, off the 16-byte grid, cell by cell:
+    bit for bit with its twin on the pi/100 fill and one holding an inf."""
+    spec = _spec_1d(name)
+    r = stencil1d.effective_radius(spec)
+    g0 = reference.random_padded(spec, (n,), seed=8) * (np.pi / 100)
+    inf = g0.copy()
+    inf.flat[n // 2] = np.inf
+    for k in (1, 2, 3):
+        lay = Layout1D(n, spec.halo[0], TILE_1D,
+                       guard or guard_1d(spec.halo[0], k * r))
+        if lay.guard < k * r:
+            continue
+        for fill in (g0, inf):
+            x = lay.to_internal(fill, dtype, cuda)
+            got = stencil1d.stencil1d_step(x, torch.zeros_like(x), spec, lay, fused_steps=k)
+            want = stencil1d.stencil1d_step_plain(x, torch.zeros_like(x), spec, lay, k)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
 
 
 @pytest.mark.parametrize("K", [1, 2, 4])
