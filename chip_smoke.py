@@ -27,10 +27,11 @@ its hand-written CUDA kernels:
   star3d1r and box3d1r at 256^3, the JAX DF64 tier's 3-D rows), in native
   double where the TPU computes on error-free fp32 pairs;
 * 2-D temporal fusion: star2d3r at 8192^2, the artifact's configuration
-  whose engine default fuses two steps per pass, through the fused instance
-  of the 2-D kernel (``pallas_2d._stencil2d_kernel`` at k > 1), through the
-  time-skewed kernel (``fusion='skew'``, replacing
-  ``pallas_2d._stencil2d_skew_kernel``) and one step per pass; and the
+  whose engine default fuses two steps per pass, through the fused strip
+  kernel, which serves both ``pallas_2d._stencil2d_kernel`` at k = 2 (the
+  default, extent fusion) and ``pallas_2d._stencil2d_skew_kernel``
+  (``fusion='skew'``) there, and one step per pass; the tile-based fused and
+  skew kernels, which run every other fused or skewed pass; and the
   opt-in whole-grid runs at 512^2, one cooperative launch for all steps
   (replacing ``pallas_2d._stencil2d_resident_kernel`` in float32 and
   ``pallas_df64._resident_pair_2d_kernel`` for df64).
@@ -117,18 +118,22 @@ Phases, each printing one line or more and raising on failure:
    device time, its twin's, one float64 ``F.conv2d`` / ``F.conv1d`` step
    (the library yardstick) and its bound: 8-byte cells over the memory
    rate, or the operations over the card's fp64 CUDA-core rate;
-14. the fused kernel (#1 at k = 2 and 3) and the skew kernel against
+14. the wrappers' fused (#1 at k = 2 and 3) and skewed (#2) passes against
    single-step launches of the 2-D kernel (bit for bit on any fill: they
    share its per-cell sums) and against their twins (the 0/1 fill bit for
    bit over k steps, the pi/100 fill within rel 1e-5 in float32 and 1e-13
-   in float64 after 2k steps): star2d3r at 1000^2 and 8192^2 (k = 2),
-   box2d1r at 1000^2 (k = 3), star2d1r at 300 x 140 (ragged, two skew
-   chunks), float32 and float64; the resident kernel in float32 (star2d1r,
-   box2d3r) and float64 (star2d1r) at 512^2 against single-step launches
-   and its twin;
+   in float64 after 2k steps): star2d3r at 1000^2, 8192^2 and 300 x 140
+   (k = 2: in float32 the fused strip kernel from both wrappers, every
+   launch counted, also bit for bit against the tile-based fused and skew
+   kernels it replaces), box2d1r at 1000^2 (k = 3), star2d1r at 300 x 140
+   (ragged, two skew chunks), float32 and float64; the resident kernel in
+   float32 (star2d1r, box2d3r) and float64 (star2d1r) at 512^2 against
+   single-step launches and its twin;
 15. each fused path end to end, launches counted from zero: star2d3r
-   8192^2 with the defaults (extent, k = 2), ``fusion='skew'`` and
-   ``fused_steps=1``; star2d1r and box2d3r 512^2 and df64 star2d1r 512^2
+   8192^2 with the defaults (extent, k = 2: 32 fused strip launches and no
+   tile-based fused one), ``fusion='skew'`` (the same through the skew
+   wrapper) and ``fused_steps=1``; star2d1r and box2d3r 512^2 and df64
+   star2d1r 512^2
    with the resident caps set (as ``LORASTENCIL_RESIDENT2D_KB`` and
    ``LORASTENCIL_RESIDENT2D_PAIR_KB`` would); ``run(.., 3)`` (2 at 512^2)
    of the integer fill bit for bit against a float64 dense stencil on the
@@ -137,8 +142,10 @@ Phases, each printing one line or more and raising on failure:
    steps that must launch 32 fused passes, 32 skewed passes, 64 steps, or
    one resident run, and no other kernel;
 16. star2d3r 8192^2 x 64 through ``run_internal`` in the three modes and
-   through the naive dense stencil; per new kernel its device time, its
-   twin's, one ``F.conv2d`` 7x7 step (TF32 off) and its bound; the
+   through the naive dense stencil; the k = 2 pass through each wrapper
+   (the fused strip kernel), the tile-based fused and skew kernels it
+   replaces and two strip steps, timed in turns, beside the twin's time,
+   one ``F.conv2d`` 7x7 step (TF32 off) and the bound; the
    resident runs at 512^2 x 64 against the tiled passes (CUDA events
    around ``run_internal``) and as one launch's device time (a CUDA
    graph);
@@ -156,8 +163,9 @@ Phases, each printing one line or more and raising on failure:
    ``run_internal`` and the naive dense stencil in float64; the float64
    instance's device time per df64 pass and per float64 k = 2 pass, its
    twin's, one float64 ``F.conv3d`` 3x3x3 step and the pass's byte bound;
-20. the two kernels redesigned for Hopper, each with its registers and
-   spills from ptxas: the 2-D strip kernel's step at star2d1r 8192^2 beside
+20. the kernels redesigned for Hopper, each with its registers and
+   spills from ptxas (the strip kernel, the fused strip kernel, the wide
+   1-D pass): the 2-D strip kernel's step at star2d1r 8192^2 beside
    the tile kernel it replaces (timed in turns), its twin, ``F.conv2d``,
    its byte bound and its share of it; the wide 1-D pass at float64 r = 40
    x 100,000 and float32 1d2r 1,000,000 (k = 2), and at float64 r = 40 x
@@ -237,11 +245,17 @@ def _counters():
     "stencil2d_resident_pair", the kernel it replaces).  The fused 2-D
     kernel counts with the step kernel it extends, as "stencil2d"; the
     strip kernel's float32 steps count in both "stencil2d" and
-    "stencil2d_k1"."""
+    "stencil2d_k1"; the fused strip kernel's passes in the wrapper's own
+    count and in "stencil2d_fused_strip" (from ``stencil2d_step``) or
+    "stencil2d_skew_fused_strip" (from ``stencil2d_skew_step``)."""
     from lorastencil_tpu_torch.ops import stencil1d, stencil2d, stencil3d
 
     out = {"stencil2d": (stencil2d.stencil2d_step, "launches"),
            "stencil2d_k1": (stencil2d.stencil2d_step, "launches_k1"),
+           "stencil2d_fused_strip": (stencil2d.stencil2d_step,
+                                     "launches_fused_strip"),
+           "stencil2d_skew_fused_strip": (stencil2d.stencil2d_skew_step,
+                                          "launches_fused_strip"),
            "stencil3d": (stencil3d.stencil3d_step, "launches"),
            "df64_3d_step": (stencil3d.stencil3d_step, "launches_f64"),
            "df64_step": (stencil2d.stencil2d_step, "launches_f64"),
@@ -1339,6 +1353,7 @@ SMALL_2D = (512, 512)
 FUSED_CASES = (
     ("star2d3r", (1000, 1000), 2, (torch.float32, torch.float64)),
     ("star2d3r", INTERIOR, 2, (torch.float32,)),
+    ("star2d3r", (300, 140), 2, (torch.float32,)),
     ("box2d1r", (1000, 1000), 3, (torch.float32, torch.float64)),
     ("star2d1r", (300, 140), 2, (torch.float32, torch.float64)))
 
@@ -1353,14 +1368,18 @@ def fused_layout(spec, interior, k):
 
 
 def fused_passes(kind, x, spec, lay, steps, k):
-    """``steps`` timesteps in passes of ``k`` through the fused ("fused"),
-    skewed ("skew") or single-step ("single") kernel, or their twin
-    ("*_plain": the skew kernel's is the fused pass's), with the engine's
-    donor rotation."""
+    """``steps`` timesteps in passes of ``k`` through the wrappers' fused
+    ("fused"), skewed ("skew") or single-step ("single") pass, the
+    tile-based fused or skew kernel launched directly ("tile_step",
+    "tile_skew"), or their twin ("*_plain": the skew kernel's is the fused
+    pass's), with the engine's donor rotation."""
     from lorastencil_tpu_torch.engine import ping_pong_loop
     from lorastencil_tpu_torch.ops import stencil2d as s2
 
     def one(cur, donor, depth):
+        if kind.startswith("tile_"):
+            s2._launch(kind[5:], (cur, donor), spec, lay, depth)
+            return donor
         if kind == "skew" and depth > 1:
             fn, kw = s2.stencil2d_skew_step, {"skew_steps": depth}
         else:
@@ -1373,34 +1392,54 @@ def fused_passes(kind, x, spec, lay, steps, k):
 
 
 def check_fused(name, interior, k, dtype, device):
-    """Phase 14 for one shape, size, depth and dtype: the fused (#1 at k) and
-    skewed (#2) kernels against single-step launches (bit for bit on any
-    fill: the kernels share the per-cell sums) and against their twins (the
-    0/1 fill, k steps, bit for bit; the pi/100 fill, 2k steps, rel 1e-5 in
-    float32, 1e-13 in float64); returns {kernel: (max abs err, rel err)} of
-    the pi/100 fill."""
+    """Phase 14 for one shape, size, depth and dtype: the wrappers' fused
+    (#1 at k) and skewed (#2) passes against single-step launches (bit for
+    bit on any fill: the kernels share the per-cell sums) and against their
+    twins (the 0/1 fill, k steps, bit for bit; the pi/100 fill, 2k steps,
+    rel 1e-5 in float32, 1e-13 in float64).  Where the fused strip kernel
+    takes the pass, both wrappers must launch it (counted in
+    ``launches_fused_strip``) and equal the tile-based fused and skew
+    kernels it replaces bit for bit on both fills.  Returns {kernel: (max
+    abs err, rel err)} of the pi/100 fill and whether the fused strip
+    kernel ran."""
     from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil2d as s2
     from lorastencil_tpu_torch.utils import reference
 
     spec = get_shape(name)
     lay = fused_layout(spec, interior, k)
     g0 = reference.random_padded(spec, interior, seed=1)
+    strip = s2.fused_strip_takes(spec, dtype, k)
     errs = {}
     for integer, fill in ((True, g0 % 2), (False, g0 * (np.pi / 100))):
         x = lay.to_internal(fill, dtype, device)
         steps = k if integer else 2 * k
         single = fused_passes("single", x, spec, lay, steps, k)
         for kind in ("fused", "skew"):
+            reset_counts()
             got = fused_passes(kind, x, spec, lay, steps, k)
+            ran = counts()["stencil2d_fused_strip" if kind == "fused"
+                           else "stencil2d_skew_fused_strip"]
             want = fused_passes(kind + "_plain", x, spec, lay, steps, k)
             torch.cuda.synchronize()
             what = f"{kind} {name} {interior} {dtype} k={k} x{steps}"
+            if ran != (steps // k if strip else 0):
+                raise AssertionError(f"{what}: {ran} fused strip launches")
             if not bool(torch.isfinite(got).all()):
                 raise AssertionError(f"{what}: non-finite output")
             if not torch.equal(got, single):
                 bad = (got != single).sum().item()
                 raise AssertionError(f"{what}: differs from single-step "
                                      f"launches at {bad} cells")
+            if strip:
+                tile = fused_passes("tile_" + ("step" if kind == "fused"
+                                               else "skew"),
+                                    x, spec, lay, steps, k)
+                if not torch.equal(got, tile):
+                    bad = (got != tile).sum().item()
+                    raise AssertionError(f"{what}: differs from the "
+                                         f"tile-based {kind} kernel at {bad} "
+                                         f"cells")
             if (integer or dtype == torch.float64) and not torch.equal(got,
                                                                        want):
                 bad = (got != want).sum().item()
@@ -1413,7 +1452,7 @@ def check_fused(name, interior, k, dtype, device):
             if not integer:
                 errs[kind] = ((got - want).abs().max().item(), rel)
         del x, single, got, want
-    return errs
+    return errs, strip
 
 
 def check_resident(name, interior, dtype, device):
@@ -1461,13 +1500,19 @@ def set_resident_caps(nbytes):
 # its 64-step run, that run's launches, the steps of the integer fill's run,
 # exact below 2**24, and its launches).  A single float32 step, the
 # remainder of an odd run or every step at fused_steps=1, runs the strip
-# kernel and counts in "stencil2d_k1" too.
+# kernel and counts in "stencil2d_k1" too; star2d3r's k = 2 passes run the
+# fused strip kernel from either wrapper, so each of its wrapper's launches
+# counts in its "*_fused_strip" too: equal counts mean that no tile-based
+# fused or skew kernel ran.
 FUSED_PATHS = (
-    ("star2d3r", INTERIOR, {}, False, "stencil2d", {"stencil2d": 32}, 3,
-     {"stencil2d": 2, "stencil2d_k1": 1}),
-    ("star2d3r", INTERIOR, {"fusion": "skew"}, False, "stencil2d_skew",
-     {"stencil2d_skew": 32}, 3,
-     {"stencil2d_skew": 1, "stencil2d": 1, "stencil2d_k1": 1}),
+    ("star2d3r", INTERIOR, {}, False, "stencil2d_fused_strip",
+     {"stencil2d": 32, "stencil2d_fused_strip": 32}, 3,
+     {"stencil2d": 2, "stencil2d_fused_strip": 1, "stencil2d_k1": 1}),
+    ("star2d3r", INTERIOR, {"fusion": "skew"}, False,
+     "stencil2d_skew_fused_strip",
+     {"stencil2d_skew": 32, "stencil2d_skew_fused_strip": 32}, 3,
+     {"stencil2d_skew": 1, "stencil2d_skew_fused_strip": 1, "stencil2d": 1,
+      "stencil2d_k1": 1}),
     ("star2d3r", INTERIOR, {"fused_steps": 1}, False, "stencil2d",
      {"stencil2d": 64, "stencil2d_k1": 64}, 3,
      {"stencil2d": 3, "stencil2d_k1": 3}),
@@ -1599,18 +1644,26 @@ def bench_fused(device, card):
               f"{r.gstencil_per_s / base.gstencil_per_s} [{card}]",
               flush=True)
 
-    # per kernel: one k = 2 pass (fused, skew) and one k = 1 step, kernel
-    # and twin timed in turns (time_calls)
+    # per kernel: one k = 2 pass through each wrapper (the fused strip
+    # kernel), through the tile-based fused and skew kernels it replaces,
+    # and as two strip-kernel steps, and one k = 1 step, timed in turns
+    # (time_calls); the twin apart
     timing = {}
     lay2 = fused_layout(spec, INTERIOR, 2)
     x = torch.rand(lay2.shape, generator=gen, device=device) * 0.01
+    spare = torch.zeros_like(x)
     ms = time_calls({
         "fused": lambda a, b: s2.stencil2d_step(a, b, spec, lay2,
                                                 fused_steps=2),
         "skew": lambda a, b: s2.stencil2d_skew_step(a, b, spec, lay2,
                                                     skew_steps=2),
+        "tile_step": lambda a, b: s2._launch("step", (a, b), spec, lay2, 2),
+        "tile_skew": lambda a, b: s2._launch("skew", (a, b), spec, lay2, 2),
+        "two": lambda a, b: s2.stencil2d_step(
+            s2.stencil2d_step(a, b, spec, lay2), spare, spec, lay2),
         "single": lambda a, b: s2.stencil2d_step(a, b, spec, lay2)},
         x, torch.zeros_like(x), 20)
+    del spare
     # the two kernels' twin: a k = 2 pass of the fused kernel's
     plain = time_calls({
         "twin": lambda a, b: s2.stencil2d_step_plain(a, b, spec, lay2, 2)},
@@ -1619,15 +1672,21 @@ def bench_fused(device, card):
     lib = library_ms(spec, INTERIOR, device)
     bound, by = bound_ms(spec, INTERIOR, 2)
     parts = bound_parts(spec, INTERIOR, 2)
-    for kernel in ("fused", "skew"):
-        timing[kernel] = dict(ms=ms[kernel], plain_ms=plain,
-                              bound_ms=bound, bound_by=by, library_ms=lib,
+    for kernel, tile in (("fused", "tile_step"), ("skew", "tile_skew")):
+        timing[kernel] = dict(kernel="fused_strip_kernel", ms=ms[kernel],
+                              plain_ms=plain, bound_ms=bound, bound_by=by,
+                              library_ms=lib, tile_kernel_ms=ms[tile],
+                              two_strip_steps_ms=ms["two"],
                               steps_per_launch=2, library_steps=1,
                               shape=f"{FUSED_SHAPE} {dims}")
-        print(f"phase 16: {kernel} k=2 pass at {FUSED_SHAPE} {dims}: kernel "
-              f"{ms[kernel]} ms, plain twin {plain} ms, F.conv2d 7x7 "
-              f"one step {lib} ms, bound {bound} ms ({by}; bytes {parts[0]} "
-              f"ms, operations {parts[1]} ms) [{card}]", flush=True)
+        print(f"phase 16: {kernel} k=2 pass at {FUSED_SHAPE} {dims}: fused "
+              f"strip kernel {ms[kernel]} ms ({bound / ms[kernel]:.4f} of "
+              f"the bound), the tile-based {tile[5:]} kernel it replaces "
+              f"{ms[tile]} ms ({ms[tile] / ms[kernel]:.4f}x), two strip "
+              f"steps {ms['two']} ms ({ms['two'] / ms[kernel]:.4f}x), plain "
+              f"twin {plain} ms, F.conv2d 7x7 one step {lib} ms, bound "
+              f"{bound} ms ({by}; bytes {parts[0]} ms, operations {parts[1]} "
+              f"ms) [{card}]", flush=True)
     print(f"phase 16: single k=1 step at {FUSED_SHAPE} {dims}: kernel "
           f"{ms['single']} ms; bound of one step "
           f"{bound_ms(spec, INTERIOR, 1)[0]} ms [{card}]", flush=True)
@@ -1865,10 +1924,19 @@ def bench_fp64_3d(device, card):
 
 
 # Phase 20: the kernels redesigned for Hopper, csrc/stencil2d.cu strip_kernel
-# (an instantiation per radius 1-4 and term count 0-3) and csrc/stencil1d.cu
-# wide_kernel (float and double), by the mangled names ptxas reports
-PTXAS_KERNELS = {"stencil2d": r"strip_kernelILi(\d)ELi(\d)E",
-                 "stencil1d": r"wide_kernelI([fd])E"}
+# (an instantiation per radius 1-4 and term count 0-3) and
+# fused_strip_kernel (radius 1-4, 1-2 terms, K = 2, the terms' kinds) and
+# csrc/stencil1d.cu wide_kernel (float and double): {kernel: (source, the
+# pattern of the mangled names ptxas reports, what the instantiation's
+# numbers are)}.  A mangled name carries its length before it
+# ("12strip_kernel"), which keeps strip_kernel's pattern off
+# "18fused_strip_kernel".
+PTXAS_KERNELS = {
+    "strip_kernel": ("stencil2d", r"\dstrip_kernelILi(\d)ELi(\d)E", "R,terms"),
+    "fused_strip_kernel": (
+        "stencil2d", r"fused_strip_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d+)E",
+        "R,terms,K,kinds"),
+    "wide_kernel": ("stencil1d", r"wide_kernelI([fd])E", "type")}
 
 
 def ptxas_table(log, pattern):
@@ -1902,11 +1970,10 @@ def redesigned(device, card, builds, step_ms, lib2):
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil1d as s1
 
-    for source, pattern in PTXAS_KERNELS.items():
+    for kernel, (source, pattern, what) in PTXAS_KERNELS.items():
         table = ptxas_table(builds[source][2], pattern)
-        print(f"phase 20: {pattern.split('I')[0]} registers per "
-              f"instantiation ({'R,terms' if source == 'stencil2d' else 'type'}"
-              f"), no spill: "
+        print(f"phase 20: {kernel} registers per instantiation ({what}), no "
+              f"spill: "
               + " ".join(f"{k}:{v[0]}" for k, v in sorted(table.items())),
               flush=True)
     spec2 = get_shape("star2d1r")
@@ -2100,11 +2167,14 @@ def main() -> int:
     errs_fused = {}
     for name, interior, k, dtypes in FUSED_CASES:
         for dtype in dtypes:
-            errs = check_fused(name, interior, k, dtype, device)
+            errs, strip = check_fused(name, interior, k, dtype, device)
             if name == FUSED_SHAPE and interior == INTERIOR:
                 errs_fused = errs
-            print(f"phase 14: {name} {interior} {dtype} k={k}: fused and "
-                  f"skew kernels bit-equal to single-step launches on both "
+            which = ("the fused strip kernel from both wrappers, bit-equal "
+                     "to the tile-based fused and skew kernels," if strip
+                     else "the tile-based fused and skew kernels")
+            print(f"phase 14: {name} {interior} {dtype} k={k}: {which} "
+                  f"bit-equal to single-step launches on both "
                   f"fills and to their twins on the 0/1 fill; pi/100 fill "
                   f"rel err fused {errs['fused'][1]:.3e}, skew "
                   f"{errs['skew'][1]:.3e} after {2 * k} steps", flush=True)

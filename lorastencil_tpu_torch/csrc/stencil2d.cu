@@ -1,5 +1,5 @@
 // Dirichlet0 timesteps of a 2-D low-rank stencil on the port's internal
-// layout, in float32 or float64, on CUDA cores.  Four kernels share one
+// layout, in float32 or float64, on CUDA cores.  The kernels share one
 // per-cell arithmetic, so each equals the others (and its plain twin) cell
 // for cell on the same steps:
 //
@@ -13,11 +13,15 @@
 //   * the skew kernel (ls_stencil2d_skew) replaces
 //     pallas_2d.py::_stencil2d_skew_kernel (stencil2d_skew_step, time-skewed
 //     row bands);
+//   * the fused strip kernel (ls_stencil2d_fused_strip: float32, k = 2,
+//     radius 1..4, 1 or 2 terms, no residue) serves both of those wrappers
+//     where it takes their pass: one traversal for the two TPU kernels;
 //   * the resident kernel (ls_stencil2d_resident), every step of a run in one
 //     cooperative launch, replaces pallas_2d.py::_stencil2d_resident_kernel
 //     (stencil2d_resident).
 //
-// Each has a float32 and a float64 instance (the *_f64 entries).  The float64
+// The step, skew and resident kernels have a float32 and a float64 instance
+// (the *_f64 entries); the strip kernels are float32 only.  The float64
 // step replaces lorastencil_tpu/ops/pallas_df64.py::_df64_kernel (df64_step)
 // and the float64 resident run pallas_df64.py::_resident_pair_2d_kernel
 // (stencil2d_resident_pair): the TPU computes the fp64-grade tier on
@@ -66,6 +70,23 @@
 //     warp the card holds at once takes one task, a column strip's share
 //     of its rows, so that no wave runs part full.  The sums are
 //     tile_sums', cell for cell (below);
+//   * fused strip (float32, k = 2, at most kFusedStripMaxTerms terms, each
+//     with a row or column axis, no residue): the strip kernel's walk with
+//     every level in registers.
+//     Level 1 is the strip step on the input ring; level L >= 2 takes level
+//     L - 1's masked row straight from registers, the R cells beyond each
+//     lane's four from its neighbours by __shfl_up/down_sync, and keeps its
+//     own register ring of column convs, lagging level L - 1 by R rows, so
+//     every level row is computed once per task, with no shared
+//     intermediate and no block barrier.  Lanes 0 and 31 lack a neighbour,
+//     so level L is right on lanes L - 1 .. 32 - L and a warp stores
+//     128 - 8 (K - 1) columns; the strips overlap by 8 (K - 1) columns,
+//     and a task of n rows reads n + 2KR input rows.  Both rows of a pair
+//     go through each tap together.  The terms' axes are a template
+//     parameter (KINDS, chosen on the host from the plan), and a zero tap
+//     is a predicated FMA (fma8_nonzero): per-term flags read at run time
+//     and a branch per tap were both slower on the card.  The sums are
+//     tile_sums' and level()'s, cell for cell;
 //   * step (k = 1): one block per (kTileRows x 128) output tile stages its
 //     halo'd window in shared memory with coalesced row loads (a warp per
 //     window row), computes the column conv into a shared intermediate 2r rows
@@ -101,7 +122,8 @@
 // (ops/band_gemm.py plan_array), staged into shared memory by every block.
 //
 // C interface, loaded with ctypes: ls_stencil2d_step, ls_stencil2d_skew and
-// ls_stencil2d_resident (float) and their *_f64 twins (double) launch on the
+// ls_stencil2d_resident (float) and their *_f64 twins (double), and the
+// float-only ls_stencil2d_strip and ls_stencil2d_fused_strip, launch on the
 // given stream, allocate nothing and return a cudaError_t (0 = launched).
 
 #include <cooperative_groups.h>
@@ -852,12 +874,14 @@ bool fill_strip_plan(const float* plan, int n_terms, int n_res,
   return true;
 }
 
-template <int R, int NT>
-int launch_strip(const float* in, float* out, const StripPlan<R>& pl,
-                 const Grid2D& g, int vec, cudaStream_t stream) {
-  // blocks the card holds at once, per device, asked once
-  static int resident[kMaxDevices];
-  const void* kernel = reinterpret_cast<const void*>(strip_kernel<R, NT>);
+// The tasks of a launch of a strip-walking kernel (`kernel`, whose column
+// strips store `out_cols` columns each): every warp the card holds at once
+// takes one task of a column strip's rows, so that no wave is left part
+// full; the column strips share the warps, each strip's rows split evenly
+// among its share.  `resident` caches the blocks the card holds at once,
+// per device.  Sets the task's output rows and the blocks to launch.
+int size_strips(const void* kernel, int* resident, int out_cols,
+                const Grid2D& g, int& rows, int& blocks) {
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -872,19 +896,26 @@ int launch_strip(const float* in, float* out, const StripPlan<R>& pl,
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
     resident[dev] = per_sm * sms;
   }
-  // every warp the card holds at once takes one task of a column strip's
-  // rows, so that no wave is left part full: the column strips share the
-  // warps, each strip's rows split evenly among its share
-  const int col_tasks = (g.nr + kStripCols - 1) / kStripCols;
+  const int col_tasks = (g.nr + out_cols - 1) / out_cols;
   int share = resident[dev] * kStripWarps / col_tasks;
   if (share < 1) share = 1;
-  int rows = (g.mr + share - 1) / share;
+  rows = (g.mr + share - 1) / share;
   if (rows < kStripMinRows) rows = kStripMinRows;
   const long tasks =
       static_cast<long>(col_tasks) * ((g.mr + rows - 1) / rows);
   const long want = (tasks + kStripWarps - 1) / kStripWarps;
-  const int blocks =
-      static_cast<int>(want < resident[dev] ? want : resident[dev]);
+  blocks = static_cast<int>(want < resident[dev] ? want : resident[dev]);
+  return 0;
+}
+
+template <int R, int NT>
+int launch_strip(const float* in, float* out, const StripPlan<R>& pl,
+                 const Grid2D& g, int vec, cudaStream_t stream) {
+  static int resident[kMaxDevices];
+  int rows = 0, blocks = 0;
+  const int e = size_strips(reinterpret_cast<const void*>(strip_kernel<R, NT>),
+                            resident, kStripCols, g, rows, blocks);
+  if (e != 0) return e;
   strip_kernel<R, NT><<<blocks, kStripWarps * 32, 0, stream>>>(in, out, pl,
                                                                g, vec, rows);
   return static_cast<int>(cudaGetLastError());
@@ -924,6 +955,346 @@ int launch_strip_step(const float* in, float* out, const float* plan,
     case 2: return strip_terms<2>(in, out, plan, n_terms, n_res, g, vec, s);
     case 3: return strip_terms<3>(in, out, plan, n_terms, n_res, g, vec, s);
     case 4: return strip_terms<4>(in, out, plan, n_terms, n_res, g, vec, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// -- the fused strip kernel: float32 passes of K >= 2 steps ------------------
+constexpr int kFusedStripMaxTerms = 2;
+// A term's axes, two bits a term in the kernel's KINDS (term t at bits
+// 2t, 2t + 1): its column conv and its row conv (plan_array's has_col and
+// has_row).  Known at compile time, an identity axis costs no register
+// copy and no branch.
+constexpr int kHasCol = 1;
+constexpr int kHasRow = 2;
+
+__host__ __device__ constexpr bool term_has(int kinds, int t, int axis) {
+  return (kinds >> (2 * t)) & axis;
+}
+
+// Output columns of a fused strip warp: level L is right on lanes L - 1 ..
+// 32 - L, so level K on 32 - 2 (K - 1) lanes of 4 columns.
+__host__ __device__ constexpr int fused_strip_cols(int K) {
+  return kStripCols - 8 * (K - 1);
+}
+
+// The lane's 12-cell windows (columns j - 4 .. j + 7) of a level's row
+// pair, whose 4 cells a lane holds in v: its own cells, and R from each
+// neighbouring lane.  Lanes 0 and 31 get their own cells for the missing
+// neighbour; nothing they compute from them is stored.
+template <int R>
+__device__ __forceinline__ void lane_windows(const float (&v)[2][4],
+                                             float (&x)[2][12]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      x[h][kStripPad + c] = v[h][c];
+      if (c >= kStripPad - R)
+        x[h][c] = __shfl_up_sync(0xffffffffu, v[h][c], 1);
+      if (c < R)
+        x[h][kStripPad + 4 + c] = __shfl_down_sync(0xffffffffu, v[h][c], 1);
+    }
+}
+
+// a[c] = fmaf(w, xa[c], a[c]) and b[c] = fmaf(w, xb[c], b[c]), c < 4, where
+// w != 0, as predicated FMAs: a zero tap leaves the 8 sums as they are, as
+// tile_sums' skipped tap does, with no branch.
+__device__ __forceinline__ void fma8_nonzero(float w, const float* xa,
+                                             const float* xb, float (&a)[4],
+                                             float (&b)[4]) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.neu.f32 p, %8, 0f00000000;\n\t"
+      "@p fma.rn.f32 %0, %8, %9, %0;\n\t"
+      "@p fma.rn.f32 %1, %8, %10, %1;\n\t"
+      "@p fma.rn.f32 %2, %8, %11, %2;\n\t"
+      "@p fma.rn.f32 %3, %8, %12, %3;\n\t"
+      "@p fma.rn.f32 %4, %8, %13, %4;\n\t"
+      "@p fma.rn.f32 %5, %8, %14, %5;\n\t"
+      "@p fma.rn.f32 %6, %8, %15, %6;\n\t"
+      "@p fma.rn.f32 %7, %8, %16, %7;\n\t}"
+      : "+f"(a[0]), "+f"(a[1]), "+f"(a[2]), "+f"(a[3]), "+f"(b[0]),
+        "+f"(b[1]), "+f"(b[2]), "+f"(b[3])
+      : "f"(w), "f"(xa[0]), "f"(xa[1]), "f"(xa[2]), "f"(xa[3]), "f"(xb[0]),
+        "f"(xb[1]), "f"(xb[2]), "f"(xb[3]));
+}
+
+// Every term's column conv of the lane's 4 cells of a row pair, from their
+// windows x, into y0[t] and y1[t]: per cell tile_sums' order (nonzero taps
+// ascending, fmaf).
+template <int R, int NT, int KINDS>
+__device__ __forceinline__ void column_convs(const StripPlan<R>& pl,
+                                             const float (&x)[2][12],
+                                             float (&y0)[NT][4],
+                                             float (&y1)[NT][4]) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (term_has(KINDS, t, kHasCol)) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) y0[t][c] = y1[t][c] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < 2 * R + 1; ++q)
+        fma8_nonzero(pl.ct[t][q], &x[0][kStripPad - R + q],
+                     &x[1][kStripPad - R + q], y0[t], y1[t]);
+    } else {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        y0[t][c] = x[0][kStripPad + c];
+        y1[t][c] = x[1][kStripPad + c];
+      }
+    }
+  }
+}
+
+// K fused float32 steps per cell of rows [i0, i0 + rows) x columns
+// [j0, j0 + fused_strip_cols(K)) for each task of a warp.  Lane l holds
+// the four columns jw + 4 l .. + 3 of every level, jw = j0 - 4 (K - 1).
+// Level 1 is the strip kernel's step on the input ring; level L >= 2
+// takes level L - 1's row from registers, its neighbours' cells by
+// shuffles (lane_windows), and keeps its own register ring of column convs,
+// lagging level L - 1 by R rows.  Every level row is masked to the
+// interior, as level() does.  No residue (the plan's n_res is 0); KINDS
+// holds the plan's flags.  `vec` and the launch bound as strip_kernel's.
+template <int R, int NT, int K, int KINDS>
+__global__ void __launch_bounds__(kStripWarps * 32, 1)
+fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
+                   const __grid_constant__ StripPlan<R> pl, Grid2D g,
+                   int vec, int rows) {
+  constexpr int W = 2 * R + 1;
+  constexpr int Y = W + 1;  // column convs kept per level: 2R + 2 rows
+  constexpr int kOut = fused_strip_cols(K);
+  __shared__ __align__(16) float
+      ring_all[kStripWarps][kStripRing][kStripRowCells];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  float(*ring)[kStripRowCells] = ring_all[warp];
+  const int col_tasks = (g.nr + kOut - 1) / kOut;
+  const int tasks = col_tasks * ((g.mr + rows - 1) / rows);
+  const bool stores = lane >= K - 1 && lane <= 32 - K;
+  for (int task = blockIdx.x * kStripWarps + warp; task < tasks;
+       task += gridDim.x * kStripWarps) {
+    const int i0 = task / col_tasks * rows;
+    const int j0 = task % col_tasks * kOut;
+    const int n_out = min(rows, g.mr - i0);
+    const int n_in = n_out + 2 * K * R;
+    const int gr0 = g.r0 + i0 - K * R;  // buffer row of input row 0 (>= 0)
+    const int jw = j0 - 4 * (K - 1);    // interior column of lane 0's first
+    const int gc0 = g.c0 + jw - kStripPad;  // buffer column of window col 0
+    const int j = jw + 4 * lane;            // the lane's first column
+    bool col_in[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) col_in[c] = j + c >= 0 && j + c < g.n;
+    // the lane's 16-byte copies of a window row (vec): quads lane and, for
+    // lanes 0 and 1, lane + 32, at the same columns in every row
+    const int gq0 = gc0 + 4 * lane;
+    const int gq1 = gq0 + 128;
+    const bool ok0 = gq0 >= 0 && gq0 + 4 <= g.pitch;
+    const bool ok1 = lane < kStripWindow / 4 - 32 && gq1 >= 0 &&
+                     gq1 + 4 <= g.pitch;
+    __syncwarp();  // the previous task's reads of the ring are done
+
+    // input row s into ring slot s % kStripRing, 0 outside the buffer (the
+    // rows of a task lie inside it: bad_args); one commit group per call,
+    // empty past the last row
+    auto fetch = [&](int s) {
+      if (s < n_in) {
+        float* dst = ring[s & (kStripRing - 1)];
+        const int gr = gr0 + s;
+        const float* src = in + static_cast<size_t>(gr) * g.pitch;
+        if (vec) {
+          cp_async16(dst + 4 * lane, ok0 ? src + gq0 : in, ok0);
+          if (lane < kStripWindow / 4 - 32)
+            cp_async16(dst + 4 * lane + 128, ok1 ? src + gq1 : in, ok1);
+        } else {
+          for (int c = lane; c < kStripWindow; c += 32) {
+            const int gc = gc0 + c;
+            const bool ok = gr < g.rows && gc >= 0 && gc < g.pitch;
+            cp_async4(dst + c, ok ? src + gc : in, ok);
+          }
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+#pragma unroll
+    for (int s = 0; s < kStripAhead; ++s) fetch(s);
+
+    // level L's column convs of level L - 1's last Y rows (level 0: the
+    // input): row a at y[L - 1][a % Y]
+    float y[K][Y][NT][4];
+#pragma unroll
+    for (int L = 0; L < K; ++L)
+#pragma unroll
+      for (int q = 0; q < Y; ++q)
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) y[L][q][t][c] = 0.0f;
+
+    // input row pairs by groups of Y rows, so that every register ring
+    // index is a constant.  At the pair (s, s + 1) level L yields its rows
+    // s + h - 2LR (row a of level L is interior row i0 - (K - L) R + a),
+    // the column convs of level L - 1's rows s + h - 2(L - 1)R sit at
+    // index (u + h + 2(L - 1)) % Y, and the row conv of level L's row
+    // s + h - 2LR reads indices (u + h + 2L + q) % Y, q < W.  A row past
+    // n_in (an odd count's last pair) reads a stale slot and feeds no
+    // stored output.
+    for (int s0 = 0; s0 < n_in; s0 += Y) {
+#pragma unroll
+      for (int u = 0; u < Y; u += 2) {
+        const int s = s0 + u;
+        if (s >= n_in) break;
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(kStripAhead - 2));
+        __syncwarp();  // rows s, s + 1 landed for every lane
+        fetch(s + kStripAhead);
+        fetch(s + kStripAhead + 1);
+
+        {
+          // the lane's windows of input rows s, s + 1: columns j - 4 .. j + 7
+          float x[2][12];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float4* row = reinterpret_cast<const float4*>(
+                ring[(s + h) & (kStripRing - 1)] + 4 * lane);
+#pragma unroll
+            for (int v = 0; v < 3; ++v) {
+              const float4 f = row[v];
+              x[h][4 * v] = f.x;
+              x[h][4 * v + 1] = f.y;
+              x[h][4 * v + 2] = f.z;
+              x[h][4 * v + 3] = f.w;
+            }
+          }
+          column_convs<R, NT, KINDS>(pl, x, y[0][u % Y], y[0][(u + 1) % Y]);
+        }
+
+        float v[2][4];  // the level's rows of this pair, masked
+#pragma unroll
+        for (int L = 1; L <= K; ++L) {
+          if (L > 1) {  // level L - 1 yielded rows: their column convs
+            float x[2][12];
+            lane_windows<R>(v, x);
+            column_convs<R, NT, KINDS>(pl, x, y[L - 1][(u + 2 * (L - 1)) % Y],
+                                       y[L - 1][(u + 1 + 2 * (L - 1)) % Y]);
+          }
+          if (s < 2 * L * R) break;  // no row of level L yet (s is even)
+          float acc[2][4] = {};
+#pragma unroll
+          for (int t = 0; t < NT; ++t) {
+            if (term_has(KINDS, t, kHasRow)) {
+              float z[2][4] = {};
+#pragma unroll
+              for (int q = 0; q < W; ++q)
+                fma8_nonzero(pl.rt[t][q], y[L - 1][(u + 2 * L + q) % Y][t],
+                             y[L - 1][(u + 1 + 2 * L + q) % Y][t], z[0], z[1]);
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int c = 0; c < 4; ++c) acc[h][c] += z[h][c];
+            } else {
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)  // identity row axis
+                  acc[h][c] += y[L - 1][(u + h + 2 * L + R) % Y][t][c];
+            }
+          }
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int i = i0 - K * R + s + h - L * R;  // interior row
+            const bool row_in = i >= 0 && i < g.m;
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              v[h][c] = row_in && col_in[c] ? acc[h][c] : 0.0f;
+          }
+        }
+        if (s < 2 * K * R || !stores) continue;
+
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = s + h - 2 * K * R;  // output row of the task
+          if (o >= n_out) continue;
+          float* dst = out + static_cast<size_t>(g.r0 + i0 + o) * g.pitch +
+                       g.c0 + j;
+          if (vec) {
+            if (j < g.nr)
+              *reinterpret_cast<float4*>(dst) =
+                  make_float4(v[h][0], v[h][1], v[h][2], v[h][3]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 4; ++c)
+              if (j + c < g.nr) dst[c] = v[h][c];
+          }
+        }
+      }
+    }
+  }
+}
+
+template <int R, int NT, int K, int KINDS>
+int launch_fused_strip(const float* in, float* out, const StripPlan<R>& pl,
+                       const Grid2D& g, int vec, cudaStream_t stream) {
+  static int resident[kMaxDevices];
+  int rows = 0, blocks = 0;
+  const int e = size_strips(
+      reinterpret_cast<const void*>(fused_strip_kernel<R, NT, K, KINDS>),
+      resident, fused_strip_cols(K), g, rows, blocks);
+  if (e != 0) return e;
+  fused_strip_kernel<R, NT, K, KINDS>
+      <<<blocks, kStripWarps * 32, 0, stream>>>(in, out, pl, g, vec, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The instantiation of the plan's term count and kinds (every term has a
+// column or a row axis: 3 kinds of one term, 9 of two).
+template <int R>
+int fused_strip_terms(const float* in, float* out, const float* plan,
+                      int n_terms, const Grid2D& g, int vec,
+                      cudaStream_t stream) {
+  StripPlan<R> pl = {};
+  if (!fill_strip_plan<R>(plan, n_terms, 0, pl))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int kinds = 0;
+  for (int t = 0; t < n_terms; ++t) {
+    const int kind = (pl.has_col[t] ? kHasCol : 0) |
+                     (pl.has_row[t] ? kHasRow : 0);
+    if (kind == 0) return static_cast<int>(cudaErrorInvalidValue);
+    kinds |= kind << (2 * t);
+  }
+#define LS_FUSED(NT, KINDS)                                         \
+  case (NT) * 16 + (KINDS):                                         \
+    return launch_fused_strip<R, NT, 2, KINDS>(in, out, pl, g, vec, \
+                                               stream);
+  switch (n_terms * 16 + kinds) {
+    LS_FUSED(1, 1) LS_FUSED(1, 2) LS_FUSED(1, 3)
+    LS_FUSED(2, 5) LS_FUSED(2, 6) LS_FUSED(2, 7)
+    LS_FUSED(2, 9) LS_FUSED(2, 10) LS_FUSED(2, 11)
+    LS_FUSED(2, 13) LS_FUSED(2, 14) LS_FUSED(2, 15)
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef LS_FUSED
+}
+
+// A float32 pass of k = 2 fused steps by the fused strip kernel; `plan` is
+// plan_array's table in host memory.  Radii 1..kStripMaxRadius, 1 or 2
+// terms, each with a column or a row axis, and no residue: the radius,
+// term count and term kinds pick the instantiation; any other is refused.
+int launch_fused_strip_pass(const float* in, float* out, const float* plan,
+                            int plan_len, int n_terms, int R, int n_res,
+                            Grid2D g, int k, void* stream) {
+  if (k != 2 || !plan || n_res != 0 || n_terms < 1 ||
+      n_terms > kFusedStripMaxTerms ||
+      bad_args<float>(plan_len, n_terms, R, n_res, g, k * R))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (g.mr == 0 || g.nr == 0) return 0;
+  const int vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                  g.pitch % 4 == 0 && g.c0 % 4 == 0 && g.nr % 4 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (R) {
+    case 1: return fused_strip_terms<1>(in, out, plan, n_terms, g, vec, s);
+    case 2: return fused_strip_terms<2>(in, out, plan, n_terms, g, vec, s);
+    case 3: return fused_strip_terms<3>(in, out, plan, n_terms, g, vec, s);
+    case 4: return fused_strip_terms<4>(in, out, plan, n_terms, g, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1035,6 +1406,7 @@ int launch_resident(const T* in, T* out0, T* out1, const T* plan,
   }
 LS_ENTRY(ls_stencil2d_step, launch_step<float>, float)
 LS_ENTRY(ls_stencil2d_strip, launch_strip_step, float)
+LS_ENTRY(ls_stencil2d_fused_strip, launch_fused_strip_pass, float)
 LS_ENTRY(ls_stencil2d_step_f64, launch_step<double>, double)
 LS_ENTRY(ls_stencil2d_skew, launch_skew<float>, float)
 LS_ENTRY(ls_stencil2d_skew_f64, launch_skew<double>, double)

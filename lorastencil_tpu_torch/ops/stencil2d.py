@@ -30,6 +30,15 @@ the float64 instance do; the two give the same values cell for cell.
 ``stencil2d_step.launches`` counts both, ``launches_k1`` the strip kernel's
 alone.
 
+A float32 pass of two fused steps of radius 1-4 with one or two terms and
+no residue, star2d3r's (the one registry shape the engine fuses by
+default), runs the fused strip kernel (``fused_strip_takes``), from either
+wrapper: the strip kernel's walk with every level kept in registers, which
+computes the same values as the fused and the skewed tile kernels in
+another traversal.  Each wrapper counts its launches in
+``launches_fused_strip`` too.  Every other fused or skewed pass runs the
+tile kernels.
+
 Shared memory bounds the reach of one launch: a fused pass holds about
 three (32 + 2kr) x (128 + 2kr) windows (16 rows in float64), a skewed one a
 band of every level.  A pass deeper than the largest k that fits
@@ -67,8 +76,15 @@ TILE_COLS = 128  # csrc/stencil2d.cu kTileCols
 # csrc/stencil2d.cu's strip kernel: radii and terms it takes
 STRIP_RADII = (1, 2, 3, 4)
 STRIP_MAX_TERMS = 3
+# csrc/stencil2d.cu's fused strip kernel: the depths and terms it takes
+FUSED_STRIP_DEPTHS = (2,)
+FUSED_STRIP_MAX_TERMS = 2
 _ENTRIES = {
     "strip": {torch.float32: "ls_stencil2d_strip"},
+    # the fused strip kernel, launched by stencil2d_step and by
+    # stencil2d_skew_step: one entry, a kind for each wrapper's counts
+    "fused_strip": {torch.float32: "ls_stencil2d_fused_strip"},
+    "fused_strip_skew": {torch.float32: "ls_stencil2d_fused_strip"},
     "step": {torch.float32: "ls_stencil2d_step",
              torch.float64: "ls_stencil2d_step_f64"},
     "skew": {torch.float32: "ls_stencil2d_skew",
@@ -117,6 +133,18 @@ def strip_takes(spec: StencilSpec, dtype, depth: int = 1) -> bool:
     return (dtype == torch.float32 and depth == 1
             and spec.radius in STRIP_RADII
             and len(spec.terms) <= STRIP_MAX_TERMS)
+
+
+def fused_strip_takes(spec: StencilSpec, dtype, depth: int) -> bool:
+    """Whether a launch of ``depth`` fused steps in ``dtype`` runs the
+    fused strip kernel: float32, two steps, radius 1-4, one or two terms,
+    each with a row or a column axis, and no residue."""
+    return (dtype == torch.float32 and depth in FUSED_STRIP_DEPTHS
+            and spec.radius in STRIP_RADII
+            and 1 <= len(spec.terms) <= FUSED_STRIP_MAX_TERMS
+            and all(any(a is not None for a in term.taps)
+                    for term in spec.terms)
+            and not spec.residue)
 
 
 def plan_len(spec: StencilSpec) -> int:
@@ -252,10 +280,15 @@ def _plan_buffer(spec: StencilSpec, device: torch.device, dtype):
     return plan.to(device)
 
 
+# the kinds whose launch copies the plan from host memory into the
+# kernel's parameters
+_HOST_PLAN = ("strip", "fused_strip", "fused_strip_skew")
+
+
 @functools.lru_cache(maxsize=None)
 def _plan_host(spec: StencilSpec):
     """The float32 tap/residue table in host memory, which the strip
-    kernel's launch copies into its parameters."""
+    kernels' launches copy into their parameters."""
     return plan_array(spec, torch.float32).contiguous()
 
 
@@ -276,10 +309,12 @@ def _lib():
 def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
             depth: int):
     """One launch of ``kind``'s instance of the buffers' dtype: ``depth``
-    fused steps ("step", "skew") or the steps of a run ("resident");
-    raises if refused, and counts it."""
+    fused steps ("step", "strip", "skew", and the fused strip kernel as
+    "fused_strip" for ``stencil2d_step`` or "fused_strip_skew" for
+    ``stencil2d_skew_step``) or the steps of a run ("resident"); raises if
+    refused, and counts it on the wrapper it serves."""
     cur = buffers[0]
-    plan = (_plan_host(spec) if kind == "strip"
+    plan = (_plan_host(spec) if kind in _HOST_PLAN
             else _plan_buffer(spec, cur.device, cur.dtype))
     rows, pitch = layout.shape
     r0, c0 = layout.origin
@@ -295,7 +330,9 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
         raise RuntimeError(
             f"stencil2d {kind} kernel launch failed: CUDA error {err}")
     wrapper = {"strip": stencil2d_step, "step": stencil2d_step,
+               "fused_strip": stencil2d_step,
                "skew": stencil2d_skew_step,
+               "fused_strip_skew": stencil2d_skew_step,
                "resident": stencil2d_resident}[kind]
     if cur.dtype == torch.float64:
         wrapper.launches_f64 += 1
@@ -303,6 +340,8 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
         wrapper.launches += 1
     if kind == "strip":
         wrapper.launches_k1 += 1
+    elif kind.startswith("fused_strip"):
+        wrapper.launches_fused_strip += 1
 
 
 def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
@@ -310,7 +349,9 @@ def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
     """A pass of k steps as launches of at most the k one launch takes,
     from ``cur`` into ``donor`` and, past the first, a spare zero-guarded
     buffer by turns; returns the buffer the last launch wrote.  A skewed
-    pass's leftover single step runs the step kernel."""
+    pass's leftover single step runs the step kernel; a launch that
+    ``fused_strip_takes`` runs the fused strip kernel, counted on the
+    wrapper of ``kind``."""
     kmax = max_fused_steps(kind, spec.radius, plan_len(spec), cur.dtype)
     depths = [kmax] * (k // kmax) + ([k % kmax] if k % kmax else [])
     src, spare = cur, None
@@ -321,10 +362,12 @@ def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
             if spare is None:
                 spare = torch.zeros_like(donor)
             dst = spare if src is donor else donor
-        if depth > 1:
-            one = kind
-        else:
+        if depth == 1:
             one = "strip" if strip_takes(spec, cur.dtype) else "step"
+        elif fused_strip_takes(spec, cur.dtype, depth):
+            one = "fused_strip" if kind == "step" else "fused_strip_skew"
+        else:
+            one = kind
         _launch(one, (src, dst), spec, layout, depth)
         src = dst
     return src
@@ -343,8 +386,9 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     ``stencil2d_step_plain``.  On a float64 state (dtypes 'float64' and
     'df64') it is also the fp64-grade step of ``pallas_df64.df64_step``
     and takes that wrapper's name 'vpu_sep'.  ``launches`` counts the
-    float32 instance's launches, ``launches_f64`` the float64 one's, and
-    ``launches_k1`` those of the float32 steps the strip kernel ran."""
+    float32 instance's launches, ``launches_f64`` the float64 one's,
+    ``launches_k1`` those of the float32 steps the strip kernel ran and
+    ``launches_fused_strip`` those of the fused strip kernel."""
     _check(cur, donor, spec, layout, algorithm, fused_steps)
     if cur.device.type == "cpu":
         return stencil2d_step_plain(cur, donor, spec, layout, fused_steps)
@@ -359,7 +403,8 @@ def stencil2d_skew_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     Takes what that wrapper takes: algorithm 'vpu_roll' or 'mxu_hybrid1',
     a guard covering ``skew_steps * radius`` (the port's layout, which
     needs no extra row tiles), a band of ``tile_rows`` rows at least 2r
-    deep.  Counts its launches as ``stencil2d_step`` does.  The kernel
+    deep.  Counts its launches as ``stencil2d_step`` does, the fused strip
+    kernel's in ``launches_fused_strip`` too.  The kernel
     changes only the traversal, never a value, so its plain twin, which a
     CPU tensor runs, is the fused pass's, ``stencil2d_step_plain``."""
     if algorithm not in SKEW_ALGORITHMS:
@@ -399,10 +444,12 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
 
 
 # kernel launches per instance, for chip_smoke.py: float32 and float64, and
-# the strip kernel's float32 steps apart
+# the strip kernels' float32 launches apart
 for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
     _wrapper.launches = _wrapper.launches_f64 = 0
 stencil2d_step.launches_k1 = 0
+for _wrapper in (stencil2d_step, stencil2d_skew_step):
+    _wrapper.launches_fused_strip = 0
 del _wrapper
 
 

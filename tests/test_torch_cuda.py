@@ -567,6 +567,106 @@ def test_star2d3r_engine_counts_its_launches(cuda, kw, kernel, launches):
             assert np.abs(out.cpu().numpy() - want).max() <= 1e-5 * np.abs(want).max()
 
 
+# -- the fused strip kernel (float32, k = 2, radius 1-4, <= 2 terms, no residue) ----
+# It keeps the strip kernel's and the tile kernels' fmaf chains, so a pass equals two
+# strip steps, the tile-based fused pass and the tile-based skewed pass bit for bit
+# on any fill (the inf fill: NaN where they have NaN); against the twin, the 0/1
+# fill bit for bit, the pi/100 fill rel 1e-5 after two passes (2K steps).
+def _kinds_2d(R, kinds, seed):
+    """A residue-free 2-D spec of radius R with a term of integer taps per
+    letter of ``kinds``: row and column convs ("b"), the column conv alone
+    ("c") or the row conv alone ("r")."""
+    rng = np.random.default_rng(seed)
+
+    def taps():
+        t = rng.integers(-3, 4, 2 * R + 1).astype(np.float64)
+        t[rng.random(2 * R + 1) < 0.3] = 0.0
+        t[0] = 1.0
+        return tuple(float(v) for v in t)
+
+    terms = tuple(SeparableTerm(taps=(None if k == "c" else taps(), None if k == "r" else taps()))
+                  for k in kinds)
+    return StencilSpec(name=f"kinds_r{R}_{kinds}", ndim=2, radius=R, halo=(R, R), terms=terms,
+                       residue=(), fuse_factor=1)
+
+
+# every kind of term alone and beside another (star2d3r is "rc")
+FUSED_STRIP_CASES = ["star2d3r", (1, "b"), (2, "bc"), (3, "r"), (4, "bc"), (2, "c"), (3, "cr"),
+                     (1, "rb"), (4, "rr")]
+
+
+@pytest.mark.parametrize("guard", ["aligned", (8, 9)])
+@pytest.mark.parametrize("interior", [(96, 256), (300, 140), (37, 45)])
+@pytest.mark.parametrize("case", FUSED_STRIP_CASES, ids=str)
+def test_fused_strip_kernel_equals_strip_steps_and_tile_kernels(cuda, case, interior, guard):
+    """Both wrappers' k = 2 pass (counted in launches_fused_strip) against two
+    strip-kernel steps and the tile-based fused and skew kernels it replaces,
+    with 16-byte and (guard (8, 9)) 4-byte staging, and against the twin."""
+    spec = get_shape(case) if isinstance(case, str) else _kinds_2d(*case, seed=case[0])
+    K = 2
+    assert stencil2d.fused_strip_takes(spec, torch.float32, K)
+    lay = _layout_2d(spec, interior, K) if guard == "aligned" else Layout2D(
+        interior=interior, halo=spec.halo, tile=default_tile_2d(*interior), guard=guard)
+    g0 = reference.random_padded(spec, interior, seed=7)
+    inf = g0 * (np.pi / 100)
+    inf.flat[inf.size // 3] = np.inf
+    for integer, fill in ((True, g0 % 2), (False, g0 * (np.pi / 100)), (None, inf)):
+        x = lay.to_internal(fill, device=cuda)
+        keep = x.clone()
+        passes = {}
+        for name, wrapper, kw in (("fused", stencil2d.stencil2d_step, "fused_steps"),
+                                  ("skew", stencil2d.stencil2d_skew_step, "skew_steps")):
+            before = (wrapper.launches, wrapper.launches_fused_strip)
+            passes[name] = wrapper(x, torch.zeros_like(x), spec, lay, **{kw: K})
+            assert (wrapper.launches - before[0],
+                    wrapper.launches_fused_strip - before[1]) == (1, 1)
+        before = stencil2d.stencil2d_step.launches_k1
+        strip = _steps(stencil2d.stencil2d_step, x, spec, lay, K)
+        assert stencil2d.stencil2d_step.launches_k1 - before == K
+        for kind in ("step", "skew"):
+            tile = torch.zeros_like(x)
+            stencil2d._launch(kind, (x, tile), spec, lay, K)
+            passes["tile " + kind] = tile
+        if integer is None:
+            torch.cuda.synchronize()
+            for name, got in passes.items():
+                torch.testing.assert_close(got, strip, rtol=0, atol=0, equal_nan=True)
+            continue
+        for name, got in passes.items():
+            _agree(got, strip, True)
+        _agree(passes["fused"], stencil2d.stencil2d_step_plain(
+            x, torch.zeros_like(x), spec, lay, K), integer)
+        if not integer:
+            two = stencil2d.stencil2d_step(passes["fused"], torch.zeros_like(x), spec, lay,
+                                           fused_steps=K)
+            want = stencil2d.stencil2d_step_plain(stencil2d.stencil2d_step_plain(
+                x, torch.zeros_like(x), spec, lay, K), torch.zeros_like(x), spec, lay, K)
+            _agree(two, want, False)
+        assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("kw,wrapper", [({}, "stencil2d_step"),
+                                        ({"fusion": "skew"}, "stencil2d_skew_step")])
+def test_star2d3r_engine_runs_the_fused_strip_kernel(cuda, kw, wrapper):
+    """The engine's default star2d3r pass (k = 2) and its skewed pass launch the
+    fused strip kernel and no tile-based fused or skewed kernel; float64 and the
+    box shapes (three terms) keep the tile kernels."""
+    interior = (200, 300)
+    eng = engine.StencilEngine.for_shape("star2d3r", interior, device=cuda, **kw)
+    counter = getattr(stencil2d, wrapper)
+    state = eng.to_internal(reference.random_padded(eng.spec, interior, seed=3))
+    before = (counter.launches, counter.launches_fused_strip)
+    eng.run_internal(state, 64)
+    torch.cuda.synchronize()
+    assert (counter.launches - before[0], counter.launches_fused_strip - before[1]) == (32, 32)
+    for name, dtype in (("box2d3r", "float32"), ("star2d3r", "float64")):
+        other = engine.StencilEngine.for_shape(name, interior, device=cuda, dtype=dtype,
+                                               fused_steps=2, **kw)
+        before = counter.launches_fused_strip
+        other.run(reference.random_padded(other.spec, interior, seed=3), 2)
+        assert counter.launches_fused_strip == before
+
+
 @pytest.mark.parametrize("dtype,cap", [("float32", "RESIDENT_2D_BYTES"),
                                        ("float64", "RESIDENT_2D_BYTES"),
                                        ("df64", "RESIDENT_PAIR_2D_BYTES")])
