@@ -13,7 +13,8 @@ its hand-written CUDA kernels:
 * 3-D, the reference artifact's 3-D configurations: star3d1r and box3d1r at
   256^3, two fused steps per pass (the engine's default), through
   ``csrc/stencil3d.cu`` (replacing
-  ``lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel``);
+  ``lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel``): every pass the
+  march kernel, the general kernel held against it;
 * 1-D, the reference artifact's 1-D configurations: 1d1r 4096 x 64 (all
   steps in one cooperative launch) and 1d2r 1,000,000 x 256 (passes of
   three fused steps), through ``csrc/stencil1d.cu``, whose two kernels in
@@ -62,15 +63,20 @@ Phases, each printing one line or more and raising on failure:
    256^3, at K = 1, 2 and 4 fused steps per pass: integer fill bit for bit
    after one and two passes; pi/100 fill within rel 1e-6 after 4 steps,
    printing whether it was bit-equal (every 3-D registry tap is a power of
-   two, so the two should agree bit for bit on any fill);
+   two, so the two should agree bit for bit on any fill); at K = 1 and 2
+   the pass runs the march kernel (each launch counted), which must also
+   equal the general kernel's pass bit for bit on both fills; K = 4 runs
+   the general kernel;
 6. the 3-D path end to end at 256^3 for both shapes: the engine resolves
    to 'vpu' at k = 2; ``run`` of 2 steps (1 launch) and of 3 steps (2
-   launches: a pass of 2 and the remainder pass of 1) each bit for bit
-   against a float64 dense stencil on the card; a (24, 40, 200) grid at 4
-   steps within rel 1e-5 of the fp64 ground truth;
-7. 64 steps at 256^3 for both shapes through ``run_internal`` and through
-   the naive dense stencil; the kernel's and the twin's time per pass;
-   one ``F.conv3d`` step with the dense 3x3x3 coefficients (TF32 off); the
+   launches: a pass of 2 and the remainder pass of 1), every launch the
+   march kernel counted from zero, each bit for bit against a float64
+   dense stencil on the card; a (24, 40, 200) grid at 4 steps within rel
+   1e-5 of the fp64 ground truth;
+7. 64 steps at 256^3 for both shapes through ``run_internal`` (32 march
+   launches) and through the naive dense stencil; the march kernel's, the
+   general kernel's and the twin's time per pass, in turns; one
+   ``F.conv3d`` step with the dense 3x3x3 coefficients (TF32 off); the
    pass's bound;
 8. each 1-D wrapper against its twin on the card: 1d1r and 1d2r at 4096,
    3001 (a ragged tile) and 1,000,000, and the wide kernels with
@@ -150,27 +156,35 @@ Phases, each printing one line or more and raising on failure:
    around ``run_internal``) and as one launch's device time (a CUDA
    graph);
 17. the 3-D kernel's float64 instance against its float64 twin, for
-   star3d1r and box3d1r at (37, 45, 130) and 256^3, K = 1 and 2: the
-   integer fill bit for bit against the twin and a float64 dense stencil on
-   the card after one and two passes, the pi/100 fill's relative error
-   after 4 steps beside its limit 1e-13 (it should be 0: no FMA in fp64);
+   star3d1r and box3d1r at (37, 45, 130) and 256^3, K = 1 and 2 (the march
+   kernel, each launch counted, bit for bit against the general kernel's
+   pass on both fills): the integer fill bit for bit against the twin and
+   a float64 dense stencil on the card after one and two passes, the
+   pi/100 fill's relative error after 4 steps beside its limit 1e-13 (it
+   should be 0: no FMA in fp64);
 18. the 3-D fp64 engine paths at 256^3, launches of the float64 instance
-   counted from zero over the phase: 'df64' ('vpu_sep', one step per pass)
-   and 'float64' (passes of k = 2) for both shapes, ``run(.., 2)`` of the
-   integer fill bit for bit against a float64 dense stencil on the card and
-   ``run(.., 4)`` of the pi/100 fill within rel 1e-13 of it;
+   and of the march kernel counted from zero over the phase, every pass
+   the march kernel: 'df64' ('vpu_sep', one step per pass) and 'float64'
+   (passes of k = 2) for both shapes, ``run(.., 2)`` of the integer fill
+   bit for bit against a float64 dense stencil on the card and ``run(..,
+   4)`` of the pi/100 fill within rel 1e-13 of it;
 19. df64 (64 launches) and float64 (32) 256^3 x 64 through
-   ``run_internal`` and the naive dense stencil in float64; the float64
-   instance's device time per df64 pass and per float64 k = 2 pass, its
-   twin's, one float64 ``F.conv3d`` 3x3x3 step and the pass's byte bound;
+   ``run_internal`` and the naive dense stencil in float64; the march
+   kernel's float64 device time per df64 pass beside the general kernel's
+   and the twin's, and per float64 k = 2 pass beside two k = 1 passes and
+   the general kernel's k = 2 pass (each set in turns); one float64
+   ``F.conv3d`` 3x3x3 step and the pass's byte bound;
 20. the kernels redesigned for Hopper, each with its registers and
    spills from ptxas (the strip kernel, the fused strip kernel, the wide
-   1-D pass): the 2-D strip kernel's step at star2d1r 8192^2 beside
-   the tile kernel it replaces (timed in turns), its twin, ``F.conv2d``,
-   its byte bound and its share of it; the wide 1-D pass at float64 r = 40
-   x 100,000 and float32 1d2r 1,000,000 (k = 2), and at float64 r = 40 x
-   16,777,216 (134 MB a buffer), each beside one ``F.conv1d`` step, its
-   bound and its share of it.
+   1-D pass, the 3-D march kernel), failing on any spill: the 2-D strip
+   kernel's step at star2d1r 8192^2 beside the tile kernel it replaces
+   (timed in turns), its twin, ``F.conv2d``, its byte bound and its share
+   of it; the march kernel's float32 k = 2, df64 and float64 k = 2 passes
+   at 256^3 beside the general kernel (phases 7 and 19) and their share of
+   the byte bound; the wide 1-D pass at float64 r = 40 x 100,000 and
+   float32 1d2r 1,000,000 (k = 2), and at float64 r = 40 x 16,777,216 (134
+   MB a buffer), each beside one ``F.conv1d`` step, its bound and its
+   share of it.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -247,7 +261,9 @@ def _counters():
     strip kernel's float32 steps count in both "stencil2d" and
     "stencil2d_k1"; the fused strip kernel's passes in the wrapper's own
     count and in "stencil2d_fused_strip" (from ``stencil2d_step``) or
-    "stencil2d_skew_fused_strip" (from ``stencil2d_skew_step``)."""
+    "stencil2d_skew_fused_strip" (from ``stencil2d_skew_step``); the 3-D
+    march kernel's passes in "stencil3d" (float32) or "df64_3d_step"
+    (float64) and in "stencil3d_march"."""
     from lorastencil_tpu_torch.ops import stencil1d, stencil2d, stencil3d
 
     out = {"stencil2d": (stencil2d.stencil2d_step, "launches"),
@@ -258,6 +274,7 @@ def _counters():
                                           "launches_fused_strip"),
            "stencil3d": (stencil3d.stencil3d_step, "launches"),
            "df64_3d_step": (stencil3d.stencil3d_step, "launches_f64"),
+           "stencil3d_march": (stencil3d.stencil3d_step, "launches_march"),
            "df64_step": (stencil2d.stencil2d_step, "launches_f64"),
            "stencil2d_skew": (stencil2d.stencil2d_skew_step, "launches"),
            "stencil2d_skew_f64": (stencil2d.stencil2d_skew_step,
@@ -627,9 +644,22 @@ def bench(device, card):
     return res, base
 
 
+def general_3d(x, spec, lay, K, out=None):
+    """One pass of the general 3-D kernel (``stencil3d_kernel``), which the
+    march kernel replaces at K <= 2: the launch ``stencil3d_step`` makes for
+    a pass ``march_takes`` refuses."""
+    from lorastencil_tpu_torch.ops import stencil3d
+
+    out = torch.zeros_like(x) if out is None else out
+    return stencil3d._launch(x, out, spec, lay, K, stencil3d.plan_pass(
+        spec, K, x.element_size())[1])
+
+
 def check_kernel_3d(name, interior, K, device):
     """Phase 5 for one shape, size and depth; returns (abs err, rel err,
-    bit-equal) of the pi/100 fill after 4 steps."""
+    bit-equal) of the pi/100 fill after 4 steps.  At K <= 2 the pass runs
+    the march kernel, which must also equal the general kernel's pass bit
+    for bit on both fills."""
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil3d
     from lorastencil_tpu_torch.utils import reference
@@ -638,8 +668,13 @@ def check_kernel_3d(name, interior, K, device):
     lay = port_layout_3d(spec, interior, K)
     g0 = reference.random_padded(spec, interior, seed=1)
     x = lay.to_internal(g0, device=device)
+    march = stencil3d.march_takes(spec, torch.float32, K)
     for passes in (1, 2):
+        before = stencil3d.stencil3d_step.launches_march
         got = run_steps(stencil3d.stencil3d_step, x, spec, lay, passes * K, K)
+        if stencil3d.stencil3d_step.launches_march - before != (
+                passes if march else 0):
+            raise AssertionError(f"{name} {interior} K={K}: march launches")
         want = run_steps(stencil3d.stencil3d_step_plain, x, spec, lay,
                          passes * K, K)
         torch.cuda.synchronize()
@@ -648,6 +683,13 @@ def check_kernel_3d(name, interior, K, device):
             raise AssertionError(
                 f"{name} {interior} K={K}: kernel differs from its twin at "
                 f"{bad} cells after {passes} passes (integer fill)")
+    for fill in ((g0, g0 * (np.pi / 100)) if march else ()):
+        x1 = lay.to_internal(fill, device=device)
+        got = stencil3d.stencil3d_step(x1, torch.zeros_like(x1), spec, lay,
+                                       fused_steps=K)
+        if not torch.equal(got, general_3d(x1, spec, lay, K)):
+            raise AssertionError(f"{name} {interior} K={K}: the march kernel "
+                                 f"differs from the general kernel")
     x = lay.to_internal(g0 * (np.pi / 100), device=device)
     got = run_steps(stencil3d.stencil3d_step, x, spec, lay, 4, K)
     want = run_steps(stencil3d.stencil3d_step_plain, x, spec, lay, 4, K)
@@ -685,10 +727,12 @@ def main_path_3d(name, device):
         out = eng.run(g0, steps)
         torch.cuda.synchronize()
         launches[steps] = counts()
-        if launches[steps]["stencil3d"] != expect:
+        if (launches[steps]["stencil3d"],
+                launches[steps]["stencil3d_march"]) != (expect, expect):
             raise AssertionError(
                 f"{name}: run({steps}) launched the 3-D kernel "
-                f"{launches[steps]['stencil3d']} times, expected {expect}")
+                f"{launches[steps]['stencil3d']} times, the march kernel "
+                f"{launches[steps]['stencil3d_march']}, expected {expect}")
         if tuple(out.shape) != spec.padded_shape(INTERIOR_3D):
             raise AssertionError(f"{name}: output shape {tuple(out.shape)}")
         if not bool(torch.isfinite(out).all()):
@@ -715,9 +759,9 @@ def main_path_3d(name, device):
 
 def bench_3d(name, device, card):
     """Phase 7 for one shape: 64 steps through ``run_internal`` and
-    through the naive dense stencil; the kernel's and the twin's ms per
-    pass at the engine's k; returns the GStencil/s records and the
-    per-pass times."""
+    through the naive dense stencil; the kernel's (the march kernel), the
+    general kernel's and the twin's ms per pass at the engine's k, in
+    turns; returns the GStencil/s records and the per-pass times."""
     from lorastencil_tpu_torch import engine
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil3d, torch_ref
@@ -732,13 +776,14 @@ def bench_3d(name, device, card):
                                repeats=3, warmup=1)
     res = metrics.bench_result(spec, INTERIOR_3D, BENCH_STEPS_3D, secs,
                                "cuda-stencil3d", "fp32-exact", 3)
-    launches = count_run(eng, state, BENCH_STEPS_3D, "stencil3d",
+    launches = count_run(eng, state, BENCH_STEPS_3D, "stencil3d_march",
                          BENCH_STEPS_3D // k)
     ms = time_calls({
         "plain": lambda a, b: stencil3d.stencil3d_step_plain(
             a, b, spec, lay, fused_steps=k),
         "kernel": lambda a, b: stencil3d.stencil3d_step(
-            a, b, spec, lay, fused_steps=k)},
+            a, b, spec, lay, fused_steps=k),
+        "general": lambda a, b: general_3d(a, spec, lay, k, b)},
         state, torch.zeros_like(state), calls=10)
     del state
     grid = torch.rand(spec.padded_shape(INTERIOR_3D), generator=gen,
@@ -759,11 +804,12 @@ def bench_3d(name, device, card):
               f"{r.time_ms} ms, {r.gstencil_per_s} GStencil/s [{card}]",
               flush=True)
     print(f"phase 7: {name} vs_baseline "
-          f"{res.gstencil_per_s / base.gstencil_per_s}; {launches} launches "
-          f"per {BENCH_STEPS_3D}-step run; one pass of k={k} "
-          f"steps: kernel {ms['kernel']} ms, plain twin {ms['plain']} ms "
+          f"{res.gstencil_per_s / base.gstencil_per_s}; {launches} march "
+          f"launches per {BENCH_STEPS_3D}-step run; one pass of k={k} "
+          f"steps: march kernel {ms['kernel']} ms, the general kernel it "
+          f"replaces {ms['general']} ms, plain twin {ms['plain']} ms "
           f"[{card}]", flush=True)
-    return res, base, ms["kernel"], ms["plain"]
+    return res, base, ms["kernel"], ms["plain"], ms["general"]
 
 
 def spec_1d(name):
@@ -1740,7 +1786,9 @@ def check_kernel_fp64_3d(name, interior, K, device):
     """Phase 17 for one shape, size and depth: the float64 instance against
     its twin after one and two passes of K (bit for bit on both fills) and,
     on the integer fill, against a float64 dense stencil on the card; returns
-    (abs err, rel err, bit-equal) of the pi/100 fill after 4 steps."""
+    (abs err, rel err, bit-equal) of the pi/100 fill after 4 steps.  The
+    pass runs the march kernel, which must also equal the general kernel's
+    pass bit for bit on both fills."""
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil3d, torch_ref
     from lorastencil_tpu_torch.utils import reference
@@ -1767,6 +1815,16 @@ def check_kernel_fp64_3d(name, interior, K, device):
             raise AssertionError(
                 f"{name} {interior} K={K}: fp64 kernel differs from the "
                 f"float64 dense stencil at {bad} cells after {passes} passes")
+    for fill in (g0, g0 * (np.pi / 100)):
+        x1 = lay.to_internal(fill, torch.float64, device)
+        before = stencil3d.stencil3d_step.launches_march
+        got = stencil3d.stencil3d_step(x1, torch.zeros_like(x1), spec, lay,
+                                       fused_steps=K)
+        if stencil3d.stencil3d_step.launches_march != before + 1:
+            raise AssertionError(f"{name} {interior} K={K}: no march launch")
+        if not torch.equal(got, general_3d(x1, spec, lay, K)):
+            raise AssertionError(f"{name} {interior} K={K}: the fp64 march "
+                                 f"kernel differs from the general kernel")
     x = lay.to_internal(g0 * (np.pi / 100), torch.float64, device)
     got = run_steps(stencil3d.stencil3d_step, x, spec, lay, 4, K)
     want = run_steps(stencil3d.stencil3d_step_plain, x, spec, lay, 4, K)
@@ -1813,7 +1871,8 @@ def main_path_fp64_3d(device):
                 launched = {key: v - before[key] for key, v in counts().items()
                             if v != before[key]}
                 expect = -(-steps // k)
-                if launched != {"df64_3d_step": expect}:
+                if launched != {"df64_3d_step": expect,
+                                "stencil3d_march": expect}:
                     raise AssertionError(f"{dtype} {name} run({steps}) "
                                          f"launched {launched}")
                 if (tuple(out.shape) != spec.padded_shape(INTERIOR_3D)
@@ -1833,20 +1892,24 @@ def main_path_fp64_3d(device):
                 launches[(name, dtype, steps)] = expect
                 lines.append(f"{dtype} {name} {INTERIOR_3D} -> "
                              f"{label} k={k}: run({steps}) {expect} "
-                             f"launch(es) of df64_3d_step, rel err {rel:.3e}")
+                             f"launch(es) of df64_3d_step, each the march "
+                             f"kernel, rel err {rel:.3e}")
                 del out, want
     total = counts()["df64_3d_step"]
-    if total == 0:
-        raise AssertionError("the 3-D fp64 paths never launched df64_3d_step")
+    if total == 0 or counts()["stencil3d_march"] != total:
+        raise AssertionError("the 3-D fp64 paths did not launch the march "
+                             "kernel for every pass")
     return launches, total, lines
 
 
 def bench_fp64_3d(device, card):
     """Phase 19: df64 (k = 1) and float64 (k = 2) 256^3 x 64 through
     ``run_internal`` and the naive dense stencil in float64; per shape the
-    float64 instance's device time per df64 pass, its twin's, one float64
-    ``F.conv3d`` step and the pass's bound; returns the kernels' timing
-    records."""
+    march kernel's float64 device time per df64 pass beside the general
+    kernel's and the twin's, and per float64 k = 2 pass beside two k = 1
+    passes and the general kernel's k = 2 pass, each set in turns; one
+    float64 ``F.conv3d`` step and the pass's bound; returns the kernels'
+    timing records."""
     from lorastencil_tpu_torch import engine
     from lorastencil_tpu_torch.ops import stencil3d, torch_ref
     from lorastencil_tpu_torch.utils import metrics
@@ -1868,7 +1931,7 @@ def bench_fp64_3d(device, card):
                                               "cuda-fp64", dtype, 3)
             k = eng._fused_k()
             res[dtype + " launches"] = count_run(
-                eng, state, BENCH_STEPS_3D, "df64_3d_step",
+                eng, state, BENCH_STEPS_3D, "stencil3d_march",
                 BENCH_STEPS_3D // k)
             if dtype == "df64":
                 spec, lay = eng.spec, eng.layout
@@ -1876,14 +1939,21 @@ def bench_fp64_3d(device, card):
                     "plain": lambda a, b: stencil3d.stencil3d_step_plain(
                         a, b, spec, lay),
                     "kernel": lambda a, b: stencil3d.stencil3d_step(
-                        a, b, spec, lay, algorithm="vpu_sep")},
+                        a, b, spec, lay, algorithm="vpu_sep"),
+                    "general": lambda a, b: general_3d(a, spec, lay, 1, b)},
                     state, torch.zeros_like(state), calls=10)
             else:
                 lay2 = eng.layout
-                ms["k=2"] = time_calls({
-                    "kernel": lambda a, b: stencil3d.stencil3d_step(
-                        a, b, spec, lay2, fused_steps=2)},
-                    state, torch.zeros_like(state), calls=10)["kernel"]
+                k2 = time_calls({
+                    "k=2": lambda a, b: stencil3d.stencil3d_step(
+                        a, b, spec, lay2, fused_steps=2),
+                    "two k=1": lambda a, b: stencil3d.stencil3d_step(
+                        stencil3d.stencil3d_step(a, b, spec, lay2), a, spec,
+                        lay2),
+                    "general k=2": lambda a, b: general_3d(a, spec, lay2, 2,
+                                                           b)},
+                    state, torch.zeros_like(state), calls=10)
+                ms.update(k2)
             del state
         grid = torch.rand(spec.padded_shape(INTERIOR_3D), generator=gen,
                           device=device, dtype=torch.float64) * 0.01
@@ -1913,22 +1983,33 @@ def bench_fp64_3d(device, card):
         timing[name] = dict(ms=ms["kernel"], plain_ms=ms["plain"],
                             bound_ms=bound, bound_by=by, library_ms=lib,
                             steps_per_launch=1, library_steps=1,
-                            shape=f"df64 {name} {dims}")
+                            shape=f"df64 {name} {dims}",
+                            general_kernel_ms=ms["general"],
+                            float64_k2_ms=ms["k=2"],
+                            float64_two_k1_ms=ms["two k=1"],
+                            float64_general_k2_ms=ms["general k=2"])
         print(f"phase 19: df64_3d_step at df64 {name} {dims}, 1 step per "
-              f"launch: kernel {ms['kernel']} ms, plain twin {ms['plain']} "
+              f"launch: march kernel {ms['kernel']} ms, the general kernel "
+              f"it replaces {ms['general']} ms, plain twin {ms['plain']} "
               f"ms, float64 F.conv3d 3x3x3 one step {lib} ms, bound {bound} "
               f"ms ({by}; bytes {parts[0]} ms in 8-byte cells, operations "
-              f"{parts[1]} ms at {PEAK_FP64_FLOPS / 1e12:.0f} fp64 TFLOP/s); "
-              f"a float64 k=2 pass {ms['k=2']} ms [{card}]", flush=True)
+              f"{parts[1]} ms at {PEAK_FP64_FLOPS / 1e12:.0f} fp64 TFLOP/s) "
+              f"[{card}]", flush=True)
+        print(f"phase 19: float64 {name} {dims} k=2 pass: march kernel "
+              f"{ms['k=2']} ms, two march k=1 passes {ms['two k=1']} ms "
+              f"({ms['two k=1'] / ms['k=2']:.4f}x), the general kernel's k=2 "
+              f"pass {ms['general k=2']} ms; bound {bound} ms [{card}]",
+              flush=True)
     return timing
 
 
 # Phase 20: the kernels redesigned for Hopper, csrc/stencil2d.cu strip_kernel
 # (an instantiation per radius 1-4 and term count 0-3) and
-# fused_strip_kernel (radius 1-4, 1-2 terms, K = 2, the terms' kinds) and
-# csrc/stencil1d.cu wide_kernel (float and double): {kernel: (source, the
-# pattern of the mangled names ptxas reports, what the instantiation's
-# numbers are)}.  A mangled name carries its length before it
+# fused_strip_kernel (radius 1-4, 1-2 terms, K = 2, the terms' kinds),
+# csrc/stencil1d.cu wide_kernel (float and double) and csrc/stencil3d.cu
+# march_kernel (float and double, radius 1-2, K = 1-2, star3d1r's and
+# box3d1r's term kinds): {kernel: (source, the pattern of the mangled names
+# ptxas reports, what the instantiation's numbers are)}.  A mangled name carries its length before it
 # ("12strip_kernel"), which keeps strip_kernel's pattern off
 # "18fused_strip_kernel".
 PTXAS_KERNELS = {
@@ -1936,7 +2017,11 @@ PTXAS_KERNELS = {
     "fused_strip_kernel": (
         "stencil2d", r"fused_strip_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d+)E",
         "R,terms,K,kinds"),
-    "wide_kernel": ("stencil1d", r"wide_kernelI([fd])E", "type")}
+    "wide_kernel": ("stencil1d", r"wide_kernelI([fd])E", "type"),
+    "march_kernel": (
+        "stencil3d",
+        r"march_kernelI([fd])Li(\d)ELi(\d)ELi(\d)ELi(\d+)ELb([01])E",
+        "type,R,K,terms,kinds,16-byte")}
 
 
 def ptxas_table(log, pattern):
@@ -1961,12 +2046,13 @@ def ptxas_table(log, pattern):
     return table
 
 
-def redesigned(device, card, builds, step_ms, lib2):
+def redesigned(device, card, builds, step_ms, lib2, march_ms):
     """Phase 20: per redesigned kernel its registers and spills, device ms,
     bound and share of it, and library ms; the 2-D step beside the tile
     kernel it replaces (``step_ms``: phase 2's strip, tile and twin times,
-    timed in turns) and the wide pass at three sizes; returns the large
-    wide pass's record."""
+    timed in turns), the 3-D march kernel's passes beside the general
+    kernel's (``march_ms``: phases 7 and 19, each timed in turns) and the
+    wide pass at three sizes; returns the large wide pass's record."""
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil1d as s1
 
@@ -1984,6 +2070,11 @@ def redesigned(device, card, builds, step_ms, lib2):
           f"the tile kernel it replaces {tile} ms ({tile / strip:.4f}x); "
           f"plain twin {plain} ms; F.conv2d 7x7 {lib2} ms [{card}]",
           flush=True)
+    for label, ms, general, bound in march_ms:
+        print(f"phase 20: march_kernel, {label} pass at 256^3: {ms} ms "
+              f"(device), {bound / ms:.4f} of its {bound} ms bytes bound; "
+              f"the general kernel {general} ms ({general / ms:.4f}x) "
+              f"[{card}]", flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     large = None
     for name, n, dtype, k in (("r40", 100_000, torch.float64, 1),
@@ -2087,8 +2178,10 @@ def main() -> int:
                                                      device)
                 if interior == INTERIOR_3D and K == 2:
                     main_errs_3d[name] = abs_err
-                print(f"phase 5: {name} {interior} K={K}: integer fill "
-                      f"bit-exact after 1-2 passes; pi/100 fill rel err "
+                which = ("the march kernel, bit-equal to the general "
+                         "kernel," if K <= 2 else "the general kernel")
+                print(f"phase 5: {name} {interior} K={K}: {which} integer "
+                      f"fill bit-exact after 1-2 passes; pi/100 fill rel err "
                       f"{rel:.3e} after 4 steps (<= 1e-6), bit-equal "
                       f"{same}", flush=True)
 
@@ -2097,17 +2190,17 @@ def main() -> int:
         launches, rel = main_path_3d(name, device)
         paths_3d[name] = launches
         print(f"phase 6: {name} {INTERIOR_3D}: 'vpu' at k=2; run(2) and "
-              f"run(3) bit-exact against float64 on the card, launches "
-              f"{launches}; (24, 40, 200) x4 rel err {rel:.3e} <= 1e-5",
-              flush=True)
+              f"run(3) bit-exact against float64 on the card, every pass "
+              f"the march kernel, launches {launches}; (24, 40, 200) x4 rel "
+              f"err {rel:.3e} <= 1e-5", flush=True)
 
     timing_3d = {}
     for name in ("star3d1r", "box3d1r"):
         spec3 = get_shape(name)
-        _, _, ms3, plain_ms3 = bench_3d(name, device, card)
+        _, _, ms3, plain_ms3, general3 = bench_3d(name, device, card)
         lib3 = library_ms(spec3, INTERIOR_3D, device)
         bound3, by3 = bound_ms(spec3, INTERIOR_3D, 2)
-        timing_3d[name] = (ms3, plain_ms3, lib3, bound3, by3)
+        timing_3d[name] = (ms3, plain_ms3, lib3, bound3, by3, general3)
         print(f"phase 7: {name} one step at 256^3: F.conv3d 3x3x3 {lib3} "
               f"ms; bound of one k=2 pass {bound3} ms ({by3}) [{card}]",
               flush=True)
@@ -2202,6 +2295,7 @@ def main() -> int:
                 if interior == INTERIOR_3D and K == 1:
                     errs_fp64_3d[name] = abs_err
                 print(f"phase 17: df64_3d_step {name} {interior} K={K}: "
+                      f"the march kernel, bit-equal to the general kernel; "
                       f"integer fill bit-exact against its twin and a float64 "
                       f"dense stencil after 1-2 passes; pi/100 fill rel err "
                       f"{rel:.3e} after 4 steps (limit 1e-13), bit-equal "
@@ -2215,8 +2309,16 @@ def main() -> int:
 
     timing_fp64_3d = bench_fp64_3d(device, card)
 
+    march_ms = [(f"float32 k=2 {name}", timing_3d[name][0],
+                 timing_3d[name][5], timing_3d[name][3]) for name in SHAPES_3D]
+    for name in SHAPES_3D:
+        t = timing_fp64_3d[name]
+        march_ms += [(f"df64 k=1 {name}", t["ms"], t["general_kernel_ms"],
+                      t["bound_ms"]),
+                     (f"float64 k=2 {name}", t["float64_k2_ms"],
+                      t["float64_general_k2_ms"], t["bound_ms"])]
     wide_large = redesigned(device, card, builds, (ms2, plain_ms2, tile_ms2),
-                            lib2)
+                            lib2, march_ms)
 
     loaded = loaded_reference_modules()
     if loaded:
@@ -2230,14 +2332,16 @@ def main() -> int:
         "bound_ms": bound2, "bound_by": by2, "library_ms": lib2,
         "tile_kernel_ms": tile_ms2}]
     for name in ("star3d1r", "box3d1r"):
-        ms3, plain_ms3, lib3, bound3, by3 = timing_3d[name]
+        ms3, plain_ms3, lib3, bound3, by3, general3 = timing_3d[name]
         kernels.append({
             "name": f"stencil3d_step[{name}]", "route": "cuda",
             "source": SOURCES["stencil3d"], "replaces": REPLACES["stencil3d"],
-            "launches": paths_3d[name][3]["stencil3d"],
+            "kernel": "march_kernel",
+            "launches": paths_3d[name][3]["stencil3d_march"],
             "max_abs_err": main_errs_3d[name], "ms": ms3,
             "plain_ms": plain_ms3, "bound_ms": bound3, "bound_by": by3,
-            "library_ms": lib3, "steps_per_launch": 2, "library_steps": 1})
+            "library_ms": lib3, "steps_per_launch": 2, "library_steps": 1,
+            "general_kernel_ms": general3})
     for kernel in KERNELS_1D:
         kernels.append(dict({
             "name": kernel, "route": "cuda", "source": SOURCES["stencil1d"],
@@ -2280,7 +2384,7 @@ def main() -> int:
         kernels.append(dict({
             "name": f"df64_3d_step[{name}]", "route": "cuda",
             "source": SOURCES["stencil3d"],
-            "replaces": REPLACES["df64_3d_step"],
+            "replaces": REPLACES["df64_3d_step"], "kernel": "march_kernel",
             "launches": launches_fp64_3d[(name, "df64", 4)],
             "max_abs_err": errs_fp64_3d[name]}, **timing_fp64_3d[name]))
     print(json.dumps({"kernels": kernels}), flush=True)

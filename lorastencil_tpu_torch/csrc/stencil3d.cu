@@ -1,18 +1,21 @@
 // K fused dirichlet0 timesteps of a 3-D low-rank stencil on the port's
 // internal layout, in float32 or float64, on CUDA cores: one pass over device
-// memory.
+// memory.  Two kernels share this contract: the march kernel (march_kernel,
+// below), which takes every pass the engine launches for the 3-D registry,
+// and the general kernel (stencil3d_kernel), which takes the rest.
 //
-// The float32 instance (ls_stencil3d_step) replaces the TPU kernel
-// lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel (driven by
-// pallas_3d.stencil3d_step).  The float64 instance (ls_stencil3d_step_f64)
-// serves the fp64-grade tier: it replaces
-// lorastencil_tpu/ops/pallas_df64_3d.py::_df64_3d_kernel (df64_3d_step), which
-// computes one fp64-grade step on error-free (hi, lo) fp32 pairs because the
-// TPU has no fp64 unit; the H100 has one, so this instance computes in native
-// double, and it also runs dtype float64 with fused steps, as the JAX engine
-// runs pallas_3d's kernel in float64 off the TPU.  Level L = 1..K of the pass
-// turns level L-1 into level L at in-plane extent (K-L)*r around the block
-// tile; each level-L plane z sums, in order (ops/band_gemm.py apply_spec_3d):
+// The float32 instances (ls_stencil3d_march, ls_stencil3d_step) replace the
+// TPU kernel lorastencil_tpu/ops/pallas_3d.py::_stencil3d_kernel (:118,
+// driven by pallas_3d.stencil3d_step).  The float64 instances
+// (ls_stencil3d_march_f64, ls_stencil3d_step_f64) serve the fp64-grade tier:
+// they replace lorastencil_tpu/ops/pallas_df64_3d.py::_df64_3d_kernel (:79,
+// df64_3d_step), which computes one fp64-grade step on error-free (hi, lo)
+// fp32 pairs because the TPU has no fp64 unit; the H100 has one, so these
+// instances compute in native double, and they also run dtype float64 with
+// fused steps, as the JAX engine runs pallas_3d's kernel in float64 off the
+// TPU.  Level L = 1..K of the pass turns level L-1 into level L at in-plane
+// extent (K-L)*r around the block tile; each level-L plane z sums, in order
+// (ops/band_gemm.py apply_spec_3d):
 //
 //     the centre terms' plane convs of plane z
 //   + each buffered term's plane convs of planes z-r..z+r times its z taps
@@ -23,46 +26,94 @@
 // the halo decays exactly as the reference's step-by-step semantics
 // require.  Level K is the output: the rounded interior of every plane,
 // with cells beyond the true interior written as zeros; the guard ring is
-// never written.
+// never written.  Sums follow the plain twin's order (ops/band_gemm.py):
+// fp32 fuses each multiply-add (fmaf), so integer data agree bit for bit,
+// and so does any data when every tap is a power of two; fp64 rounds each
+// product and sum on its own (__dmul_rn, __dadd_rn: no FMA), so it agrees
+// bit for bit on any data.  Both kernels keep that order, so they agree
+// with each other bit for bit on any fill.
 //
-// What bounds it: device-memory bytes.  A pass must read and write 4 B
+// What bounds a pass: device-memory bytes.  It must read and write 4 B
 // (float32) or 8 B (float64) per interior cell and does ~10-25 operations
-// per cell per level, far below the card's fp32 and fp64 rates.  The design
-// keeps every intermediate out of device memory:
-//   * one block owns a (bm x bn) in-plane tile and a z chunk of zc output
-//     planes, and marches z one input plane at a time; it starts K*r
-//     planes early and recomputes that lookback, because blocks run in no
-//     order and cannot inherit it (the TPU's sequential slab carry has no
-//     counterpart);
-//   * shared memory holds, per level, a ring of the last 2r+1 planes (one
-//     plane when only buffered terms read it), and per buffered term and
-//     level a ring of 2r+1 plane convs: each plane's conv is computed once
-//     (the reference artifact's rotating conv buffer, src/3d/gpu_box.cu);
-//   * the input ring has one slot more, which cp.async fills with the next
-//     plane while the block computes on the current one;
-//   * each thread keeps its cells' sums of a level plane in registers and
-//     walks the terms once per plane, taps staged in registers;
-//   * the host picks the largest tile whose rings fit the 227 KB of shared
-//     memory for the pass's K and element size (ops/stencil3d.py; float64
-//     rings take twice the bytes), and a z chunk that gives every SM work.
-// Each input cell is read from device memory about (1 + 2Kr/zc) (1 +
-// 2Kr/bm)(1 + 2Kr/bn) times, and each output cell written once.  This
-// first kernel is not yet near that bound (PERF.md): its time goes to the
-// work inside the SM on every level plane, not to device-memory bytes.  Sums
-// follow the plain twin's order (ops/band_gemm.py): fp32 fuses each
-// multiply-add (fmaf), so integer data agree bit for bit, and so does any
-// data when every tap is a power of two; fp64 rounds each product and sum on
-// its own (__dmul_rn, __dadd_rn: no FMA), so it agrees bit for bit on any
-// data.
+// per cell per level, below the card's fp32 and fp64 rates; at 256^3 the
+// byte bound is 0.0401 ms (float32) or 0.0801 ms (float64) over 3.35 TB/s.
+// Neither kernel keeps an intermediate in device memory: a block owns an
+// in-plane tile and a z chunk, marches z one input plane at a time, starts
+// K*r planes early and recomputes that lookback, because blocks run in no
+// order and cannot inherit it (the TPU's sequential slab carry has no
+// counterpart).
 //
-// C interface, loaded with ctypes: ls_stencil3d_smem_bytes sizes a launch,
-// ls_stencil3d_step (float) and ls_stencil3d_step_f64 (double) launch on the
-// given stream, allocate nothing and return cudaGetLastError() (0 =
-// launched).
+// The general kernel (stencil3d_kernel) keeps every intermediate in shared
+// memory: per level a ring of the last 2r+1 planes, per buffered term and
+// level a ring of 2r+1 plane convs (the reference artifact's rotating conv
+// buffer, src/3d/gpu_box.cu), with a block barrier between phases, the
+// plan read from shared memory at run time and one 4- or 8-byte cp.async
+// per cell.  Its time goes to that work inside the SM (PERF.md: ~10% of
+// the byte bound in float32), not to device-memory bytes.  It takes any
+// radius <= 8, residue, any term mix and K <= 8.
+//
+// The march kernel is its redesign for Hopper, for radius 1, K = 1 or 2,
+// no residue and the registry's two term mixes (star3d1r's identity term
+// and two centre terms, box3d1r's one buffered term: one term whose z taps
+// sum planes, beside any centre terms):
+//   * compile-time shape: R, K, the term count and each term's class and
+//     in-plane axes (KINDS) are template parameters, so no loop over
+//     classes, plan reads or axis tests remain at run time; the taps come
+//     by value in a __grid_constant__ parameter, and a zero tap is a
+//     predicated FMA in fp32 (mad_quad);
+//   * z-sums in registers: each thread owns a fixed group of 2 rows x one
+//     16-byte quad (4 float32 or 2 float64 cells) for the whole march, its
+//     masks and copy addresses computed once a task.  When a level takes a
+//     plane w, plane w's sum starts at once (the centre terms' convs of w,
+//     then the z taps of the held values Y(w - r) .. Y(w - 1) and Y(w),
+//     where Y is the buffered term's conv or the identity term's cells),
+//     and the r sums still waiting each take their tap of Y(w): a level
+//     keeps 2r value arrays of its cells in registers (level_step).  Level
+//     L lags level L-1 by r planes.  Shared memory holds only the planes
+//     whose in-plane neighbours are still to be read: the input planes in
+//     flight and the one being read, and at K = 2 level 1's newest plane.
+//     A plane costs one barrier at K = 1 and two at K = 2;
+//   * wide copies and reads: input planes arrive by 16-byte cp.async, three
+//     planes ahead (the layout's row pitch and origin are multiples of 16
+//     bytes: ops/layout.py GUARD_ALIGN; a tile's window starts a quad left
+//     of its cells, so it starts on the 16-byte grid).  TMA would take the
+//     copy off the threads, but its tensor map comes from libcuda's
+//     cuTensorMapEncodeTiled, outside the runtime the port links; the
+//     copies are ~3 instructions a thread a plane here, so cp.async stays.
+//     A layout off the 16-byte grid runs another instance, with one copy
+//     and one store per cell.  A thread reads its window, 2 + 2r rows of
+//     three quads, with 16-byte shared loads; the plane's row pitch in
+//     quads is chosen so that a warp's loads spread over all banks;
+//   * extents: the thread groups cover level 1's extent, the tile plus r
+//     rows and one quad each side at K = 2, and every level runs on that
+//     cell grid; the last level stores the tile.  Recomputed cells at K =
+//     2: (34 x 72) / (32 x 64) = 1.195 on both levels (the general kernel:
+//     1.096 on level 1, 1.0 on level 2); none at K = 1;
+//   * tile, chunk and grid: a task is a (32 x 16-quad) tile -- (32, 64) in
+//     float32, the layout's tile, (32, 32) in float64 -- and a z chunk; one
+//     launch holds at most as many blocks as the card keeps resident, each
+//     walking tasks, and the chunk is sized so that the tasks fill those
+//     blocks once, with at least 16*K*r planes so that the lookback costs
+//     at most 1/8 (tests/test_torch_march3d.py mirrors the plan).  The
+//     launch bound asks for two blocks of 10 (K = 2) or 8 warps per SM,
+//     which holds every instance without a spill (ptxas -v, chip_smoke
+//     phase 20).
+// Each input cell is read from device memory about (1 + 2Kr/zc)(1 +
+// 2(K-1)r/32 + 2r/32)(1 + 2(K>1)/16 + 2/16) times at most (the halos of
+// neighbouring tasks often meet in the L2), and each output cell written
+// once.
+//
+// C interface, loaded with ctypes: ls_stencil3d_smem_bytes sizes a launch
+// of the general kernel, ls_stencil3d_step (float) and ls_stencil3d_step_f64
+// (double) launch it; ls_stencil3d_march and ls_stencil3d_march_f64 launch
+// the march kernel with the tap table in host memory.  Each launches on the
+// given stream, allocates nothing and returns cudaGetLastError() (0 =
+// launched); each refuses what it does not take.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
@@ -481,6 +532,616 @@ int step(const T* in, T* out, const T* plan, const Pass& p, int radius,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// -- the march kernel --------------------------------------------------------
+constexpr int kMarchMaxRadius = 1;
+constexpr int kMarchMaxTerms = 3;
+constexpr int kMarchRows = 2;        // rows of a thread's cell group
+constexpr int kMarchTileRows = 32;   // output rows of a task
+constexpr int kMarchTileQuads = 16;  // output quads (16 bytes) of a task row
+constexpr int kMarchAhead = 3;       // input planes in flight
+constexpr int kMarchMinBlocks = 2;   // launch bound: blocks per SM
+constexpr int kSmemPerSM = 233472;   // bytes of shared memory an SM has
+constexpr int kMaxDevices = 64;
+// A term's kind, four bits a term in the kernel's KINDS (term t at bits
+// 4t .. 4t + 3): its in-plane axes (plan_array's has_col, has_row) and, at
+// bits 2-3, its class.
+constexpr int kHasCol = 1;
+constexpr int kHasRow = 2;
+// The term mixes the march kernel is built for: star3d1r's (an identity
+// term, a centre term with a row conv, a centre term with a column conv)
+// and box3d1r's (one buffered term with both axes).
+constexpr int kStarKinds = (kIdentityZ << 2) | ((kCentre << 2 | kHasRow) << 4) |
+                           ((kCentre << 2 | kHasCol) << 8);
+constexpr int kBoxKinds = kBuffered << 2 | kHasCol | kHasRow;
+
+__host__ __device__ constexpr int kind_axes(int kinds, int t) {
+  return (kinds >> (4 * t)) & 3;
+}
+__host__ __device__ constexpr int kind_class(int kinds, int t) {
+  return (kinds >> (4 * t + 2)) & 3;
+}
+// Terms of class c among the first t: a term's index in its class.
+__host__ __device__ constexpr int class_rank(int kinds, int t, int c) {
+  int n = 0;
+  for (int s = 0; s < t; ++s) n += kind_class(kinds, s) == c ? 1 : 0;
+  return n;
+}
+// The row pitch of a shared plane in quads: at least `quads`, and such that
+// the next cell group's row (kMarchRows rows on) continues the bank pattern
+// of a warp's 16-byte loads, which cover gx cell groups a row.
+__host__ __device__ constexpr int march_pitch(int quads, int gx) {
+  int s = quads;
+  while ((kMarchRows * s - gx) % 8 != 0) ++s;
+  return s;
+}
+// The index of the term whose z taps sum planes (buffered or identity-z):
+// the march kernel takes one, beside any number of centre terms.
+__host__ __device__ constexpr int z_term(int kinds, int nt) {
+  int z = -1;
+  for (int t = 0; t < nt; ++t)
+    if (kind_class(kinds, t) != kCentre) z = t;
+  return z;
+}
+
+// The march kernel's cell grid and shared planes for cells of T, radius R
+// and K levels.  A thread owns CH rows x one quad of V cells; the groups
+// cover the tile, plus at K = 2 ER rows and one quad each side (level 1's
+// extent).  A shared plane holds the cell grid with R rows and one quad
+// each side, its rows ROW elements apart.
+template <typename T, int R_, int K>
+struct March {
+  using type = T;
+  static constexpr int R = R_;
+  static constexpr int V = 16 / static_cast<int>(sizeof(T));
+  static constexpr int CH = kMarchRows;
+  static constexpr int TM = kMarchTileRows;
+  static constexpr int TN = kMarchTileQuads * V;
+  static constexpr int ER = (K - 1) * R;
+  static constexpr int EQ = K > 1 ? 1 : 0;
+  static constexpr int GR = TM + 2 * ER;
+  static constexpr int GX = kMarchTileQuads + 2 * EQ;
+  static constexpr int GY = GR / CH;
+  static constexpr int groups = GX * GY;
+  static constexpr int threads = (groups + 31) / 32 * 32;
+  static constexpr int PR = GR + 2 * R;
+  static constexpr int PQ = GX + 2;
+  static constexpr int ROW = march_pitch(PQ, GX) * V;
+  static constexpr int plane = PR * ROW;
+  // shared planes: the input planes in flight and the one being read, and
+  // at K = 2 level 1's newest; with an identity z term, R more of each
+  // (level_step reads the thread's cells of planes w - R .. w - 1 there)
+  __host__ __device__ static constexpr int in_slots(bool id) {
+    return kMarchAhead + 1 + id * R;
+  }
+  __host__ __device__ static constexpr int lv_slots(bool id) {
+    return K > 1 ? 1 + id * R : 0;
+  }
+  // A thread's 16-byte copies of a plane: quad tid % PQ of plane rows
+  // tid / PQ + k CR, CR rows a pass, so that one offset serves them all.
+  static constexpr int CR = threads / PQ;
+  static constexpr int NCP = (PR + CR - 1) / CR;
+  static_assert(GR % CH == 0 && R <= V, "cell groups must tile the grid");
+};
+
+// plan_array's table for one R, by value: each term's z, column and row
+// taps (its class and axes are the kernel's KINDS).
+template <typename T, int R>
+struct MarchPlan {
+  T zt[kMarchMaxTerms][2 * R + 1];
+  T ct[kMarchMaxTerms][2 * R + 1];
+  T rt[kMarchMaxTerms][2 * R + 1];
+};
+
+__device__ __forceinline__ void ld_quad(const float* s, float* x) {
+  const float4 f = *reinterpret_cast<const float4*>(s);
+  x[0] = f.x;
+  x[1] = f.y;
+  x[2] = f.z;
+  x[3] = f.w;
+}
+__device__ __forceinline__ void ld_quad(const double* s, double* x) {
+  const double2 f = *reinterpret_cast<const double2*>(s);
+  x[0] = f.x;
+  x[1] = f.y;
+}
+__device__ __forceinline__ void st_quad(float* d, const float* x) {
+  *reinterpret_cast<float4*>(d) = make_float4(x[0], x[1], x[2], x[3]);
+}
+__device__ __forceinline__ void st_quad(double* d, const double* x) {
+  *reinterpret_cast<double2*>(d) = make_double2(x[0], x[1]);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+
+// a[c] = mad(w, x[c], a[c]) for a quad's cells where w != 0: a zero tap
+// leaves the sums as they are, as PlaneTaps::at's skipped tap does.  In fp32
+// as predicated FMAs, with no branch; in fp64 as a branch, which ptxas
+// turns into fewer registers than the predicated multiply-adds (those
+// took 255 registers and spilled, PERF.md).
+__device__ __forceinline__ void mad_quad(float w, const float* x, float* a) {
+  asm("{\n\t.reg .pred p;\n\t"
+      "setp.neu.f32 p, %4, 0f00000000;\n\t"
+      "@p fma.rn.f32 %0, %4, %5, %0;\n\t"
+      "@p fma.rn.f32 %1, %4, %6, %1;\n\t"
+      "@p fma.rn.f32 %2, %4, %7, %2;\n\t"
+      "@p fma.rn.f32 %3, %4, %8, %3;\n\t}"
+      : "+f"(a[0]), "+f"(a[1]), "+f"(a[2]), "+f"(a[3])
+      : "f"(w), "f"(x[0]), "f"(x[1]), "f"(x[2]), "f"(x[3]));
+}
+__device__ __forceinline__ void mad_quad(double w, const double* x,
+                                         double* a) {
+  if (w != 0.0) {
+    a[0] = __dadd_rn(a[0], __dmul_rn(w, x[0]));
+    a[1] = __dadd_rn(a[1], __dmul_rn(w, x[1]));
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Term t's in-plane conv at the thread's cells, from its window at `win`
+// in a shared plane: CH + 2R rows of three quads, its own cells the middle
+// quad of rows R .. R + CH - 1.  Per cell PlaneTaps::at's order: the column
+// conv of each row the row conv reads, then the row conv, taps ascending,
+// zero taps skipped, a missing axis the identity.  Only the rows and quads
+// the term reads are loaded.  Every array index here is a constant once
+// the loops unroll, so z stays in registers (an index that depended on the
+// term loop put a sum array in local memory, PERF.md).
+template <typename S, int NT, int KINDS, typename T = typename S::type>
+__device__ __forceinline__ void term_conv(const MarchPlan<T, S::R>& pl, int t,
+                                          const T* win,
+                                          T (&z)[S::CH][S::V]) {
+  constexpr int R = S::R, V = S::V, CH = S::CH, W = 2 * R + 1;
+  const int axes = kind_axes(KINDS, t);
+#pragma unroll
+  for (int h = 0; h < CH; ++h)
+#pragma unroll
+    for (int c = 0; c < V; ++c) z[h][c] = T(0);
+#pragma unroll
+  for (int wr = 0; wr < CH + 2 * R; ++wr) {
+    const int h0 = wr - R;  // the output row this window row is, if any
+    if (!(axes & kHasRow) && (h0 < 0 || h0 >= CH)) continue;
+    T x[3 * V];
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      if (q == 1 || (axes & kHasCol))
+        ld_quad(win + wr * S::ROW + q * V, x + q * V);
+    T y[V];
+    if (axes & kHasCol) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) y[c] = T(0);
+#pragma unroll
+      for (int b = 0; b < W; ++b) mad_quad(pl.ct[t][b], x + V + b - R, y);
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) y[c] = x[V + c];
+    }
+    if (axes & kHasRow) {
+#pragma unroll
+      for (int h = 0; h < CH; ++h) {
+        const int a = wr - h;
+        if (a >= 0 && a < W) mad_quad(pl.rt[t][a], y, z[h]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < V; ++c) z[h0][c] = y[c];
+    }
+  }
+}
+
+// Level L takes level L-1's plane w (window `win` in its shared plane) and
+// yields its plane w - R, unmasked, into `done`.  The z term's value of w,
+// Y(w), is the buffered term's conv or the identity term's cells.  Plane
+// w's sum starts here, in the twin's order: the centre terms' convs of w,
+// then the z taps ascending -- Y(w - R) .. Y(w - 1), Y(w) -- and waits in
+// `pend` for Y(w + 1) .. Y(w + R); each waiting sum takes its next tap
+// from Y(w), and the oldest is complete.  Y(w - R) .. Y(w - 1) come from
+// `held` (a buffered term's convs) or, for an identity term, from the
+// thread's cells of those planes, still in shared memory at `back[d]`.  So
+// a level keeps R (identity) or 2R (buffered) value arrays of its cells in
+// registers.  (A ring of the last 2R + 1 Y in registers, and held cells at
+// K = 2 in star3d1r's instance, spilled: PERF.md.)
+template <typename S, int NT, int KINDS, typename T = typename S::type>
+__device__ __forceinline__ void level_step(const MarchPlan<T, S::R>& pl,
+                                           const T* win,
+                                           const T* const (&back)[S::R],
+                                           T (&pend)[S::R][S::CH][S::V],
+                                           T (&held)[S::R][S::CH][S::V],
+                                           T (&done)[S::CH][S::V]) {
+  constexpr int R = S::R, V = S::V, CH = S::CH;
+  constexpr int TZ = z_term(KINDS, NT);
+  constexpr bool kId = kind_class(KINDS, TZ) == kIdentityZ;
+  T y[CH][V];
+  if (kind_class(KINDS, TZ) == kBuffered) {
+    term_conv<S, NT, KINDS>(pl, TZ, win, y);
+  } else {
+#pragma unroll
+    for (int h = 0; h < CH; ++h) ld_quad(win + (R + h) * S::ROW + V, y[h]);
+  }
+  T a[CH][V];  // plane w's sum: the first centre term's conv, or zero
+  if constexpr (class_rank(KINDS, NT, kCentre) == 0) {
+#pragma unroll
+    for (int h = 0; h < CH; ++h)
+#pragma unroll
+      for (int c = 0; c < V; ++c) a[h][c] = T(0);
+  }
+#pragma unroll
+  for (int t = 0; t < NT; ++t) {
+    if (kind_class(KINDS, t) != kCentre) continue;
+    if (class_rank(KINDS, t, kCentre) == 0) {
+      term_conv<S, NT, KINDS>(pl, t, win, a);
+      continue;
+    }
+    T z[CH][V];
+    term_conv<S, NT, KINDS>(pl, t, win, z);
+#pragma unroll
+    for (int h = 0; h < CH; ++h)
+#pragma unroll
+      for (int c = 0; c < V; ++c) a[h][c] = add_rn(a[h][c], z[h][c]);
+  }
+#pragma unroll
+  for (int h = 0; h < CH; ++h) {
+#pragma unroll
+    for (int d = 0; d < R; ++d) {
+      if constexpr (kId) {
+        T x[V];
+        ld_quad(back[d] + (R + h) * S::ROW + V, x);
+        mad_quad(pl.zt[TZ][d], x, a[h]);
+      } else {
+        mad_quad(pl.zt[TZ][d], held[d][h], a[h]);
+      }
+    }
+    mad_quad(pl.zt[TZ][R], y[h], a[h]);
+#pragma unroll
+    for (int k = 0; k < R; ++k)  // pend[k] is plane w - R + k's sum
+      mad_quad(pl.zt[TZ][2 * R - k], y[h], pend[k][h]);
+#pragma unroll
+    for (int c = 0; c < V; ++c) {
+      done[h][c] = pend[0][h][c];
+#pragma unroll
+      for (int k = 0; k + 1 < R; ++k) {
+        pend[k][h][c] = pend[k + 1][h][c];
+        if constexpr (!kId) held[k][h][c] = held[k + 1][h][c];
+      }
+      pend[R - 1][h][c] = a[h][c];
+      if constexpr (!kId) held[R - 1][h][c] = y[h][c];
+    }
+  }
+}
+
+// Whether the z term is an identity term (its held values in shared
+// memory).
+template <typename T, int R, int K, int NT, int KINDS>
+__host__ __device__ constexpr bool z_identity() {
+  return kind_class(KINDS, z_term(KINDS, NT)) == kIdentityZ;
+}
+// Shared memory of a block.
+template <typename T, int R, int K, int NT, int KINDS>
+__host__ __device__ constexpr int march_smem_bytes() {
+  using S = March<T, R, K>;
+  constexpr bool id = z_identity<T, R, K, NT, KINDS>();
+  return static_cast<int>(sizeof(T)) * S::plane *
+         (S::in_slots(id) + S::lv_slots(id));
+}
+
+// K = 1 or 2 fused steps per cell of a task's tile (32 rows x 16 quads)
+// and z chunk, for each task of a block.  Input plane u of a task (interior
+// z = zs - K R + u) arrives in shared memory three planes ahead; level 1
+// takes it (level_step) and yields plane u - R, which at K = 2 goes to
+// shared memory, where level 2 takes it and yields plane u - 2R.  The last
+// level's planes are the task's output.  VEC: the buffers start on the
+// 16-byte grid and so do the layout's row pitch and origin column (every
+// layout the engine builds); the other instance copies and stores one cell
+// at a time.
+template <typename T, int R, int K, int NT, int KINDS, bool VEC>
+__global__ void __launch_bounds__(March<T, R, K>::threads, kMarchMinBlocks)
+march_kernel(const T* __restrict__ in, T* __restrict__ out,
+             const __grid_constant__ MarchPlan<T, R> pl, const Pass p) {
+  using S = March<T, R, K>;
+  constexpr int V = S::V, CH = S::CH;
+  static_assert(class_rank(KINDS, NT, kBuffered) +
+                        class_rank(KINDS, NT, kIdentityZ) ==
+                    1,
+                "one term sums planes");
+  // the launch bound's blocks fit the SM's shared memory (1 KB each more)
+  static_assert(kMarchMinBlocks * (march_smem_bytes<T, R, K, NT, KINDS>() +
+                                   1024) <= kSmemPerSM,
+                "two blocks per SM");
+  constexpr bool kId = z_identity<T, R, K, NT, KINDS>();
+  constexpr int IN_SLOTS = S::in_slots(kId), LV_SLOTS = S::lv_slots(kId);
+  extern __shared__ float4 march_smem[];
+  T* const s_in = reinterpret_cast<T*>(march_smem);
+  T* const s_lv = s_in + IN_SLOTS * S::plane;  // level 1's planes (K = 2)
+  const int tid = threadIdx.x;
+  const bool active = tid < S::groups;
+  const int gy = active ? tid / S::GX : 0;
+  const int gx = active ? tid % S::GX : 0;
+  const int win = gy * CH * S::ROW + gx * V;  // the thread's window
+  const int own = win + R * S::ROW + V;       // its first cell
+  const size_t plane_stride = static_cast<size_t>(p.rows) * p.pitch;
+  const int tiles_c = (p.nr + S::TN - 1) / S::TN;
+  const int tiles = tiles_c * ((p.mr + S::TM - 1) / S::TM);
+  const int tasks = tiles * ((p.h + p.zc - 1) / p.zc);
+  for (int task = blockIdx.x; task < tasks; task += gridDim.x) {
+    const int i0 = task % tiles / tiles_c * S::TM;
+    const int j0 = task % tiles % tiles_c * S::TN;
+    const int zs = task / tiles * p.zc;
+    const int nin = min(p.zc, p.h - zs) + 2 * K * R;
+    const int zb = zs - K * R;  // interior z of input plane 0
+    // the thread's cells: interior rows i + h, columns j + c
+    const int i = i0 - S::ER + gy * CH;
+    const int j = j0 - S::EQ * V + gx * V;
+    // bit h V + c: the cell inside the interior plane; bit h of `rows_out`:
+    // a row of the tile, inside the rounded interior (bits, not bools: the
+    // flags live through the march, and every register counts at K = 2)
+    unsigned keep = 0, rows_out = 0;
+#pragma unroll
+    for (int h = 0; h < CH; ++h) {
+      if (active && gy * CH + h >= S::ER && gy * CH + h < S::ER + S::TM &&
+          i + h < p.mr)
+        rows_out |= 1u << h;
+#pragma unroll
+      for (int c = 0; c < V; ++c)
+        if (i + h >= 0 && i + h < p.m && j + c >= 0 && j + c < p.n)
+          keep |= 1u << (h * V + c);
+    }
+    const bool col_out = active && gx >= S::EQ && gx < S::GX - S::EQ;
+    const bool quad_out = col_out && VEC && j + V <= p.nr;
+    // the thread's copies: buffer row and column of its first, and whether
+    // its column lies inside the buffer
+    const int gr0 = p.r0 + i0 - S::ER - R;
+    const int gc0 = p.c0 + j0 - (S::EQ + 1) * V;
+    const int crow = gr0 + tid / S::PQ;
+    const int ccol = gc0 + tid % S::PQ * V;
+    const bool col_in = tid < S::CR * S::PQ && ccol >= 0 && ccol + V <= p.pitch;
+    __syncthreads();  // the previous task's reads of shared memory are done
+
+    // input plane u into its slot, zero outside the buffer; one commit
+    // group per call, empty past the last plane
+    auto fetch = [&](int u) {
+      if (u < nin) {
+        T* slot = s_in + (u % IN_SLOTS) * S::plane;
+        const int gz = p.z0 + zb + u;
+        const bool zin = gz >= 0 && gz < p.nz;
+        const T* src = in + static_cast<size_t>(zin ? gz : 0) * plane_stride;
+        if constexpr (VEC) {
+          T* dst = slot + tid / S::PQ * S::ROW + tid % S::PQ * V;
+#pragma unroll
+          for (int k = 0; k < S::NCP; ++k) {
+            const int gr = crow + k * S::CR;
+            const bool ok = zin && col_in && gr >= 0 && gr < p.rows;
+            if (tid < S::CR * S::PQ && tid / S::PQ + k * S::CR < S::PR)
+              cp_async16(dst + k * S::CR * S::ROW,
+                         ok ? src + static_cast<size_t>(gr) * p.pitch + ccol
+                            : in,
+                         ok);
+          }
+        } else {
+          for (int q = tid; q < S::PR * S::PQ * V; q += S::threads) {
+            const int pr = q / (S::PQ * V), pc = q % (S::PQ * V);
+            const int gr = gr0 + pr, gc = gc0 + pc;
+            const bool ok = zin && gr >= 0 && gr < p.rows && gc >= 0 &&
+                            gc < p.pitch;
+            cp_async_cell(slot + pr * S::ROW + pc,
+                          ok ? src + static_cast<size_t>(gr) * p.pitch + gc
+                             : in,
+                          ok);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    // plane v's cells masked to the interior, and the last level's stored
+    auto mask = [&](int v, T (&acc)[CH][V]) {
+      const bool zok = zb + v >= 0 && zb + v < p.h;
+#pragma unroll
+      for (int h = 0; h < CH; ++h)
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          if (!(zok && (keep >> (h * V + c) & 1u))) acc[h][c] = T(0);
+    };
+    auto store = [&](int v, const T (&acc)[CH][V]) {
+      T* dst = out + static_cast<size_t>(p.z0 + zb + v) * plane_stride;
+#pragma unroll
+      for (int h = 0; h < CH; ++h) {
+        if (!(rows_out >> h & 1u)) continue;
+        T* d = dst + static_cast<size_t>(p.r0 + i + h) * p.pitch + p.c0 + j;
+        if (quad_out) {
+          st_quad(d, acc[h]);
+        } else if (col_out) {
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            if (j + c < p.nr) d[c] = acc[h][c];
+        }
+      }
+    };
+#pragma unroll
+    for (int u = 0; u < kMarchAhead; ++u) fetch(u);
+
+    // per level, the sums of its planes that wait for later planes' terms,
+    // and the last R values of its z term (level_step)
+    T pend[K][R][CH][V], held[K][R][CH][V];
+#pragma unroll
+    for (int L = 0; L < K; ++L)
+#pragma unroll
+      for (int k = 0; k < R; ++k)
+#pragma unroll
+        for (int h = 0; h < CH; ++h)
+#pragma unroll
+          for (int c = 0; c < V; ++c) pend[L][k][h][c] = held[L][k][h][c] = T(0);
+
+    for (int u = 0; u < nin; ++u) {
+      cp_async_wait<kMarchAhead - 1>();
+      __syncthreads();  // plane u landed; the last plane's reads are done
+      fetch(u + kMarchAhead);
+      // level 1 takes input plane u and yields its plane u - R
+      T lv[CH][V];
+      if (active) {
+        const T* back[R];  // planes u - R .. u - 1 (a slot of any plane < 0)
+#pragma unroll
+        for (int d = 0; d < R; ++d)
+          back[d] = s_in + ((u - R + d + IN_SLOTS) % IN_SLOTS) * S::plane + win;
+        level_step<S, NT, KINDS>(pl, s_in + (u % IN_SLOTS) * S::plane + win,
+                                 back, pend[0], held[0], lv);
+        if (u >= 2 * R) {
+          mask(u - R, lv);
+          if constexpr (K == 1) store(u - R, lv);
+        }
+      }
+      if constexpr (K == 2) {
+        if (u >= 2 * R) {
+          // level 2 takes level 1's plane u - R and yields its plane u - 2R
+          const int v1 = u - R;
+          T* const xl = s_lv + (v1 % LV_SLOTS) * S::plane;
+          if (active) {
+#pragma unroll
+            for (int h = 0; h < CH; ++h) st_quad(xl + own + h * S::ROW, lv[h]);
+          }
+          __syncthreads();  // level 1's plane is in shared memory
+          if (active) {
+            const T* back[R];  // level 1's planes v1 - R .. v1 - 1
+#pragma unroll
+            for (int d = 0; d < R; ++d)
+              back[d] = s_lv + ((v1 - R + d + LV_SLOTS) % LV_SLOTS) * S::plane +
+                        win;
+            T acc[CH][V];
+            level_step<S, NT, KINDS>(pl, xl + win, back, pend[1], held[1], acc);
+            if (u >= 4 * R) {
+              mask(u - 2 * R, acc);
+              store(u - 2 * R, acc);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int R, int K, int NT, int KINDS, bool VEC>
+int launch_march(const T* in, T* out, const MarchPlan<T, R>& pl, Pass p,
+                 cudaStream_t stream) {
+  using S = March<T, R, K>;
+  static int resident[kMaxDevices];
+  const void* kernel =
+      reinterpret_cast<const void*>(march_kernel<T, R, K, NT, KINDS, VEC>);
+  const int smem = march_smem_bytes<T, R, K, NT, KINDS>();
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (resident[dev] == 0) {
+    if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+    int sms = 0, per_sm = 0;
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e == cudaSuccess)
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        S::threads, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    resident[dev] = per_sm * sms;
+  }
+  const int tiles =
+      ((p.mr + S::TM - 1) / S::TM) * ((p.nr + S::TN - 1) / S::TN);
+  const int chunks = resident[dev] / tiles > 1 ? resident[dev] / tiles : 1;
+  p.zc = (p.h + chunks - 1) / chunks;
+  const int zmin = 16 * K * R < p.h ? 16 * K * R : p.h;
+  if (p.zc < zmin) p.zc = zmin;
+  const long tasks = static_cast<long>(tiles) * ((p.h + p.zc - 1) / p.zc);
+  const int blocks =
+      static_cast<int>(tasks < resident[dev] ? tasks : resident[dev]);
+  march_kernel<T, R, K, NT, KINDS, VEC>
+      <<<blocks, S::threads, smem, stream>>>(in, out, pl, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// plan_array's table (host memory) into the kernel's taps and KINDS.
+template <typename T, int R>
+bool fill_march_plan(const T* plan, int n_terms, MarchPlan<T, R>& pl,
+                     int& kinds) {
+  constexpr int W = 2 * R + 1;
+  kinds = 0;
+  const T* t = plan;
+  for (int k = 0; k < n_terms; ++k, t += term_stride(R)) {
+    const int cls = static_cast<int>(t[0]);
+    if (cls != kCentre && cls != kIdentityZ && cls != kBuffered) return false;
+    const int axes =
+        (t[1] != T(0) ? kHasCol : 0) | (t[2] != T(0) ? kHasRow : 0);
+    kinds |= (cls << 2 | axes) << (4 * k);
+    for (int q = 0; q < W; ++q) {
+      pl.zt[k][q] = t[3 + q];
+      pl.ct[k][q] = t[3 + W + q];
+      pl.rt[k][q] = t[3 + 2 * W + q];
+    }
+  }
+  return true;
+}
+
+// The instantiation of the plan's term mix; any other is refused.
+template <typename T, int R, int K>
+int march_terms(const T* in, T* out, const T* plan, const Pass& p, int vec,
+                cudaStream_t stream) {
+  MarchPlan<T, R> pl = {};
+  int kinds = 0;
+  if (!fill_march_plan<T, R>(plan, p.n_terms, pl, kinds))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.n_terms == 3 && kinds == kStarKinds)
+    return vec ? launch_march<T, R, K, 3, kStarKinds, true>(in, out, pl, p,
+                                                            stream)
+               : launch_march<T, R, K, 3, kStarKinds, false>(in, out, pl, p,
+                                                             stream);
+  if (p.n_terms == 1 && kinds == kBoxKinds)
+    return vec ? launch_march<T, R, K, 1, kBoxKinds, true>(in, out, pl, p,
+                                                           stream)
+               : launch_march<T, R, K, 1, kBoxKinds, false>(in, out, pl, p,
+                                                            stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+bool march_valid(const Pass& p, int R) {
+  return R >= 1 && R <= kMarchMaxRadius && (p.K == 1 || p.K == 2) &&
+         p.n_res == 0 && p.n_terms >= 1 && p.n_terms <= kMarchMaxTerms &&
+         p.plan_len == p.n_terms * term_stride(R) && p.h >= 0 && p.m >= 0 &&
+         p.n >= 0 && p.mr >= p.m && p.nr >= p.n && p.z0 >= 0 &&
+         p.z0 + p.h <= p.nz && p.r0 >= 0 && p.r0 + p.mr <= p.rows &&
+         p.c0 >= 0 && p.c0 + p.nr <= p.pitch &&
+         static_cast<long long>(p.rows) * p.pitch < (1LL << 31);
+}
+
+// A pass of K = 1 or 2 steps by the march kernel; `plan` is plan_array's
+// table in host memory.  K picks the instantiation; the radius is 1 (the
+// 3-D registry's: radius-2 instances took 168 registers and spilled at K =
+// 2 in float32, PERF.md).
+template <typename T>
+int march(const T* in, T* out, const T* plan, const Pass& p, int radius,
+          void* stream) {
+  if (!plan || !march_valid(p, radius))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (p.h == 0 || p.mr == 0 || p.nr == 0) return 0;
+  constexpr int V = 16 / static_cast<int>(sizeof(T));
+  const int vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+                  p.pitch % V == 0 && p.c0 % V == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return p.K == 1 ? march_terms<T, 1, 1>(in, out, plan, p, vec, s)
+                   : march_terms<T, 1, 2>(in, out, plan, p, vec, s);
+}
+
 }  // namespace
 
 // Shared-memory bytes of a pass with this radius, K, block tile, term mix
@@ -516,3 +1177,22 @@ extern "C" long long ls_stencil3d_smem_bytes(int radius, int K, int bm, int bn,
   }
 LS_ENTRY(ls_stencil3d_step, float)
 LS_ENTRY(ls_stencil3d_step_f64, double)
+
+// The march kernel's entries: the input and output buffers, the tap table
+// in host memory and its counts, K, the buffer extents, the origin of
+// interior cell (0, 0, 0), the interior, the rounded plane and the stream.
+#define LS_MARCH(NAME, T)                                                    \
+  extern "C" int NAME(const T* in, T* out, const T* plan, int plan_len,     \
+                      int n_terms, int radius, int n_res, int K, int nz,    \
+                      int rows, int pitch, int z0, int r0, int c0, int h,   \
+                      int m, int n, int mr, int nr, void* stream) {         \
+    return march(in, out, plan,                                             \
+                 make_pass(plan_len, n_terms, n_res, 0, 1, K, nz, rows,     \
+                           pitch, z0, r0, c0, h, m, n, mr, nr,              \
+                           kMarchTileRows,                                  \
+                           kMarchTileQuads * 16 / static_cast<int>(sizeof(T)), \
+                           1),                                              \
+                 radius, stream);                                           \
+  }
+LS_MARCH(ls_stencil3d_march, float)
+LS_MARCH(ls_stencil3d_march_f64, double)

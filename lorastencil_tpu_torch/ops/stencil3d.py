@@ -22,6 +22,15 @@ Mosaic precision) is still to be ported (ROADMAP B13).  ``conv_carry`` is
 accepted and has no effect: on the TPU it reuses plane convs across slabs
 with bit-identical output, and the CUDA kernel's z-march computes each
 plane's conv once by construction.
+
+Two kernels: every pass the engine launches for the 3-D registry (star3d1r
+and box3d1r, float32 and float64, one or two steps) runs the march kernel,
+the source's redesign for Hopper (z-sums in registers, compile-time term
+kinds, 16-byte copies); ``march_takes`` is its fixed rule on spec, dtype and
+depth, and ``stencil3d_step.launches_march`` counts its launches (they also
+count in ``launches`` / ``launches_f64``).  Every other pass -- radius above
+1, residue, another term mix, more than two steps -- runs the general
+kernel, ``stencil3d_kernel``.  Neither falls back to the other.
 """
 
 from __future__ import annotations
@@ -49,6 +58,22 @@ MAX_SMEM = 232448  # bytes of shared memory a block may use on sm_90
 # in-plane block tiles, largest first; all divide the layout's TILE_3D
 BLOCK_TILES = ((32, 64), (16, 64), (16, 32), (8, 32), (8, 16))
 Z_CHUNKS = (64, 32, 16)  # output planes per block, largest first
+# the march kernel (csrc/stencil3d.cu march_kernel): its entries, radii and
+# depths, and a task's tile, 32 rows x 16 quads of 16 bytes
+_MARCH_ENTRIES = {torch.float32: "ls_stencil3d_march",
+                  torch.float64: "ls_stencil3d_march_f64"}
+MARCH_RADII = (1,)  # kMarchMaxRadius
+MARCH_DEPTHS = (1, 2)
+MARCH_TILE_ROWS = 32  # kMarchTileRows
+MARCH_TILE_QUADS = 16  # kMarchTileQuads
+_HAS_COL, _HAS_ROW = 1, 2  # kHasCol, kHasRow
+# the term mixes it is built for, (terms, KINDS): star3d1r's identity term
+# and centre terms with a row and a column conv (kStarKinds), box3d1r's
+# buffered term with both axes (kBoxKinds)
+MARCH_KINDS = (
+    (3, (IDENTITY_Z << 2) | ((CENTRE << 2 | _HAS_ROW) << 4)
+     | ((CENTRE << 2 | _HAS_COL) << 8)),
+    (1, BUFFERED << 2 | _HAS_COL | _HAS_ROW))
 
 
 def _classify_terms(spec: StencilSpec):
@@ -58,6 +83,30 @@ def _classify_terms(spec: StencilSpec):
     classes = [term_class(t) for t in spec.terms]
     return tuple([i for i, c in enumerate(classes) if c == want]
                  for want in (BUFFERED, IDENTITY_Z, CENTRE))
+
+
+def term_kinds(spec: StencilSpec) -> int:
+    """The march kernel's KINDS of ``spec``: four bits a term (term t at
+    bits 4t .. 4t + 3), its class at bits 2-3 and its in-plane axes, a
+    column conv (1) and a row conv (2), as ``plan_array`` flags them."""
+    kinds = 0
+    for t, term in enumerate(spec.terms):
+        _, rt, ct = term.taps
+        axes = (_HAS_COL if ct is not None else 0) | (
+            _HAS_ROW if rt is not None else 0)
+        kinds |= (term_class(term) << 2 | axes) << (4 * t)
+    return kinds
+
+
+def march_takes(spec: StencilSpec, dtype, depth: int) -> bool:
+    """Whether a pass of ``depth`` fused steps in ``dtype`` runs the march
+    kernel: float32 or float64, one or two steps, radius 1, no residue,
+    and star3d1r's or box3d1r's term mix (``MARCH_KINDS``), whatever the
+    taps.  Every other pass runs the general kernel."""
+    return (dtype in _MARCH_ENTRIES and depth in MARCH_DEPTHS
+            and spec.ndim == 3 and spec.radius in MARCH_RADII
+            and not spec.residue
+            and (len(spec.terms), term_kinds(spec)) in MARCH_KINDS)
 
 
 def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
@@ -160,7 +209,19 @@ def _lib():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 21
                        + [ctypes.c_void_p])
+    for entry in _MARCH_ENTRIES.values():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
+                       + [ctypes.c_void_p])
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_host(spec: StencilSpec, dtype):
+    """The tap table in ``dtype`` in host memory, which the march kernel's
+    launches copy into their parameters."""
+    return plan_array(spec, dtype).contiguous()
 
 
 def _term_mix(spec: StencilSpec):
@@ -238,6 +299,31 @@ def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile):
     return out
 
 
+def _launch_march(cur, out, spec: StencilSpec, layout: Layout3D, K: int):
+    """One launch of the march kernel's instance of ``cur``'s dtype; raises
+    if refused, and counts it."""
+    plan = _plan_host(spec, cur.dtype)
+    nz, rows, pitch = layout.shape
+    z0, r0, c0 = layout.origin
+    h, m, n = layout.interior
+    _, mr, nr = layout.rounded
+    with torch.cuda.device(cur.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_lib(), _MARCH_ENTRIES[cur.dtype])(
+            cur.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.numel(),
+            len(spec.terms), spec.radius, len(spec.residue), K, nz, rows,
+            pitch, z0, r0, c0, h, m, n, mr, nr, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"stencil3d march kernel launch failed: CUDA error {err}")
+    if cur.dtype == torch.float64:
+        stencil3d_step.launches_f64 += 1
+    else:
+        stencil3d_step.launches += 1
+    stencil3d_step.launches_march += 1
+    return out
+
+
 def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
                    algorithm: str = "vpu", fused_steps: int = 1,
                    conv_carry=None, bounds=None, region=None):
@@ -248,12 +334,14 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
     ``donor``'s guard ring must be zero; it stays untouched, which is
     what makes the halo decay.  A CUDA tensor runs the CUDA kernel (or
     raises); a CPU tensor runs ``stencil3d_step_plain``.  A float32 state
-    runs the float32 instance and counts in ``launches``, a float64 state
-    the float64 one and counts in ``launches_f64``.  One launch does
-    all ``fused_steps`` levels when a block's shared-memory rings fit at
-    that depth (every depth the engine picks for the registry's shapes);
-    otherwise it runs passes of the largest depth that fits, through one
-    extra zero-ringed buffer, and the launch counter shows each pass.
+    runs the float32 instances and counts in ``launches``, a float64 state
+    the float64 ones and counts in ``launches_f64``.  A pass that
+    ``march_takes`` runs the march kernel in one launch, also counted in
+    ``launches_march``.  Any other runs the general kernel: one launch
+    does all ``fused_steps`` levels when a block's shared-memory rings fit
+    at that depth; otherwise it runs passes of the largest depth that
+    fits, through one extra zero-ringed buffer, and the launch counter
+    shows each pass.
     ``bounds`` and ``region`` are not ported (ROADMAP A6, A11)."""
     del conv_carry  # bit-identical by contract; see the module docstring
     _check(cur, donor, spec, layout, algorithm, fused_steps, bounds, region)
@@ -261,6 +349,15 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
         return stencil3d_step_plain(cur, donor, spec, layout, fused_steps)
     if cur.device.type != "cuda":
         raise ValueError(f"no stencil3d kernel for device {cur.device}")
+    return _kernel_pass(cur, donor, spec, layout, fused_steps)
+
+
+def _kernel_pass(cur, donor, spec: StencilSpec, layout: Layout3D,
+                 fused_steps: int):
+    """A checked pass on the card: the march kernel where ``march_takes``
+    says so, else the general kernel's launches."""
+    if march_takes(spec, cur.dtype, fused_steps):
+        return _launch_march(cur, donor, spec, layout, fused_steps)
     itemsize = cur.element_size()
     K, tile = plan_pass(spec, fused_steps, itemsize)
     depths = [K] * (fused_steps // K) + (
@@ -278,5 +375,7 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
     return donor
 
 
-# kernel launches per instance, for chip_smoke.py: float32 and float64
+# kernel launches per instance, for chip_smoke.py: float32 and float64, and
+# the march kernel's (of either dtype) apart
 stencil3d_step.launches = stencil3d_step.launches_f64 = 0
+stencil3d_step.launches_march = 0

@@ -237,6 +237,129 @@ def test_3d_refused_launches_raise(cuda):
     assert stencil3d.stencil3d_step.launches == before
 
 
+# -- the march kernel (radius 1, K = 1-2, the registry's term mixes) ---------------
+# It keeps the general 3-D kernel's per-cell sums, so the two agree bit for bit on any
+# fill and any taps; with the registry's power-of-two taps both equal the twin bit
+# for bit (the inf fill: NaN where the twin has NaN); float64 equals the twin on any
+# taps.
+def _3d_fills(g0):
+    inf = g0 * (np.pi / 100)
+    inf.flat[inf.size // 3] = np.inf
+    return (g0, g0 * (np.pi / 100), inf)
+
+
+def _general_3d(x, spec, lay, K):
+    out = torch.zeros_like(x)
+    stencil3d._launch(x, out, spec, lay, K, stencil3d.plan_pass(spec, K, x.element_size())[1])
+    return out
+
+
+@pytest.mark.parametrize("guard", ["aligned", (2, 5, 7)])
+@pytest.mark.parametrize("interior", [(6, 20, 150), (37, 45, 130), (40, 64, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["star3d1r", "box3d1r"])
+def test_march_kernel_equals_the_general_kernel_and_twin(cuda, name, dtype, interior, guard):
+    """The march kernel (launches_march) against the general kernel and the
+    twin at K = 1 and 2, with 16-byte and (guard (2, 5, 7)) 4- or 8-byte
+    copies, after one and two passes."""
+    spec = get_shape(name)
+    for K in (1, 2):
+        assert stencil3d.march_takes(spec, dtype, K)
+        lay = Layout3D(interior=interior, halo=spec.halo, tile=default_tile_3d(*interior[1:]),
+                       guard=guard_3d(spec.halo, K * spec.radius) if guard == "aligned"
+                       else guard)
+        for fill in _3d_fills(reference.random_padded(spec, interior, seed=6)):
+            x = lay.to_internal(fill, dtype, cuda)
+            for _ in range(2):
+                before = stencil3d.stencil3d_step.launches_march
+                got = stencil3d.stencil3d_step(x, torch.zeros_like(x), spec, lay, fused_steps=K)
+                assert stencil3d.stencil3d_step.launches_march - before == 1
+                want = stencil3d.stencil3d_step_plain(x, torch.zeros_like(x), spec, lay, K)
+                general = _general_3d(x, spec, lay, K)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, general, rtol=0, atol=0, equal_nan=True)
+                torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+                x = got
+
+
+def _kinds_3d(kind, R, seed):
+    """star3d1r's or box3d1r's term mix at radius R with integer taps, zeros
+    among them."""
+    rng = np.random.default_rng(seed)
+
+    def taps():
+        t = rng.integers(-3, 4, 2 * R + 1).astype(np.float64)
+        t[rng.random(2 * R + 1) < 0.3] = 0.0
+        t[0] = 1.0
+        return tuple(float(v) for v in t)
+
+    if kind == "star":
+        terms = (SeparableTerm(taps=(taps(), None, None)),
+                 SeparableTerm(taps=(None, taps(), None)),
+                 SeparableTerm(taps=(None, None, taps())))
+    else:
+        terms = (SeparableTerm(taps=(taps(), taps(), taps())),)
+    return StencilSpec(name=f"{kind}_r{R}", ndim=3, radius=R, halo=(R, R, R), terms=terms,
+                       residue=(), fuse_factor=1)
+
+
+@pytest.mark.parametrize("kind", ["star", "box"])
+def test_march_kernel_at_any_taps(cuda, kind):
+    """Custom taps (zeros among them) at radius 1: the march kernel equals the
+    general kernel bit for bit on any fill, and in float64 the twin; at
+    radius 2 the pass runs the general kernel."""
+    interior = (21, 45, 130)
+    for R in (1, 2):
+        spec = _kinds_3d(kind, R, seed=R)
+        for dtype in (torch.float32, torch.float64):
+            for K in (1, 2):
+                assert stencil3d.march_takes(spec, dtype, K) == (R == 1)
+                lay = Layout3D(interior=interior, halo=spec.halo,
+                               tile=default_tile_3d(*interior[1:]),
+                               guard=guard_3d(spec.halo, K * R))
+                for fill in _3d_fills(reference.random_padded(spec, interior, seed=2)):
+                    x = lay.to_internal(fill, dtype, cuda)
+                    before = stencil3d.stencil3d_step.launches_march
+                    got = stencil3d.stencil3d_step(x, torch.zeros_like(x), spec, lay,
+                                                   fused_steps=K)
+                    assert stencil3d.stencil3d_step.launches_march - before == (R == 1)
+                    general = _general_3d(x, spec, lay, K)
+                    torch.cuda.synchronize()
+                    torch.testing.assert_close(got, general, rtol=0, atol=0, equal_nan=True)
+                    if dtype == torch.float64:
+                        want = stencil3d.stencil3d_step_plain(x, torch.zeros_like(x), spec, lay, K)
+                        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype,k", [("float32", 2), ("df64", 1), ("float64", 2)])
+@pytest.mark.parametrize("name", ["star3d1r", "box3d1r"])
+def test_3d_engine_runs_the_march_kernel(cuda, name, dtype, k):
+    """Every pass of the engine's 3-D paths launches the march kernel; a pass
+    of four steps (fused_steps_3d=4) runs the general kernel."""
+    interior = (20, 40, 200)
+    eng = engine.StencilEngine.for_shape(name, interior, device=cuda, dtype=dtype)
+    assert eng._fused_k() == k
+    g1 = reference.random_padded(eng.spec, interior, seed=3)
+    counter = stencil3d.stencil3d_step
+    before = (counter.launches + counter.launches_f64, counter.launches_march)
+    out = eng.run(g1, 8)
+    torch.cuda.synchronize()
+    assert (counter.launches + counter.launches_f64 - before[0],
+            counter.launches_march - before[1]) == (8 // k, 8 // k)
+    want, got = reference.run(g1, eng.spec, 8), out.cpu().numpy()
+    if dtype == "float32":
+        assert np.abs(got - want).max() <= 1e-6 * np.abs(want).max()
+    else:  # every partial sum an integer below 2**53
+        assert np.array_equal(got, want)
+    if dtype != "df64":  # df64 runs one step a pass whatever the config
+        deep = engine.StencilEngine.for_shape(name, interior, device=cuda, dtype=dtype,
+                                              fused_steps_3d=4)
+        before = (counter.launches + counter.launches_f64, counter.launches_march)
+        deep.run(g1, 4)
+        assert counter.launches + counter.launches_f64 > before[0]
+        assert counter.launches_march == before[1]
+
+
 def _spec_1d(name):
     if name == "r40":  # taps / 256: values stay finite over deep passes
         taps = np.random.default_rng(40).integers(-3, 4, 81) / 256.0
