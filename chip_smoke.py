@@ -20,8 +20,10 @@ its hand-written CUDA kernels:
   three fused steps), through ``csrc/stencil1d.cu``, whose two kernels in
   their narrow and wide instantiations replace the four TPU kernels of
   ``lorastencil_tpu/ops/pallas_1d.py``;
-* the fp64-grade tier, dtypes 'df64' and 'float64': the float64 instances
-  of ``csrc/stencil2d.cu`` (replacing ``pallas_df64._df64_kernel``),
+* the fp64-grade tier, dtypes 'df64' and 'float64': the float64 strip
+  kernel of ``csrc/stencil2d.cu`` (every 2-D step at radius <= 4 and <= 3
+  terms; the float64 tile kernel beyond: replacing
+  ``pallas_df64._df64_kernel``), the float64 instances of
   ``csrc/stencil1d.cu`` (narrow pass, wide pass and narrow run, replacing
   the three kernels of ``lorastencil_tpu/ops/pallas_df64_1d.py``) and
   ``csrc/stencil3d.cu`` (replacing ``pallas_df64_3d._df64_3d_kernel``:
@@ -102,8 +104,12 @@ Phases, each printing one line or more and raising on failure:
    out), its twin's, one ``F.conv1d`` step with the dense taps (TF32 off)
    and its bound; the wrapper's host time per launch with the device idle,
    and the device's idle share of the 1,000,000-cell run;
-11. each fp64 kernel against its fp64 twin on the card: the 2-D instance for
-   star2d1r, box2d1r and box2d3r at 1000^2 and 8192^2; the 1-D instances
+11. each fp64 kernel against its fp64 twin on the card: the 2-D float64
+   strip kernel for star2d1r, box2d1r and box2d3r at 1000^2 and 8192^2,
+   star2d3r at 1000^2 and star2d1r at 300 x 140 with a guard off the
+   16-byte grid (8-byte copies), each step counted in ``launches_k1`` and
+   bit for bit against the float64 tile kernel and the twin on the integer,
+   pi/100 and inf fills; the 1-D instances
    for 1d1r and 1d2r at 4096, 3001 and 16,777,216 and ``for_coeffs`` taps
    of radius 40 and 127 at 100,000 (passes at k = 1, 2 and the largest k
    whose window fits shared memory in fp64, runs over 2*refresh + 3 steps
@@ -112,18 +118,22 @@ Phases, each printing one line or more and raising on failure:
    printed beside its limit 1e-13 (the fp64 kernels round each product
    and sum on their own, in their twins' order: it should be 0);
 12. each fp64 engine path, for 'df64' and for 'float64', launches counted
-   from zero over the phase: star2d1r 8192^2 and box2d3r 4096^2 (the 2-D
-   instance), 1d1r 4096 (the narrow run), 1d2r 16,777,216 (narrow passes,
+   from zero over the phase: star2d1r 8192^2 and box2d3r 4096^2 (every
+   step a float64 strip launch, counted in ``df64_step`` and
+   ``stencil2d_k1``), 1d1r 4096 (the narrow run), 1d2r 16,777,216 (narrow passes,
    k = 1 in df64 and 2 in float64), ``for_coeffs`` r = 40 at 100,000 (wide
    passes) and, float64 only, at 3001 (the wide run); ``run(.., 2)`` of the
    integer fill bit for bit against a float64 dense stencil on the card,
    ``run(.., 4)`` of the pi/100 fill within rel 1e-13 of it;
 13. df64 star2d1r 8192^2 x 32, box2d3r 4096^2 x 32, 1d1r 4096 x 64 and
    1d2r 16,777,216 x 256 through ``run_internal`` and through the naive
-   dense stencil in float64 (GStencil/s, vs_baseline); per fp64 kernel its
+   dense stencil in float64 (GStencil/s, vs_baseline; the 2-D runs' 32
+   launches counted, every one a float64 strip launch); per fp64 kernel its
    device time, its twin's, one float64 ``F.conv2d`` / ``F.conv1d`` step
    (the library yardstick) and its bound: 8-byte cells over the memory
-   rate, or the operations over the card's fp64 CUDA-core rate;
+   rate, or the operations over the card's fp64 CUDA-core rate; the 2-D
+   step at star2d1r 8192^2 and box2d3r 4096^2, each beside the float64
+   tile kernel it replaces, timed in turns;
 14. the wrappers' fused (#1 at k = 2 and 3) and skewed (#2) passes against
    single-step launches of the 2-D kernel (bit for bit on any fill: they
    share its per-cell sums) and against their twins (the 0/1 fill bit for
@@ -175,11 +185,13 @@ Phases, each printing one line or more and raising on failure:
    the general kernel's k = 2 pass (each set in turns); one float64
    ``F.conv3d`` 3x3x3 step and the pass's byte bound;
 20. the kernels redesigned for Hopper, each with its registers and
-   spills from ptxas (the strip kernel, the fused strip kernel, the wide
-   1-D pass, the 3-D march kernel), failing on any spill: the 2-D strip
-   kernel's step at star2d1r 8192^2 beside the tile kernel it replaces
-   (timed in turns), its twin, ``F.conv2d``, its byte bound and its share
-   of it; the march kernel's float32 k = 2, df64 and float64 k = 2 passes
+   spills from ptxas (the strip kernel and its float64 counterpart, the
+   fused strip kernel, the wide 1-D pass, the 3-D march kernel), failing on
+   any spill: the 2-D strip kernel's step at star2d1r 8192^2 beside the
+   tile kernel it replaces (timed in turns), its twin, ``F.conv2d``, its
+   byte bound and its share of it; the float64 strip kernel's df64 steps
+   at star2d1r 8192^2 and box2d3r 4096^2 beside the float64 tile kernel
+   (phase 13) and their share of the byte bound; the march kernel's float32 k = 2, df64 and float64 k = 2 passes
    at 256^3 beside the general kernel (phases 7 and 19) and their share of
    the byte bound; the wide 1-D pass at float64 r = 40 x 100,000 and
    float32 1d2r 1,000,000 (k = 2), and at float64 r = 40 x 16,777,216 (134
@@ -258,8 +270,9 @@ def _counters():
     "stencil1d_resident_f64"; the 2-D resident run's float64 instance as
     "stencil2d_resident_pair", the kernel it replaces).  The fused 2-D
     kernel counts with the step kernel it extends, as "stencil2d"; the
-    strip kernel's float32 steps count in both "stencil2d" and
-    "stencil2d_k1"; the fused strip kernel's passes in the wrapper's own
+    strip kernels' steps count in "stencil2d_k1" too, beside "stencil2d"
+    (float32) or "df64_step" (float64); the fused strip kernel's passes in
+    the wrapper's own
     count and in "stencil2d_fused_strip" (from ``stencil2d_step``) or
     "stencil2d_skew_fused_strip" (from ``stencil2d_skew_step``); the 3-D
     march kernel's passes in "stencil3d" (float32) or "df64_3d_step"
@@ -1115,17 +1128,52 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max()).item()
 
 
-def check_kernel_fp64(name, interior, device):
-    """Phase 11, 2-D: the float64 instance against its twin for one shape
-    and size; returns (abs err, rel err, bit-equal) of the pi/100 fill after
-    4 steps."""
+def check_kernel_fp64(name, interior, device, guard=None):
+    """Phase 11, 2-D: the float64 strip kernel for one shape and size (and
+    ``guard``, the layout's default if None) against the float64 tile
+    kernel it replaces and its twin: every step a strip launch, counted in
+    ``launches_k1`` and ``launches_f64``; one step bit for bit against both
+    on the integer, pi/100 and inf fills (NaN where they have NaN), 1-2
+    steps of the integer fill against the twin; returns (abs err, rel err,
+    bit-equal) of the pi/100 fill after 4 steps."""
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil2d
+    from lorastencil_tpu_torch.ops.layout import Layout2D, default_tile_2d
     from lorastencil_tpu_torch.utils import reference
 
     spec = get_shape(name)
-    lay = port_layout(spec, interior)
+    lay = (port_layout(spec, interior) if guard is None else
+           Layout2D(interior=interior, halo=spec.halo,
+                    tile=default_tile_2d(*interior), guard=guard))
+    if not stencil2d.strip_takes(spec, torch.float64):
+        raise AssertionError(f"{name}: the float64 step does not take the "
+                             f"strip kernel")
+    step = stencil2d.stencil2d_step
     g0 = reference.random_padded(spec, interior, seed=1)
+    inf = g0 * (np.pi / 100)
+    inf.flat[inf.size // 3] = np.inf
+    for fill in (g0, g0 * (np.pi / 100), inf):
+        x = lay.to_internal(fill, torch.float64, device)
+        before = (step.launches_f64, step.launches_k1)
+        strip = step(x, torch.zeros_like(x), spec, lay)
+        if (step.launches_f64 - before[0], step.launches_k1 - before[1]) != (
+                1, 1):
+            raise AssertionError(f"{name} {interior}: the float64 step was "
+                                 f"not one strip launch")
+        tile = torch.zeros_like(x)
+        stencil2d._launch("step", (x, tile), spec, lay, 1)
+        want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec,
+                                              lay)
+        torch.cuda.synchronize()
+        for other, what in ((tile, "the float64 tile kernel"),
+                            (want, "its twin")):
+            if not bool(((strip == other)
+                         | (strip.isnan() & other.isnan())).all()):
+                bad = (strip != other).sum().item()
+                raise AssertionError(
+                    f"{name} {interior} guard {lay.guard}: the float64 strip "
+                    f"kernel differs from {what} at {bad} cells")
+        del x, strip, tile, want
     for fill, steps_list in ((g0, (1, 2)), (g0 * (np.pi / 100), (4,))):
         x = lay.to_internal(fill, torch.float64, device)
         for steps in steps_list:
@@ -1221,6 +1269,13 @@ def check_kernels_fp64_1d(name, n, device):
     return errs
 
 
+# Phase 11's 2-D cases: (shape, interior, guard or None for the layout's)
+FP64_2D_CASES = tuple((name, interior, None)
+                      for name in ("star2d1r", "box2d1r", "box2d3r")
+                      for interior in ((1000, 1000), INTERIOR)) + (
+    ("star2d3r", (1000, 1000), None), ("star2d1r", (300, 140), (5, 7)))
+
+
 # Phase 12's engine paths: (shape or for_coeffs radius, interior, dtypes,
 # path, kernel whose count each run adds to)
 FP64_PATHS = (
@@ -1247,7 +1302,8 @@ def fp64_engine(name, interior, dtype, device):
 def main_path_fp64(device):
     """Phase 12: every fp64 engine path end to end; returns the launches of
     each fp64 kernel over the phase, counted from zero, and a line per
-    case."""
+    case.  Each run's launches are counted exactly: a 2-D step is one
+    float64 strip launch, in "df64_step" and "stencil2d_k1"."""
     from lorastencil_tpu_torch.ops import torch_ref
     from lorastencil_tpu_torch.utils import reference
 
@@ -1273,7 +1329,10 @@ def main_path_fp64(device):
                 launched = {key: v - before[key] for key, v in counts().items()
                             if v != before[key]}
                 expect = 1 if path and "resident" in path else -(-steps // k)
-                if launched != {kernel: expect}:
+                want_launches = {kernel: expect}
+                if len(interior) == 2:  # every step a float64 strip launch
+                    want_launches["stencil2d_k1"] = expect
+                if launched != want_launches:
                     raise AssertionError(f"{name} {interior} {dtype} run("
                                          f"{steps}) launched {launched}")
                 if (tuple(out.shape) != spec.padded_shape(interior)
@@ -1322,6 +1381,12 @@ def bench_fp64(device, card):
                                    warmup=1)
         res = metrics.bench_result(eng.spec, interior, steps, secs,
                                    "cuda-fp64", "df64", 3)
+        if len(interior) == 2:  # every step a float64 strip launch
+            count_run(eng, state, steps, "df64_step", steps)
+            if counts()["stencil2d_k1"] != steps:
+                raise AssertionError(f"df64 {name} x{steps}: "
+                                     f"{counts()['stencil2d_k1']} strip "
+                                     f"launches")
         del state
         grid = torch.rand(eng.spec.padded_shape(interior), generator=gen,
                           device=device, dtype=torch.float64) * 0.01
@@ -1345,8 +1410,43 @@ def bench_fp64(device, card):
               flush=True)
 
     timing = {}
+    for name, interior in (("star2d1r", INTERIOR), ("box2d3r", (4096, 4096))):
+        eng = fp64_engine(name, interior, "df64", device)
+        spec, lay = eng.spec, eng.layout
+        x = torch.rand(lay.shape, generator=gen, device=device,
+                       dtype=torch.float64) * 0.01
+        donor = torch.zeros_like(x)
+        fns = {"kernel": lambda: stencil2d.stencil2d_step(x, donor, spec, lay),
+               "tile": lambda: stencil2d._launch("step", (x, donor), spec,
+                                                 lay, 1)}
+        ms = {}
+        for which in ("kernel", "tile", "tile", "kernel"):  # in turns
+            ms[which] = min(ms.get(which, float("inf")), graph_ms(fns[which]))
+        plain_ms = graph_ms(lambda: stencil2d.stencil2d_step_plain(
+            x, donor, spec, lay), 3)
+        bound, by = bound_ms(spec, interior, 1, itemsize=8)
+        parts = bound_parts(spec, interior, 1, itemsize=8)
+        lib = library_ms(spec, interior, device, torch.float64)
+        dims = "x".join(str(s) for s in interior)
+        rec = dict(ms=ms["kernel"], plain_ms=plain_ms, bound_ms=bound,
+                   bound_by=by, library_ms=lib, steps_per_launch=1,
+                   library_steps=1, shape=f"df64 {name} {dims}",
+                   kernel="strip64_kernel", tile_kernel_ms=ms["tile"])
+        if name == "star2d1r":
+            timing["df64_step"] = rec
+        else:
+            timing["df64_step"][name] = rec
+        print(f"phase 13: df64_step at df64 {name} {dims}, one step: the "
+              f"float64 strip kernel {ms['kernel']} ms (device), "
+              f"{bound / ms['kernel']:.4f} of its bound; the float64 tile "
+              f"kernel it replaces {ms['tile']} ms "
+              f"({ms['tile'] / ms['kernel']:.4f}x); plain twin {plain_ms} ms, "
+              f"float64 F.conv2d one step {lib} ms, bound {bound} ms ({by}; "
+              f"bytes {parts[0]} ms in 8-byte cells, operations {parts[1]} ms "
+              f"at {PEAK_FP64_FLOPS / 1e12:.0f} fp64 TFLOP/s) [{card}]",
+              flush=True)
+        del x, donor
     for kernel, name, interior, steps in (
-            ("df64_step", "star2d1r", INTERIOR, None),
             ("df64_1d_step", "1d2r", (N_1D_LARGE,), None),
             ("df64_1d_flat_step", "r40", (100_000,), None),
             ("stencil1d_resident_pair", "1d1r", (N_1D_SMALL,), 64)):
@@ -1355,12 +1455,8 @@ def bench_fp64(device, card):
         x = torch.rand(lay.shape, generator=gen, device=device,
                        dtype=torch.float64) * 0.01
         donor = torch.zeros_like(x)
-        if kernel == "df64_step":
-            wrapper = stencil2d.stencil2d_step
-            plain = stencil2d.stencil2d_step_plain
-        else:
-            wrapper = getattr(s1, KERNELS_FP64_1D[kernel])
-            plain = getattr(s1, KERNELS_FP64_1D[kernel] + "_plain")
+        wrapper = getattr(s1, KERNELS_FP64_1D[kernel])
+        plain = getattr(s1, KERNELS_FP64_1D[kernel] + "_plain")
         if steps is None:  # one step
             one = lambda: wrapper(x, donor, spec, lay)
             twin = lambda: plain(x, donor, spec, lay)
@@ -1372,9 +1468,7 @@ def bench_fp64(device, card):
         ms, plain_ms = graph_ms(one), graph_ms(twin, 3)
         bound, by = bound_ms(spec, interior, per, itemsize=8)
         parts = bound_parts(spec, interior, per, itemsize=8)
-        lib = (library_ms(spec, interior, device, torch.float64)
-               if len(interior) == 2
-               else conv1d_ms(spec, interior[0], device, torch.float64))
+        lib = conv1d_ms(spec, interior[0], device, torch.float64)
         dims = "x".join(str(s) for s in interior)
         timing[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
                               bound_by=by, library_ms=lib,
@@ -1382,7 +1476,7 @@ def bench_fp64(device, card):
                               shape=f"df64 {name} {dims}")
         print(f"phase 13: {kernel} at df64 {name} {dims}, {per} step(s) per "
               f"launch: kernel {ms} ms (device), plain twin {plain_ms} ms, "
-              f"float64 F.conv{len(interior)}d one step {lib} ms, bound "
+              f"float64 F.conv1d one step {lib} ms, bound "
               f"{bound} ms ({by}; bytes {parts[0]} ms in 8-byte cells, "
               f"operations {parts[1]} ms at {PEAK_FP64_FLOPS / 1e12:.0f} "
               f"fp64 TFLOP/s) [{card}]", flush=True)
@@ -2004,7 +2098,8 @@ def bench_fp64_3d(device, card):
 
 
 # Phase 20: the kernels redesigned for Hopper, csrc/stencil2d.cu strip_kernel
-# (an instantiation per radius 1-4 and term count 0-3) and
+# (an instantiation per radius 1-4 and term count 0-3), strip64_kernel (the
+# same in float64, each with 16-byte or 8-byte copies) and
 # fused_strip_kernel (radius 1-4, 1-2 terms, K = 2, the terms' kinds),
 # csrc/stencil1d.cu wide_kernel (float and double) and csrc/stencil3d.cu
 # march_kernel (float and double, radius 1-2, K = 1-2, star3d1r's and
@@ -2014,6 +2109,8 @@ def bench_fp64_3d(device, card):
 # "18fused_strip_kernel".
 PTXAS_KERNELS = {
     "strip_kernel": ("stencil2d", r"\dstrip_kernelILi(\d)ELi(\d)E", "R,terms"),
+    "strip64_kernel": ("stencil2d", r"strip64_kernelILi(\d)ELi(\d)ELb([01])E",
+                       "R,terms,16-byte"),
     "fused_strip_kernel": (
         "stencil2d", r"fused_strip_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d+)E",
         "R,terms,K,kinds"),
@@ -2046,11 +2143,13 @@ def ptxas_table(log, pattern):
     return table
 
 
-def redesigned(device, card, builds, step_ms, lib2, march_ms):
+def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms):
     """Phase 20: per redesigned kernel its registers and spills, device ms,
     bound and share of it, and library ms; the 2-D step beside the tile
     kernel it replaces (``step_ms``: phase 2's strip, tile and twin times,
-    timed in turns), the 3-D march kernel's passes beside the general
+    timed in turns), the float64 strip kernel's df64 steps beside the
+    float64 tile kernel (``fp64_step``: phase 13's record, star2d1r's with
+    box2d3r's inside), the 3-D march kernel's passes beside the general
     kernel's (``march_ms``: phases 7 and 19, each timed in turns) and the
     wide pass at three sizes; returns the large wide pass's record."""
     from lorastencil_tpu_torch.models.shapes import get_shape
@@ -2070,6 +2169,13 @@ def redesigned(device, card, builds, step_ms, lib2, march_ms):
           f"the tile kernel it replaces {tile} ms ({tile / strip:.4f}x); "
           f"plain twin {plain} ms; F.conv2d 7x7 {lib2} ms [{card}]",
           flush=True)
+    for rec in (fp64_step, fp64_step["box2d3r"]):
+        print(f"phase 20: strip64_kernel, {rec['shape']} step: {rec['ms']} "
+              f"ms (device), {rec['bound_ms'] / rec['ms']:.4f} of its "
+              f"{rec['bound_ms']} ms {rec['bound_by']} bound; the float64 tile "
+              f"kernel it replaces {rec['tile_kernel_ms']} ms "
+              f"({rec['tile_kernel_ms'] / rec['ms']:.4f}x); float64 F.conv2d "
+              f"{rec['library_ms']} ms [{card}]", flush=True)
     for label, ms, general, bound in march_ms:
         print(f"phase 20: march_kernel, {label} pass at 256^3: {ms} ms "
               f"(device), {bound / ms:.4f} of its {bound} ms bytes bound; "
@@ -2228,14 +2334,16 @@ def main() -> int:
     timing_1d = bench_1d(device, card)
 
     errs_fp64 = {}
-    for name in ("star2d1r", "box2d1r", "box2d3r"):
-        for interior in ((1000, 1000), INTERIOR):
-            abs_err, rel, same = check_kernel_fp64(name, interior, device)
-            if name == "star2d1r" and interior == INTERIOR:
-                errs_fp64["df64_step"] = (abs_err, rel, same)
-            print(f"phase 11: df64_step {name} {interior}: integer fill "
-                  f"bit-exact at 1-2 steps; pi/100 fill rel err {rel:.3e} "
-                  f"after 4 steps (limit 1e-13), bit-equal {same}", flush=True)
+    for name, interior, guard in FP64_2D_CASES:
+        abs_err, rel, same = check_kernel_fp64(name, interior, device, guard)
+        if name == "star2d1r" and interior == INTERIOR:
+            errs_fp64["df64_step"] = (abs_err, rel, same)
+        print(f"phase 11: df64_step {name} {interior} guard "
+              f"{guard or 'default'}: the float64 strip kernel, bit-equal to "
+              f"the float64 tile kernel and the twin on the integer, pi/100 "
+              f"and inf fills; integer fill bit-exact at 1-2 steps; pi/100 "
+              f"fill rel err {rel:.3e} after 4 steps (limit 1e-13), "
+              f"bit-equal {same}", flush=True)
     for name, sizes in (("1d1r", (N_1D_SMALL, 3001, N_1D_LARGE)),
                         ("1d2r", (N_1D_SMALL, 3001, N_1D_LARGE)),
                         ("r40", (100_000,)), ("r127", (100_000,))):
@@ -2318,7 +2426,7 @@ def main() -> int:
                      (f"float64 k=2 {name}", t["float64_k2_ms"],
                       t["float64_general_k2_ms"], t["bound_ms"])]
     wide_large = redesigned(device, card, builds, (ms2, plain_ms2, tile_ms2),
-                            lib2, march_ms)
+                            lib2, timing_fp64["df64_step"], march_ms)
 
     loaded = loaded_reference_modules()
     if loaded:

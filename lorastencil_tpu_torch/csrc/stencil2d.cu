@@ -3,11 +3,11 @@
 // per-cell arithmetic, so each equals the others (and its plain twin) cell
 // for cell on the same steps:
 //
-//   * the strip kernel (ls_stencil2d_strip: float32, k = 1, radius 1..4, at
-//     most kStripMaxTerms terms), the step kernel (ls_stencil2d_step with
-//     k = 1: float64, and the float32 steps the strip kernel does not take)
-//     and the fused kernel, k >= 2 levels per pass over device memory (the
-//     same entry with k >= 2), replace
+//   * the strip kernel (ls_stencil2d_strip: float32; ls_stencil2d_strip_f64,
+//     strip64_kernel: float64; k = 1, radius 1..4, at most kStripMaxTerms
+//     terms), the step kernel (ls_stencil2d_step with k = 1: the steps the
+//     strip kernels do not take) and the fused kernel, k >= 2 levels per
+//     pass over device memory (the same entry with k >= 2), replace
 //     lorastencil_tpu/ops/pallas_2d.py::_stencil2d_kernel
 //     (pallas_2d.stencil2d_step, extent fusion);
 //   * the skew kernel (ls_stencil2d_skew) replaces
@@ -20,9 +20,11 @@
 //     cooperative launch, replaces pallas_2d.py::_stencil2d_resident_kernel
 //     (stencil2d_resident).
 //
-// The step, skew and resident kernels have a float32 and a float64 instance
-// (the *_f64 entries); the strip kernels are float32 only.  The float64
-// step replaces lorastencil_tpu/ops/pallas_df64.py::_df64_kernel (df64_step)
+// The strip, step, skew and resident kernels have a float32 and a float64
+// instance (the *_f64 entries; the float64 strip kernel is a kernel of its
+// own, strip64_kernel); the fused strip kernel is float32 only.  The float64
+// strip kernel (and the float64 step beyond its radii and terms) replaces
+// lorastencil_tpu/ops/pallas_df64.py::_df64_kernel (df64_step)
 // and the float64 resident run pallas_df64.py::_resident_pair_2d_kernel
 // (stencil2d_resident_pair): the TPU computes the fp64-grade tier on
 // error-free (hi, lo) fp32 pairs because it has no fp64 unit; the H100 has
@@ -69,7 +71,11 @@
 //     zero tap is a uniform branch.  Rows go out as 16-byte stores.  Each
 //     warp the card holds at once takes one task, a column strip's share
 //     of its rows, so that no wave runs part full.  The sums are
-//     tile_sums', cell for cell (below);
+//     tile_sums', cell for cell (below).  The float64 strip kernel
+//     (strip64_kernel) walks the same way with two cells per lane, so a
+//     warp owns 64 columns and its rings take the registers four float32
+//     cells would; both rows of a pair go through each tap together, and
+//     its zero taps are tested on integer bit masks of the plan;
 //   * fused strip (float32, k = 2, at most kFusedStripMaxTerms terms, each
 //     with a row or column axis, no residue): the strip kernel's walk with
 //     every level in registers.
@@ -119,12 +125,13 @@
 // bit-exactness the tests hold the kernels to.
 //
 // Taps and residue come from a small device table in the state's dtype
-// (ops/band_gemm.py plan_array), staged into shared memory by every block.
+// (ops/band_gemm.py plan_array), staged into shared memory by every block;
+// the strip kernels take the same table from host memory by value.
 //
-// C interface, loaded with ctypes: ls_stencil2d_step, ls_stencil2d_skew and
-// ls_stencil2d_resident (float) and their *_f64 twins (double), and the
-// float-only ls_stencil2d_strip and ls_stencil2d_fused_strip, launch on the
-// given stream, allocate nothing and return a cudaError_t (0 = launched).
+// C interface, loaded with ctypes: ls_stencil2d_step, ls_stencil2d_strip,
+// ls_stencil2d_skew and ls_stencil2d_resident (float) and their *_f64 twins
+// (double), and the float-only ls_stencil2d_fused_strip, launch on the given
+// stream, allocate nothing and return a cudaError_t (0 = launched).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -587,7 +594,7 @@ bool bad_args(int plan_len, int n_terms, int R, int n_res, const Grid2D& g,
          (g.mr + tile_rows<T>() - 1) / tile_rows<T>() > kMaxGridY;
 }
 
-// -- the strip kernel: float32 steps at k = 1, radius 1..kStripMaxRadius ----
+// -- the strip kernels: steps at k = 1, radius 1..kStripMaxRadius -----------
 constexpr int kStripMaxRadius = 4;
 constexpr int kStripMaxTerms = 3;
 constexpr int kStripMaxRes = (2 * kStripMaxRadius + 1) * (2 * kStripMaxRadius + 1);
@@ -597,6 +604,9 @@ constexpr int kStripPad = 4;     // window columns each side (>= R)
 constexpr int kStripWindow = kStripCols + 2 * kStripPad;  // cells a row
 // a ring row: the window, and one quad that a residue load may touch past it
 constexpr int kStripRowCells = kStripWindow + 4;
+// the float64 strip kernel's: 2 adjacent cells per lane
+constexpr int kStrip64Cols = 64;
+constexpr int kStrip64Window = kStrip64Cols + 2 * kStripPad;
 constexpr int kStripRing = 16;   // input rows a warp holds (a power of 2)
 constexpr int kStripAhead = 6;   // rows in flight ahead of the compute
 constexpr int kStripWarps = 4;   // warps per block, each on its own tasks
@@ -605,27 +615,36 @@ static_assert(kStripAhead + 2 * kStripMaxRadius + 2 <= kStripRing,
               "the ring must hold a row pair's residue rows and the rows "
               "ahead");
 
-// plan_array's table for one R, by value: per term the flags and its W
-// column and row taps; per residue point its offsets and weight.
-template <int R>
+// plan_array's table for one R, by value: per term the flags, its W
+// column and row taps and their nonzero ones as bit masks (bit q: tap q);
+// per residue point its offsets and weight.
+template <typename T, int R>
 struct StripPlan {
   int has_col[kStripMaxTerms];
   int has_row[kStripMaxTerms];
-  float ct[kStripMaxTerms][2 * R + 1];
-  float rt[kStripMaxTerms][2 * R + 1];
+  int col_nz[kStripMaxTerms];
+  int row_nz[kStripMaxTerms];
+  T ct[kStripMaxTerms][2 * R + 1];
+  T rt[kStripMaxTerms][2 * R + 1];
   int n_res;
   int res_dr[kStripMaxRes];
   int res_dc[kStripMaxRes];
-  float res_w[kStripMaxRes];
+  T res_w[kStripMaxRes];
 };
-static_assert(sizeof(StripPlan<kStripMaxRadius>) + 128 <= 4096,
-              "the strip kernel's parameters must fit in 4 KB");
+static_assert(sizeof(StripPlan<double, kStripMaxRadius>) + 128 <= 4096,
+              "the strip kernels' parameters must fit in 4 KB");
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            bool ok) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0));
 }
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           bool ok) {
@@ -667,7 +686,7 @@ __device__ __forceinline__ void residue_cells(const float* xr, int cls,
 template <int R, int NT>
 __global__ void __launch_bounds__(kStripWarps * 32, 1)
 strip_kernel(const float* __restrict__ in, float* __restrict__ out,
-             const __grid_constant__ StripPlan<R> pl, Grid2D g, int vec,
+             const __grid_constant__ StripPlan<float, R> pl, Grid2D g, int vec,
              int rows) {
   constexpr int W = 2 * R + 1;
   constexpr int Y = W + 1;  // column convs kept: a pair's 2R + 2 rows
@@ -847,19 +866,275 @@ strip_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
-// plan_array's float32 table (host memory) into the kernel's parameters.
-template <int R>
-bool fill_strip_plan(const float* plan, int n_terms, int n_res,
-                     StripPlan<R>& pl) {
+// The lane's 2 cells of a residue point's row, at `xr` (the row's cell of
+// the lane's first column, shifted by dc): one 16-byte load of the aligned
+// pair, or, at an odd dc, of the two pairs around them.
+__device__ __forceinline__ void residue_pair(const double* xr, int odd,
+                                             double (&v)[2]) {
+  const double2* q = reinterpret_cast<const double2*>(xr - odd);
+  const double2 a = q[0];
+  if (!odd) {
+    v[0] = a.x, v[1] = a.y;
+    return;
+  }
+  const double2 b = q[1];
+  v[0] = a.y, v[1] = b.x;
+}
+
+// Blocks per SM that the float64 strip kernel's launch bound asks for:
+// three at three terms of radius <= 3 (ptxas then keeps the instance within
+// 168 registers without a spill, at the row-tap interleave's cost), else
+// one, which leaves ptxas the registers the rings need.
+__host__ __device__ constexpr int strip64_min_blocks(int R, int NT) {
+  return NT == 3 && R <= 3 ? 3 : 1;
+}
+
+// Tap q of every term's row conv for output rows s + h - 2R (h = 0, 1):
+// z[t][h][c] += w * (column conv of input row s + h - 2R + q), the row at
+// ring index (u + h + 2 + q) % Y; a zero tap (and an identity axis, whose
+// taps are zero) is skipped.
+template <int R, int NT, int Y>
+__device__ __forceinline__ void row_taps(
+    const StripPlan<double, R>& pl, const double (&y)[NT > 0 ? NT : 1][Y][2],
+    int u, int q, double (&z)[NT > 0 ? NT : 1][2][2]) {
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+    if ((pl.row_nz[t] >> q) & 1) {
+      const double w = pl.rt[t][q];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          z[t][h][c] = mad(w, y[t][(u + h + 2 + q) % Y][c], z[t][h][c]);
+    }
+}
+
+// One float64 step per cell of rows [i0, i0 + rows) x columns
+// [j0, j0 + 64) for each task of a warp; lane l owns columns j0 + 2 l and
+// j0 + 2 l + 1.  strip_kernel's walk in double: 16-byte copies into the
+// per-warp ring (VEC; 8-byte ones off the 16-byte grid), the column
+// convs of each input row once per term in a register ring of Y = 2R + 2
+// rows, row pairs.  Each lane reads both rows' windows of a pair (columns
+// j - 4 .. j + 5, the pairs the taps reach) before the column convs, so a
+// tap's weight and zero test serve 4 cells, as they do in the row conv.
+// Tap q of every term's column conv goes beside tap q of the other terms'
+// and, where the registers allow it (kInterleave), beside tap q of every
+// term's row conv (for q < 2R - 1: those read earlier rows only), so that
+// independent sums fill the FP64 pipe's latency.  At three terms and
+// R <= 3 the row conv follows the column conv instead, and the launch bound
+// asks for three blocks per SM (strip64_min_blocks), which the interleave's
+// registers would not leave: on an H100 that took box2d3r's 4096^2 step
+// from 0.164 to 0.143 ms, while one term's step (star2d1r) runs 6% faster
+// with the interleave.  A zero tap is skipped by a uniform branch on
+// the plan's bit masks (an integer test: a double compare would take the
+// FP64 pipe; predicated PTX multiplies took 255 registers).  Each product
+// and sum is rounded on its own (mad: no FMA), in tile_sums' order, so the
+// kernel equals the tile kernel's float64 instance and the twin bit for bit
+// on any data.
+template <int R, int NT, bool VEC>
+__global__ void __launch_bounds__(kStripWarps * 32, strip64_min_blocks(R, NT))
+strip64_kernel(const double* __restrict__ in, double* __restrict__ out,
+               const __grid_constant__ StripPlan<double, R> pl, Grid2D g,
+               int rows) {
+  constexpr int W = 2 * R + 1;
+  constexpr int Y = W + 1;  // column convs kept: a pair's 2R + 2 rows
+  constexpr int X = 2 * kStripPad + 2;        // window cells of a lane
+  constexpr int V0 = (kStripPad - R) / 2;      // first pair a tap reads
+  constexpr int V1 = (kStripPad + 1 + R) / 2;  // last
+  constexpr bool kInterleave = strip64_min_blocks(R, NT) == 1;
+  __shared__ __align__(16) double
+      ring_all[kStripWarps][kStripRing][kStrip64Window];
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  double(*ring)[kStrip64Window] = ring_all[warp];
+  const int col_tasks = (g.nr + kStrip64Cols - 1) / kStrip64Cols;
+  const int tasks = col_tasks * ((g.mr + rows - 1) / rows);
+  for (int task = blockIdx.x * kStripWarps + warp; task < tasks;
+       task += gridDim.x * kStripWarps) {
+    const int i0 = task / col_tasks * rows;
+    const int j0 = task % col_tasks * kStrip64Cols;
+    const int n_out = min(rows, g.mr - i0);
+    const int n_in = n_out + 2 * R;
+    const int gr0 = g.r0 + i0 - R;  // buffer row of input row 0 (>= 0)
+    const int gc0 = g.c0 + j0 - kStripPad;  // buffer column of window col 0
+    const int j = j0 + 2 * lane;            // the lane's first column
+    const bool inside = j + 1 < g.n;        // both columns interior
+    __syncwarp();  // the previous task's reads of the ring are done
+
+    // input row s into ring slot s % kStripRing, 0 outside the buffer (the
+    // rows of a task lie inside it: bad_args); one commit group per call,
+    // empty past the last row.  With VEC the lane copies pairs lane and,
+    // for lanes 0-3, lane + 32 of every row, at columns set once a task.
+    const int gq0 = gc0 + 2 * lane;
+    const int gq1 = gq0 + kStrip64Cols;
+    const bool ok0 = gq0 >= 0 && gq0 + 2 <= g.pitch;
+    const bool ok1 = lane < kStrip64Window / 2 - 32 && gq1 >= 0 &&
+                     gq1 + 2 <= g.pitch;
+    auto fetch = [&](int s) {
+      if (s < n_in) {
+        double* dst = ring[s & (kStripRing - 1)];
+        const double* src = in + static_cast<size_t>(gr0 + s) * g.pitch;
+        if constexpr (VEC) {
+          cp_async16(dst + 2 * lane, ok0 ? src + gq0 : in, ok0);
+          if (lane < kStrip64Window / 2 - 32)
+            cp_async16(dst + 2 * lane + kStrip64Cols, ok1 ? src + gq1 : in,
+                       ok1);
+        } else {
+          for (int c = lane; c < kStrip64Window; c += 32) {
+            const int gc = gc0 + c;
+            const bool ok = gc >= 0 && gc < g.pitch;
+            cp_async8(dst + c, ok ? src + gc : in, ok);
+          }
+        }
+      }
+      asm volatile("cp.async.commit_group;\n" ::);
+    };
+#pragma unroll
+    for (int s = 0; s < kStripAhead; ++s) fetch(s);
+
+    // the column convs of the last Y input rows: row s at y[.][s % Y]
+    double y[NT > 0 ? NT : 1][Y][2];
+#pragma unroll
+    for (int t = 0; t < NT; ++t)
+#pragma unroll
+      for (int q = 0; q < Y; ++q) y[t][q][0] = y[t][q][1] = 0.0;
+
+    // row pairs by groups of Y rows, so that every register ring index is a
+    // constant; a row past n_in (an odd count's last pair) reads a stale
+    // slot and feeds no stored output
+    for (int s0 = 0; s0 < n_in; s0 += Y) {
+#pragma unroll
+      for (int u = 0; u < Y; u += 2) {
+        const int s = s0 + u;
+        if (s >= n_in) break;
+        asm volatile("cp.async.wait_group %0;\n" ::"n"(kStripAhead - 2));
+        __syncwarp();  // rows s, s + 1 landed for every lane
+        fetch(s + kStripAhead);
+        fetch(s + kStripAhead + 1);
+
+        // output rows i0 + s + h - 2R, h = 0, 1: input rows s + h - 2R + q,
+        // q < W, at ring index (u + h + 2 + q) % Y; each term's row conv
+        // sums in z[t]
+        double z[NT > 0 ? NT : 1][2][2];
+        {
+          // the lane's windows of rows s, s + 1: columns j - 4 .. j + 5 at
+          // x[h][0 .. X), the pairs V0 .. V1 of them that a tap reads
+          double x[2][X];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const double2* row = reinterpret_cast<const double2*>(
+                ring[(s + h) & (kStripRing - 1)] + 2 * lane);
+#pragma unroll
+            for (int v = V0; v <= V1; ++v) {
+              const double2 f = row[v];
+              x[h][2 * v] = f.x;
+              x[h][2 * v + 1] = f.y;
+            }
+          }
+#pragma unroll
+          for (int t = 0; t < NT; ++t)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                y[t][u + h][c] = pl.has_col[t] ? 0.0 : x[h][kStripPad + c];
+                z[t][h][c] = 0.0;
+              }
+          // Tap q of every term's column conv of rows s, s + 1, and tap q of
+          // its row conv, which for q < 2R - 1 reads rows before s only:
+          // the chains are independent, so their taps interleave, and each
+          // cell still sums its taps in ascending order.
+#pragma unroll
+          for (int q = 0; q < W; ++q) {
+#pragma unroll
+            for (int t = 0; t < NT; ++t)
+              if ((pl.col_nz[t] >> q) & 1) {
+                const double w = pl.ct[t][q];
+#pragma unroll
+                for (int h = 0; h < 2; ++h)
+#pragma unroll
+                  for (int c = 0; c < 2; ++c)
+                    y[t][u + h][c] =
+                        mad(w, x[h][kStripPad - R + q + c], y[t][u + h][c]);
+              }
+            if (kInterleave && q < 2 * R - 1)
+              row_taps<R, NT, Y>(pl, y, u, q, z);
+          }
+        }
+        if (s + 1 < 2 * R) continue;
+#pragma unroll
+        for (int q = kInterleave ? 2 * R - 1 : 0; q < W; ++q)
+          row_taps<R, NT, Y>(pl, y, u, q, z);
+
+        double acc[2][2] = {};
+#pragma unroll
+        for (int t = 0; t < NT; ++t)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int c = 0; c < 2; ++c)  // an identity row axis: the cell
+              acc[h][c] = __dadd_rn(
+                  acc[h][c],
+                  pl.has_row[t] ? z[t][h][c] : y[t][(u + h + 2 + R) % Y][c]);
+        for (int p = 0; p < pl.n_res; ++p) {
+          const int dc = pl.res_dc[p];
+          const int r = s - R + pl.res_dr[p];  // the point's row for h = 0
+          const double w = pl.res_w[p];
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            double v[2];
+            residue_pair(ring[(r + h) & (kStripRing - 1)] + 2 * lane +
+                             kStripPad + dc,
+                         dc & 1, v);
+#pragma unroll
+            for (int c = 0; c < 2; ++c) acc[h][c] = mad(w, v[c], acc[h][c]);
+          }
+        }
+
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int o = s + h - 2 * R;  // output row of the task
+          if (o < 0 || o >= n_out) continue;
+          const int i = i0 + o;
+          double* dst =
+              out + static_cast<size_t>(g.r0 + i) * g.pitch + g.c0 + j;
+          if (!(inside && i < g.m)) {
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              if (i >= g.m || j + c >= g.n) acc[h][c] = 0.0;
+          }
+          if constexpr (VEC) {
+            if (j < g.nr)
+              *reinterpret_cast<double2*>(dst) =
+                  make_double2(acc[h][0], acc[h][1]);
+          } else {
+#pragma unroll
+            for (int c = 0; c < 2; ++c)
+              if (j + c < g.nr) dst[c] = acc[h][c];
+          }
+        }
+      }
+    }
+  }
+}
+
+// plan_array's table (host memory, the state's dtype) into a strip kernel's
+// parameters.
+template <int R, typename T>
+bool fill_strip_plan(const T* plan, int n_terms, int n_res,
+                     StripPlan<T, R>& pl) {
   constexpr int W = 2 * R + 1;
   if (n_terms > kStripMaxTerms || n_res > kStripMaxRes) return false;
-  const float* t = plan;
+  const T* t = plan;
   for (int k = 0; k < n_terms; ++k, t += 2 + 2 * W) {
-    pl.has_col[k] = t[0] != 0.0f;
-    pl.has_row[k] = t[1] != 0.0f;
+    pl.has_col[k] = t[0] != T(0);
+    pl.has_row[k] = t[1] != T(0);
+    pl.col_nz[k] = pl.row_nz[k] = 0;
     for (int q = 0; q < W; ++q) {
       pl.ct[k][q] = t[2 + q];
       pl.rt[k][q] = t[2 + W + q];
+      pl.col_nz[k] |= (pl.ct[k][q] != T(0)) << q;
+      pl.row_nz[k] |= (pl.rt[k][q] != T(0)) << q;
     }
   }
   pl.n_res = n_res;
@@ -908,53 +1183,74 @@ int size_strips(const void* kernel, int* resident, int out_cols,
   return 0;
 }
 
-template <int R, int NT>
-int launch_strip(const float* in, float* out, const StripPlan<R>& pl,
+// A launch of the strip kernel of the cell type: strip_kernel (float), or
+// strip64_kernel (double) with 16-byte copies (`vec`) or 8-byte ones.  The
+// float64 kernel takes VEC as a template parameter: on an H100, the walk of
+// an instance that also held the 8-byte copies took 4-8% longer.
+template <typename T, int R, int NT>
+int launch_strip(const T* in, T* out, const StripPlan<T, R>& pl,
                  const Grid2D& g, int vec, cudaStream_t stream) {
-  static int resident[kMaxDevices];
+  constexpr bool kF64 = sizeof(T) == sizeof(double);
+  static int resident[2][kMaxDevices];  // per instance: 8- and 16-byte
+  const void* kernel =
+      !kF64 ? reinterpret_cast<const void*>(strip_kernel<R, NT>)
+      : vec ? reinterpret_cast<const void*>(strip64_kernel<R, NT, true>)
+            : reinterpret_cast<const void*>(strip64_kernel<R, NT, false>);
   int rows = 0, blocks = 0;
-  const int e = size_strips(reinterpret_cast<const void*>(strip_kernel<R, NT>),
-                            resident, kStripCols, g, rows, blocks);
+  const int e = size_strips(kernel, resident[kF64 && vec],
+                            kF64 ? kStrip64Cols : kStripCols, g, rows, blocks);
   if (e != 0) return e;
-  strip_kernel<R, NT><<<blocks, kStripWarps * 32, 0, stream>>>(in, out, pl,
-                                                               g, vec, rows);
+  if constexpr (!kF64)
+    strip_kernel<R, NT><<<blocks, kStripWarps * 32, 0, stream>>>(
+        in, out, pl, g, vec, rows);
+  else if (vec)
+    strip64_kernel<R, NT, true><<<blocks, kStripWarps * 32, 0, stream>>>(
+        in, out, pl, g, rows);
+  else
+    strip64_kernel<R, NT, false><<<blocks, kStripWarps * 32, 0, stream>>>(
+        in, out, pl, g, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int R>
-int strip_terms(const float* in, float* out, const float* plan, int n_terms,
-                int n_res, const Grid2D& g, int vec, cudaStream_t stream) {
-  StripPlan<R> pl = {};
+template <typename T, int R>
+int strip_terms(const T* in, T* out, const T* plan, int n_terms, int n_res,
+                const Grid2D& g, int vec, cudaStream_t stream) {
+  StripPlan<T, R> pl = {};
   if (!fill_strip_plan<R>(plan, n_terms, n_res, pl))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (n_terms) {
-    case 0: return launch_strip<R, 0>(in, out, pl, g, vec, stream);
-    case 1: return launch_strip<R, 1>(in, out, pl, g, vec, stream);
-    case 2: return launch_strip<R, 2>(in, out, pl, g, vec, stream);
-    case 3: return launch_strip<R, 3>(in, out, pl, g, vec, stream);
+    case 0: return launch_strip<T, R, 0>(in, out, pl, g, vec, stream);
+    case 1: return launch_strip<T, R, 1>(in, out, pl, g, vec, stream);
+    case 2: return launch_strip<T, R, 2>(in, out, pl, g, vec, stream);
+    case 3: return launch_strip<T, R, 3>(in, out, pl, g, vec, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// A float32 step (k = 1) by the strip kernel; `plan` is plan_array's table
-// in host memory.  Radii 1..kStripMaxRadius with at most kStripMaxTerms
-// terms, as LS_DISPATCH does 1-D's narrow radii: the radius picks the
-// instantiation; any other is refused.
-int launch_strip_step(const float* in, float* out, const float* plan,
-                      int plan_len, int n_terms, int R, int n_res, Grid2D g,
-                      int k, void* stream) {
-  if (k != 1 || !plan || bad_args<float>(plan_len, n_terms, R, n_res, g, R))
+// A step (k = 1) by the strip kernel of the cell type; `plan` is
+// plan_array's table in host memory, in the state's dtype.  Radii
+// 1..kStripMaxRadius with at most kStripMaxTerms terms, as LS_DISPATCH does
+// 1-D's narrow radii: the radius picks the instantiation; any other is
+// refused.  `vec`: 16-byte copies and stores (rows and the rounded interior
+// on the 16-byte grid).
+template <typename T>
+int launch_strip_step(const T* in, T* out, const T* plan, int plan_len,
+                      int n_terms, int R, int n_res, Grid2D g, int k,
+                      void* stream) {
+  constexpr int kVec = 16 / sizeof(T);  // cells in 16 bytes
+  if (k != 1 || !plan || bad_args<T>(plan_len, n_terms, R, n_res, g, R))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g.mr == 0 || g.nr == 0) return 0;
   const int vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                  g.pitch % 4 == 0 && g.c0 % 4 == 0 && g.nr % 4 == 0;
+                  g.pitch % kVec == 0 && g.c0 % kVec == 0 &&
+                  g.nr % kVec == 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (R) {
-    case 1: return strip_terms<1>(in, out, plan, n_terms, n_res, g, vec, s);
-    case 2: return strip_terms<2>(in, out, plan, n_terms, n_res, g, vec, s);
-    case 3: return strip_terms<3>(in, out, plan, n_terms, n_res, g, vec, s);
-    case 4: return strip_terms<4>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 1: return strip_terms<T, 1>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 2: return strip_terms<T, 2>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 3: return strip_terms<T, 3>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 4: return strip_terms<T, 4>(in, out, plan, n_terms, n_res, g, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1023,7 +1319,7 @@ __device__ __forceinline__ void fma8_nonzero(float w, const float* xa,
 // windows x, into y0[t] and y1[t]: per cell tile_sums' order (nonzero taps
 // ascending, fmaf).
 template <int R, int NT, int KINDS>
-__device__ __forceinline__ void column_convs(const StripPlan<R>& pl,
+__device__ __forceinline__ void column_convs(const StripPlan<float, R>& pl,
                                              const float (&x)[2][12],
                                              float (&y0)[NT][4],
                                              float (&y1)[NT][4]) {
@@ -1058,7 +1354,7 @@ __device__ __forceinline__ void column_convs(const StripPlan<R>& pl,
 template <int R, int NT, int K, int KINDS>
 __global__ void __launch_bounds__(kStripWarps * 32, 1)
 fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
-                   const __grid_constant__ StripPlan<R> pl, Grid2D g,
+                   const __grid_constant__ StripPlan<float, R> pl, Grid2D g,
                    int vec, int rows) {
   constexpr int W = 2 * R + 1;
   constexpr int Y = W + 1;  // column convs kept per level: 2R + 2 rows
@@ -1231,8 +1527,9 @@ fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
 }
 
 template <int R, int NT, int K, int KINDS>
-int launch_fused_strip(const float* in, float* out, const StripPlan<R>& pl,
-                       const Grid2D& g, int vec, cudaStream_t stream) {
+int launch_fused_strip(const float* in, float* out,
+                       const StripPlan<float, R>& pl, const Grid2D& g, int vec,
+                       cudaStream_t stream) {
   static int resident[kMaxDevices];
   int rows = 0, blocks = 0;
   const int e = size_strips(
@@ -1250,7 +1547,7 @@ template <int R>
 int fused_strip_terms(const float* in, float* out, const float* plan,
                       int n_terms, const Grid2D& g, int vec,
                       cudaStream_t stream) {
-  StripPlan<R> pl = {};
+  StripPlan<float, R> pl = {};
   if (!fill_strip_plan<R>(plan, n_terms, 0, pl))
     return static_cast<int>(cudaErrorInvalidValue);
   int kinds = 0;
@@ -1405,7 +1702,8 @@ int launch_resident(const T* in, T* out0, T* out1, const T* plan,
               stream);                                                    \
   }
 LS_ENTRY(ls_stencil2d_step, launch_step<float>, float)
-LS_ENTRY(ls_stencil2d_strip, launch_strip_step, float)
+LS_ENTRY(ls_stencil2d_strip, launch_strip_step<float>, float)
+LS_ENTRY(ls_stencil2d_strip_f64, launch_strip_step<double>, double)
 LS_ENTRY(ls_stencil2d_fused_strip, launch_fused_strip_pass, float)
 LS_ENTRY(ls_stencil2d_step_f64, launch_step<double>, double)
 LS_ENTRY(ls_stencil2d_skew, launch_skew<float>, float)

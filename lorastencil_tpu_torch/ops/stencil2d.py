@@ -21,14 +21,17 @@ form on (hi, lo) fp32 pairs) are likewise one native-fp64 computation:
 all three run the float64 instance.  The lossy or TPU-specific fp32
 variants are still to be ported (ROADMAP B13).
 
-A float32 step (k = 1) of radius 1-4 with at most three terms, which
-is every 2-D registry shape's, runs the strip kernel (``strip_takes``):
-a warp walks down a strip of rows keeping the column convs in registers,
-its plan by value in the launch's parameters (``plan_array`` in host
-memory).  Every other step runs the tile kernel, as the fused levels and
-the float64 instance do; the two give the same values cell for cell.
-``stencil2d_step.launches`` counts both, ``launches_k1`` the strip kernel's
-alone.
+A step (k = 1) of radius 1-4 with at most three terms, which is every
+2-D registry shape's, runs the strip kernel of its dtype (``strip_takes``):
+a warp walks down a strip of rows keeping the column convs in registers
+(four float32 or two float64 cells a lane), its plan by value in the
+launch's parameters (``plan_array`` in host memory, in the state's dtype).
+So every 2-D step of the fp64-grade tier (dtypes 'df64' and 'float64')
+runs the float64 strip kernel.  Every other step runs the tile kernel, as
+the fused levels do; the two give the same values cell for cell.
+``stencil2d_step.launches`` counts the float32 launches of both,
+``launches_f64`` the float64 ones, ``launches_k1`` the strip kernels' in
+either dtype.
 
 A float32 pass of two fused steps of radius 1-4 with one or two terms and
 no residue, star2d3r's (the one registry shape the engine fuses by
@@ -80,7 +83,8 @@ STRIP_MAX_TERMS = 3
 FUSED_STRIP_DEPTHS = (2,)
 FUSED_STRIP_MAX_TERMS = 2
 _ENTRIES = {
-    "strip": {torch.float32: "ls_stencil2d_strip"},
+    "strip": {torch.float32: "ls_stencil2d_strip",
+              torch.float64: "ls_stencil2d_strip_f64"},
     # the fused strip kernel, launched by stencil2d_step and by
     # stencil2d_skew_step: one entry, a kind for each wrapper's counts
     "fused_strip": {torch.float32: "ls_stencil2d_fused_strip"},
@@ -128,9 +132,10 @@ def tile_rows(dtype) -> int:
 
 
 def strip_takes(spec: StencilSpec, dtype, depth: int = 1) -> bool:
-    """Whether a launch of ``depth`` fused steps in ``dtype`` runs the
-    strip kernel: float32, one step, radius 1-4, at most three terms."""
-    return (dtype == torch.float32 and depth == 1
+    """Whether a launch of ``depth`` fused steps in ``dtype`` runs a strip
+    kernel: float32 or float64, one step, radius 1-4, at most three
+    terms."""
+    return (dtype in _ENTRIES["strip"] and depth == 1
             and spec.radius in STRIP_RADII
             and len(spec.terms) <= STRIP_MAX_TERMS)
 
@@ -286,10 +291,11 @@ _HOST_PLAN = ("strip", "fused_strip", "fused_strip_skew")
 
 
 @functools.lru_cache(maxsize=None)
-def _plan_host(spec: StencilSpec):
-    """The float32 tap/residue table in host memory, which the strip
-    kernels' launches copy into their parameters."""
-    return plan_array(spec, torch.float32).contiguous()
+def _plan_host(spec: StencilSpec, dtype):
+    """The tap/residue table in ``dtype`` in host memory, which the strip
+    kernels' launches copy into their parameters: a float64 tap rounded
+    through float32 would change the float64 kernel's sums."""
+    return plan_array(spec, dtype).contiguous()
 
 
 @functools.lru_cache(maxsize=None)
@@ -314,7 +320,7 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
     ``stencil2d_skew_step``) or the steps of a run ("resident"); raises if
     refused, and counts it on the wrapper it serves."""
     cur = buffers[0]
-    plan = (_plan_host(spec) if kind in _HOST_PLAN
+    plan = (_plan_host(spec, cur.dtype) if kind in _HOST_PLAN
             else _plan_buffer(spec, cur.device, cur.dtype))
     rows, pitch = layout.shape
     r0, c0 = layout.origin
@@ -348,10 +354,10 @@ def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
                 k: int):
     """A pass of k steps as launches of at most the k one launch takes,
     from ``cur`` into ``donor`` and, past the first, a spare zero-guarded
-    buffer by turns; returns the buffer the last launch wrote.  A skewed
-    pass's leftover single step runs the step kernel; a launch that
-    ``fused_strip_takes`` runs the fused strip kernel, counted on the
-    wrapper of ``kind``."""
+    buffer by turns; returns the buffer the last launch wrote.  A
+    leftover single step runs the strip kernel where ``strip_takes`` says
+    so (else the step kernel); a launch that ``fused_strip_takes`` runs
+    the fused strip kernel, counted on the wrapper of ``kind``."""
     kmax = max_fused_steps(kind, spec.radius, plan_len(spec), cur.dtype)
     depths = [kmax] * (k // kmax) + ([k % kmax] if k % kmax else [])
     src, spare = cur, None
@@ -386,9 +392,9 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     ``stencil2d_step_plain``.  On a float64 state (dtypes 'float64' and
     'df64') it is also the fp64-grade step of ``pallas_df64.df64_step``
     and takes that wrapper's name 'vpu_sep'.  ``launches`` counts the
-    float32 instance's launches, ``launches_f64`` the float64 one's,
-    ``launches_k1`` those of the float32 steps the strip kernel ran and
-    ``launches_fused_strip`` those of the fused strip kernel."""
+    float32 instances' launches, ``launches_f64`` the float64 ones',
+    ``launches_k1`` those of the steps a strip kernel ran (either dtype)
+    and ``launches_fused_strip`` those of the fused strip kernel."""
     _check(cur, donor, spec, layout, algorithm, fused_steps)
     if cur.device.type == "cpu":
         return stencil2d_step_plain(cur, donor, spec, layout, fused_steps)
@@ -444,7 +450,8 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
 
 
 # kernel launches per instance, for chip_smoke.py: float32 and float64, and
-# the strip kernels' float32 launches apart
+# the strip kernels' launches apart (launches_k1: the strip kernel's steps
+# in either dtype; launches_fused_strip: the fused strip kernel's passes)
 for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
     _wrapper.launches = _wrapper.launches_f64 = 0
 stencil2d_step.launches_k1 = 0

@@ -513,6 +513,60 @@ def test_fp64_engine_counts_its_launches(cuda, dtype, name, interior, counter, l
         assert np.abs(out.cpu().numpy() - want).max() <= 1e-13 * np.abs(want).max()
 
 
+# -- the float64 strip kernel (k = 1, radius 1-4, <= 3 terms): the tile kernel's sums --
+@pytest.mark.parametrize("guard", ["aligned", (5, 7)])
+@pytest.mark.parametrize("interior", [(96, 256), (130, 131), (37, 45)])
+@pytest.mark.parametrize("case", STRIP_CASES, ids=str)
+def test_float64_strip_kernel_equals_the_tile_kernel_and_the_twin(cuda, case, interior,
+                                                                 guard):
+    """The float64 strip kernel (counted in launches_f64 and launches_k1)
+    against the float64 tile kernel it replaces at k = 1 and the twin: bit
+    for bit on the integer, pi/100 and inf fills (NaN where they have NaN),
+    16-byte staging and, with the guard off the 16-byte grid, 8-byte."""
+    spec = get_shape(case) if isinstance(case, str) else _custom_2d(*case, seed=sum(case))
+    assert stencil2d.strip_takes(spec, torch.float64)
+    lay = Layout2D(interior=interior, halo=spec.halo, tile=default_tile_2d(*interior),
+                   guard=guard_2d(spec.halo, spec.radius) if guard == "aligned" else guard)
+    g0 = reference.random_padded(spec, interior, seed=6)
+    pi = g0 * (np.pi / 100)
+    inf = pi.copy()
+    inf.flat[inf.size // 3] = np.inf
+    step = stencil2d.stencil2d_step
+    for fill in (g0, pi, inf):
+        x = lay.to_internal(fill, torch.float64, cuda)
+        before = (step.launches, step.launches_f64, step.launches_k1)
+        got = step(x, torch.zeros_like(x), spec, lay)
+        assert (step.launches - before[0], step.launches_f64 - before[1],
+                step.launches_k1 - before[2]) == (0, 1, 1)
+        tile = torch.zeros_like(x)
+        stencil2d._launch("step", (x, tile), spec, lay, 1)
+        want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.float64
+        torch.testing.assert_close(got, tile, rtol=0, atol=0, equal_nan=True)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", ["df64", "float64"])
+@pytest.mark.parametrize("name", ["star2d1r", "box2d1r", "box2d3r", "star2d3r"])
+def test_fp64_2d_engines_run_only_strip_launches(cuda, dtype, name):
+    """Every step of a df64 or float64 2-D engine is one float64 strip
+    launch: launches_f64 and launches_k1 each grow by the steps, and no
+    float32 or fused launch happens."""
+    eng = engine.StencilEngine.for_shape(name, (70, 200), device=cuda, dtype=dtype)
+    g1 = reference.random_padded(eng.spec, (70, 200), seed=1) * (np.pi / 100)
+    step = stencil2d.stencil2d_step
+    for steps in (1, 2, 5):
+        before = (step.launches, step.launches_f64, step.launches_k1,
+                  step.launches_fused_strip)
+        out = eng.run(g1, steps)
+        assert (step.launches - before[0], step.launches_f64 - before[1],
+                step.launches_k1 - before[2],
+                step.launches_fused_strip - before[3]) == (0, steps, steps, 0)
+        want = reference.run(g1, eng.spec, steps)
+        assert np.abs(out.cpu().numpy() - want).max() <= 1e-13 * np.abs(want).max()
+
+
 @pytest.mark.parametrize("dtype,kw,counter,launches", [
     ("df64", {}, "df64_1d_step", {2: 2, 7: 7}),
     ("float64", {}, "df64_1d_step", {2: 1, 7: 4}),

@@ -125,8 +125,7 @@ def test_deep_pass_splits_into_launches(dtype, monkeypatch):
     """The wrapper's split of a pass deeper than one launch, on the CPU: each
     launch replaced by its twin, the pass ping-pongs between the donor and a
     spare buffer and equals the unsplit pass bit for bit.  The leftover
-    single step is the strip kernel's in float32, the tile kernel's in
-    float64."""
+    single step is the strip kernel's, in float32 and in float64."""
     spec = get_shape("star2d3r")  # taps summing to 28: 23 steps stay finite in fp32
     k = 2 * stencil2d.max_fused_steps("step", spec.radius, stencil2d.plan_len(spec),
                                       dtype) + 1
@@ -137,8 +136,7 @@ def test_deep_pass_splits_into_launches(dtype, monkeypatch):
     depths = []
 
     def fake_launch(kind, buffers, spec_, layout, depth):
-        single_kind = "strip" if dtype == torch.float32 else "step"
-        assert kind == (single_kind if depth == 1 else "step")
+        assert kind == ("strip" if depth == 1 else "step")
         assert buffers[0] is not buffers[1]
         depths.append(depth)
         stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth)

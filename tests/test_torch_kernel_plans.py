@@ -280,13 +280,15 @@ def test_strip_emulation_takes_a_guard_off_the_16_byte_grid():
 
 @pytest.mark.parametrize("name", SHAPES_2D)
 def test_strip_dispatch_by_radius(name):
-    """Every 2-D registry shape's float32 step runs the strip kernel; its
-    float64 step, a fused pass and a radius beyond 4 run the tile kernel."""
+    """Every 2-D registry shape's step runs the strip kernel of its dtype
+    (float32, or float64: strip64_kernel); a fused pass and a radius beyond
+    4 run the tile kernel."""
     spec = get_shape(name)
     assert spec.radius in stencil2d.STRIP_RADII
     assert stencil2d.strip_takes(spec, torch.float32)
-    assert not stencil2d.strip_takes(spec, torch.float64)
+    assert stencil2d.strip_takes(spec, torch.float64)
     assert not stencil2d.strip_takes(spec, torch.float32, depth=2)
+    assert not stencil2d.strip_takes(spec, torch.float64, depth=2)
     wide = _custom_2d(5, 1, 2, seed=1)
     assert not stencil2d.strip_takes(wide, torch.float32)
     assert all(stencil2d.strip_takes(_custom_2d(R, t, e, 2), torch.float32)
