@@ -35,14 +35,17 @@ its hand-written CUDA kernels:
   default, extent fusion) and ``pallas_2d._stencil2d_skew_kernel``
   (``fusion='skew'``) there, and one step per pass; the tile-based fused and
   skew kernels, which run every other fused or skewed pass; and the
-  opt-in whole-grid runs at 512^2, one cooperative launch for all steps
-  (replacing ``pallas_2d._stencil2d_resident_kernel`` in float32 and
-  ``pallas_df64._resident_pair_2d_kernel`` for df64).
+  whole-grid runs, one cooperative launch for all steps (replacing
+  ``pallas_2d._stencil2d_resident_kernel`` in float32 and
+  ``pallas_df64._resident_pair_2d_kernel`` for df64), on by default on the
+  card below the H100 caps: at 512^2 the shared-memory resident kernel of
+  ``csrc/resident2d.cu`` (every registry shape), and for a radius-5 spec
+  at 480^2 ``csrc/stencil2d.cu``'s resident kernel.
 
 Phases, each printing one line or more and raising on failure:
 
 1. the card (nvidia-smi name and power limit), torch and nvcc versions;
-   the three sources built from the checkout, the nvcc runs started
+   the four sources built from the checkout, the nvcc runs started
    together;
 2. the 2-D step (the strip kernel: float32, k = 1, radius <= 4) against its
    plain PyTorch twin on the card, for star2d1r and box2d1r at an interior
@@ -142,16 +145,23 @@ Phases, each printing one line or more and raising on failure:
    (k = 2: in float32 the fused strip kernel from both wrappers, every
    launch counted, also bit for bit against the tile-based fused and skew
    kernels it replaces), box2d1r at 1000^2 (k = 3), star2d1r at 300 x 140
-   (ragged, two skew chunks), float32 and float64; the resident kernel in
-   float32 (star2d1r, box2d3r) and float64 (star2d1r) at 512^2 against
-   single-step launches and its twin;
+   (ragged, two skew chunks), float32 and float64; the whole-grid runs
+   (``stencil2d_resident``: the shared-memory resident kernel, each run
+   counted in ``launches_smem``) in float32 (star2d1r, box2d3r at 512^2,
+   star2d3r at 300 x 140) and float64 (star2d1r at 512^2, box2d3r at 300 x
+   140), whose rectangles do not divide the grid evenly, bit for bit against
+   single-step launches, ``csrc/stencil2d.cu``'s resident kernel and the
+   twin (the integer fill at 1-2 steps; the pi/100
+   fill at 4 steps within rel 1e-5 in float32 and 1e-13 in float64 of the
+   fp64 ground truth);
 15. each fused path end to end, launches counted from zero: star2d3r
    8192^2 with the defaults (extent, k = 2: 32 fused strip launches and no
    tile-based fused one), ``fusion='skew'`` (the same through the skew
    wrapper) and ``fused_steps=1``; star2d1r and box2d3r 512^2 and df64
-   star2d1r 512^2
-   with the resident caps set (as ``LORASTENCIL_RESIDENT2D_KB`` and
-   ``LORASTENCIL_RESIDENT2D_PAIR_KB`` would); ``run(.., 3)`` (2 at 512^2)
+   star2d1r 512^2 under the default caps (one shared-memory resident
+   run), and a radius-5 spec (an 11 x 11 box of ones, one term) at 480^2 in
+   float32 and df64 (one run of ``csrc/stencil2d.cu``'s resident kernel);
+   ``run(.., 3)`` (2 at 512^2)
    of the integer fill bit for bit against a float64 dense stencil on the
    card,
    ``run(.., 4)`` of the pi/100 fill within rel 1e-5 (df64 1e-13), and 64
@@ -161,10 +171,17 @@ Phases, each printing one line or more and raising on failure:
    through the naive dense stencil; the k = 2 pass through each wrapper
    (the fused strip kernel), the tile-based fused and skew kernels it
    replaces and two strip steps, timed in turns, beside the twin's time,
-   one ``F.conv2d`` 7x7 step (TF32 off) and the bound; the
-   resident runs at 512^2 x 64 against the tiled passes (CUDA events
-   around ``run_internal``) and as one launch's device time (a CUDA
-   graph);
+   one ``F.conv2d`` 7x7 step (TF32 off) and the bound; the whole-grid
+   runs: ``run_internal`` x 64, tiled against resident (CUDA events), for
+   star2d1r and box2d3r at 256^2, 512^2, 1024^2 and the largest grid the
+   kernel's capacity takes, float32 and df64, and from them the H100
+   default caps (the largest internal buffer at which the resident run won
+   at every measured size below it); the shared-memory resident kernel's
+   64-step run at 512^2 (star2d1r, box2d3r, star2d3r, both dtypes), 1024^2
+   and a 64 x 128 interior (one small rectangle per block: the handshake
+   floor, the 64-step run less the 1-step run) beside
+   ``csrc/stencil2d.cu``'s resident kernel, in turns (CUDA graphs);
+   the radius-5 runs on ``csrc/stencil2d.cu``'s kernel;
 17. the 3-D kernel's float64 instance against its float64 twin, for
    star3d1r and box3d1r at (37, 45, 130) and 256^3, K = 1 and 2 (the march
    kernel, each launch counted, bit for bit against the general kernel's
@@ -186,8 +203,9 @@ Phases, each printing one line or more and raising on failure:
    ``F.conv3d`` 3x3x3 step and the pass's byte bound;
 20. the kernels redesigned for Hopper, each with its registers and
    spills from ptxas (the strip kernel and its float64 counterpart, the
-   fused strip kernel, the wide 1-D pass, the 3-D march kernel), failing on
-   any spill: the 2-D strip kernel's step at star2d1r 8192^2 beside the
+   fused strip kernel, the wide 1-D pass, the 3-D march kernel, the
+   shared-memory resident kernel, with its source's build time), failing
+   on any spill: the 2-D strip kernel's step at star2d1r 8192^2 beside the
    tile kernel it replaces (timed in turns), its twin, ``F.conv2d``, its
    byte bound and its share of it; the float64 strip kernel's df64 steps
    at star2d1r 8192^2 and box2d3r 4096^2 beside the float64 tile kernel
@@ -220,7 +238,8 @@ INTERIOR_3D = (256, 256, 256)
 BENCH_STEPS_3D = 64
 SOURCES = {"stencil2d": "lorastencil_tpu_torch/csrc/stencil2d.cu",
            "stencil3d": "lorastencil_tpu_torch/csrc/stencil3d.cu",
-           "stencil1d": "lorastencil_tpu_torch/csrc/stencil1d.cu"}
+           "stencil1d": "lorastencil_tpu_torch/csrc/stencil1d.cu",
+           "resident2d": "lorastencil_tpu_torch/csrc/resident2d.cu"}
 REPLACES = {"stencil2d": "lorastencil_tpu/ops/pallas_2d.py:127",
             "stencil2d_skew": "lorastencil_tpu/ops/pallas_2d.py:686",
             "stencil2d_resident": "lorastencil_tpu/ops/pallas_2d.py:981",
@@ -268,7 +287,9 @@ def _counters():
     instances count in ``launches``, float64 ones in ``launches_f64`` (the
     wide run's float64 instance, which replaces no df64 kernel, as
     "stencil1d_resident_f64"; the 2-D resident run's float64 instance as
-    "stencil2d_resident_pair", the kernel it replaces).  The fused 2-D
+    "stencil2d_resident_pair", the kernel it replaces; the shared-memory
+    resident kernel's runs, in either dtype, in "stencil2d_resident_smem"
+    too).  The fused 2-D
     kernel counts with the step kernel it extends, as "stencil2d"; the
     strip kernels' steps count in "stencil2d_k1" too, beside "stencil2d"
     (float32) or "df64_step" (float64); the fused strip kernel's passes in
@@ -295,6 +316,8 @@ def _counters():
            "stencil2d_resident": (stencil2d.stencil2d_resident, "launches"),
            "stencil2d_resident_pair": (stencil2d.stencil2d_resident,
                                        "launches_f64"),
+           "stencil2d_resident_smem": (stencil2d.stencil2d_resident,
+                                       "launches_smem"),
            "stencil1d_resident_f64": (stencil1d.stencil1d_resident,
                                       "launches_f64")}
     out.update({name: (getattr(stencil1d, name), "launches")
@@ -1595,12 +1618,37 @@ def check_fused(name, interior, k, dtype, device):
     return errs, strip
 
 
+# Phase 14's whole-grid runs: (shape, interior, dtype); on 132 SMs the
+# 512^2 rectangles are 46-47 x 42-43 cells, the 300 x 140 ones (the
+# rounded interior 320 x 256) 32 x 19-20, and both cut the true interior.
+RESIDENT_CASES = (("star2d1r", SMALL_2D, torch.float32),
+                  ("box2d3r", SMALL_2D, torch.float32),
+                  ("star2d3r", (300, 140), torch.float32),
+                  ("star2d1r", SMALL_2D, torch.float64),
+                  ("box2d3r", (300, 140), torch.float64))
+
+
+def resident_grid_synced(x, spec, lay, steps):
+    """A run of ``csrc/stencil2d.cu``'s resident kernel (a grid barrier a
+    step), which the shared-memory kernel replaces for the registry's
+    specs."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    outs = (torch.zeros_like(x), torch.zeros_like(x))
+    s2._launch("resident", (x,) + outs, spec, lay, steps)
+    return outs[(steps - 1) % 2]
+
+
 def check_resident(name, interior, dtype, device):
-    """Phase 14, the resident kernel (#3 in float32, #10 in float64): one
-    launch of 1, 2 and 4 steps against as many single-step launches (bit for
-    bit) and its twin (the integer fill at 1-2 steps bit for bit, the pi/100
-    fill at 4 steps rel 1e-5 in float32, 1e-13 in float64); returns (max abs
-    err, rel err) of the pi/100 fill."""
+    """Phase 14, the whole-grid run (#3 in float32, #10 in float64): one
+    ``stencil2d_resident`` launch of 1, 2 and 4 steps, which must be the
+    shared-memory resident kernel (``launches_smem``), against as many
+    single-step launches and ``csrc/stencil2d.cu``'s resident kernel (both
+    bit for bit), its twin (the integer fill at 1-2 steps bit for bit) and
+    the fp64 ground truth
+    (the pi/100 fill at 4 steps, rel 1e-5 in float32, 1e-13 in float64);
+    returns (max abs err against the twin, rel err against the ground
+    truth) of the pi/100 fill."""
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil2d as s2
     from lorastencil_tpu_torch.utils import reference
@@ -1611,17 +1659,29 @@ def check_resident(name, interior, dtype, device):
     for fill, steps_list in ((g0, (1, 2)), (g0 * (np.pi / 100), (4,))):
         x = lay.to_internal(fill, dtype, device)
         for steps in steps_list:
+            reset_counts()
             got = s2.stencil2d_resident(x, spec, lay, steps)
-            single = fused_passes("single", x, spec, lay, steps, 1)
+            ran = counts()["stencil2d_resident_smem"]
+            others = {"single steps": fused_passes("single", x, spec, lay,
+                                                   steps, 1),
+                      "the grid-synced resident kernel": resident_grid_synced(
+                          x, spec, lay, steps)}
             want = s2.stencil2d_resident_plain(x, spec, lay, steps)
             torch.cuda.synchronize()
             what = f"resident {name} {interior} {dtype} x{steps}"
-            if not torch.equal(got, single):
-                raise AssertionError(f"{what}: differs from single steps")
+            if ran != 1:
+                raise AssertionError(f"{what}: {ran} shared-memory launches")
+            for other, out in others.items():
+                if not torch.equal(got, out):
+                    bad = (got != out).sum().item()
+                    raise AssertionError(f"{what}: differs from {other} at "
+                                         f"{bad} cells")
             if (fill is g0 or dtype == torch.float64) and not torch.equal(
                     got, want):
                 raise AssertionError(f"{what}: differs from its twin")
-    rel = rel_err(got, want)
+    truth = reference.run(g0 * (np.pi / 100), spec, 4)
+    rel = rel_err(lay.from_internal(got).double().cpu(),
+                  torch.from_numpy(truth))
     limit = 1e-13 if dtype == torch.float64 else 1e-5
     if not rel <= limit:
         raise AssertionError(f"{what}: rel err {rel:.3e} > {limit}")
@@ -1630,15 +1690,49 @@ def check_resident(name, interior, dtype, device):
 
 def set_resident_caps(nbytes):
     """The whole-grid runs' caps, as ``LORASTENCIL_RESIDENT2D_KB`` and
-    ``LORASTENCIL_RESIDENT2D_PAIR_KB`` set them (0: off, the default)."""
+    ``LORASTENCIL_RESIDENT2D_PAIR_KB`` set them (0: off), on the CPU and
+    the card; None: the defaults (the variables unset)."""
     from lorastencil_tpu_torch.ops import stencil2d as s2
 
-    s2.RESIDENT_2D_BYTES = s2.RESIDENT_PAIR_2D_BYTES = nbytes
+    if nbytes is None:
+        s2.RESIDENT_2D_BYTES = s2.RESIDENT_PAIR_2D_BYTES = 0
+        s2.CUDA_RESIDENT_2D_BYTES = s2.H100_RESIDENT_2D_BYTES
+        s2.CUDA_RESIDENT_PAIR_2D_BYTES = s2.H100_RESIDENT_PAIR_2D_BYTES
+    else:
+        s2.RESIDENT_2D_BYTES = s2.RESIDENT_PAIR_2D_BYTES = nbytes
+        s2.CUDA_RESIDENT_2D_BYTES = s2.CUDA_RESIDENT_PAIR_2D_BYTES = nbytes
 
 
-# Phase 15's paths: (shape, interior, engine options, caps on, the kernel of
-# its 64-step run, that run's launches, the steps of the integer fill's run,
-# exact below 2**24, and its launches).  A single float32 step, the
+# the radius-5 runs' interior: its layout (a guard of 8) fits the H100
+# default caps in float32 and df64 (2,095,104 bytes in df64)
+R5_2D = (480, 480)
+
+
+def custom_r5():
+    """A radius-5 spec, an 11 x 11 box of ones as one term: beyond the
+    shared-memory kernel's radii, so its whole-grid runs take
+    ``csrc/stencil2d.cu``'s resident kernel."""
+    from lorastencil_tpu_torch.models.shapes import SeparableTerm, StencilSpec
+
+    ones = (1.0,) * 11
+    return StencilSpec(name="custom_r5", ndim=2, radius=5, halo=(5, 5),
+                       terms=(SeparableTerm(taps=(ones, ones)),), residue=(),
+                       fuse_factor=1)
+
+
+def path_engine(name, interior, device, **kw):
+    from lorastencil_tpu_torch import engine
+
+    if name == "custom_r5":
+        return engine.StencilEngine(custom_r5(), interior,
+                                    engine._config(kw), device=device)
+    return engine.StencilEngine.for_shape(name, interior, device=device, **kw)
+
+
+# Phase 15's paths, under the default caps: (shape, interior, engine
+# options, whether the run is resident, the kernel of its 64-step run, that
+# run's launches, the steps of the integer fill's run, exact below 2**24,
+# and its launches).  A single float32 step, the
 # remainder of an odd run or every step at fused_steps=1, runs the strip
 # kernel and counts in "stencil2d_k1" too; star2d3r's k = 2 passes run the
 # fused strip kernel from either wrapper, so each of its wrapper's launches
@@ -1657,10 +1751,18 @@ FUSED_PATHS = (
      {"stencil2d": 64, "stencil2d_k1": 64}, 3,
      {"stencil2d": 3, "stencil2d_k1": 3}),
     ("star2d1r", SMALL_2D, {}, True, "stencil2d_resident",
-     {"stencil2d_resident": 1}, 2, {"stencil2d_resident": 1}),
+     {"stencil2d_resident": 1, "stencil2d_resident_smem": 1}, 2,
+     {"stencil2d_resident": 1, "stencil2d_resident_smem": 1}),
     ("box2d3r", SMALL_2D, {}, True, "stencil2d_resident",
-     {"stencil2d_resident": 1}, 2, {"stencil2d_resident": 1}),
+     {"stencil2d_resident": 1, "stencil2d_resident_smem": 1}, 2,
+     {"stencil2d_resident": 1, "stencil2d_resident_smem": 1}),
     ("star2d1r", SMALL_2D, {"dtype": "df64"}, True,
+     "stencil2d_resident_pair",
+     {"stencil2d_resident_pair": 1, "stencil2d_resident_smem": 1}, 2,
+     {"stencil2d_resident_pair": 1, "stencil2d_resident_smem": 1}),
+    ("custom_r5", R5_2D, {}, True, "stencil2d_resident",
+     {"stencil2d_resident": 1}, 2, {"stencil2d_resident": 1}),
+    ("custom_r5", R5_2D, {"dtype": "df64"}, True,
      "stencil2d_resident_pair", {"stencil2d_resident_pair": 1}, 2,
      {"stencil2d_resident_pair": 1}))
 
@@ -1673,22 +1775,20 @@ def main_path_fused(device):
     ``run(.., 4)`` of the pi/100 fill within rel 1e-5 (1e-13 for df64), and
     a 64-step ``run_internal`` that must launch its kernel the expected
     number of times and no other; returns {(shape, mode, dtype): 64-step
-    launches} and a line per path."""
-    from lorastencil_tpu_torch import engine
+    launches}, {(shape, mode, dtype): the pi/100 run's max abs err against
+    the dense stencil} and a line per path."""
     from lorastencil_tpu_torch.ops import torch_ref
     from lorastencil_tpu_torch.utils import reference
 
-    launches, lines = {}, []
-    for name, interior, kw, caps, kernel, expect, n_int, run_int in \
+    launches, errs, lines = {}, {}, []
+    for name, interior, kw, resident, kernel, expect, n_int, run_int in \
             FUSED_PATHS:
-        set_resident_caps(8 * 2**20 if caps else 0)
-        eng = engine.StencilEngine.for_shape(name, interior, device=device,
-                                             **kw)
+        eng = path_engine(name, interior, device, **kw)
         spec = eng.spec
         k = eng._fused_k()
-        mode = ("resident" if caps else "skew" if eng._fusion_mode() == "skew"
-                else f"extent k={k}")
-        if eng._resident_2d() != caps:
+        mode = ("resident" if resident else "skew"
+                if eng._fusion_mode() == "skew" else f"extent k={k}")
+        if eng._resident_2d() != resident:
             raise AssertionError(f"{name} {kw}: resident {eng._resident_2d()}")
         g0 = reference.random_padded(spec, interior, seed=0)
         for steps, fill in ((n_int, g0), (4, g0 * (np.pi / 100))):
@@ -1715,6 +1815,8 @@ def main_path_fused(device):
             if not rel <= limit:
                 raise AssertionError(f"{name} {kw}: run(4) rel err {rel:.3e}"
                                      f" > {limit}")
+            errs[(name, mode, kw.get("dtype", "float32"))] = (
+                out.double() - want).abs().max().item()
             del out, want
         gen = torch.Generator(device=device).manual_seed(0)
         state = torch.rand(eng.layout.shape, generator=gen, device=device,
@@ -1733,8 +1835,7 @@ def main_path_fused(device):
                      f"x{FUSED_STEPS}: launches {expect}, none of the "
                      f"others")
         del state
-    set_resident_caps(0)
-    return launches, lines
+    return launches, errs, lines
 
 
 def bench_fused(device, card):
@@ -1831,43 +1932,189 @@ def bench_fused(device, card):
           f"{ms['single']} ms; bound of one step "
           f"{bound_ms(spec, INTERIOR, 1)[0]} ms [{card}]", flush=True)
 
-    # the whole-grid runs at 512^2 x 64: one launch against the tiled passes
-    for kernel, name, dtype, fp64 in (
-            ("resident", "star2d1r", "float32", False),
-            ("resident_pair", "star2d1r", "df64", True)):
-        spec_r = get_shape(name)
-        lay = fused_layout(spec_r, SMALL_2D, 1)
-        tdtype = torch.float64 if fp64 else torch.float32
+    timing.update(bench_resident(device, card, gen))
+    return timing
+
+
+# Phase 16's whole-grid sweep: square interiors, and the largest one the
+# kernel's capacity takes; a cap above any capacity turns the runs on
+RESIDENT_SIZES = (256, 512, 1024)
+RESIDENT_SWEEP_CAP = 2**30
+RESIDENT_LARGE = (1024, 1024)
+FLOOR_2D = (64, 128)
+
+
+def largest_square(name, dtype, device):
+    """The largest n, a multiple of 32, whose n x n engine layout the
+    shared-memory kernel's capacity takes."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    eng = path_engine(name, (1024, 1024), device, dtype=dtype)
+    cap = s2.resident_capacity(eng.spec, eng.dtype, device)
+    n = 1024
+    while True:
+        rows, pitch = path_engine(name, (n + 32, n + 32), device,
+                                  dtype=dtype).layout.shape
+        if rows * pitch * eng.dtype.itemsize > cap:
+            return n
+        n += 32
+
+
+def in_turns(fns, calls=5):
+    """Device ms per call of each of ``fns`` (CUDA graphs of ``calls``
+    calls), timed forward then backward; the better of the two."""
+    res = {k: [] for k in fns}
+    for k in list(fns) + list(fns)[::-1]:
+        res[k].append(graph_ms(fns[k], calls))
+    return {k: min(v) for k, v in res.items()}
+
+
+def bench_resident(device, card, gen):
+    """Phase 16's whole-grid runs: the tiled-against-resident sweep and the
+    default caps it gives; the shared-memory kernel beside
+    ``csrc/stencil2d.cu``'s resident kernel (at 512^2, 1024^2 and the
+    handshake floor's 64 x 128); the radius-5
+    runs on ``csrc/stencil2d.cu``'s kernel.  Returns the kernels' timing
+    records."""
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.utils import metrics
+
+    for dtype in ("float32", "df64"):
+        sweep = []
+        for name in ("star2d1r", "box2d3r"):
+            for n in RESIDENT_SIZES + (largest_square(name, dtype, device),):
+                runs = {}
+                for caps in (0, RESIDENT_SWEEP_CAP):
+                    set_resident_caps(caps)
+                    eng = path_engine(name, (n, n), device, dtype=dtype)
+                    if eng._resident_2d() != bool(caps):
+                        raise AssertionError(f"{dtype} {name} {n}: resident "
+                                             f"{eng._resident_2d()}")
+                    x = torch.rand(eng.layout.shape, generator=gen,
+                                   device=device, dtype=eng.dtype) * 0.01
+                    secs, _ = metrics.time_run(eng.run_internal, x,
+                                               FUSED_STEPS, repeats=3,
+                                               warmup=1)
+                    runs["resident" if caps else "tiled"] = secs * 1e3
+                    del x
+                rows, pitch = eng.layout.shape
+                nbytes = rows * pitch * eng.dtype.itemsize
+                sweep.append((nbytes, runs["tiled"], runs["resident"]))
+                print(f"phase 16: {dtype} {name} {n}x{n} x{FUSED_STEPS} "
+                      f"({nbytes} bytes): run_internal tiled "
+                      f"({FUSED_STEPS} launches) {runs['tiled']} ms, "
+                      f"resident (1 launch) {runs['resident']} ms "
+                      f"({runs['tiled'] / runs['resident']:.4f}x) [{card}]",
+                      flush=True)
+        set_resident_caps(None)
+        default = 0  # every shape must win at a size, and below it
+        for nbytes in sorted({size for size, _, _ in sweep}):
+            if any(resident >= tiled for size, tiled, resident in sweep
+                   if size == nbytes):
+                break
+            default = nbytes
+        port = (s2.H100_RESIDENT_PAIR_2D_BYTES if dtype == "df64"
+                else s2.H100_RESIDENT_2D_BYTES)
+        print(f"phase 16: {dtype} default cap from this sweep (the largest "
+              f"internal buffer at which the resident run won for both shapes "
+              f"at every size measured up to it): {default} bytes; the port's "
+              f"H100 default "
+              f"{port} bytes [{card}]", flush=True)
+
+    timing = {}
+    for label, interior, shapes in (("512^2", SMALL_2D,
+                                     ("star2d1r", "box2d3r", "star2d3r")),
+                                    ("1024^2", RESIDENT_LARGE,
+                                     ("star2d1r", "box2d3r")),
+                                    ("floor", FLOOR_2D, ("star2d1r",))):
+        for name in shapes:
+            spec = get_shape(name)
+            lay = fused_layout(spec, interior, 1)
+            for dtype in (torch.float32, torch.float64):
+                x = torch.rand(lay.shape, generator=gen, device=device,
+                               dtype=dtype) * 0.01
+                fns = {"kernel": lambda: s2.stencil2d_resident(
+                           x, spec, lay, FUSED_STEPS),
+                       "grid-synced": lambda: resident_grid_synced(
+                           x, spec, lay, FUSED_STEPS)}
+                if label == "floor":  # a run of one step: the fixed part
+                    fns["one step"] = lambda: s2.stencil2d_resident(
+                        x, spec, lay, 1)
+                ms = in_turns(fns)
+                per = {k: v / FUSED_STEPS * 1e3 for k, v in ms.items()}
+                if label == "floor":
+                    per["one step"] = ms["one step"] * 1e3
+                    ms["a step"] = (ms["kernel"] - ms["one step"]) / (
+                        FUSED_STEPS - 1)
+                    per["a step"] = ms["a step"] * 1e3
+                print(f"phase 16: {str(dtype)[6:]} {name} "
+                      f"{interior[0]}x{interior[1]} x{FUSED_STEPS}, in turns: "
+                      f"the shared-memory kernel "
+                      f"{ms['kernel']} ms ({per['kernel']:.3f} us a step), "
+                      + ", ".join(f"{k} {v} ms ({per[k]:.3f} us)"
+                                  for k, v in ms.items() if k != "kernel")
+                      + f" [{card}]", flush=True)
+                if name == "star2d1r" and label != "1024^2":
+                    key = "resident" if dtype == torch.float32 else \
+                        "resident_pair"
+                    timing.setdefault(key, {})[label] = (x, spec, lay, ms)
+                else:
+                    del x
+
+    # the kernels' records: star2d1r 512^2 (#3 float32, #10 float64) and
+    # the radius-5 runs on csrc/stencil2d.cu's kernel
+    records = {}
+    for key, itemsize, tdtype in (("resident", 4, torch.float32),
+                                  ("resident_pair", 8, torch.float64)):
+        x, spec, lay, ms = timing[key]["512^2"]
+        floor = timing[key]["floor"][3]["a step"]
+        plain = graph_ms(lambda: s2.stencil2d_resident_plain(
+            x, spec, lay, FUSED_STEPS), 2)
+        bound, by = bound_ms(spec, SMALL_2D, FUSED_STEPS, itemsize)
+        records[key] = dict(
+            kernel="resident_smem_kernel", ms=ms["kernel"], plain_ms=plain,
+            bound_ms=bound, bound_by=by,
+            library_ms=library_ms(spec, SMALL_2D, device, tdtype),
+            grid_synced_kernel_ms=ms["grid-synced"], floor_step_ms=floor,
+            floor_shape=f"{FLOOR_2D[0]}x{FLOOR_2D[1]}",
+            steps_per_launch=FUSED_STEPS, library_steps=1,
+            shape=f"{'df64' if itemsize == 8 else 'float32'} star2d1r 512x512")
+        print(f"phase 16: {key} star2d1r 512x512 x{FUSED_STEPS}: the "
+              f"shared-memory kernel {ms['kernel']} ms (device), the "
+              f"grid-synced kernel {ms['grid-synced']} ms "
+              f"({ms['grid-synced'] / ms['kernel']:.4f}x), "
+              f"handshake floor ({FLOOR_2D[0]}x{FLOOR_2D[1]}, a step: the "
+              f"64-step run less the 1-step run, over 63) {floor} ms, "
+              f"plain twin {plain} ms, one "
+              f"{'float64 ' if itemsize == 8 else ''}F.conv2d step "
+              f"{records[key]['library_ms']} ms, bound {bound} ms ({by}) "
+              f"[{card}]", flush=True)
+    spec = custom_r5()
+    lay = fused_layout(spec, R5_2D, 1)
+    dims = f"{R5_2D[0]}x{R5_2D[1]}"
+    for key, itemsize, tdtype in (("resident_r5", 4, torch.float32),
+                                  ("resident_pair_r5", 8, torch.float64)):
         x = torch.rand(lay.shape, generator=gen, device=device,
                        dtype=tdtype) * 0.01
-        runs = {}
-        for caps in (0, 8 * 2**20):
-            set_resident_caps(caps)
-            eng = engine.StencilEngine.for_shape(name, SMALL_2D, device=device,
-                                                 dtype=dtype)
-            secs, _ = metrics.time_run(eng.run_internal, x, FUSED_STEPS,
-                                       repeats=3, warmup=1)
-            runs["resident" if caps else "tiled"] = secs * 1e3
-        set_resident_caps(0)
-        rms = graph_ms(lambda: s2.stencil2d_resident(x, spec_r, lay,
+        rms = graph_ms(lambda: s2.stencil2d_resident(x, spec, lay,
                                                      FUSED_STEPS), 5)
-        rplain = graph_ms(lambda: s2.stencil2d_resident_plain(
-            x, spec_r, lay, FUSED_STEPS), 2)
-        itemsize = 8 if fp64 else 4
-        rbound, rby = bound_ms(spec_r, SMALL_2D, FUSED_STEPS, itemsize)
-        rlib = library_ms(spec_r, SMALL_2D, device, tdtype)
-        timing[kernel] = dict(ms=rms, plain_ms=rplain, bound_ms=rbound,
-                              bound_by=rby, library_ms=rlib,
-                              steps_per_launch=FUSED_STEPS, library_steps=1,
-                              shape=f"{dtype} {name} 512x512")
-        print(f"phase 16: {dtype} {name} 512x512 x{FUSED_STEPS}: "
-              f"run_internal tiled ({FUSED_STEPS} launches) {runs['tiled']} "
-              f"ms, resident (1 launch) {runs['resident']} ms; the resident "
-              f"kernel {rms} ms (device), plain twin {rplain} ms, "
-              f"{'float64 ' if fp64 else ''}F.conv2d one step {rlib} ms, "
-              f"bound {rbound} ms ({rby}) [{card}]", flush=True)
+        plain = graph_ms(lambda: s2.stencil2d_resident_plain(
+            x, spec, lay, FUSED_STEPS), 2)
+        bound, by = bound_ms(spec, R5_2D, FUSED_STEPS, itemsize)
+        records[key] = dict(
+            kernel="resident_kernel", ms=rms, plain_ms=plain, bound_ms=bound,
+            bound_by=by, library_ms=library_ms(spec, R5_2D, device, tdtype),
+            steps_per_launch=FUSED_STEPS, library_steps=1,
+            shape=f"{'df64' if itemsize == 8 else 'float32'} custom_r5 "
+                  f"{dims}")
+        print(f"phase 16: {key} custom_r5 {dims} x{FUSED_STEPS}: "
+              f"csrc/stencil2d.cu's resident kernel {rms} ms (device), plain "
+              f"twin {plain} ms, one {'float64 ' if itemsize == 8 else ''}"
+              f"F.conv2d 11x11 step {records[key]['library_ms']} ms, bound "
+              f"{bound} ms ({by}) [{card}]", flush=True)
         del x
-    return timing
+    return records
 
 
 # Phases 17-19: the 3-D fp64-grade tier, the float64 instance of the 3-D
@@ -2097,7 +2344,9 @@ def bench_fp64_3d(device, card):
     return timing
 
 
-# Phase 20: the kernels redesigned for Hopper, csrc/stencil2d.cu strip_kernel
+# Phase 20: the kernels redesigned for Hopper, csrc/resident2d.cu
+# resident_smem_kernel (float and double, radius 1-4),
+# csrc/stencil2d.cu strip_kernel
 # (an instantiation per radius 1-4 and term count 0-3), strip64_kernel (the
 # same in float64, each with 16-byte or 8-byte copies) and
 # fused_strip_kernel (radius 1-4, 1-2 terms, K = 2, the terms' kinds),
@@ -2118,7 +2367,9 @@ PTXAS_KERNELS = {
     "march_kernel": (
         "stencil3d",
         r"march_kernelI([fd])Li(\d)ELi(\d)ELi(\d)ELi(\d+)ELb([01])E",
-        "type,R,K,terms,kinds,16-byte")}
+        "type,R,K,terms,kinds,16-byte"),
+    "resident_smem_kernel": (
+        "resident2d", r"resident_smem_kernelI([fd])Li(\d)EEE", "type,R")}
 
 
 def ptxas_table(log, pattern):
@@ -2159,7 +2410,8 @@ def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms):
         table = ptxas_table(builds[source][2], pattern)
         print(f"phase 20: {kernel} registers per instantiation ({what}), no "
               f"spill: "
-              + " ".join(f"{k}:{v[0]}" for k, v in sorted(table.items())),
+              + " ".join(f"{k}:{v[0]}" for k, v in sorted(table.items()))
+              + f"; {SOURCES[source]} built in {builds[source][0]:.1f} s",
               flush=True)
     spec2 = get_shape("star2d1r")
     strip, plain, tile = step_ms
@@ -2380,15 +2632,18 @@ def main() -> int:
                   f"rel err fused {errs['fused'][1]:.3e}, skew "
                   f"{errs['skew'][1]:.3e} after {2 * k} steps", flush=True)
     errs_res = {}
-    for name, dtype in (("star2d1r", torch.float32), ("box2d3r", torch.float32),
-                        ("star2d1r", torch.float64)):
-        errs_res[(name, dtype)] = check_resident(name, SMALL_2D, dtype, device)
-        print(f"phase 14: resident {name} {SMALL_2D} {dtype}: bit-equal to "
-              f"single-step launches at 1, 2 and 4 steps and to its twin on "
-              f"the integer fill; pi/100 fill rel err "
-              f"{errs_res[(name, dtype)][1]:.3e} after 4 steps", flush=True)
+    for name, interior, dtype in RESIDENT_CASES:
+        errs_res[(name, dtype)] = check_resident(name, interior, dtype,
+                                                 device)
+        print(f"phase 14: resident {name} {interior} {dtype}: the "
+              f"shared-memory kernel, bit-equal to single-step launches and "
+              f"the grid-synced resident kernel at 1, 2 and 4 steps and to "
+              f"its twin "
+              f"on the integer fill; pi/100 "
+              f"fill rel err {errs_res[(name, dtype)][1]:.3e} against the "
+              f"fp64 ground truth after 4 steps", flush=True)
 
-    launches_fused, lines = main_path_fused(device)
+    launches_fused, errs_paths, lines = main_path_fused(device)
     for line in lines:
         print(f"phase 15: {line}", flush=True)
 
@@ -2477,9 +2732,20 @@ def main() -> int:
             ("stencil2d_resident_pair[star2d1r 512x512]", "resident_pair",
              "stencil2d_resident_pair",
              launches_fused[("star2d1r", "resident", "df64")],
-             errs_res[("star2d1r", torch.float64)][0])):
+             errs_res[("star2d1r", torch.float64)][0]),
+            ("stencil2d_resident[custom_r5 480x480]", "resident_r5",
+             "stencil2d_resident",
+             launches_fused[("custom_r5", "resident", "float32")],
+             errs_paths[("custom_r5", "resident", "float32")]),
+            ("stencil2d_resident_pair[custom_r5 480x480]",
+             "resident_pair_r5",
+             "stencil2d_resident_pair",
+             launches_fused[("custom_r5", "resident", "df64")],
+             errs_paths[("custom_r5", "resident", "df64")])):
+        source = ("resident2d" if timing_fused.get(kernel, {}).get("kernel")
+                  == "resident_smem_kernel" else "stencil2d")
         kernels.append(dict({
-            "name": name, "route": "cuda", "source": SOURCES["stencil2d"],
+            "name": name, "route": "cuda", "source": SOURCES[source],
             "replaces": REPLACES[replaces], "launches": launches,
             "max_abs_err": err}, **timing_fused[kernel]))
     kernels.append(dict({

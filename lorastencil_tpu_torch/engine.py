@@ -27,9 +27,12 @@ or "df64", see below):
     ``fused_steps`` says otherwise), in either fusion mode: 'extent'
     (``stencil2d_step``, k levels over shrinking extents) or 'skew'
     (``stencil2d_skew_step``, time-skewed row bands); a remainder pass of
-    ``steps % k``; and, when the state fits the JAX package's opt-in caps
-    (``LORASTENCIL_RESIDENT2D_KB``, ``LORASTENCIL_RESIDENT2D_PAIR_KB``, both
-    off by default), every step in one ``stencil2d_resident`` launch.
+    ``steps % k``; and, when the state fits the caps
+    (``LORASTENCIL_RESIDENT2D_KB``, ``LORASTENCIL_RESIDENT2D_PAIR_KB``: on
+    the CPU the JAX package's, off by default; on a card, where they are
+    unset, ``stencil2d.CUDA_RESIDENT_2D_BYTES`` and
+    ``CUDA_RESIDENT_PAIR_2D_BYTES``, measured on an H100), every step in
+    one ``stencil2d_resident`` launch.
     ``fusion='auto'`` means 'extent': the JAX engine's 'auto' reads its
     autotune cache, which the port does not have yet (ROADMAP A12), and
     resolves 'extent' when the cache is empty;
@@ -494,15 +497,18 @@ class StencilEngine:
         """Whether a 2-D run takes every step in one ``stencil2d_resident``
         launch: the JAX engine's rule (``_run_internal``), evaluated at run
         time on the port's layout.  df64: the pair cap; otherwise not skew,
-        an exact algorithm, and the state under the cap."""
+        an exact algorithm, and the state under the cap.  On a card the
+        caps are the CUDA ones, and the kernel's capacity bounds them."""
         if self.spec.ndim != 2 or self.backend != "pallas":
             return False
         if self.df64:
-            return stencil2d.fits_resident_pair_2d(self.layout)
+            return stencil2d.fits_resident_pair_2d(self.layout, self.device,
+                                                   self.spec)
         return (self._fusion_mode() != "skew"
                 and self.algorithm in ("mxu_hybrid1", "vpu_roll", "vpu")
                 and stencil2d.fits_resident_2d(self.layout,
-                                               self.dtype.itemsize))
+                                               self.dtype.itemsize,
+                                               self.device, self.spec))
 
     # -- public API -------------------------------------------------------
     def to_internal(self, padded):
@@ -523,8 +529,8 @@ class StencilEngine:
     def run_internal(self, state, steps: int):
         """``steps`` timesteps on internal state; ``state`` is read, not
         written (the result lives in a new buffer).  1-D small grids, and
-        2-D grids under the opt-in caps (``_resident_2d``), run every step
-        in one resident launch."""
+        2-D grids under the caps (``_resident_2d``), run every step in one
+        resident launch."""
         if steps > 0 and self.path == "resident_lanes":
             return stencil1d.stencil1d_resident_lanes(
                 state, self.spec, self.layout, steps)

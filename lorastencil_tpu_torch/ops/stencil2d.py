@@ -47,6 +47,20 @@ three (32 + 2kr) x (128 + 2kr) windows (16 rows in float64), a skewed one a
 band of every level.  A pass deeper than the largest k that fits
 (``max_fused_steps``) runs as launches of that k, each counted; the values
 do not change, because every level is masked to the interior.
+
+A whole-grid run (``stencil2d_resident``) of radius 1-4 with at most three
+terms, every registry shape's, runs the shared-memory resident kernel of
+``csrc/resident2d.cu`` (``resident_takes``): one block per SM holds a
+rectangle of the state in shared memory for the whole run and swaps its
+border with its neighbours only, as tagged words in a zeroed buffer of two
+parities.  Its capacity is the kernel's own (``resident_capacity``).
+Every other run
+takes ``csrc/stencil2d.cu``'s resident kernel, which streams the state
+through device memory with a grid barrier per step.  The wrapper counts
+both in ``launches`` / ``launches_f64``, the first in ``launches_smem``
+too.  On a card the runs are on by default below ``CUDA_RESIDENT_2D_BYTES``
+/ ``CUDA_RESIDENT_PAIR_2D_BYTES`` (measured on an H100); on the CPU the
+JAX package's caps hold, off by default.
 """
 
 from __future__ import annotations
@@ -95,6 +109,12 @@ _ENTRIES = {
              torch.float64: "ls_stencil2d_skew_f64"},
     "resident": {torch.float32: "ls_stencil2d_resident",
                  torch.float64: "ls_stencil2d_resident_f64"}}
+# csrc/resident2d.cu's shared-memory resident kernel
+_RESIDENT_SMEM = {torch.float32: "ls_stencil2d_resident_smem",
+                  torch.float64: "ls_stencil2d_resident_smem_f64"}
+# csrc/resident2d.cu kWindowBytes: a window's bytes, at most (two of them
+# beside the residue's 81 offsets in a block's 232,448 bytes)
+RESIDENT_SMEM_BYTES = (232448 - 4 * 81) // 2
 
 # Whole-grid runs: the JAX package's caps on the internal buffer's bytes
 # (pallas_2d.RESIDENT_2D_BYTES, pallas_df64.RESIDENT_PAIR_2D_BYTES), read
@@ -105,24 +125,108 @@ RESIDENT_2D_BYTES = int(os.environ.get("LORASTENCIL_RESIDENT2D_KB",
                                        "0")) * 1024
 RESIDENT_PAIR_2D_BYTES = int(os.environ.get(
     "LORASTENCIL_RESIDENT2D_PAIR_KB", "0")) * 1024
+# The caps on a card where the variables are unset: the largest internal
+# buffer at which a 64-step resident run beat the tiled passes at every
+# size measured up to it, in each of two runs (chip_smoke.py phase 16,
+# star2d1r and box2d3r at 256^2, 512^2, 1024^2 and the largest grid the
+# kernel's capacity takes; NVIDIA H100 80GB HBM3, 700.00 W).  The tiled
+# runs are host-bound and their time moves from run to run; the resident
+# kernel's does not.  run_internal x 64, tiled -> resident, ms (run 1;
+# run 2):
+#   float32 1024^2 (4,260,096 bytes): star2d1r 2.911 -> 0.892 (2.223 ->
+#     0.763), box2d3r 2.001 -> 1.018 (1.896 -> 1.015); at 1664^2 box2d3r
+#     2.306 -> 2.235 (1.851 -> 2.154: lost);
+#   df64 512^2 (2,163,200 bytes): star2d1r 2.835 -> 0.593 (2.742 ->
+#     0.550), box2d3r 2.315 -> 0.847 (2.857 -> 0.894); at 1024^2 box2d3r
+#     2.687 -> 1.852 (1.637 -> 1.769: lost).
+# Every smaller size won by more.  The float32 cap also serves dtype
+# float64 at 8 bytes a cell, as in the JAX package.
+H100_RESIDENT_2D_BYTES = 4_260_096
+H100_RESIDENT_PAIR_2D_BYTES = 2_163_200
 
 
-def fits_resident_2d(layout, itemsize: int = 4) -> bool:
+def cuda_cap(env: str, default: int) -> int:
+    """The cap a CUDA state takes: the variable ``env`` (KiB) where it is
+    set, 0 turning the runs off, else ``default``."""
+    return int(os.environ[env]) * 1024 if env in os.environ else default
+
+
+CUDA_RESIDENT_2D_BYTES = cuda_cap("LORASTENCIL_RESIDENT2D_KB",
+                                  H100_RESIDENT_2D_BYTES)
+CUDA_RESIDENT_PAIR_2D_BYTES = cuda_cap("LORASTENCIL_RESIDENT2D_PAIR_KB",
+                                       H100_RESIDENT_PAIR_2D_BYTES)
+
+
+def _fits(layout, dtype, cap: int, cuda_cap: int, device, spec) -> bool:
+    if not isinstance(layout, Layout2D) or layout.extra_row_tiles:
+        return False
+    R, C = layout.shape
+    nbytes = R * C * dtype.itemsize
+    if device is None or torch.device(device).type != "cuda":
+        return nbytes <= cap
+    if nbytes > cuda_cap:
+        return False
+    capacity = (None if spec is None
+                else resident_capacity(spec, dtype, device))
+    return capacity is None or nbytes <= capacity
+
+
+def fits_resident_2d(layout, itemsize: int = 4, device=None,
+                     spec: StencilSpec = None) -> bool:
     """Whether the float32 (or, at ``itemsize`` 8, float64) state runs all
-    its steps in one ``stencil2d_resident`` launch."""
-    if not isinstance(layout, Layout2D) or layout.extra_row_tiles:
-        return False
-    R, C = layout.shape
-    return R * C * itemsize <= RESIDENT_2D_BYTES
+    its steps in one ``stencil2d_resident`` launch: under
+    ``RESIDENT_2D_BYTES``, or on a CUDA ``device`` under
+    ``CUDA_RESIDENT_2D_BYTES`` and the capacity of the kernel that takes
+    ``spec`` (``resident_capacity``)."""
+    dtype = torch.float64 if itemsize == 8 else torch.float32
+    return _fits(layout, dtype, RESIDENT_2D_BYTES, CUDA_RESIDENT_2D_BYTES,
+                 device, spec)
 
 
-def fits_resident_pair_2d(layout) -> bool:
+def fits_resident_pair_2d(layout, device=None,
+                          spec: StencilSpec = None) -> bool:
     """Whether a df64 state runs all its steps in one launch: the JAX
-    pair grid's 2 * R * C * 4 bytes, R * C * 8 for the float64 state."""
-    if not isinstance(layout, Layout2D) or layout.extra_row_tiles:
-        return False
-    R, C = layout.shape
-    return 2 * R * C * 4 <= RESIDENT_PAIR_2D_BYTES
+    pair grid's 2 * R * C * 4 bytes, R * C * 8 for the float64 state,
+    under ``RESIDENT_PAIR_2D_BYTES``, or on a CUDA ``device`` under
+    ``CUDA_RESIDENT_PAIR_2D_BYTES`` and the kernel's capacity."""
+    return _fits(layout, torch.float64, RESIDENT_PAIR_2D_BYTES,
+                 CUDA_RESIDENT_PAIR_2D_BYTES, device, spec)
+
+
+def resident_takes(spec: StencilSpec, dtype) -> bool:
+    """Whether a whole-grid run in ``dtype`` runs the shared-memory
+    resident kernel: float32 or float64, radius 1-4, at most three terms
+    (every registry shape); else ``csrc/stencil2d.cu``'s resident kernel."""
+    return (dtype in _RESIDENT_SMEM and spec.radius in STRIP_RADII
+            and len(spec.terms) <= STRIP_MAX_TERMS)
+
+
+def resident_capacity_bytes(itemsize: int, blocks: int) -> int:
+    """csrc/resident2d.cu capacity_bytes: the largest internal buffer
+    (rows x pitch cells) a launch over ``blocks`` blocks (one per SM)
+    takes, 4/5 of the cells their windows hold."""
+    return 4 * blocks * (RESIDENT_SMEM_BYTES // itemsize) // 5 * itemsize
+
+
+def resident_capacity(spec: StencilSpec, dtype, device):
+    """Bytes of the largest internal buffer the kernel that takes a run
+    of ``spec`` in ``dtype`` holds on ``device`` (the card answers, through
+    ``ls_stencil2d_resident_capacity``), or None where that is
+    ``csrc/stencil2d.cu``'s kernel, which streams through device memory."""
+    if not resident_takes(spec, dtype):
+        return None
+    return _capacity(dtype == torch.float64, spec.radius, len(spec.terms),
+                     torch.device(device).index or 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _capacity(f64: bool, radius: int, n_terms: int, index: int) -> int:
+    with torch.cuda.device(index):
+        cap = _resident_lib().ls_stencil2d_resident_capacity(
+            int(f64), radius, n_terms)
+    if cap <= 0:
+        raise RuntimeError(f"resident capacity query failed: {cap}")
+    return cap
 
 
 def tile_rows(dtype) -> int:
@@ -312,6 +416,53 @@ def _lib():
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _resident_lib():
+    """csrc/resident2d.cu, built and bound once per process."""
+    lib = _cuda_build.load("resident2d")
+    for entry in _RESIDENT_SMEM.values():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 3
+                       + [ctypes.c_longlong, ctypes.c_void_p]
+                       + [ctypes.c_int] * 13 + [ctypes.c_void_p])
+    lib.ls_stencil2d_resident_capacity.restype = ctypes.c_longlong
+    lib.ls_stencil2d_resident_capacity.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def _launch_resident_smem(cur, spec: StencilSpec, layout: Layout2D,
+                          steps: int):
+    """One launch of the shared-memory resident kernel, with a zeroed
+    output buffer and tagged exchange words; returns the output.  Raises
+    if refused (a buffer above its capacity among them)."""
+    plan = _plan_host(spec, cur.dtype)
+    out = torch.zeros_like(cur)
+    mr, nr = layout.rounded
+    xch = torch.zeros(2 * mr * nr * (cur.element_size() // 4),
+                      dtype=torch.int64, device=cur.device)
+    rows, pitch = layout.shape
+    r0, c0 = layout.origin
+    m, n = layout.interior
+    with torch.cuda.device(cur.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(_resident_lib(), _RESIDENT_SMEM[cur.dtype])(
+            cur.data_ptr(), out.data_ptr(), xch.data_ptr(), xch.numel(),
+            plan.data_ptr(), plan.numel(), len(spec.terms), spec.radius,
+            len(spec.residue), rows, pitch, r0, c0, m, n, mr, nr, steps,
+            stream)
+    if err != 0:
+        raise RuntimeError(
+            f"stencil2d shared-memory resident kernel launch failed: CUDA "
+            f"error {err}")
+    if cur.dtype == torch.float64:
+        stencil2d_resident.launches_f64 += 1
+    else:
+        stencil2d_resident.launches += 1
+    stencil2d_resident.launches_smem += 1
+    return out
+
+
 def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
             depth: int):
     """One launch of ``kind``'s instance of the buffers' dtype: ``depth``
@@ -435,15 +586,19 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
     """All ``steps`` timesteps in one cooperative launch
     (``pallas_2d.stencil2d_resident``; on a float64 state
     ``pallas_df64.stencil2d_resident_pair``): reads ``cur`` and returns a
-    new buffer, the same values as ``steps`` single steps.  Raises if the
-    card refuses the launch (no fallback to passes); the engine takes this
-    path only under the caps ``fits_resident_2d`` and
+    new buffer, the same values as ``steps`` single steps.  A CUDA state
+    runs the shared-memory resident kernel where ``resident_takes`` says
+    so, else ``csrc/stencil2d.cu``'s; raises if the card refuses the
+    launch (no fallback to passes or to the other kernel).  The engine
+    takes this path only under the caps ``fits_resident_2d`` and
     ``fits_resident_pair_2d``."""
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     _check_state(cur, spec, layout, spec.radius)
     if cur.device.type == "cpu":
         return stencil2d_resident_plain(cur, spec, layout, steps)
+    if resident_takes(spec, cur.dtype):
+        return _launch_resident_smem(cur, spec, layout, steps)
     outs = (torch.zeros_like(cur), torch.zeros_like(cur))
     _launch("resident", (cur,) + outs, spec, layout, steps)
     return outs[(steps - 1) % 2]
@@ -451,10 +606,12 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
 
 # kernel launches per instance, for chip_smoke.py: float32 and float64, and
 # the strip kernels' launches apart (launches_k1: the strip kernel's steps
-# in either dtype; launches_fused_strip: the fused strip kernel's passes)
+# in either dtype; launches_fused_strip: the fused strip kernel's passes;
+# launches_smem: the shared-memory resident kernel's runs)
 for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
     _wrapper.launches = _wrapper.launches_f64 = 0
 stencil2d_step.launches_k1 = 0
+stencil2d_resident.launches_smem = 0
 for _wrapper in (stencil2d_step, stencil2d_skew_step):
     _wrapper.launches_fused_strip = 0
 del _wrapper

@@ -40,6 +40,16 @@ def cuda():
     return torch.device("cuda")
 
 
+@pytest.fixture
+def tiled_2d(monkeypatch):
+    """The whole-grid runs off on the card, as LORASTENCIL_RESIDENT2D_KB=0 and
+    LORASTENCIL_RESIDENT2D_PAIR_KB=0 turn them off: the tests of the tiled
+    passes' launch counts on small 2-D grids, which the H100 default caps would
+    otherwise run in one resident launch."""
+    monkeypatch.setattr(stencil2d, "CUDA_RESIDENT_2D_BYTES", 0)
+    monkeypatch.setattr(stencil2d, "CUDA_RESIDENT_PAIR_2D_BYTES", 0)
+
+
 def _steps(step, cur, spec, lay, steps, k=1):
     def one(c, d, depth):
         return step(c, d, spec, lay, **({"fused_steps": depth} if depth > 1 else {}))
@@ -69,7 +79,7 @@ def test_kernel_matches_plain_twin(cuda, name, interior):
                 assert err <= 1e-6 * want.abs().max().item()
 
 
-def test_engine_counts_its_launches(cuda):
+def test_engine_counts_its_launches(cuda, tiled_2d):
     eng = engine.StencilEngine.for_shape("star2d1r", (64, 200), device=cuda)
     g0 = reference.random_padded(eng.spec, (64, 200), seed=1)
     before = stencil2d.stencil2d_step.launches
@@ -501,7 +511,8 @@ def test_fp64_1d_kernels_match_plain_twins(cuda, name, n):
     ("box2d3r", (100, 131), stencil2d.stencil2d_step, {2: 2, 4: 4}),
     ("1d1r", (4096,), stencil1d.stencil1d_resident_lanes, {2: 1, 4: 1}),
 ])
-def test_fp64_engine_counts_its_launches(cuda, dtype, name, interior, counter, launches):
+def test_fp64_engine_counts_its_launches(cuda, tiled_2d, dtype, name, interior, counter,
+                                         launches):
     eng = engine.StencilEngine.for_shape(name, interior, device=cuda, dtype=dtype)
     g1 = reference.random_padded(eng.spec, interior, seed=1) * (np.pi / 100)
     for steps, expect in launches.items():
@@ -549,7 +560,7 @@ def test_float64_strip_kernel_equals_the_tile_kernel_and_the_twin(cuda, case, in
 
 @pytest.mark.parametrize("dtype", ["df64", "float64"])
 @pytest.mark.parametrize("name", ["star2d1r", "box2d1r", "box2d3r", "star2d3r"])
-def test_fp64_2d_engines_run_only_strip_launches(cuda, dtype, name):
+def test_fp64_2d_engines_run_only_strip_launches(cuda, tiled_2d, dtype, name):
     """Every step of a df64 or float64 2-D engine is one float64 strip
     launch: launches_f64 and launches_k1 each grow by the steps, and no
     float32 or fused launch happens."""
@@ -699,30 +710,72 @@ def test_skew_kernel_matches_fused_kernel_and_twin(cuda, name, interior, dtype, 
         _agree(got, want, dtype == torch.float64 or integer)
 
 
+def _resident_grid_synced(x, spec, lay, steps):
+    """A run of csrc/stencil2d.cu's resident kernel (a grid barrier a step),
+    which the shared-memory kernel replaces for the registry's specs."""
+    outs = (torch.zeros_like(x), torch.zeros_like(x))
+    stencil2d._launch("resident", (x,) + outs, spec, lay, steps)
+    return outs[(steps - 1) % 2]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name,interior", [("star2d1r", (512, 512)), ("box2d3r", (100, 131)),
-                                           ("star2d3r", (37, 45))])
+                                           ("star2d3r", (37, 45)), ("box2d1r", (300, 140))])
 def test_resident_kernel_matches_single_steps_and_twin(cuda, name, interior, dtype):
-    """#3 (float32) and #10 (float64)."""
+    """#3 (float32) and #10 (float64): the shared-memory resident kernel
+    (counted in launches_smem) against single steps and csrc/stencil2d.cu's
+    resident kernel bit for bit, and the twin."""
     spec = get_shape(name)
     lay = _layout_2d(spec, interior, 1)
     g0 = reference.random_padded(spec, interior, seed=5)
+    counter = stencil2d.stencil2d_resident
     for fill in (g0, g0 * (np.pi / 100)):
         x = lay.to_internal(fill, dtype, cuda)
         keep = x.clone()
         for steps in (1, 2, 5):
-            before = (stencil2d.stencil2d_resident.launches,
-                      stencil2d.stencil2d_resident.launches_f64)
+            before = (counter.launches, counter.launches_f64, counter.launches_smem)
             got = stencil2d.stencil2d_resident(x, spec, lay, steps)
-            after = (stencil2d.stencil2d_resident.launches,
-                     stencil2d.stencil2d_resident.launches_f64)
-            assert sum(after) - sum(before) == 1
+            after = (counter.launches, counter.launches_f64, counter.launches_smem)
+            assert sum(after[:2]) - sum(before[:2]) == 1 and after[2] - before[2] == 1
             assert (after[1] > before[1]) == (dtype == torch.float64)
             _agree(got, _steps(stencil2d.stencil2d_step, x, spec, lay, steps), True)
+            _agree(got, _resident_grid_synced(x, spec, lay, steps), True)
             if steps <= 2 or dtype == torch.float64:
                 want = stencil2d.stencil2d_resident_plain(x, spec, lay, steps)
                 _agree(got, want, dtype == torch.float64 or fill is g0)
         assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["star2d1r", "box2d1r", "box2d3r", "star2d3r"])
+def test_resident_launch_at_and_beyond_capacity(cuda, name, dtype):
+    """A square layout at the kernel's capacity runs (equal to single steps
+    there); one row tile beyond it the launch is refused and raises."""
+    spec = get_shape(name)
+    cap = stencil2d.resident_capacity(spec, dtype, cuda)
+    assert cap == stencil2d.resident_capacity_bytes(
+        dtype.itemsize, torch.cuda.get_device_properties(0).multi_processor_count)
+    n = 32
+    while True:
+        lay = _layout_2d(spec, (n + 32, n + 32), 1)
+        if lay.shape[0] * lay.shape[1] * dtype.itemsize > cap:
+            break
+        n += 32
+    lay = _layout_2d(spec, (n, n), 1)
+    x = lay.to_internal(reference.random_padded(spec, (n, n), seed=8) * (np.pi / 100), dtype,
+                        cuda)
+    _agree(stencil2d.stencil2d_resident(x, spec, lay, 2),
+           _steps(stencil2d.stencil2d_step, x, spec, lay, 2), True)
+    over = Layout2D(interior=(n + 32, n), halo=spec.halo, tile=default_tile_2d(n, n),
+                    guard=lay.guard)
+    while over.shape[0] * over.shape[1] * dtype.itemsize <= cap:
+        over = Layout2D(interior=(over.interior[0] + 32, n), halo=spec.halo,
+                        tile=over.tile, guard=lay.guard)
+    before = stencil2d.stencil2d_resident.launches_smem
+    with pytest.raises(RuntimeError, match="launch failed"):
+        stencil2d.stencil2d_resident(torch.zeros(over.shape, dtype=dtype, device=cuda), spec,
+                                     over, 2)
+    assert stencil2d.stencil2d_resident.launches_smem == before
 
 
 @pytest.mark.parametrize("kw,kernel,launches", [
@@ -730,7 +783,7 @@ def test_resident_kernel_matches_single_steps_and_twin(cuda, name, interior, dty
     ({"fusion": "skew"}, "stencil2d_skew_step", {2: 1, 3: 1, 64: 32}),
     ({"fused_steps": 1}, "stencil2d_step", {2: 2, 3: 3, 64: 64}),
 ])
-def test_star2d3r_engine_counts_its_launches(cuda, kw, kernel, launches):
+def test_star2d3r_engine_counts_its_launches(cuda, tiled_2d, kw, kernel, launches):
     interior = (200, 300)
     eng = engine.StencilEngine.for_shape("star2d3r", interior, device=cuda, **kw)
     g1 = reference.random_padded(eng.spec, interior, seed=1) * (np.pi / 100)
@@ -824,7 +877,7 @@ def test_fused_strip_kernel_equals_strip_steps_and_tile_kernels(cuda, case, inte
 
 @pytest.mark.parametrize("kw,wrapper", [({}, "stencil2d_step"),
                                         ({"fusion": "skew"}, "stencil2d_skew_step")])
-def test_star2d3r_engine_runs_the_fused_strip_kernel(cuda, kw, wrapper):
+def test_star2d3r_engine_runs_the_fused_strip_kernel(cuda, tiled_2d, kw, wrapper):
     """The engine's default star2d3r pass (k = 2) and its skewed pass launch the
     fused strip kernel and no tile-based fused or skewed kernel; float64 and the
     box shapes (three terms) keep the tile kernels."""
@@ -844,19 +897,28 @@ def test_star2d3r_engine_runs_the_fused_strip_kernel(cuda, kw, wrapper):
         assert counter.launches_fused_strip == before
 
 
-@pytest.mark.parametrize("dtype,cap", [("float32", "RESIDENT_2D_BYTES"),
-                                       ("float64", "RESIDENT_2D_BYTES"),
-                                       ("df64", "RESIDENT_PAIR_2D_BYTES")])
+@pytest.mark.parametrize("dtype,cap", [("float32", "CUDA_RESIDENT_2D_BYTES"),
+                                       ("float64", "CUDA_RESIDENT_2D_BYTES"),
+                                       ("df64", "CUDA_RESIDENT_PAIR_2D_BYTES")])
 def test_resident_engine_runs_one_launch(cuda, dtype, cap, monkeypatch):
-    monkeypatch.setattr(stencil2d, cap, 8 * 2**20)
+    """With the variables unset, the card takes the H100 default caps: a 512^2
+    engine run is one launch of the shared-memory resident kernel."""
+    for env in ("LORASTENCIL_RESIDENT2D_KB", "LORASTENCIL_RESIDENT2D_PAIR_KB"):
+        monkeypatch.delenv(env, raising=False)
+    default = (stencil2d.H100_RESIDENT_PAIR_2D_BYTES if dtype == "df64"
+               else stencil2d.H100_RESIDENT_2D_BYTES)
+    monkeypatch.setattr(stencil2d, cap, stencil2d.cuda_cap(
+        "LORASTENCIL_RESIDENT2D_PAIR_KB" if dtype == "df64" else "LORASTENCIL_RESIDENT2D_KB",
+        default))
     interior = (512, 512)
     eng = engine.StencilEngine.for_shape("star2d1r", interior, device=cuda, dtype=dtype)
     assert eng._resident_2d()
     g1 = reference.random_padded(eng.spec, interior, seed=2) * (np.pi / 100)
     counter = stencil2d.stencil2d_resident
-    before = counter.launches + counter.launches_f64
+    before = (counter.launches + counter.launches_f64, counter.launches_smem)
     out = eng.run(g1, 4)
-    assert counter.launches + counter.launches_f64 - before == 1
+    assert (counter.launches + counter.launches_f64 - before[0],
+            counter.launches_smem - before[1]) == (1, 1)
     want = reference.run(g1, eng.spec, 4)
     tol = 1e-5 if dtype == "float32" else 1e-13
     assert np.abs(out.cpu().numpy() - want).max() <= tol * np.abs(want).max()

@@ -9,7 +9,11 @@ package's cap constant raised by monkeypatch.
 
 The fit test is each package's own, on its own layout, so near a cap the two may
 choose differently (ROADMAP section C); the dispatch tests sit well inside and
-well outside the cap.
+well outside the cap.  On a card the port takes its own caps where the variables
+are unset, the H100 defaults bounded by the shared-memory kernel's capacity; the
+last tests hold that rule through the fit functions with a CUDA device type
+(the capacity by its mirror on 132 SMs, so no card is needed), and the CPU
+routing unchanged.
 
 Tolerances, relative to the largest value of the ground truth: the 0..99 fill
 bit for bit at 1 and 2 steps (integers below 2**24); the pi/100 fill 1e-5 after
@@ -18,6 +22,8 @@ multiply, ops/band_gemm.py); df64 within 1e-13 of JAX df64 and of the ground
 truth, float64 1e-14."""
 
 import os
+import subprocess
+import sys
 
 import jax
 import numpy as np
@@ -186,3 +192,82 @@ def test_resident_wrapper_equals_single_steps():
                     stencil2d.stencil2d_resident.launches_f64) == before
     with pytest.raises(ValueError, match="steps"):
         stencil2d.stencil2d_resident(x, spec, eng.layout, 0)
+
+
+# -- the caps on a card: the H100 default where the variables are unset ----------
+ENVS = ("LORASTENCIL_RESIDENT2D_KB", "LORASTENCIL_RESIDENT2D_PAIR_KB")
+
+
+def _capacity_on_132_sms(spec, dtype, device):
+    """The kernel's capacity as an H100 (132 SMs) reports it, by its mirror."""
+    if not stencil2d.resident_takes(spec, dtype):
+        return None
+    return stencil2d.resident_capacity_bytes(dtype.itemsize, 132)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "df64"])
+def test_cuda_default_caps_apply_to_a_cuda_device(dtype, monkeypatch):
+    """With the variables unset, a CUDA device takes the H100 default,
+    bounded by the kernel's capacity (here its mirror on 132 SMs); the CPU
+    keeps the JAX package's caps, so its routing is unchanged."""
+    for env in ENVS:
+        monkeypatch.delenv(env, raising=False)
+    monkeypatch.setattr(stencil2d, "CUDA_RESIDENT_2D_BYTES", stencil2d.cuda_cap(
+        ENVS[0], stencil2d.H100_RESIDENT_2D_BYTES))
+    monkeypatch.setattr(stencil2d, "CUDA_RESIDENT_PAIR_2D_BYTES", stencil2d.cuda_cap(
+        ENVS[1], stencil2d.H100_RESIDENT_PAIR_2D_BYTES))
+    monkeypatch.setattr(stencil2d, "RESIDENT_2D_BYTES", 0)
+    monkeypatch.setattr(stencil2d, "RESIDENT_PAIR_2D_BYTES", 0)
+    monkeypatch.setattr(stencil2d, "resident_capacity", _capacity_on_132_sms)
+    tdtype = torch.float32 if dtype == "float32" else torch.float64
+    cap = (stencil2d.H100_RESIDENT_PAIR_2D_BYTES if dtype == "df64"
+           else stencil2d.H100_RESIDENT_2D_BYTES)
+    for name in ("star2d1r", "box2d3r"):
+        spec = get_shape(name)
+        for n in (64, 256, 512, 1024, 1240, 4096):
+            eng = engine.StencilEngine.for_shape(name, (n, n), device="cpu", dtype=dtype)
+            rows, pitch = eng.layout.shape
+            nbytes = rows * pitch * tdtype.itemsize
+            want = nbytes <= min(cap, stencil2d.resident_capacity_bytes(tdtype.itemsize, 132))
+            if dtype == "df64":
+                got = stencil2d.fits_resident_pair_2d(eng.layout, "cuda", spec)
+                cpu = stencil2d.fits_resident_pair_2d(eng.layout, "cpu", spec)
+            else:
+                got = stencil2d.fits_resident_2d(eng.layout, tdtype.itemsize,
+                                                 torch.device("cuda"), spec)
+                cpu = stencil2d.fits_resident_2d(eng.layout, tdtype.itemsize, "cpu", spec)
+            assert got == want, (name, n)
+            assert not cpu and not eng._resident_2d()
+
+
+def test_an_explicit_zero_turns_the_cuda_runs_off(monkeypatch):
+    """A variable that is set wins over the H100 default, and 0 turns the runs
+    off: the rule, and the module constants in a fresh interpreter."""
+    for env, default in zip(ENVS, (stencil2d.H100_RESIDENT_2D_BYTES,
+                                   stencil2d.H100_RESIDENT_PAIR_2D_BYTES)):
+        monkeypatch.delenv(env, raising=False)
+        assert stencil2d.cuda_cap(env, default) == default
+        monkeypatch.setenv(env, "0")
+        assert stencil2d.cuda_cap(env, default) == 0
+        monkeypatch.setenv(env, "64")
+        assert stencil2d.cuda_cap(env, default) == 64 * 1024
+    code = ("from lorastencil_tpu_torch.ops import stencil2d as s; "
+            "print(s.CUDA_RESIDENT_2D_BYTES, s.CUDA_RESIDENT_PAIR_2D_BYTES, "
+            "s.RESIDENT_2D_BYTES, s.RESIDENT_PAIR_2D_BYTES)")
+    env = dict(os.environ, LORASTENCIL_RESIDENT2D_KB="0", LORASTENCIL_RESIDENT2D_PAIR_KB="0")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=env, check=True, cwd=os.path.dirname(os.path.dirname(
+                             os.path.abspath(__file__))))
+    assert out.stdout.split() == ["0", "0", "0", "0"]
+    monkeypatch.setattr(stencil2d, "CUDA_RESIDENT_2D_BYTES", 0)
+    monkeypatch.setattr(stencil2d, "resident_capacity", _capacity_on_132_sms)
+    eng = engine.StencilEngine.for_shape("star2d1r", (64, 128), device="cpu")
+    assert not stencil2d.fits_resident_2d(eng.layout, 4, "cuda", eng.spec)
+
+
+def test_the_default_never_exceeds_the_capacity():
+    """The H100 defaults lie within the kernel's capacity on the H100 (132 SMs)
+    in either dtype the cap serves."""
+    for itemsize in (4, 8):
+        assert stencil2d.H100_RESIDENT_2D_BYTES <= stencil2d.resident_capacity_bytes(itemsize, 132)
+    assert stencil2d.H100_RESIDENT_PAIR_2D_BYTES <= stencil2d.resident_capacity_bytes(8, 132)
