@@ -17,9 +17,12 @@ its hand-written CUDA kernels:
   march kernel, the general kernel held against it;
 * 1-D, the reference artifact's 1-D configurations: 1d1r 4096 x 64 (all
   steps in one cooperative launch) and 1d2r 1,000,000 x 256 (passes of
-  three fused steps), through ``csrc/stencil1d.cu``, whose two kernels in
-  their narrow and wide instantiations replace the four TPU kernels of
-  ``lorastencil_tpu/ops/pallas_1d.py``;
+  three fused steps), and 1d2r 16,777,216 x 256, through
+  ``csrc/stencil1d.cu``, whose kernels replace the four TPU kernels of
+  ``lorastencil_tpu/ops/pallas_1d.py``: the float32 narrow pass on
+  ``lanes_kernel`` and the wide run on ``run_kernel`` (both redesigned for
+  Hopper), the wide pass on ``wide_kernel`` and the narrow run on
+  ``resident_kernel``;
 * the fp64-grade tier, dtypes 'df64' and 'float64': the float64 strip
   kernel of ``csrc/stencil2d.cu`` (every 2-D step at radius <= 4 and <= 3
   terms; the float64 tile kernel beyond: replacing
@@ -92,21 +95,39 @@ Phases, each printing one line or more and raising on failure:
    1e-6 after 4 steps (the kernels round each product and sum on their own,
    in their twins' order, so both are bit for bit; the registry taps
    overflow fp32 to inf in the deepest wide passes, where the two agree
-   too);
+   too); then the two redesigned kernels against their twins and the
+   kernels they replace, bit for bit on the integer, pi/100 and inf fills:
+   ``lanes_kernel`` (each launch counted in ``launches_lanes``) one pass at
+   k = 1, 3 and 32 // r_eff for 1d2r at 3001, 4096, 1,000,000 and
+   16,777,216 and 1d1r up to 1,000,000, against ``pass_kernel<float>``;
+   ``run_kernel`` (``launches_run``) over 1, 2 and 2m + 3 steps in float32
+   and float64 for 1d1r at 4096 (also one block) and 3001, ``for_coeffs``
+   r = 40 and 127 at 100,000 and 1d1r at the largest size under
+   ``RESIDENT_BYTES`` (132 blocks), against the grid-synced
+   ``resident_kernel``;
 9. the 1-D path end to end, launches counted from zero: 1d1r 4096 resolves
-   to 'mxu' and one resident launch per run; 1d2r 1,000,000 to passes of
-   the narrow kernel at k = 3 (``run(.., 2)`` one remainder launch,
-   ``run(.., 7)`` three); algorithm 'vpu' to the wide counterparts
-   (resident at 4096, passes of 2 at 1,000,000); 2 steps bit for bit
-   against a float64 dense stencil on the card, 7 steps of the pi/100 fill
-   within rel 1e-5;
+   to 'mxu' and one resident launch per run (#7, ``resident_kernel``);
+   1d2r 1,000,000 and 16,777,216 to passes of the narrow kernel at k = 3
+   (``run(.., 2)`` one remainder launch, ``run(.., 7)`` three), every one
+   ``lanes_kernel``; algorithm 'vpu' to the wide counterparts (resident at
+   4096, every run ``run_kernel``; passes of 2 at 1,000,000); 2 steps bit
+   for bit against a float64 dense stencil on the card, 7 steps of the
+   pi/100 fill within rel 1e-5;
 10. 1d1r 4096 x 64, 1d2r 1,000,000 x 256 and 1d2r 16,777,216 x 256 through
    ``run_internal`` and through the naive dense stencil (GStencil/s with the
    x3 / x2 fuse factors); per kernel its device time per pass or run (a
    CUDA graph of back-to-back passes, so the host's launch cost is left
    out), its twin's, one ``F.conv1d`` step with the dense taps (TF32 off)
    and its bound; the wrapper's host time per launch with the device idle,
-   and the device's idle share of the 1,000,000-cell run;
+   and the device's idle share of the 1,000,000-cell run; the two
+   redesigned kernels beside the kernels they replace, in turns:
+   ``lanes_kernel``'s k = 3 pass at 1d2r 1,000,000 and 16,777,216 beside
+   ``pass_kernel<float>``, and in each tile of ``LANES_TILES``;
+   ``run_kernel``'s 1d1r 4096 x 64 run in float32 and float64 beside
+   ``resident_kernel``, with the per-step floor (the 64-step run less the
+   1-step run) of both; and 64-step runs under plans around the H100 rule
+   (``stencil1d.run_plan``) at 1d1r 2048 and 4096, r = 40 x 100,000 and
+   the largest 1d1r grid under ``RESIDENT_BYTES``, in both dtypes;
 11. each fp64 kernel against its fp64 twin on the card: the 2-D float64
    strip kernel for star2d1r, box2d1r and box2d3r at 1000^2 and 8192^2,
    star2d3r at 1000^2 and star2d1r at 300 x 140 with a guard off the
@@ -127,7 +148,9 @@ Phases, each printing one line or more and raising on failure:
    k = 1 in df64 and 2 in float64), ``for_coeffs`` r = 40 at 100,000 (wide
    passes) and, float64 only, at 3001 (the wide run); ``run(.., 2)`` of the
    integer fill bit for bit against a float64 dense stencil on the card,
-   ``run(.., 4)`` of the pi/100 fill within rel 1e-13 of it;
+   ``run(.., 4)`` of the pi/100 fill within rel 1e-13 of it; the float64
+   wide run counted in ``launches_run`` too, and no float64 pass on
+   ``lanes_kernel``: #12 and #14 (and #7, phase 9) launch what they did;
 13. df64 star2d1r 8192^2 x 32, box2d3r 4096^2 x 32, 1d1r 4096 x 64 and
    1d2r 16,777,216 x 256 through ``run_internal`` and through the naive
    dense stencil in float64 (GStencil/s, vs_baseline; the 2-D runs' 32
@@ -203,15 +226,19 @@ Phases, each printing one line or more and raising on failure:
    ``F.conv3d`` 3x3x3 step and the pass's byte bound;
 20. the kernels redesigned for Hopper, each with its registers and
    spills from ptxas (the strip kernel and its float64 counterpart, the
-   fused strip kernel, the wide 1-D pass, the 3-D march kernel, the
-   shared-memory resident kernel, with its source's build time), failing
+   fused strip kernel, the wide 1-D pass, the narrow 1-D pass, the wide
+   1-D run, the 3-D march kernel, the shared-memory resident kernel, with
+   its source's build time), failing
    on any spill: the 2-D strip kernel's step at star2d1r 8192^2 beside the
    tile kernel it replaces (timed in turns), its twin, ``F.conv2d``, its
    byte bound and its share of it; the float64 strip kernel's df64 steps
    at star2d1r 8192^2 and box2d3r 4096^2 beside the float64 tile kernel
    (phase 13) and their share of the byte bound; the march kernel's float32 k = 2, df64 and float64 k = 2 passes
    at 256^3 beside the general kernel (phases 7 and 19) and their share of
-   the byte bound; the wide 1-D pass at float64 r = 40 x 100,000 and
+   the byte bound; the narrow pass (``lanes_kernel``, 1d2r 1,000,000 and
+   16,777,216) and the wide run (``run_kernel``, 1d1r 4096 x 64, float32 and
+   float64) beside the kernels they replace (phase 10), their bounds and
+   shares of them; the wide 1-D pass at float64 r = 40 x 100,000 and
    float32 1d2r 1,000,000 (k = 2), and at float64 r = 40 x 16,777,216 (134
    MB a buffer), each beside one ``F.conv1d`` step, its bound and its
    share of it.
@@ -289,7 +316,9 @@ def _counters():
     "stencil1d_resident_f64"; the 2-D resident run's float64 instance as
     "stencil2d_resident_pair", the kernel it replaces; the shared-memory
     resident kernel's runs, in either dtype, in "stencil2d_resident_smem"
-    too).  The fused 2-D
+    too; the 1-D kernels redesigned for Hopper, lanes_kernel's float32
+    narrow passes in "stencil1d_lanes" and run_kernel's wide runs, in either
+    dtype, in "stencil1d_run", beside their wrapper's count).  The fused 2-D
     kernel counts with the step kernel it extends, as "stencil2d"; the
     strip kernels' steps count in "stencil2d_k1" too, beside "stencil2d"
     (float32) or "df64_step" (float64); the fused strip kernel's passes in
@@ -319,7 +348,10 @@ def _counters():
            "stencil2d_resident_smem": (stencil2d.stencil2d_resident,
                                        "launches_smem"),
            "stencil1d_resident_f64": (stencil1d.stencil1d_resident,
-                                      "launches_f64")}
+                                      "launches_f64"),
+           "stencil1d_lanes": (stencil1d.stencil1d_lanes_step,
+                               "launches_lanes"),
+           "stencil1d_run": (stencil1d.stencil1d_resident, "launches_run")}
     out.update({name: (getattr(stencil1d, name), "launches")
                 for name in KERNELS_1D})
     out.update({name: (getattr(stencil1d, wrapper), "launches_f64")
@@ -932,6 +964,118 @@ def check_kernels_1d(name, n, device):
     return errs
 
 
+def fills_1d(g0):
+    """The integer fill, the pi/100 fill and the pi/100 fill with one inf."""
+    pi = g0 * (np.pi / 100)
+    inf = pi.copy()
+    inf[inf.size // 3] = np.inf
+    return {"integer": g0, "pi/100": pi, "inf": inf}
+
+
+def same_bits(got, want, what):
+    """Bit for bit, NaN where the other has NaN; raises otherwise."""
+    torch.cuda.synchronize()
+    if not bool(((got == want) | (got.isnan() & want.isnan())).all()):
+        bad = (got != want).sum().item()
+        raise AssertionError(f"{what}: differs at {bad} cells")
+
+
+def check_lanes(name, n, device):
+    """Phase 8, #5: one float32 narrow pass (lanes_kernel, counted in
+    ``launches_lanes``) at k = 1, 3 and 32 // r_eff against its twin and
+    the kernel it replaces (``pass_kernel<float>``, ``stencil1d._pass``),
+    bit for bit on the integer, pi/100 and inf fills; returns the max abs
+    err against the twin on the pi/100 fill."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = spec_1d(name)
+    r = s1.effective_radius(spec)
+    w = s1.stencil1d_lanes_step
+    err = 0.0
+    for k in sorted({1, 3, s1.MAX_LANES_REACH // r}):
+        lay = layout_1d(spec, n, k * r)
+        for fill_name, fill in fills_1d(
+                reference.random_padded(spec, (n,), seed=1)).items():
+            x = lay.to_internal(fill, device=device)
+            before = (w.launches, w.launches_lanes)
+            got = w(x, torch.zeros_like(x), spec, lay, fused_steps=k)
+            if (w.launches - before[0], w.launches_lanes - before[1]) != (1, 1):
+                raise AssertionError(f"{name} {n} k={k}: not one lanes launch")
+            what = f"lanes_kernel {name} {n} k={k} ({fill_name} fill)"
+            same_bits(got, s1._pass(x, torch.zeros_like(x), spec, lay, k, True),
+                      f"{what} against pass_kernel<float>")
+            want = s1.stencil1d_lanes_step_plain(x, torch.zeros_like(x), spec,
+                                                 lay, k)
+            same_bits(got, want, f"{what} against its twin")
+            if fill_name == "pi/100":
+                err = max(err, (got - want).abs().max().item())
+            del x, got, want
+    return err
+
+
+def check_run(name, n, dtype, device):
+    """Phase 8, #6: the wide run (run_kernel, counted in ``launches_run``)
+    over 1, 2 and 2m + 3 steps (m its plan's steps between exchanges; two
+    exchanges and a tail where B > 1) against its twin and the kernel it
+    replaces (``resident_kernel``, a grid sync every step:
+    ``stencil1d._run``), bit for bit on the integer, pi/100 and inf fills;
+    at 4096 cells also the one-block plan (B = 1); returns (the plan, the
+    max abs err against the twin on the pi/100 fill)."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = spec_1d(name)
+    r = s1.effective_radius(spec)
+    lay = layout_1d(spec, n, r)
+    n_taps = len(s1.wide_taps(spec)[0])
+    w = s1.stencil1d_resident
+    err = 0.0
+    plan = None
+    for fill_name, fill in fills_1d(
+            reference.random_padded(spec, (n,), seed=1)).items():
+        x = lay.to_internal(fill, dtype, device)
+        keep = x.clone()
+        plan = s1.run_plan(lay.rounded, r, n_taps, 64, x.element_size(),
+                           s1._sm_count(x.device.index or 0))
+        for steps in (1, 2, 2 * plan.m + 3):
+            before = (w.launches_run, w.launches, w.launches_f64)
+            got = w(x, spec, lay, steps)
+            if (w.launches_run - before[0],
+                    w.launches + w.launches_f64 - before[1] - before[2]) != (
+                        1, 1):
+                raise AssertionError(f"{name} {n} x{steps}: not one run")
+            what = f"run_kernel {dtype} {name} {n} x{steps} ({fill_name} fill)"
+            same_bits(got, s1._run(x, spec, lay, steps, 1, False),
+                      f"{what} against resident_kernel")
+            want = s1.stencil1d_resident_plain(x, spec, lay, steps)
+            same_bits(got, want, f"{what} against its twin")
+            if n == N_1D_SMALL:
+                one = s1.make_run_plan(lay.rounded, r, x.element_size(), 1,
+                                       steps)
+                same_bits(s1._wide_run(x, spec, lay, steps, one), want,
+                          f"{what}, one block, against its twin")
+            if fill_name == "pi/100":
+                err = max(err, (got - want).abs().max().item())
+        if not torch.equal(x, keep):
+            raise AssertionError(f"run_kernel {name} {n} wrote its input")
+        del x, keep
+    return plan, err
+
+
+def largest_resident_1d(name, dtype):
+    """The largest interior whose 'vpu' run layout fits RESIDENT_BYTES."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.ops.layout import TILE_1D
+
+    spec = spec_1d(name)
+    r = s1.effective_radius(spec)
+    n = s1.RESIDENT_BYTES // dtype.itemsize // TILE_1D * TILE_1D
+    while not s1.fits_resident(layout_1d(spec, n, 2 * r), dtype.itemsize):
+        n -= TILE_1D
+    return n
+
+
 def main_path_1d(device):
     """Phase 9: the 1-D path end to end; returns the launches of each 1-D
     kernel over the phase, counted from zero, and a line per case."""
@@ -939,17 +1083,23 @@ def main_path_1d(device):
     from lorastencil_tpu_torch.ops import torch_ref
     from lorastencil_tpu_torch.utils import reference
 
+    # (shape, n, engine options, algorithm, path, the kernel counted, k,
+    # its launches in run(2) and run(7), the redesigned kernel's count that
+    # must grow with it or None: #7's narrow run keeps resident_kernel)
     cases = (("1d1r", N_1D_SMALL, {}, "mxu", "resident_lanes",
-              "stencil1d_resident_lanes", 4, (1, 1)),
+              "stencil1d_resident_lanes", 4, (1, 1), None),
              ("1d2r", N_1D, {}, "mxu", "lanes", "stencil1d_lanes_step", 3,
-              (1, 3)),
+              (1, 3), "stencil1d_lanes"),
+             ("1d2r", N_1D_LARGE, {}, "mxu", "lanes", "stencil1d_lanes_step",
+              3, (1, 3), "stencil1d_lanes"),
              ("1d1r", N_1D_SMALL, {"algorithm": "vpu"}, "vpu", "resident",
-              "stencil1d_resident", 2, (1, 1)),
+              "stencil1d_resident", 2, (1, 1), "stencil1d_run"),
              ("1d2r", N_1D, {"algorithm": "vpu"}, "vpu", "flat",
-              "stencil1d_step", 2, (1, 4)))
+              "stencil1d_step", 2, (1, 4), None))
     lines = []
+    per_case = {}
     reset_counts()
-    for name, n, kw, alg, path, kernel, k, expect in cases:
+    for name, n, kw, alg, path, kernel, k, expect, new in cases:
         eng = engine.StencilEngine.for_shape(name, (n,), device=device, **kw)
         got = (eng.algorithm, eng.path, eng._fused_k())
         if got != (alg, path, k):
@@ -966,7 +1116,10 @@ def main_path_1d(device):
             torch.cuda.synchronize()
             launched = {key: v - before[key] for key, v in counts().items()
                         if v != before[key]}
-            if launched != {kernel: want_launches}:
+            want_launched = {kernel: want_launches}
+            if new:
+                want_launched[new] = want_launches
+            if launched != want_launched:
                 raise AssertionError(f"{name} {n} {kw} run({steps}) "
                                      f"launched {launched}")
             if tuple(out.shape) != spec.padded_shape((n,)):
@@ -983,14 +1136,19 @@ def main_path_1d(device):
             if not rel <= 1e-5:
                 raise AssertionError(f"{name} {n} {kw}: run({steps}) rel "
                                      f"err {rel:.3e} > 1e-5")
+            per_case[(name, n, alg)] = (per_case.get((name, n, alg), 0)
+                                        + launched[kernel])
             lines.append(f"{name} {n} {kw or ''} -> {alg}/{path} k={k}: "
                          f"run({steps}) {launched[kernel]} launch(es) of "
-                         f"{kernel}, rel err {rel:.3e}")
+                         f"{kernel}" + (f", every one {new}" if new else "")
+                         + f", rel err {rel:.3e}")
+            del out, want
     launches = counts()
-    for kernel in KERNELS_1D:
+    for kernel in KERNELS_1D + ("stencil1d_lanes", "stencil1d_run"):
         if launches[kernel] == 0:
             raise AssertionError(f"the 1-D path never launched {kernel}")
-    return {kernel: launches[kernel] for kernel in KERNELS_1D}, lines
+    return {kernel: launches[kernel] for kernel in
+            KERNELS_1D + ("stencil1d_lanes", "stencil1d_run")}, per_case, lines
 
 
 def graph_ms(fn, calls=20):
@@ -1052,6 +1210,74 @@ def conv1d_ms(spec, n, device, dtype=torch.float32):
     return graph_ms(lambda: F.conv1d(x, w))
 
 
+def lanes_tiles(device, card, gen):
+    """Phase 10: a k = 3 pass of lanes_kernel at 1d2r 1,000,000 and
+    16,777,216 in each tile of ``LANES_TILES``, in turns; ``lanes_tile``'s
+    choice beside them."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+
+    spec = spec_1d("1d2r")
+    for n in (N_1D, N_1D_LARGE):
+        lay = layout_1d(spec, n, 3 * s1.effective_radius(spec))
+        x = torch.rand(lay.shape, generator=gen, device=device) * 0.01
+        donor = torch.zeros_like(x)
+        ms = in_turns({tile: (lambda t=tile: s1._lanes(x, donor, spec, lay,
+                                                         3, t))
+                       for tile in s1.LANES_TILES}, 20)
+        pick = s1.lanes_tile(lay.rounded, s1._sm_count(device.index or 0))
+        print(f"phase 10: lanes_kernel 1d2r {n} k=3 by tile (cells: ms): "
+              f"{ms}; lanes_tile picks {pick} [{card}]", flush=True)
+        del x, donor
+
+
+# Phase 10's run plans: (shape, n, dtype, blocks, m*r reaches) around the
+# H100 rule, at the sizes whose rule it sets
+RUN_SWEEP = (
+    ("1d1r", 2048, (1, 2, 4, 8, 16), (64, 128, 192)),
+    ("1d1r", N_1D_SMALL, (1, 4, 8, 16, 32), (64, 128, 192)),
+    ("r40", 100_000, (64, 132), (40, 120, 160, 240)),
+    ("1d1r", None, (64, 132), (64, 128, 192, 256)))
+
+
+def run_plans(device, card, gen):
+    """Phase 10: 64-step wide runs (run_kernel) under plans around the H100
+    rule (``run_plan``), in both dtypes: B = 1 where the grid fits a block,
+    and B blocks at m = reach // r; the rule's plan and the fastest."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+
+    for dtype in (torch.float32, torch.float64):
+        for name, n, blocks_list, reaches in RUN_SWEEP:
+            n = n or largest_resident_1d(name, dtype)
+            spec = spec_1d(name)
+            r = s1.effective_radius(spec)
+            lay = layout_1d(spec, n, 2 * r)
+            x = torch.rand(lay.shape, generator=gen, device=device,
+                           dtype=dtype) * 0.01
+            isz, V = dtype.itemsize, s1.run_cells(dtype.itemsize, r)
+            plans = {}
+            for blocks in blocks_list:
+                for reach in (reaches if blocks > 1 else (r,)):
+                    m = 64 if blocks == 1 else max(1, min(64, reach // r))
+                    chunk = lay.rounded // V // blocks * V
+                    p = s1.make_run_plan(lay.rounded, r, isz, blocks, m)
+                    cmax = -(-lay.rounded // V // blocks) * V
+                    if (blocks > 1 and chunk < m * r) or 2 * isz * (
+                            cmax + 2 * p.halo + 2 * V + 2 * r) > 232448:
+                        continue
+                    plans[tuple(p)] = p
+            rule = s1.run_plan(lay.rounded, r, len(s1.wide_taps(spec)[0]), 64,
+                               isz, s1._sm_count(device.index or 0))
+            plans[tuple(rule)] = rule
+            ms = in_turns({k: (lambda p=p: s1._wide_run(x, spec, lay, 64, p))
+                           for k, p in plans.items()}, 5)
+            best = min(ms, key=ms.get)
+            print(f"phase 10: run_kernel {str(dtype)[6:]} {name} {n} x64 by "
+                  f"plan ((blocks, m, halo, threads): ms): {ms}; the rule "
+                  f"{tuple(rule)} {ms[tuple(rule)]} ms, the fastest {best} "
+                  f"{ms[best]} ms [{card}]", flush=True)
+            del x
+
+
 def bench_1d(device, card):
     """Phase 10: the three 1-D configurations through ``run_internal`` and
     the naive dense stencil, and per kernel its device time, its twin's,
@@ -1100,44 +1326,98 @@ def bench_1d(device, card):
               f"launches of {kernel} per {steps}-step run [{card}]",
               flush=True)
 
+    # per record: the wrapper, shape, size, engine options, steps of a run
+    # (None: a pass of the engine's k) and dtype.  #5 and #6, redesigned,
+    # are timed in turns beside the kernel each replaces (pass_kernel<float>,
+    # the grid-synced resident_kernel), graphs of 20 calls.
     timing = {}
-    for kernel, name, n, kw, steps in (
-            ("stencil1d_lanes_step", "1d2r", N_1D, {}, None),
-            ("stencil1d_step", "1d2r", N_1D, {"algorithm": "vpu"}, None),
-            ("stencil1d_resident_lanes", "1d1r", N_1D_SMALL, {}, 64),
-            ("stencil1d_resident", "1d1r", N_1D_SMALL, {"algorithm": "vpu"},
-             64)):
-        eng = engine.StencilEngine.for_shape(name, (n,), device=device, **kw)
+    for key, kernel, name, n, kw, steps, dtype in (
+            ("stencil1d_lanes_step", "stencil1d_lanes_step", "1d2r", N_1D,
+             {}, None, torch.float32),
+            (f"stencil1d_lanes_step[1d2r {N_1D_LARGE}]",
+             "stencil1d_lanes_step", "1d2r", N_1D_LARGE, {}, None,
+             torch.float32),
+            ("stencil1d_step", "stencil1d_step", "1d2r", N_1D,
+             {"algorithm": "vpu"}, None, torch.float32),
+            ("stencil1d_resident_lanes", "stencil1d_resident_lanes", "1d1r",
+             N_1D_SMALL, {}, 64, torch.float32),
+            ("stencil1d_resident", "stencil1d_resident", "1d1r", N_1D_SMALL,
+             {"algorithm": "vpu"}, 64, torch.float32),
+            ("stencil1d_resident_f64", "stencil1d_resident", "1d1r",
+             N_1D_SMALL, {"algorithm": "vpu"}, 64, torch.float64)):
+        eng = engine.StencilEngine.for_shape(
+            name, (n,), device=device, **kw,
+            **({"dtype": "float64"} if dtype == torch.float64 else {}))
         spec, lay, k = eng.spec, eng.layout, eng._fused_k()
-        x = torch.rand(lay.shape, generator=gen, device=device) * 0.01
+        x = torch.rand(lay.shape, generator=gen, device=device,
+                       dtype=dtype) * 0.01
         donor = torch.zeros_like(x)
         wrapper = getattr(s1, kernel)
         plain = getattr(s1, kernel + "_plain")
+        replaced = None
         if steps is None:  # a pass of k steps
             one = lambda: wrapper(x, donor, spec, lay, fused_steps=k)
             twin = lambda: plain(x, donor, spec, lay, fused_steps=k)
             per = k
+            if kernel == "stencil1d_lanes_step":
+                replaced = lambda: s1._pass(x, donor, spec, lay, k, True)
         else:  # a whole run in one cooperative launch
             one = lambda: wrapper(x, spec, lay, steps)
             twin = lambda: plain(x, spec, lay, steps)
             per = steps
-        ms, plain_ms = graph_ms(one), graph_ms(twin, 3)
+            if kernel == "stencil1d_resident":
+                replaced = lambda: s1._run(x, spec, lay, steps, 1, False)
+        rec = {}
+        if replaced is None:
+            ms = graph_ms(one)
+        else:
+            turns = in_turns({"new": one, "old": replaced}, 20)
+            ms = turns["new"]
+            rec["replaced_kernel_ms"] = turns["old"]
+            rec["kernel"] = ("lanes_kernel" if steps is None
+                             else "run_kernel")
+        if steps is not None and replaced is not None:
+            # the per-step floor: the 64-step run less the 1-step run
+            one1 = lambda: wrapper(x, spec, lay, 1)
+            old1 = lambda: s1._run(x, spec, lay, 1, 1, False)
+            turns1 = in_turns({"new": one1, "old": old1}, 20)
+            rec["floor_ms_per_step"] = (ms - turns1["new"]) / (steps - 1)
+            rec["replaced_floor_ms_per_step"] = (
+                rec["replaced_kernel_ms"] - turns1["old"]) / (steps - 1)
+            rec["plan"] = list(s1.run_plan(
+                lay.rounded, s1.effective_radius(spec),
+                len(s1.wide_taps(spec)[0]), steps, x.element_size(),
+                s1._sm_count(device.index or 0)))
+        plain_ms = graph_ms(twin, 3)
         host_us = host_us_per_launch(one)
-        bound, by = bound_ms(spec, (n,), per)
-        parts = bound_parts(spec, (n,), per)
-        lib = conv1d_ms(spec, n, device)
-        timing[kernel] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound,
-                              bound_by=by, library_ms=lib,
-                              steps_per_launch=per, library_steps=1,
-                              shape=f"{name} {n} {kw or ''}".strip(),
-                              host_us_per_launch=host_us)
-        print(f"phase 10: {kernel} at {name} {n} {kw or ''}, {per} steps "
-              f"per launch: kernel {ms} ms (device), plain twin {plain_ms} "
-              f"ms, F.conv1d one step {lib} ms, bound {bound} ms ({by}; "
-              f"bytes {parts[0]} ms, operations {parts[1]} ms); "
-              f"host {host_us} us per launch with the device idle [{card}]",
-              flush=True)
+        bound, by = bound_ms(spec, (n,), per, dtype.itemsize)
+        parts = bound_parts(spec, (n,), per, dtype.itemsize)
+        lib = conv1d_ms(spec, n, device, dtype)
+        timing[key] = dict(rec, ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, library_ms=lib,
+                           steps_per_launch=per, library_steps=1,
+                           shape=f"{str(dtype)[6:]} {name} {n} {kw or ''}"
+                           .strip(),
+                           host_us_per_launch=host_us)
+        print(f"phase 10: {key} at {str(dtype)[6:]} {name} {n} {kw or ''}, "
+              f"{per} steps per launch: kernel {ms} ms (device), "
+              f"{bound / ms:.4f} of its bound {bound} ms ({by}; bytes "
+              f"{parts[0]} ms, operations {parts[1]} ms); plain twin "
+              f"{plain_ms} ms, F.conv1d one step {lib} ms; host {host_us} us "
+              f"per launch with the device idle [{card}]", flush=True)
+        if replaced is not None:
+            old = rec["replaced_kernel_ms"]
+            print(f"phase 10: {key}: {rec['kernel']} {ms} ms beside the "
+                  f"kernel it replaces {old} ms ({old / ms:.4f}x), in turns"
+                  + (f"; per-step floor (64 steps less 1) "
+                     f"{rec['floor_ms_per_step']} ms beside "
+                     f"{rec['replaced_floor_ms_per_step']} ms; plan "
+                     f"(blocks, m, halo, threads) {rec['plan']}"
+                     if steps is not None else "")
+                  + f" [{card}]", flush=True)
         del x, donor
+    lanes_tiles(device, card, gen)
+    run_plans(device, card, gen)
     res, launches = runs[("1d2r", N_1D)]
     busy = launches * timing["stencil1d_lanes_step"]["ms"] / res.time_ms
     print(f"phase 10: 1d2r {N_1D} x256: {launches} passes x "
@@ -1355,6 +1635,8 @@ def main_path_fp64(device):
                 want_launches = {kernel: expect}
                 if len(interior) == 2:  # every step a float64 strip launch
                     want_launches["stencil2d_k1"] = expect
+                if kernel == "stencil1d_resident_f64":  # run_kernel's
+                    want_launches["stencil1d_run"] = expect
                 if launched != want_launches:
                     raise AssertionError(f"{name} {interior} {dtype} run("
                                          f"{steps}) launched {launched}")
@@ -1380,7 +1662,10 @@ def main_path_fp64(device):
     for kernel in KERNELS_FP64:
         if launches[kernel] == 0:
             raise AssertionError(f"the fp64 paths never launched {kernel}")
-    return {kernel: launches[kernel] for kernel in KERNELS_FP64}, lines
+    if launches["stencil1d_lanes"]:
+        raise AssertionError("a float64 narrow pass ran lanes_kernel")
+    return {kernel: launches[kernel] for kernel in
+            KERNELS_FP64 + ("stencil1d_resident_f64", "stencil1d_run")}, lines
 
 
 def bench_fp64(device, card):
@@ -2350,7 +2635,9 @@ def bench_fp64_3d(device, card):
 # (an instantiation per radius 1-4 and term count 0-3), strip64_kernel (the
 # same in float64, each with 16-byte or 8-byte copies) and
 # fused_strip_kernel (radius 1-4, 1-2 terms, K = 2, the terms' kinds),
-# csrc/stencil1d.cu wide_kernel (float and double) and csrc/stencil3d.cu
+# csrc/stencil1d.cu wide_kernel (float and double), lanes_kernel (float,
+# radius 1-8 and one for 9-32) and run_kernel (float and double, radius
+# 1-8 and one for the rest), csrc/stencil3d.cu
 # march_kernel (float and double, radius 1-2, K = 1-2, star3d1r's and
 # box3d1r's term kinds): {kernel: (source, the pattern of the mangled names
 # ptxas reports, what the instantiation's numbers are)}.  A mangled name carries its length before it
@@ -2364,6 +2651,8 @@ PTXAS_KERNELS = {
         "stencil2d", r"fused_strip_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d+)E",
         "R,terms,K,kinds"),
     "wide_kernel": ("stencil1d", r"wide_kernelI([fd])E", "type"),
+    "lanes_kernel": ("stencil1d", r"lanes_kernelILi(\d)E", "R"),
+    "run_kernel": ("stencil1d", r"run_kernelI([fd])Li(\d)EE", "type,R"),
     "march_kernel": (
         "stencil3d",
         r"march_kernelI([fd])Li(\d)ELi(\d)ELi(\d)ELi(\d+)ELb([01])E",
@@ -2394,15 +2683,18 @@ def ptxas_table(log, pattern):
     return table
 
 
-def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms):
+def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms,
+               timing_1d):
     """Phase 20: per redesigned kernel its registers and spills, device ms,
     bound and share of it, and library ms; the 2-D step beside the tile
     kernel it replaces (``step_ms``: phase 2's strip, tile and twin times,
     timed in turns), the float64 strip kernel's df64 steps beside the
     float64 tile kernel (``fp64_step``: phase 13's record, star2d1r's with
     box2d3r's inside), the 3-D march kernel's passes beside the general
-    kernel's (``march_ms``: phases 7 and 19, each timed in turns) and the
-    wide pass at three sizes; returns the large wide pass's record."""
+    kernel's (``march_ms``: phases 7 and 19, each timed in turns), the
+    narrow pass and the wide run beside the kernels they replace
+    (``timing_1d``: phase 10, in turns) and the wide pass at three sizes;
+    returns the large wide pass's record."""
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil1d as s1
 
@@ -2433,6 +2725,17 @@ def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms):
               f"(device), {bound / ms:.4f} of its {bound} ms bytes bound; "
               f"the general kernel {general} ms ({general / ms:.4f}x) "
               f"[{card}]", flush=True)
+    for key in ("stencil1d_lanes_step", f"stencil1d_lanes_step[1d2r "
+                f"{N_1D_LARGE}]", "stencil1d_resident",
+                "stencil1d_resident_f64"):
+        rec = timing_1d[key]
+        print(f"phase 20: {rec['kernel']}, {rec['shape']}, "
+              f"{rec['steps_per_launch']} steps a launch: {rec['ms']} ms "
+              f"(device), {rec['bound_ms'] / rec['ms']:.4f} of its "
+              f"{rec['bound_ms']} ms {rec['bound_by']} bound; the kernel it "
+              f"replaces {rec['replaced_kernel_ms']} ms "
+              f"({rec['replaced_kernel_ms'] / rec['ms']:.4f}x); one F.conv1d "
+              f"step {rec['library_ms']} ms [{card}]", flush=True)
     gen = torch.Generator(device=device).manual_seed(0)
     large = None
     for name, n, dtype, k in (("r40", 100_000, torch.float64, 1),
@@ -2576,8 +2879,31 @@ def main() -> int:
                   f"passes of k = 1, default, largest; pi/100 fill after 4 "
                   f"steps and 2*refresh+3 steps), max abs err "
                   f"{max(errs.values())}", flush=True)
+    errs_new = {}
+    for name, sizes in (("1d2r", (3001, N_1D_SMALL, N_1D, N_1D_LARGE)),
+                        ("1d1r", (3001, N_1D_SMALL, N_1D))):
+        for n in sizes:
+            err = check_lanes(name, n, device)
+            errs_new[("lanes", n)] = max(errs_new.get(("lanes", n), 0.0), err)
+            print(f"phase 8: lanes_kernel {name} {n}: one pass at k = 1, 3 "
+                  f"and 32 // r_eff bit for bit against its twin and "
+                  f"pass_kernel<float> on the integer, pi/100 and inf fills, "
+                  f"each launch counted; max abs err {err}", flush=True)
+    for dtype in (torch.float32, torch.float64):
+        for name, n in (("1d1r", N_1D_SMALL), ("1d1r", 3001),
+                        ("r40", 100_000), ("r127", 100_000),
+                        ("1d1r", largest_resident_1d("1d1r", dtype))):
+            plan, err = check_run(name, n, dtype, device)
+            errs_new[("run", dtype)] = max(errs_new.get(("run", dtype), 0.0),
+                                           err)
+            print(f"phase 8: run_kernel {str(dtype)[6:]} {name} {n}, plan "
+                  f"(blocks, m, halo, threads) {tuple(plan)}: 1, 2 and "
+                  f"2m+3 steps bit for bit against its twin and "
+                  f"resident_kernel on the integer, pi/100 and inf fills"
+                  + (", and one block" if n == N_1D_SMALL else "")
+                  + f"; max abs err {err}", flush=True)
 
-    launches_1d, lines = main_path_1d(device)
+    launches_1d, cases_1d, lines = main_path_1d(device)
     for line in lines:
         print(f"phase 9: {line}", flush=True)
     print(f"phase 9: launches over the phase, counted from zero: "
@@ -2614,6 +2940,13 @@ def main() -> int:
         print(f"phase 12: {line}", flush=True)
     print(f"phase 12: launches over the phase, counted from zero: "
           f"{launches_fp64}", flush=True)
+    print(f"phase 12: the narrow kernels not redesigned launch what they "
+          f"launched: #12 df64_1d_step {launches_fp64['df64_1d_step']} "
+          f"launches of pass_kernel<double> (none of lanes_kernel), #14 "
+          f"stencil1d_resident_pair {launches_fp64['stencil1d_resident_pair']}"
+          f" of resident_kernel<double>, #7 stencil1d_resident_lanes "
+          f"{launches_1d['stencil1d_resident_lanes']} of resident_kernel<float>"
+          f" (phase 9), one a run", flush=True)
 
     timing_fp64 = bench_fp64(device, card)
 
@@ -2681,7 +3014,8 @@ def main() -> int:
                      (f"float64 k=2 {name}", t["float64_k2_ms"],
                       t["float64_general_k2_ms"], t["bound_ms"])]
     wide_large = redesigned(device, card, builds, (ms2, plain_ms2, tile_ms2),
-                            lib2, timing_fp64["df64_step"], march_ms)
+                            lib2, timing_fp64["df64_step"], march_ms,
+                            timing_1d)
 
     loaded = loaded_reference_modules()
     if loaded:
@@ -2710,6 +3044,19 @@ def main() -> int:
             "name": kernel, "route": "cuda", "source": SOURCES["stencil1d"],
             "replaces": REPLACES[kernel], "launches": launches_1d[kernel],
             "max_abs_err": errs_1d[kernel]}, **timing_1d[kernel]))
+    key = f"stencil1d_lanes_step[1d2r {N_1D_LARGE}]"
+    kernels.append(dict({
+        "name": key, "route": "cuda", "source": SOURCES["stencil1d"],
+        "replaces": REPLACES["stencil1d_lanes_step"],
+        "launches": cases_1d[("1d2r", N_1D_LARGE, "mxu")],
+        "max_abs_err": errs_new[("lanes", N_1D_LARGE)]}, **timing_1d[key]))
+    kernels.append(dict({
+        "name": "stencil1d_resident_f64", "route": "cuda",
+        "source": SOURCES["stencil1d"],
+        "replaces": REPLACES["stencil1d_resident"],
+        "launches": launches_fp64["stencil1d_resident_f64"],
+        "max_abs_err": errs_new[("run", torch.float64)]},
+        **timing_1d["stencil1d_resident_f64"]))
     for kernel in KERNELS_FP64:
         kernels.append(dict({
             "name": "df64_step[star2d1r]" if kernel == "df64_step" else kernel,

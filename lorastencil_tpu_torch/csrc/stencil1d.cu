@@ -1,25 +1,30 @@
 // Dirichlet0 timesteps of a 1-D stencil on the port's flat internal layout
 // (ops/layout.py Layout1D), in float32 or float64, on CUDA cores.
 //
-// Replaces the four TPU kernels of lorastencil_tpu/ops/pallas_1d.py with two
-// kernels, each in a narrow and a wide instantiation:
-//   * a pass of k fused steps (ls_stencil1d_pass):
-//       narrow -> _stencil1d_lanes_kernel (stencil1d_lanes_step),
-//       wide   -> _stencil1d_kernel (stencil1d_step);
-//   * a whole run in one cooperative launch (ls_stencil1d_resident):
+// Replaces the four TPU kernels of lorastencil_tpu/ops/pallas_1d.py:
+//   * a pass of k fused steps:
+//       narrow, float32 -> _stencil1d_lanes_kernel (stencil1d_lanes_step):
+//              lanes_kernel (ls_stencil1d_lanes);
+//       wide   -> _stencil1d_kernel (stencil1d_step): wide_kernel
+//              (ls_stencil1d_pass);
+//   * a whole run in one cooperative launch:
 //       narrow, halo reload every min(8, 32 / r) steps
-//              -> _stencil1d_resident_lanes_kernel (stencil1d_resident_lanes),
-//       wide, a grid sync every step
-//              -> _stencil1d_resident_kernel (stencil1d_resident).
+//              -> _stencil1d_resident_lanes_kernel (stencil1d_resident_lanes):
+//              resident_kernel (ls_stencil1d_resident);
+//       wide   -> _stencil1d_resident_kernel (stencil1d_resident):
+//              run_kernel (ls_stencil1d_run), the state resident in shared
+//              memory, neighbour-only exchanges every m steps.
 // Their float64 instances (the *_f64 entries) replace the fp64-grade TPU
 // kernels of lorastencil_tpu/ops/pallas_df64_1d.py, which compute on
 // error-free (hi, lo) fp32 pairs because the TPU has no fp64 unit; here the
 // arithmetic is native double:
-//       narrow pass -> _df64_1d_lanes_kernel (df64_1d_step),
+//       narrow pass -> _df64_1d_lanes_kernel (df64_1d_step): pass_kernel,
 //       wide pass   -> _df64_1d_flat_kernel (df64_1d_flat_step),
 //       narrow run  -> the kernel of stencil1d_resident_pair;
 // and the wide run serves dtype float64 (pallas_1d.stencil1d_resident in
-// float64).
+// float64).  pass_kernel<float> and resident_kernel's wide instances are no
+// longer on any path: they stay as what chip_smoke.py and the card tests
+// hold lanes_kernel and run_kernel against.
 // Every substep computes out[f] = sum_{|d| <= r} taps[r + d] * in[f + d] (r
 // the effective radius: the taps come trimmed of their zero ends) and zeroes
 // every cell outside the interior [0, n), the reference's halo decay.
@@ -51,32 +56,59 @@
 //     weight from the constant bank: no tap load and no zero test in the
 //     loop.  Each thread carries chains<T>() cells a block's width apart as
 //     independent sums, interleaved tap by tap, each in its own order;
-//   * a narrow pass (pass_kernel) keeps the radius at compile time and the
-//     taps in registers, one cell per thread and sweep.  The TPU's
-//     overlapped lanes, duplicated cells that make a shift one lane roll,
-//     have no use here: a shift is an address offset;
-//   * a run is one cooperative launch for all steps: each block owns a chunk
-//     of the interior, runs `refresh` steps from the chunk plus refresh*r
-//     cells each side, writes the chunk to one of two global buffers, syncs
-//     the grid and reloads.  The input is read and never written.  Loads in
-//     a run bypass L1 (__ldcg): other blocks wrote the buffer since.
+//   * the float32 narrow pass (lanes_kernel) is a register window: each
+//     thread owns kLanesV = 8 contiguous cells, and per substep reads the
+//     8 + 2P cells around them (P = r rounded up to 4) from shared memory
+//     as 16-byte words into registers and computes its 8 sums there, the
+//     window indexed only by constants (the radius is a template parameter
+//     1..8; 9..32 take one instance that reads each tap's cells from shared
+//     memory).  About 2 shared loads a cell instead of 2r + 1.  The taps
+//     come as a host plan by value (TapPlan: the centre, then per d a
+//     pair, one tap or both, in the twin's order), so no cell tests a tap
+//     for zero or for its pair.  The tile and its k*r halo, rounded up to
+//     whole groups of 8, are staged by 16-byte cp.async and the last
+//     substep is written with 16-byte stores; tiles of 2048 to 256 cells
+//     (ops/stencil1d.py lanes_tile) keep 1,000,000 cells in one even wave
+//     and a 16,777,216-cell grid's halo small.  The TPU's overlapped
+//     lanes, duplicated cells that make a shift one lane roll, have no use
+//     here: a shift is an address offset;
+//   * the float64 narrow pass (pass_kernel<double>) keeps the radius at
+//     compile time and the taps in registers, one cell per thread and sweep;
+//   * the wide run (run_kernel) keeps the state in shared memory for the
+//     whole run, as the TPU kernel keeps it in VMEM: B blocks each own a
+//     chunk of the rounded interior (B = 1 where the grid fits one block
+//     and its steps are short, ops/stencil1d.py run_plan) and hold it twice
+//     (ping-pong windows) with m*r cells each side.  A block computes m
+//     steps on a trapezoid that shrinks by r a step, then swaps m*r border
+//     cells with its two neighbours only, as tagged 8-byte words (the
+//     cell's bits beside the step's number, one relaxed store each; two
+//     parities, as csrc/resident2d.cu's): no grid barrier, and global
+//     memory only for the first load, the exchanges and the last store;
+//   * the narrow run (resident_kernel) is one cooperative launch for all
+//     steps: each block owns a chunk of the interior, runs `refresh` steps
+//     from the chunk plus refresh*r cells each side, writes the chunk to one
+//     of two global buffers, syncs the grid and reloads.  The input is read
+//     and never written.  Loads in a run bypass L1 (__ldcg): other blocks
+//     wrote the buffer since.
 // The TPU's split-bf16 matmuls only emulated exact fp32 on its matrix unit;
 // CUDA cores do exact fp32 directly.
 //
-// Narrow instantiations have the radius as a template parameter (1..8, taps
-// in registers, loops unrolled) and one runtime-radius instantiation for
-// 9..32; the wide run takes the radius at run time with the tap loop kept
-// rolled (a fully unrolled wide-radius loop makes ptxas very slow), as the
-// wide pass's loop over its tap pairs is.  Shared memory holds twice the
+// The narrow kernels and the wide run have the radius as a template
+// parameter (1..8, loops unrolled) and one runtime-radius instantiation
+// (the narrow ones for 9..32, the wide run for the rest); the wide pass
+// keeps its loop over its tap pairs rolled (a fully unrolled wide-radius
+// loop makes ptxas very slow).  Shared memory holds twice the
 // bytes per cell in fp64, so a fp64 pass's reach k*r and a fp64 run's chunk
 // per block reach about half their fp32 caps: the launch refuses what does
 // not fit (and a run whose blocks cannot all be resident, checked on the
 // fp64 instantiation itself).
 //
-// C interface, loaded with ctypes: the four functions (float and double)
-// launch on the given stream, allocate nothing and return a cudaError_t
-// (0 = launched).  A pass also takes, after the stream, a wide pass's
-// nonzero taps on the host (offsets, weights, count) and its tile.
+// C interface, loaded with ctypes: every function launches on the given
+// stream, allocates nothing and returns a cudaError_t (0 = launched).  A
+// pass also takes, after the stream, a wide pass's nonzero taps on the host
+// (offsets, weights, count) and its tile; ls_stencil1d_lanes the narrow
+// plan's host arrays; ls_stencil1d_run(_f64) the wide taps, the zeroed
+// exchange words and the host's (B, m) plan.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -329,6 +361,516 @@ wide_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
+// ---- register windows: the float32 narrow pass and the wide run ---------
+
+constexpr int kLanesV = 8;          // contiguous cells a lanes thread owns
+constexpr int kLanesMaxReach = 32;  // r and k * r (MAX_LANES_REACH)
+constexpr int kLanesMaxThreads = kTile / kLanesV;
+
+// What a substep adds for one d, decided on the host: bit 0 the +d tap's
+// product, bit 1 then the -d tap's, or kPair alone, one product of the
+// pair's sum (the narrow twin's pairs; ops/stencil1d.py lanes_plan).  The
+// wide run's plan has no pairs: +d then -d, the wide twin's order.
+constexpr int kPlus = 1;
+constexpr int kMinus = 2;
+constexpr int kPair = 4;
+
+// A tap plan by value: the centre's product first where its tap is nonzero,
+// then per d = 1..r its kind and weights (a pair's in wp).
+template <typename T>
+struct TapPlan {
+  int centre;
+  T c;
+  int kind[kMaxRadius + 1];  // index d
+  T wp[kMaxRadius + 1];
+  T wm[kMaxRadius + 1];
+};
+static_assert(sizeof(TapPlan<double>) + 128 <= 4096,
+              "a tap plan and the other parameters must fit in 4 KB");
+
+// Cells of one 16-byte word, and the cells a window reaches beyond its
+// group on each side: the radius in whole words.
+template <typename T>
+__host__ __device__ constexpr int vec_cells() {
+  return 16 / static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int window_pad(int r) {
+  return (r + vec_cells<T>() - 1) / vec_cells<T>() * vec_cells<T>();
+}
+
+__device__ __forceinline__ void load16(const float* p, float* w) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  w[0] = q.x;
+  w[1] = q.y;
+  w[2] = q.z;
+  w[3] = q.w;
+}
+__device__ __forceinline__ void load16(const double* p, double* w) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  w[0] = q.x;
+  w[1] = q.y;
+}
+// 16 bytes to shared or global memory (p 16-byte aligned).
+__device__ __forceinline__ void store16(float* p, const float* w) {
+  *reinterpret_cast<float4*>(p) = make_float4(w[0], w[1], w[2], w[3]);
+}
+__device__ __forceinline__ void store16(double* p, const double* w) {
+  *reinterpret_cast<double2*>(p) = make_double2(w[0], w[1]);
+}
+
+// acc + p where `on`, else acc: a predicated add, so that a tap the plan
+// leaves out costs no branch (its product, computed anyway, is dropped).
+__device__ __forceinline__ float add_if(float acc, float p, int on) {
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "@q add.rn.f32 %0, %0, %1;\n\t}"
+      : "+f"(acc)
+      : "f"(p), "r"(on));
+  return acc;
+}
+__device__ __forceinline__ double add_if(double acc, double p, int on) {
+  asm("{\n\t.reg .pred q;\n\tsetp.ne.b32 q, %2, 0;\n\t"
+      "@q add.rn.f64 %0, %0, %1;\n\t}"
+      : "+d"(acc)
+      : "d"(p), "r"(on));
+  return acc;
+}
+
+// The sums of the V cells x[0 .. V) (x in shared memory, 16-byte aligned,
+// window_pad(r) cells readable on each side), the plan's terms in order,
+// every product and sum rounded on its own.  Without a centre the first term
+// is added to -0, which leaves it as it is.  R > 0: the window first into
+// registers by 16-byte loads, indexed only by constants, about 1 + 2R / V
+// cells loaded a cell instead of a load a tap; R == 0 (any radius): each
+// term's cells read from shared memory.  kPairs (the narrow pass): a
+// uniform branch per d on its kind; else (the wide run, whose plan has no
+// pairs) both products of every d, each added where the plan has its tap:
+// no branch between the d, whose chains then overlap.
+template <typename T, int R, int V, bool kPairs>
+__device__ __forceinline__ void window_sums(const T* x, const TapPlan<T>& pl,
+                                            int r, T (&acc)[V]) {
+  if constexpr (R > 0) {
+    constexpr int P = window_pad<T>(R);
+    T w[V + 2 * P];
+#pragma unroll
+    for (int j = 0; j < V + 2 * P; j += vec_cells<T>())
+      load16(x - P + j, w + j);
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+      acc[c] = pl.centre ? mul_rn(pl.c, w[P + c]) : T(-0.0);
+    if constexpr (!kPairs) {
+#pragma unroll
+      for (int d = 1; d <= R; ++d) {
+        const int plus = pl.kind[d] & kPlus;
+        const int minus = pl.kind[d] & kMinus;
+        const T wp = pl.wp[d];
+        const T wm = pl.wm[d];
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          acc[c] = add_if(acc[c], mul_rn(wp, w[P + c + d]), plus);
+          acc[c] = add_if(acc[c], mul_rn(wm, w[P + c - d]), minus);
+        }
+      }
+      return;
+    }
+#pragma unroll
+    for (int d = 1; d <= R; ++d) {
+      const int kind = pl.kind[d];
+      const T wp = pl.wp[d];
+      const T wm = pl.wm[d];
+      if (kind & kPair) {
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          acc[c] = add_rn(acc[c],
+                          mul_rn(wp, add_rn(w[P + c + d], w[P + c - d])));
+      } else {
+        if (kind & kPlus) {
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            acc[c] = add_rn(acc[c], mul_rn(wp, w[P + c + d]));
+        }
+        if (kind & kMinus) {
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            acc[c] = add_rn(acc[c], mul_rn(wm, w[P + c - d]));
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+      acc[c] = pl.centre ? mul_rn(pl.c, x[c]) : T(-0.0);
+#pragma unroll 1
+    for (int d = 1; d <= r; ++d) {
+      const int kind = pl.kind[d];
+      const T wp = pl.wp[d];
+      const T wm = pl.wm[d];
+      const T* xp = x + d;
+      const T* xm = x - d;
+      if (kind & kPair) {
+#pragma unroll
+        for (int c = 0; c < V; ++c)
+          acc[c] = add_rn(acc[c], mul_rn(wp, add_rn(xp[c], xm[c])));
+      } else {
+        if (kind & kPlus) {
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            acc[c] = add_rn(acc[c], mul_rn(wp, xp[c]));
+        }
+        if (kind & kMinus) {
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            acc[c] = add_rn(acc[c], mul_rn(wm, xm[c]));
+        }
+      }
+    }
+  }
+}
+
+// 0 for the cells of the group at interior cell f0 outside [0, n).
+__device__ __forceinline__ void lanes_mask(float (&acc)[kLanesV], int f0,
+                                           int n) {
+  if (f0 >= 0 && f0 + kLanesV <= n) return;
+#pragma unroll
+  for (int c = 0; c < kLanesV; ++c)
+    if (f0 + c < 0 || f0 + c >= n) acc[c] = 0.0f;
+}
+
+// k masked substeps over a tile of `tile` = blockDim.x * kLanesV cells.  The
+// tile and E = k*r rounded up to whole groups on each side are staged at
+// a[P + i] (staged cell i: interior cell t0 - E + i); substep s computes
+// the groups that cover the tile and (k - s) * r cells each side, a -> b
+// -> a ...; the last one goes to `out`.  Cells a group computes beyond what
+// its substep needs read the unwritten ends of a window: their values are
+// never read by a cell that is kept.
+template <int R>
+__global__ void __launch_bounds__(kLanesMaxThreads)
+lanes_kernel(const float* __restrict__ in, float* __restrict__ out,
+             const __grid_constant__ TapPlan<float> pl, int r, int k,
+             int len, int origin, int n, int tile, int vec) {
+  constexpr int V = kLanesV;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int P = window_pad<float>(R > 0 ? R : r);
+  const int E = (k * r + V - 1) / V * V;
+  const int S = tile + 2 * E;  // staged cells
+  float* a = reinterpret_cast<float*>(smem_raw);
+  float* b = a + S + 2 * P;
+  const int t0 = blockIdx.x * tile;  // tile origin, interior coordinates
+  const int g0 = origin + t0 - E;    // buffer index of staged cell 0
+
+  // 16-byte chunks: whole ones inside the buffer by cp.async where the
+  // buffer is aligned, the rest cell by cell (0 outside the buffer)
+  for (int c = tid; c < S / 4; c += nt) {
+    const int g = g0 + 4 * c;
+    float* dst = a + P + 4 * c;
+    if (vec && g >= 0 && g + 4 <= len) {
+      cp_async16(dst, in + g);
+    } else {
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        dst[v] = (g + v >= 0 && g + v < len) ? in[g + v] : 0.0f;
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  const float* src = a;
+  float* dst = b;
+  for (int s = 1; s < k; ++s) {
+    const int e = (k - s) * r;  // this substep's extent beyond the tile
+    const int q_end = (E + tile + e + V - 1) / V;
+    for (int q = (E - e) / V + tid; q < q_end; q += nt) {
+      float acc[V];
+      window_sums<float, R, V, true>(src + P + q * V, pl, r, acc);
+      lanes_mask(acc, t0 - E + q * V, n);
+      store16(dst + P + q * V, acc);
+      store16(dst + P + q * V + 4, acc + 4);
+    }
+    __syncthreads();
+    float* const spare = const_cast<float*>(src);
+    src = dst;
+    dst = spare;
+  }
+  // the last substep: the tile, one group a thread
+  float acc[V];
+  window_sums<float, R, V, true>(src + P + E + tid * V, pl, r, acc);
+  const int f0 = t0 + tid * V;
+  lanes_mask(acc, f0, n);
+  float* o = out + origin + f0;
+  if (vec) {
+    store16(o, acc);
+    store16(o + 4, acc + 4);
+  } else {
+#pragma unroll
+    for (int c = 0; c < V; ++c) o[c] = acc[c];
+  }
+}
+
+// ---- the wide run: state resident in shared memory (run_kernel) ----------
+
+constexpr int kRunMaxThreads = 1024;
+// a wait's limit in SM clock cycles: seconds at any clock the card runs
+constexpr long long kSpinLimitCycles = 8000000000ll;
+constexpr int kHaloLoads = 4;  // halo cells whose loads a thread has out
+
+// The exchange words (csrc/resident2d.cu's): 8-byte words of 32 bits of a
+// cell beside the number of the state it belongs to, two a float64 cell,
+// stored and polled with relaxed device-scope accesses.
+__device__ __forceinline__ void store_word(unsigned long long* p,
+                                           unsigned long long v) {
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v)
+               : "memory");
+}
+__device__ __forceinline__ unsigned long long load_word(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];"
+               : "=l"(v)
+               : "l"(p)
+               : "memory");
+  return v;
+}
+
+// A wait that outlasts kSpinLimitCycles traps (the launch fails).
+__device__ __forceinline__ void check_spin(long long& t0) {
+  if (t0 == 0) {
+    t0 = clock64();
+  } else if (clock64() - t0 > kSpinLimitCycles) {
+    __trap();
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void store_tagged(unsigned long long* p, T v,
+                                             unsigned tag) {
+  const unsigned long long hi = static_cast<unsigned long long>(tag) << 32;
+  if constexpr (sizeof(T) == 4) {
+    store_word(p, hi | __float_as_uint(v));
+  } else {
+    const unsigned long long b = __double_as_longlong(v);
+    store_word(p, hi | (b & 0xffffffffull));
+    store_word(p + 1, hi | (b >> 32));
+  }
+}
+
+// The cell whose words `lo` (and `hi`, float64) were loaded from `p`, once
+// both carry `tag`: reloaded until they do.
+template <typename T>
+__device__ __forceinline__ T settle_tagged(const unsigned long long* p,
+                                           unsigned long long lo,
+                                           unsigned long long hi,
+                                           unsigned tag) {
+  long long t0 = 0;
+  while (static_cast<unsigned>(lo >> 32) != tag) {
+    check_spin(t0);
+    lo = load_word(p);
+  }
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(static_cast<unsigned>(lo));
+  } else {
+    while (static_cast<unsigned>(hi >> 32) != tag) {
+      check_spin(t0);
+      hi = load_word(p + 1);
+    }
+    return __longlong_as_double(static_cast<long long>(
+        (hi << 32) | (lo & 0xffffffffull)));
+  }
+}
+
+// A run's shape and the host's plan: B blocks, each owning the interior
+// cells of groups [b * G / B, (b + 1) * G / B) (G = rounded / V groups of V
+// = run_cells cells); m steps between exchanges; a window of `halo` (whole
+// groups, >= m * r where B > 1, >= r) cells on each side.
+struct RunGrid {
+  int r, steps, blocks, m, halo;
+  int len, origin, n, rounded;
+};
+
+// Contiguous cells a run thread owns: two 16-byte words where the radius
+// has a register window (R > 0), else one, for more threads.
+template <typename T, int R>
+__host__ __device__ constexpr int run_cells() {
+  return (R > 0 ? 2 : 1) * vec_cells<T>();
+}
+
+// The first cell of block b's chunk.
+__host__ __device__ inline int run_chunk_start(const RunGrid& g, int V,
+                                               int b) {
+  return static_cast<int>(static_cast<long long>(b) * (g.rounded / V) /
+                          g.blocks) * V;
+}
+
+// Shared cells of one of a run's two windows: the largest chunk, its halo
+// and the window's reach.
+template <typename T, int R>
+__host__ __device__ inline int run_window(const RunGrid& g, int P) {
+  constexpr int V = run_cells<T, R>();
+  const int cmax = (g.rounded / V + g.blocks - 1) / g.blocks * V;
+  return cmax + 2 * g.halo + 2 * P;
+}
+
+// All `steps` steps.  Window index i of a block holds interior cell c0 -
+// halo + i, P cells into its window.  Phase p runs mp = min(m, steps
+// left) steps: step j computes the chunk and (mp - j) * r cells on each
+// side that has a neighbour, so the chunk is whole after mp steps; on a
+// side without one the r cells beyond the chunk are the guard's halo for
+// step 1 and 0 after it.  A thread computes groups of V cells from a
+// register window (window_sums); a group's cells beyond what a step needs
+// are masked to 0 where they lie outside [0, n), else read only by cells
+// that are not kept.  The last step of a phase sends the chunk's first and
+// last m' * r cells (m' the next phase's steps) to the exchange, parity
+// p % 2, tagged with the state's number; the next phase first polls its
+// halo from the neighbours' words.  Two parities suffice: a block
+// overwrites parity p % 2 after phase p + 2, which needs its neighbours'
+// phase p + 1 borders, which they send only after reading its phase p
+// border.  The launch is cooperative, so every block is resident; a wait
+// traps after kSpinLimitCycles.
+template <typename T, int R>
+__global__ void __launch_bounds__(kRunMaxThreads)
+run_kernel(const T* __restrict__ in, T* __restrict__ out,
+           unsigned long long* xch, const __grid_constant__ TapPlan<T> pl,
+           RunGrid g) {
+  constexpr int V = run_cells<T, R>();
+  constexpr int KW = sizeof(T) / 4;  // exchange words a cell
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int nt = blockDim.x;
+  const int tid = threadIdx.x;
+  const int bx = blockIdx.x;
+  const int r = g.r;
+  const int HW = g.halo;
+  const int P = window_pad<T>(R > 0 ? R : r);
+  const int c0 = run_chunk_start(g, V, bx);
+  const int C = run_chunk_start(g, V, bx + 1) - c0;
+  const bool has_l = bx > 0;
+  const bool has_r = bx + 1 < g.blocks;
+  T* const win0 = reinterpret_cast<T*>(smem_raw) + P;  // window index 0
+  T* const win1 = win0 + run_window<T, R>(g, P);
+  const long long slot_words = static_cast<long long>(g.m) * r * KW;
+  auto slot = [&](int par, int blk, int side) {
+    return xch + ((static_cast<long long>(par) * g.blocks + blk) * 2 + side) *
+                     slot_words;
+  };
+
+  {  // the chunk and the first phase's halo from `in`; win1's outer r cells 0
+    const int m0 = min(g.m, g.steps);
+    const int hl = has_l ? m0 * r : r;
+    const int hr = has_r ? m0 * r : r;
+#pragma unroll 4
+    for (int i = HW - hl + tid; i < HW + C + hr; i += nt) {
+      const int gi = g.origin + c0 - HW + i;
+      win0[i] = (gi >= 0 && gi < g.len) ? in[gi] : T(0);
+    }
+    if (!has_l)
+      for (int i = tid; i < r; i += nt) win1[HW - r + i] = T(0);
+    if (!has_r)
+      for (int i = tid; i < r; i += nt) win1[HW + C + i] = T(0);
+  }
+  __syncthreads();
+
+  int done = 0;  // steps done: the state's number
+  int cur = 0;   // the window holding it
+  for (int p = 0;; ++p) {
+    const int mp = min(g.m, g.steps - done);
+    if (p > 0) {
+      // state `done`'s halo: the neighbours' borders at parity (p - 1) % 2,
+      // kHaloLoads cells a thread at a time, their loads out together
+      T* const w = cur ? win1 : win0;
+      const int hc = mp * r;
+      const int nl = has_l ? hc : 0;
+      const int total = nl + (has_r ? hc : 0);
+      const int par = (p - 1) & 1;
+      for (int i0 = tid; i0 < total; i0 += kHaloLoads * nt) {
+        int cell[kHaloLoads];
+        const unsigned long long* wp[kHaloLoads];
+        unsigned long long lo[kHaloLoads], hi[kHaloLoads];
+#pragma unroll
+        for (int i = 0; i < kHaloLoads; ++i) {
+          const int idx = i0 + i * nt;
+          cell[i] = -1;
+          wp[i] = nullptr;
+          lo[i] = hi[i] = 0;
+          if (idx >= total) continue;
+          if (idx < nl) {  // the left neighbour's last hc cells
+            cell[i] = HW - hc + idx;
+            wp[i] = slot(par, bx - 1, 1) + static_cast<long long>(idx) * KW;
+          } else {  // the right neighbour's first hc cells
+            cell[i] = HW + C + idx - nl;
+            wp[i] = slot(par, bx + 1, 0) +
+                    static_cast<long long>(idx - nl) * KW;
+          }
+          lo[i] = load_word(wp[i]);
+          if (KW == 2) hi[i] = load_word(wp[i] + 1);
+        }
+#pragma unroll
+        for (int i = 0; i < kHaloLoads; ++i)
+          if (cell[i] >= 0)
+            w[cell[i]] = settle_tagged<T>(wp[i], lo[i], hi[i], done);
+      }
+      __syncthreads();
+    }
+    const int bc = min(g.m, g.steps - done - mp) * r;  // border cells to send
+    for (int j = 1; j <= mp; ++j) {
+      const T* src = cur ? win1 : win0;
+      T* dst = cur ? win0 : win1;
+      const int lo = HW - (has_l ? (mp - j) * r : 0);
+      const int hi = HW + C + (has_r ? (mp - j) * r : 0);
+      const bool send = j == mp && bc > 0;
+      const unsigned tag = done + j;
+      for (int q = lo / V + tid; q * V < hi; q += nt) {
+        T acc[V];
+        window_sums<T, R, V, false>(src + q * V, pl, r, acc);
+        const int u0 = q * V - HW;  // chunk coordinate of the group's cell 0
+        if (c0 + u0 < 0 || c0 + u0 + V > g.n) {
+#pragma unroll
+          for (int c = 0; c < V; ++c)
+            if (c0 + u0 + c < 0 || c0 + u0 + c >= g.n) acc[c] = T(0);
+        }
+        if (send && u0 + V > 0 && u0 < C &&
+            ((has_l && u0 < bc) || (has_r && u0 + V > C - bc))) {
+#pragma unroll
+          for (int c = 0; c < V; ++c) {
+            const int u = u0 + c;
+            if (u < 0 || u >= C) continue;
+            if (has_l && u < bc)
+              store_tagged(slot(p & 1, bx, 0) + static_cast<long long>(u) * KW,
+                           acc[c], tag);
+            if (has_r && u >= C - bc)
+              store_tagged(slot(p & 1, bx, 1) +
+                               static_cast<long long>(u - (C - bc)) * KW,
+                           acc[c], tag);
+          }
+        }
+#pragma unroll
+        for (int c = 0; c < V; c += vec_cells<T>())
+          store16(dst + q * V + c, acc + c);
+      }
+      if (done + j == 2) {
+        // win0's outer cells held the guard for step 1; nothing reads win0
+        // in step 2, and step 3 reads them as 0
+        if (!has_l)
+          for (int i = tid; i < r; i += nt) win0[HW - r + i] = T(0);
+        if (!has_r)
+          for (int i = tid; i < r; i += nt) win0[HW + C + i] = T(0);
+      }
+      __syncthreads();
+      cur ^= 1;
+    }
+    done += mp;
+    if (done == g.steps) break;
+  }
+  const T* res = cur ? win1 : win0;
+  for (int i = tid; i < C; i += nt) out[g.origin + c0 + i] = res[HW + i];
+  // the guard of `out` (not zeroed by the host): before and after the
+  // rounded interior
+  if (!has_l)
+    for (int i = tid; i < g.origin; i += nt) out[i] = T(0);
+  if (!has_r)
+    for (int i = g.origin + g.rounded + tid; i < g.len; i += nt) out[i] = T(0);
+}
+
 template <typename T, int R, bool kPairs>
 __global__ void __launch_bounds__(kThreads)
 resident_kernel(const T* in, T* out0, T* out1, const T* __restrict__ taps,
@@ -461,6 +1003,146 @@ int launch_resident(const T* in, T* out0, T* out1, const T* taps, int r,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int R>
+int launch_lanes(const float* in, float* out, const TapPlan<float>& pl,
+                 int r,
+                 int k, int len, int origin, int n, int rounded, int tile,
+                 cudaStream_t stream) {
+  const int E = (k * r + kLanesV - 1) / kLanesV * kLanesV;
+  const size_t smem =
+      sizeof(float) * 2 * (tile + 2 * E + 2 * window_pad<float>(R > 0 ? R : r));
+  const int e =
+      set_smem(reinterpret_cast<const void*>(lanes_kernel<R>), smem);
+  if (e != 0) return e;
+  const int vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
+                  reinterpret_cast<uintptr_t>(out) % 16 == 0 && origin % 4 == 0;
+  lanes_kernel<R><<<rounded / tile, tile / kLanesV, smem, stream>>>(
+      in, out, pl, r, k, len, origin, n, tile, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A float32 narrow pass: the host's plan (kinds[d - 1], wp[d - 1], wm[d - 1]
+// for d = 1..r; the centre's weight c where `centre`), tiles of `tile` cells.
+int lanes(const float* in, float* out, const int* kinds, const float* wp,
+          const float* wm, int centre, float c, int r, int k, int len,
+          int origin, int n, int rounded, int tile, void* stream) {
+  if (r < 1 || r > kLanesMaxReach || k < 1 || k * r > kLanesMaxReach ||
+      n < 0 || rounded < n || rounded % kTile != 0 || origin < k * r ||
+      origin + rounded > len || !kinds || !wp || !wm ||
+      (tile != 256 && tile != 512 && tile != 1024 && tile != kTile))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TapPlan<float> pl = {};
+  pl.centre = centre != 0;
+  pl.c = c;
+  for (int d = 1; d <= r; ++d) {
+    const int kind = kinds[d - 1];
+    if (kind != 0 && kind != kPlus && kind != kMinus &&
+        kind != (kPlus | kMinus) && kind != kPair)
+      return static_cast<int>(cudaErrorInvalidValue);
+    pl.kind[d] = kind;
+    pl.wp[d] = wp[d - 1];
+    pl.wm[d] = wm[d - 1];
+  }
+  if (rounded == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (r) {
+    case 1: return launch_lanes<1>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    case 2: return launch_lanes<2>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    case 3: return launch_lanes<3>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    case 4: return launch_lanes<4>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    case 5: return launch_lanes<5>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    case 6: return launch_lanes<6>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    case 7: return launch_lanes<7>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    case 8: return launch_lanes<8>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    default: return launch_lanes<0>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+  }
+}
+
+template <typename T, int R>
+int launch_run_r(const T* in, T* out, unsigned long long* xch,
+                 const TapPlan<T>& pl, RunGrid g, int threads,
+                 cudaStream_t stream) {
+  constexpr int V = run_cells<T, R>();
+  // whole groups, and chunks that give a neighbour its border alone
+  if (g.rounded % V != 0 || g.halo % V != 0 ||
+      (g.blocks > 1 && static_cast<long long>(g.rounded / V / g.blocks) * V <
+                           static_cast<long long>(g.m) * g.r))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = reinterpret_cast<const void*>(run_kernel<T, R>);
+  const size_t smem =
+      2 * sizeof(T) * run_window<T, R>(g, window_pad<T>(R > 0 ? R : g.r));
+  int e = set_smem(kernel, smem);
+  if (e != 0) return e;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t ce = cudaGetDevice(&dev);
+  if (ce == cudaSuccess)
+    ce = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (ce == cudaSuccess)
+    ce = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                       threads, smem);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  if (g.blocks > per_sm * sms)
+    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  TapPlan<T> plan = pl;
+  void* args[] = {&in, &out, &xch, &plan, &g};
+  ce = cudaLaunchCooperativeKernel(kernel, dim3(g.blocks), dim3(threads), args,
+                                   smem, stream);
+  if (ce != cudaSuccess) return static_cast<int>(ce);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A wide run: the host's nonzero taps (off[i], w[i]), i < n_taps, in the
+// twin's order (the centre, then +d, -d for d = 1..r), turned into a
+// TapPlan by value; the plan in g, `threads` a block; `xch` holds n_xch
+// zeroed words; `out` is written whole, its guard zeroed.  Refused: taps out of that order, a plan whose borders do
+// not come from the neighbours alone, too few words, windows beyond shared
+// memory, blocks the card cannot hold at once.
+template <typename T>
+int launch_run(const T* in, T* out, unsigned long long* xch, long long n_xch,
+               const int* off, const T* w, int n_taps, RunGrid g, int threads,
+               void* stream) {
+  constexpr int KW = sizeof(T) / 4;
+  const long long mr = static_cast<long long>(g.m) * g.r;
+  if (g.r < 0 || g.r > kMaxRadius || g.steps < 1 || g.blocks < 1 ||
+      g.m < 1 || g.n < 0 || g.rounded < g.n || g.origin < g.r ||
+      g.origin + g.rounded > g.len || g.halo < g.r ||
+      (g.blocks > 1 && g.halo < mr) ||
+      threads < 32 || threads > kRunMaxThreads || threads % 32 != 0 ||
+      (g.blocks > 1 && (n_xch < 4LL * g.blocks * mr * KW || !xch)) ||
+      n_taps < 0 || n_taps > 2 * g.r + 1 || (n_taps > 0 && (!off || !w)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  TapPlan<T> pl = {};
+  int i = 0;
+  if (i < n_taps && off[i] == 0) {
+    pl.centre = 1;
+    pl.c = w[i++];
+  }
+  for (int d = 1; d <= g.r; ++d) {
+    if (i < n_taps && off[i] == d) {
+      pl.kind[d] |= kPlus;
+      pl.wp[d] = w[i++];
+    }
+    if (i < n_taps && off[i] == -d) {
+      pl.kind[d] |= kMinus;
+      pl.wm[d] = w[i++];
+    }
+  }
+  if (i != n_taps) return static_cast<int>(cudaErrorInvalidValue);
+  if (g.rounded == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (g.r) {
+    case 1: return launch_run_r<T, 1>(in, out, xch, pl, g, threads, s);
+    case 2: return launch_run_r<T, 2>(in, out, xch, pl, g, threads, s);
+    case 3: return launch_run_r<T, 3>(in, out, xch, pl, g, threads, s);
+    case 4: return launch_run_r<T, 4>(in, out, xch, pl, g, threads, s);
+    case 5: return launch_run_r<T, 5>(in, out, xch, pl, g, threads, s);
+    case 6: return launch_run_r<T, 6>(in, out, xch, pl, g, threads, s);
+    case 7: return launch_run_r<T, 7>(in, out, xch, pl, g, threads, s);
+    case 8: return launch_run_r<T, 8>(in, out, xch, pl, g, threads, s);
+    default: return launch_run_r<T, 0>(in, out, xch, pl, g, threads, s);
+  }
+}
+
 // The narrow instantiation for (T, r): radii 1..8 at compile time, 9..32 at
 // run time.
 #define LS_NARROW(FN, T, ...)                          \
@@ -535,6 +1217,33 @@ extern "C" int ls_stencil1d_pass_f64(const double* in, double* out,
   return pass(in, out, taps, wide_off, wide_w, wide_n, r, k, narrow, len,
               origin, n, rounded, tile, stream);
 }
+
+extern "C" int ls_stencil1d_lanes(const float* in, float* out,
+                                  const int* kinds, const float* wp,
+                                  const float* wm, int centre, float c, int r,
+                                  int k, int len, int origin, int n,
+                                  int rounded, int tile, void* stream) {
+  return lanes(in, out, kinds, wp, wm, centre, c, r, k, len, origin, n,
+               rounded, tile, stream);
+}
+
+// The input, the zeroed output buffer, the zeroed exchange words and their
+// number, the nonzero taps, then the radius, steps, blocks, m, the window's
+// cells each side, threads a block, the buffer's length, the origin, the
+// interior, the rounded interior and the stream.
+#define LS_RUN(NAME, T)                                                      \
+  extern "C" int NAME(const T* in, T* out, unsigned long long* xch,         \
+                      long long n_xch, const int* off, const T* w,          \
+                      int n_taps, int r, int steps, int blocks, int m,      \
+                      int halo, int threads, int len, int origin, int n,    \
+                      int rounded, void* stream) {                          \
+    return launch_run<T>(in, out, xch, n_xch, off, w, n_taps,               \
+                         RunGrid{r, steps, blocks, m, halo, len, origin, n, \
+                                 rounded},                                  \
+                         threads, stream);                                  \
+  }
+LS_RUN(ls_stencil1d_run, float)
+LS_RUN(ls_stencil1d_run_f64, double)
 
 extern "C" int ls_stencil1d_resident(const float* in, float* out0,
                                      float* out1, const float* taps, int r,

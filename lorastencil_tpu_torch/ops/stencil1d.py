@@ -34,6 +34,18 @@ its nonzero taps as (offset, weight) pairs in that order (``wide_taps``)
 by value in its launch's parameters, and tiles of ``pass_tile`` cells,
 the largest that still give the card two blocks per SM.
 
+Two kernels were redesigned for Hopper.  The float32 narrow pass runs
+``lanes_kernel``: a thread owns 8 contiguous cells and computes them from
+a register window, the taps as a host plan by value (``lanes_plan``: per
+d a pair, one tap or both, in the twin's order) and tiles of
+``lanes_tile`` cells (``launches_lanes`` counts it).  The wide run, in
+both dtypes, runs ``run_kernel``: the state stays in shared memory, B
+blocks of it that swap m*r border cells with their neighbours every m
+steps (``run_plan``; ``launches_run`` counts it).  The kernels they
+replace, ``pass_kernel<float>`` and the grid-synced wide run, are reached
+only through ``_pass`` and ``_run``, which chip_smoke.py and the card
+tests hold the new kernels against.
+
 On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
 tensor runs the plain twin (``*_plain``), which sums in the kernel's order,
 in the tensor's dtype.  The kernels round every product and sum on its own
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -72,9 +85,43 @@ _SMEM_BYTES, _TAP_SLOTS = 232448, 2 * MAX_RADIUS + 2
 # launch's parameters, the taps' struct WideTaps among them, may take
 PASS_TILES = (TILE_1D, 1024, 512, 256)
 PARAM_LIMIT = 4096
-_ENTRIES = {torch.float32: ("ls_stencil1d_pass", "ls_stencil1d_resident"),
+_ENTRIES = {torch.float32: ("ls_stencil1d_pass", "ls_stencil1d_resident",
+                            "ls_stencil1d_run"),
             torch.float64: ("ls_stencil1d_pass_f64",
-                            "ls_stencil1d_resident_f64")}
+                            "ls_stencil1d_resident_f64",
+                            "ls_stencil1d_run_f64")}
+# csrc/stencil1d.cu lanes_kernel: cells a thread owns, and the narrow pass's
+# tiles (tile / 8 threads a block).  The rule: the largest tile that gives
+# every SM at least H100_LANES_BLOCKS_PER_SM blocks, so that a
+# 1,000,000-cell grid runs in one even wave of 1024-cell tiles (978 blocks
+# of 128 threads, at most 8 on an SM) and a 16,777,216-cell one in
+# 2048-cell tiles, whose staged halo is at most 64 cells of 2048.
+# chip_smoke.py phase 10 times every tile (NVIDIA H100 80GB HBM3, 700.00 W;
+# a k = 3 1d2r pass, ms, tiles 2048 / 1024 / 512 / 256): 1,000,000 cells
+# 0.00664 / 0.00628 / 0.00721 / 0.00709; 16,777,216 cells 0.05668 /
+# 0.05673 / 0.07028 / 0.07328.
+LANES_V = 8
+LANES_TILES = PASS_TILES
+H100_LANES_BLOCKS_PER_SM = 4
+# lanes_plan's kinds of a d (csrc/stencil1d.cu kPlus, kMinus, kPair)
+LANES_PLUS, LANES_MINUS, LANES_PAIR = 1, 2, 4
+# csrc/stencil1d.cu run_kernel: threads a block at most, and the H100 plan
+# (run_plan): one block where the grid's two windows fit its shared memory
+# and a step's work (rounded cells x nonzero taps) is at most
+# H100_RUN_ONE_BLOCK_WORK; else a block per H100_RUN_CHUNK cells, at most
+# one per SM, and m*r, the halo a block computes between two exchanges,
+# up to H100_RUN_REACH cells.  chip_smoke.py phase 10 times the plans
+# around these in both dtypes (NVIDIA H100 80GB HBM3, 700.00 W; 64 steps,
+# ms): one block lost at every size that fits it, so no work takes it --
+# 1d1r 2048: 0.03215 against 0.02445 for 8 blocks (float64 0.05272 /
+# 0.03018); 4096: 0.04767 against 0.02493 for 16 (0.08848 / 0.03057).
+# The rule's plan was the fastest measured at 1d1r 2048 and 4096 in float32,
+# r = 40 x 100,000 (132 blocks, m = 4: 0.34862; m = 1: 0.37439) and 1d1r
+# 129,024 (0.03007) in float32 and float64, and within 2% of it elsewhere.
+RUN_MAX_THREADS = 1024
+H100_RUN_ONE_BLOCK_WORK = 0
+H100_RUN_CHUNK = 256
+H100_RUN_REACH = 192
 
 
 @functools.lru_cache(maxsize=None)
@@ -146,6 +193,93 @@ def pass_tile(rounded: int, sms: int) -> int:
         if rounded // tile >= 2 * sms:
             return tile
     return PASS_TILES[-1]
+
+
+def lanes_tile(rounded: int, sms: int) -> int:
+    """Cells per block of a float32 narrow pass over ``rounded`` cells: the
+    largest of ``LANES_TILES`` that gives every one of ``sms`` SMs at least
+    ``H100_LANES_BLOCKS_PER_SM`` blocks, else the smallest."""
+    for tile in LANES_TILES:
+        if rounded // tile >= H100_LANES_BLOCKS_PER_SM * sms:
+            return tile
+    return LANES_TILES[-1]
+
+
+@functools.lru_cache(maxsize=None)
+def lanes_plan(spec: StencilSpec):
+    """The float32 narrow pass's taps as its kernel takes them, in the order
+    of the twin's ``_conv(..., pairs=True)``: (centre weight or None, ((kind,
+    wp, wm) for d = 1..r_eff)).  kind 4 (``LANES_PAIR``) is an equal nonzero
+    pair, one product of the pair's sum with weight wp; else bit 0 the +d
+    tap's product (wp), then bit 1 the -d tap's (wm); 0 adds nothing."""
+    taps, r = _taps(spec)
+    centre = taps[r] if taps[r] != 0.0 else None
+    per_d = []
+    for d in range(1, r + 1):
+        wp, wm = taps[r + d], taps[r - d]
+        if wp != 0.0 and wp == wm:
+            per_d.append((LANES_PAIR, wp, wm))
+        else:
+            per_d.append((LANES_PLUS * (wp != 0.0) + LANES_MINUS * (wm != 0.0),
+                          wp, wm))
+    return centre, tuple(per_d)
+
+
+def run_cells(itemsize: int, r: int) -> int:
+    """Contiguous cells a wide-run thread owns (csrc/stencil1d.cu
+    run_cells): two 16-byte words at radius 1-8 (a register window), else
+    one."""
+    return (32 if 1 <= r <= 8 else 16) // itemsize
+
+
+class RunPlan(NamedTuple):
+    """A wide run's launch (csrc/stencil1d.cu RunGrid): ``blocks`` blocks,
+    ``m`` steps between exchanges, a window of ``halo`` cells each side of a
+    block's chunk, ``threads`` a block."""
+    blocks: int
+    m: int
+    halo: int
+    threads: int
+
+
+def make_run_plan(rounded: int, r: int, itemsize: int, blocks: int,
+                  m: int) -> RunPlan:
+    """The launch of ``blocks`` blocks and m steps between exchanges: the
+    halo (r, or m * r where B > 1) rounded up to whole groups of
+    ``run_cells`` cells, and one thread for each group of the widest step
+    (the largest chunk and, where B > 1, (m - 1) * r cells each side), at
+    most ``RUN_MAX_THREADS``."""
+    V = run_cells(itemsize, r)
+    edge = -(-(m - 1) * r // V) if blocks > 1 else 0
+    widest = -(-rounded // V // blocks) + 2 * edge
+    reach = m * r if blocks > 1 else r
+    return RunPlan(blocks, m, -(-reach // V) * V,
+                   min(RUN_MAX_THREADS, 32 * -(-widest // 32)))
+
+
+def run_plan(rounded: int, r: int, n_taps: int, steps: int, itemsize: int,
+             sms: int) -> RunPlan:
+    """The wide run's (B, m) on ``sms`` SMs (the H100 rule; see
+    ``H100_RUN_*``).  B = 1: every step over the whole grid, m = steps.
+    B > 1: chunks of whole groups of ``run_cells`` cells, each at least
+    m * r cells so that a border comes from the neighbour alone, and both
+    windows within a block's shared memory."""
+    if (2 * (rounded + 2 * r) * itemsize <= _SMEM_BYTES
+            and rounded * n_taps <= H100_RUN_ONE_BLOCK_WORK):
+        return make_run_plan(rounded, r, itemsize, 1, steps)
+    blocks = max(2, min(sms, rounded // H100_RUN_CHUNK))
+    if not r:
+        return make_run_plan(rounded, r, itemsize, blocks, steps)
+    V = run_cells(itemsize, r)
+    groups = rounded // V
+    blocks = min(blocks, groups // -(-r // V))
+    m = max(1, min(steps, H100_RUN_REACH // r, groups // blocks * V // r))
+    cmax = -(-groups // blocks) * V
+    pad = -(-r // (16 // itemsize)) * (16 // itemsize)  # the window's reach
+    while m > 1 and 2 * (cmax + 2 * -(-m * r // V) * V + 2 * pad) * itemsize \
+            > _SMEM_BYTES:
+        m -= 1
+    return make_run_plan(rounded, r, itemsize, blocks, m)
 
 
 @functools.lru_cache(maxsize=None)
@@ -255,14 +389,21 @@ def _lib():
     {dtype: (pass entry, run entry)}."""
     lib = _cuda_build.load("stencil1d")
     entries = {}
-    for dtype, (pass_name, run_name) in _ENTRIES.items():
-        pass_fn, run_fn = getattr(lib, pass_name), getattr(lib, run_name)
-        pass_fn.restype = run_fn.restype = ctypes.c_int
+    for dtype, names in _ENTRIES.items():
+        pass_fn, run_fn, wide_run_fn = (getattr(lib, name) for name in names)
+        pass_fn.restype = run_fn.restype = wide_run_fn.restype = ctypes.c_int
         pass_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
         run_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
-        entries[dtype] = pass_fn, run_fn
+        wide_run_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
+            ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+        entries[dtype] = pass_fn, run_fn, wide_run_fn
+    lanes_fn = lib.ls_stencil1d_lanes
+    lanes_fn.restype = ctypes.c_int
+    lanes_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] + [
+        ctypes.c_int] * 7 + [ctypes.c_void_p]
+    entries["lanes"] = lanes_fn
     return entries
 
 
@@ -283,6 +424,18 @@ def _wide_table(spec: StencilSpec, dtype):
     ctype = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
     return (ctypes.c_int * max(n, 1))(*offsets), \
         (ctype * max(n, 1))(*weights), n
+
+
+@functools.lru_cache(maxsize=None)
+def _lanes_table(spec: StencilSpec):
+    """``lanes_plan`` as the launch's host arrays: (kinds, wp, wm, centre
+    flag, centre weight), made once per spec."""
+    centre, per_d = lanes_plan(spec)
+    r = len(per_d)
+    kinds, wp, wm = zip(*per_d)
+    return ((ctypes.c_int * r)(*kinds), (ctypes.c_float * r)(*wp),
+            (ctypes.c_float * r)(*wm), int(centre is not None),
+            0.0 if centre is None else centre)
 
 
 def _check(cur, spec: StencilSpec, layout: Layout1D, reach: int,
@@ -350,6 +503,8 @@ def _refuse_unported(bounds, region):
 
 
 def _pass(cur, donor, spec, layout, k: int, narrow: bool):
+    """A pass on ``pass_kernel`` (narrow: #12's float64 pass, and in float32
+    the kernel ``lanes_kernel`` replaced) or ``wide_kernel``."""
     if narrow:
         taps = _taps_buffer(spec, cur.device, cur.dtype).data_ptr()
         off, w, n_taps, tile = None, None, 0, 0
@@ -368,7 +523,52 @@ def _pass(cur, donor, spec, layout, k: int, narrow: bool):
     return donor
 
 
+def _lanes(cur, donor, spec, layout, k: int, tile: int = None):
+    """A float32 narrow pass on ``lanes_kernel``, in tiles of ``tile`` cells
+    (``lanes_tile``'s if None)."""
+    kinds, wp, wm, has_centre, centre = _lanes_table(spec)
+    if tile is None:
+        tile = lanes_tile(layout.rounded, _sm_count(cur.device.index))
+    with torch.cuda.device(cur.device):
+        err = _lib()["lanes"](
+            cur.data_ptr(), donor.data_ptr(), kinds, wp, wm, has_centre,
+            centre, effective_radius(spec), k, layout.shape[0],
+            layout.origin, layout.interior, layout.rounded, tile,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stencil1d lanes launch failed: CUDA error {err}")
+    return donor
+
+
+def _wide_run(cur, spec, layout, steps: int, plan: RunPlan = None):
+    """A wide run on ``run_kernel``, by ``plan`` (``run_plan``'s if None);
+    returns the new buffer."""
+    off, w, n_taps = _wide_table(spec, cur.dtype)
+    r = effective_radius(spec)
+    if plan is None:
+        plan = run_plan(layout.rounded, r, n_taps, steps, cur.element_size(),
+                        _sm_count(cur.device.index))
+    words = (4 * plan.blocks * plan.m * r * cur.element_size() // 4
+             if plan.blocks > 1 else 0)
+    out = torch.empty_like(cur)  # the kernel zeroes its guard
+    xch = (torch.zeros(words, dtype=torch.int64, device=cur.device) if words
+           else torch.empty(1, dtype=torch.int64, device=cur.device))
+    with torch.cuda.device(cur.device):
+        err = _lib()[cur.dtype][2](
+            cur.data_ptr(), out.data_ptr(), xch.data_ptr(), words, off, w,
+            n_taps, r, steps, plan.blocks, plan.m, plan.halo, plan.threads,
+            layout.shape[0], layout.origin, layout.interior, layout.rounded,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"stencil1d resident launch failed: CUDA error {err}")
+    return out
+
+
 def _run(cur, spec, layout, steps: int, refresh: int, narrow: bool):
+    """A run on ``resident_kernel``, the halo reloaded every ``refresh``
+    steps: the narrow runs (#7, #14), and, wide at refresh 1, the kernel
+    ``run_kernel`` replaced."""
     taps = _taps_buffer(spec, cur.device, cur.dtype)
     outs = (torch.zeros_like(cur), torch.zeros_like(cur))
     with torch.cuda.device(cur.device):
@@ -410,7 +610,11 @@ def stencil1d_lanes_step(cur, donor, spec: StencilSpec, layout: Layout1D,
     if cur.device.type == "cpu":
         return stencil1d_lanes_step_plain(cur, donor, spec, layout,
                                           fused_steps)
-    _pass(cur, donor, spec, layout, fused_steps, True)
+    if cur.dtype == torch.float64:
+        _pass(cur, donor, spec, layout, fused_steps, True)
+    else:
+        _lanes(cur, donor, spec, layout, fused_steps)
+        stencil1d_lanes_step.launches_lanes += 1
     _count(stencil1d_lanes_step, cur.dtype)
     return donor
 
@@ -458,8 +662,9 @@ def stencil1d_resident_lanes(cur, spec: StencilSpec, layout: Layout1D,
 
 
 def stencil1d_resident(cur, spec: StencilSpec, layout: Layout1D, steps: int):
-    """All ``steps`` timesteps in one wide cooperative launch with a grid
-    sync every step (the flat TPU kernel steps the whole grid); see
+    """All ``steps`` timesteps in one wide cooperative launch of
+    ``run_kernel``, the state resident in shared memory (the flat TPU
+    kernel keeps it in VMEM and steps the whole grid); see
     ``stencil1d_resident_lanes``.  The JAX df64 tier has no wide run: the
     float64 instance serves dtype 'float64'."""
     if steps < 1:
@@ -467,13 +672,18 @@ def stencil1d_resident(cur, spec: StencilSpec, layout: Layout1D, steps: int):
     _check(cur, spec, layout, effective_radius(spec))
     if cur.device.type == "cpu":
         return stencil1d_resident_plain(cur, spec, layout, steps)
-    out = _run(cur, spec, layout, steps, 1, False)
+    out = _wide_run(cur, spec, layout, steps)
+    stencil1d_resident.launches_run += 1
     _count(stencil1d_resident, cur.dtype)
     return out
 
 
-# kernel launches per instance, for chip_smoke.py: float32 and float64
+# kernel launches per instance, for chip_smoke.py: float32 and float64; and
+# of the redesigned kernels, lanes_kernel (float32 narrow passes) and
+# run_kernel (wide runs, either dtype)
 for _wrapper in (stencil1d_lanes_step, stencil1d_step,
                  stencil1d_resident_lanes, stencil1d_resident):
     _wrapper.launches = _wrapper.launches_f64 = 0
 del _wrapper
+stencil1d_lanes_step.launches_lanes = 0
+stencil1d_resident.launches_run = 0

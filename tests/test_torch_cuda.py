@@ -414,6 +414,80 @@ def test_1d_kernels_match_plain_twins(cuda, name, n):
                 assert torch.equal(got, plain(x, spec, lay, steps)) and torch.equal(x, keep)
 
 
+def _fills_1d(g0):
+    pi = g0 * (np.pi / 100)
+    inf = pi.copy()
+    inf[inf.size // 3] = np.inf
+    return (g0, pi, inf)
+
+
+@pytest.mark.parametrize("n", [3001, 4096, 100_000])
+@pytest.mark.parametrize("name", ["1d1r", "1d2r", "r13"])
+def test_lanes_kernel_equals_its_twin_and_pass_kernel(cuda, name, n):
+    """#5 redesigned: the float32 narrow pass (lanes_kernel, counted in
+    launches_lanes) at k = 1, 3 and 32 // r_eff, bit for bit against its
+    twin and the kernel it replaces (pass_kernel<float>) on the integer,
+    pi/100 and inf fills; r13 takes the runtime-radius instance."""
+    if name == "r13":
+        taps = np.random.default_rng(13).integers(-3, 4, 27) / 256.0
+        taps[0] = taps[-1] = 1.0 / 256.0
+        spec = engine.StencilEngine.for_coeffs(taps, (64,), device="cpu").spec
+    else:
+        spec = get_shape(name)
+    r = stencil1d.effective_radius(spec)
+    w = stencil1d.stencil1d_lanes_step
+    g0 = reference.random_padded(spec, (n,), seed=3)
+    for k in sorted({1, min(3, 32 // r), 32 // r}):
+        lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], k * r))
+        for fill in _fills_1d(g0):
+            x = lay.to_internal(fill, device=cuda)
+            before = (w.launches, w.launches_lanes)
+            got = w(x, torch.zeros_like(x), spec, lay, fused_steps=k)
+            assert (w.launches - before[0], w.launches_lanes - before[1]) == (1, 1)
+            old = stencil1d._pass(x, torch.zeros_like(x), spec, lay, k, True)
+            want = stencil1d.stencil1d_lanes_step_plain(x, torch.zeros_like(x), spec, lay, k)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, old, rtol=0, atol=0, equal_nan=True)
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,n", [("1d1r", 4096), ("1d1r", 3001), ("1d2r", 4096),
+                                    ("r40", 100_000)])
+def test_run_kernel_equals_its_twin_and_resident_kernel(cuda, name, n, dtype):
+    """#6 redesigned: the wide run (run_kernel, counted in launches_run)
+    under the H100 plan, one block and four blocks of two-step phases, over
+    1, 2 and 7 steps, bit for bit against its twin and the kernel it
+    replaces (resident_kernel, a grid sync every step) on the integer,
+    pi/100 and inf fills."""
+    spec = _spec_1d(name)
+    r = stencil1d.effective_radius(spec)
+    lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], r))
+    isz = dtype.itemsize
+    plans = [None]
+    for blocks, m in ((4, 2), (1, 7)):  # where their windows fit a block
+        if 2 * (-(-lay.rounded // blocks) + 2 * m * r + 64) * isz <= 232448:
+            plans.append(stencil1d.make_run_plan(lay.rounded, r, isz, blocks, m))
+    w = stencil1d.stencil1d_resident
+    for fill in _fills_1d(reference.random_padded(spec, (n,), seed=3)):
+        x = lay.to_internal(fill, dtype, cuda)
+        keep = x.clone()
+        for steps in (1, 2, 7):
+            before = w.launches_run
+            got = w(x, spec, lay, steps)
+            assert w.launches_run - before == 1
+            old = stencil1d._run(x, spec, lay, steps, 1, False)
+            want = stencil1d.stencil1d_resident_plain(x, spec, lay, steps)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, old, rtol=0, atol=0, equal_nan=True)
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+            for plan in plans[1:]:
+                other = stencil1d._wide_run(x, spec, lay, steps, plan)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(other, want, rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(x, keep)
+
+
 @pytest.mark.parametrize("name,n,kw,counter,launches", [
     ("1d1r", 4096, {}, "stencil1d_resident_lanes", {2: 1, 7: 1}),
     ("1d2r", 600_000, {}, "stencil1d_lanes_step", {2: 1, 7: 3}),
