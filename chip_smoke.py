@@ -20,9 +20,8 @@ its hand-written CUDA kernels:
   three fused steps), and 1d2r 16,777,216 x 256, through
   ``csrc/stencil1d.cu``, whose kernels replace the four TPU kernels of
   ``lorastencil_tpu/ops/pallas_1d.py``: the float32 narrow pass on
-  ``lanes_kernel`` and the wide run on ``run_kernel`` (both redesigned for
-  Hopper), the wide pass on ``wide_kernel`` and the narrow run on
-  ``resident_kernel``;
+  ``lanes_kernel``, both runs on ``run_kernel`` (narrow and wide sums) and
+  the wide pass on ``wide_kernel``, all redesigned for Hopper;
 * the fp64-grade tier, dtypes 'df64' and 'float64': the float64 strip
   kernel of ``csrc/stencil2d.cu`` (every 2-D step at radius <= 4 and <= 3
   terms; the float64 tile kernel beyond: replacing
@@ -104,9 +103,17 @@ Phases, each printing one line or more and raising on failure:
    and float64 for 1d1r at 4096 (also one block) and 3001, ``for_coeffs``
    r = 40 and 127 at 100,000 and 1d1r at the largest size under
    ``RESIDENT_BYTES`` (132 blocks), against the grid-synced
-   ``resident_kernel``;
+   ``resident_kernel``; the narrow run on ``run_kernel``'s narrow instances
+   (``stencil1d_resident_lanes.launches_run``) the same way in float32
+   and float64, also over 7 steps and under one block and four blocks of
+   two-step phases, for 1d1r at 3001 and 4096, 1d2r at 4096, specs whose
+   d cycle through every kind of the narrow plan at radius 5, 9 and 32 (4096)
+   and 16 and 32 (65,536), and 1d1r at the largest size under
+   ``RESIDENT_LANES_BYTES`` (132 blocks), against ``resident_kernel``
+   reloading every ``lanes_refresh`` steps;
 9. the 1-D path end to end, launches counted from zero: 1d1r 4096 resolves
-   to 'mxu' and one resident launch per run (#7, ``resident_kernel``);
+   to 'mxu' and one resident launch per run (#7, ``run_kernel``'s narrow
+   instance, counted in ``launches_run`` too);
    1d2r 1,000,000 and 16,777,216 to passes of the narrow kernel at k = 3
    (``run(.., 2)`` one remainder launch, ``run(.., 7)`` three), every one
    ``lanes_kernel``; algorithm 'vpu' to the wide counterparts (resident at
@@ -123,11 +130,14 @@ Phases, each printing one line or more and raising on failure:
    redesigned kernels beside the kernels they replace, in turns:
    ``lanes_kernel``'s k = 3 pass at 1d2r 1,000,000 and 16,777,216 beside
    ``pass_kernel<float>``, and in each tile of ``LANES_TILES``;
-   ``run_kernel``'s 1d1r 4096 x 64 run in float32 and float64 beside
-   ``resident_kernel``, with the per-step floor (the 64-step run less the
-   1-step run) of both; and 64-step runs under plans around the H100 rule
-   (``stencil1d.run_plan``) at 1d1r 2048 and 4096, r = 40 x 100,000 and
-   the largest 1d1r grid under ``RESIDENT_BYTES``, in both dtypes;
+   ``run_kernel``'s 1d1r 4096 x 64 runs, wide and narrow, in float32 and
+   float64 beside ``resident_kernel``, with the per-step floor (the
+   64-step run less the 1-step run) of both; and 64-step runs under plans
+   around the H100 rule (``stencil1d.run_plan``), in both dtypes: wide at
+   1d1r 2048 and 4096, r = 40 x 100,000 and the largest 1d1r grid under
+   ``RESIDENT_BYTES``; narrow at 1d1r 4096, the radius-16 and radius-32
+   specs at 65,536 and the largest 1d1r grid under
+   ``RESIDENT_LANES_BYTES``, each beside ``resident_kernel``;
 11. each fp64 kernel against its fp64 twin on the card: the 2-D float64
    strip kernel for star2d1r, box2d1r and box2d3r at 1000^2 and 8192^2,
    star2d3r at 1000^2 and star2d1r at 300 x 140 with a guard off the
@@ -149,12 +159,14 @@ Phases, each printing one line or more and raising on failure:
    passes) and, float64 only, at 3001 (the wide run); ``run(.., 2)`` of the
    integer fill bit for bit against a float64 dense stencil on the card,
    ``run(.., 4)`` of the pi/100 fill within rel 1e-13 of it; the float64
-   wide run counted in ``launches_run`` too, and no float64 pass on
-   ``lanes_kernel``: #12 and #14 (and #7, phase 9) launch what they did;
+   wide run counted in ``launches_run`` too, the narrow run (#14) in
+   ``stencil1d_resident_lanes.launches_run``, and no float64 pass on
+   ``lanes_kernel``: #12 launches ``pass_kernel<double>``;
 13. df64 star2d1r 8192^2 x 32, box2d3r 4096^2 x 32, 1d1r 4096 x 64 and
    1d2r 16,777,216 x 256 through ``run_internal`` and through the naive
    dense stencil in float64 (GStencil/s, vs_baseline; the 2-D runs' 32
-   launches counted, every one a float64 strip launch); per fp64 kernel its
+   launches counted, every one a float64 strip launch); per fp64 kernel
+   (the narrow run's: phase 10) its
    device time, its twin's, one float64 ``F.conv2d`` / ``F.conv1d`` step
    (the library yardstick) and its bound: 8-byte cells over the memory
    rate, or the operations over the card's fp64 CUDA-core rate; the 2-D
@@ -236,8 +248,9 @@ Phases, each printing one line or more and raising on failure:
    (phase 13) and their share of the byte bound; the march kernel's float32 k = 2, df64 and float64 k = 2 passes
    at 256^3 beside the general kernel (phases 7 and 19) and their share of
    the byte bound; the narrow pass (``lanes_kernel``, 1d2r 1,000,000 and
-   16,777,216) and the wide run (``run_kernel``, 1d1r 4096 x 64, float32 and
-   float64) beside the kernels they replace (phase 10), their bounds and
+   16,777,216) and both runs (``run_kernel``, 1d1r 4096 x 64, wide and
+   narrow, float32 and float64) beside the kernels they replace (phase 10),
+   their bounds and
    shares of them; the wide 1-D pass at float64 r = 40 x 100,000 and
    float32 1d2r 1,000,000 (k = 2), and at float64 r = 40 x 16,777,216 (134
    MB a buffer), each beside one ``F.conv1d`` step, its bound and its
@@ -317,8 +330,9 @@ def _counters():
     "stencil2d_resident_pair", the kernel it replaces; the shared-memory
     resident kernel's runs, in either dtype, in "stencil2d_resident_smem"
     too; the 1-D kernels redesigned for Hopper, lanes_kernel's float32
-    narrow passes in "stencil1d_lanes" and run_kernel's wide runs, in either
-    dtype, in "stencil1d_run", beside their wrapper's count).  The fused 2-D
+    narrow passes in "stencil1d_lanes", run_kernel's wide runs, in either
+    dtype, in "stencil1d_run", and its narrow runs, in either dtype, in
+    "stencil1d_lanes_run", beside their wrapper's count).  The fused 2-D
     kernel counts with the step kernel it extends, as "stencil2d"; the
     strip kernels' steps count in "stencil2d_k1" too, beside "stencil2d"
     (float32) or "df64_step" (float64); the fused strip kernel's passes in
@@ -351,7 +365,9 @@ def _counters():
                                       "launches_f64"),
            "stencil1d_lanes": (stencil1d.stencil1d_lanes_step,
                                "launches_lanes"),
-           "stencil1d_run": (stencil1d.stencil1d_resident, "launches_run")}
+           "stencil1d_run": (stencil1d.stencil1d_resident, "launches_run"),
+           "stencil1d_lanes_run": (stencil1d.stencil1d_resident_lanes,
+                                   "launches_run")}
     out.update({name: (getattr(stencil1d, name), "launches")
                 for name in KERNELS_1D})
     out.update({name: (getattr(stencil1d, wrapper), "launches_f64")
@@ -881,12 +897,32 @@ def bench_3d(name, device, card):
 
 
 def spec_1d(name):
-    """A registry 1-D shape, or ``for_coeffs`` taps "r40" / "r127": integers
+    """A registry 1-D shape, ``for_coeffs`` taps "r40" / "r127": integers
     in [-3, 3] over 256, whose sum of magnitudes (~1.7) keeps values finite
-    over the deepest passes."""
+    over the deepest passes, or a narrow spec "m5" / "m9" / "m16" / "m32" of
+    that radius whose d cycle through every kind of the narrow plan (+d alone,
+    -d alone, both unequal, neither, an equal pair; d = r a pair), the
+    centre nonzero (tests/test_torch_resident1d.py's)."""
     from lorastencil_tpu_torch import engine
     from lorastencil_tpu_torch.models.shapes import get_shape
 
+    if name.startswith("m"):
+        r = int(name[1:])
+        rng = np.random.default_rng(r)
+        w = rng.integers(1, 4, 2 * r + 1) * rng.choice([-1.0, 1.0],
+                                                        2 * r + 1) / 256.0
+        taps = np.zeros(2 * r + 1)
+        taps[r] = w[r]
+        for d in range(1, r + 1):
+            kind = d % 5 if d < r else 0
+            if kind in (0, 1, 3):
+                taps[r + d] = w[r + d]
+            if kind in (2, 3):
+                taps[r - d] = w[r - d] if kind == 2 else -w[r + d]
+            if kind == 0:
+                taps[r - d] = w[r + d]
+        return engine.StencilEngine.for_coeffs(taps, (64,), name=name,
+                                               device="cpu").spec
     if name.startswith("r"):
         r = int(name[1:])
         taps = np.random.default_rng(r).integers(-3, 4, 2 * r + 1) / 256.0
@@ -1063,15 +1099,77 @@ def check_run(name, n, dtype, device):
     return plan, err
 
 
-def largest_resident_1d(name, dtype):
-    """The largest interior whose 'vpu' run layout fits RESIDENT_BYTES."""
+def check_lanes_run(name, n, dtype, device):
+    """Phase 8, #7 and #14: the narrow run (run_kernel's narrow instances,
+    counted in ``stencil1d_resident_lanes.launches_run``) over 1, 2, 7 and
+    2m + 3 steps against its twin and the kernel it replaces
+    (``resident_kernel`` reloading every ``lanes_refresh`` steps:
+    ``stencil1d._run``), bit for bit on the integer, pi/100 and inf fills;
+    also under one block and four blocks of two-step phases where their
+    windows fit a block; returns (the plan, the max abs err against the
+    twin on the pi/100 fill)."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.utils import reference
+
+    spec = spec_1d(name)
+    r = s1.effective_radius(spec)
+    refresh = s1.lanes_refresh(r)
+    lay = layout_1d(spec, n, refresh * r)
+    isz = dtype.itemsize
+    if not s1.fits_resident_lanes(lay, isz):
+        raise AssertionError(f"{name} {n} does not fit RESIDENT_LANES_BYTES")
+    plan = s1.run_plan(lay.rounded, r, s1.lanes_products(spec), 64, isz,
+                       s1._sm_count(device.index or 0))
+    others = [s1.make_run_plan(lay.rounded, r, isz, blocks, m)
+              for blocks, m in ((4, 2), (1, 7))
+              if 2 * (-(-lay.rounded // blocks) + 2 * m * r + 64) * isz
+              <= 232448]
+    w = s1.stencil1d_resident_lanes
+    err = 0.0
+    for fill_name, fill in fills_1d(
+            reference.random_padded(spec, (n,), seed=1)).items():
+        x = lay.to_internal(fill, dtype, device)
+        keep = x.clone()
+        for steps in sorted({1, 2, 7, 2 * plan.m + 3}):
+            before = (w.launches_run, w.launches, w.launches_f64)
+            got = w(x, spec, lay, steps)
+            if (w.launches_run - before[0],
+                    w.launches + w.launches_f64 - before[1] - before[2]) != (
+                        1, 1):
+                raise AssertionError(f"{name} {n} x{steps}: not one run")
+            what = (f"narrow run_kernel {dtype} {name} {n} x{steps} "
+                    f"({fill_name} fill)")
+            same_bits(got, s1._run(x, spec, lay, steps, refresh, True),
+                      f"{what} against resident_kernel")
+            want = s1.stencil1d_resident_lanes_plain(x, spec, lay, steps)
+            same_bits(got, want, f"{what} against its twin")
+            for other in others:
+                same_bits(s1._lanes_run(x, spec, lay, steps, other), want,
+                          f"{what}, plan {tuple(other)}, against its twin")
+            if fill_name == "pi/100":
+                err = max(err, (got - want).abs().max().item())
+        if not torch.equal(x, keep):
+            raise AssertionError(f"narrow run_kernel {name} {n} wrote its "
+                                 f"input")
+        del x, keep
+    return plan, err
+
+
+def largest_resident_1d(name, dtype, narrow=False):
+    """The largest interior whose run layout fits RESIDENT_BYTES ('vpu', the
+    wide run) or, ``narrow``, RESIDENT_LANES_BYTES ('mxu')."""
     from lorastencil_tpu_torch.ops import stencil1d as s1
     from lorastencil_tpu_torch.ops.layout import TILE_1D
 
     spec = spec_1d(name)
     r = s1.effective_radius(spec)
-    n = s1.RESIDENT_BYTES // dtype.itemsize // TILE_1D * TILE_1D
-    while not s1.fits_resident(layout_1d(spec, n, 2 * r), dtype.itemsize):
+    if narrow:
+        cap, fits = s1.RESIDENT_LANES_BYTES, s1.fits_resident_lanes
+        reach = s1.lanes_refresh(r) * r
+    else:
+        cap, fits, reach = s1.RESIDENT_BYTES, s1.fits_resident, 2 * r
+    n = cap // dtype.itemsize // TILE_1D * TILE_1D
+    while not fits(layout_1d(spec, n, reach), dtype.itemsize):
         n -= TILE_1D
     return n
 
@@ -1085,9 +1183,9 @@ def main_path_1d(device):
 
     # (shape, n, engine options, algorithm, path, the kernel counted, k,
     # its launches in run(2) and run(7), the redesigned kernel's count that
-    # must grow with it or None: #7's narrow run keeps resident_kernel)
+    # must grow with it or None: the wide pass, wide_kernel, has none)
     cases = (("1d1r", N_1D_SMALL, {}, "mxu", "resident_lanes",
-              "stencil1d_resident_lanes", 4, (1, 1), None),
+              "stencil1d_resident_lanes", 4, (1, 1), "stencil1d_lanes_run"),
              ("1d2r", N_1D, {}, "mxu", "lanes", "stencil1d_lanes_step", 3,
               (1, 3), "stencil1d_lanes"),
              ("1d2r", N_1D_LARGE, {}, "mxu", "lanes", "stencil1d_lanes_step",
@@ -1144,11 +1242,12 @@ def main_path_1d(device):
                          + f", rel err {rel:.3e}")
             del out, want
     launches = counts()
-    for kernel in KERNELS_1D + ("stencil1d_lanes", "stencil1d_run"):
+    new = ("stencil1d_lanes", "stencil1d_run", "stencil1d_lanes_run")
+    for kernel in KERNELS_1D + new:
         if launches[kernel] == 0:
             raise AssertionError(f"the 1-D path never launched {kernel}")
-    return {kernel: launches[kernel] for kernel in
-            KERNELS_1D + ("stencil1d_lanes", "stencil1d_run")}, per_case, lines
+    return {kernel: launches[kernel] for kernel in KERNELS_1D + new}, \
+        per_case, lines
 
 
 def graph_ms(fn, calls=20):
@@ -1231,26 +1330,37 @@ def lanes_tiles(device, card, gen):
 
 
 # Phase 10's run plans: (shape, n, dtype, blocks, m*r reaches) around the
-# H100 rule, at the sizes whose rule it sets
+# H100 rule, at the sizes whose rule it sets; the narrow run's at its
+# configuration, at the radii where resident_kernel synced the grid every
+# step or two, and at its largest grid
 RUN_SWEEP = (
     ("1d1r", 2048, (1, 2, 4, 8, 16), (64, 128, 192)),
     ("1d1r", N_1D_SMALL, (1, 4, 8, 16, 32), (64, 128, 192)),
     ("r40", 100_000, (64, 132), (40, 120, 160, 240)),
     ("1d1r", None, (64, 132), (64, 128, 192, 256)))
+LANES_RUN_SWEEP = (
+    ("1d1r", N_1D_SMALL, (1, 8, 16, 32), (64, 128, 192)),
+    ("m16", 65_536, (64, 132), (32, 96, 192, 256)),
+    ("m32", 65_536, (64, 132), (32, 96, 192, 256)),
+    ("1d1r", None, (64, 132), (64, 128, 192, 256)))
 
 
-def run_plans(device, card, gen):
-    """Phase 10: 64-step wide runs (run_kernel) under plans around the H100
-    rule (``run_plan``), in both dtypes: B = 1 where the grid fits a block,
-    and B blocks at m = reach // r; the rule's plan and the fastest."""
+def run_plans(device, card, gen, narrow=False):
+    """Phase 10: 64-step runs (run_kernel, wide or ``narrow``) under plans
+    around the H100 rule (``run_plan``), in both dtypes: B = 1 where the
+    grid fits a block, and B blocks at m = reach // r; the rule's plan and
+    the fastest; a narrow run beside ``resident_kernel`` (reloading every
+    ``lanes_refresh`` steps), in the same turns."""
     from lorastencil_tpu_torch.ops import stencil1d as s1
 
     for dtype in (torch.float32, torch.float64):
-        for name, n, blocks_list, reaches in RUN_SWEEP:
-            n = n or largest_resident_1d(name, dtype)
+        for name, n, blocks_list, reaches in (LANES_RUN_SWEEP if narrow
+                                              else RUN_SWEEP):
+            n = n or largest_resident_1d(name, dtype, narrow)
             spec = spec_1d(name)
             r = s1.effective_radius(spec)
-            lay = layout_1d(spec, n, 2 * r)
+            lay = layout_1d(spec, n, (s1.lanes_refresh(r) if narrow else 2)
+                            * r)
             x = torch.rand(lay.shape, generator=gen, device=device,
                            dtype=dtype) * 0.01
             isz, V = dtype.itemsize, s1.run_cells(dtype.itemsize, r)
@@ -1265,16 +1375,28 @@ def run_plans(device, card, gen):
                             cmax + 2 * p.halo + 2 * V + 2 * r) > 232448:
                         continue
                     plans[tuple(p)] = p
-            rule = s1.run_plan(lay.rounded, r, len(s1.wide_taps(spec)[0]), 64,
-                               isz, s1._sm_count(device.index or 0))
+            n_products = (s1.lanes_products(spec) if narrow
+                          else len(s1.wide_taps(spec)[0]))
+            rule = s1.run_plan(lay.rounded, r, n_products, 64, isz,
+                               s1._sm_count(device.index or 0))
             plans[tuple(rule)] = rule
-            ms = in_turns({k: (lambda p=p: s1._wide_run(x, spec, lay, 64, p))
-                           for k, p in plans.items()}, 5)
+            launch = s1._lanes_run if narrow else s1._wide_run
+            fns = {k: (lambda p=p: launch(x, spec, lay, 64, p))
+                   for k, p in plans.items()}
+            if narrow:
+                fns["resident_kernel"] = lambda: s1._run(
+                    x, spec, lay, 64, s1.lanes_refresh(r), True)
+            ms = in_turns(fns, 5)
+            old = ms.pop("resident_kernel", None)
             best = min(ms, key=ms.get)
-            print(f"phase 10: run_kernel {str(dtype)[6:]} {name} {n} x64 by "
-                  f"plan ((blocks, m, halo, threads): ms): {ms}; the rule "
-                  f"{tuple(rule)} {ms[tuple(rule)]} ms, the fastest {best} "
-                  f"{ms[best]} ms [{card}]", flush=True)
+            print(f"phase 10: {'narrow' if narrow else 'wide'} run_kernel "
+                  f"{str(dtype)[6:]} {name} {n} x64 by plan ((blocks, m, "
+                  f"halo, threads): ms): {ms}; the rule {tuple(rule)} "
+                  f"{ms[tuple(rule)]} ms, the fastest {best} {ms[best]} ms"
+                  + (f"; resident_kernel (refresh {s1.lanes_refresh(r)}) "
+                     f"{old} ms in the same turns, "
+                     f"{old / ms[tuple(rule)]:.4f}x the rule's"
+                     if narrow else "") + f" [{card}]", flush=True)
             del x
 
 
@@ -1327,9 +1449,10 @@ def bench_1d(device, card):
               flush=True)
 
     # per record: the wrapper, shape, size, engine options, steps of a run
-    # (None: a pass of the engine's k) and dtype.  #5 and #6, redesigned,
-    # are timed in turns beside the kernel each replaces (pass_kernel<float>,
-    # the grid-synced resident_kernel), graphs of 20 calls.
+    # (None: a pass of the engine's k) and dtype.  #5, #6, #7 and #14,
+    # redesigned, are timed in turns beside the kernel each replaces
+    # (pass_kernel<float>, the grid-synced resident_kernel: wide at refresh
+    # 1, narrow at lanes_refresh), graphs of 20 calls.
     timing = {}
     for key, kernel, name, n, kw, steps, dtype in (
             ("stencil1d_lanes_step", "stencil1d_lanes_step", "1d2r", N_1D,
@@ -1341,6 +1464,8 @@ def bench_1d(device, card):
              {"algorithm": "vpu"}, None, torch.float32),
             ("stencil1d_resident_lanes", "stencil1d_resident_lanes", "1d1r",
              N_1D_SMALL, {}, 64, torch.float32),
+            ("stencil1d_resident_pair", "stencil1d_resident_lanes", "1d1r",
+             N_1D_SMALL, {}, 64, torch.float64),
             ("stencil1d_resident", "stencil1d_resident", "1d1r", N_1D_SMALL,
              {"algorithm": "vpu"}, 64, torch.float32),
             ("stencil1d_resident_f64", "stencil1d_resident", "1d1r",
@@ -1365,8 +1490,12 @@ def bench_1d(device, card):
             one = lambda: wrapper(x, spec, lay, steps)
             twin = lambda: plain(x, spec, lay, steps)
             per = steps
-            if kernel == "stencil1d_resident":
-                replaced = lambda: s1._run(x, spec, lay, steps, 1, False)
+            narrow = kernel == "stencil1d_resident_lanes"
+            r = s1.effective_radius(spec)
+            refresh = s1.lanes_refresh(r) if narrow else 1
+            old_run = (lambda st, refresh=refresh, narrow=narrow:
+                       s1._run(x, spec, lay, st, refresh, narrow))
+            replaced = lambda: old_run(steps)
         rec = {}
         if replaced is None:
             ms = graph_ms(one)
@@ -1379,15 +1508,17 @@ def bench_1d(device, card):
         if steps is not None and replaced is not None:
             # the per-step floor: the 64-step run less the 1-step run
             one1 = lambda: wrapper(x, spec, lay, 1)
-            old1 = lambda: s1._run(x, spec, lay, 1, 1, False)
+            old1 = lambda: old_run(1)
             turns1 = in_turns({"new": one1, "old": old1}, 20)
             rec["floor_ms_per_step"] = (ms - turns1["new"]) / (steps - 1)
             rec["replaced_floor_ms_per_step"] = (
                 rec["replaced_kernel_ms"] - turns1["old"]) / (steps - 1)
             rec["plan"] = list(s1.run_plan(
-                lay.rounded, s1.effective_radius(spec),
-                len(s1.wide_taps(spec)[0]), steps, x.element_size(),
+                lay.rounded, r, s1.lanes_products(spec) if narrow
+                else len(s1.wide_taps(spec)[0]), steps, x.element_size(),
                 s1._sm_count(device.index or 0)))
+            if narrow:
+                rec["kernel"] = "run_kernel (narrow sums)"
         plain_ms = graph_ms(twin, 3)
         host_us = host_us_per_launch(one)
         bound, by = bound_ms(spec, (n,), per, dtype.itemsize)
@@ -1418,6 +1549,7 @@ def bench_1d(device, card):
         del x, donor
     lanes_tiles(device, card, gen)
     run_plans(device, card, gen)
+    run_plans(device, card, gen, narrow=True)
     res, launches = runs[("1d2r", N_1D)]
     busy = launches * timing["stencil1d_lanes_step"]["ms"] / res.time_ms
     print(f"phase 10: 1d2r {N_1D} x256: {launches} passes x "
@@ -1637,6 +1769,8 @@ def main_path_fp64(device):
                     want_launches["stencil2d_k1"] = expect
                 if kernel == "stencil1d_resident_f64":  # run_kernel's
                     want_launches["stencil1d_run"] = expect
+                if kernel == "stencil1d_resident_pair":  # run_kernel's
+                    want_launches["stencil1d_lanes_run"] = expect
                 if launched != want_launches:
                     raise AssertionError(f"{name} {interior} {dtype} run("
                                          f"{steps}) launched {launched}")
@@ -1665,13 +1799,15 @@ def main_path_fp64(device):
     if launches["stencil1d_lanes"]:
         raise AssertionError("a float64 narrow pass ran lanes_kernel")
     return {kernel: launches[kernel] for kernel in
-            KERNELS_FP64 + ("stencil1d_resident_f64", "stencil1d_run")}, lines
+            KERNELS_FP64 + ("stencil1d_resident_f64", "stencil1d_run",
+                            "stencil1d_lanes_run")}, lines
 
 
 def bench_fp64(device, card):
     """Phase 13: the df64 runs through ``run_internal`` and the naive dense
     stencil in float64, then per fp64 kernel its device time, its twin's,
-    the float64 library step and the bound; returns the kernels' timing
+    the float64 library step and the bound (the narrow run's, #14, in phase
+    10, beside the kernel it replaces); returns the kernels' timing
     records."""
     from lorastencil_tpu_torch.ops import stencil1d as s1
     from lorastencil_tpu_torch.ops import stencil2d, torch_ref
@@ -1756,8 +1892,7 @@ def bench_fp64(device, card):
         del x, donor
     for kernel, name, interior, steps in (
             ("df64_1d_step", "1d2r", (N_1D_LARGE,), None),
-            ("df64_1d_flat_step", "r40", (100_000,), None),
-            ("stencil1d_resident_pair", "1d1r", (N_1D_SMALL,), 64)):
+            ("df64_1d_flat_step", "r40", (100_000,), None)):
         eng = fp64_engine(name, interior, "df64", device)
         spec, lay = eng.spec, eng.layout
         x = torch.rand(lay.shape, generator=gen, device=device,
@@ -1765,14 +1900,9 @@ def bench_fp64(device, card):
         donor = torch.zeros_like(x)
         wrapper = getattr(s1, KERNELS_FP64_1D[kernel])
         plain = getattr(s1, KERNELS_FP64_1D[kernel] + "_plain")
-        if steps is None:  # one step
-            one = lambda: wrapper(x, donor, spec, lay)
-            twin = lambda: plain(x, donor, spec, lay)
-            per = 1
-        else:  # a whole run in one cooperative launch
-            one = lambda: wrapper(x, spec, lay, steps)
-            twin = lambda: plain(x, spec, lay, steps)
-            per = steps
+        one = lambda: wrapper(x, donor, spec, lay)  # one step
+        twin = lambda: plain(x, donor, spec, lay)
+        per = 1
         ms, plain_ms = graph_ms(one), graph_ms(twin, 3)
         bound, by = bound_ms(spec, interior, per, itemsize=8)
         parts = bound_parts(spec, interior, per, itemsize=8)
@@ -1782,7 +1912,7 @@ def bench_fp64(device, card):
                               bound_by=by, library_ms=lib,
                               steps_per_launch=per, library_steps=1,
                               shape=f"df64 {name} {dims}")
-        print(f"phase 13: {kernel} at df64 {name} {dims}, {per} step(s) per "
+        print(f"phase 13: {kernel} at df64 {name} {dims}, one step per "
               f"launch: kernel {ms} ms (device), plain twin {plain_ms} ms, "
               f"float64 F.conv1d one step {lib} ms, bound "
               f"{bound} ms ({by}; bytes {parts[0]} ms in 8-byte cells, "
@@ -2637,7 +2767,8 @@ def bench_fp64_3d(device, card):
 # fused_strip_kernel (radius 1-4, 1-2 terms, K = 2, the terms' kinds),
 # csrc/stencil1d.cu wide_kernel (float and double), lanes_kernel (float,
 # radius 1-8 and one for 9-32) and run_kernel (float and double, radius
-# 1-8 and one for the rest), csrc/stencil3d.cu
+# 1-8 and one for the rest; the wide sums, the narrow ones of a plan of
+# pairs only, and any narrow plan's), csrc/stencil3d.cu
 # march_kernel (float and double, radius 1-2, K = 1-2, star3d1r's and
 # box3d1r's term kinds): {kernel: (source, the pattern of the mangled names
 # ptxas reports, what the instantiation's numbers are)}.  A mangled name carries its length before it
@@ -2652,7 +2783,8 @@ PTXAS_KERNELS = {
         "R,terms,K,kinds"),
     "wide_kernel": ("stencil1d", r"wide_kernelI([fd])E", "type"),
     "lanes_kernel": ("stencil1d", r"lanes_kernelILi(\d)E", "R"),
-    "run_kernel": ("stencil1d", r"run_kernelI([fd])Li(\d)EE", "type,R"),
+    "run_kernel": ("stencil1d", r"run_kernelI([fd])Li(\d)ELi(\d)EE",
+                   "type,R,form: 0 wide, 2 pairs, 3 mixed"),
     "march_kernel": (
         "stencil3d",
         r"march_kernelI([fd])Li(\d)ELi(\d)ELi(\d)ELi(\d+)ELb([01])E",
@@ -2692,7 +2824,7 @@ def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms,
     float64 tile kernel (``fp64_step``: phase 13's record, star2d1r's with
     box2d3r's inside), the 3-D march kernel's passes beside the general
     kernel's (``march_ms``: phases 7 and 19, each timed in turns), the
-    narrow pass and the wide run beside the kernels they replace
+    narrow pass and both runs beside the kernels they replace
     (``timing_1d``: phase 10, in turns) and the wide pass at three sizes;
     returns the large wide pass's record."""
     from lorastencil_tpu_torch.models.shapes import get_shape
@@ -2727,7 +2859,8 @@ def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms,
               f"[{card}]", flush=True)
     for key in ("stencil1d_lanes_step", f"stencil1d_lanes_step[1d2r "
                 f"{N_1D_LARGE}]", "stencil1d_resident",
-                "stencil1d_resident_f64"):
+                "stencil1d_resident_f64", "stencil1d_resident_lanes",
+                "stencil1d_resident_pair"):
         rec = timing_1d[key]
         print(f"phase 20: {rec['kernel']}, {rec['shape']}, "
               f"{rec['steps_per_launch']} steps a launch: {rec['ms']} ms "
@@ -2902,12 +3035,30 @@ def main() -> int:
                   f"resident_kernel on the integer, pi/100 and inf fills"
                   + (", and one block" if n == N_1D_SMALL else "")
                   + f"; max abs err {err}", flush=True)
+        for name, n in (("1d1r", 3001), ("1d1r", N_1D_SMALL),
+                        ("1d2r", N_1D_SMALL), ("m5", N_1D_SMALL),
+                        ("m9", N_1D_SMALL),
+                        ("m32", N_1D_SMALL), ("m16", 65_536),
+                        ("m32", 65_536),
+                        ("1d1r", largest_resident_1d("1d1r", dtype, True))):
+            plan, err = check_lanes_run(name, n, dtype, device)
+            errs_new[("lanes_run", dtype)] = max(
+                errs_new.get(("lanes_run", dtype), 0.0), err)
+            print(f"phase 8: narrow run_kernel {str(dtype)[6:]} {name} {n}, "
+                  f"plan (blocks, m, halo, threads) {tuple(plan)}: 1, 2, 7 "
+                  f"and 2m+3 steps bit for bit against its twin and "
+                  f"resident_kernel on the integer, pi/100 and inf fills, "
+                  f"and one block and four where they fit; max abs err "
+                  f"{err}", flush=True)
 
     launches_1d, cases_1d, lines = main_path_1d(device)
     for line in lines:
         print(f"phase 9: {line}", flush=True)
     print(f"phase 9: launches over the phase, counted from zero: "
           f"{launches_1d}", flush=True)
+    if launches_1d["stencil1d_lanes_run"] != launches_1d[
+            "stencil1d_resident_lanes"]:
+        raise AssertionError("a float32 narrow run missed run_kernel")
 
     timing_1d = bench_1d(device, card)
 
@@ -2940,15 +3091,21 @@ def main() -> int:
         print(f"phase 12: {line}", flush=True)
     print(f"phase 12: launches over the phase, counted from zero: "
           f"{launches_fp64}", flush=True)
-    print(f"phase 12: the narrow kernels not redesigned launch what they "
-          f"launched: #12 df64_1d_step {launches_fp64['df64_1d_step']} "
-          f"launches of pass_kernel<double> (none of lanes_kernel), #14 "
-          f"stencil1d_resident_pair {launches_fp64['stencil1d_resident_pair']}"
-          f" of resident_kernel<double>, #7 stencil1d_resident_lanes "
-          f"{launches_1d['stencil1d_resident_lanes']} of resident_kernel<float>"
-          f" (phase 9), one a run", flush=True)
+    if launches_fp64["stencil1d_lanes_run"] != launches_fp64[
+            "stencil1d_resident_pair"]:
+        raise AssertionError("a float64 narrow run missed run_kernel")
+    print(f"phase 12: #12 df64_1d_step {launches_fp64['df64_1d_step']} "
+          f"launches of pass_kernel<double> (none of lanes_kernel); the "
+          f"narrow runs every one on run_kernel: #14 stencil1d_resident_pair "
+          f"{launches_fp64['stencil1d_resident_pair']} (launches_run "
+          f"{launches_fp64['stencil1d_lanes_run']}), #7 "
+          f"stencil1d_resident_lanes {launches_1d['stencil1d_resident_lanes']}"
+          f" (launches_run {launches_1d['stencil1d_lanes_run']}, phase 9), "
+          f"one a run, none of resident_kernel", flush=True)
 
     timing_fp64 = bench_fp64(device, card)
+    timing_fp64["stencil1d_resident_pair"] = timing_1d[
+        "stencil1d_resident_pair"]
 
     errs_fused = {}
     for name, interior, k, dtypes in FUSED_CASES:

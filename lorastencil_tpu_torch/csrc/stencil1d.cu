@@ -7,13 +7,12 @@
 //              lanes_kernel (ls_stencil1d_lanes);
 //       wide   -> _stencil1d_kernel (stencil1d_step): wide_kernel
 //              (ls_stencil1d_pass);
-//   * a whole run in one cooperative launch:
-//       narrow, halo reload every min(8, 32 / r) steps
-//              -> _stencil1d_resident_lanes_kernel (stencil1d_resident_lanes):
-//              resident_kernel (ls_stencil1d_resident);
+//   * a whole run in one cooperative launch, both on run_kernel (the state
+//     resident in shared memory, neighbour-only exchanges every m steps):
+//       narrow -> _stencil1d_resident_lanes_kernel (stencil1d_resident_lanes):
+//              its narrow instances (ls_stencil1d_run_lanes);
 //       wide   -> _stencil1d_resident_kernel (stencil1d_resident):
-//              run_kernel (ls_stencil1d_run), the state resident in shared
-//              memory, neighbour-only exchanges every m steps.
+//              its wide instances (ls_stencil1d_run).
 // Their float64 instances (the *_f64 entries) replace the fp64-grade TPU
 // kernels of lorastencil_tpu/ops/pallas_df64_1d.py, which compute on
 // error-free (hi, lo) fp32 pairs because the TPU has no fp64 unit; here the
@@ -22,17 +21,18 @@
 //       wide pass   -> _df64_1d_flat_kernel (df64_1d_flat_step),
 //       narrow run  -> the kernel of stencil1d_resident_pair;
 // and the wide run serves dtype float64 (pallas_1d.stencil1d_resident in
-// float64).  pass_kernel<float> and resident_kernel's wide instances are no
-// longer on any path: they stay as what chip_smoke.py and the card tests
-// hold lanes_kernel and run_kernel against.
+// float64).  pass_kernel<float> and resident_kernel (every instance: the
+// grid-synced runs of the first port) are on no path: they stay as what
+// chip_smoke.py and the card tests hold lanes_kernel and run_kernel against.
 // Every substep computes out[f] = sum_{|d| <= r} taps[r + d] * in[f + d] (r
 // the effective radius: the taps come trimmed of their zero ends) and zeroes
 // every cell outside the interior [0, n), the reference's halo decay.
 //
 // The order of each sum, which the plain twins in ops/stencil1d.py repeat:
-// the centre, then d = 1..r; narrow adds an equal pair taps[r+d] == taps[r-d]
-// as one product of the pair's sum (pallas_1d._conv_lanes), wide adds +d then
-// -d (pallas_1d._conv_flat); zero taps are skipped.  Every product and sum is
+// the centre, then d = 1..r; narrow (passes and runs) adds an equal pair
+// taps[r+d] == taps[r-d] as one product of the pair's sum
+// (pallas_1d._conv_lanes), wide adds +d then -d (pallas_1d._conv_flat); zero
+// taps are skipped.  Every product and sum is
 // rounded on its own (__fmul_rn, __fadd_rn; __dmul_rn, __dadd_rn in fp64: no
 // FMA contraction), so a kernel agrees with its twin bit for bit on any data.
 //
@@ -74,8 +74,10 @@
 //     here: a shift is an address offset;
 //   * the float64 narrow pass (pass_kernel<double>) keeps the radius at
 //     compile time and the taps in registers, one cell per thread and sweep;
-//   * the wide run (run_kernel) keeps the state in shared memory for the
-//     whole run, as the TPU kernel keeps it in VMEM: B blocks each own a
+//   * both runs (run_kernel; a template parameter picks the wide or the
+//     narrow sum order, the narrow one without lanes_kernel's branch per d:
+//     window_sums) keep the state in shared memory for the whole run, as
+//     the TPU kernels keep it in VMEM: B blocks each own a
 //     chunk of the rounded interior (B = 1 where the grid fits one block
 //     and its steps are short, ops/stencil1d.py run_plan) and hold it twice
 //     (ping-pong windows) with m*r cells each side.  A block computes m
@@ -83,17 +85,17 @@
 //     cells with its two neighbours only, as tagged 8-byte words (the
 //     cell's bits beside the step's number, one relaxed store each; two
 //     parities, as csrc/resident2d.cu's): no grid barrier, and global
-//     memory only for the first load, the exchanges and the last store;
-//   * the narrow run (resident_kernel) is one cooperative launch for all
-//     steps: each block owns a chunk of the interior, runs `refresh` steps
-//     from the chunk plus refresh*r cells each side, writes the chunk to one
-//     of two global buffers, syncs the grid and reloads.  The input is read
-//     and never written.  Loads in a run bypass L1 (__ldcg): other blocks
-//     wrote the buffer since.
+//     memory only for the first load, the exchanges and the last store.
+//     The TPU's narrow run reloads its lane halo every min(8, 32 / r)
+//     steps; here nothing is reloaded: a halo comes from the neighbours;
+//   * resident_kernel, the first port's run and now only a comparison, is
+//     one cooperative launch that runs `refresh` steps of each chunk from
+//     global memory, writes the chunk to one of two buffers and syncs the
+//     grid before it reloads (__ldcg: other blocks wrote the buffer since).
 // The TPU's split-bf16 matmuls only emulated exact fp32 on its matrix unit;
 // CUDA cores do exact fp32 directly.
 //
-// The narrow kernels and the wide run have the radius as a template
+// The narrow kernels and both runs have the radius as a template
 // parameter (1..8, loops unrolled) and one runtime-radius instantiation
 // (the narrow ones for 9..32, the wide run for the rest); the wide pass
 // keeps its loop over its tap pairs rolled (a fully unrolled wide-radius
@@ -108,7 +110,8 @@
 // pass also takes, after the stream, a wide pass's nonzero taps on the host
 // (offsets, weights, count) and its tile; ls_stencil1d_lanes the narrow
 // plan's host arrays; ls_stencil1d_run(_f64) the wide taps, the zeroed
-// exchange words and the host's (B, m) plan.
+// exchange words and the host's (B, m) plan; ls_stencil1d_run_lanes(_f64)
+// the same with the narrow plan's host arrays in place of the wide taps.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -436,19 +439,37 @@ __device__ __forceinline__ double add_if(double acc, double p, int on) {
   return acc;
 }
 
+// The forms of a cell's sums (window_sums), a template parameter: the wide
+// order (+d then -d); the narrow order (an equal pair as one product of its
+// sum) by a uniform branch per d on its kind (the narrow pass); and, without
+// a branch, for a narrow plan whose every d is a pair or nothing (every
+// registry shape), or for any narrow plan (the narrow run).
+constexpr int kWideSums = 0;
+constexpr int kPairBranch = 1;
+constexpr int kPairSums = 2;
+constexpr int kMixedSums = 3;
+
 // The sums of the V cells x[0 .. V) (x in shared memory, 16-byte aligned,
 // window_pad(r) cells readable on each side), the plan's terms in order,
 // every product and sum rounded on its own.  Without a centre the first term
 // is added to -0, which leaves it as it is.  R > 0: the window first into
 // registers by 16-byte loads, indexed only by constants, about 1 + 2R / V
 // cells loaded a cell instead of a load a tap; R == 0 (any radius): each
-// term's cells read from shared memory.  kPairs (the narrow pass): a
-// uniform branch per d on its kind; else (the wide run, whose plan has no
-// pairs) both products of every d, each added where the plan has its tap:
-// no branch between the d, whose chains then overlap.
-template <typename T, int R, int V, bool kPairs>
+// term's cells read from shared memory.  Without a branch, every product a
+// form can need is computed and added where the plan has its term
+// (add_if): kWideSums the +d and the -d tap's, kPairSums the pair's,
+// kMixedSums the pair's, then the +d and the -d tap's.  No branch between
+// the d, whose chains then overlap.  kPairBranch computes only what the
+// kind of d asks for, behind a uniform branch: fewer operations, which the
+// narrow pass (bound by bytes) keeps; in the runs (bound by a step's chain
+// of latencies) the branches cost more than the products they save.
+// kPairSums with R > 0 runs the cells in the outer loop: fewer window cells
+// live at once (with the d outside, two float64 instances spilled).
+template <typename T, int R, int V, int kForm>
 __device__ __forceinline__ void window_sums(const T* x, const TapPlan<T>& pl,
                                             int r, T (&acc)[V]) {
+  constexpr bool kAddPair = kForm == kPairSums || kForm == kMixedSums;
+  constexpr bool kAddTaps = kForm == kWideSums || kForm == kMixedSums;
   if constexpr (R > 0) {
     constexpr int P = window_pad<T>(R);
     T w[V + 2 * P];
@@ -458,17 +479,35 @@ __device__ __forceinline__ void window_sums(const T* x, const TapPlan<T>& pl,
 #pragma unroll
     for (int c = 0; c < V; ++c)
       acc[c] = pl.centre ? mul_rn(pl.c, w[P + c]) : T(-0.0);
-    if constexpr (!kPairs) {
+    if constexpr (kForm == kPairSums) {
+#pragma unroll
+      for (int c = 0; c < V; ++c) {
+#pragma unroll
+        for (int d = 1; d <= R; ++d)
+          acc[c] = add_if(acc[c],
+                          mul_rn(pl.wp[d], add_rn(w[P + c + d], w[P + c - d])),
+                          pl.kind[d] == kPair);
+      }
+      return;
+    }
+    if constexpr (kForm != kPairBranch) {
 #pragma unroll
       for (int d = 1; d <= R; ++d) {
+        const int pair = pl.kind[d] == kPair;
         const int plus = pl.kind[d] & kPlus;
         const int minus = pl.kind[d] & kMinus;
         const T wp = pl.wp[d];
         const T wm = pl.wm[d];
 #pragma unroll
         for (int c = 0; c < V; ++c) {
-          acc[c] = add_if(acc[c], mul_rn(wp, w[P + c + d]), plus);
-          acc[c] = add_if(acc[c], mul_rn(wm, w[P + c - d]), minus);
+          if constexpr (kForm == kMixedSums)
+            acc[c] = add_if(acc[c],
+                            mul_rn(wp, add_rn(w[P + c + d], w[P + c - d])),
+                            pair);
+          if constexpr (kAddTaps) {
+            acc[c] = add_if(acc[c], mul_rn(wp, w[P + c + d]), plus);
+            acc[c] = add_if(acc[c], mul_rn(wm, w[P + c - d]), minus);
+          }
         }
       }
       return;
@@ -507,6 +546,20 @@ __device__ __forceinline__ void window_sums(const T* x, const TapPlan<T>& pl,
       const T wm = pl.wm[d];
       const T* xp = x + d;
       const T* xm = x - d;
+      if constexpr (kAddPair) {
+        const int pair = kind == kPair;
+        const int plus = kind & kPlus;
+        const int minus = kind & kMinus;
+#pragma unroll
+        for (int c = 0; c < V; ++c) {
+          acc[c] = add_if(acc[c], mul_rn(wp, add_rn(xp[c], xm[c])), pair);
+          if constexpr (kAddTaps) {
+            acc[c] = add_if(acc[c], mul_rn(wp, xp[c]), plus);
+            acc[c] = add_if(acc[c], mul_rn(wm, xm[c]), minus);
+          }
+        }
+        continue;
+      }
       if (kind & kPair) {
 #pragma unroll
         for (int c = 0; c < V; ++c)
@@ -584,7 +637,7 @@ lanes_kernel(const float* __restrict__ in, float* __restrict__ out,
     const int q_end = (E + tile + e + V - 1) / V;
     for (int q = (E - e) / V + tid; q < q_end; q += nt) {
       float acc[V];
-      window_sums<float, R, V, true>(src + P + q * V, pl, r, acc);
+      window_sums<float, R, V, kPairBranch>(src + P + q * V, pl, r, acc);
       lanes_mask(acc, t0 - E + q * V, n);
       store16(dst + P + q * V, acc);
       store16(dst + P + q * V + 4, acc + 4);
@@ -596,7 +649,7 @@ lanes_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
   // the last substep: the tile, one group a thread
   float acc[V];
-  window_sums<float, R, V, true>(src + P + E + tid * V, pl, r, acc);
+  window_sums<float, R, V, kPairBranch>(src + P + E + tid * V, pl, r, acc);
   const int f0 = t0 + tid * V;
   lanes_mask(acc, f0, n);
   float* o = out + origin + f0;
@@ -609,7 +662,7 @@ lanes_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
-// ---- the wide run: state resident in shared memory (run_kernel) ----------
+// ---- both runs: state resident in shared memory (run_kernel) -------------
 
 constexpr int kRunMaxThreads = 1024;
 // a wait's limit in SM clock cycles: seconds at any clock the card runs
@@ -727,8 +780,10 @@ __host__ __device__ inline int run_window(const RunGrid& g, int P) {
 // overwrites parity p % 2 after phase p + 2, which needs its neighbours'
 // phase p + 1 borders, which they send only after reading its phase p
 // border.  The launch is cooperative, so every block is resident; a wait
-// traps after kSpinLimitCycles.
-template <typename T, int R>
+// traps after kSpinLimitCycles.  kForm: the sums' form, kWideSums for the
+// wide run, kPairSums or kMixedSums for the narrow run; nothing else
+// differs.
+template <typename T, int R, int kForm>
 __global__ void __launch_bounds__(kRunMaxThreads)
 run_kernel(const T* __restrict__ in, T* __restrict__ out,
            unsigned long long* xch, const __grid_constant__ TapPlan<T> pl,
@@ -821,7 +876,7 @@ run_kernel(const T* __restrict__ in, T* __restrict__ out,
       const unsigned tag = done + j;
       for (int q = lo / V + tid; q * V < hi; q += nt) {
         T acc[V];
-        window_sums<T, R, V, false>(src + q * V, pl, r, acc);
+        window_sums<T, R, V, kForm>(src + q * V, pl, r, acc);
         const int u0 = q * V - HW;  // chunk coordinate of the group's cell 0
         if (c0 + u0 < 0 || c0 + u0 + V > g.n) {
 #pragma unroll
@@ -1058,7 +1113,7 @@ int lanes(const float* in, float* out, const int* kinds, const float* wp,
   }
 }
 
-template <typename T, int R>
+template <typename T, int R, int kForm>
 int launch_run_r(const T* in, T* out, unsigned long long* xch,
                  const TapPlan<T>& pl, RunGrid g, int threads,
                  cudaStream_t stream) {
@@ -1068,7 +1123,8 @@ int launch_run_r(const T* in, T* out, unsigned long long* xch,
       (g.blocks > 1 && static_cast<long long>(g.rounded / V / g.blocks) * V <
                            static_cast<long long>(g.m) * g.r))
     return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = reinterpret_cast<const void*>(run_kernel<T, R>);
+  const void* kernel =
+      reinterpret_cast<const void*>(run_kernel<T, R, kForm>);
   const size_t smem =
       2 * sizeof(T) * run_window<T, R>(g, window_pad<T>(R > 0 ? R : g.r));
   int e = set_smem(kernel, smem);
@@ -1091,25 +1147,56 @@ int launch_run_r(const T* in, T* out, unsigned long long* xch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// A run's instance for (T, r, kForm): radii 1..8 at compile time, the
+// rest at run time.
+template <typename T, int kForm>
+int launch_run_plan(const T* in, T* out, unsigned long long* xch,
+                    const TapPlan<T>& pl, RunGrid g, int threads,
+                    void* stream) {
+  if (g.rounded == 0) return 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (g.r) {
+    case 1: return launch_run_r<T, 1, kForm>(in, out, xch, pl, g, threads, s);
+    case 2: return launch_run_r<T, 2, kForm>(in, out, xch, pl, g, threads, s);
+    case 3: return launch_run_r<T, 3, kForm>(in, out, xch, pl, g, threads, s);
+    case 4: return launch_run_r<T, 4, kForm>(in, out, xch, pl, g, threads, s);
+    case 5: return launch_run_r<T, 5, kForm>(in, out, xch, pl, g, threads, s);
+    case 6: return launch_run_r<T, 6, kForm>(in, out, xch, pl, g, threads, s);
+    case 7: return launch_run_r<T, 7, kForm>(in, out, xch, pl, g, threads, s);
+    case 8: return launch_run_r<T, 8, kForm>(in, out, xch, pl, g, threads, s);
+    default: return launch_run_r<T, 0, kForm>(in, out, xch, pl, g, threads, s);
+  }
+}
+
+// What every run refuses: a plan whose borders do not come from the
+// neighbours alone, too few exchange words (none are read where one phase
+// takes every step), a bad block size.
+template <typename T>
+bool run_grid_ok(const RunGrid& g, int threads,
+                 const unsigned long long* xch, long long n_xch) {
+  constexpr int KW = sizeof(T) / 4;
+  const long long mr = static_cast<long long>(g.m) * g.r;
+  return !(g.r < 0 || g.r > kMaxRadius || g.steps < 1 || g.blocks < 1 ||
+           g.m < 1 || g.n < 0 || g.rounded < g.n || g.origin < g.r ||
+           g.origin + g.rounded > g.len || g.halo < g.r ||
+           (g.blocks > 1 && g.halo < mr) ||
+           threads < 32 || threads > kRunMaxThreads || threads % 32 != 0 ||
+           (g.blocks > 1 && g.steps > g.m &&
+            (n_xch < 4LL * g.blocks * mr * KW || !xch)));
+}
+
 // A wide run: the host's nonzero taps (off[i], w[i]), i < n_taps, in the
 // twin's order (the centre, then +d, -d for d = 1..r), turned into a
 // TapPlan by value; the plan in g, `threads` a block; `xch` holds n_xch
-// zeroed words; `out` is written whole, its guard zeroed.  Refused: taps out of that order, a plan whose borders do
-// not come from the neighbours alone, too few words, windows beyond shared
+// zeroed words; `out` is written whole, its guard zeroed.  Refused: taps
+// out of that order, what run_grid_ok refuses, windows beyond shared
 // memory, blocks the card cannot hold at once.
 template <typename T>
 int launch_run(const T* in, T* out, unsigned long long* xch, long long n_xch,
                const int* off, const T* w, int n_taps, RunGrid g, int threads,
                void* stream) {
-  constexpr int KW = sizeof(T) / 4;
-  const long long mr = static_cast<long long>(g.m) * g.r;
-  if (g.r < 0 || g.r > kMaxRadius || g.steps < 1 || g.blocks < 1 ||
-      g.m < 1 || g.n < 0 || g.rounded < g.n || g.origin < g.r ||
-      g.origin + g.rounded > g.len || g.halo < g.r ||
-      (g.blocks > 1 && g.halo < mr) ||
-      threads < 32 || threads > kRunMaxThreads || threads % 32 != 0 ||
-      (g.blocks > 1 && (n_xch < 4LL * g.blocks * mr * KW || !xch)) ||
-      n_taps < 0 || n_taps > 2 * g.r + 1 || (n_taps > 0 && (!off || !w)))
+  if (!run_grid_ok<T>(g, threads, xch, n_xch) || n_taps < 0 ||
+      n_taps > 2 * g.r + 1 || (n_taps > 0 && (!off || !w)))
     return static_cast<int>(cudaErrorInvalidValue);
   TapPlan<T> pl = {};
   int i = 0;
@@ -1128,19 +1215,43 @@ int launch_run(const T* in, T* out, unsigned long long* xch, long long n_xch,
     }
   }
   if (i != n_taps) return static_cast<int>(cudaErrorInvalidValue);
-  if (g.rounded == 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (g.r) {
-    case 1: return launch_run_r<T, 1>(in, out, xch, pl, g, threads, s);
-    case 2: return launch_run_r<T, 2>(in, out, xch, pl, g, threads, s);
-    case 3: return launch_run_r<T, 3>(in, out, xch, pl, g, threads, s);
-    case 4: return launch_run_r<T, 4>(in, out, xch, pl, g, threads, s);
-    case 5: return launch_run_r<T, 5>(in, out, xch, pl, g, threads, s);
-    case 6: return launch_run_r<T, 6>(in, out, xch, pl, g, threads, s);
-    case 7: return launch_run_r<T, 7>(in, out, xch, pl, g, threads, s);
-    case 8: return launch_run_r<T, 8>(in, out, xch, pl, g, threads, s);
-    default: return launch_run_r<T, 0>(in, out, xch, pl, g, threads, s);
+  return launch_run_plan<T, kWideSums>(in, out, xch, pl, g, threads, stream);
+}
+
+// A narrow run: the host's narrow plan (kinds[d - 1], wp[d - 1], wm[d - 1]
+// for d = 1..r; the centre's weight c where `centre`), as a float32 narrow
+// pass takes it, in the state's precision; the kPairSums instance where
+// every d is a pair or nothing, else kMixedSums.  Refused besides: r outside
+// [1, kLanesMaxReach], a kind outside {0, kPlus, kMinus, both, kPair}, a
+// pair whose two weights differ.
+template <typename T>
+int launch_run_lanes(const T* in, T* out, unsigned long long* xch,
+                     long long n_xch, const int* kinds, const T* wp,
+                     const T* wm, int centre, T c, RunGrid g, int threads,
+                     void* stream) {
+  if (!run_grid_ok<T>(g, threads, xch, n_xch) || g.r < 1 ||
+      g.r > kLanesMaxReach || !kinds || !wp || !wm)
+    return static_cast<int>(cudaErrorInvalidValue);
+  TapPlan<T> pl = {};
+  pl.centre = centre != 0;
+  pl.c = c;
+  bool pairs_only = true;
+  for (int d = 1; d <= g.r; ++d) {
+    const int kind = kinds[d - 1];
+    if ((kind != 0 && kind != kPlus && kind != kMinus &&
+         kind != (kPlus | kMinus) && kind != kPair) ||
+        (kind == kPair && wp[d - 1] != wm[d - 1]))
+      return static_cast<int>(cudaErrorInvalidValue);
+    pairs_only = pairs_only && (kind == 0 || kind == kPair);
+    pl.kind[d] = kind;
+    pl.wp[d] = wp[d - 1];
+    pl.wm[d] = wm[d - 1];
   }
+  return pairs_only
+             ? launch_run_plan<T, kPairSums>(in, out, xch, pl, g, threads,
+                                             stream)
+             : launch_run_plan<T, kMixedSums>(in, out, xch, pl, g, threads,
+                                              stream);
 }
 
 // The narrow instantiation for (T, r): radii 1..8 at compile time, 9..32 at
@@ -1244,6 +1355,23 @@ extern "C" int ls_stencil1d_lanes(const float* in, float* out,
   }
 LS_RUN(ls_stencil1d_run, float)
 LS_RUN(ls_stencil1d_run_f64, double)
+
+// As LS_RUN, with the narrow plan (kinds, wp, wm, centre flag, centre
+// weight) in place of the nonzero taps.
+#define LS_RUN_LANES(NAME, T)                                                \
+  extern "C" int NAME(const T* in, T* out, unsigned long long* xch,         \
+                      long long n_xch, const int* kinds, const T* wp,       \
+                      const T* wm, int centre, T c, int r, int steps,       \
+                      int blocks, int m, int halo, int threads, int len,    \
+                      int origin, int n, int rounded, void* stream) {       \
+    return launch_run_lanes<T>(in, out, xch, n_xch, kinds, wp, wm, centre,  \
+                               c,                                           \
+                               RunGrid{r, steps, blocks, m, halo, len,      \
+                                       origin, n, rounded},                 \
+                               threads, stream);                            \
+  }
+LS_RUN_LANES(ls_stencil1d_run_lanes, float)
+LS_RUN_LANES(ls_stencil1d_run_lanes_f64, double)
 
 extern "C" int ls_stencil1d_resident(const float* in, float* out0,
                                      float* out1, const float* taps, int r,

@@ -418,17 +418,23 @@ class StencilEngine:
 
         * r_eff in [1, 32] and algorithm 'mxu' (auto) or 'vpu_roll'
           ("lanes ok"): a grid whose state fits ``RESIDENT_LANES_BYTES``
-          runs all steps in one ``stencil1d_resident_lanes`` launch, else
-          passes of ``stencil1d_lanes_step``;
+          runs all steps in one ``stencil1d_resident_lanes`` launch
+          (``run_kernel``'s narrow sums), else passes of
+          ``stencil1d_lanes_step`` (``lanes_kernel``);
         * otherwise (other algorithms, wider taps): a grid whose state
-          fits ``RESIDENT_BYTES`` runs one ``stencil1d_resident`` launch,
-          else passes of ``stencil1d_step``.
+          fits ``RESIDENT_BYTES`` runs one ``stencil1d_resident`` launch
+          (``run_kernel``'s wide sums), else passes of ``stencil1d_step``
+          (``wide_kernel``).
 
         The df64 tier (one step per pass) has its own branches: r_eff in
-        [1, 32] runs the narrow run when its state fits
-        ``RESIDENT_LANES_BYTES`` and neither ``lanes_width`` nor
-        ``lanes_tile_rows`` is set, else narrow passes; r_eff in [33, 127]
-        wide passes, never a run.
+        [1, 32] runs the narrow run (``run_kernel``'s float64 narrow
+        sums) when its state fits ``RESIDENT_LANES_BYTES`` and neither
+        ``lanes_width`` nor ``lanes_tile_rows`` is set, else narrow passes
+        (``pass_kernel<double>``); r_eff in [33, 127] wide passes
+        (``wide_kernel``), never a run.  The narrow run's layout keeps a
+        guard of ``lanes_refresh(r_eff) * r_eff``, the JAX run's lane halo,
+        so that the size test matches the JAX engine's; ``run_kernel``
+        needs only r_eff of it.
 
         The two caps are the JAX engine's numbers (2 MiB, 512 KiB), kept
         so that both engines take the same branch at the BASELINE sizes

@@ -3,19 +3,20 @@ wrappers.
 
 Counterpart of ``lorastencil_tpu/ops/pallas_1d.py`` and
 ``lorastencil_tpu/ops/pallas_df64_1d.py``.  Their seven TPU kernels become
-two hand-written CUDA kernels in ``csrc/stencil1d.cu``, each with a narrow
-and a wide instantiation, in float32 and in float64:
+the hand-written CUDA kernels of ``csrc/stencil1d.cu``, in float32 and in
+float64:
 
-* ``stencil1d_lanes_step``: a pass, narrow (``_stencil1d_lanes_kernel``;
-  in float64 ``_df64_1d_lanes_kernel``);
+* ``stencil1d_lanes_step``: a pass, narrow (``_stencil1d_lanes_kernel``:
+  ``lanes_kernel``; in float64 ``_df64_1d_lanes_kernel``:
+  ``pass_kernel<double>``);
 * ``stencil1d_step``: a pass, wide (``_stencil1d_kernel``; in float64
-  ``_df64_1d_flat_kernel``);
+  ``_df64_1d_flat_kernel``): ``wide_kernel``;
 * ``stencil1d_resident_lanes``: a run, narrow
   (``_stencil1d_resident_lanes_kernel``; in float64 the kernel of
-  ``pallas_df64_1d.stencil1d_resident_pair``);
+  ``pallas_df64_1d.stencil1d_resident_pair``): ``run_kernel``, narrow sums;
 * ``stencil1d_resident``: a run, wide (``_stencil1d_resident_kernel``; the
   JAX df64 tier never runs a wide run, so its float64 instance replaces
-  no df64 kernel).
+  no df64 kernel): ``run_kernel``, wide sums.
 
 The TPU computes its fp64-grade tier on error-free (hi, lo) fp32 pairs
 because it has no fp64 unit; the H100 has one, so the float64 instances
@@ -24,7 +25,8 @@ state's dtype and counts the launches of each instance apart:
 ``launches`` in float32, ``launches_f64`` in float64.
 
 A pass runs ``fused_steps`` steps and writes the donor; a run does all
-``steps`` in one cooperative launch and returns a new buffer.  *Narrow*
+``steps`` in one cooperative launch and returns a new buffer whose guard
+the kernel zeroes.  *Narrow*
 takes an effective radius up to 32 (the TPU's overlapped-lanes kernels:
 taps in registers, a symmetric tap pair summed before its one multiply, as
 ``pallas_1d._conv_lanes``); *wide* takes any radius up to 127 (the flat
@@ -34,17 +36,20 @@ its nonzero taps as (offset, weight) pairs in that order (``wide_taps``)
 by value in its launch's parameters, and tiles of ``pass_tile`` cells,
 the largest that still give the card two blocks per SM.
 
-Two kernels were redesigned for Hopper.  The float32 narrow pass runs
+Three kernels were redesigned for Hopper.  The float32 narrow pass runs
 ``lanes_kernel``: a thread owns 8 contiguous cells and computes them from
 a register window, the taps as a host plan by value (``lanes_plan``: per
 d a pair, one tap or both, in the twin's order) and tiles of
-``lanes_tile`` cells (``launches_lanes`` counts it).  The wide run, in
-both dtypes, runs ``run_kernel``: the state stays in shared memory, B
-blocks of it that swap m*r border cells with their neighbours every m
-steps (``run_plan``; ``launches_run`` counts it).  The kernels they
-replace, ``pass_kernel<float>`` and the grid-synced wide run, are reached
-only through ``_pass`` and ``_run``, which chip_smoke.py and the card
-tests hold the new kernels against.
+``lanes_tile`` cells (``launches_lanes`` counts it).  Both runs, narrow
+and wide, in both dtypes, run ``run_kernel``: the state stays in shared
+memory, B blocks of it that swap m*r border cells with their neighbours
+every m steps (``run_plan``; each wrapper counts it in ``launches_run``);
+the narrow run sums in the narrow order, from ``lanes_plan``.  The kernels
+they replace, ``pass_kernel<float>`` and the grid-synced
+``resident_kernel`` (which reloads the narrow run's halo from global
+memory every ``lanes_refresh`` steps), are reached only through ``_pass``
+and ``_run``, which chip_smoke.py and the card tests hold the new kernels
+against.
 
 On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
 tensor runs the plain twin (``*_plain``), which sums in the kernel's order,
@@ -86,10 +91,11 @@ _SMEM_BYTES, _TAP_SLOTS = 232448, 2 * MAX_RADIUS + 2
 PASS_TILES = (TILE_1D, 1024, 512, 256)
 PARAM_LIMIT = 4096
 _ENTRIES = {torch.float32: ("ls_stencil1d_pass", "ls_stencil1d_resident",
-                            "ls_stencil1d_run"),
+                            "ls_stencil1d_run", "ls_stencil1d_run_lanes"),
             torch.float64: ("ls_stencil1d_pass_f64",
                             "ls_stencil1d_resident_f64",
-                            "ls_stencil1d_run_f64")}
+                            "ls_stencil1d_run_f64",
+                            "ls_stencil1d_run_lanes_f64")}
 # csrc/stencil1d.cu lanes_kernel: cells a thread owns, and the narrow pass's
 # tiles (tile / 8 threads a block).  The rule: the largest tile that gives
 # every SM at least H100_LANES_BLOCKS_PER_SM blocks, so that a
@@ -106,8 +112,8 @@ H100_LANES_BLOCKS_PER_SM = 4
 # lanes_plan's kinds of a d (csrc/stencil1d.cu kPlus, kMinus, kPair)
 LANES_PLUS, LANES_MINUS, LANES_PAIR = 1, 2, 4
 # csrc/stencil1d.cu run_kernel: threads a block at most, and the H100 plan
-# (run_plan): one block where the grid's two windows fit its shared memory
-# and a step's work (rounded cells x nonzero taps) is at most
+# of both runs (run_plan): one block where the grid's two windows fit its
+# shared memory and a step's work (rounded cells x nonzero taps) is at most
 # H100_RUN_ONE_BLOCK_WORK; else a block per H100_RUN_CHUNK cells, at most
 # one per SM, and m*r, the halo a block computes between two exchanges,
 # up to H100_RUN_REACH cells.  chip_smoke.py phase 10 times the plans
@@ -226,14 +232,13 @@ def lanes_plan(spec: StencilSpec):
 
 
 def run_cells(itemsize: int, r: int) -> int:
-    """Contiguous cells a wide-run thread owns (csrc/stencil1d.cu
-    run_cells): two 16-byte words at radius 1-8 (a register window), else
-    one."""
+    """Contiguous cells a run thread owns (csrc/stencil1d.cu run_cells):
+    two 16-byte words at radius 1-8 (a register window), else one."""
     return (32 if 1 <= r <= 8 else 16) // itemsize
 
 
 class RunPlan(NamedTuple):
-    """A wide run's launch (csrc/stencil1d.cu RunGrid): ``blocks`` blocks,
+    """A run's launch (csrc/stencil1d.cu RunGrid): ``blocks`` blocks,
     ``m`` steps between exchanges, a window of ``halo`` cells each side of a
     block's chunk, ``threads`` a block."""
     blocks: int
@@ -259,8 +264,9 @@ def make_run_plan(rounded: int, r: int, itemsize: int, blocks: int,
 
 def run_plan(rounded: int, r: int, n_taps: int, steps: int, itemsize: int,
              sms: int) -> RunPlan:
-    """The wide run's (B, m) on ``sms`` SMs (the H100 rule; see
-    ``H100_RUN_*``).  B = 1: every step over the whole grid, m = steps.
+    """A run's (B, m) on ``sms`` SMs (the H100 rule; see ``H100_RUN_*``),
+    ``n_taps`` the products of a cell's sum (``wide_taps``' count, or
+    ``lanes_products``).  B = 1: every step over the whole grid, m = steps.
     B > 1: chunks of whole groups of ``run_cells`` cells, each at least
     m * r cells so that a border comes from the neighbour alone, and both
     windows within a block's shared memory."""
@@ -287,10 +293,21 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def lanes_products(spec: StencilSpec) -> int:
+    """Products of one cell's narrow sum (``lanes_plan``): the centre's, one
+    a pair, one a tap otherwise."""
+    centre, per_d = lanes_plan(spec)
+    return (centre is not None) + sum(
+        1 if kind == LANES_PAIR else bin(kind).count("1")
+        for kind, _, _ in per_d)
+
+
 def lanes_refresh(r_eff: int) -> int:
-    """Steps between the resident lanes run's halo reloads: the TPU
-    kernel's fixup interval ``lane_halo // r_eff`` with ``lane_halo =
-    min(8, 32 // r_eff) * r_eff``."""
+    """The TPU narrow run's fixup interval ``lane_halo // r_eff`` with
+    ``lane_halo = min(8, 32 // r_eff) * r_eff``: steps between its halo
+    reloads, and the reloads of ``resident_kernel`` (``_run``).  The
+    narrow run's layout keeps a guard of this many steps' reach, so that
+    both engines take the same branch; ``run_kernel`` reloads nothing."""
     return min(8, MAX_LANES_REACH // r_eff)
 
 
@@ -365,7 +382,7 @@ def stencil1d_step_plain(cur, donor, spec: StencilSpec, layout: Layout1D,
 def stencil1d_resident_lanes_plain(cur, spec: StencilSpec, layout: Layout1D,
                                    steps: int):
     """The narrow run's twin: a new buffer with a zero guard.  The run's
-    chunks and halo reloads change no value, so the twin steps the whole
+    chunks and exchanges change no value, so the twin steps the whole
     interior."""
     out = torch.zeros_like(cur)
     o, nr = layout.origin, layout.rounded
@@ -386,19 +403,26 @@ def stencil1d_resident_plain(cur, spec: StencilSpec, layout: Layout1D,
 @functools.lru_cache(maxsize=None)
 def _lib():
     """The kernel library's entries, built and bound once per process:
-    {dtype: (pass entry, run entry)}."""
+    {dtype: (pass, resident_kernel's run, wide run, narrow run), "lanes":
+    the float32 narrow pass}."""
     lib = _cuda_build.load("stencil1d")
     entries = {}
     for dtype, names in _ENTRIES.items():
-        pass_fn, run_fn, wide_run_fn = (getattr(lib, name) for name in names)
-        pass_fn.restype = run_fn.restype = wide_run_fn.restype = ctypes.c_int
+        fns = pass_fn, run_fn, wide_run_fn, lanes_run_fn = tuple(
+            getattr(lib, name) for name in names)
+        for fn in fns:
+            fn.restype = ctypes.c_int
         pass_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
             ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
         run_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
-        wide_run_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [
-            ctypes.c_void_p] * 2 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
-        entries[dtype] = pass_fn, run_fn, wide_run_fn
+        head = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
+        wide_run_fn.argtypes = head + [ctypes.c_void_p] * 2 + [
+            ctypes.c_int] * 11 + [ctypes.c_void_p]
+        weight = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+        lanes_run_fn.argtypes = head + [ctypes.c_void_p] * 3 + [
+            ctypes.c_int, weight] + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+        entries[dtype] = fns
     lanes_fn = lib.ls_stencil1d_lanes
     lanes_fn.restype = ctypes.c_int
     lanes_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] + [
@@ -427,15 +451,16 @@ def _wide_table(spec: StencilSpec, dtype):
 
 
 @functools.lru_cache(maxsize=None)
-def _lanes_table(spec: StencilSpec):
+def _lanes_table(spec: StencilSpec, dtype=torch.float32):
     """``lanes_plan`` as the launch's host arrays: (kinds, wp, wm, centre
-    flag, centre weight), made once per spec."""
+    flag, centre weight), the weights in ``dtype`` (float64 taps rounded to
+    float32 would cost ~1e-8 a step), made once per (spec, dtype)."""
     centre, per_d = lanes_plan(spec)
     r = len(per_d)
     kinds, wp, wm = zip(*per_d)
-    return ((ctypes.c_int * r)(*kinds), (ctypes.c_float * r)(*wp),
-            (ctypes.c_float * r)(*wm), int(centre is not None),
-            0.0 if centre is None else centre)
+    ctype = ctypes.c_double if dtype == torch.float64 else ctypes.c_float
+    return ((ctypes.c_int * r)(*kinds), (ctype * r)(*wp), (ctype * r)(*wm),
+            int(centre is not None), 0.0 if centre is None else centre)
 
 
 def _check(cur, spec: StencilSpec, layout: Layout1D, reach: int,
@@ -540,23 +565,27 @@ def _lanes(cur, donor, spec, layout, k: int, tile: int = None):
     return donor
 
 
-def _wide_run(cur, spec, layout, steps: int, plan: RunPlan = None):
-    """A wide run on ``run_kernel``, by ``plan`` (``run_plan``'s if None);
-    returns the new buffer."""
-    off, w, n_taps = _wide_table(spec, cur.dtype)
+def _launch_run(cur, spec, layout, steps: int, plan, n_products: int,
+                entry: int, taps):
+    """A run on ``run_kernel`` through entry ``entry`` of the dtype's
+    (2: wide, 3: narrow), ``taps`` its plan's host arrays, by ``plan``
+    (``run_plan``'s if None); returns the new buffer.  The zeroed exchange
+    words are made only for a run of more than one phase (steps > m) on
+    more than one block: one phase sends nothing."""
     r = effective_radius(spec)
     if plan is None:
-        plan = run_plan(layout.rounded, r, n_taps, steps, cur.element_size(),
-                        _sm_count(cur.device.index))
+        plan = run_plan(layout.rounded, r, n_products, steps,
+                        cur.element_size(), _sm_count(cur.device.index))
     words = (4 * plan.blocks * plan.m * r * cur.element_size() // 4
-             if plan.blocks > 1 else 0)
+             if plan.blocks > 1 and steps > plan.m else 0)
     out = torch.empty_like(cur)  # the kernel zeroes its guard
     xch = (torch.zeros(words, dtype=torch.int64, device=cur.device) if words
-           else torch.empty(1, dtype=torch.int64, device=cur.device))
+           else None)
     with torch.cuda.device(cur.device):
-        err = _lib()[cur.dtype][2](
-            cur.data_ptr(), out.data_ptr(), xch.data_ptr(), words, off, w,
-            n_taps, r, steps, plan.blocks, plan.m, plan.halo, plan.threads,
+        err = _lib()[cur.dtype][entry](
+            cur.data_ptr(), out.data_ptr(),
+            None if xch is None else xch.data_ptr(), words, *taps, r,
+            steps, plan.blocks, plan.m, plan.halo, plan.threads,
             layout.shape[0], layout.origin, layout.interior, layout.rounded,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -565,10 +594,29 @@ def _wide_run(cur, spec, layout, steps: int, plan: RunPlan = None):
     return out
 
 
+def _wide_run(cur, spec, layout, steps: int, plan: RunPlan = None):
+    """A wide run on ``run_kernel``, by ``plan`` (``run_plan``'s if None);
+    returns the new buffer."""
+    off, w, n_taps = _wide_table(spec, cur.dtype)
+    return _launch_run(cur, spec, layout, steps, plan, n_taps, 2,
+                       (off, w, n_taps))
+
+
+def _lanes_run(cur, spec, layout, steps: int, plan: RunPlan = None):
+    """A narrow run on ``run_kernel``'s narrow instances (the sums of a plan
+    of pairs only, or of any narrow plan), by ``plan`` (``run_plan``'s if
+    None); returns the new buffer."""
+    return _launch_run(cur, spec, layout, steps, plan, lanes_products(spec),
+                       3, _lanes_table(spec, cur.dtype))
+
+
 def _run(cur, spec, layout, steps: int, refresh: int, narrow: bool):
-    """A run on ``resident_kernel``, the halo reloaded every ``refresh``
-    steps: the narrow runs (#7, #14), and, wide at refresh 1, the kernel
-    ``run_kernel`` replaced."""
+    """A run on ``resident_kernel``, the first port's grid-synced run, now
+    on no path: each block reloads its chunk and halo from global memory
+    every ``refresh`` steps.  The card tests and chip_smoke.py hold
+    ``run_kernel`` against it: narrow at ``lanes_refresh`` (the narrow
+    runs #7 and #14 launched it until ``run_kernel`` took them), wide at
+    refresh 1."""
     taps = _taps_buffer(spec, cur.device, cur.dtype)
     outs = (torch.zeros_like(cur), torch.zeros_like(cur))
     with torch.cuda.device(cur.device):
@@ -645,18 +693,20 @@ def stencil1d_step(cur, donor, spec: StencilSpec, layout: Layout1D,
 
 def stencil1d_resident_lanes(cur, spec: StencilSpec, layout: Layout1D,
                              steps: int, algorithm: str = "mxu"):
-    """All ``steps`` timesteps in one narrow cooperative launch, the halo
-    reloaded every ``lanes_refresh(r_eff)`` steps; reads ``cur`` and
-    returns a new buffer.  Raises if the card cannot hold the grid's
-    blocks at once (no fallback to passes).  On a float64 state it is the
-    fp64-grade run of ``pallas_df64_1d.stencil1d_resident_pair``."""
+    """All ``steps`` timesteps in one narrow cooperative launch of
+    ``run_kernel`` (its narrow instances: the narrow sum order), the state
+    resident in shared memory; reads ``cur`` and returns a new buffer.
+    Raises if the card cannot hold the grid's blocks at once (no fallback
+    to passes).  On a float64 state it is the fp64-grade run of
+    ``pallas_df64_1d.stencil1d_resident_pair``."""
     r = _check_lanes(spec, algorithm, 1)
     if steps < 1:
         raise ValueError(f"steps must be >= 1, got {steps}")
     _check(cur, spec, layout, r)
     if cur.device.type == "cpu":
         return stencil1d_resident_lanes_plain(cur, spec, layout, steps)
-    out = _run(cur, spec, layout, steps, lanes_refresh(r), True)
+    out = _lanes_run(cur, spec, layout, steps)
+    stencil1d_resident_lanes.launches_run += 1
     _count(stencil1d_resident_lanes, cur.dtype)
     return out
 
@@ -680,10 +730,10 @@ def stencil1d_resident(cur, spec: StencilSpec, layout: Layout1D, steps: int):
 
 # kernel launches per instance, for chip_smoke.py: float32 and float64; and
 # of the redesigned kernels, lanes_kernel (float32 narrow passes) and
-# run_kernel (wide runs, either dtype)
+# run_kernel (narrow and wide runs, either dtype, each wrapper its own)
 for _wrapper in (stencil1d_lanes_step, stencil1d_step,
                  stencil1d_resident_lanes, stencil1d_resident):
     _wrapper.launches = _wrapper.launches_f64 = 0
 del _wrapper
 stencil1d_lanes_step.launches_lanes = 0
-stencil1d_resident.launches_run = 0
+stencil1d_resident_lanes.launches_run = stencil1d_resident.launches_run = 0

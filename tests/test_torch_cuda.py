@@ -370,7 +370,28 @@ def test_3d_engine_runs_the_march_kernel(cuda, name, dtype, k):
         assert counter.launches_march == before[1]
 
 
+def _mixed_1d(r):
+    """A narrow spec of effective radius r whose d cycle through every kind of
+    the narrow plan (+d alone, -d alone, both unequal, neither, an equal pair;
+    d = r a pair), the centre nonzero (tests/test_torch_resident1d.py)."""
+    rng = np.random.default_rng(r)
+    w = rng.integers(1, 4, 2 * r + 1) * rng.choice([-1.0, 1.0], 2 * r + 1) / 256.0
+    taps = np.zeros(2 * r + 1)
+    taps[r] = w[r]
+    for d in range(1, r + 1):
+        kind = d % 5 if d < r else 0
+        if kind in (0, 1, 3):
+            taps[r + d] = w[r + d]
+        if kind in (2, 3):
+            taps[r - d] = w[r - d] if kind == 2 else -w[r + d]
+        if kind == 0:
+            taps[r - d] = w[r + d]
+    return engine.StencilEngine.for_coeffs(taps, (64,), name=f"m{r}", device="cpu").spec
+
+
 def _spec_1d(name):
+    if name.startswith("m"):
+        return _mixed_1d(int(name[1:]))
     if name == "r40":  # taps / 256: values stay finite over deep passes
         taps = np.random.default_rng(40).integers(-3, 4, 81) / 256.0
         return engine.StencilEngine.for_coeffs(taps, (64,), device="cpu").spec
@@ -488,6 +509,62 @@ def test_run_kernel_equals_its_twin_and_resident_kernel(cuda, name, n, dtype):
         assert torch.equal(x, keep)
 
 
+def _largest_lanes_1d(dtype):
+    spec = get_shape("1d1r")
+    n = stencil1d.RESIDENT_LANES_BYTES // dtype.itemsize // TILE_1D * TILE_1D
+    while not stencil1d.fits_resident_lanes(
+            Layout1D(n, 4, TILE_1D, guard_1d(4, 24)), dtype.itemsize):
+        n -= TILE_1D
+    return n
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name,n", [("1d1r", 3001), ("1d1r", 4096), ("1d2r", 4096),
+                                    ("m5", 4096), ("m9", 4096), ("m32", 4096), ("m16", 65_536),
+                                    ("m32", 65_536), ("1d1r", None)])
+def test_narrow_run_kernel_equals_its_twin_and_resident_kernel(cuda, name, n, dtype):
+    """#7 and #14 redesigned: the narrow run (run_kernel's narrow instances,
+    counted in launches_run) under the H100 plan, one block and four blocks
+    of two-step phases, over 1, 2, 7 and 2m + 3 steps, bit for bit against its
+    twin and the kernel it replaces (resident_kernel, a grid sync every
+    lanes_refresh steps) on the integer, pi/100 and inf fills; the registry
+    shapes take the instance of a plan of pairs only, the m specs (every kind
+    of d) the one of any plan, m9, m16 and m32 at the runtime radius; None: the
+    largest 1d1r grid under RESIDENT_LANES_BYTES (132 blocks)."""
+    spec = _spec_1d(name)
+    n = n or _largest_lanes_1d(dtype)
+    r = stencil1d.effective_radius(spec)
+    refresh = stencil1d.lanes_refresh(r)
+    lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], refresh * r))
+    assert stencil1d.fits_resident_lanes(lay, dtype.itemsize)
+    isz = dtype.itemsize
+    plan = stencil1d.run_plan(lay.rounded, r, stencil1d.lanes_products(spec), 64, isz,
+                              stencil1d._sm_count(cuda.index or 0))
+    plans = []
+    for blocks, m in ((4, 2), (1, 7)):  # where their windows fit a block
+        if 2 * (-(-lay.rounded // blocks) + 2 * m * r + 64) * isz <= 232448:
+            plans.append(stencil1d.make_run_plan(lay.rounded, r, isz, blocks, m))
+    w = stencil1d.stencil1d_resident_lanes
+    for fill in _fills_1d(reference.random_padded(spec, (n,), seed=3)):
+        x = lay.to_internal(fill, dtype, cuda)
+        keep = x.clone()
+        for steps in sorted({1, 2, 7, 2 * plan.m + 3}):
+            before = (w.launches_run, w.launches, w.launches_f64)
+            got = w(x, spec, lay, steps)
+            assert (w.launches_run - before[0],
+                    w.launches + w.launches_f64 - before[1] - before[2]) == (1, 1)
+            old = stencil1d._run(x, spec, lay, steps, refresh, True)
+            want = stencil1d.stencil1d_resident_lanes_plain(x, spec, lay, steps)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got, old, rtol=0, atol=0, equal_nan=True)
+            torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+            for other in plans:
+                got = stencil1d._lanes_run(x, spec, lay, steps, other)
+                torch.cuda.synchronize()
+                torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        assert torch.equal(x, keep)
+
+
 @pytest.mark.parametrize("name,n,kw,counter,launches", [
     ("1d1r", 4096, {}, "stencil1d_resident_lanes", {2: 1, 7: 1}),
     ("1d2r", 600_000, {}, "stencil1d_lanes_step", {2: 1, 7: 3}),
@@ -500,8 +577,11 @@ def test_1d_engine_counts_its_launches(cuda, name, n, kw, counter, launches):
     g0 = reference.random_padded(eng.spec, (n,), seed=1)
     for steps, expect in launches.items():
         before = fn.launches
+        before_run = getattr(fn, "launches_run", 0)
         out = eng.run(g0, steps)
         assert fn.launches - before == expect and out.is_cuda
+        if counter in ("stencil1d_resident_lanes", "stencil1d_resident"):  # run_kernel
+            assert fn.launches_run - before_run == expect
         want = reference.run(g0, eng.spec, steps)
         assert np.abs(out.cpu().numpy() - want).max() <= 1e-6 * np.abs(want).max()
 
@@ -511,10 +591,11 @@ def test_1d_refused_launches_raise(cuda):
     n = 4_000_000  # a resident chunk per SM too large for shared memory
     lay = Layout1D(n, 4, TILE_1D, guard_1d(4, 32))
     x = torch.zeros(lay.shape, device=cuda)
-    before = stencil1d.stencil1d_resident_lanes.launches
+    w = stencil1d.stencil1d_resident_lanes
+    before = (w.launches, w.launches_run)
     with pytest.raises(RuntimeError, match="resident launch failed"):
-        stencil1d.stencil1d_resident_lanes(x, spec, lay, 3)
-    assert stencil1d.stencil1d_resident_lanes.launches == before
+        w(x, spec, lay, 3)
+    assert (w.launches, w.launches_run) == before
     with pytest.raises(ValueError):
         stencil1d.stencil1d_step(x, torch.zeros(lay.shape), spec, lay)
 
@@ -591,8 +672,11 @@ def test_fp64_engine_counts_its_launches(cuda, tiled_2d, dtype, name, interior, 
     g1 = reference.random_padded(eng.spec, interior, seed=1) * (np.pi / 100)
     for steps, expect in launches.items():
         before = (counter.launches, counter.launches_f64)
+        before_run = getattr(counter, "launches_run", 0)
         out = eng.run(g1, steps)
         assert (counter.launches, counter.launches_f64 - before[1]) == (before[0], expect)
+        if counter is stencil1d.stencil1d_resident_lanes:  # run_kernel, float64
+            assert counter.launches_run - before_run == expect
         assert out.is_cuda and out.dtype == torch.float64
         want = reference.run(g1, eng.spec, steps)
         assert np.abs(out.cpu().numpy() - want).max() <= 1e-13 * np.abs(want).max()
