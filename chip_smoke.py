@@ -254,7 +254,28 @@ Phases, each printing one line or more and raising on failure:
    shares of them; the wide 1-D pass at float64 r = 40 x 100,000 and
    float32 1d2r 1,000,000 (k = 2), and at float64 r = 40 x 16,777,216 (134
    MB a buffer), each beside one ``F.conv1d`` step, its bound and its
-   share of it.
+   share of it;
+21. the ghost boundaries, periodic and reflect (ROADMAP A6(a)): each
+   kernel that gained a bounds branch (the fused strip kernel, the tile
+   kernel's fused levels in float32 and float64, the march kernel at K = 2
+   in both dtypes, the general 3-D kernel at K = 4, ``lanes_kernel``,
+   ``wide_kernel`` in both dtypes, ``pass_kernel<double>`` at k = 2), one
+   pass with the engine's ghost bounds on a ring its refresh filled, bit
+   for bit against its twin with the same bounds (the 0/1 fill) and within
+   rel 1e-6 (float64 1e-13) of the float64 ground truth's k steps, each
+   launch counted; then the ring paths through ``StencilEngine``'s default
+   dispatch in both modes -- star2d1r 8192^2 x 256, star2d3r 8192^2 x 64
+   (the fused strip kernel), star3d1r and box3d1r 256^3 x 64 (the march
+   kernel at k = 2), 1d2r 16,777,216 x 256 (``lanes_kernel`` at k = 3),
+   1d1r 4096 x 64 (``wide_kernel`` at k = 4: no run under a ghost
+   boundary), df64 star2d1r 8192^2 x 32 and df64 1d2r 16,777,216 x 256 --
+   ``run(.., 2)`` of the integer fill bit for bit against a float64 dense
+   stencil with ``torch.roll`` wrap or a symmetric pad on the card and
+   ``run(.., 4)`` of the pi/100 fill within rel 1e-5 (df64 1e-13),
+   launches counted from zero (the path's kernel, no whole-grid run); the
+   timed run beside the same run in dirichlet0 (its own default dispatch),
+   in turns, and the ring refresh alone, per call, as a CUDA graph and
+   eagerly; a ``{"ghost": [...]}`` line of the records.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -2770,7 +2791,7 @@ def bench_fp64_3d(device, card):
 # 1-8 and one for the rest; the wide sums, the narrow ones of a plan of
 # pairs only, and any narrow plan's), csrc/stencil3d.cu
 # march_kernel (float and double, radius 1-2, K = 1-2, star3d1r's and
-# box3d1r's term kinds): {kernel: (source, the pattern of the mangled names
+# box3d1r's term kinds, and at K = 2 a ghost ring's box or not): {kernel: (source, the pattern of the mangled names
 # ptxas reports, what the instantiation's numbers are)}.  A mangled name carries its length before it
 # ("12strip_kernel"), which keeps strip_kernel's pattern off
 # "18fused_strip_kernel".
@@ -2787,8 +2808,8 @@ PTXAS_KERNELS = {
                    "type,R,form: 0 wide, 2 pairs, 3 mixed"),
     "march_kernel": (
         "stencil3d",
-        r"march_kernelI([fd])Li(\d)ELi(\d)ELi(\d)ELi(\d+)ELb([01])E",
-        "type,R,K,terms,kinds,16-byte"),
+        r"march_kernelI([fd])Li(\d)ELi(\d)ELi(\d)ELi(\d+)ELb([01])ELb([01])E",
+        "type,R,K,terms,kinds,16-byte,box"),
     "resident_smem_kernel": (
         "resident2d", r"resident_smem_kernelI([fd])Li(\d)EEE", "type,R")}
 
@@ -2898,6 +2919,251 @@ def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms,
                          library_steps=1, shape=f"float64 {name} {n}")
         del x, donor
     return large
+
+
+# Phase 21: the ghost boundaries (ROADMAP A6(a)).  Each ring path at the
+# size of the path it extends: (shape, interior, engine options, steps of
+# the timed run, the counter its kernel launches count in).
+GHOST_MODES = ("periodic", "reflect")
+GHOST_PATHS = (
+    ("star2d1r", INTERIOR, {}, 256, "stencil2d_k1"),
+    ("star2d3r", INTERIOR, {}, 64, "stencil2d_fused_strip"),
+    ("star3d1r", INTERIOR_3D, {}, 64, "stencil3d_march"),
+    ("box3d1r", INTERIOR_3D, {}, 64, "stencil3d_march"),
+    ("1d2r", (N_1D_LARGE,), {}, 256, "stencil1d_lanes"),
+    ("1d1r", (N_1D_SMALL,), {}, 64, "stencil1d_step"),
+    ("star2d1r", INTERIOR, {"dtype": "df64"}, 32, "df64_step"),
+    ("1d2r", (N_1D_LARGE,), {"dtype": "df64"}, 256, "df64_1d_step"),
+)
+# the whole-grid runs' counters: none may count under a ghost boundary
+RUN_COUNTERS = ("stencil2d_resident", "stencil2d_resident_pair",
+                "stencil1d_resident_lanes", "stencil1d_resident",
+                "stencil1d_resident_f64", "stencil1d_resident_pair",
+                "stencil1d_run", "stencil1d_lanes_run")
+# each kernel that gained a bounds branch: (kernel, shape, interior, dtype,
+# engine options for the fused depth, that depth, the counter its launch
+# counts in)
+GHOST_KERNELS = (
+    ("fused_strip_kernel", "star2d3r", (1000, 1000), "float32", {}, 2,
+     "stencil2d_fused_strip"),
+    ("step_kernel<float> fused", "star2d1r", (1000, 1000), "float32",
+     {"fused_steps": 2}, 2, "stencil2d"),
+    ("step_kernel<float> fused", "box2d3r", (300, 140), "float32",
+     {"fused_steps": 3}, 3, "stencil2d"),
+    ("step_kernel<double> fused", "star2d1r", (1000, 1000), "float64",
+     {"fused_steps": 2}, 2, "df64_step"),
+    ("march_kernel<float> K=2", "star3d1r", (37, 45, 130), "float32", {}, 2,
+     "stencil3d_march"),
+    ("march_kernel<float> K=2", "box3d1r", (37, 45, 130), "float32", {}, 2,
+     "stencil3d_march"),
+    ("march_kernel<double> K=2", "box3d1r", (37, 45, 130), "float64", {}, 2,
+     "stencil3d_march"),
+    ("stencil3d_kernel<float> K=4", "star3d1r", (37, 45, 130), "float32",
+     {"fused_steps_3d": 4}, 4, "stencil3d"),
+    ("lanes_kernel", "1d2r", (N_1D,), "float32", {}, 3, "stencil1d_lanes"),
+    ("wide_kernel<float>", "1d1r", (N_1D_SMALL,), "float32", {}, 4,
+     "stencil1d_step"),
+    ("wide_kernel<double>", "1d1r", (N_1D_SMALL,), "float64", {}, 2,
+     "df64_1d_flat_step"),
+    ("pass_kernel<double>", "1d2r", (N_1D,), "float64", {}, 2,
+     "df64_1d_step"),
+)
+
+
+def ghost_dense(padded, spec, steps, mode):
+    """``steps`` of the dense stencil in float64 on the card under a ghost
+    boundary, the ground truth's way (``utils/reference.run_periodic`` /
+    ``run_reflect``): each step ``torch.roll`` wrap (periodic) or a
+    symmetric pad of the radius (reflect) of the interior; the halo of the
+    result is zero."""
+    from lorastencil_tpu_torch.utils import reference
+
+    it = reference.interior_slices(spec, tuple(padded.shape))
+    g = padded[it].double()
+    S = spec.dense_coeffs()
+    r = spec.radius
+    taps = [(tuple(int(i) for i in idx), float(S[tuple(idx)]))
+            for idx in np.argwhere(np.abs(S) > 0)]
+    for _ in range(steps):
+        acc = torch.zeros_like(g)
+        if mode == "periodic":
+            for idx, w in taps:
+                acc += w * torch.roll(g, tuple(r - i for i in idx),
+                                      tuple(range(g.ndim)))
+        else:
+            gp = g
+            for a in range(g.ndim):
+                n = gp.shape[a]
+                gp = torch.cat([gp.narrow(a, 0, r).flip(a), gp,
+                                gp.narrow(a, n - r, r).flip(a)], a)
+            for idx, w in taps:
+                acc += w * gp[tuple(slice(i, i + s)
+                                    for i, s in zip(idx, g.shape))]
+        g = acc
+    out = torch.zeros(padded.shape, dtype=torch.float64, device=padded.device)
+    out[it] = g
+    return out
+
+
+def check_ghost_kernels(device):
+    """Phase 21 (a): each kernel that gained a bounds branch, launched by its
+    wrapper with the engine's ghost bounds on a buffer whose ring the
+    engine's refresh filled: one pass, all its levels, bit for bit against
+    its twin with the same bounds on the card (the 0/1 fill, as phase 14's:
+    the float32 kernels fuse multiply-adds) and within rel 1e-6 (float64
+    1e-13) of the float64 ground truth's k steps; returns {kernel:
+    launches}."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.ops import stencil3d as s3
+    from lorastencil_tpu_torch.utils import reference
+
+    launched = {}
+    for kernel, name, interior, dtype, kw, k, counter in GHOST_KERNELS:
+        spec = get_shape(name)
+        g0 = reference.random_padded(spec, interior, seed=21) % 2
+        tol = 1e-13 if dtype == "float64" else 1e-6
+        for mode in GHOST_MODES:
+            eng = engine.StencilEngine.for_shape(
+                name, interior, device=device, boundary=mode, dtype=dtype,
+                **kw)
+            if eng._fused_k() != k:
+                raise AssertionError(f"{kernel}: the engine's k is "
+                                     f"{eng._fused_k()}, not {k}")
+            x = eng._ring_refresh(eng.to_internal(g0), mode)
+            bounds = eng._ghost_bounds()
+            if spec.ndim == 1:
+                wrapper = (s1.stencil1d_lanes_step if eng.path == "lanes"
+                           else s1.stencil1d_step)
+                twin = (s1.stencil1d_lanes_step_plain if eng.path == "lanes"
+                        else s1.stencil1d_step_plain)
+            elif spec.ndim == 2:
+                wrapper, twin = s2.stencil2d_step, s2.stencil2d_step_plain
+            else:
+                wrapper, twin = s3.stencil3d_step, s3.stencil3d_step_plain
+            reset_counts()
+            got = wrapper(x, torch.zeros_like(x), spec, eng.layout,
+                          fused_steps=k, bounds=bounds)
+            torch.cuda.synchronize()
+            c = counts()
+            if c[counter] != 1 or (kernel.startswith("step_kernel<float>")
+                                   and c["stencil2d_fused_strip"]) or (
+                    kernel.startswith("stencil3d_kernel")
+                    and c["stencil3d_march"]):
+                raise AssertionError(f"{kernel} {name} {mode}: launches "
+                                     f"{c}")
+            launched[kernel] = launched.get(kernel, 0) + c[counter]
+            same_bits(got, twin(x, torch.zeros_like(x), spec, eng.layout, k,
+                                bounds), f"{kernel} {name} {mode} vs twin")
+            want = ghost_dense(torch.from_numpy(g0).to(device), spec, k, mode)
+            rel = float((eng.from_internal(got).double() - want).abs().max()
+                        / want.abs().max())
+            if not rel <= tol:
+                raise AssertionError(f"{kernel} {name} {mode}: one pass "
+                                     f"off {k} steps of the float64 ground "
+                                     f"truth by rel {rel:.3e}")
+    return launched
+
+
+def ghost_paths(device, card):
+    """Phase 21 (b): each ring path of ``GHOST_PATHS`` through the engine's
+    default dispatch in both modes: ``run(.., 2)`` of the integer fill bit
+    for bit against ``ghost_dense`` on the card and ``run(.., 4)`` of the
+    pi/100 fill within rel 1e-5 (df64 1e-13), the launches of both counted
+    from zero (the path's kernel launched, no whole-grid run); the timed
+    run beside the same run in dirichlet0 (its own default dispatch: a run
+    where the grid is small), in turns, and the ring refresh alone, per
+    call, as a CUDA graph (device) and eagerly (wall: the best of 20 calls,
+    each between CUDA events).  Returns the records."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+    from lorastencil_tpu_torch.utils import metrics, reference
+
+    def wall_ms(fn, repeats=1):
+        # CUDA events around one call: the host's work is in it where the
+        # device waits for it
+        return metrics.time_run(fn, repeats=repeats, warmup=0)[0] * 1e3
+
+    records = []
+    for name, interior, kw, steps, counter in GHOST_PATHS:
+        spec = get_shape(name)
+        dtype = kw.get("dtype", "float32")
+        tol = 1e-13 if dtype == "df64" else 1e-5
+        g0 = reference.random_padded(spec, interior, seed=22)
+        gdev = torch.from_numpy(g0).to(device)
+        engines = {mode: engine.StencilEngine.for_shape(
+            name, interior, device=device, boundary=mode, **kw)
+            for mode in ("dirichlet0",) + GHOST_MODES}
+        rec = {"shape": name, "interior": list(interior), "dtype": dtype,
+               "steps": steps, "card": card}
+        for mode in GHOST_MODES:
+            eng = engines[mode]
+            reset_counts()
+            out = eng.run(g0, 2)
+            torch.cuda.synchronize()
+            c2 = counts()
+            want = ghost_dense(gdev, spec, 2, mode)
+            if not torch.equal(out.double(), want):
+                bad = (out.double() != want).sum().item()
+                raise AssertionError(f"{name} {interior} {dtype} {mode}: "
+                                     f"run(2) differs from the float64 "
+                                     f"ground truth at {bad} cells")
+            del out, want
+            g1 = g0 * (np.pi / 100)
+            reset_counts()
+            out = eng.run(g1, 4)
+            torch.cuda.synchronize()
+            c4 = counts()
+            want = ghost_dense(torch.from_numpy(g1).to(device), spec, 4, mode)
+            rel = float((out.double() - want).abs().max()
+                        / want.abs().max())
+            if not rel <= tol:
+                raise AssertionError(f"{name} {interior} {dtype} {mode}: "
+                                     f"run(4) rel err {rel:.3e} > {tol}")
+            del out, want
+            for c in (c2, c4):
+                if not c[counter] or any(c[r] for r in RUN_COUNTERS):
+                    raise AssertionError(f"{name} {mode}: launches {c}")
+            rec[mode] = {"path": eng.path, "k": eng._fused_k(),
+                         "ring_depth": eng._ring_depth(),
+                         "launches_run2": c2[counter],
+                         "launches_run4": c4[counter], "rel_err_4": rel}
+        # the timed runs, in turns, and their launches counted from zero
+        states = {mode: e.to_internal(g0) for mode, e in engines.items()}
+        fns = {mode: (lambda e=e, s=states[mode]: e.run_internal(s, steps))
+               for mode, e in engines.items()}
+        best = {mode: float("inf") for mode in fns}
+        for mode, fn in fns.items():  # warm up
+            fn()
+        order = list(fns)
+        for turn in range(3):
+            for mode in (order if turn % 2 == 0 else order[::-1]):
+                best[mode] = min(best[mode], wall_ms(fns[mode]))
+        for mode in fns:
+            reset_counts()
+            fns[mode]()
+            torch.cuda.synchronize()
+            c = counts()
+            if mode != "dirichlet0" and (not c[counter] or any(
+                    c[r] for r in RUN_COUNTERS)):
+                raise AssertionError(f"{name} {mode} x{steps}: launches {c}")
+            launches = {k: v for k, v in c.items() if v}
+            rec.setdefault(mode, {}).update(
+                {"run_ms": best[mode], "launches": launches})
+        passes = rec["periodic"]["launches"][counter]
+        for mode in GHOST_MODES:
+            eng = engines[mode]
+            buf = states[mode].clone()
+            rec[mode]["refresh_graph_ms"] = graph_ms(
+                lambda e=eng, b=buf, m=mode: e._ring_refresh(b, m))
+            rec[mode]["refresh_wall_ms"] = wall_ms(
+                lambda e=eng, b=buf, m=mode: e._ring_refresh(b, m), 20)
+            rec[mode]["refreshes_per_run"] = passes + 1
+        del states
+        records.append(rec)
+    return records
 
 
 def loaded_reference_modules():
@@ -3173,6 +3439,27 @@ def main() -> int:
     wide_large = redesigned(device, card, builds, (ms2, plain_ms2, tile_ms2),
                             lib2, timing_fp64["df64_step"], march_ms,
                             timing_1d)
+
+    ghost_launches = check_ghost_kernels(device)
+    print(f"phase 21: each kernel that gained a bounds branch, with the "
+          f"engine's ghost bounds on a ring the refresh filled, bit for bit "
+          f"against its twin and k steps of the float64 ground truth "
+          f"(integer fill, periodic and reflect): launches "
+          f"{ghost_launches}", flush=True)
+    ghost = ghost_paths(device, card)
+    for rec in ghost:
+        line = {m: {k: rec[m][k] for k in ("run_ms", "launches")}
+                for m in ("dirichlet0",) + GHOST_MODES}
+        for m in GHOST_MODES:
+            line[m].update({k: rec[m][k] for k in (
+                "path", "k", "ring_depth", "rel_err_4", "refresh_graph_ms",
+                "refresh_wall_ms", "refreshes_per_run")})
+        print(f"phase 21: {rec['shape']} {tuple(rec['interior'])} "
+              f"{rec['dtype']} x{rec['steps']}: run(2) bit-exact against "
+              f"the float64 wrap / mirror stencil on the card, run(4) "
+              f"within rel {'1e-13' if rec['dtype'] == 'df64' else '1e-5'}, "
+              f"no whole-grid run; {json.dumps(line)} [{card}]", flush=True)
+    print(json.dumps({"ghost": ghost}), flush=True)
 
     loaded = loaded_reference_modules()
     if loaded:

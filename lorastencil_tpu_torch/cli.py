@@ -6,7 +6,8 @@
 
 Counterpart of ``lorastencil_tpu/cli.py``: the same positional arguments,
 fill modes and ``--check`` (the port's fp64 ground truth,
-``utils/reference.py``, compared in float64 at the JAX CLI's tolerance
+``utils/reference.py``, of the ``--boundary`` given: ``run``,
+``run_periodic`` or ``run_reflect``, compared in float64 at the JAX CLI's tolerance
 per dtype relative to the grid's largest value: 1e-5 for float32, 1e-12
 for float64, 1e-11 for df64), plus ``--device cuda|cpu``.  ``--dtype
 float64`` and ``df64`` run the fp64-grade tier for 1-D, 2-D and 3-D
@@ -135,7 +136,8 @@ def main(argv=None) -> int:
         print("INFO: not timed (--device cpu runs the plain PyTorch "
               "twins; timing needs a CUDA device)", flush=True)
     if args.check:
-        return _check(spec, grid0, steps, eng.run, args.dtype)
+        return _check(spec, grid0, steps, eng.run, args.dtype,
+                      args.boundary)
     return 0
 
 
@@ -144,11 +146,18 @@ def main(argv=None) -> int:
 TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "df64": 1e-11}
 
 
-def _check(spec, grid0, steps, run_fn, dtype: str = "float32") -> int:
+def _check(spec, grid0, steps, run_fn, dtype: str = "float32",
+           boundary: str = "dirichlet0") -> int:
     """fp64 ground-truth comparison, in float64, at the JAX CLI's
-    tolerance for ``dtype`` (``lorastencil_tpu/cli.py`` ``_check``)."""
+    tolerance for ``dtype`` (``lorastencil_tpu/cli.py`` ``_check``),
+    against the ground truth of ``boundary``."""
     print("\nChecking correctness ...", flush=True)
-    want = reference.run(grid0, spec, steps)
+    if boundary == "periodic":
+        want = reference.run_periodic(grid0, spec, steps)
+    elif boundary == "reflect":
+        want = reference.run_reflect(grid0, spec, steps)
+    else:
+        want = reference.run(grid0, spec, steps)
     got = run_fn(grid0, steps).cpu().numpy().astype(np.float64)
     scale = max(1.0, float(np.abs(want).max()))
     state = np.float32 if dtype == "float32" else np.float64

@@ -26,7 +26,10 @@
 // chip_smoke.py and the card tests hold lanes_kernel and run_kernel against.
 // Every substep computes out[f] = sum_{|d| <= r} taps[r + d] * in[f + d] (r
 // the effective radius: the taps come trimmed of their zero ends) and zeroes
-// every cell outside the interior [0, n), the reference's halo decay.
+// every cell outside the interior [0, n), the reference's halo decay; under
+// a ghost boundary (periodic, reflect) a pass's substeps before the last keep
+// [lo, hi), the interior and the ring the host refilled (the JAX kernels'
+// `bounds`).
 //
 // The order of each sum, which the plain twins in ops/stencil1d.py repeat:
 // the centre, then d = 1..r; narrow (passes and runs) adds an equal pair
@@ -192,17 +195,24 @@ __device__ __forceinline__ T tap_sum(const T* x, const T* t, int r) {
 
 // `steps` masked substeps on shared buffers a -> b -> a ...: `a` holds
 // interior cells [f0 - steps*r, f0 + len + steps*r) on entry; returns the
-// buffer holding cells [f0, f0 + len) at offset steps*r.
-template <typename T, int R, bool kPairs>
+// buffer holding cells [f0, f0 + len) at offset steps*r.  Every substep keeps
+// the interior [0, n); with kBox those before the last keep [lo, hi) instead
+// (the interior and, under a ghost boundary, the ring the host refilled: the
+// JAX kernels' `bounds`): the ring the last would keep is refilled before
+// the next pass reads it.
+template <typename T, int R, bool kPairs, bool kBox>
 __device__ __forceinline__ T* substeps(T* a, T* b, const T* t, int r,
-                                       int steps, int f0, int len, int n) {
+                                       int steps, int f0, int len, int n,
+                                       int lo, int hi) {
   const int H = steps * r;
   for (int s = 1; s <= steps; ++s) {
     const int e = (steps - s) * r;  // this level's extent beyond the cells
+    const bool box = kBox && s < steps;
     for (int i = H - e + threadIdx.x; i < H + len + e; i += kThreads) {
       const int f = f0 - H + i;
       const T v = tap_sum<T, R, kPairs>(a + i, t, r);
-      b[i] = (f >= 0 && f < n) ? v : T(0);
+      const bool in = box ? f >= lo && f < hi : f >= 0 && f < n;
+      b[i] = in ? v : T(0);
     }
     __syncthreads();
     T* tmp = a;
@@ -212,11 +222,11 @@ __device__ __forceinline__ T* substeps(T* a, T* b, const T* t, int r,
   return a;
 }
 
-template <typename T, int R, bool kPairs>
+template <typename T, int R, bool kPairs, bool kBox>
 __global__ void __launch_bounds__(kThreads)
 pass_kernel(const T* __restrict__ in, T* __restrict__ out,
             const T* __restrict__ taps, int r, int k, int len, int origin,
-            int n) {
+            int n, int lo, int hi) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int H = k * r;
@@ -240,9 +250,10 @@ pass_kernel(const T* __restrict__ in, T* __restrict__ out,
     T t[2 * R + 1];
 #pragma unroll
     for (int p = 0; p < 2 * R + 1; ++p) t[p] = s_taps[p];
-    res = substeps<T, R, kPairs>(a, b, t, r, k, t0, kTile, n);
+    res = substeps<T, R, kPairs, kBox>(a, b, t, r, k, t0, kTile, n, lo, hi);
   } else {
-    res = substeps<T, 0, kPairs>(a, b, s_taps, r, k, t0, kTile, n);
+    res = substeps<T, 0, kPairs, kBox>(a, b, s_taps, r, k, t0, kTile, n, lo,
+                                       hi);
   }
   T* dst = out + origin + t0;
   for (int i = tid; i < kTile; i += kThreads) dst[i] = res[H + i];
@@ -293,12 +304,13 @@ __host__ __device__ constexpr int wide_cells(int tile, int H, int k) {
 }
 
 // k masked substeps over a tile of `tile` cells (blockDim.x * chains<T>());
-// the last one written to `out`.
+// the last one, masked to [0, n), written to `out`, the others masked to
+// [lo, hi) (see substeps).
 template <typename T>
 __global__ void __launch_bounds__(kTile / chains<T>())
 wide_kernel(const T* __restrict__ in, T* __restrict__ out,
             const __grid_constant__ WideTaps<T> taps, int r, int k, int len,
-            int origin, int n, int tile) {
+            int origin, int n, int tile, int lo, int hi) {
   constexpr int V = 16 / static_cast<int>(sizeof(T));
   constexpr int K = chains<T>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -334,21 +346,22 @@ wide_kernel(const T* __restrict__ in, T* __restrict__ out,
   T* spare = smem + a_cells;
   for (int s = 1; s <= k; ++s) {
     const int e = (k - s) * r;  // this level's extent beyond the tile
-    const int lo = H - e;
+    const int first = H - e;
     const int cnt = tile + 2 * e;
+    const int a_lo = s == k ? 0 : lo, a_hi = s == k ? n : hi;
     T* dst = spare;
     for (int base = 0; base < cnt; base += K * nt) {
       int idx[K];
 #pragma unroll
       for (int c = 0; c < K; ++c)
-        idx[c] = lo + min(base + c * nt + tid, cnt - 1);
+        idx[c] = first + min(base + c * nt + tid, cnt - 1);
       T acc[K];
       wide_sums(src, idx, taps, acc);
 #pragma unroll
       for (int c = 0; c < K; ++c) {
         if (base + c * nt + tid >= cnt) continue;
         const int f = t0 + idx[c] - H;  // interior coordinate
-        const T v = (f >= 0 && f < n) ? acc[c] : T(0);
+        const T v = (f >= a_lo && f < a_hi) ? acc[c] : T(0);
         if (s == k) {
           out[origin + f] = v;
         } else {
@@ -580,27 +593,28 @@ __device__ __forceinline__ void window_sums(const T* x, const TapPlan<T>& pl,
   }
 }
 
-// 0 for the cells of the group at interior cell f0 outside [0, n).
+// 0 for the cells of the group at interior cell f0 outside [lo, hi).
 __device__ __forceinline__ void lanes_mask(float (&acc)[kLanesV], int f0,
-                                           int n) {
-  if (f0 >= 0 && f0 + kLanesV <= n) return;
+                                           int lo, int hi) {
+  if (f0 >= lo && f0 + kLanesV <= hi) return;
 #pragma unroll
   for (int c = 0; c < kLanesV; ++c)
-    if (f0 + c < 0 || f0 + c >= n) acc[c] = 0.0f;
+    if (f0 + c < lo || f0 + c >= hi) acc[c] = 0.0f;
 }
 
 // k masked substeps over a tile of `tile` = blockDim.x * kLanesV cells.  The
 // tile and E = k*r rounded up to whole groups on each side are staged at
 // a[P + i] (staged cell i: interior cell t0 - E + i); substep s computes
 // the groups that cover the tile and (k - s) * r cells each side, a -> b
-// -> a ...; the last one goes to `out`.  Cells a group computes beyond what
+// -> a ..., masked to [lo, hi); the last one, masked to [0, n), goes to
+// `out` (see substeps).  Cells a group computes beyond what
 // its substep needs read the unwritten ends of a window: their values are
 // never read by a cell that is kept.
 template <int R>
 __global__ void __launch_bounds__(kLanesMaxThreads)
 lanes_kernel(const float* __restrict__ in, float* __restrict__ out,
              const __grid_constant__ TapPlan<float> pl, int r, int k,
-             int len, int origin, int n, int tile, int vec) {
+             int len, int origin, int n, int tile, int vec, int lo, int hi) {
   constexpr int V = kLanesV;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int nt = blockDim.x;
@@ -638,7 +652,7 @@ lanes_kernel(const float* __restrict__ in, float* __restrict__ out,
     for (int q = (E - e) / V + tid; q < q_end; q += nt) {
       float acc[V];
       window_sums<float, R, V, kPairBranch>(src + P + q * V, pl, r, acc);
-      lanes_mask(acc, t0 - E + q * V, n);
+      lanes_mask(acc, t0 - E + q * V, lo, hi);
       store16(dst + P + q * V, acc);
       store16(dst + P + q * V + 4, acc + 4);
     }
@@ -651,7 +665,7 @@ lanes_kernel(const float* __restrict__ in, float* __restrict__ out,
   float acc[V];
   window_sums<float, R, V, kPairBranch>(src + P + E + tid * V, pl, r, acc);
   const int f0 = t0 + tid * V;
-  lanes_mask(acc, f0, n);
+  lanes_mask(acc, f0, 0, n);
   float* o = out + origin + f0;
   if (vec) {
     store16(o, acc);
@@ -963,9 +977,10 @@ resident_kernel(const T* in, T* out0, T* out1, const T* __restrict__ taps,
     __syncthreads();
     T* res;
     if constexpr (R > 0) {
-      res = substeps<T, R, kPairs>(a, b, t, r, ks, c0, C, n);
+      res = substeps<T, R, kPairs, false>(a, b, t, r, ks, c0, C, n, 0, n);
     } else {
-      res = substeps<T, 0, kPairs>(a, b, s_taps, r, ks, c0, C, n);
+      res = substeps<T, 0, kPairs, false>(a, b, s_taps, r, ks, c0, C, n, 0,
+                                          n);
     }
     T* dst = (phase & 1) ? out1 : out0;
     for (int i = tid; i < C; i += kThreads) dst[origin + c0 + i] = res[H + i];
@@ -985,17 +1000,33 @@ int set_smem(const void* kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename T, int R, bool kPairs>
-int launch_pass(const T* in, T* out, const T* taps, int r, int k, int len,
-                int origin, int n, int rounded, cudaStream_t stream) {
+template <typename T, int R, bool kPairs, bool kBox>
+int launch_pass_box(const T* in, T* out, const T* taps, int r, int k,
+                    int len, int origin, int n, int rounded, int lo, int hi,
+                    cudaStream_t stream) {
   const size_t halo = 2 * static_cast<size_t>(k) * r;
   const size_t smem = sizeof(T) * (kTapSlots + 2 * (kTile + halo));
   const int e = set_smem(reinterpret_cast<const void*>(
-                             pass_kernel<T, R, kPairs>), smem);
+                             pass_kernel<T, R, kPairs, kBox>), smem);
   if (e != 0) return e;
-  pass_kernel<T, R, kPairs><<<rounded / kTile, kThreads, smem, stream>>>(
-      in, out, taps, r, k, len, origin, n);
+  pass_kernel<T, R, kPairs, kBox>
+      <<<rounded / kTile, kThreads, smem, stream>>>(in, out, taps, r, k, len,
+                                                    origin, n, lo, hi);
   return static_cast<int>(cudaGetLastError());
+}
+
+// A box that is not the interior (a ghost boundary's ring, at k >= 2) takes
+// the kBox instance.
+template <typename T, int R, bool kPairs>
+int launch_pass(const T* in, T* out, const T* taps, int r, int k, int len,
+                int origin, int n, int rounded, int lo, int hi,
+                cudaStream_t stream) {
+  if (k > 1 && (lo != 0 || hi != n))
+    return launch_pass_box<T, R, kPairs, true>(in, out, taps, r, k, len,
+                                               origin, n, rounded, lo, hi,
+                                               stream);
+  return launch_pass_box<T, R, kPairs, false>(in, out, taps, r, k, len, origin,
+                                              n, rounded, lo, hi, stream);
 }
 
 // A wide pass: the host's nonzero taps (off[i], w[i]), i < n_taps, copied
@@ -1003,7 +1034,7 @@ int launch_pass(const T* in, T* out, const T* taps, int r, int k, int len,
 template <typename T>
 int launch_wide(const T* in, T* out, const int* off, const T* w, int n_taps,
                 int r, int k, int len, int origin, int n, int rounded,
-                int tile, cudaStream_t stream) {
+                int tile, int lo, int hi, cudaStream_t stream) {
   if (n_taps < 0 || n_taps > 2 * r + 1 || (n_taps > 0 && (!off || !w)) ||
       (tile != 256 && tile != 512 && tile != 1024 && tile != kTile))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1020,7 +1051,7 @@ int launch_wide(const T* in, T* out, const int* off, const T* w, int n_taps,
       set_smem(reinterpret_cast<const void*>(wide_kernel<T>), smem);
   if (e != 0) return e;
   wide_kernel<T><<<rounded / tile, tile / chains<T>(), smem, stream>>>(
-      in, out, taps, r, k, len, origin, n, tile);
+      in, out, taps, r, k, len, origin, n, tile, lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1062,7 +1093,7 @@ template <int R>
 int launch_lanes(const float* in, float* out, const TapPlan<float>& pl,
                  int r,
                  int k, int len, int origin, int n, int rounded, int tile,
-                 cudaStream_t stream) {
+                 int lo, int hi, cudaStream_t stream) {
   const int E = (k * r + kLanesV - 1) / kLanesV * kLanesV;
   const size_t smem =
       sizeof(float) * 2 * (tile + 2 * E + 2 * window_pad<float>(R > 0 ? R : r));
@@ -1072,7 +1103,7 @@ int launch_lanes(const float* in, float* out, const TapPlan<float>& pl,
   const int vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(out) % 16 == 0 && origin % 4 == 0;
   lanes_kernel<R><<<rounded / tile, tile / kLanesV, smem, stream>>>(
-      in, out, pl, r, k, len, origin, n, tile, vec);
+      in, out, pl, r, k, len, origin, n, tile, vec, lo, hi);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1080,9 +1111,11 @@ int launch_lanes(const float* in, float* out, const TapPlan<float>& pl,
 // for d = 1..r; the centre's weight c where `centre`), tiles of `tile` cells.
 int lanes(const float* in, float* out, const int* kinds, const float* wp,
           const float* wm, int centre, float c, int r, int k, int len,
-          int origin, int n, int rounded, int tile, void* stream) {
+          int origin, int n, int rounded, int tile, int lo, int hi,
+          void* stream) {
   if (r < 1 || r > kLanesMaxReach || k < 1 || k * r > kLanesMaxReach ||
       n < 0 || rounded < n || rounded % kTile != 0 || origin < k * r ||
+      lo > 0 || hi < n ||
       origin + rounded > len || !kinds || !wp || !wm ||
       (tile != 256 && tile != 512 && tile != 1024 && tile != kTile))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1101,15 +1134,15 @@ int lanes(const float* in, float* out, const int* kinds, const float* wp,
   if (rounded == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (r) {
-    case 1: return launch_lanes<1>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
-    case 2: return launch_lanes<2>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
-    case 3: return launch_lanes<3>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
-    case 4: return launch_lanes<4>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
-    case 5: return launch_lanes<5>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
-    case 6: return launch_lanes<6>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
-    case 7: return launch_lanes<7>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
-    case 8: return launch_lanes<8>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
-    default: return launch_lanes<0>(in, out, pl, r, k, len, origin, n, rounded, tile, s);
+    case 1: return launch_lanes<1>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
+    case 2: return launch_lanes<2>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
+    case 3: return launch_lanes<3>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
+    case 4: return launch_lanes<4>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
+    case 5: return launch_lanes<5>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
+    case 6: return launch_lanes<6>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
+    case 7: return launch_lanes<7>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
+    case 8: return launch_lanes<8>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
+    default: return launch_lanes<0>(in, out, pl, r, k, len, origin, n, rounded, tile, lo, hi, s);
   }
 }
 
@@ -1271,22 +1304,25 @@ int launch_run_lanes(const T* in, T* out, unsigned long long* xch,
 
 // k fused steps over the rounded interior [0, rounded) of a buffer of `len`
 // cells whose interior starts at `origin`; `rounded` is whole 2048-cell
-// tiles.  Narrow takes the taps from `taps` (device); wide from the host's
-// nonzero pairs (wide_off, wide_w), in tiles of `tile` cells.
+// tiles; the substeps before the last keep [lo, hi).  Narrow takes the taps
+// from `taps` (device); wide from the host's nonzero pairs (wide_off,
+// wide_w), in tiles of `tile` cells.
 template <typename T>
 int pass(const T* in, T* out, const T* taps, const int* wide_off,
          const T* wide_w, int wide_n, int r, int k, int narrow, int len,
-         int origin, int n, int rounded, int tile, void* stream) {
+         int origin, int n, int rounded, int tile, int lo, int hi,
+         void* stream) {
   if (r < 0 || r > kMaxRadius || k < 1 || k > kMaxK || n < 0 ||
       rounded < n || rounded % kTile != 0 || origin < k * r ||
-      origin + rounded > len)
+      origin + rounded > len || lo > 0 || hi < n)
     return static_cast<int>(cudaErrorInvalidValue);
   if (rounded == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!narrow)
     return launch_wide(in, out, wide_off, wide_w, wide_n, r, k, len, origin,
-                       n, rounded, tile, s);
-  LS_NARROW(launch_pass, T, in, out, taps, r, k, len, origin, n, rounded, s);
+                       n, rounded, tile, lo, hi, s);
+  LS_NARROW(launch_pass, T, in, out, taps, r, k, len, origin, n, rounded, lo,
+            hi, s);
 }
 
 // All `steps` steps, the halo reloaded every `refresh` steps, into out0 and
@@ -1309,13 +1345,16 @@ int resident(const T* in, T* out0, T* out1, const T* taps, int r, int steps,
 
 }  // namespace
 
+// The passes' entries end with the cells [lo, hi) that the substeps before
+// the last keep (the interior [0, n), or it and a ghost ring).
 extern "C" int ls_stencil1d_pass(const float* in, float* out,
                                  const float* taps, int r, int k, int narrow,
                                  int len, int origin, int n, int rounded,
                                  void* stream, const int* wide_off,
-                                 const float* wide_w, int wide_n, int tile) {
+                                 const float* wide_w, int wide_n, int tile,
+                                 int lo, int hi) {
   return pass(in, out, taps, wide_off, wide_w, wide_n, r, k, narrow, len,
-              origin, n, rounded, tile, stream);
+              origin, n, rounded, tile, lo, hi, stream);
 }
 
 extern "C" int ls_stencil1d_pass_f64(const double* in, double* out,
@@ -1324,18 +1363,19 @@ extern "C" int ls_stencil1d_pass_f64(const double* in, double* out,
                                      int rounded, void* stream,
                                      const int* wide_off,
                                      const double* wide_w, int wide_n,
-                                     int tile) {
+                                     int tile, int lo, int hi) {
   return pass(in, out, taps, wide_off, wide_w, wide_n, r, k, narrow, len,
-              origin, n, rounded, tile, stream);
+              origin, n, rounded, tile, lo, hi, stream);
 }
 
 extern "C" int ls_stencil1d_lanes(const float* in, float* out,
                                   const int* kinds, const float* wp,
                                   const float* wm, int centre, float c, int r,
                                   int k, int len, int origin, int n,
-                                  int rounded, int tile, void* stream) {
+                                  int rounded, int tile, void* stream, int lo,
+                                  int hi) {
   return lanes(in, out, kinds, wp, wm, centre, c, r, k, len, origin, n,
-               rounded, tile, stream);
+               rounded, tile, lo, hi, stream);
 }
 
 // The input, the zeroed output buffer, the zeroed exchange words and their

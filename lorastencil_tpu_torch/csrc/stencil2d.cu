@@ -39,7 +39,10 @@
 // and every cell outside the true interior [0, m) x [0, n) becomes 0 (the
 // tile round-up cells, and at fused levels the halo and guard cells:
 // pallas_2d.py mask_to_interior), so the halo feeds step 1 only and then
-// decays, as the reference's step-by-step semantics require.  The guard ring
+// decays, as the reference's step-by-step semantics require.  Under a ghost
+// boundary (periodic, reflect) a fused pass's levels before the last keep the
+// interior and the ring the host refilled instead (Grid2D's box, the JAX
+// kernels' `bounds`); the last level keeps the interior.  The guard ring
 // of the output buffer is never written.  The order of each sum is the plain
 // twin's (ops/band_gemm.py apply_spec): per term the column conv, then the
 // row conv, taps in ascending offset, zero taps skipped; then the residue
@@ -316,12 +319,14 @@ __device__ __forceinline__ void next_cell(int& i, int& j, int cols) {
 // One step over a (rows x cols) extent in shared memory: dst(i, j) (row pitch
 // dp) from src (row pitch sp), whose cell (i + R, j + R) is the centre of
 // dst(i, j); a cell whose interior coordinates (gi0 + i, gj0 + j) lie outside
-// [0, m) x [0, n) becomes 0.  s_col takes (rows + 2R) x cols cells.  The sums
-// are tile_sums', cell for cell.  Contains barriers and ends with one.
+// the box [rlo, rhi) x [clo, chi) becomes 0: the interior [0, m) x [0, n), or
+// under a ghost boundary the interior and its ring (Grid2D's box).  s_col
+// takes (rows + 2R) x cols cells.  The sums are tile_sums', cell for cell.
+// Contains barriers and ends with one.
 template <typename T>
 __device__ void level(const T* src, int sp, T* dst, int dp, T* s_col,
                       int rows, int cols, const Plan<T>& pl, int gi0,
-                      int gj0, int m, int n) {
+                      int gj0, int rlo, int rhi, int clo, int chi) {
   const int R = pl.R;
   const int W = 2 * R + 1;
   const int i_first = threadIdx.x / cols;
@@ -382,7 +387,7 @@ __device__ void level(const T* src, int sp, T* dst, int dp, T* s_col,
     }
     const int gi = gi0 + i;
     const int gj = gj0 + j;
-    *d = (gi >= 0 && gi < m && gj >= 0 && gj < n) ? acc : T(0);
+    *d = (gi >= rlo && gi < rhi && gj >= clo && gj < chi) ? acc : T(0);
   }
   __syncthreads();
 }
@@ -392,6 +397,12 @@ struct Grid2D {
   int r0, c0;       // origin of interior cell (0, 0)
   int m, n;         // interior
   int mr, nr;       // rounded interior
+  // the box [lr, hr) x [lc, hc), interior coordinates, that a pass's fused
+  // levels before the last keep: the interior, or under a ghost boundary
+  // the interior and its ring, which the host refilled (the JAX kernels'
+  // `bounds`).  The last level keeps the interior whatever the box: the
+  // ring it would keep is refilled before the next pass reads it.
+  int lr, hr, lc, hc;
 };
 
 template <typename T>
@@ -403,9 +414,11 @@ __device__ __forceinline__ Plan<T> stage_plan(const T* plan, int plan_len,
 }
 
 // k steps per block tile: the step kernel (kFused false, k = 1) and the
-// fused one (kFused true, k >= 2), compiled apart so that the step kernel
+// fused one (kFused true, k >= 2; with kBox its levels before the last keep
+// Grid2D's box, a ghost boundary's ring, the instance without it being the
+// dirichlet0 pass's), compiled apart so that the step kernel
 // keeps no registers for the levels.
-template <typename T, int kTileRows, bool kFused>
+template <typename T, int kTileRows, bool kFused, bool kBox>
 __global__ void __launch_bounds__(kThreads)
 step_kernel(const T* __restrict__ in, T* __restrict__ out,
             const T* __restrict__ plan, int plan_len, int n_terms, int R,
@@ -439,8 +452,12 @@ step_kernel(const T* __restrict__ in, T* __restrict__ out,
   if constexpr (kFused) {
     for (int lv = 1, e = e1; lv < k; ++lv, e -= R) {
       T* dst = (lv % 2) ? s_b : s_a;
-      level(src, src_cols, dst, kTileCols + 2 * e, s_col, kTileRows + 2 * e,
-            kTileCols + 2 * e, pl, i0 - e, j0 - e, g.m, g.n);
+      if constexpr (kBox)
+        level(src, src_cols, dst, kTileCols + 2 * e, s_col, kTileRows + 2 * e,
+              kTileCols + 2 * e, pl, i0 - e, j0 - e, g.lr, g.hr, g.lc, g.hc);
+      else
+        level(src, src_cols, dst, kTileCols + 2 * e, s_col, kTileRows + 2 * e,
+              kTileCols + 2 * e, pl, i0 - e, j0 - e, 0, g.m, 0, g.n);
       src = dst;
       src_cols = kTileCols + 2 * e;
     }
@@ -511,7 +528,7 @@ skew_kernel(const T* __restrict__ in, T* __restrict__ out,
     for (int lv = 1; lv < k; ++lv) {
       const int cols = kTileCols + 2 * (k - lv) * R;
       level(src, src_cols, dst + 2 * R * cols, cols, s_col, B, cols, pl,
-            T0 + t * B - lv * R, j0 - (k - lv) * R, g.m, g.n);
+            T0 + t * B - lv * R, j0 - (k - lv) * R, 0, g.m, 0, g.n);
       src = dst;
       src_cols = cols;
       dst += band_rows * cols;
@@ -589,7 +606,8 @@ bool bad_args(int plan_len, int n_terms, int R, int n_res, const Grid2D& g,
   return R < 0 || R > kMaxRadius || n_terms < 0 || n_res < 0 ||
          plan_len > kMaxPlan || plan_len != n_terms * (2 + 2 * W) + 3 * n_res ||
          g.r0 < reach || g.c0 < reach || g.m < 0 || g.n < 0 || g.mr < g.m ||
-         g.nr < g.n || g.r0 + g.mr + reach > g.rows ||
+         g.nr < g.n || g.lr > 0 || g.hr < g.m || g.lc > 0 || g.hc < g.n ||
+         g.r0 + g.mr + reach > g.rows ||
          g.c0 + g.nr + reach > g.pitch ||
          (g.mr + tile_rows<T>() - 1) / tile_rows<T>() > kMaxGridY;
 }
@@ -1348,8 +1366,9 @@ __device__ __forceinline__ void column_convs(const StripPlan<float, R>& pl,
 // Level 1 is the strip kernel's step on the input ring; level L >= 2
 // takes level L - 1's row from registers, its neighbours' cells by
 // shuffles (lane_windows), and keeps its own register ring of column convs,
-// lagging level L - 1 by R rows.  Every level row is masked to the
-// interior, as level() does.  No residue (the plan's n_res is 0); KINDS
+// lagging level L - 1 by R rows.  Every level row is masked as level() does:
+// levels before the last to Grid2D's box, the last to the interior.  No
+// residue (the plan's n_res is 0); KINDS
 // holds the plan's flags.  `vec` and the launch bound as strip_kernel's.
 template <int R, int NT, int K, int KINDS>
 __global__ void __launch_bounds__(kStripWarps * 32, 1)
@@ -1497,10 +1516,18 @@ fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
             const int i = i0 - K * R + s + h - L * R;  // interior row
-            const bool row_in = i >= 0 && i < g.m;
+            if (L == K) {
+              const bool row_in = i >= 0 && i < g.m;
 #pragma unroll
-            for (int c = 0; c < 4; ++c)
-              v[h][c] = row_in && col_in[c] ? acc[h][c] : 0.0f;
+              for (int c = 0; c < 4; ++c)
+                v[h][c] = row_in && col_in[c] ? acc[h][c] : 0.0f;
+            } else {  // the box: compared here, no flags kept for it
+              const bool row_in = i >= g.lr && i < g.hr;
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                v[h][c] = row_in && j + c >= g.lc && j + c < g.hc ? acc[h][c]
+                                                                 : 0.0f;
+            }
           }
         }
         if (s < 2 * K * R || !stores) continue;
@@ -1612,20 +1639,32 @@ int launch_step(const T* in, T* out, const T* plan, int plan_len,
   if (k < 1 || bad_args<T>(plan_len, n_terms, R, n_res, g, k * R))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g.mr == 0 || g.nr == 0) return 0;
+  // a box that is not the interior (a ghost boundary's ring) takes kBox
+  const int form = k == 1 ? 0
+                   : (g.lr != 0 || g.hr != g.m || g.lc != 0 || g.hc != g.n)
+                       ? 2
+                       : 1;
   const void* kernel =
-      k > 1 ? reinterpret_cast<const void*>(step_kernel<T, kTileRows, true>)
-            : reinterpret_cast<const void*>(step_kernel<T, kTileRows, false>);
+      form == 2   ? reinterpret_cast<const void*>(
+                      step_kernel<T, kTileRows, true, true>)
+      : form == 1 ? reinterpret_cast<const void*>(
+                        step_kernel<T, kTileRows, true, false>)
+                  : reinterpret_cast<const void*>(
+                        step_kernel<T, kTileRows, false, false>);
   const size_t smem = sizeof(T) * step_cells<T>(k, R, plan_len);
   const int e = set_smem(kernel, smem);
   if (e != 0) return e;
   const dim3 grid((g.nr + kTileCols - 1) / kTileCols,
                   (g.mr + kTileRows - 1) / kTileRows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (k > 1)
-    step_kernel<T, kTileRows, true><<<grid, kThreads, smem, s>>>(
+  if (form == 2)
+    step_kernel<T, kTileRows, true, true><<<grid, kThreads, smem, s>>>(
+        in, out, plan, plan_len, n_terms, R, n_res, g, k);
+  else if (form == 1)
+    step_kernel<T, kTileRows, true, false><<<grid, kThreads, smem, s>>>(
         in, out, plan, plan_len, n_terms, R, n_res, g, k);
   else
-    step_kernel<T, kTileRows, false><<<grid, kThreads, smem, s>>>(
+    step_kernel<T, kTileRows, false, false><<<grid, kThreads, smem, s>>>(
         in, out, plan, plan_len, n_terms, R, n_res, g, k);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1692,14 +1731,18 @@ int launch_resident(const T* in, T* out0, T* out1, const T* plan,
 // then the buffer shape (rows, pitch), the origin of interior cell (0, 0),
 // the interior (m, n), the rounded interior (mr, nr), the steps of the
 // launch, and the stream.
-#define LS_GRID Grid2D{rows, pitch, r0, c0, m, n, mr, nr}
+// A pass also takes the box its levels before the last keep (Grid2D's lr,
+// hr, lc, hc), after the steps; a run keeps the interior.
+#define LS_GRID(LR, HR, LC, HC) \
+  Grid2D{rows, pitch, r0, c0, m, n, mr, nr, LR, HR, LC, HC}
 #define LS_ENTRY(NAME, FN, T)                                               \
   extern "C" int NAME(const T* in, T* out, const T* plan, int plan_len,   \
                       int n_terms, int radius, int n_res, int rows,       \
                       int pitch, int r0, int c0, int m, int n, int mr,    \
-                      int nr, int k, void* stream) {                      \
-    return FN(in, out, plan, plan_len, n_terms, radius, n_res, LS_GRID, k, \
-              stream);                                                    \
+                      int nr, int k, int lr, int hr, int lc, int hc,      \
+                      void* stream) {                                     \
+    return FN(in, out, plan, plan_len, n_terms, radius, n_res,            \
+              LS_GRID(lr, hr, lc, hc), k, stream);                        \
   }
 LS_ENTRY(ls_stencil2d_step, launch_step<float>, float)
 LS_ENTRY(ls_stencil2d_strip, launch_strip_step<float>, float)
@@ -1715,7 +1758,7 @@ LS_ENTRY(ls_stencil2d_skew_f64, launch_skew<double>, double)
                       int rows, int pitch, int r0, int c0, int m, int n,   \
                       int mr, int nr, int steps, void* stream) {           \
     return launch_resident(in, out0, out1, plan, plan_len, n_terms, radius, \
-                           n_res, LS_GRID, steps, stream);                 \
+                           n_res, LS_GRID(0, m, 0, n), steps, stream);     \
   }
 LS_RESIDENT(ls_stencil2d_resident, float)
 LS_RESIDENT(ls_stencil2d_resident_f64, double)

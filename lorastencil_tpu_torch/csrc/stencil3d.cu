@@ -24,7 +24,9 @@
 //
 // and every level is masked to the global interior in z and in-plane, so
 // the halo decays exactly as the reference's step-by-step semantics
-// require.  Level K is the output: the rounded interior of every plane,
+// require (under a ghost boundary, periodic or reflect, the levels before
+// the last keep the interior and the ring the host refilled instead: Pass's
+// box, the JAX kernels' `bounds`).  Level K is the output: the rounded interior of every plane,
 // with cells beyond the true interior written as zeros; the guard ring is
 // never written.  Sums follow the plain twin's order (ops/band_gemm.py):
 // fp32 fuses each multiply-add (fmaf), so integer data agree bit for bit,
@@ -139,6 +141,12 @@ struct Pass {
   int z0, r0, c0;       // origin of interior cell (0, 0, 0)
   int h, m, n, mr, nr;  // interior and rounded plane
   int bm, bn, zc;       // block tile and z chunk
+  // the box [zl, zh) x [rl, rh) x [cl, ch), interior coordinates, that the
+  // levels before the last keep: the interior, or under a ghost boundary
+  // the interior and its ring, which the host refilled (the JAX kernels'
+  // `bounds`).  The last level keeps the interior whatever the box: the
+  // ring it would keep is refilled before the next pass reads it.
+  int zl, zh, rl, rh, cl, ch;
 };
 
 __host__ __device__ inline int term_stride(int R) { return 3 + 3 * (2 * R + 1); }
@@ -261,7 +269,10 @@ struct PlaneTaps {
   }
 };
 
-template <typename T, int R>
+// BOX: the levels before the last keep Pass's box, not the interior (a
+// ghost boundary's ring); the instance without it is the dirichlet0 pass's,
+// unchanged by the box.
+template <typename T, int R, bool BOX>
 __global__ void __launch_bounds__(kThreads)
 stencil3d_kernel(const T* __restrict__ in, T* __restrict__ out,
                  const T* __restrict__ plan, const Pass p) {
@@ -424,10 +435,12 @@ stencil3d_kernel(const T* __restrict__ in, T* __restrict__ out,
                      [&](int k) { acc[k] = mad(wr, X[cin[k]], acc[k]); });
       }
 
-      // Mask to the interior (z, rows, cols); store to the level ring, or
-      // for level K to the rounded interior of the output.
+      // Mask to the box (levels before K) or the interior (level K); store
+      // to the level ring, or for level K to the rounded interior of the
+      // output.
       const int zv = zs - K * R + v;  // interior z of the plane
-      const bool zok = zv >= 0 && zv < p.h;
+      const bool zok = BOX && L < K ? zv >= p.zl && zv < p.zh
+                                    : zv >= 0 && zv < p.h;
       T* dst = smem + ring_off(p, R, L) + (v % p.ring) * cells + tid;
       T* gdst = out + static_cast<size_t>(p.z0 + zv) * plane_stride +
                     static_cast<size_t>(p.r0) * p.pitch + p.c0;
@@ -435,7 +448,11 @@ stencil3d_kernel(const T* __restrict__ in, T* __restrict__ out,
       int gj = j0 - e + tid % wout;
       for_cells<R>(n_mine, [&](int k) {
         if (k < n_mine) {
-          const bool ok = zok && gi >= 0 && gi < p.m && gj >= 0 && gj < p.n;
+          const bool ok =
+              zok && (BOX && L < K ? gi >= p.rl && gi < p.rh && gj >= p.cl &&
+                                         gj < p.ch
+                                   : gi >= 0 && gi < p.m && gj >= 0 &&
+                                         gj < p.n);
           if (L < K) {
             dst[k * kThreads] = ok ? acc[k] : T(0);
           } else if (gi < p.mr && gj < p.nr) {
@@ -454,6 +471,12 @@ stencil3d_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
+// The box holds the interior.
+bool box_valid(const Pass& p) {
+  return p.zl <= 0 && p.zh >= p.h && p.rl <= 0 && p.rh >= p.m && p.cl <= 0 &&
+         p.ch >= p.n;
+}
+
 bool valid(const Pass& p, int R) {
   const int W = 2 * R + 1;
   return R >= 1 && R <= kMaxRadius && p.K >= 1 && p.K <= kMaxK &&
@@ -463,25 +486,41 @@ bool valid(const Pass& p, int R) {
          p.bm >= 1 && p.bn >= 1 && p.zc >= 1 && p.h >= 0 && p.m >= 0 &&
          p.n >= 0 && p.mr >= p.m && p.nr >= p.n && p.z0 >= 0 &&
          p.z0 + p.h <= p.nz && p.r0 >= 0 && p.r0 + p.mr <= p.rows &&
-         p.c0 >= 0 && p.c0 + p.nr <= p.pitch &&
+         p.c0 >= 0 && p.c0 + p.nr <= p.pitch && box_valid(p) &&
          (p.mr + p.bm - 1) / p.bm <= kMaxGrid &&
          (p.h + p.zc - 1) / p.zc <= kMaxGrid;
+}
+
+template <typename T, int R, bool BOX>
+int launch_box(const T* in, T* out, const T* plan, const Pass& p,
+               cudaStream_t stream) {
+  const size_t smem = smem_bytes(p, R, sizeof(T));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        stencil3d_kernel<T, R, BOX>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((p.nr + p.bn - 1) / p.bn, (p.mr + p.bm - 1) / p.bm,
+                  (p.h + p.zc - 1) / p.zc);
+  stencil3d_kernel<T, R, BOX><<<grid, kThreads, smem, stream>>>(in, out, plan,
+                                                                p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A box that is not the interior (a ghost boundary's ring, at K >= 2) takes
+// the BOX instance.
+bool has_box(const Pass& p) {
+  return p.zl != 0 || p.zh != p.h || p.rl != 0 || p.rh != p.m || p.cl != 0 ||
+         p.ch != p.n;
 }
 
 template <typename T, int R>
 int launch(const T* in, T* out, const T* plan, const Pass& p,
            cudaStream_t stream) {
-  const size_t smem = smem_bytes(p, R, sizeof(T));
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        stencil3d_kernel<T, R>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((p.nr + p.bn - 1) / p.bn, (p.mr + p.bm - 1) / p.bm,
-                  (p.h + p.zc - 1) / p.zc);
-  stencil3d_kernel<T, R><<<grid, kThreads, smem, stream>>>(in, out, plan, p);
-  return static_cast<int>(cudaGetLastError());
+  return p.K > 1 && has_box(p) ? launch_box<T, R, true>(in, out, plan, p, stream)
+                               : launch_box<T, R, false>(in, out, plan, p,
+                                                         stream);
 }
 
 Pass make_pass(int plan_len, int n_terms, int n_res, int n_buf, int ring,
@@ -508,6 +547,23 @@ Pass make_pass(int plan_len, int n_terms, int n_res, int n_buf, int ring,
   p.bm = bm;
   p.bn = bn;
   p.zc = zc;
+  p.zl = 0;  // the box: the interior, until with_box
+  p.zh = h;
+  p.rl = 0;
+  p.rh = m;
+  p.cl = 0;
+  p.ch = n;
+  return p;
+}
+
+// `p` with the box [zl, zh) x [rl, rh) x [cl, ch).
+Pass with_box(Pass p, int zl, int zh, int rl, int rh, int cl, int ch) {
+  p.zl = zl;
+  p.zh = zh;
+  p.rl = rl;
+  p.rh = rh;
+  p.cl = cl;
+  p.ch = ch;
   return p;
 }
 
@@ -540,6 +596,7 @@ constexpr int kMarchTileRows = 32;   // output rows of a task
 constexpr int kMarchTileQuads = 16;  // output quads (16 bytes) of a task row
 constexpr int kMarchAhead = 3;       // input planes in flight
 constexpr int kMarchMinBlocks = 2;   // launch bound: blocks per SM
+constexpr int kBoxBit = 16;          // march_kernel: the box's flags in `keep`
 constexpr int kSmemPerSM = 233472;   // bytes of shared memory an SM has
 constexpr int kMaxDevices = 64;
 // A term's kind, four bits a term in the kernel's KINDS (term t at bits
@@ -844,13 +901,16 @@ __host__ __device__ constexpr int march_smem_bytes() {
 // level's planes are the task's output.  VEC: the buffers start on the
 // 16-byte grid and so do the layout's row pitch and origin column (every
 // layout the engine builds); the other instance copies and stores one cell
-// at a time.
-template <typename T, int R, int K, int NT, int KINDS, bool VEC>
+// at a time.  BOX (K = 2 only): level 1 keeps Pass's box, not the interior
+// (a ghost boundary's ring); the instance without it is the dirichlet0
+// pass's, unchanged by the box.
+template <typename T, int R, int K, int NT, int KINDS, bool VEC, bool BOX>
 __global__ void __launch_bounds__(March<T, R, K>::threads, kMarchMinBlocks)
 march_kernel(const T* __restrict__ in, T* __restrict__ out,
              const __grid_constant__ MarchPlan<T, R> pl, const Pass p) {
   using S = March<T, R, K>;
   constexpr int V = S::V, CH = S::CH;
+  static_assert(!BOX || K == 2, "a box is for the level before the last");
   static_assert(class_rank(KINDS, NT, kBuffered) +
                         class_rank(KINDS, NT, kIdentityZ) ==
                     1,
@@ -883,9 +943,12 @@ march_kernel(const T* __restrict__ in, T* __restrict__ out,
     // the thread's cells: interior rows i + h, columns j + c
     const int i = i0 - S::ER + gy * CH;
     const int j = j0 - S::EQ * V + gx * V;
-    // bit h V + c: the cell inside the interior plane; bit h of `rows_out`:
-    // a row of the tile, inside the rounded interior (bits, not bools: the
-    // flags live through the march, and every register counts at K = 2)
+    // bit h V + c: the cell inside the interior plane, and with BOX bit
+    // kBoxBit + h V + c: inside the box's plane (level 1's mask); bit h of
+    // `rows_out`: a row of the tile, inside the rounded interior (bits, not
+    // bools: the flags live through the march, and every register counts
+    // at K = 2)
+    static_assert(CH * V <= kBoxBit, "a plane's flags fit below the box's");
     unsigned keep = 0, rows_out = 0;
 #pragma unroll
     for (int h = 0; h < CH; ++h) {
@@ -893,9 +956,13 @@ march_kernel(const T* __restrict__ in, T* __restrict__ out,
           i + h < p.mr)
         rows_out |= 1u << h;
 #pragma unroll
-      for (int c = 0; c < V; ++c)
+      for (int c = 0; c < V; ++c) {
         if (i + h >= 0 && i + h < p.m && j + c >= 0 && j + c < p.n)
           keep |= 1u << (h * V + c);
+        if (BOX && i + h >= p.rl && i + h < p.rh && j + c >= p.cl &&
+            j + c < p.ch)
+          keep |= 1u << (kBoxBit + h * V + c);
+      }
     }
     const bool col_out = active && gx >= S::EQ && gx < S::GX - S::EQ;
     const bool quad_out = col_out && VEC && j + V <= p.nr;
@@ -943,14 +1010,15 @@ march_kernel(const T* __restrict__ in, T* __restrict__ out,
       }
       cp_async_commit();
     };
-    // plane v's cells masked to the interior, and the last level's stored
-    auto mask = [&](int v, T (&acc)[CH][V]) {
-      const bool zok = zb + v >= 0 && zb + v < p.h;
+    // plane v's cells masked to the interior or, at `bit` kBoxBit, to the
+    // box (level 1 of 2 under BOX), and the last level's stored
+    auto mask = [&](int v, T (&acc)[CH][V], int bit, int zlo, int zhi) {
+      const bool zok = zb + v >= zlo && zb + v < zhi;
 #pragma unroll
       for (int h = 0; h < CH; ++h)
 #pragma unroll
         for (int c = 0; c < V; ++c)
-          if (!(zok && (keep >> (h * V + c) & 1u))) acc[h][c] = T(0);
+          if (!(zok && (keep >> (bit + h * V + c) & 1u))) acc[h][c] = T(0);
     };
     auto store = [&](int v, const T (&acc)[CH][V]) {
       T* dst = out + static_cast<size_t>(p.z0 + zb + v) * plane_stride;
@@ -996,7 +1064,11 @@ march_kernel(const T* __restrict__ in, T* __restrict__ out,
         level_step<S, NT, KINDS>(pl, s_in + (u % IN_SLOTS) * S::plane + win,
                                  back, pend[0], held[0], lv);
         if (u >= 2 * R) {
-          mask(u - R, lv);
+          if constexpr (BOX) {
+            mask(u - R, lv, kBoxBit, p.zl, p.zh);
+          } else {
+            mask(u - R, lv, 0, 0, p.h);
+          }
           if constexpr (K == 1) store(u - R, lv);
         }
       }
@@ -1019,7 +1091,7 @@ march_kernel(const T* __restrict__ in, T* __restrict__ out,
             T acc[CH][V];
             level_step<S, NT, KINDS>(pl, xl + win, back, pend[1], held[1], acc);
             if (u >= 4 * R) {
-              mask(u - 2 * R, acc);
+              mask(u - 2 * R, acc, 0, 0, p.h);
               store(u - 2 * R, acc);
             }
           }
@@ -1029,13 +1101,13 @@ march_kernel(const T* __restrict__ in, T* __restrict__ out,
   }
 }
 
-template <typename T, int R, int K, int NT, int KINDS, bool VEC>
+template <typename T, int R, int K, int NT, int KINDS, bool VEC, bool BOX>
 int launch_march(const T* in, T* out, const MarchPlan<T, R>& pl, Pass p,
                  cudaStream_t stream) {
   using S = March<T, R, K>;
   static int resident[kMaxDevices];
-  const void* kernel =
-      reinterpret_cast<const void*>(march_kernel<T, R, K, NT, KINDS, VEC>);
+  const void* kernel = reinterpret_cast<const void*>(
+      march_kernel<T, R, K, NT, KINDS, VEC, BOX>);
   const int smem = march_smem_bytes<T, R, K, NT, KINDS>();
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -1065,7 +1137,7 @@ int launch_march(const T* in, T* out, const MarchPlan<T, R>& pl, Pass p,
   const long tasks = static_cast<long>(tiles) * ((p.h + p.zc - 1) / p.zc);
   const int blocks =
       static_cast<int>(tasks < resident[dev] ? tasks : resident[dev]);
-  march_kernel<T, R, K, NT, KINDS, VEC>
+  march_kernel<T, R, K, NT, KINDS, VEC, BOX>
       <<<blocks, S::threads, smem, stream>>>(in, out, pl, p);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1092,6 +1164,24 @@ bool fill_march_plan(const T* plan, int n_terms, MarchPlan<T, R>& pl,
   return true;
 }
 
+// The instance of the copies (vec) and, at K = 2, of a box that is not the
+// interior (a ghost boundary's ring).
+template <typename T, int R, int K, int NT, int KINDS>
+int march_instance(const T* in, T* out, const MarchPlan<T, R>& pl,
+                   const Pass& p, int vec, bool box, cudaStream_t stream) {
+  if constexpr (K == 2) {
+    if (box)
+      return vec ? launch_march<T, R, K, NT, KINDS, true, true>(in, out, pl, p,
+                                                                stream)
+                 : launch_march<T, R, K, NT, KINDS, false, true>(in, out, pl,
+                                                                 p, stream);
+  }
+  return vec ? launch_march<T, R, K, NT, KINDS, true, false>(in, out, pl, p,
+                                                             stream)
+             : launch_march<T, R, K, NT, KINDS, false, false>(in, out, pl, p,
+                                                              stream);
+}
+
 // The instantiation of the plan's term mix; any other is refused.
 template <typename T, int R, int K>
 int march_terms(const T* in, T* out, const T* plan, const Pass& p, int vec,
@@ -1100,16 +1190,13 @@ int march_terms(const T* in, T* out, const T* plan, const Pass& p, int vec,
   int kinds = 0;
   if (!fill_march_plan<T, R>(plan, p.n_terms, pl, kinds))
     return static_cast<int>(cudaErrorInvalidValue);
+  const bool box = has_box(p);
   if (p.n_terms == 3 && kinds == kStarKinds)
-    return vec ? launch_march<T, R, K, 3, kStarKinds, true>(in, out, pl, p,
-                                                            stream)
-               : launch_march<T, R, K, 3, kStarKinds, false>(in, out, pl, p,
-                                                             stream);
+    return march_instance<T, R, K, 3, kStarKinds>(in, out, pl, p, vec, box,
+                                                  stream);
   if (p.n_terms == 1 && kinds == kBoxKinds)
-    return vec ? launch_march<T, R, K, 1, kBoxKinds, true>(in, out, pl, p,
-                                                           stream)
-               : launch_march<T, R, K, 1, kBoxKinds, false>(in, out, pl, p,
-                                                            stream);
+    return march_instance<T, R, K, 1, kBoxKinds>(in, out, pl, p, vec, box,
+                                                 stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -1119,7 +1206,7 @@ bool march_valid(const Pass& p, int R) {
          p.plan_len == p.n_terms * term_stride(R) && p.h >= 0 && p.m >= 0 &&
          p.n >= 0 && p.mr >= p.m && p.nr >= p.n && p.z0 >= 0 &&
          p.z0 + p.h <= p.nz && p.r0 >= 0 && p.r0 + p.mr <= p.rows &&
-         p.c0 >= 0 && p.c0 + p.nr <= p.pitch &&
+         p.c0 >= 0 && p.c0 + p.nr <= p.pitch && box_valid(p) &&
          static_cast<long long>(p.rows) * p.pitch < (1LL << 31);
 }
 
@@ -1162,17 +1249,20 @@ extern "C" long long ls_stencil3d_smem_bytes(int radius, int K, int bm, int bn,
 
 // Each entry: the input and output buffers, the plan and its counts, the term
 // mix, K, the buffer extents, the origin of interior cell (0, 0, 0), the
-// interior, the rounded plane, the block tile, the z chunk and the stream.
+// interior, the rounded plane, the block tile, the z chunk, the box of the
+// levels before the last (Pass's zl .. ch) and the stream.
 #define LS_ENTRY(NAME, T)                                                     \
   extern "C" int NAME(const T* in, T* out, const T* plan, int plan_len,     \
                       int n_terms, int radius, int n_res, int n_buf,        \
                       int ring, int K, int nz, int rows, int pitch, int z0, \
                       int r0, int c0, int h, int m, int n, int mr, int nr,  \
-                      int bm, int bn, int zc, void* stream) {               \
+                      int bm, int bn, int zc, int zl, int zh, int rl,       \
+                      int rh, int cl, int ch, void* stream) {               \
     return step(in, out, plan,                                              \
-                make_pass(plan_len, n_terms, n_res, n_buf, ring, K, nz,     \
-                          rows, pitch, z0, r0, c0, h, m, n, mr, nr, bm, bn, \
-                          zc),                                              \
+                with_box(make_pass(plan_len, n_terms, n_res, n_buf, ring,   \
+                                   K, nz, rows, pitch, z0, r0, c0, h, m, n, \
+                                   mr, nr, bm, bn, zc),                     \
+                         zl, zh, rl, rh, cl, ch),                           \
                 radius, stream);                                            \
   }
 LS_ENTRY(ls_stencil3d_step, float)
@@ -1180,18 +1270,22 @@ LS_ENTRY(ls_stencil3d_step_f64, double)
 
 // The march kernel's entries: the input and output buffers, the tap table
 // in host memory and its counts, K, the buffer extents, the origin of
-// interior cell (0, 0, 0), the interior, the rounded plane and the stream.
+// interior cell (0, 0, 0), the interior, the rounded plane, the box of
+// level 1 at K = 2 (Pass's zl .. ch) and the stream.
 #define LS_MARCH(NAME, T)                                                    \
   extern "C" int NAME(const T* in, T* out, const T* plan, int plan_len,     \
                       int n_terms, int radius, int n_res, int K, int nz,    \
                       int rows, int pitch, int z0, int r0, int c0, int h,   \
-                      int m, int n, int mr, int nr, void* stream) {         \
+                      int m, int n, int mr, int nr, int zl, int zh, int rl, \
+                      int rh, int cl, int ch, void* stream) {               \
     return march(in, out, plan,                                             \
-                 make_pass(plan_len, n_terms, n_res, 0, 1, K, nz, rows,     \
-                           pitch, z0, r0, c0, h, m, n, mr, nr,              \
-                           kMarchTileRows,                                  \
-                           kMarchTileQuads * 16 / static_cast<int>(sizeof(T)), \
-                           1),                                              \
+                 with_box(make_pass(plan_len, n_terms, n_res, 0, 1, K, nz,  \
+                                    rows, pitch, z0, r0, c0, h, m, n, mr,   \
+                                    nr, kMarchTileRows,                     \
+                                    kMarchTileQuads * 16 /                  \
+                                        static_cast<int>(sizeof(T)),        \
+                                    1),                                     \
+                          zl, zh, rl, rh, cl, ch),                          \
                  radius, stream);                                           \
   }
 LS_MARCH(ls_stencil3d_march, float)

@@ -12,7 +12,7 @@ fields and defaults), ``resolve_algorithm``, ``ping_pong_loop``,
     eng1 = StencilEngine.for_shape("1d2r", (1_000_000,))
     out_padded = run(in_padded, get_shape("star3d1r"), 4, dtype="df64")
 
-What this engine runs, dirichlet0, ``backend`` "auto" / "pallas" (a CUDA
+What this engine runs, ``backend`` "auto" / "pallas" (a CUDA
 kernel; its plain twin on a CPU tensor) or "xla"
 (``ops/torch_ref.separable_step``, which takes every algorithm name the
 JAX engine takes), in float32 and in the fp64-grade tier (dtype "float64"
@@ -39,7 +39,22 @@ or "df64", see below):
   * 3-D shapes (star3d1r, box3d1r) at the JAX engine's fused depth
     ``k = min(fused_steps_3d, 8 // radius)`` (2 by default; 1 for "df64")
     through ``ops/stencil3d.py``: ``steps // k`` passes of k steps, then
-    one pass of ``steps % k``.
+    one pass of ``steps % k``;
+  * ``boundary`` 'dirichlet0' (the reference's halo decay), 'periodic'
+    (the grid wraps) or 'reflect' (a symmetric, zero-flux mirror), the
+    latter two "ghost" modes as the JAX engine runs them: before every
+    pass the guard ring, k * radius deep (``_ring_depth``), is refilled
+    from the interior (``_ring_refresh``: plain tensor copies, axis by
+    axis, so corners compose as ``np.pad``), and the pass's kernel keeps
+    the ring through its fused levels (``bounds``, ``_ghost_bounds``; the
+    last level keeps the interior, see ``ops/stencil2d.stencil2d_step``);
+    no whole-grid run is taken (the 1-D and 2-D small grids run passes,
+    1-D on the flat path below ``RESIDENT_BYTES``); the output's ring is
+    cleared at the end.  df64 on the 'xla' step refreshes the padded
+    array's ring before every step; float32 and float64 refuse 'xla'.
+    Fused reflect needs per-axis symmetric coefficients, and every
+    interior dimension must hold the ring: the JAX engine's checks and
+    messages, in its order.
 Every other accepted value of the JAX engine raises
 ``NotImplementedError`` naming the ROADMAP item that will port it.
 
@@ -127,6 +142,39 @@ def ping_pong_loop(step_fn, state, steps: int, k: int = 1):
     return cur
 
 
+def _ring_refresh_nd(state, mode: str, origin, dims, d: int):
+    """Axis-by-axis ghost-ring fill, in place, of depth ``d`` around the
+    box at ``origin`` / ``dims`` of ``state`` (``lorastencil_tpu/engine.py``
+    ``_ring_refresh_nd``): 'periodic' copies the opposite interior edge,
+    'reflect' mirrors the same edge (``torch.flip``), 'zero' clears the
+    ring.  Later axes copy the rings already written, so corners (and 3-D
+    edges) compose as ``np.pad`` does.  Returns ``state``."""
+    ext = [slice(o, o + n) for o, n in zip(origin, dims)]
+    for a, (o, n) in enumerate(zip(origin, dims)):
+        def at(sl):
+            box = list(ext)
+            box[a] = sl
+            return tuple(box)
+
+        left, right = at(slice(o - d, o)), at(slice(o + n, o + n + d))
+        if mode == "zero":
+            state[left] = 0
+            state[right] = 0
+        else:
+            head = state[at(slice(o, o + d))]
+            tail = state[at(slice(o + n - d, o + n))]
+            # the sources lie inside the box, the ring outside it (the box
+            # is at least d deep: the engine's ring-depth check)
+            if mode == "reflect":
+                head, tail = head.flip(a), tail.flip(a)
+            else:  # periodic
+                head, tail = tail, head
+            state[left] = head
+            state[right] = tail
+        ext[a] = slice(o - d, o + n + d)
+    return state
+
+
 @dataclasses.dataclass(frozen=True)
 class EngineConfig:
     """The JAX engine's configuration, field for field (see
@@ -208,12 +256,26 @@ class StencilEngine:
                 raise ValueError(
                     f"algorithm {self.algorithm!r} has no {spec.ndim}-D "
                     f"path; the port runs {kernel.ALGORITHMS}")
+        # periodic / reflect: the guard ring is refilled before every pass
+        self.ghost = config.boundary != "dirichlet0"
         # the 1-D kernel: "resident_lanes", "resident", "lanes" or "flat"
         self.path = None
         if spec.ndim == 1:
             self.layout, self.path = self._build_layout_1d()
         else:
             self.layout = self._build_layout()
+        if self.ghost and min(self.interior) < self._ring_depth():
+            raise ValueError(
+                f"{config.boundary} boundaries need every interior dim "
+                f">= the ring depth {self._ring_depth()} "
+                f"(= fused_steps * radius); got {self.interior}")
+        if (config.boundary == "reflect" and self._fused_k() > 1
+                and not spec.axis_symmetric()):
+            raise ValueError(
+                "reflect boundaries with fused_steps > 1 need per-axis "
+                "symmetric coefficients (mirror symmetry must commute "
+                "with the stencil for the once-per-pass ring refresh to "
+                "be exact); use fused_steps=1 for this spec")
 
     @staticmethod
     def _validate(spec: StencilSpec, config: EngineConfig):
@@ -225,22 +287,28 @@ class StencilEngine:
             raise ValueError(f"unknown backend {config.backend!r}")
         if config.algorithm not in ALGORITHM_NAMES:
             raise ValueError(f"unknown algorithm {config.algorithm!r}")
+        if config.boundary not in ("dirichlet0", "periodic", "reflect"):
+            raise ValueError(
+                f"boundary must be 'dirichlet0', 'periodic' or "
+                f"'reflect', got {config.boundary!r}")
+        if (config.boundary != "dirichlet0" and config.backend == "xla"
+                and config.dtype != "df64"):
+            # (df64 is exempt: its 'xla' step refreshes the ring of the
+            # padded array before every step, _ring_refresh_padded)
+            raise ValueError(
+                f"{config.boundary} boundaries need the Pallas backend "
+                f"(the XLA reference path implements the reference's "
+                f"halo-decay semantics only)")
+        if config.precision not in ("highest", "default"):
+            raise ValueError(
+                f"precision must be 'highest' or 'default', got "
+                f"{config.precision!r}")
         if config.fusion not in ("auto", "extent", "skew"):
             raise ValueError(
                 f"fusion must be 'auto', 'extent' or 'skew', got "
                 f"{config.fusion!r}")
         if config.fusion == "skew":
             StencilEngine._validate_skew(spec, config)
-        if config.boundary in ("periodic", "reflect"):
-            raise _not_ported(f"boundary {config.boundary!r}", "A6")
-        if config.boundary != "dirichlet0":
-            raise ValueError(
-                f"boundary must be 'dirichlet0', 'periodic' or "
-                f"'reflect', got {config.boundary!r}")
-        if config.precision not in ("highest", "default"):
-            raise ValueError(
-                f"precision must be 'highest' or 'default', got "
-                f"{config.precision!r}")
         if config.residue_mxu not in ("auto", "on", "off"):
             raise ValueError(
                 f"residue_mxu must be 'auto', 'on' or 'off', got "
@@ -395,6 +463,8 @@ class StencilEngine:
         return min(max(1, k), JAX_COL_GUARD // r)
 
     def _build_layout(self):
+        # the guard covers a pass's reach, which is also the ring depth of
+        # a ghost boundary (_ring_depth)
         reach = self._fused_k() * self.spec.radius
         if self.spec.ndim == 3:
             tile = self.config.tile or default_tile_3d(*self.interior[1:])
@@ -440,13 +510,26 @@ class StencilEngine:
         so that both engines take the same branch at the BASELINE sizes
         (1d1r 4096 resident, 1d2r 1,000,000 tiled) and under 'vpu';
         re-tuning them for the H100 is later work.  The test is the
-        port's own, on the port's layout, at the state's bytes per cell."""
+        port's own, on the port's layout, at the state's bytes per cell.
+
+        Under a ghost boundary no run is taken (the ring is refilled
+        between passes, ``_run_internal`` of the JAX engine): a grid under
+        ``RESIDENT_BYTES`` runs passes on the flat path whatever its taps
+        (1d1r 4096: ``wide_kernel`` at k = 4), a larger one with "lanes
+        ok" the lanes passes, and df64 its narrow passes.  The guard then
+        also covers the ring, k * radius deep (``_ring_depth``), which is
+        more than the pass's reach k * r_eff where the outer taps are zero
+        (1d1r: radius 4, r_eff 3)."""
         spec = self.spec
         n, halo = self.interior[0], spec.halo[0]
         r_eff = stencil1d.effective_radius(spec)
         itemsize = self.dtype.itemsize
 
-        def layout(reach):
+        def layout(k):
+            # a pass of k steps: its reach, and its ring under a ghost mode
+            reach = k * r_eff
+            if self.ghost:
+                reach = max(reach, k * spec.radius, 1)
             lay = Layout1D(interior=n, halo=halo, tile=TILE_1D,
                            guard=guard_1d(halo, reach))
             lay.validate()
@@ -456,40 +539,88 @@ class StencilEngine:
             return layout(0), "flat"
         if self.df64:
             if r_eff > stencil1d.MAX_LANES_REACH:
-                return layout(r_eff), "flat"
-            if not (self.config.lanes_width or self.config.lanes_tile_rows):
-                lay = layout(stencil1d.lanes_refresh(r_eff) * r_eff)
+                return layout(1), "flat"
+            if not (self.ghost or self.config.lanes_width
+                    or self.config.lanes_tile_rows):
+                lay = layout(stencil1d.lanes_refresh(r_eff))
                 if stencil1d.fits_resident_lanes(lay, itemsize):
                     return lay, "resident_lanes"
-            return layout(r_eff), "lanes"
+            return layout(1), "lanes"
         lanes_ok = (1 <= r_eff <= stencil1d.MAX_LANES_REACH
                     and self.algorithm in ("mxu", "vpu_roll"))
-        if lanes_ok:
-            lay = layout(stencil1d.lanes_refresh(r_eff) * r_eff)
+        if lanes_ok and not self.ghost:
+            lay = layout(stencil1d.lanes_refresh(r_eff))
             if stencil1d.fits_resident_lanes(lay, itemsize):
                 return lay, "resident_lanes"
+        flat = layout(self._fused_k())
+        if self.ghost and (not lanes_ok
+                           or stencil1d.fits_resident(flat, itemsize)):
+            return flat, "flat"
+        if lanes_ok:
             self.path = "lanes"  # for _fused_k's lanes clamp
-            return layout(self._fused_k() * r_eff), "lanes"
-        lay = layout(self._fused_k() * r_eff)
-        return lay, ("resident" if stencil1d.fits_resident(lay, itemsize)
-                     else "flat")
+            return layout(self._fused_k()), "lanes"
+        return flat, ("resident" if stencil1d.fits_resident(flat, itemsize)
+                      else "flat")
+
+    # -- ghost boundaries (periodic, reflect) ------------------------------
+    def _ring_depth(self) -> int:
+        """The ghost ring's depth: a pass's reach, fused steps x radius."""
+        return max(1, self._fused_k() * self.spec.radius)
+
+    def _ring_refresh(self, state, mode: str):
+        """Fill, in place, the guard ring (depth ``_ring_depth``) of a
+        layout buffer so that one pass sees the boundary's ghost cells:
+        'periodic' the opposite interior edge, 'reflect' the same edge
+        mirrored, 'zero' clears it (the output's halo contract).  The
+        JAX engine's ``_ring_refresh``; plain tensor copies on the
+        state's device, as the JAX engine leaves them to XLA."""
+        lay = self.layout
+        if self.spec.ndim == 1:
+            return _ring_refresh_nd(state, mode, (lay.origin,),
+                                    (lay.interior,), self._ring_depth())
+        return _ring_refresh_nd(state, mode, lay.origin, lay.interior,
+                                self._ring_depth())
+
+    def _ring_refresh_padded(self, state, mode: str):
+        """The ring refresh of the 'xla' step's padded array (df64 only):
+        origin the spec's halo, depth its radius, before every step."""
+        return _ring_refresh_nd(state, mode, self.spec.halo, self.interior,
+                                self.spec.radius)
+
+    def _ghost_bounds(self):
+        """The box ``[-d, s + d)`` per axis, d the ring depth, that the
+        fused levels keep, so that the ring survives them."""
+        d = self._ring_depth()
+        return tuple(v for s in self.interior for v in (-d, s + d))
 
     def _step_internal(self, cur, donor, fused_k: int = 1):
+        mode = self.config.boundary
         if self.backend == "xla":
             for _ in range(fused_k):
+                if self.ghost:  # df64 only (_validate)
+                    cur = self._ring_refresh_padded(cur, mode)
                 cur = torch_ref.separable_step(cur, self.spec)
             return cur
+        bounds = refresh = None
+        if self.ghost:
+            cur = self._ring_refresh(cur, mode)
+            bounds = self._ghost_bounds()
+
+            def refresh(state):
+                return self._ring_refresh(state, mode)
         if self.path == "lanes":
             return stencil1d.stencil1d_lanes_step(
-                cur, donor, self.spec, self.layout, fused_steps=fused_k)
+                cur, donor, self.spec, self.layout, fused_steps=fused_k,
+                bounds=bounds)
         if self.spec.ndim == 1:
             return stencil1d.stencil1d_step(cur, donor, self.spec,
-                                            self.layout, fused_steps=fused_k)
+                                            self.layout, fused_steps=fused_k,
+                                            bounds=bounds)
         algorithm = self.df64_algorithm if self.df64 else self.algorithm
         if self.spec.ndim == 3:
             return stencil3d.stencil3d_step(
                 cur, donor, self.spec, self.layout, algorithm=algorithm,
-                fused_steps=fused_k)
+                fused_steps=fused_k, bounds=bounds, refresh=refresh)
         if self._fusion_mode() == "skew" and fused_k >= 2:
             # a remainder pass of one step runs the extent kernel
             return stencil2d.stencil2d_skew_step(
@@ -497,15 +628,16 @@ class StencilEngine:
                 algorithm=self.algorithm, skew_steps=fused_k)
         return stencil2d.stencil2d_step(
             cur, donor, self.spec, self.layout, algorithm=algorithm,
-            fused_steps=fused_k)
+            fused_steps=fused_k, bounds=bounds, refresh=refresh)
 
     def _resident_2d(self) -> bool:
         """Whether a 2-D run takes every step in one ``stencil2d_resident``
         launch: the JAX engine's rule (``_run_internal``), evaluated at run
         time on the port's layout.  df64: the pair cap; otherwise not skew,
         an exact algorithm, and the state under the cap.  On a card the
-        caps are the CUDA ones, and the kernel's capacity bounds them."""
-        if self.spec.ndim != 2 or self.backend != "pallas":
+        caps are the CUDA ones, and the kernel's capacity bounds them.  A
+        ghost boundary never takes it: its ring is refilled per pass."""
+        if self.spec.ndim != 2 or self.backend != "pallas" or self.ghost:
             return False
         if self.df64:
             return stencil2d.fits_resident_pair_2d(self.layout, self.device,
@@ -536,7 +668,9 @@ class StencilEngine:
         """``steps`` timesteps on internal state; ``state`` is read, not
         written (the result lives in a new buffer).  1-D small grids, and
         2-D grids under the caps (``_resident_2d``), run every step in one
-        resident launch."""
+        resident launch.  Under a ghost boundary every pass first refills
+        the ring of its input (the first pass's on a copy of ``state``),
+        and the result's ring is cleared at the end."""
         if steps > 0 and self.path == "resident_lanes":
             return stencil1d.stencil1d_resident_lanes(
                 state, self.spec, self.layout, steps)
@@ -546,8 +680,16 @@ class StencilEngine:
         if steps > 0 and self._resident_2d():
             return stencil2d.stencil2d_resident(state, self.spec, self.layout,
                                                 steps)
-        return ping_pong_loop(self._step_internal, state, steps,
-                              self._fused_k())
+        if not (self.ghost and steps > 0):
+            return ping_pong_loop(self._step_internal, state, steps,
+                                  self._fused_k())
+        out = ping_pong_loop(self._step_internal, state.clone(), steps,
+                             self._fused_k())
+        if self.backend == "xla":
+            return out  # each step's output has a zero halo
+        # the output buffer's ring was refilled when it was a pass's input;
+        # the output halo contract is zeros
+        return self._ring_refresh(out, "zero")
 
     def run(self, padded, steps: int):
         """Reference-semantics run on a user padded array (NumPy or

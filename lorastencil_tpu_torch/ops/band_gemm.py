@@ -142,16 +142,22 @@ def apply_spec_3d(P, spec: StencilSpec):
     return acc
 
 
-def mask_to_interior(val, m: int, n: int, margin: int = 0):
+def mask_to_interior(val, m: int, n: int, margin: int = 0, bounds=None):
     """Zero, in place, the cells of a block beyond the true interior
     (m, n), where the block's cell (margin, margin) is interior cell
     (0, 0): the tile round-up cells, which would otherwise feed real cells
     on the next step, and at a fused level the ``margin`` halo and guard
-    cells around the interior (pallas_2d.py mask_to_interior)."""
-    val[:margin, :] = 0.0
-    val[margin + m:, :] = 0.0
-    val[:, :margin] = 0.0
-    val[:, margin + n:] = 0.0
+    cells around the interior (pallas_2d.py mask_to_interior).
+
+    ``bounds`` ``(rlo, rhi, clo, chi)``, in interior coordinates, widens
+    the box kept to ``[rlo, rhi) x [clo, chi)`` (``rlo <= 0``, ``rhi >=
+    m``, ...): a fused level under a ghost boundary keeps the ring.  None
+    is ``(0, m, 0, n)``."""
+    rlo, rhi, clo, chi = (0, m, 0, n) if bounds is None else bounds
+    val[:max(0, margin + rlo), :] = 0.0
+    val[max(0, margin + rhi):, :] = 0.0
+    val[:, :max(0, margin + clo)] = 0.0
+    val[:, max(0, margin + chi):] = 0.0
     return val
 
 

@@ -271,3 +271,33 @@ def guard_3d(halo: Tuple[int, int, int],
     (fused steps x radius); z planes as they are, the plane axes rounded
     up to ``GUARD_ALIGN`` cells as in ``guard_2d``."""
     return (max(halo[0], reach, 1),) + guard_2d(halo[1:], reach)
+
+
+def check_bounds(bounds, interior, guard) -> Tuple[int, ...]:
+    """A pass's ``bounds`` as flat ints ``(lo, hi)`` per axis, checked: the
+    box ``[lo, hi)`` (interior coordinates) that the fused levels before
+    the last keep, the interior and at most the guard beyond it (``lo <=
+    0``, ``hi >= n``, ``-lo`` and ``hi - n`` within the guard).  None is
+    the interior.  A 3-D pass also takes 4 values, the rows' and the
+    columns' (the z box is then ``[0, h)``), as the JAX kernels do."""
+    dims = tuple(interior)
+    if bounds is None:
+        return tuple(v for s in dims for v in (0, s))
+    try:
+        flat = tuple(int(v) for v in bounds)
+    except (TypeError, ValueError, RuntimeError):
+        raise ValueError(f"bounds must be ints, got {bounds!r}") from None
+    if len(dims) == 3 and len(flat) == 4:
+        flat = (0, dims[0]) + flat
+    if len(flat) != 2 * len(dims):
+        raise ValueError(
+            f"bounds of a {len(dims)}-D pass take "
+            f"{'4 or 6' if len(dims) == 3 else 2 * len(dims)} values, got "
+            f"{len(flat)}")
+    for a, (s, g) in enumerate(zip(dims, guard)):
+        lo, hi = flat[2 * a], flat[2 * a + 1]
+        if not (-g <= lo <= 0 and s <= hi <= s + g):
+            raise ValueError(
+                f"bounds [{lo}, {hi}) on axis {a} must hold the interior "
+                f"[0, {s}) and reach at most the guard {g} beyond it")
+    return flat

@@ -31,7 +31,9 @@ takes an effective radius up to 32 (the TPU's overlapped-lanes kernels:
 taps in registers, a symmetric tap pair summed before its one multiply, as
 ``pallas_1d._conv_lanes``); *wide* takes any radius up to 127 (the flat
 kernels: taps in a loop, +d then -d, as ``pallas_1d._conv_flat``).  Every
-substep zeroes the cells outside the interior [0, n).  A wide pass gets
+substep zeroes the cells outside the interior [0, n); under a ghost
+boundary a pass's substeps before the last keep its ``bounds`` instead,
+the interior and the ring the engine refilled.  A wide pass gets
 its nonzero taps as (offset, weight) pairs in that order (``wide_taps``)
 by value in its launch's parameters, and tiles of ``pass_tile`` cells,
 the largest that still give the card two blocks per SM.
@@ -70,7 +72,7 @@ import torch
 
 from ..models.shapes import StencilSpec
 from . import _cuda_build
-from .layout import TILE_1D, Layout1D
+from .layout import TILE_1D, Layout1D, check_bounds
 
 MAX_RADIUS = 127  # csrc/stencil1d.cu kMaxRadius (pallas_1d._dense_taps)
 # the lanes kernels' cap on the effective radius and on a pass's reach
@@ -362,20 +364,46 @@ def _run_plain(cur, spec: StencilSpec, layout: Layout1D, steps: int,
         x = torch.nn.functional.pad(val, (r, r))  # zero beyond [0, n)
 
 
+def _pass_plain(cur, spec: StencilSpec, layout: Layout1D, steps: int,
+                pairs: bool, bounds=None):
+    """A pass's ``steps`` masked substeps, as the pass kernels take them:
+    substep s over the rounded interior and (steps - s) * r_eff cells each
+    side, read from the buffer, keeping the cells in ``bounds`` ``(lo,
+    hi)`` (the interior when None), the last one the interior; returns
+    the rounded interior.  With no bounds the same values as
+    ``_run_plain``'s."""
+    taps, r = _taps(spec)
+    o, n, nr = layout.origin, layout.interior, layout.rounded
+    lo, hi = (0, n) if bounds is None else bounds
+    e = steps * r
+    x = cur[o - e: o + nr + e]
+    for s in range(1, steps + 1):
+        e -= r  # the substep's extent beyond the rounded interior
+        x = _conv(x, taps, r, pairs)
+        a, b = (lo, hi) if s < steps else (0, n)
+        x[:max(0, e + a)] = 0
+        x[max(0, e + b):] = 0
+    return x
+
+
 def stencil1d_lanes_step_plain(cur, donor, spec: StencilSpec,
-                               layout: Layout1D, fused_steps: int = 1):
+                               layout: Layout1D, fused_steps: int = 1,
+                               bounds=None):
     """The narrow pass's twin: writes the rounded interior of ``donor``
-    and returns it; ``donor``'s guard is left as it is."""
+    and returns it; ``donor``'s guard is left as it is.  Substeps before
+    the last keep ``bounds`` ``(lo, hi)``, the last the interior."""
     o, nr = layout.origin, layout.rounded
-    donor[o: o + nr] = _run_plain(cur, spec, layout, fused_steps, True)
+    donor[o: o + nr] = _pass_plain(cur, spec, layout, fused_steps, True,
+                                   bounds)
     return donor
 
 
 def stencil1d_step_plain(cur, donor, spec: StencilSpec, layout: Layout1D,
-                         fused_steps: int = 1):
+                         fused_steps: int = 1, bounds=None):
     """The wide pass's twin (see ``stencil1d_lanes_step_plain``)."""
     o, nr = layout.origin, layout.rounded
-    donor[o: o + nr] = _run_plain(cur, spec, layout, fused_steps, False)
+    donor[o: o + nr] = _pass_plain(cur, spec, layout, fused_steps, False,
+                                   bounds)
     return donor
 
 
@@ -413,7 +441,7 @@ def _lib():
         for fn in fns:
             fn.restype = ctypes.c_int
         pass_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+            ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
         run_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         head = [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
@@ -426,7 +454,7 @@ def _lib():
     lanes_fn = lib.ls_stencil1d_lanes
     lanes_fn.restype = ctypes.c_int
     lanes_fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_float] + [
-        ctypes.c_int] * 7 + [ctypes.c_void_p]
+        ctypes.c_int] * 7 + [ctypes.c_void_p] + [ctypes.c_int] * 2
     entries["lanes"] = lanes_fn
     return entries
 
@@ -516,20 +544,18 @@ def _check_lanes(spec: StencilSpec, algorithm: str, reach_steps: int):
     return r
 
 
-def _refuse_unported(bounds, region):
-    if bounds is not None:
-        raise NotImplementedError(
-            "bounds (ghost rings, domain decomposition) are not ported yet "
-            "(ROADMAP A6)")
+def _refuse_unported(region):
     if region is not None:
         raise NotImplementedError(
             "region (the overlapped sharded engine) is not ported yet "
             "(ROADMAP A11)")
 
 
-def _pass(cur, donor, spec, layout, k: int, narrow: bool):
+def _pass(cur, donor, spec, layout, k: int, narrow: bool, bounds=None):
     """A pass on ``pass_kernel`` (narrow: #12's float64 pass, and in float32
-    the kernel ``lanes_kernel`` replaced) or ``wide_kernel``."""
+    the kernel ``lanes_kernel`` replaced) or ``wide_kernel``, its substeps
+    before the last keeping ``bounds`` (the interior when None)."""
+    lo, hi = check_bounds(bounds, (layout.interior,), (layout.guard,))
     if narrow:
         taps = _taps_buffer(spec, cur.device, cur.dtype).data_ptr()
         off, w, n_taps, tile = None, None, 0, 0
@@ -542,16 +568,20 @@ def _pass(cur, donor, spec, layout, k: int, narrow: bool):
             cur.data_ptr(), donor.data_ptr(), taps,
             effective_radius(spec), k, int(narrow), layout.shape[0],
             layout.origin, layout.interior, layout.rounded,
-            torch.cuda.current_stream().cuda_stream, off, w, n_taps, tile)
+            torch.cuda.current_stream().cuda_stream, off, w, n_taps, tile,
+            lo, hi)
     if err != 0:
         raise RuntimeError(f"stencil1d pass launch failed: CUDA error {err}")
     return donor
 
 
-def _lanes(cur, donor, spec, layout, k: int, tile: int = None):
+def _lanes(cur, donor, spec, layout, k: int, tile: int = None,
+           bounds=None):
     """A float32 narrow pass on ``lanes_kernel``, in tiles of ``tile`` cells
-    (``lanes_tile``'s if None)."""
+    (``lanes_tile``'s if None), its substeps before the last keeping
+    ``bounds`` (the interior when None)."""
     kinds, wp, wm, has_centre, centre = _lanes_table(spec)
+    lo, hi = check_bounds(bounds, (layout.interior,), (layout.guard,))
     if tile is None:
         tile = lanes_tile(layout.rounded, _sm_count(cur.device.index))
     with torch.cuda.device(cur.device):
@@ -559,7 +589,7 @@ def _lanes(cur, donor, spec, layout, k: int, tile: int = None):
             cur.data_ptr(), donor.data_ptr(), kinds, wp, wm, has_centre,
             centre, effective_radius(spec), k, layout.shape[0],
             layout.origin, layout.interior, layout.rounded, tile,
-            torch.cuda.current_stream().cuda_stream)
+            torch.cuda.current_stream().cuda_stream, lo, hi)
     if err != 0:
         raise RuntimeError(f"stencil1d lanes launch failed: CUDA error {err}")
     return donor
@@ -649,19 +679,29 @@ def stencil1d_lanes_step(cur, donor, spec: StencilSpec, layout: Layout1D,
     32 and ``fused_steps * r_eff <= 32``, as the TPU kernel's lane halo.
     On a float64 state it is the fp64-grade step of
     ``pallas_df64_1d.df64_1d_step`` (which the JAX df64 engine runs at k =
-    1)."""
-    _refuse_unported(bounds, region)
+    1).
+
+    ``bounds`` ``(lo, hi)`` (interior coordinates; the interior when None;
+    ``layout.check_bounds``): the cells that the substeps before the last
+    keep, the JAX wrapper's argument, so that a ghost ring the caller
+    filled stays alive through them.  The last substep keeps the interior
+    in every case: the ring and round-up cells it would keep are rewritten
+    by the next pass's ring refresh before anything reads them (see
+    ``stencil2d.stencil2d_step``), so a one-step pass only checks
+    ``bounds``."""
+    _refuse_unported(region)
     r = _check_lanes(spec, algorithm, fused_steps)
     if fused_steps < 1:
         raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
     _check(cur, spec, layout, fused_steps * r, donor)
+    box = check_bounds(bounds, (layout.interior,), (layout.guard,))
     if cur.device.type == "cpu":
         return stencil1d_lanes_step_plain(cur, donor, spec, layout,
-                                          fused_steps)
+                                          fused_steps, box)
     if cur.dtype == torch.float64:
-        _pass(cur, donor, spec, layout, fused_steps, True)
+        _pass(cur, donor, spec, layout, fused_steps, True, box)
     else:
-        _lanes(cur, donor, spec, layout, fused_steps)
+        _lanes(cur, donor, spec, layout, fused_steps, bounds=box)
         stencil1d_lanes_step.launches_lanes += 1
     _count(stencil1d_lanes_step, cur.dtype)
     return donor
@@ -672,8 +712,9 @@ def stencil1d_step(cur, donor, spec: StencilSpec, layout: Layout1D,
     """``fused_steps`` timesteps in one wide pass (any radius up to 127,
     ``fused_steps`` up to 64, the reach within ``max_pass_reach``); see
     ``stencil1d_lanes_step``.  On a float64 state it is the fp64-grade
-    step of ``pallas_df64_1d.df64_1d_flat_step`` (r_eff 33-127)."""
-    _refuse_unported(bounds, region)
+    step of ``pallas_df64_1d.df64_1d_flat_step`` (r_eff 33-127).
+    ``bounds`` as ``stencil1d_lanes_step``'s."""
+    _refuse_unported(region)
     if not 1 <= fused_steps <= MAX_FUSED:
         raise ValueError(
             f"fused_steps {fused_steps} outside [1, {MAX_FUSED}]")
@@ -684,9 +725,11 @@ def stencil1d_step(cur, donor, spec: StencilSpec, layout: Layout1D,
         raise ValueError(
             f"a {cur.dtype} pass of reach {reach} (fused steps x effective "
             f"radius) exceeds the kernel's shared memory ({cap})")
+    box = check_bounds(bounds, (layout.interior,), (layout.guard,))
     if cur.device.type == "cpu":
-        return stencil1d_step_plain(cur, donor, spec, layout, fused_steps)
-    _pass(cur, donor, spec, layout, fused_steps, False)
+        return stencil1d_step_plain(cur, donor, spec, layout, fused_steps,
+                                    box)
+    _pass(cur, donor, spec, layout, fused_steps, False, box)
     _count(stencil1d_step, cur.dtype)
     return donor
 

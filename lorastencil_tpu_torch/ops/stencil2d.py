@@ -46,7 +46,10 @@ Shared memory bounds the reach of one launch: a fused pass holds about
 three (32 + 2kr) x (128 + 2kr) windows (16 rows in float64), a skewed one a
 band of every level.  A pass deeper than the largest k that fits
 (``max_fused_steps``) runs as launches of that k, each counted; the values
-do not change, because every level is masked to the interior.
+do not change, because every level is masked to the interior.  Under a
+ghost boundary the levels before a launch's last keep the ring
+(``bounds``) and the engine's ``refresh`` refills it between launches: a
+refresh at any step is the boundary condition's padding at that step.
 
 A whole-grid run (``stencil2d_resident``) of radius 1-4 with at most three
 terms, every registry shape's, runs the shared-memory resident kernel of
@@ -76,7 +79,7 @@ from ..models.shapes import StencilSpec
 
 from . import _cuda_build
 from .band_gemm import apply_spec, mask_to_interior, plan_array
-from .layout import Layout2D
+from .layout import Layout2D, check_bounds
 
 ALGORITHMS = ("mxu_hybrid1", "vpu_roll", "vpu")
 # the names pallas_df64.df64_step takes
@@ -347,22 +350,24 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout2D,
 
 
 def stencil2d_step_plain(cur, donor, spec: StencilSpec, layout: Layout2D,
-                         fused_steps: int = 1):
+                         fused_steps: int = 1, bounds=None):
     """The step and fused kernels' plain PyTorch twin: the same pass with
     tensor ops on whatever device and dtype ``cur`` has.  Level L = 1..k
     steps the window at reach (k - L) r around the rounded interior and
-    zeroes its cells outside the true interior; level k is written to the
-    rounded interior of ``donor`` in place, which is returned.  The guard
-    ring of ``donor`` is left as it is."""
+    zeroes its cells outside the true interior (levels before the last:
+    outside ``bounds``, ``(rlo, rhi, clo, chi)``, the interior when None);
+    level k is written to the rounded interior of ``donor`` in place,
+    which is returned.  The guard ring of ``donor`` is left as it is."""
     r = spec.radius
     r0, c0 = layout.origin
     mr, nr = layout.rounded
     e = fused_steps * r
     val = cur[r0 - e: r0 + mr + e, c0 - e: c0 + nr + e]
-    for _ in range(fused_steps):
+    for level in range(1, fused_steps + 1):
         e -= r
         val = mask_to_interior(apply_spec(val, spec, (r, r)),
-                               *layout.interior, margin=e)
+                               *layout.interior, margin=e,
+                               bounds=bounds if level < fused_steps else None)
     donor[r0: r0 + mr, c0: c0 + nr] = val
     return donor
 
@@ -407,11 +412,13 @@ def _lib():
     """The kernel library, built and bound once per process."""
     lib = _cuda_build.load("stencil2d")
     for kind, entries in _ENTRIES.items():
+        # a run: 4 pointers; a pass: 3, and 4 ints more, its bounds
         pointers = 4 if kind == "resident" else 3
+        ints = 13 if kind == "resident" else 17
         for entry in entries.values():
             fn = getattr(lib, entry)
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * 13
+            fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                            + [ctypes.c_void_p])
     return lib
 
@@ -464,12 +471,14 @@ def _launch_resident_smem(cur, spec: StencilSpec, layout: Layout2D,
 
 
 def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
-            depth: int):
+            depth: int, bounds=None):
     """One launch of ``kind``'s instance of the buffers' dtype: ``depth``
     fused steps ("step", "strip", "skew", and the fused strip kernel as
     "fused_strip" for ``stencil2d_step`` or "fused_strip_skew" for
     ``stencil2d_skew_step``) or the steps of a run ("resident"); raises if
-    refused, and counts it on the wrapper it serves."""
+    refused, and counts it on the wrapper it serves.  A pass's levels
+    before the last keep ``bounds`` (``check_bounds``' flat ints; the
+    interior when None); a run takes none."""
     cur = buffers[0]
     plan = (_plan_host(spec, cur.dtype) if kind in _HOST_PLAN
             else _plan_buffer(spec, cur.device, cur.dtype))
@@ -477,12 +486,14 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
     r0, c0 = layout.origin
     m, n = layout.interior
     mr, nr = layout.rounded
+    box = () if kind == "resident" else (
+        check_bounds(bounds, layout.interior, layout.guard))
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), _ENTRIES[kind][cur.dtype])(
             *(b.data_ptr() for b in buffers), plan.data_ptr(), plan.numel(),
             len(spec.terms), spec.radius, len(spec.residue), rows, pitch, r0,
-            c0, m, n, mr, nr, depth, stream)
+            c0, m, n, mr, nr, depth, *box, stream)
     if err != 0:
         raise RuntimeError(
             f"stencil2d {kind} kernel launch failed: CUDA error {err}")
@@ -502,13 +513,17 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
 
 
 def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
-                k: int):
+                k: int, bounds=None, refresh=None):
     """A pass of k steps as launches of at most the k one launch takes,
     from ``cur`` into ``donor`` and, past the first, a spare zero-guarded
     buffer by turns; returns the buffer the last launch wrote.  A
     leftover single step runs the strip kernel where ``strip_takes`` says
     so (else the step kernel); a launch that ``fused_strip_takes`` runs
-    the fused strip kernel, counted on the wrapper of ``kind``."""
+    the fused strip kernel, counted on the wrapper of ``kind``.  Each
+    launch keeps ``bounds`` on its levels before the last, and a launch
+    past the first reads a buffer that ``refresh`` (if given) has refilled
+    the ring of: the previous launch masked its last level to the
+    interior and never writes the ring."""
     kmax = max_fused_steps(kind, spec.radius, plan_len(spec), cur.dtype)
     depths = [kmax] * (k // kmax) + ([k % kmax] if k % kmax else [])
     src, spare = cur, None
@@ -519,19 +534,22 @@ def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
             if spare is None:
                 spare = torch.zeros_like(donor)
             dst = spare if src is donor else donor
+            if refresh is not None:
+                src = refresh(src)
         if depth == 1:
             one = "strip" if strip_takes(spec, cur.dtype) else "step"
         elif fused_strip_takes(spec, cur.dtype, depth):
             one = "fused_strip" if kind == "step" else "fused_strip_skew"
         else:
             one = kind
-        _launch(one, (src, dst), spec, layout, depth)
+        _launch(one, (src, dst), spec, layout, depth, bounds)
         src = dst
     return src
 
 
 def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
-                   algorithm: str = "mxu_hybrid1", fused_steps: int = 1):
+                   algorithm: str = "mxu_hybrid1", fused_steps: int = 1,
+                   bounds=None, refresh=None):
     """``fused_steps`` timesteps on the internal layout: reads ``cur``,
     writes the rounded interior of ``donor`` in place and returns it (past
     ``max_fused_steps`` of one launch, the buffer the last launch wrote).
@@ -545,11 +563,27 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     and takes that wrapper's name 'vpu_sep'.  ``launches`` counts the
     float32 instances' launches, ``launches_f64`` the float64 ones',
     ``launches_k1`` those of the steps a strip kernel ran (either dtype)
-    and ``launches_fused_strip`` those of the fused strip kernel."""
+    and ``launches_fused_strip`` those of the fused strip kernel.
+
+    ``bounds`` (4 ints ``(rlo, rhi, clo, chi)``, interior coordinates; the
+    interior when None; ``check_bounds``) is the box that the fused levels
+    keep, the JAX wrapper's argument: a ghost boundary's ring, which the
+    caller has filled, stays alive through them.  Only the levels before
+    the last take it: the next level reads them.  The last level is
+    masked to the interior in every case: the ring and round-up cells it
+    would keep are rewritten by the next pass's ring refresh (or the
+    sharded exchange) before anything reads them, so the output is the
+    JAX kernel's where it matters.  A single step (the strip kernels)
+    therefore ignores ``bounds`` beyond checking them.  ``refresh``
+    refills the ring of the buffer between two launches of a pass too
+    deep for one (``_split_pass``)."""
     _check(cur, donor, spec, layout, algorithm, fused_steps)
+    check_bounds(bounds, layout.interior, layout.guard)
     if cur.device.type == "cpu":
-        return stencil2d_step_plain(cur, donor, spec, layout, fused_steps)
-    return _split_pass("step", cur, donor, spec, layout, fused_steps)
+        return stencil2d_step_plain(cur, donor, spec, layout, fused_steps,
+                                    bounds)
+    return _split_pass("step", cur, donor, spec, layout, fused_steps, bounds,
+                       refresh)
 
 
 def stencil2d_skew_step(cur, donor, spec: StencilSpec, layout: Layout2D,

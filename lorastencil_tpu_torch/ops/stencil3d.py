@@ -44,7 +44,7 @@ from ..models.shapes import StencilSpec
 from . import _cuda_build
 from .band_gemm import (BUFFERED, CENTRE, IDENTITY_Z, apply_spec_3d,
                         plan_array, term_class)
-from .layout import Layout3D
+from .layout import Layout3D, check_bounds
 
 ALGORITHMS = ("vpu", "vpu_roll", "mxu_hybrid1")
 UNPORTED_ALGORITHMS = ("mxu",)  # ROADMAP B13
@@ -121,10 +121,6 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
     if algorithm not in algorithms:
         raise ValueError(f"unknown algorithm {algorithm!r}; this wrapper "
                          f"takes {algorithms}")
-    if bounds is not None:
-        raise NotImplementedError(
-            "bounds (ghost rings, domain decomposition) are not ported yet "
-            "(ROADMAP A6)")
     if region is not None:
         raise NotImplementedError(
             "region (the overlapped sharded engine) is not ported yet "
@@ -160,25 +156,30 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
             f"cur on {cur.device} but donor on {donor.device}")
     if cur.data_ptr() == donor.data_ptr():
         raise ValueError("donor must be a different buffer from cur")
+    return check_bounds(bounds, layout.interior, layout.guard)
 
 
 def stencil3d_step_plain(cur, donor, spec: StencilSpec, layout: Layout3D,
-                         fused_steps: int = 1):
+                         fused_steps: int = 1, bounds=None):
     """The kernel's plain PyTorch twin: the same K-level pass with tensor
     ops on whatever device and dtype ``cur`` has, each level masked to the
-    global interior.  Writes the rounded interior of ``donor`` in place
-    (zero beyond the true interior) and returns it; the guard ring of
-    ``donor`` is left as it is."""
+    global interior (levels before the last: to ``bounds``, 4 or 6 ints,
+    see ``stencil3d_step``).  Writes the rounded interior of ``donor`` in
+    place (zero beyond the true interior) and returns it; the guard ring
+    of ``donor`` is left as it is."""
     K, r = fused_steps, spec.radius
     h, m, n = layout.interior
     _, mr, nr = layout.rounded
     z0, r0, c0 = layout.origin
+    box = check_bounds(bounds, layout.interior, layout.guard)
     e = K * r
     level = cur[z0 - e: z0 + h + e, r0 - e: r0 + mr + e, c0 - e: c0 + nr + e]
     for L in range(1, K + 1):
         e = (K - L) * r  # the level's extent beyond the rounded interior
         full = apply_spec_3d(level, spec)
-        inside = (slice(e, e + h), slice(e, e + m), slice(e, e + n))
+        lohi = box if L < K else (0, h, 0, m, 0, n)
+        inside = tuple(slice(max(0, e + lohi[2 * a]), e + lohi[2 * a + 1])
+                       for a in range(3))
         level = torch.zeros_like(full)
         level[inside] = full[inside]
     donor[z0: z0 + h, r0: r0 + mr, c0: c0 + nr] = level
@@ -207,12 +208,12 @@ def _lib():
     for entry in _ENTRIES.values():
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 21
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 27
                        + [ctypes.c_void_p])
     for entry in _MARCH_ENTRIES.values():
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 16
+        fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 22
                        + [ctypes.c_void_p])
     return lib
 
@@ -272,9 +273,11 @@ def _z_chunk(layout: Layout3D, tile, device: torch.device) -> int:
     return Z_CHUNKS[-1]
 
 
-def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile):
-    """One launch of the instance of ``cur``'s dtype; raises if refused,
-    and counts it."""
+def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile,
+            box=None):
+    """One launch of the instance of ``cur``'s dtype, its levels before
+    the last kept to ``box`` (``check_bounds``' 6 ints; the interior when
+    None); raises if refused, and counts it."""
     plan = _plan_buffer(spec, cur.device, cur.dtype)
     n_buf, ring = _term_mix(spec)
     nz, rows, pitch = layout.shape
@@ -282,13 +285,14 @@ def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile):
     h, m, n = layout.interior
     _, mr, nr = layout.rounded
     zc = _z_chunk(layout, tile, cur.device)
+    box = check_bounds(box, layout.interior, layout.guard)
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib(), _ENTRIES[cur.dtype])(
             cur.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.numel(),
             len(spec.terms), spec.radius, len(spec.residue), n_buf, ring, K,
             nz, rows, pitch, z0, r0, c0, h, m, n, mr, nr, tile[0], tile[1],
-            zc, stream)
+            zc, *box, stream)
     if err != 0:
         raise RuntimeError(
             f"stencil3d kernel launch failed: CUDA error {err}")
@@ -299,9 +303,11 @@ def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile):
     return out
 
 
-def _launch_march(cur, out, spec: StencilSpec, layout: Layout3D, K: int):
-    """One launch of the march kernel's instance of ``cur``'s dtype; raises
-    if refused, and counts it."""
+def _launch_march(cur, out, spec: StencilSpec, layout: Layout3D, K: int,
+                  box):
+    """One launch of the march kernel's instance of ``cur``'s dtype, its
+    first level kept to ``box`` at K = 2 (``check_bounds``' 6 ints);
+    raises if refused, and counts it."""
     plan = _plan_host(spec, cur.dtype)
     nz, rows, pitch = layout.shape
     z0, r0, c0 = layout.origin
@@ -312,7 +318,7 @@ def _launch_march(cur, out, spec: StencilSpec, layout: Layout3D, K: int):
         err = getattr(_lib(), _MARCH_ENTRIES[cur.dtype])(
             cur.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.numel(),
             len(spec.terms), spec.radius, len(spec.residue), K, nz, rows,
-            pitch, z0, r0, c0, h, m, n, mr, nr, stream)
+            pitch, z0, r0, c0, h, m, n, mr, nr, *box, stream)
     if err != 0:
         raise RuntimeError(
             f"stencil3d march kernel launch failed: CUDA error {err}")
@@ -326,7 +332,7 @@ def _launch_march(cur, out, spec: StencilSpec, layout: Layout3D, K: int):
 
 def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
                    algorithm: str = "vpu", fused_steps: int = 1,
-                   conv_carry=None, bounds=None, region=None):
+                   conv_carry=None, bounds=None, region=None, refresh=None):
     """``fused_steps`` timesteps on the internal layout: reads ``cur``,
     writes the rounded interior of ``donor`` in place and returns
     ``donor``.
@@ -342,35 +348,51 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
     at that depth; otherwise it runs passes of the largest depth that
     fits, through one extra zero-ringed buffer, and the launch counter
     shows each pass.
-    ``bounds`` and ``region`` are not ported (ROADMAP A6, A11)."""
+
+    ``bounds``, as the JAX wrapper's: 4 ints ``(rlo, rhi, clo, chi)`` or 6
+    ``(zlo, zhi, rlo, rhi, clo, chi)`` in interior coordinates (the
+    interior when None; ``layout.check_bounds``), the box that the fused
+    levels before the last keep, so that a ghost ring the caller filled
+    stays alive through them.  The last level is masked to the interior
+    in every case (see ``stencil2d.stencil2d_step``): a one-step pass
+    only checks ``bounds``.  ``refresh`` refills the ring of the buffer
+    between two launches of a pass split for shared memory.  ``region``
+    is not ported (ROADMAP A11)."""
     del conv_carry  # bit-identical by contract; see the module docstring
-    _check(cur, donor, spec, layout, algorithm, fused_steps, bounds, region)
+    box = _check(cur, donor, spec, layout, algorithm, fused_steps, bounds,
+                 region)
     if cur.device.type == "cpu":
-        return stencil3d_step_plain(cur, donor, spec, layout, fused_steps)
+        return stencil3d_step_plain(cur, donor, spec, layout, fused_steps,
+                                    box)
     if cur.device.type != "cuda":
         raise ValueError(f"no stencil3d kernel for device {cur.device}")
-    return _kernel_pass(cur, donor, spec, layout, fused_steps)
+    return _kernel_pass(cur, donor, spec, layout, fused_steps, box, refresh)
 
 
 def _kernel_pass(cur, donor, spec: StencilSpec, layout: Layout3D,
-                 fused_steps: int):
+                 fused_steps: int, box=None, refresh=None):
     """A checked pass on the card: the march kernel where ``march_takes``
-    says so, else the general kernel's launches."""
+    says so, else the general kernel's launches, each keeping ``box``
+    (``check_bounds``' ints; the interior when None), the ring refilled
+    by ``refresh`` before each launch past the first."""
+    box = check_bounds(box, layout.interior, layout.guard)
     if march_takes(spec, cur.dtype, fused_steps):
-        return _launch_march(cur, donor, spec, layout, fused_steps)
+        return _launch_march(cur, donor, spec, layout, fused_steps, box)
     itemsize = cur.element_size()
     K, tile = plan_pass(spec, fused_steps, itemsize)
     depths = [K] * (fused_steps // K) + (
         [fused_steps % K] if fused_steps % K else [])
     if len(depths) == 1:
-        return _launch(cur, donor, spec, layout, K, tile)
+        return _launch(cur, donor, spec, layout, K, tile, box)
     # alternate donor and a scratch buffer so the last pass lands in donor
     bufs = (donor, torch.zeros_like(donor))
     src = cur
     for i, k in enumerate(depths):
         dst = bufs[(len(depths) - 1 - i) % 2]
+        if i and refresh is not None:
+            src = refresh(src)
         _launch(src, dst, spec, layout, k,
-                tile if k == K else plan_pass(spec, k, itemsize)[1])
+                tile if k == K else plan_pass(spec, k, itemsize)[1], box)
         src = dst
     return donor
 

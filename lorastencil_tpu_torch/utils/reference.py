@@ -12,6 +12,10 @@ artifact's ``test_cpu`` verifiers and their multi-step behaviour:
 * The first step therefore sees the *user-provided* halo values; later
   steps see zeros.
 
+``run_periodic`` and ``run_reflect`` are the ground truth of the ghost
+boundaries (``boundary='periodic'`` / ``'reflect'``), copied from the JAX
+module as well.
+
 The JAX module's optional C++ speed-up (``lorastencil_tpu.native``) is not
 copied: on the card the checks use ``ops/torch_ref.dense_step`` in float64.
 """
@@ -57,6 +61,53 @@ def run(grid0: np.ndarray, spec: StencilSpec, steps: int) -> np.ndarray:
     for _ in range(steps):
         g = dense_step(g, spec)
     return g
+
+
+def run_periodic(grid0: np.ndarray, spec: StencilSpec,
+                 steps: int) -> np.ndarray:
+    """Periodic-wrap ground truth over the padded layout: the interior
+    evolves as out[p] = sum_o S[o] * in[(p+o) mod n] (np.roll); the halo
+    cells of the result are zero (the engine's output guard ring is the
+    zero donor ring -- only the interior is written).  The input halo is
+    ignored (the wrap defines the neighbors)."""
+    shape = grid0.shape
+    it = interior_slices(spec, shape)
+    g = np.asarray(grid0, np.float64)[it]
+    S = spec.dense_coeffs()
+    r = spec.radius
+    for _ in range(steps):
+        acc = np.zeros_like(g)
+        for idx in np.argwhere(np.abs(S) > 0):
+            off = tuple(int(i) - r for i in idx)
+            acc += float(S[tuple(idx)]) * np.roll(
+                g, tuple(-o for o in off), axis=tuple(range(g.ndim)))
+        g = acc
+    out = np.zeros(shape, np.float64)
+    out[it] = g
+    return out
+
+
+def run_reflect(grid0: np.ndarray, spec: StencilSpec,
+                steps: int) -> np.ndarray:
+    """Reflect (symmetric / zero-flux) ground truth: each step pads the
+    interior with np.pad(mode='symmetric') by the radius, correlates,
+    and crops.  Result halo cells are zero (like run_periodic)."""
+    shape = grid0.shape
+    it = interior_slices(spec, shape)
+    g = np.asarray(grid0, np.float64)[it]
+    S = spec.dense_coeffs()
+    r = spec.radius
+    for _ in range(steps):
+        gp = np.pad(g, r, mode="symmetric")
+        acc = np.zeros_like(g)
+        for idx in np.argwhere(np.abs(S) > 0):
+            sl = tuple(slice(int(i), int(i) + s)
+                       for i, s in zip(idx, g.shape))
+            acc += float(S[tuple(idx)]) * gp[sl]
+        g = acc
+    out = np.zeros(shape, np.float64)
+    out[it] = g
+    return out
 
 
 def random_padded(spec: StencilSpec, interior, seed: int = 0,

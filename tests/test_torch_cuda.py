@@ -1080,3 +1080,100 @@ def test_resident_engine_runs_one_launch(cuda, dtype, cap, monkeypatch):
     want = reference.run(g1, eng.spec, 4)
     tol = 1e-5 if dtype == "float32" else 1e-13
     assert np.abs(out.cpu().numpy() - want).max() <= tol * np.abs(want).max()
+
+
+# -- ghost boundaries (ROADMAP A6(a)): each kernel that gained a bounds branch
+# (the levels before the last keep the box, the last keeps the interior) ----
+GHOST_KERNELS = [  # (shape, interior, dtype, engine options, the counter)
+    ("star2d3r", (300, 140), torch.float32, {}, "launches_fused_strip"),  # fused strip
+    ("star2d1r", (100, 131), torch.float32, {"fused_steps": 2}, "launches"),  # step_kernel
+    ("box2d3r", (100, 131), torch.float32, {"fused_steps": 3}, "launches"),
+    ("star2d1r", (100, 131), torch.float64, {"fused_steps": 2}, "launches_f64"),
+    ("star3d1r", (37, 45, 130), torch.float32, {}, "launches_march"),  # march K = 2
+    ("box3d1r", (37, 45, 130), torch.float64, {}, "launches_march"),
+    ("star3d1r", (37, 45, 130), torch.float32, {"fused_steps_3d": 4}, "launches"),  # general
+    ("1d2r", (200_000,), torch.float32, {}, "launches_lanes"),  # lanes_kernel
+    ("1d1r", (4096,), torch.float32, {}, "launches"),  # wide_kernel<float>
+    ("1d1r", (4096,), torch.float64, {}, "launches_f64"),  # wide_kernel<double>
+    ("1d2r", (200_000,), torch.float64, {}, "launches_f64"),  # pass_kernel<double>
+]
+
+
+def _ghost_engine(name, interior, dtype, kw, boundary, device):
+    return engine.StencilEngine.for_shape(
+        name, interior, device=device, boundary=boundary,
+        dtype="float64" if dtype == torch.float64 else "float32", **kw)
+
+
+def _ghost_wrapper(eng):
+    if eng.spec.ndim == 1:
+        return ((stencil1d.stencil1d_lanes_step, stencil1d.stencil1d_lanes_step_plain)
+                if eng.path == "lanes" else
+                (stencil1d.stencil1d_step, stencil1d.stencil1d_step_plain))
+    if eng.spec.ndim == 2:
+        return stencil2d.stencil2d_step, stencil2d.stencil2d_step_plain
+    return stencil3d.stencil3d_step, stencil3d.stencil3d_step_plain
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "reflect"])
+@pytest.mark.parametrize("name,interior,dtype,kw,counter", GHOST_KERNELS,
+                         ids=[f"{c[0]}-{c[2]}-{c[3]}" for c in GHOST_KERNELS])
+def test_ghost_bounds_kernel_matches_twin(cuda, name, interior, dtype, kw, counter, boundary):
+    """One pass with the engine's ghost bounds on a buffer whose ring the
+    engine's refresh filled: bit for bit against the twin with the same
+    bounds (the 0/1 fill: the float32 2-D kernels fuse multiply-adds), and
+    with the interior's bounds bit for bit against no bounds."""
+    eng = _ghost_engine(name, interior, dtype, kw, boundary, cuda)
+    k = eng._fused_k()
+    assert k >= 2
+    wrapper, twin = _ghost_wrapper(eng)
+    g0 = reference.random_padded(eng.spec, interior, seed=5) % 2
+    x = eng._ring_refresh(eng.to_internal(g0), boundary)
+    counted = wrapper if counter != "launches_march" else stencil3d.stencil3d_step
+    before = getattr(counted, counter)
+    got = wrapper(x, torch.zeros_like(x), eng.spec, eng.layout, fused_steps=k,
+                  bounds=eng._ghost_bounds())
+    assert getattr(counted, counter) == before + 1
+    want = twin(x, torch.zeros_like(x), eng.spec, eng.layout, k, eng._ghost_bounds())
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    box = tuple(v for s in interior for v in (0, s))
+    assert torch.equal(
+        wrapper(x, torch.zeros_like(x), eng.spec, eng.layout, fused_steps=k, bounds=box),
+        wrapper(x, torch.zeros_like(x), eng.spec, eng.layout, fused_steps=k))
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "reflect"])
+@pytest.mark.parametrize("name,interior,kw", [
+    ("star2d1r", (300, 260), {}),
+    ("star2d3r", (300, 260), {}),
+    ("star2d1r", (300, 260), {"fused_steps": 40}),  # a pass split across launches
+    ("star3d1r", (20, 40, 70), {"fused_steps_3d": 4}),
+    ("box3d1r", (20, 40, 70), {}),
+    ("1d1r", (4096,), {}),
+    ("1d2r", (200_000,), {}),
+    ("star2d1r", (300, 260), {"dtype": "df64"}),
+    ("box3d1r", (20, 40, 70), {"dtype": "float64"}),
+    ("1d2r", (200_000,), {"dtype": "df64"}),
+])
+def test_ghost_engine_matches_twins_and_ground_truth(cuda, name, interior, kw, boundary):
+    """run(.., 2) of the integer fill bit for bit against the CPU engine (the
+    twins) and the ground truth; run(.., 5) within rel 1e-5 (fp64: 1e-13);
+    no whole-grid run under a ghost boundary."""
+    spec = get_shape(name)
+    eng = engine.StencilEngine.for_shape(name, interior, device=cuda, boundary=boundary, **kw)
+    cpu = engine.StencilEngine.for_shape(name, interior, device="cpu", boundary=boundary, **kw)
+    truth = reference.run_periodic if boundary == "periodic" else reference.run_reflect
+    runs = (stencil2d.stencil2d_resident, stencil1d.stencil1d_resident_lanes,
+            stencil1d.stencil1d_resident)
+    before = [(f.launches, f.launches_f64) for f in runs]
+    g0 = reference.random_padded(spec, interior, seed=6)
+    got = eng.run(g0, 2).cpu()
+    assert torch.equal(got, cpu.run(g0, 2))
+    assert np.array_equal(got.numpy(), truth(g0, spec, 2))
+    g1 = g0 * (np.pi / 100)
+    want = truth(g1, spec, 5)
+    tol = 1e-5 if kw.get("dtype", "float32") == "float32" else 1e-13
+    assert (np.abs(eng.run(g1, 5).cpu().numpy() - want).max()
+            <= tol * np.abs(want).max())
+    assert [(f.launches, f.launches_f64) for f in runs] == before

@@ -231,7 +231,6 @@ def test_run_wrappers_and_the_fp64_reach_cap():
 @pytest.mark.parametrize("kw,err,match", [
     ({"dtype": "df64", "algorithm": "vpu_sep"}, ValueError, "1-D"),
     ({"dtype": "df64", "algorithm": "mxu"}, ValueError, "df64 kernel algorithm"),
-    ({"dtype": "float64", "boundary": "reflect"}, NotImplementedError, "ROADMAP A6"),
 ])
 def test_1d_fp64_configs_that_raise(kw, err, match):
     with pytest.raises(err, match=match):
@@ -239,6 +238,18 @@ def test_1d_fp64_configs_that_raise(kw, err, match):
     if err is ValueError:  # the JAX engine refuses it too
         with pytest.raises(ValueError, match=match):
             jax_engine.StencilEngine.for_shape("1d1r", (4096,), **kw)
+
+
+@pytest.mark.parametrize("kw", [{"dtype": "float64", "boundary": "reflect"}])
+def test_1d_fp64_ghost_configs_now_run(kw):
+    """Once refused (ROADMAP A6): passes on the flat path (no run), the
+    mode's fp64 ground truth at 1e-13."""
+    eng = engine.StencilEngine.for_shape("1d1r", (4096,), device="cpu", **kw)
+    assert eng.path == "flat" and eng._fused_k() == 2
+    g0 = reference.random_padded(eng.spec, (4096,), seed=9) * PI
+    want = reference.run_reflect(g0, eng.spec, 4)
+    got = eng.run(g0, 4).numpy()
+    assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
 
 
 def test_cli_1d_fp64_check_passes_on_cpu(capsys):

@@ -202,8 +202,6 @@ def test_wrappers_take_float64_and_refuse_the_rest():
     ({"dtype": "df64", "algorithm": "mxu_hybrid1"}, ValueError, "df64 kernel algorithm"),
     ({"dtype": "df64", "algorithm": "fast"}, ValueError, "algorithm"),
     ({"dtype": "float64", "algorithm": "vpu_sep"}, ValueError, "no 2-D path"),
-    ({"dtype": "float64", "boundary": "reflect"}, NotImplementedError, "ROADMAP A6"),
-    ({"dtype": "df64", "boundary": "periodic"}, NotImplementedError, "ROADMAP A6"),
 ])
 def test_2d_fp64_configs_that_raise(kw, err, match):
     with pytest.raises(err, match=match):
@@ -213,6 +211,18 @@ def test_2d_fp64_configs_that_raise(kw, err, match):
             jax_engine.StencilEngine.for_shape("star2d1r", (40, 200), **kw)
 
 
+@pytest.mark.parametrize("kw", [{"dtype": "float64", "boundary": "reflect"},
+                                {"dtype": "df64", "boundary": "periodic"}])
+def test_2d_fp64_ghost_configs_now_run(kw):
+    """Once refused (ROADMAP A6): the mode's fp64 ground truth at 1e-13."""
+    spec = get_shape("star2d1r")
+    g0 = reference.random_padded(spec, (40, 200), seed=8) * PI
+    truth = (reference.run_periodic if kw["boundary"] == "periodic"
+             else reference.run_reflect)
+    got = engine.StencilEngine.for_shape("star2d1r", (40, 200), device="cpu", **kw).run(g0, 4)
+    assert rel_err(got.numpy(), truth(g0, spec, 4)) <= 1e-13
+
+
 @pytest.mark.parametrize("dtype", ["df64", "float64"])
 def test_3d_fp64_raises_b10(dtype):
     """B10 is ported: 3-D takes both fp64-grade dtypes (tests/test_torch_df64_3d.py
@@ -220,9 +230,10 @@ def test_3d_fp64_raises_b10(dtype):
     eng = engine.StencilEngine.for_shape("box3d1r", (6, 20, 150), device="cpu", dtype=dtype)
     g0 = reference.random_padded(eng.spec, (6, 20, 150), seed=3)
     assert np.array_equal(eng.run(g0, 2).numpy(), reference.run(g0, eng.spec, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        engine.StencilEngine.for_shape("box3d1r", (6, 20, 150), device="cpu", dtype=dtype,
-                                       boundary="periodic")
+    # the ghost boundaries run too (ROADMAP A6 is ported)
+    ghost = engine.StencilEngine.for_shape("box3d1r", (6, 20, 150), device="cpu", dtype=dtype,
+                                           boundary="periodic")
+    assert rel_err(ghost.run(g0, 2).numpy(), reference.run_periodic(g0, eng.spec, 2)) <= 1e-13
 
 
 def test_cli_fp64_check_passes_on_cpu(capsys):

@@ -93,20 +93,38 @@ def test_launches_count_only_kernel_launches():
     ("star2d3r", {"algorithm": "mxu"}, "B13"),
     ("star2d1r", {"algorithm": "mxu_hybrid3"}, "B13"),
     ("star2d1r", {"dtype": "bfloat16"}, "A6"),
-    ("star2d1r", {"dtype": "float64", "boundary": "periodic"}, "A6"),
-    ("star3d1r", {"boundary": "periodic"}, "A6"),
-    ("star2d1r", {"boundary": "periodic"}, "A6"),
-    ("star2d1r", {"boundary": "reflect"}, "A6"),
     ("star2d1r", {"fusion": "skew", "dtype": "bfloat16"}, "A6"),
     ("star2d1r", {"algorithm": "mxu_split"}, "B13"),
     ("box2d3r", {"residue_mxu": "on", "dtype": "bfloat16"}, "A6"),
-    ("box3d1r", {"dtype": "df64", "boundary": "reflect"}, "A6"),
     ("box3d1r", {"dtype": "bfloat16"}, "A6"),
 ])
 def test_unsupported_configs_name_their_roadmap_item(name, kw, item):
     interior = {1: (256,), 2: (16, 16), 3: (8, 16, 16)}[get_shape(name).ndim]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         engine.StencilEngine.for_shape(name, interior, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("star2d1r", {"dtype": "float64", "boundary": "periodic"}),
+    ("star3d1r", {"boundary": "periodic"}),
+    ("star2d1r", {"boundary": "periodic"}),
+    ("star2d1r", {"boundary": "reflect"}),
+    ("box3d1r", {"dtype": "df64", "boundary": "reflect"}),
+])
+def test_ghost_configs_now_run(name, kw):
+    """The ghost boundaries these configs were refused with (ROADMAP A6)
+    run, against the port's fp64 ground truth of the mode: rel 1e-6 in
+    float32, 1e-13 in the fp64-grade tier (tests/test_torch_boundary*.py
+    hold them against the JAX engine)."""
+    spec = get_shape(name)
+    interior = {2: (16, 16), 3: (8, 16, 16)}[spec.ndim]
+    g0 = reference.random_padded(spec, interior, seed=5)
+    truth = (reference.run_periodic if kw["boundary"] == "periodic"
+             else reference.run_reflect)
+    want = truth(g0, spec, 3)
+    got = engine.StencilEngine.for_shape(name, interior, device="cpu", **kw).run(g0, 3)
+    tol = 1e-6 if kw.get("dtype", "float32") == "float32" else 1e-13
+    assert np.abs(got.numpy().astype(np.float64) - want).max() <= tol * np.abs(want).max()
 
 
 def test_unported_entry_points_and_bad_values_raise():
@@ -154,11 +172,19 @@ def test_cli_check_passes_on_cpu(capsys):
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--dtype", "bfloat16"], "A6"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--mesh", "2", "2"], "A11"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--autotune"], "A12"),
-    (["star3d1r", "8", "16", "16", "2", "--device", "cpu", "--dtype", "df64", "--boundary",
-      "periodic"], "A6"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):
     with pytest.raises(SystemExit) as exc:
         cli.main(argv)
     assert exc.value.code == 2
     assert f"ROADMAP {item}" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("dtype", ["float32", "df64"])
+@pytest.mark.parametrize("boundary", ["periodic", "reflect"])
+def test_cli_boundary_check_passes_on_cpu(boundary, dtype, capsys):
+    """--boundary, once refused (ROADMAP A6), runs and --check holds it to
+    the mode's ground truth (run_periodic / run_reflect)."""
+    assert cli.main(["star3d1r", "8", "16", "16", "2", "--device", "cpu", "--dtype", dtype,
+                     "--boundary", boundary, "--check"]) == 0
+    assert "Correct!" in capsys.readouterr().out

@@ -176,16 +176,33 @@ def test_run_keeps_input_decays_halo_and_counts_no_cpu_launches():
 
 @pytest.mark.parametrize("kw,err,match", [
     ({"dtype": "bfloat16"}, NotImplementedError, "ROADMAP A6"),
-    ({"dtype": "float64", "boundary": "periodic"}, NotImplementedError, "ROADMAP A6"),
-    ({"dtype": "df64", "boundary": "reflect"}, NotImplementedError, "ROADMAP A6"),
-    ({"boundary": "periodic"}, NotImplementedError, "ROADMAP A6"),
-    ({"boundary": "reflect"}, NotImplementedError, "ROADMAP A6"),
     ({"fusion": "skew"}, ValueError, "2-D time-skewed"),
     ({"interpret": True}, ValueError, "interpret"),
 ])
 def test_1d_configs_that_still_raise(kw, err, match):
     with pytest.raises(err, match=match):
         engine.StencilEngine.for_shape("1d2r", (4096,), device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"dtype": "float64", "boundary": "periodic"},
+    {"dtype": "df64", "boundary": "reflect"},
+    {"boundary": "periodic"},
+    {"boundary": "reflect"},
+])
+def test_1d_ghost_configs_now_run(kw):
+    """Once refused (ROADMAP A6): each runs passes (no run under a ghost
+    boundary) and matches the mode's fp64 ground truth, rel 1e-6 in float32
+    and 1e-13 in the fp64-grade tier."""
+    eng = engine.StencilEngine.for_shape("1d2r", (4096,), device="cpu", **kw)
+    assert eng.path in ("flat", "lanes")
+    g0 = reference.random_padded(eng.spec, (4096,), seed=6)
+    truth = (reference.run_periodic if kw["boundary"] == "periodic"
+             else reference.run_reflect)
+    want = truth(g0, eng.spec, 5)
+    tol = 1e-6 if "dtype" not in kw else 1e-13
+    got = eng.run(g0, 5).numpy().astype(np.float64)
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
 
 
 def test_for_coeffs_refusals_and_accepted_lanes_options():

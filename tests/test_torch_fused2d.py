@@ -135,11 +135,11 @@ def test_deep_pass_splits_into_launches(dtype, monkeypatch):
     x = eng.to_internal(reference.random_padded(spec, (37, 45), seed=3) * PI)
     depths = []
 
-    def fake_launch(kind, buffers, spec_, layout, depth):
+    def fake_launch(kind, buffers, spec_, layout, depth, bounds=None):
         assert kind == ("strip" if depth == 1 else "step")
         assert buffers[0] is not buffers[1]
         depths.append(depth)
-        stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth)
+        stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds)
 
     monkeypatch.setattr(stencil2d, "_launch", fake_launch)
     donor = torch.zeros_like(x)

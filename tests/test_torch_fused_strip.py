@@ -137,9 +137,11 @@ def _column_convs(terms, x, R):
     return out
 
 
-def _emulation(cur, donor, spec, layout, K, resident=RESIDENT):
+def _emulation(cur, donor, spec, layout, K, resident=RESIDENT, bounds=None):
     """A pass of K fused steps as csrc/stencil2d.cu's fused_strip_kernel runs
-    it: the tasks of one row count at once, a warp's 128 columns per task."""
+    it: the tasks of one row count at once, a warp's 128 columns per task;
+    the levels before the last masked to ``bounds`` (rlo, rhi, clo, chi),
+    compared per cell as the kernel does, the last to the interior."""
     terms = _plan(spec, cur.dtype)
     R = spec.radius
     Y = 2 * R + 2
@@ -147,6 +149,7 @@ def _emulation(cur, donor, spec, layout, K, resident=RESIDENT):
     r0, c0 = layout.origin
     m, n = layout.interior
     mr, nr = layout.rounded
+    rlo, rhi, clo, chi = (0, m, 0, n) if bounds is None else bounds
     zero = torch.zeros((), dtype=cur.dtype)
     lanes = torch.arange(STRIP_COLS + 2 * PAD)
     # the buffer with zeros beyond its columns, so that a window's cells
@@ -201,7 +204,11 @@ def _emulation(cur, donor, spec, layout, K, resident=RESIDENT):
                                 z = ring[L - 1][(u + h + 2 * L + R) % Y][t]
                             acc = acc + z
                         i = i0 - K * R + s + h - L * R  # interior row
-                        keep = col_in & ((i >= 0) & (i < m))[:, None]
+                        if L == K:
+                            keep = col_in & ((i >= 0) & (i < m))[:, None]
+                        else:  # Grid2D's box
+                            keep = (((cols >= clo) & (cols < chi))
+                                    & ((i >= rlo) & (i < rhi))[:, None])
                         v[h] = torch.where(keep, acc, zero)
                 if s < 2 * K * R:
                     continue
@@ -327,9 +334,9 @@ def test_split_pass_launches_the_fused_strip_kernel_by_the_rule(kind, name, dtyp
     x = lay.to_internal(reference.random_padded(spec, (37, 45), seed=4) % 2, dtype)
     kinds = []
 
-    def fake_launch(kind_, buffers, spec_, layout, depth):
+    def fake_launch(kind_, buffers, spec_, layout, depth, bounds=None):
         kinds.append(kind_)
-        stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth)
+        stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds)
 
     monkeypatch.setattr(stencil2d, "_launch", fake_launch)
     got = stencil2d._split_pass(kind, x, torch.zeros_like(x), spec, lay, k)
@@ -337,3 +344,30 @@ def test_split_pass_launches_the_fused_strip_kernel_by_the_rule(kind, name, dtyp
     assert kinds == [expect]
     assert stencil2d._ENTRIES[expect][dtype]
     _same(got, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k))
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "reflect"])
+@pytest.mark.parametrize("fill", ["integer", "pi"])
+@pytest.mark.parametrize("interior", [(70, 140), (37, 45)], ids=["70x140", "37x45"])
+@pytest.mark.parametrize("case", CASES)
+def test_fused_strip_emulation_with_ghost_bounds_equals_the_twin(case, interior, fill,
+                                                                 boundary):
+    """Under a ghost boundary (ROADMAP A6(a)) level 1 keeps the box [-d, m +
+    d) x [-d, n + d), d = K R, which holds the ring the engine's refresh
+    filled; level K keeps the interior.  The emulation equals the twin with
+    the same bounds bit for bit, on a buffer whose ring is filled."""
+    from lorastencil_tpu_torch.engine import _ring_refresh_nd
+
+    spec = _spec(case)
+    for K in stencil2d.FUSED_STRIP_DEPTHS:
+        lay = _layout(spec, interior, K)
+        d = K * spec.radius
+        g0 = reference.random_padded(spec, interior, seed=9)
+        x = _ring_refresh_nd(lay.to_internal(_fill(g0, fill)), boundary, lay.origin,
+                             lay.interior, d)
+        bounds = (-d, interior[0] + d, -d, interior[1] + d)
+        want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, K, bounds)
+        _same(_emulation(x, torch.zeros_like(x), spec, lay, K, bounds=bounds), want)
+        # the bounds matter: without them the ring is zeroed at level 1
+        assert not torch.equal(want, stencil2d.stencil2d_step_plain(
+            x, torch.zeros_like(x), spec, lay, K))

@@ -106,14 +106,16 @@ def test_pass_tile_fills_the_sms(rounded, sms, tile):
     assert rounded % tile == 0
 
 
-def _wide_emulation(cur, donor, spec, layout, k):
+def _wide_emulation(cur, donor, spec, layout, k, bounds=None):
     """The wide pass as csrc/stencil1d.cu's wide_kernel runs it, tile by
-    tile."""
+    tile; the substeps before the last masked to ``bounds`` (lo, hi), the
+    last to the interior."""
     offsets, weights = stencil1d.wide_taps(spec)
     weights = [float(torch.tensor(w, dtype=cur.dtype)) for w in weights]
     r = stencil1d.effective_radius(spec)
     H, o, n, nr = k * r, layout.origin, layout.interior, layout.rounded
     tile = stencil1d.pass_tile(nr, SMS)
+    blo, bhi = (0, n) if bounds is None else bounds
     pad = torch.zeros(H, dtype=cur.dtype)
     buf = torch.cat([pad, cur, pad])  # zero outside the buffer
     for t0 in range(0, nr, tile):
@@ -128,7 +130,8 @@ def _wide_emulation(cur, donor, spec, layout, k):
             if acc is None:
                 acc = torch.zeros(cnt, dtype=cur.dtype)
             f = torch.arange(t0 - e, t0 - e + cnt)
-            acc = torch.where((f >= 0) & (f < n), acc, torch.zeros((), dtype=cur.dtype))
+            a, b = (0, n) if s == k else (blo, bhi)
+            acc = torch.where((f >= a) & (f < b), acc, torch.zeros((), dtype=cur.dtype))
             src = F.pad(acc, (lo, lo))  # cells [lo, lo + cnt) of the window
         donor[o + t0: o + t0 + tile] = acc
     return donor
@@ -297,3 +300,27 @@ def test_strip_dispatch_by_radius(name):
     four = StencilSpec(name="four", ndim=2, radius=2, halo=(2, 2),
                        terms=four.terms + four.terms[:1], residue=(), fuse_factor=1)
     assert not stencil2d.strip_takes(four, torch.float32)
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "reflect"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["1d1r", "r40"])
+def test_wide_emulation_with_ghost_bounds_equals_the_twin(name, dtype, boundary):
+    """Under a ghost boundary (ROADMAP A6(a)) the substeps before the last
+    keep [-d, n + d), d = k * radius (1d1r: 16 at k = 4, beyond its reach
+    12), which holds the ring the engine's refresh filled: the emulation
+    equals the twin with the same bounds bit for bit."""
+    from lorastencil_tpu_torch.engine import _ring_refresh_nd
+
+    spec = _spec_1d(name)
+    n = 5001
+    g0 = reference.random_padded(spec, (n,), seed=8) * (np.pi / 100)
+    for k in (2, 4):
+        d = k * spec.radius
+        lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], d))
+        x = _ring_refresh_nd(lay.to_internal(g0, dtype), boundary, (lay.origin,), (n,), d)
+        bounds = (-d, n + d)
+        want = stencil1d.stencil1d_step_plain(x, torch.zeros_like(x), spec, lay, k, bounds)
+        _same(_wide_emulation(x, torch.zeros_like(x), spec, lay, k, bounds), want)
+        assert not torch.equal(want, stencil1d.stencil1d_step_plain(
+            x, torch.zeros_like(x), spec, lay, k))

@@ -160,9 +160,11 @@ def _mad(acc, w, x):
     return acc if w == 0.0 else _add(acc, w * x)
 
 
-def _emulation(cur, donor, spec, layout, K, resident=RESIDENT):
+def _emulation(cur, donor, spec, layout, K, resident=RESIDENT, bounds=None):
     """A pass of K fused steps as csrc/stencil3d.cu's march_kernel runs it:
-    the tasks of one plane count at once."""
+    the tasks of one plane count at once; at K = 2 level 1 masked to
+    ``bounds`` (zlo, zhi, rlo, rhi, clo, chi: the kernel's second flag set in
+    ``keep``), the last level to the interior."""
     R = spec.radius
     dtype = cur.dtype
     g = _geometry(dtype, R, K)
@@ -190,6 +192,9 @@ def _emulation(cur, donor, spec, layout, K, resident=RESIDENT):
         ii = (i0 - g["ER"])[:, None] + torch.arange(GR)[None, :]  # interior rows
         jj = (j0 - g["EQ"] * V)[:, None] + torch.arange(GC)[None, :]  # interior cols
         keep = (((ii >= 0) & (ii < m))[:, :, None] & ((jj >= 0) & (jj < n))[:, None, :])
+        zlo, zhi, rlo, rhi, clo, chi = (0, h, 0, m, 0, n) if bounds is None else bounds
+        keep_box = (((ii >= rlo) & (ii < rhi))[:, :, None]
+                    & ((jj >= clo) & (jj < chi))[:, None, :])
         prow = (r0 + i0 - g["ER"] - R)[:, None] + torch.arange(PR)[None, :]
         pcol = (c0 + j0 - (g["EQ"] + 1) * V)[:, None] + torch.arange(PCOL)[None, :]
 
@@ -223,9 +228,10 @@ def _emulation(cur, donor, spec, layout, K, resident=RESIDENT):
             held[:] = held[1:] + [y]
             return done
 
-        def mask(v, val):
+        def mask(v, val, box=False):
             z = (zb + v)[:, None, None]
-            inside = keep & (z >= 0) & (z < h)
+            inside = (keep_box & (z >= zlo) & (z < zhi) if box
+                      else keep & (z >= 0) & (z < h))
             return torch.where(inside, val, torch.zeros((), dtype=dtype))
 
         def store(v, val):
@@ -248,7 +254,7 @@ def _emulation(cur, donor, spec, layout, K, resident=RESIDENT):
             lv = level_step(slots[u % in_slots], back, *state[0])
             if u < 2 * R:
                 continue
-            lv = mask(u - R, lv)
+            lv = mask(u - R, lv, box=K == 2)
             if K == 1:
                 store(u - R, lv)
                 continue
@@ -420,13 +426,13 @@ def test_kernel_pass_launches_the_march_kernel_by_the_rule(name, dtype, k, march
     x = lay.to_internal(reference.random_padded(spec, (20, 40, 70), seed=4), dtype)
     launched = []
 
-    def fake_march(cur, out, spec_, layout, depth):
+    def fake_march(cur, out, spec_, layout, depth, box):
         launched.append(("march", depth))
-        return stencil3d.stencil3d_step_plain(cur, out, spec_, layout, depth)
+        return stencil3d.stencil3d_step_plain(cur, out, spec_, layout, depth, box)
 
-    def fake_general(cur, out, spec_, layout, depth, tile):
+    def fake_general(cur, out, spec_, layout, depth, tile, box):
         launched.append(("general", depth))
-        return stencil3d.stencil3d_step_plain(cur, out, spec_, layout, depth)
+        return stencil3d.stencil3d_step_plain(cur, out, spec_, layout, depth, box)
 
     monkeypatch.setattr(stencil3d, "_launch_march", fake_march)
     monkeypatch.setattr(stencil3d, "_launch", fake_general)
@@ -434,3 +440,28 @@ def test_kernel_pass_launches_the_march_kernel_by_the_rule(name, dtype, k, march
     got = stencil3d._kernel_pass(x, torch.zeros_like(x), spec, lay, k)
     assert launched == [("march" if march else "general", k)]
     _same(got, stencil3d.stencil3d_step_plain(x, torch.zeros_like(x), spec, lay, k))
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "reflect"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", SHAPES_3D)
+def test_march_emulation_with_ghost_bounds_equals_the_twin(name, dtype, boundary):
+    """Under a ghost boundary (ROADMAP A6(a)) level 1 of a K = 2 pass keeps
+    the box [-2, s + 2) per axis, which holds the ring the engine's refresh
+    filled; level 2 keeps the interior.  Emulation and twin with the same
+    bounds agree bit for bit on the pi/100 fill."""
+    from lorastencil_tpu_torch.engine import _ring_refresh_nd
+
+    spec = get_shape(name)
+    interior, K = (12, 40, 70), 2
+    lay = _layout(spec, interior, K)
+    d = K * spec.radius
+    bounds = tuple(v for s in interior for v in (-d, s + d))
+    g0 = reference.random_padded(spec, interior, seed=10)
+    for fill in ("pi",):
+        x = _ring_refresh_nd(lay.to_internal(_fill(g0, fill), dtype), boundary, lay.origin,
+                             lay.interior, d)
+        want = stencil3d.stencil3d_step_plain(x, torch.zeros_like(x), spec, lay, K, bounds)
+        _same(_emulation(x, torch.zeros_like(x), spec, lay, K, bounds=bounds), want)
+        assert not torch.equal(want, stencil3d.stencil3d_step_plain(
+            x, torch.zeros_like(x), spec, lay, K))

@@ -136,8 +136,10 @@ def _sums(src, idx, centre, per_d):
     return acc
 
 
-def _lanes_emulation(cur, donor, spec, layout, k):
-    """The narrow pass as lanes_kernel runs it, tile by tile."""
+def _lanes_emulation(cur, donor, spec, layout, k, bounds=None):
+    """The narrow pass as lanes_kernel runs it, tile by tile; the substeps
+    before the last masked to ``bounds`` (lo, hi), the last to the
+    interior."""
     centre, per_d = stencil1d.lanes_plan(spec)
     r, V = len(per_d), stencil1d.LANES_V
     P = -(-r // 4) * 4
@@ -145,6 +147,7 @@ def _lanes_emulation(cur, donor, spec, layout, k):
     o, n, nr, L = layout.origin, layout.interior, layout.rounded, layout.shape[0]
     tile = stencil1d.lanes_tile(nr, SMS)
     S = tile + 2 * E
+    blo, bhi = (0, n) if bounds is None else bounds
     nan = float("nan")
     for t0 in range(0, nr, tile):
         g = torch.arange(o + t0 - E, o + t0 - E + S)
@@ -159,7 +162,8 @@ def _lanes_emulation(cur, donor, spec, layout, k):
             i = torch.arange(q0 * V, q1 * V)
             acc = _sums(src, P + i, centre, per_d)
             f = t0 - E + i
-            acc = torch.where((f >= 0) & (f < n), acc, torch.zeros(()))
+            a, b = (0, n) if s == k else (blo, bhi)
+            acc = torch.where((f >= a) & (f < b), acc, torch.zeros(()))
             if s == k:
                 donor[o + t0: o + t0 + tile] = acc
             else:
@@ -193,3 +197,28 @@ def test_the_staged_halo_is_small_at_16m():
     E = -(-k * r // stencil1d.LANES_V) * stencil1d.LANES_V
     assert (E, stencil1d.lanes_tile(16_777_216, SMS)) == (16, 2048)
     assert 2 * E / 2048 < 0.02
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "reflect"])
+@pytest.mark.parametrize("name", ["1d1r", "1d2r", "asym", "r9"])
+def test_lanes_emulation_with_ghost_bounds_equals_the_twin(name, boundary):
+    """Under a ghost boundary (ROADMAP A6(a)) the substeps before the last
+    keep [-d, n + d), d = k * radius, which holds the ring the engine's
+    refresh filled: the emulation equals the twin with the same bounds bit
+    for bit, at k = 3 and at the largest k."""
+    from lorastencil_tpu_torch.engine import _ring_refresh_nd
+
+    spec = _spec(name)
+    r, n = stencil1d.effective_radius(spec), 3001
+    g0 = reference.random_padded(spec, (n,), seed=5) * (np.pi / 100)
+    for k in sorted({min(3, stencil1d.MAX_LANES_REACH // r), stencil1d.MAX_LANES_REACH // r}):
+        d = k * spec.radius
+        lay = Layout1D(n, spec.halo[0], TILE_1D, guard_1d(spec.halo[0], d))
+        x = _ring_refresh_nd(lay.to_internal(g0), boundary, (lay.origin,), (n,), d)
+        bounds = (-d, n + d)
+        want = stencil1d.stencil1d_lanes_step_plain(x, torch.zeros_like(x), spec, lay, k,
+                                                    bounds)
+        got = _lanes_emulation(x, torch.zeros_like(x), spec, lay, k, bounds)
+        torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+        assert k == 1 or not torch.equal(want, stencil1d.stencil1d_lanes_step_plain(
+            x, torch.zeros_like(x), spec, lay, k))

@@ -245,8 +245,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     cur, donor = torch.zeros(lay.shape), torch.zeros(lay.shape)
     wide, _ = _specs("r40")
     lanes, flat = stencil1d.stencil1d_lanes_step, stencil1d.stencil1d_step
-    with pytest.raises(NotImplementedError, match="A6"):
-        flat(cur, donor, spec, lay, bounds=(0, 100))
+    flat(cur, donor, spec, lay, bounds=(0, 100))  # the interior: ported (A6)
+    for bad in ((1, 100), (0, 99), (-9, 100), (0, 100, 0)):
+        with pytest.raises(ValueError, match="bounds"):
+            flat(cur, donor, spec, lay, bounds=bad)
     with pytest.raises(NotImplementedError, match="A11"):
         lanes(cur, donor, spec, lay, region=(0, 1))
     with pytest.raises(ValueError, match="effective radius 40"):

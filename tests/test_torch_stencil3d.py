@@ -267,8 +267,11 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
     cur, donor = torch.zeros(lay.shape), torch.zeros(lay.shape)
     with pytest.raises(NotImplementedError, match="B13"):
         stencil3d.stencil3d_step(cur, donor, spec, lay, algorithm="mxu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        stencil3d.stencil3d_step(cur, donor, spec, lay, bounds=(0, 4, 0, 8, 0, 8))
+    stencil3d.stencil3d_step(cur, donor, spec, lay, bounds=(0, 4, 0, 8, 0, 8))  # ported (A6)
+    stencil3d.stencil3d_step(cur, donor, spec, lay, bounds=(-2, 4, -4, 12, -4, 12))
+    for bad in ((0, 4, 0, 8, 0, 7), (1, 4, 0, 8, 0, 8), (0, 4, -5, 8, 0, 8), (0, 4, 0, 8, 0)):
+        with pytest.raises(ValueError, match="bounds"):
+            stencil3d.stencil3d_step(cur, donor, spec, lay, bounds=bad)
     with pytest.raises(NotImplementedError, match="A11"):
         stencil3d.stencil3d_step(cur, donor, spec, lay, region=((0, 1), (0, 1)))
     with pytest.raises(ValueError, match="unknown algorithm"):

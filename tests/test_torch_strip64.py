@@ -136,9 +136,9 @@ def test_split_pass_sends_float64_single_steps_to_the_strip_kernel(kind, k, want
     x = lay.to_internal(reference.random_padded(spec, (37, 45), seed=4) % 2, F64)
     kinds = []
 
-    def fake_launch(kind_, buffers, spec_, layout, depth):
+    def fake_launch(kind_, buffers, spec_, layout, depth, bounds=None):
         kinds.append(kind_)
-        stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth)
+        stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds)
 
     monkeypatch.setattr(stencil2d, "_launch", fake_launch)
     got = stencil2d._split_pass(kind, x, torch.zeros_like(x), spec, lay, k)
