@@ -43,11 +43,18 @@ its hand-written CUDA kernels:
   card below the H100 caps: at 512^2 the shared-memory resident kernel of
   ``csrc/resident2d.cu`` (every registry shape), and for a radius-5 spec
   at 480^2 ``csrc/stencil2d.cu``'s resident kernel.
+* the bfloat16 state tier in 2-D (dtype 'bfloat16': bf16 state, fp32
+  compute): star2d1r 8192^2 through the bf16 strip kernel, star2d3r 8192^2
+  through the bf16 fused strip kernel, and the bf16 instances of every
+  other kernel of TPU kernels #1-#3 (tile, fused, skew, both resident
+  runs); and the repaired wide 2-D radii (up to 128: the wide kernel) and
+  3-D radius 0.
 
 Phases, each printing one line or more and raising on failure:
 
 1. the card (nvidia-smi name and power limit), torch and nvcc versions;
-   the four sources built from the checkout, the nvcc runs started
+   the five sources built from the checkout (``csrc/stencil2d_bf16.cu``,
+   ``stencil2d.cu``'s bf16 instances, apart), the nvcc runs started
    together;
 2. the 2-D step (the strip kernel: float32, k = 1, radius <= 4) against its
    plain PyTorch twin on the card, for star2d1r and box2d1r at an interior
@@ -298,7 +305,29 @@ Phases, each printing one line or more and raising on failure:
    backward's parts; 20 iterations of ``examples/torch_inverse_source.py``
    at 8192^2, the loss falling at every one; each custom kernel's pass
    timed beside its twin, a library step and its bound; a
-   ``{"custom": ...}`` line of the records.
+   ``{"custom": ...}`` line of the records;
+23. the bfloat16 state tier in 2-D (ROADMAP A6(c)) and the repairs C3 and
+   C4: each bf16 instance of TPU kernels #1-#3 (``BF16_CHECKS``: the strip
+   kernel at star2d1r and box2d3r 8192^2, the fused strip kernel from both
+   wrappers and the tile-based fused and skew kernels at star2d3r 8192^2
+   k = 2, the tile kernel's fused levels at k = 3 and on phase 22's 5x5,
+   its step on a radius-5 spec, the skew kernel on star2d1r, the
+   shared-memory resident kernel at 512^2 and ``csrc/stencil2d.cu``'s at
+   480^2) bit for bit against its bf16 twin on the integer fill at 1-2
+   passes, and on a uniform fill bit for bit against the float32 instance
+   of the widened input, rounded to bf16 (within one bf16 ulp of the twin);
+   each bf16 path through ``StencilEngine`` (``BF16_PATHS``) run(2) bit for
+   bit against the engine with the plain twins and a counted run, launches
+   from zero, only bf16 instances; star2d1r 8192^2 x 256 and star2d3r
+   8192^2 x 64 timed in bf16 beside float32, in turns, each pass beside its
+   bound at 2-byte cells and ``F.conv2d`` in bf16 and float32; every bf16
+   instance's pass timed beside its twin, a bf16 library step and its
+   bound; C3: ``for_coeffs`` crosses of radius 17 and 64 at 8192^2 in
+   float32 and float64 (the tile kernel, its fused levels, the wide
+   kernel) against the engine with the twins and a float64 dense stencil,
+   the wide kernel timed; C4: the radius-0 3-D spec at 256^3 in float32,
+   float64 and df64 under every boundary, bit for bit against a float64
+   dense stencil on the card, the general kernel's pass timed.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -322,6 +351,7 @@ BENCH_STEPS = 256
 INTERIOR_3D = (256, 256, 256)
 BENCH_STEPS_3D = 64
 SOURCES = {"stencil2d": "lorastencil_tpu_torch/csrc/stencil2d.cu",
+           "stencil2d_bf16": "lorastencil_tpu_torch/csrc/stencil2d_bf16.cu",
            "stencil3d": "lorastencil_tpu_torch/csrc/stencil3d.cu",
            "stencil1d": "lorastencil_tpu_torch/csrc/stencil1d.cu",
            "resident2d": "lorastencil_tpu_torch/csrc/resident2d.cu"}
@@ -412,7 +442,14 @@ def _counters():
                                "launches_lanes"),
            "stencil1d_run": (stencil1d.stencil1d_resident, "launches_run"),
            "stencil1d_lanes_run": (stencil1d.stencil1d_resident_lanes,
-                                   "launches_run")}
+                                   "launches_run"),
+           # the bfloat16 instances (ROADMAP A6(c)) and the wide kernel (C3)
+           "stencil2d_bf16": (stencil2d.stencil2d_step, "launches_bf16"),
+           "stencil2d_skew_bf16": (stencil2d.stencil2d_skew_step,
+                                   "launches_bf16"),
+           "stencil2d_resident_bf16": (stencil2d.stencil2d_resident,
+                                       "launches_bf16"),
+           "stencil2d_wide": (stencil2d.stencil2d_step, "launches_wide")}
     out.update({name: (getattr(stencil1d, name), "launches")
                 for name in KERNELS_1D})
     out.update({name: (getattr(stencil1d, wrapper), "launches_f64")
@@ -692,12 +729,12 @@ def step_flops(spec) -> int:
 def bound_parts(spec, interior, steps_per_pass, itemsize=4):
     """(bytes ms, operations ms) of one pass: each input cell read once and
     each output cell written once (``itemsize`` bytes: 4 in float32, 8 in
-    float64) over the memory rate; its operations over the fp32 or fp64
-    rate."""
+    float64, 2 in bfloat16) over the memory rate; its operations over the
+    fp32 rate (bfloat16 computes in fp32) or the fp64 rate."""
     cells = int(np.prod(interior))
     t_bytes = 2 * itemsize * cells / PEAK_BYTES_PER_S
     t_ops = cells * steps_per_pass * step_flops(spec) / (
-        PEAK_FP32_FLOPS if itemsize == 4 else PEAK_FP64_FLOPS)
+        PEAK_FP64_FLOPS if itemsize == 8 else PEAK_FP32_FLOPS)
     return t_bytes * 1e3, t_ops * 1e3
 
 
@@ -709,11 +746,11 @@ def bound_ms(spec, interior, steps_per_pass, itemsize=4):
                                  else "operations")
 
 
-def library_ms(spec, interior, device, dtype=torch.float32):
+def library_ms(spec, interior, device, dtype=torch.float32, repeats=3):
     """One cuDNN convolution with the dense coefficients (TF32 off) on
     the interior and a radius-deep margin, in ``dtype``: one step of the
-    same function (cross-correlation, as the stencil is).  The port never
-    calls it."""
+    same function (cross-correlation, as the stencil is), best of
+    ``repeats`` after a warmup.  The port never calls it."""
     import torch.nn.functional as F
 
     from lorastencil_tpu_torch.utils import metrics
@@ -725,7 +762,8 @@ def library_ms(spec, interior, device, dtype=torch.float32):
     x = torch.rand((1, 1) + tuple(s + 2 * r for s in interior),
                    generator=gen, device=device, dtype=dtype) * 0.01
     conv = F.conv3d if spec.ndim == 3 else F.conv2d
-    secs, out = metrics.time_run(lambda: conv(x, w), repeats=3, warmup=1)
+    secs, out = metrics.time_run(lambda: conv(x, w), repeats=repeats,
+                                 warmup=1)
     if tuple(out.shape[2:]) != tuple(interior):
         raise AssertionError(f"library conv gave {tuple(out.shape)}")
     return secs * 1e3
@@ -2820,12 +2858,15 @@ def bench_fp64_3d(device, card):
 # ("12strip_kernel"), which keeps strip_kernel's pattern off
 # "18fused_strip_kernel".
 PTXAS_KERNELS = {
-    "strip_kernel": ("stencil2d", r"\dstrip_kernelILi(\d)ELi(\d)E", "R,terms"),
+    "strip_kernel": (("stencil2d", "stencil2d_bf16"),
+                     r"\dstrip_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)E",
+                     "type,R,terms"),
     "strip64_kernel": ("stencil2d", r"strip64_kernelILi(\d)ELi(\d)ELb([01])E",
                        "R,terms,16-byte"),
     "fused_strip_kernel": (
-        "stencil2d", r"fused_strip_kernelILi(\d)ELi(\d)ELi(\d)ELi(\d+)E",
-        "R,terms,K,kinds"),
+        ("stencil2d", "stencil2d_bf16"),
+        r"fused_strip_kernelI(f|13__nv_bfloat16)Li(\d)ELi(\d)ELi(\d)ELi(\d+)E",
+        "type,R,terms,K,kinds"),
     "wide_kernel": ("stencil1d", r"wide_kernelI([fd])E", "type"),
     "lanes_kernel": ("stencil1d", r"lanes_kernelILi(\d)E", "R"),
     "run_kernel": ("stencil1d", r"run_kernelI([fd])Li(\d)ELi(\d)EE",
@@ -2835,7 +2876,8 @@ PTXAS_KERNELS = {
         r"march_kernelI([fd])Li(\d)ELi(\d)ELi(\d)ELi(\d+)ELb([01])ELb([01])E",
         "type,R,K,terms,kinds,16-byte,box"),
     "resident_smem_kernel": (
-        "resident2d", r"resident_smem_kernelI([fd])Li(\d)EEE", "type,R")}
+        "resident2d", r"resident_smem_kernelI([fd]|13__nv_bfloat16)Li(\d)EEE",
+        "type,R")}
 
 
 def ptxas_table(log, pattern):
@@ -2875,13 +2917,15 @@ def redesigned(device, card, builds, step_ms, lib2, fp64_step, march_ms,
     from lorastencil_tpu_torch.models.shapes import get_shape
     from lorastencil_tpu_torch.ops import stencil1d as s1
 
-    for kernel, (source, pattern, what) in PTXAS_KERNELS.items():
-        table = ptxas_table(builds[source][2], pattern)
+    for kernel, (sources, pattern, what) in PTXAS_KERNELS.items():
+        sources = (sources,) if isinstance(sources, str) else sources
+        table = ptxas_table([ln for s in sources for ln in builds[s][2]],
+                            pattern)
         print(f"phase 20: {kernel} registers per instantiation ({what}), no "
               f"spill: "
               + " ".join(f"{k}:{v[0]}" for k, v in sorted(table.items()))
-              + f"; {SOURCES[source]} built in {builds[source][0]:.1f} s",
-              flush=True)
+              + "; " + ", ".join(f"{SOURCES[s]} built in {builds[s][0]:.1f} s"
+                                 for s in sources), flush=True)
     spec2 = get_shape("star2d1r")
     strip, plain, tile = step_ms
     bound2, by2 = bound_ms(spec2, INTERIOR, 1)
@@ -3291,7 +3335,7 @@ def dyadic(spec):
 
 class twins:
     """Inside ``with twins():`` every 2-D and 3-D kernel wrapper the engine
-    calls is its plain PyTorch twin, on the state's device: an engine run
+    calls (the skew pass's too) is its plain PyTorch twin, on the state's device: an engine run
     is the kernels' run with each launch's plain version, levels, bounds
     and ring refreshes as the engine gives them."""
 
@@ -3300,12 +3344,16 @@ class twins:
         from lorastencil_tpu_torch.ops import stencil3d as s3
 
         self.saved = (s2.stencil2d_step, s2.stencil2d_resident,
-                      s3.stencil3d_step)
+                      s3.stencil3d_step, s2.stencil2d_skew_step)
 
         def step2(cur, donor, spec, layout, algorithm=None, fused_steps=1,
                   bounds=None, refresh=None):
             return s2.stencil2d_step_plain(cur, donor, spec, layout,
                                            fused_steps, bounds)
+
+        def skew2(cur, donor, spec, layout, algorithm=None, skew_steps=2):
+            return s2.stencil2d_step_plain(cur, donor, spec, layout,
+                                           skew_steps)
 
         def step3(cur, donor, spec, layout, algorithm=None, fused_steps=1,
                   conv_carry=None, bounds=None, region=None, refresh=None):
@@ -3313,6 +3361,7 @@ class twins:
                                            fused_steps, bounds)
 
         s2.stencil2d_step, s3.stencil3d_step = step2, step3
+        s2.stencil2d_skew_step = skew2
         s2.stencil2d_resident = s2.stencil2d_resident_plain
         return self
 
@@ -3320,8 +3369,8 @@ class twins:
         from lorastencil_tpu_torch.ops import stencil2d as s2
         from lorastencil_tpu_torch.ops import stencil3d as s3
 
-        s2.stencil2d_step, s2.stencil2d_resident, s3.stencil3d_step = \
-            self.saved
+        (s2.stencil2d_step, s2.stencil2d_resident, s3.stencil3d_step,
+         s2.stencil2d_skew_step) = self.saved
 
 
 def dense_truth(padded, spec, steps, mode):
@@ -3878,6 +3927,503 @@ def custom_kernel_entries(custom):
     return entries
 
 
+# Phase 23: the bfloat16 state tier in 2-D (ROADMAP A6(c)): the bf16 instances
+# of TPU kernels #1-#3; and the repairs C3 (a 2-D radius above 16, up to 128:
+# the wide kernel past the tile kernel's shared memory) and C4 (a 3-D
+# radius-0 spec: the general kernel's radius-0 instances).
+BF16 = torch.bfloat16
+# Each bf16 instance's check cases: (kernel, spec, interior, k or "run",
+# the wrapper of the pass, the counter its launches count in besides the
+# wrapper's launches_bf16).  "5x5 asym" is phase 22's custom spec.
+BF16_CHECKS = (
+    ("strip_kernel<bf16>", "star2d1r", INTERIOR, 1, "step", "stencil2d_k1"),
+    ("strip_kernel<bf16>", "box2d3r", INTERIOR, 1, "step", "stencil2d_k1"),
+    ("fused_strip_kernel<bf16>", "star2d3r", INTERIOR, 2, "step",
+     "stencil2d_fused_strip"),
+    ("fused_strip_kernel<bf16>", "star2d3r", INTERIOR, 2, "skew",
+     "stencil2d_skew_fused_strip"),
+    ("step_kernel<bf16> fused", "star2d1r", (1000, 1000), 3, "step", None),
+    ("step_kernel<bf16> fused", "5x5 asym", INTERIOR, 2, "step", None),
+    ("step_kernel<bf16>", "custom_r5", (1000, 1000), 1, "step", None),
+    ("skew_kernel<bf16>", "star2d1r", INTERIOR, 2, "skew", None),
+    ("resident_smem_kernel<bf16>", "star2d1r", SMALL_2D, "run", None,
+     "stencil2d_resident_smem"),
+    ("resident_kernel<bf16>", "custom_r5", R5_2D, "run", None, None))
+# The bf16 paths through StencilEngine's default dispatch, each counted from
+# zero: (kernel, spec, interior, engine options, steps of the counted run,
+# the counter, its launches, the counters that stay zero).  custom_r5's bf16
+# 'auto' is 'mxu_hybrid' (one term, no residue): k = 2 and no whole-grid run,
+# so its paths name k = 1 and 'vpu_roll'.
+BF16_PATHS = (
+    ("strip_kernel<bf16>", "star2d1r", INTERIOR, {}, BENCH_STEPS,
+     "stencil2d_k1", BENCH_STEPS, ("stencil2d_fused_strip",)),
+    ("fused_strip_kernel<bf16>", "star2d3r", INTERIOR, {}, FUSED_STEPS,
+     "stencil2d_fused_strip", FUSED_STEPS // 2, ("stencil2d_k1",)),
+    ("step_kernel<bf16> fused", "star2d1r", INTERIOR, {"fused_steps": 3}, 6,
+     "stencil2d_bf16", 2, ("stencil2d_k1", "stencil2d_fused_strip")),
+    ("step_kernel<bf16>", "custom_r5", INTERIOR, {"fused_steps": 1}, 4,
+     "stencil2d_bf16", 4,
+     ("stencil2d_k1", "stencil2d_fused_strip", "stencil2d_wide")),
+    ("skew_kernel<bf16>", "star2d1r", INTERIOR, {"fusion": "skew"}, 4,
+     "stencil2d_skew_bf16", 2, ("stencil2d_skew_fused_strip",)),
+    ("resident_smem_kernel<bf16>", "star2d1r", SMALL_2D, {}, FUSED_STEPS,
+     "stencil2d_resident_smem", 1, ("stencil2d_bf16",)),
+    ("resident_kernel<bf16>", "custom_r5", R5_2D, {"algorithm": "vpu_roll"},
+     FUSED_STEPS,
+     "stencil2d_resident_bf16", 1, ("stencil2d_resident_smem",
+                                    "stencil2d_bf16")))
+# the counters of the other dtypes, which no bf16 run may add to
+NOT_BF16 = ("stencil2d", "df64_step", "stencil2d_skew", "stencil2d_skew_f64",
+            "stencil2d_resident", "stencil2d_resident_pair")
+# C3's crosses: radius, interior, dtype, the counter of its passes' kernel
+C3_CASES = ((17, INTERIOR, "float32", "stencil2d"),
+            (64, INTERIOR, "float32", "stencil2d_wide"),
+            (17, INTERIOR, "float64", "df64_step"),
+            (64, INTERIOR, "float64", "stencil2d_wide"))
+
+
+def bf16_spec(name):
+    """A registry shape, ``custom_r5`` or phase 22's custom array's spec."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+
+    if name == "custom_r5":
+        return custom_r5()
+    if name in custom_coeffs():
+        return engine.StencilEngine.for_coeffs(custom_coeffs()[name], (8, 8),
+                                               name=name, device="cpu").spec
+    return get_shape(name)
+
+
+def bf16_check(kernel, name, interior, k, kind, counter, device):
+    """Phase 23: one bf16 kernel instance against its bf16 twin, bit for bit
+    on the integer fill (a custom spec's dyadic twin on the 0/1 fill) at 1
+    and 2 steps; on a uniform fill in [0, 0.01) bit for bit against the
+    float32 instance's pass of the widened input, rounded to bf16 (a run:
+    against bf16 single steps, since it rounds every step), and against the
+    twin within one bf16 ulp of the largest value (the kernels fuse
+    multiply-adds, the twin rounds each product, which can move a
+    rounding); each launch counted.  Returns the max abs err against the
+    twin on the uniform fill."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.ops.layout import (Layout2D, default_tile_2d,
+                                                  guard_2d)
+    from lorastencil_tpu_torch.utils import reference
+
+    real = bf16_spec(name)
+    depth = 1 if k == "run" else k
+    wrapper = {"step": s2.stencil2d_step, "skew": s2.stencil2d_skew_step,
+               None: s2.stencil2d_resident}[kind]
+    plain = (s2.stencil2d_resident_plain if k == "run"
+             else s2.stencil2d_step_plain)
+    wrapper_bf16 = {"step": "stencil2d_bf16", "skew": "stencil2d_skew_bf16",
+                    None: "stencil2d_resident_bf16"}[kind]
+
+    def one(x, spec, lay, steps=2):
+        if k == "run":
+            return wrapper(x, spec, lay, steps)
+        kw = {"fused_steps": k} if kind == "step" else {"skew_steps": k}
+        return wrapper(x, torch.zeros_like(x), spec, lay, **kw)
+
+    def twin(x, spec, lay, steps=2):
+        if k == "run":
+            return plain(x, spec, lay, steps)
+        return plain(x, torch.zeros_like(x), spec, lay, k)
+
+    for spec, fill in ((dyadic(real) if name in custom_coeffs() else real,
+                        "integer"), (real, "uniform")):
+        lay = Layout2D(interior=interior, halo=spec.halo,
+                       tile=default_tile_2d(*interior),
+                       guard=guard_2d(spec.halo, depth * spec.radius))
+        if fill == "integer":
+            g0 = reference.random_padded(spec, interior, seed=23)
+            if name in custom_coeffs():
+                g0 = g0 % 2
+            x = lay.to_internal(g0, BF16, device)
+            for steps in (1, 2):
+                if k == "run":
+                    got, want = one(x, spec, lay, steps), twin(x, spec, lay,
+                                                               steps)
+                else:
+                    got = run_steps(lambda c, d, s, ly, **kw: one(c, s, ly),
+                                    x, spec, lay, steps * depth, depth)
+                    want = run_steps(lambda c, d, s, ly, **kw: twin(c, s, ly),
+                                     x, spec, lay, steps * depth, depth)
+                same_bits(got, want, f"{kernel} {name} {interior} integer "
+                                     f"fill, {steps} passes")
+            del x
+            continue
+        gen = torch.Generator(device=device).manual_seed(23)
+        x = (torch.rand(lay.shape, generator=gen, device=device)
+             * 0.01).to(BF16)
+        reset_counts()
+        got = one(x, spec, lay, 4)
+        torch.cuda.synchronize()
+        c = counts()
+        if c[wrapper_bf16] != 1 or any(c[n] for n in NOT_BF16) or (
+                counter and c[counter] != 1):
+            raise AssertionError(f"{kernel} {name}: launched {c}")
+        if k == "run":
+            want = run_steps(s2.stencil2d_step, x, spec, lay, 4)
+        else:
+            f32 = x.float()
+            kw = {"fused_steps": k} if kind == "step" else {"skew_steps": k}
+            want = wrapper(f32, torch.zeros_like(f32), spec, lay, **kw).to(BF16)
+        same_bits(got, want, f"{kernel} {name} {interior} against the float32 "
+                             f"instance, rounded")
+        if name == "star2d3r" and k == 2:  # the tile-based kernels it serves
+            for launch in ("step", "skew"):
+                out = torch.zeros_like(x)
+                s2._launch(launch, (x, out), spec, lay, 2)
+                same_bits(out, got, f"bf16 {launch} kernel at star2d3r k=2")
+        ref = twin(x, spec, lay, 4)
+        err = (got.double() - ref.double()).abs().max().item()
+        if not err <= 2.0 ** -7 * ref.double().abs().max().item():
+            raise AssertionError(f"{kernel} {name}: {err} from the twin")
+        del x, got, want, ref
+        return err
+
+
+def bf16_engine(name, interior, device, **kw):
+    from lorastencil_tpu_torch import engine
+
+    if name == "custom_r5":
+        return engine.StencilEngine(custom_r5(), interior,
+                                    engine._config(dict(kw, dtype="bfloat16")),
+                                    device=device)
+    return engine.StencilEngine.for_shape(name, interior, device=device,
+                                          dtype="bfloat16", **kw)
+
+
+def bf16_paths(device):
+    """Phase 23: each bf16 path through StencilEngine's default dispatch:
+    run(2) of the integer fill bit for bit against the same engine with the
+    plain twins (``twins``); the counted run of BF16_PATHS' steps, launches
+    counted from zero: only bf16 instances, the path's kernel as many times
+    as its passes; returns {kernel: launches}."""
+    from lorastencil_tpu_torch.utils import reference
+
+    launches = {}
+    for kernel, name, interior, kw, steps, counter, n, zero in BF16_PATHS:
+        eng = bf16_engine(name, interior, device, **kw)
+        g0 = reference.random_padded(eng.spec, interior, seed=31)
+        got = eng.run(g0, 2)
+        with twins():
+            want = eng.run(g0, 2)
+        same_bits(got, want, f"{kernel} path {name} run(2)")
+        if not bool(torch.isfinite(got).all()) or got.dtype != BF16:
+            raise AssertionError(f"{kernel} path: {got.dtype}, not finite")
+        state = eng.to_internal(g0 * 1e-3)
+        reset_counts()
+        out = eng.run_internal(state, steps)
+        torch.cuda.synchronize()
+        c = counts()
+        if c[counter] != n or any(c[z] for z in zero + NOT_BF16):
+            raise AssertionError(f"{kernel} path {name} x{steps}: {c}")
+        launches[kernel] = c[counter]
+        print(f"phase 23: bf16 {name} {interior} {kw or ''}: run(2) bit-exact "
+              f"against the twins; x{steps}: {n} launches of {kernel} "
+              f"({counter}), none of a float32 or float64 instance; output "
+              f"{out.dtype}", flush=True)
+        del state, out
+    return launches
+
+
+def bf16_timing(device, card):
+    """Phase 23: star2d1r 8192^2 x 256 and star2d3r 8192^2 x 64 through
+    run_internal in bf16 and float32, in turns; per bf16 instance one pass's
+    (or a run's) device time, its twin's, one F.conv2d in bf16 and the
+    bound at 2-byte cells.  Returns {kernel: record}."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.utils import metrics
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    for name, steps in (("star2d1r", BENCH_STEPS), (FUSED_SHAPE, FUSED_STEPS)):
+        engs = {dt: engine.StencilEngine.for_shape(name, INTERIOR,
+                                                   device=device, dtype=dt)
+                for dt in ("float32", "bfloat16")}
+        states = {dt: (torch.rand(e.layout.shape, generator=gen, device=device)
+                       * 0.01).to(e.dtype) for dt, e in engs.items()}
+        ms = {}
+        for dt in ("float32", "bfloat16", "bfloat16", "float32"):
+            secs, _ = metrics.time_run(engs[dt].run_internal, states[dt],
+                                       steps, repeats=3, warmup=1)
+            ms[dt] = min(ms.get(dt, float("inf")), secs * 1e3)
+        step = {}
+        for dt, e in engs.items():
+            x = states[dt]
+            k = e._fused_k()
+            step[dt] = time_calls({"kernel": lambda a, b: s2.stencil2d_step(
+                a, b, e.spec, e.layout, fused_steps=k)}, x,
+                torch.zeros_like(x), 20)["kernel"]
+        launches = {}
+        for dt, e in engs.items():
+            reset_counts()
+            e.run_internal(states[dt], steps)
+            torch.cuda.synchronize()
+            c = counts()
+            launches[dt] = {n: v for n, v in c.items() if v}
+        del states
+        k = engs["bfloat16"]._fused_k()
+        spec = engs["bfloat16"].spec
+        b16, by16 = bound_ms(spec, INTERIOR, k, 2)
+        b32, by32 = bound_ms(spec, INTERIOR, k, 4)
+        lib16 = library_ms(spec, INTERIOR, device, BF16)
+        lib32 = library_ms(spec, INTERIOR, device, torch.float32)
+        print(f"phase 23: {name} {INTERIOR[0]}x{INTERIOR[1]} x{steps} "
+              f"(k={k}) through run_internal, in turns: bf16 "
+              f"{ms['bfloat16']} ms, float32 {ms['float32']} ms "
+              f"({ms['float32'] / ms['bfloat16']:.4f}x); one pass: bf16 "
+              f"{step['bfloat16']} ms ({b16 / step['bfloat16']:.4f} of its "
+              f"{b16} ms {by16} bound at 2-byte cells), float32 "
+              f"{step['float32']} ms ({b32 / step['float32']:.4f} of "
+              f"{b32} ms {by32}); one F.conv2d step: bf16 {lib16} ms, "
+              f"float32 {lib32} ms; launches {launches} [{card}]", flush=True)
+    records = {}
+    for kernel, name, interior, kw, _, _, _, _ in BF16_PATHS:
+        eng = bf16_engine(name, interior, device, **kw)
+        spec, lay, k = eng.spec, eng.layout, eng._fused_k()
+        x = (torch.rand(lay.shape, generator=gen, device=device)
+             * 0.01).to(BF16)
+        if eng._resident_2d():
+            steps = FUSED_STEPS
+            t = in_turns({"kernel": lambda: s2.stencil2d_resident(
+                x, spec, lay, steps)})["kernel"]
+            plain = graph_ms(lambda: s2.stencil2d_resident_plain(
+                x, spec, lay, steps), 2)
+        else:
+            steps = k
+            skew = kw.get("fusion") == "skew"
+            fn = (lambda a, b: s2.stencil2d_skew_step(a, b, spec, lay,
+                                                      skew_steps=k)) if skew \
+                else (lambda a, b: s2.stencil2d_step(a, b, spec, lay,
+                                                     fused_steps=k))
+            t = time_calls({"kernel": fn}, x, torch.zeros_like(x),
+                           20)["kernel"]
+            plain = time_calls({"plain": lambda a, b: s2.stencil2d_step_plain(
+                a, b, spec, lay, k)}, x, torch.zeros_like(x), 3)["plain"]
+        bound, by = bound_ms(spec, interior, steps, 2)
+        lib = library_ms(spec, interior, device, BF16)
+        records[kernel] = dict(
+            kernel=kernel, ms=t, plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=lib, steps_per_launch=steps, library_steps=1,
+            shape=f"bfloat16 {name} {interior[0]}x{interior[1]}")
+        print(f"phase 23: {kernel} at bf16 {name} {interior} {kw or ''} "
+              f"({steps} steps a launch): {t} ms ({bound / t:.4f} of its "
+              f"{bound} ms {by} bound at 2-byte cells), plain twin {plain} ms, "
+              f"one F.conv2d bf16 step {lib} ms [{card}]", flush=True)
+        del x
+    return records
+
+
+def c3_cross(radius):
+    S = np.zeros((2 * radius + 1,) * 2)
+    S[radius, :] = S[:, radius] = 1.0
+    return S
+
+
+def c3_dense(radius):
+    """The cross as residue points alone: the dense stencil of its 4r + 1
+    taps (the engine's decomposition leaves ~1e-17 off the cross, which a
+    dense step would sum over every one of the (2r + 1)^2 offsets)."""
+    from lorastencil_tpu_torch.models.shapes import StencilSpec
+
+    S = c3_cross(radius)
+    return StencilSpec(
+        name=f"cross r{radius} dense", ndim=2, radius=radius,
+        halo=(radius, radius), terms=(),
+        residue=tuple(((int(i) - radius, int(j) - radius), 1.0)
+                      for i, j in np.argwhere(S != 0)), fuse_factor=1)
+
+
+def c3_paths(device, card):
+    """Phase 23, ROADMAP C3: ``for_coeffs`` crosses of radius 17 and 64 at
+    8192^2 in float32 and float64: run(2) against the same engine with the
+    plain twins (float64 bit for bit, float32 rel 1e-5: the kernels fuse
+    multiply-adds) and run(3) within rel 1e-5 (float64 1e-13) of a float64
+    dense stencil on the card, launches counted from zero; the wide kernel's
+    step timed beside its twin, F.conv2d and its bound.  Returns the wide
+    kernel's records and max abs errs."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.utils import reference
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    records = {}
+    for radius, interior, dtype, counter in C3_CASES:
+        eng = engine.StencilEngine.for_coeffs(c3_cross(radius), interior,
+                                              name=f"cross r{radius}",
+                                              device=device, dtype=dtype)
+        spec, k, lay = eng.spec, eng._fused_k(), eng.layout
+        g0 = reference.random_padded(spec, interior, seed=17) * (np.pi / 100)
+        reset_counts()
+        got = eng.run(g0, 2)
+        torch.cuda.synchronize()
+        c = counts()
+        passes = -(-2 // k) * (2 if counter == "stencil2d_wide" and k == 2
+                               else 1)
+        if c[counter] != passes or c["stencil2d_k1"]:
+            raise AssertionError(f"C3 r{radius} {dtype}: launched {c}")
+        with twins():
+            want = eng.run(g0, 2)
+        tol = 1e-5 if dtype == "float32" else 0.0
+        err = rel_err(got.double(), want.double())
+        if not err <= tol:
+            raise AssertionError(f"C3 r{radius} {dtype}: {err} from the twins")
+        truth = dense_truth(torch.from_numpy(g0).to(device), c3_dense(radius),
+                            3, "dirichlet0")
+        got3 = eng.run(g0, 3)
+        err3 = rel_err(got3.double(), truth)
+        if not err3 <= (1e-5 if dtype == "float32" else 1e-13):
+            raise AssertionError(f"C3 r{radius} {dtype}: rel {err3} after 3")
+        abs_err = (got3.double() - truth).abs().max().item()
+        del got, want, truth, got3
+        line = (f"phase 23: C3 for_coeffs cross r={radius} {dtype} "
+                f"{interior[0]}x{interior[1]} (k={k}): run(2) against the "
+                f"twins rel {err}, run(3) rel {err3} of the float64 dense "
+                f"stencil; {c[counter]} launches ({counter})")
+        if counter == "stencil2d_wide":
+            x = torch.rand(lay.shape, generator=gen, device=device,
+                           dtype=eng.dtype) * 0.01
+            t = time_calls({"kernel": lambda a, b: s2.stencil2d_step(
+                a, b, spec, lay)}, x, torch.zeros_like(x), 3)["kernel"]
+            plain = time_calls({"plain": lambda a, b: s2.stencil2d_step_plain(
+                a, b, spec, lay)}, x, torch.zeros_like(x), 1)["plain"]
+            del x
+            itemsize = eng.dtype.itemsize
+            bound, by = bound_ms(spec, interior, 1, itemsize)
+            # a 129 x 129 cuDNN convolution at 8192^2 takes seconds (16.8 s
+            # in float64): one timed call
+            lib = library_ms(spec, interior, device, eng.dtype, repeats=1)
+            records[dtype] = dict(
+                kernel=f"wide_step_kernel<{'double' if itemsize == 8 else 'float'}>",
+                ms=t, plain_ms=plain, bound_ms=bound, bound_by=by,
+                library_ms=lib, steps_per_launch=1, library_steps=1,
+                shape=f"{dtype} cross r{radius} {interior[0]}x{interior[1]}",
+                launches=c[counter], max_abs_err=abs_err)
+            line += (f"; one step {t} ms ({bound / t:.4f} of its {bound} ms "
+                     f"{by} bound), plain twin {plain} ms, one F.conv2d "
+                     f"{lib} ms")
+        print(line + f" [{card}]", flush=True)
+    return records
+
+
+def c4_paths(device, card):
+    """Phase 23, ROADMAP C4: ``for_coeffs`` of the radius-0 3-D spec
+    [[[0.75]]] at 256^3 in float32, float64 and df64 and every boundary:
+    k = 2 (df64: 1), run(3) bit for bit against a float64 dense stencil on
+    the card (0.75 is dyadic), the general kernel's launches counted from
+    zero (none of the march kernel); its float32 pass timed.  Returns the
+    record of the pass and its max abs err."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import stencil3d as s3
+    from lorastencil_tpu_torch.utils import reference
+
+    S = np.array([[[0.75]]])
+    rec = None
+    for dtype in ("float32", "float64", "df64"):
+        for mode in ("dirichlet0",) + GHOST_MODES:
+            eng = engine.StencilEngine.for_coeffs(S, INTERIOR_3D, name="r0",
+                                                  device=device, dtype=dtype,
+                                                  boundary=mode)
+            k = eng._fused_k()
+            if k != (1 if dtype == "df64" else 2):
+                raise AssertionError(f"C4 {dtype}: k = {k}")
+            g0 = reference.random_padded(eng.spec, INTERIOR_3D, seed=4)
+            reset_counts()
+            got = eng.run(g0, 3)
+            torch.cuda.synchronize()
+            c = counts()
+            general = c["stencil3d"] + c["df64_3d_step"]
+            if general != -(-3 // k) or c["stencil3d_march"]:
+                raise AssertionError(f"C4 {dtype} {mode}: launched {c}")
+            want = dense_truth(torch.from_numpy(g0).to(device), eng.spec, 3,
+                               mode)
+            if not torch.equal(got.double(), want):
+                raise AssertionError(f"C4 {dtype} {mode}: differs")
+            print(f"phase 23: C4 radius-0 3-D spec {dtype} {mode} "
+                  f"{'x'.join(map(str, INTERIOR_3D))} "
+                  f"(k={k}): run(3) bit-exact against the float64 dense "
+                  f"stencil, {general} launches of the general kernel", flush=True)
+            if dtype == "float32" and mode == "dirichlet0":
+                gen = torch.Generator(device=device).manual_seed(0)
+                lay, spec = eng.layout, eng.spec
+                x = torch.rand(lay.shape, generator=gen, device=device) * 0.01
+                t = time_calls({"kernel": lambda a, b: s3.stencil3d_step(
+                    a, b, spec, lay, fused_steps=2)}, x, torch.zeros_like(x),
+                    20)["kernel"]
+                plain = time_calls({"plain": lambda a, b: s3.stencil3d_step_plain(
+                    a, b, spec, lay, 2)}, x, torch.zeros_like(x), 3)["plain"]
+                del x
+                bound, by = bound_ms(spec, INTERIOR_3D, 2, 4)
+                lib = library_ms(spec, INTERIOR_3D, device)
+                rec = dict(kernel="stencil3d_kernel<float, 0>", ms=t,
+                           plain_ms=plain, bound_ms=bound, bound_by=by,
+                           library_ms=lib, steps_per_launch=2, library_steps=1,
+                           shape="float32 radius 0 "
+                                 + "x".join(map(str, INTERIOR_3D)),
+                           launches=general,
+                           max_abs_err=0.0)
+                print(f"phase 23: C4 general kernel radius 0, k=2 pass at "
+                      f"{'x'.join(map(str, INTERIOR_3D))}: {t} ms "
+                      f"({bound / t:.4f} of its {bound} ms {by} "
+                      f"bound), plain twin {plain} ms, one F.conv3d 1x1x1 "
+                      f"{lib} ms [{card}]", flush=True)
+    return rec
+
+
+def bf16_phase(device, card):
+    """Phase 23; returns the kernels' record entries."""
+    errs = {}
+    for kernel, name, interior, k, kind, counter in BF16_CHECKS:
+        err = bf16_check(kernel, name, interior, k, kind, counter, device)
+        errs[kernel] = max(errs.get(kernel, 0.0), err)
+        print(f"phase 23: {kernel} {name} {interior} "
+              f"{'run' if k == 'run' else f'k={k}'}{' skew' if kind == 'skew' else ''}: "
+              f"bit-exact against its bf16 twin on the integer fill at 1-2 "
+              f"passes, against the float32 instance rounded on a uniform "
+              f"fill; max abs err against the twin {err}", flush=True)
+    launches = bf16_paths(device)
+    timing = bf16_timing(device, card)
+    wide = c3_paths(device, card)
+    r0 = c4_paths(device, card)
+    replaces = {"skew_kernel<bf16>": "stencil2d_skew",
+                "resident_smem_kernel<bf16>": "stencil2d_resident",
+                "resident_kernel<bf16>": "stencil2d_resident"}
+    entries = []
+    for kernel, name, interior, kw, _, _, _, _ in BF16_PATHS:
+        t = timing[kernel]
+        wrapper = ("stencil2d_skew_step" if "skew" in kernel else
+                   "stencil2d_resident" if "resident" in kernel else
+                   "stencil2d_step")
+        entries.append(dict({
+            "name": f"{wrapper}[bf16 {name} {interior[0]}x{interior[1]}"
+                    f"{' k=' + str(t['steps_per_launch']) if 'resident' not in kernel else ''}]",
+            "route": "cuda",
+            "source": SOURCES["resident2d" if "smem" in kernel
+                              else "stencil2d"],
+            "replaces": REPLACES[replaces.get(kernel, "stencil2d")],
+            "launches": launches[kernel], "max_abs_err": errs[kernel]}, **t))
+    for dtype, rec in wide.items():
+        rec = dict(rec)
+        entries.append(dict({
+            "name": f"stencil2d_step[wide {rec['shape']}]", "route": "cuda",
+            "source": SOURCES["stencil2d"],
+            "replaces": REPLACES["stencil2d" if dtype == "float32"
+                                 else "df64_step"],
+            "launches": rec.pop("launches"),
+            "max_abs_err": rec.pop("max_abs_err")}, **rec))
+    rec = dict(r0)
+    entries.append(dict({
+        "name": f"stencil3d_step[radius 0 {rec['shape'].split()[-1]}]",
+        "route": "cuda",
+        "source": SOURCES["stencil3d"], "replaces": REPLACES["stencil3d"],
+        "launches": rec.pop("launches"), "max_abs_err": rec.pop("max_abs_err")},
+        **rec))
+    return entries
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -4180,6 +4726,8 @@ def main() -> int:
             if k == "timing" else val) for k, val in custom.items()}},
         default=str), flush=True)
 
+    bf16_entries = bf16_phase(device, card)
+
     loaded = loaded_reference_modules()
     if loaded:
         raise AssertionError(f"the reference packages were imported: "
@@ -4272,6 +4820,7 @@ def main() -> int:
             "launches": launches_fp64_3d[(name, "df64", 4)],
             "max_abs_err": errs_fp64_3d[name]}, **timing_fp64_3d[name]))
     kernels += custom_kernel_entries(custom)
+    kernels += bf16_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,7 +64,8 @@ def _parser() -> argparse.ArgumentParser:
                         "separable step")
     p.add_argument("--algorithm", choices=engine.ALGORITHM_NAMES,
                    default="auto",
-                   help="2-D/3-D: auto, mxu_hybrid1, vpu_roll and vpu run "
+                   help="2-D/3-D: auto, mxu_hybrid1, vpu_roll, vpu (2-D: and "
+                        "mxu_hybrid) run "
                         "the one exact kernel of the dtype (df64 2-D: vpu, "
                         "vpu_roll, vpu_sep; df64 3-D: vpu_sep); 1-D: auto "
                         "(mxu) and vpu_roll the narrow kernels, the others "
@@ -79,7 +80,8 @@ def _parser() -> argparse.ArgumentParser:
                    choices=["float32", "bfloat16", "float64", "df64"],
                    default="float32",
                    help="float64 and df64: native fp64 on the fp64 "
-                        "instances of the kernels")
+                        "instances of the kernels; bfloat16 (2-D): bf16 "
+                        "state, fp32 compute on the bf16 instances")
     p.add_argument("--boundary",
                    choices=["dirichlet0", "periodic", "reflect"],
                    default="dirichlet0")
@@ -141,9 +143,11 @@ def main(argv=None) -> int:
     return 0
 
 
-# the JAX CLI's tolerances: fp32 compute against the fp64 ground truth, and
-# the fp64-grade tiers with headroom (the port runs both in native fp64)
-TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "df64": 1e-11}
+# the JAX CLI's tolerances: fp32 compute against the fp64 ground truth, the
+# fp64-grade tiers with headroom (the port runs both in native fp64), and the
+# bf16 tier's storage rounding (~4e-3 a step)
+TOLERANCE = {"float32": 1e-5, "float64": 1e-12, "df64": 1e-11,
+             "bfloat16": 2e-2}
 
 
 def _check(spec, grid0, steps, run_fn, dtype: str = "float32",
@@ -158,9 +162,10 @@ def _check(spec, grid0, steps, run_fn, dtype: str = "float32",
         want = reference.run_reflect(grid0, spec, steps)
     else:
         want = reference.run(grid0, spec, steps)
-    got = run_fn(grid0, steps).cpu().numpy().astype(np.float64)
+    got = run_fn(grid0, steps).cpu().double().numpy()
     scale = max(1.0, float(np.abs(want).max()))
-    state = np.float32 if dtype == "float32" else np.float64
+    # (bfloat16 has float32's exponent range)
+    state = np.float64 if dtype in ("float64", "df64") else np.float32
     limit = float(np.finfo(state).max)
     if not np.isfinite(scale) or scale > limit:
         print(f"FAILED: ground truth reaches {scale:.2e}, beyond the "

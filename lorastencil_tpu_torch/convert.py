@@ -79,7 +79,9 @@ def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
     """Re-embed a JAX internal-layout buffer (as a NumPy array) into a
     new port internal buffer on ``device``: float64 from a JAX df64 pair
     state (``(2,) + jax_layout.shape``, merged with ``merge_pair``) or a
-    JAX float64 state, float32 from anything else.
+    JAX float64 state, bfloat16 from a JAX bfloat16 state (an
+    ``ml_dtypes.bfloat16`` array: its bits, unchanged), float32 from
+    anything else.
 
     ``jax_layout`` is the JAX ``Layout2D`` or ``Layout3D`` the buffer was
     made with (origin ``(8, 128)`` or ``(zguard, 8, 128)``; only its
@@ -94,7 +96,9 @@ def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
     buf = np.asarray(internal)
     if buf.shape == (2,) + tuple(jax_layout.shape):  # a df64 pair
         buf = merge_pair(buf)
-    dtype = torch.float64 if buf.dtype == np.float64 else torch.float32
+    bf16 = buf.dtype.name == "bfloat16"
+    if bf16:  # an ml_dtypes array: carried as its bits
+        buf = buf.view(np.int16)
     if not hasattr(port_layout.interior, "__len__"):  # 1-D
         if (int(jax_layout.interior), int(jax_layout.halo)) != (
                 port_layout.interior, port_layout.halo):
@@ -103,22 +107,26 @@ def state_from_jax(internal: np.ndarray, jax_layout, port_layout,
                 f"{jax_layout.halo}, port {port_layout.interior}/"
                 f"{port_layout.halo}")
         padded, rest = _padded_1d(buf, jax_layout)
-        if np.any(rest != 0):
+    else:
+        if (tuple(jax_layout.interior) != tuple(port_layout.interior)
+                or tuple(jax_layout.halo) != tuple(port_layout.halo)):
             raise ValueError(
-                "JAX buffer holds nonzero values outside its padded array")
-        return port_layout.to_internal(padded.copy(), dtype, device)
-    if (tuple(jax_layout.interior) != tuple(port_layout.interior)
-            or tuple(jax_layout.halo) != tuple(port_layout.halo)):
-        raise ValueError(
-            f"layouts disagree: JAX interior/halo {jax_layout.interior}/"
-            f"{jax_layout.halo}, port {port_layout.interior}/"
-            f"{port_layout.halo}")
-    box = tuple(slice(o - h, o + e + h) for o, e, h in
-                zip(jax_layout.origin, jax_layout.interior, jax_layout.halo))
-    rest = buf.copy()
-    rest[box] = 0
-    if np.any(rest != 0):
+                f"layouts disagree: JAX interior/halo {jax_layout.interior}/"
+                f"{jax_layout.halo}, port {port_layout.interior}/"
+                f"{port_layout.halo}")
+        box = tuple(slice(o - h, o + e + h) for o, e, h in
+                    zip(jax_layout.origin, jax_layout.interior,
+                        jax_layout.halo))
+        padded, rest = buf[box], buf.copy()
+        rest[box] = 0
+    # (a bfloat16 -0.0, which a masked cell can hold, has its sign bit only)
+    if np.any((rest & 0x7FFF) != 0 if bf16 else rest != 0):
         raise ValueError(
             "JAX buffer holds nonzero values outside its padded array")
     # copy: a JAX array's NumPy view is read-only, which torch warns about
-    return port_layout.to_internal(buf[box].copy(), dtype, device)
+    src = torch.from_numpy(padded.copy())
+    if bf16:
+        return port_layout.to_internal(src.view(torch.bfloat16),
+                                       torch.bfloat16, device)
+    dtype = torch.float64 if buf.dtype == np.float64 else torch.float32
+    return port_layout.to_internal(src, dtype, device)

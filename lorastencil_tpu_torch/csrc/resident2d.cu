@@ -1,8 +1,9 @@
 // Every step of a 2-D dirichlet0 run in one cooperative launch, the state
-// resident in the SMs' shared memory, in float32 or float64: the
-// shared-memory resident kernel (ls_stencil2d_resident_smem, *_f64).  It
-// replaces lorastencil_tpu/ops/pallas_2d.py::_stencil2d_resident_kernel
-// (stencil2d_resident, float32) and pallas_df64.py::_resident_pair_2d_kernel
+// resident in the SMs' shared memory, in float32, float64 or bfloat16: the
+// shared-memory resident kernel (ls_stencil2d_resident_smem, *_f64, *_bf16).
+// It replaces lorastencil_tpu/ops/pallas_2d.py::_stencil2d_resident_kernel
+// (stencil2d_resident, float32 and bfloat16) and
+// pallas_df64.py::_resident_pair_2d_kernel
 // (stencil2d_resident_pair; native float64 here, as csrc/stencil2d.cu's
 // float64 instances are) for radius 1..kMaxRadius and at most kMaxTerms
 // terms, which is every 2-D registry shape; csrc/stencil2d.cu's resident
@@ -18,7 +19,12 @@
 // taps), then the row conv (down a column), taps in ascending offset, zero
 // taps skipped; then the residue point by point; fmaf in float32,
 // __dmul_rn / __dadd_rn in float64.  So a run equals as many single steps of
-// the strip and tile kernels, and the plain twin, bit for bit.
+// the strip and tile kernels, and the plain twin, bit for bit.  A bfloat16
+// state (S = __nv_bfloat16) computes in float32 (Compute<S>): its windows
+// hold float32 cells, widened from bf16 at the load, and every cell a step
+// computes is rounded through bf16 to nearest even before it is kept or
+// sent (round_cell), so the run rounds every step, as JAX's bf16 run does
+// (its state lives in the bf16 output between steps).
 //
 // What bounds it: latency.  At 512^2 a step is ~1 MiB of float32 state and
 // ~5-15 MFLOP, under a microsecond of the card's bytes or operations, so
@@ -77,10 +83,12 @@
 // words) and return a cudaError_t (0 = launched);
 // ls_stencil2d_resident_capacity returns the capacity in bytes.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -102,6 +110,50 @@ struct Grid2D {
   int m, n;         // interior
   int mr, nr;       // rounded interior
 };
+
+// The cell types (csrc/stencil2d.cu's): a state of S computes in
+// Compute<S>, float for bfloat16.
+template <typename S>
+struct ComputeOf {
+  using type = S;
+};
+template <>
+struct ComputeOf<__nv_bfloat16> {
+  using type = float;
+};
+template <typename S>
+using Compute = typename ComputeOf<S>::type;
+template <typename S>
+constexpr bool kBf16 = std::is_same_v<S, __nv_bfloat16>;
+
+// A cell of `in`, widened (exact).
+template <typename S>
+__device__ __forceinline__ Compute<S> load_cell(const S* p) {
+  if constexpr (kBf16<S>) {
+    const unsigned u = __ldg(reinterpret_cast<const unsigned short*>(p));
+    return __uint_as_float(u << 16);
+  } else {
+    return __ldg(p);
+  }
+}
+// A computed cell rounded to the state's type and widened again: the value
+// the step keeps (bfloat16: to nearest even; else unchanged).
+template <typename S>
+__device__ __forceinline__ Compute<S> round_cell(Compute<S> x) {
+  if constexpr (kBf16<S>) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+  } else {
+    return x;
+  }
+}
+template <typename S>
+__device__ __forceinline__ S to_cell(Compute<S> x) {
+  if constexpr (kBf16<S>) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return x;
+  }
+}
 
 // w * x + y: fused in fp32, rounded step by step in fp64.
 __device__ __forceinline__ float mad(float w, float x, float y) {
@@ -302,10 +354,11 @@ __device__ __forceinline__ T cell(const T* x, int P, const int* off,
 
 // Cells (ua .. ua + rows - 1) x (v .. v + C - 1) of one step of the block's
 // rectangle, columns from v_end on left alone: dst from src (windows of
-// pitch P, the rectangle's cell (u, v) at window cell (u + R, v + R)).  The
-// thread marches down the columns: each window row's column convs of every
-// term are computed once and kept, the last 2R + 1, in a register ring.
-template <typename T, int R>
+// pitch P, the rectangle's cell (u, v) at window cell (u + R, v + R)), each
+// rounded through the state's type S.  The thread marches down the columns:
+// each window row's column convs of every term are computed once and kept,
+// the last 2R + 1, in a register ring.
+template <typename S, int R, typename T = Compute<S>>
 __device__ __forceinline__ void march(const T* __restrict__ src,
                                       T* __restrict__ dst, const Rect& r,
                                       int v, int v_end, int ua, int rows,
@@ -372,8 +425,8 @@ __device__ __forceinline__ void march(const T* __restrict__ src,
 #pragma unroll
     for (int j = 0; j < C; ++j) {
       // a column past v_end is still inside the window: its sum is dropped
-      const T val = residue<T, R>(src + (u + R) * P + v + j + R, off, pl,
-                                  acc[j]);
+      const T val = round_cell<S>(
+          residue<T, R>(src + (u + R) * P + v + j + R, off, pl, acc[j]));
       if (v + j < v_end)
         dst[(u + R) * P + v + j + R] =
             (r.gi0 + u < m && r.gj0 + v + j < n) ? val : T(0);
@@ -439,12 +492,13 @@ __device__ __forceinline__ void band_cell(const Tasks& q, int h, int w, int t,
 // (the zeroed tagged buffer, two parities of the rounded interior's cells),
 // then (while it travels) the inner cells of state s + 2, then the ring of
 // state s + 1.
-template <typename T, int R>
+template <typename S, int R>
 __global__ void __launch_bounds__(kThreads, 1)
-resident_smem_kernel(const T* __restrict__ in, T* out,
+resident_smem_kernel(const S* __restrict__ in, S* out,
                      unsigned long long* xch,
-                     const __grid_constant__ SmemPlan<T, R> pl, Grid2D g,
-                     int pr, int pc, int steps) {
+                     const __grid_constant__ SmemPlan<Compute<S>, R> pl,
+                     Grid2D g, int pr, int pc, int steps) {
+  using T = Compute<S>;
   constexpr int K = sizeof(T) / 4;  // tagged words a cell
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __shared__ int s_off[kMaxRes];  // the residue's window offsets
@@ -468,8 +522,8 @@ resident_smem_kernel(const T* __restrict__ in, T* out,
 
   for (int idx = threadIdx.x; idx < WR * P; idx += kThreads) {
     const int wu = idx / P;
-    win0[idx] = __ldg(in + origin + static_cast<ptrdiff_t>(wu) * g.pitch +
-                      idx - wu * P);
+    win0[idx] = load_cell(in + origin + static_cast<ptrdiff_t>(wu) * g.pitch +
+                          idx - wu * P);
   }
   for (int p = threadIdx.x; p < kMaxRes; p += kThreads)
     s_off[p] = p < pl.n_res ? pl.res_dr[p] * P + pl.res_dc[p] : 0;
@@ -479,13 +533,13 @@ resident_smem_kernel(const T* __restrict__ in, T* out,
     for (int t = threadIdx.x; t < q.in_cells; t += kThreads) {
       const int u = q.a + t / cols;
       const int v = q.c + t % cols;
-      T val = cell<T, R>(src + u * P + v, P, s_off, pl);
+      T val = round_cell<S>(cell<T, R>(src + u * P + v, P, s_off, pl));
       if (r.gi0 + u >= g.m || r.gj0 + v >= g.n) val = T(0);
       dst[(u + R) * P + v + R] = val;
     }
     for (int t = threadIdx.x; t < q.in_tasks; t += kThreads) {
       const int ua = q.a + t / q.in_cols * q.in_crows;
-      march<T, R>(src, dst, r, q.c + t % q.in_cols * march_cols<T>(), q.d,
+      march<S, R>(src, dst, r, q.c + t % q.in_cols * march_cols<T>(), q.d,
                   ua, min(q.in_crows, q.b - ua), s_off, pl, g.m, g.n);
     }
   };
@@ -546,7 +600,7 @@ resident_smem_kernel(const T* __restrict__ in, T* out,
     for (int t = threadIdx.x; t < q.band_cells; t += kThreads) {
       int u, v;
       band_cell(q, h, w, t, u, v);
-      T val = cell<T, R>(src + u * P + v, P, s_off, pl);
+      T val = round_cell<S>(cell<T, R>(src + u * P + v, P, s_off, pl));
       if (r.gi0 + u >= g.m || r.gj0 + v >= g.n) val = T(0);
       dst[(u + R) * P + v + R] = val;
       if (!last)
@@ -565,7 +619,7 @@ resident_smem_kernel(const T* __restrict__ in, T* out,
     const int u = idx / w;
     const int v = idx - u * w;
     out[origin + static_cast<ptrdiff_t>(u + R) * g.pitch + v + R] =
-        res[(u + R) * P + v + R];
+        to_cell<S>(res[(u + R) * P + v + R]);
   }
 }
 
@@ -596,10 +650,11 @@ void partition(const Grid2D& g, int R, int blocks, int& pr, int& pc) {
   }
 }
 
-// Bytes of the largest internal buffer a launch over `blocks` blocks takes:
-// 4/5 of the cells their windows hold.
-long long capacity_bytes(size_t cell, int blocks) {
-  const long long window = static_cast<long long>(kWindowBytes / cell);
+// Bytes of the largest internal buffer of `cell`-byte cells a launch over
+// `blocks` blocks takes: 4/5 of the cells their windows hold, at
+// `window_cell` bytes a cell (the compute type's).
+long long capacity_bytes(size_t cell, size_t window_cell, int blocks) {
+  const long long window = static_cast<long long>(kWindowBytes / window_cell);
   return 4LL * blocks * window / 5 * static_cast<long long>(cell);
 }
 
@@ -642,11 +697,12 @@ bool fill_plan(const T* plan, int n_terms, int n_res, SmemPlan<T, R>& pl) {
 // term count the kernel does not take, an internal buffer above the
 // capacity, too few words; the launch itself is refused unless every block
 // is resident.
-template <typename T>
-int launch_resident_smem(const T* in, T* out, unsigned long long* xch,
-                         long long n_xch, const T* plan, int plan_len,
+template <typename S>
+int launch_resident_smem(const S* in, S* out, unsigned long long* xch,
+                         long long n_xch, const Compute<S>* plan, int plan_len,
                          int n_terms, int R, int n_res, Grid2D g, int steps,
                          void* stream) {
+  using T = Compute<S>;
   const int W = 2 * R + 1;
   if (steps < 1 || !plan || R < 1 || R > kMaxRadius || n_terms < 0 ||
       n_terms > kMaxTerms || n_res < 0 || n_res > W * W ||
@@ -659,8 +715,8 @@ int launch_resident_smem(const T* in, T* out, unsigned long long* xch,
   int sms = 0;
   cudaError_t e = static_cast<cudaError_t>(sm_count(sms));
   if (e != cudaSuccess) return static_cast<int>(e);
-  if (static_cast<long long>(g.rows) * g.pitch * sizeof(T) >
-      capacity_bytes(sizeof(T), sms))
+  if (static_cast<long long>(g.rows) * g.pitch * sizeof(S) >
+      capacity_bytes(sizeof(S), sizeof(T), sms))
     return static_cast<int>(cudaErrorInvalidValue);
   int pr = 1, pc = 1;
   partition(g, R, sms, pr, pc);
@@ -675,19 +731,19 @@ int launch_resident_smem(const T* in, T* out, unsigned long long* xch,
   switch (R) {
     case 1:
       ok = fill_plan<T, 1>(plan, n_terms, n_res, p1), pl = &p1;
-      kernel = reinterpret_cast<const void*>(resident_smem_kernel<T, 1>);
+      kernel = reinterpret_cast<const void*>(resident_smem_kernel<S, 1>);
       break;
     case 2:
       ok = fill_plan<T, 2>(plan, n_terms, n_res, p2), pl = &p2;
-      kernel = reinterpret_cast<const void*>(resident_smem_kernel<T, 2>);
+      kernel = reinterpret_cast<const void*>(resident_smem_kernel<S, 2>);
       break;
     case 3:
       ok = fill_plan<T, 3>(plan, n_terms, n_res, p3), pl = &p3;
-      kernel = reinterpret_cast<const void*>(resident_smem_kernel<T, 3>);
+      kernel = reinterpret_cast<const void*>(resident_smem_kernel<S, 3>);
       break;
     default:
       ok = fill_plan<T, 4>(plan, n_terms, n_res, p4), pl = &p4;
-      kernel = reinterpret_cast<const void*>(resident_smem_kernel<T, 4>);
+      kernel = reinterpret_cast<const void*>(resident_smem_kernel<S, 4>);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * sizeof(T) * window_cells(g, R, pr, pc);
@@ -716,9 +772,9 @@ int launch_resident_smem(const T* in, T* out, unsigned long long* xch,
 // their number, the plan and its counts, then the buffer shape (rows,
 // pitch), the origin of interior cell (0, 0), the interior (m, n), the
 // rounded interior (mr, nr), the steps, and the stream.
-#define LS_RESIDENT_SMEM(NAME, T)                                             \
-  extern "C" int NAME(const T* in, T* out, unsigned long long* xch,          \
-                      long long n_xch, const T* plan, int plan_len,          \
+#define LS_RESIDENT_SMEM(NAME, S)                                             \
+  extern "C" int NAME(const S* in, S* out, unsigned long long* xch,          \
+                      long long n_xch, const Compute<S>* plan, int plan_len, \
                       int n_terms, int radius, int n_res, int rows,          \
                       int pitch, int r0, int c0, int m, int n, int mr,       \
                       int nr, int steps, void* stream) {                     \
@@ -729,18 +785,23 @@ int launch_resident_smem(const T* in, T* out, unsigned long long* xch,
   }
 LS_RESIDENT_SMEM(ls_stencil2d_resident_smem, float)
 LS_RESIDENT_SMEM(ls_stencil2d_resident_smem_f64, double)
+LS_RESIDENT_SMEM(ls_stencil2d_resident_smem_bf16, __nv_bfloat16)
 
 // Bytes of the largest internal buffer (rows x pitch cells) a launch takes
-// on the current card, for float64 (`f64` != 0) or float32 cells, radius
-// and terms; 0 where the kernel does not take the radius or the term
-// count, a negated cudaError_t if the card cannot be asked.
-extern "C" long long ls_stencil2d_resident_capacity(int f64, int radius,
+// on the current card, for a state of `kind` (0 float32, 1 float64, 2
+// bfloat16, whose windows hold float32), radius and terms; 0 where the
+// kernel does not take the kind, the radius or the term count, a negated
+// cudaError_t if the card cannot be asked.
+extern "C" long long ls_stencil2d_resident_capacity(int kind, int radius,
                                                     int n_terms) {
-  if (radius < 1 || radius > kMaxRadius || n_terms < 0 ||
-      n_terms > kMaxTerms)
+  if (kind < 0 || kind > 2 || radius < 1 || radius > kMaxRadius ||
+      n_terms < 0 || n_terms > kMaxTerms)
     return 0;
   int sms = 0;
   const int e = sm_count(sms);
   if (e != 0) return -static_cast<long long>(e);
-  return capacity_bytes(f64 ? sizeof(double) : sizeof(float), sms);
+  if (kind == 1) return capacity_bytes(sizeof(double), sizeof(double), sms);
+  if (kind == 2)
+    return capacity_bytes(sizeof(__nv_bfloat16), sizeof(float), sms);
+  return capacity_bytes(sizeof(float), sizeof(float), sms);
 }

@@ -1,7 +1,7 @@
 // Dirichlet0 timesteps of a 2-D low-rank stencil on the port's internal
-// layout, in float32 or float64, on CUDA cores.  The kernels share one
-// per-cell arithmetic, so each equals the others (and its plain twin) cell
-// for cell on the same steps:
+// layout, in float32, float64 or bfloat16, on CUDA cores.  The kernels share
+// one per-cell arithmetic, so each equals the others (and its plain twin)
+// cell for cell on the same steps:
 //
 //   * the strip kernel (ls_stencil2d_strip: float32; ls_stencil2d_strip_f64,
 //     strip64_kernel: float64; k = 1, radius 1..4, at most kStripMaxTerms
@@ -22,7 +22,15 @@
 //
 // The strip, step, skew and resident kernels have a float32 and a float64
 // instance (the *_f64 entries; the float64 strip kernel is a kernel of its
-// own, strip64_kernel); the fused strip kernel is float32 only.  The float64
+// own, strip64_kernel); the fused strip kernel is float32 only.  Every
+// float32 kernel also has a bfloat16 instance (the *_bf16 entries: the
+// bf16 state tier, TPU kernels #1-#3 on a bfloat16 state): the kernels are
+// templated on the state's cell type S and compute in Compute<S>, float for
+// bfloat16, so a cell is widened at its load (exact) and rounded to nearest
+// even (__float2bfloat16_rn) at its store.  A tiled pass thus rounds once,
+// whatever its fused levels (they stay float32 in registers or shared
+// memory); the resident run stores every step in S, so it rounds every step.
+// The plan stays float32.  The float64
 // strip kernel (and the float64 step beyond its radii and terms) replaces
 // lorastencil_tpu/ops/pallas_df64.py::_df64_kernel (df64_step)
 // and the float64 resident run pallas_df64.py::_resident_pair_2d_kernel
@@ -119,7 +127,15 @@
 //     step's tiles, ping-pong two device buffers (which L2 holds for small
 //     grids) and sync the grid between steps; loads bypass L1 (__ldcg), as
 //     other blocks wrote the buffer since.  The launch is refused if the
-//     occupancy query gives no resident block.
+//     occupancy query gives no resident block;
+//   * wide (k = 1, a radius whose step window does not fit a block's shared
+//     memory: above about 60 in float32, 35 in float64, up to kMaxRadius,
+//     the reach the JAX layout's 128-column guard allows): a block owns a
+//     (kTileRows x 64) tile and stages only a two-axis term's column convs
+//     ((kTileRows + 2r) x 64 cells), reading every input through the
+//     read-only cache; a one-axis term and the residue read the input
+//     directly.  No bound was aimed at: it is the simple kernel that makes
+//     the wide radii run (ROADMAP C3).
 // kTileRows is 32 in fp32 and 16 in fp64: the 8-byte window of a 32-row tile
 // would take 70 KB of shared memory at r = 1 (3 blocks per SM); at 16 rows it
 // takes 37 KB (6 blocks per SM).  The TPU's split-bf16 matmuls, cyclic rolls
@@ -131,16 +147,22 @@
 // (ops/band_gemm.py plan_array), staged into shared memory by every block;
 // the strip kernels take the same table from host memory by value.
 //
-// C interface, loaded with ctypes: ls_stencil2d_step, ls_stencil2d_strip,
-// ls_stencil2d_skew and ls_stencil2d_resident (float) and their *_f64 twins
-// (double), and the float-only ls_stencil2d_fused_strip, launch on the given
-// stream, allocate nothing and return a cudaError_t (0 = launched).
+// C interface, loaded with ctypes: ls_stencil2d_step (the wide kernel
+// beyond the step kernel's shared memory), ls_stencil2d_strip,
+// ls_stencil2d_skew and ls_stencil2d_resident (float) and their *_f64
+// (double) and *_bf16 (bfloat16 cells, a float plan) twins, and
+// ls_stencil2d_fused_strip and its *_bf16 twin, launch on the given stream,
+// allocate nothing and return a cudaError_t (0 = launched).  The *_bf16
+// entries build apart, as csrc/stencil2d_bf16.cu (this source with
+// LS_STENCIL2D_BF16 defined), so that the two builds run side by side.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -150,7 +172,7 @@ constexpr int kTileCols = 128;
 constexpr int kThreads = 256;
 constexpr int kRowStep = kThreads / kTileCols;  // rows per sweep: 2
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRadius = 16;
+constexpr int kMaxRadius = 128;  // the reach of the JAX layout's column guard
 constexpr int kMaxPlan = 4096;  // entries of tap/residue table
 constexpr int kMaxGridY = 65535;
 constexpr size_t kMaxSmem = 232448;  // bytes of shared memory a block may use
@@ -158,10 +180,39 @@ constexpr int kChunkRows = 256;      // skew: output rows per block
 
 static_assert(kThreads % kTileCols == 0, "tile columns must divide threads");
 
-// Output rows per block (see the header).
+// Output rows per block (see the header), by the compute type.
 template <typename T>
 constexpr int tile_rows() {
   return sizeof(T) == sizeof(float) ? 32 : 16;
+}
+
+// The cell types.  A state of S (float, double or __nv_bfloat16) computes in
+// Compute<S>, float for bfloat16: a cell is widened at its load (exact) and
+// rounded to nearest even at its store (to_cell).  Shared memory, registers
+// and the plan hold the compute type.
+template <typename S>
+struct ComputeOf {
+  using type = S;
+};
+template <>
+struct ComputeOf<__nv_bfloat16> {
+  using type = float;
+};
+template <typename S>
+using Compute = typename ComputeOf<S>::type;
+template <typename S>
+constexpr bool kBf16 = std::is_same_v<S, __nv_bfloat16>;
+
+template <typename S>
+__device__ __forceinline__ S to_cell(Compute<S> x) {
+  if constexpr (kBf16<S>) {
+    return __float2bfloat16_rn(x);
+  } else {
+    return x;
+  }
+}
+__device__ __forceinline__ float bf16_bits_to_float(unsigned bits) {
+  return __uint_as_float(bits << 16);
 }
 
 // w * x + y: fused in fp32, rounded step by step in fp64.
@@ -172,9 +223,18 @@ __device__ __forceinline__ double mad(double w, double x, double y) {
   return __dadd_rn(y, __dmul_rn(w, x));
 }
 
-template <typename T, bool kCoherent>
-__device__ __forceinline__ T load(const T* p) {
-  if constexpr (kCoherent) {
+// A cell of device memory in the compute type; kCoherent reads past L1 (the
+// buffer was written by other blocks of the launch).
+template <typename S, bool kCoherent>
+__device__ __forceinline__ Compute<S> load(const S* p) {
+  if constexpr (kBf16<S>) {
+    const unsigned short* q = reinterpret_cast<const unsigned short*>(p);
+    if constexpr (kCoherent) {
+      return bf16_bits_to_float(__ldcg(q));
+    } else {
+      return bf16_bits_to_float(__ldg(q));
+    }
+  } else if constexpr (kCoherent) {
     return __ldcg(p);
   } else {
     return __ldg(p);
@@ -192,22 +252,23 @@ struct Plan {
 };
 
 // Rows [gr0, gr0 + n_rows) x cols [gc0, gc0 + n_cols) of a (rows x pitch)
-// buffer into shared `dst` (row pitch n_cols), a warp per row with
-// neighbouring lanes on neighbouring addresses; cells outside the buffer
-// read as 0.
-template <typename T, bool kCoherent>
-__device__ void stage(const T* in, int rows, int pitch, int gr0, int gc0,
-                      T* dst, int n_rows, int n_cols) {
+// buffer into shared `dst` (row pitch n_cols, the compute type), a warp per
+// row with neighbouring lanes on neighbouring addresses; cells outside the
+// buffer read as 0.
+template <typename S, bool kCoherent>
+__device__ void stage(const S* in, int rows, int pitch, int gr0, int gc0,
+                      Compute<S>* dst, int n_rows, int n_cols) {
+  using T = Compute<S>;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   for (int wr = warp; wr < n_rows; wr += kWarps) {
     const int gr = gr0 + wr;
     T* d = dst + wr * n_cols;
     if (gr >= 0 && gr < rows) {
-      const T* src = in + static_cast<size_t>(gr) * pitch;
+      const S* src = in + static_cast<size_t>(gr) * pitch;
       for (int wc = lane; wc < n_cols; wc += 32) {
         const int gc = gc0 + wc;
-        d[wc] = (gc >= 0 && gc < pitch) ? load<T, kCoherent>(src + gc) : T(0);
+        d[wc] = (gc >= 0 && gc < pitch) ? load<S, kCoherent>(src + gc) : T(0);
       }
     } else {
       for (int wc = lane; wc < n_cols; wc += 32) d[wc] = T(0);
@@ -290,19 +351,21 @@ __device__ __forceinline__ void tile_sums(const T* win, int win_cols,
 }
 
 // Store tile_sums' cells of output rows i0 + ty + q * kRowStep in [lo, hi)
-// at column j (< nr): the sum inside the interior, 0 in the round-up.
-template <typename T, int kTileRows>
+// at column j (< nr): the sum inside the interior, 0 in the round-up, each
+// rounded to the state's type.
+template <typename S, int kTileRows>
 __device__ __forceinline__ void store_tile(
-    T* out, int pitch, int r0, int c0, int i0, int j, int lo, int hi, int m,
-    int n, const T (&acc)[kTileRows / kRowStep]) {
-  T* dst = out + static_cast<size_t>(r0) * pitch + c0 + j;
+    S* out, int pitch, int r0, int c0, int i0, int j, int lo, int hi, int m,
+    int n, const Compute<S> (&acc)[kTileRows / kRowStep]) {
+  using T = Compute<S>;
+  S* dst = out + static_cast<size_t>(r0) * pitch + c0 + j;
   const int ty = threadIdx.x / kTileCols;
 #pragma unroll
   for (int q = 0; q < kTileRows / kRowStep; ++q) {
     const int i = i0 + ty + q * kRowStep;
     if (i >= lo && i < hi)
       dst[static_cast<ptrdiff_t>(i) * pitch] =
-          (i < m && j < n) ? acc[q] : T(0);
+          to_cell<S>((i < m && j < n) ? acc[q] : T(0));
   }
 }
 
@@ -418,11 +481,12 @@ __device__ __forceinline__ Plan<T> stage_plan(const T* plan, int plan_len,
 // Grid2D's box, a ghost boundary's ring, the instance without it being the
 // dirichlet0 pass's), compiled apart so that the step kernel
 // keeps no registers for the levels.
-template <typename T, int kTileRows, bool kFused, bool kBox>
+template <typename S, int kTileRows, bool kFused, bool kBox>
 __global__ void __launch_bounds__(kThreads)
-step_kernel(const T* __restrict__ in, T* __restrict__ out,
-            const T* __restrict__ plan, int plan_len, int n_terms, int R,
-            int n_res, Grid2D g, int k) {
+step_kernel(const S* __restrict__ in, S* __restrict__ out,
+            const Compute<S>* __restrict__ plan, int plan_len, int n_terms,
+            int R, int n_res, Grid2D g, int k) {
+  using T = Compute<S>;
   if constexpr (!kFused) k = 1;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -443,7 +507,7 @@ step_kernel(const T* __restrict__ in, T* __restrict__ out,
   // of the interior; the guard (>= E, checked by the host) keeps the start
   // in bounds, and a tile past the rounded interior reads zeros beyond the
   // buffer's end.
-  stage<T, false>(in, g.rows, g.pitch, g.r0 + i0 - E, g.c0 + j0 - E, s_a,
+  stage<S, false>(in, g.rows, g.pitch, g.r0 + i0 - E, g.c0 + j0 - E, s_a,
                   win_rows, win_cols);
   __syncthreads();
 
@@ -465,17 +529,18 @@ step_kernel(const T* __restrict__ in, T* __restrict__ out,
   tile_sums<T, kTileRows>(src, src_cols, s_col, pl, acc);
   const int j = j0 + threadIdx.x % kTileCols;
   if (j < g.nr)
-    store_tile<T, kTileRows>(out, g.pitch, g.r0, g.c0, i0, j, 0, g.mr, g.m,
+    store_tile<S, kTileRows>(out, g.pitch, g.r0, g.c0, i0, j, 0, g.mr, g.m,
                              g.n, acc);
 }
 
 // k >= 2 time-skewed steps per block: a 128-column strip, output rows
 // [a, a + kChunkRows) of the rounded interior, bands of kTileRows rows.
-template <typename T, int kTileRows>
+template <typename S, int kTileRows>
 __global__ void __launch_bounds__(kThreads)
-skew_kernel(const T* __restrict__ in, T* __restrict__ out,
-            const T* __restrict__ plan, int plan_len, int n_terms, int R,
-            int n_res, Grid2D g, int k) {
+skew_kernel(const S* __restrict__ in, S* __restrict__ out,
+            const Compute<S>* __restrict__ plan, int plan_len, int n_terms,
+            int R, int n_res, Grid2D g, int k) {
+  using T = Compute<S>;
   constexpr int B = kTileRows;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -504,7 +569,7 @@ skew_kernel(const T* __restrict__ in, T* __restrict__ out,
     if (out_row >= end) break;
     __syncthreads();  // the previous band's readers are done
     if (t == 0) {
-      stage<T, false>(in, g.rows, g.pitch, g.r0 + T0 - 2 * R,
+      stage<S, false>(in, g.rows, g.pitch, g.r0 + T0 - 2 * R,
                       g.c0 + j0 - k * R, smem, band_rows,
                       kTileCols + 2 * k * R);
     } else {
@@ -517,7 +582,7 @@ skew_kernel(const T* __restrict__ in, T* __restrict__ out,
         buf += band_rows * cols;
       }
       __syncthreads();
-      stage<T, false>(in, g.rows, g.pitch, g.r0 + T0 + t * B,
+      stage<S, false>(in, g.rows, g.pitch, g.r0 + T0 + t * B,
                       g.c0 + j0 - k * R, smem + 2 * R * (kTileCols + 2 * k * R),
                       B, kTileCols + 2 * k * R);
     }
@@ -536,18 +601,20 @@ skew_kernel(const T* __restrict__ in, T* __restrict__ out,
     tile_sums<T, kTileRows>(src, src_cols, s_col, pl, acc);
     const int j = j0 + threadIdx.x % kTileCols;
     if (j < g.nr)
-      store_tile<T, kTileRows>(out, g.pitch, g.r0, g.c0, out_row, j, a, end,
+      store_tile<S, kTileRows>(out, g.pitch, g.r0, g.c0, out_row, j, a, end,
                                g.m, g.n, acc);
   }
 }
 
 // All `steps` steps in one cooperative launch: step s reads `in` (s = 0) or
 // the buffer step s - 1 wrote, and writes out0 (s even) or out1 (s odd).
-template <typename T, int kTileRows>
+// A bfloat16 state rounds every step: each step's state is stored in S.
+template <typename S, int kTileRows>
 __global__ void __launch_bounds__(kThreads)
-resident_kernel(const T* in, T* out0, T* out1, const T* __restrict__ plan,
-                int plan_len, int n_terms, int R, int n_res, Grid2D g,
-                int steps) {
+resident_kernel(const S* in, S* out0, S* out1,
+                const Compute<S>* __restrict__ plan, int plan_len,
+                int n_terms, int R, int n_res, Grid2D g, int steps) {
+  using T = Compute<S>;
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
@@ -561,22 +628,127 @@ resident_kernel(const T* in, T* out0, T* out1, const T* __restrict__ plan,
   const int tiles_x = (g.nr + kTileCols - 1) / kTileCols;
   const int tiles = tiles_x * ((g.mr + kTileRows - 1) / kTileRows);
   for (int s = 0; s < steps; ++s) {
-    const T* src = s == 0 ? in : ((s - 1) % 2 ? out1 : out0);
-    T* dst = s % 2 ? out1 : out0;
+    const S* src = s == 0 ? in : ((s - 1) % 2 ? out1 : out0);
+    S* dst = s % 2 ? out1 : out0;
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int i0 = tile / tiles_x * kTileRows;
       const int j0 = tile % tiles_x * kTileCols;
       __syncthreads();  // the previous tile's readers are done
-      stage<T, true>(src, g.rows, g.pitch, g.r0 + i0 - R, g.c0 + j0 - R,
+      stage<S, true>(src, g.rows, g.pitch, g.r0 + i0 - R, g.c0 + j0 - R,
                      s_win, win_rows, win_cols);
       __syncthreads();
       tile_sums<T, kTileRows>(s_win, win_cols, s_col, pl, acc);
       const int j = j0 + threadIdx.x % kTileCols;
       if (j < g.nr)
-        store_tile<T, kTileRows>(dst, g.pitch, g.r0, g.c0, i0, j, 0, g.mr,
+        store_tile<S, kTileRows>(dst, g.pitch, g.r0, g.c0, i0, j, 0, g.mr,
                                  g.m, g.n, acc);
     }
     if (s + 1 < steps) grid.sync();  // every tile written, every read done
+  }
+}
+
+// -- the wide kernel: a step (k = 1) whose tile window overflows a block --
+constexpr int kWideCols = 64;                       // output columns a block
+constexpr int kWideRowStep = kThreads / kWideCols;  // rows per sweep: 4
+
+// One step over a (kTileRows x kWideCols) output tile, for the radii whose
+// staged window (the step kernel's) does not fit a block's shared memory:
+// no input is staged.  A term with both axes puts its column conv of the
+// tile's rows and their 2R-row halo into s_col ((kTileRows + 2R) x
+// kWideCols cells: 147 KB in float64 at R = 128), reading its taps' inputs
+// through the read-only cache; the row conv reads s_col; a one-axis term and
+// the residue read the input the same way.  The plan is read from device
+// memory.  tile_sums' order, so the sums are the step kernel's, cell for
+// cell.
+// One block per SM asked of ptxas: shared memory holds a few at most, and
+// its default register target spilled.
+template <typename S, int kTileRows>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_step_kernel(const S* __restrict__ in, S* __restrict__ out,
+            const Compute<S>* __restrict__ plan, int n_terms, int R,
+            int n_res, Grid2D g) {
+  using T = Compute<S>;
+  constexpr int kRows = kTileRows / kWideRowStep;  // sums a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* s_col = reinterpret_cast<T*>(smem_raw);
+  const int W = 2 * R + 1;
+  const int tx = threadIdx.x % kWideCols;
+  const int ty = threadIdx.x / kWideCols;
+  const int i0 = blockIdx.y * kTileRows;  // tile origin, interior coords
+  const int j = blockIdx.x * kWideCols + tx;
+  const int gr0 = g.r0 + i0 - R;  // buffer row of window row 0
+  const int gc = g.c0 + j;        // buffer column of the thread's cell
+  // window row wr, dc columns right of the thread's cell; 0 outside the
+  // buffer
+  auto x = [&](int wr, int dc) -> T {
+    const int r = gr0 + wr;
+    const int c = gc + dc;
+    return r >= 0 && r < g.rows && c >= 0 && c < g.pitch
+               ? load<S, false>(in + static_cast<size_t>(r) * g.pitch + c)
+               : T(0);
+  };
+  T acc[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) acc[q] = T(0);
+
+  const T* term = plan;
+  for (int t = 0; t < n_terms; ++t, term += 2 + 2 * W) {
+    // flags are block-uniform: the barriers below are reached by all
+    const bool has_col = __ldg(term) != T(0);
+    const bool has_row = __ldg(term + 1) != T(0);
+    const T* ct = term + 2;
+    const T* rt = ct + W;
+    if (has_col && has_row) {
+      __syncthreads();  // the previous reader of s_col is done with it
+      for (int wr = ty; wr < kTileRows + 2 * R; wr += kWideRowStep) {
+        T y = T(0);
+        for (int q = 0; q < W; ++q) {
+          const T w = __ldg(ct + q);
+          if (w != T(0)) y = mad(w, x(wr, q - R), y);
+        }
+        s_col[wr * kWideCols + tx] = y;
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int o = ty + q * kWideRowStep;  // output row of the tile
+      T z = T(0);
+      if (has_row) {
+        for (int k = 0; k < W; ++k) {
+          const T w = __ldg(rt + k);
+          if (w != T(0))
+            z = mad(w, has_col ? s_col[(o + k) * kWideCols + tx] : x(o + k, 0),
+                    z);
+        }
+      } else if (has_col) {  // identity row axis: the column conv of row o
+        for (int c = 0; c < W; ++c) {
+          const T w = __ldg(ct + c);
+          if (w != T(0)) z = mad(w, x(o + R, c - R), z);
+        }
+      } else {
+        z = x(o + R, 0);
+      }
+      acc[q] += z;
+    }
+  }
+  const T* res = plan + n_terms * (2 + 2 * W);
+  for (int p = 0; p < n_res; ++p) {
+    const int dr = static_cast<int>(__ldg(res + 3 * p));
+    const int dc = static_cast<int>(__ldg(res + 3 * p + 1));
+    const T w = __ldg(res + 3 * p + 2);
+#pragma unroll
+    for (int q = 0; q < kRows; ++q)
+      acc[q] = mad(w, x(R + dr + ty + q * kWideRowStep, dc), acc[q]);
+  }
+  if (j >= g.nr) return;
+  S* dst = out + static_cast<size_t>(g.r0) * g.pitch + g.c0 + j;
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) {
+    const int i = i0 + ty + q * kWideRowStep;
+    if (i < g.mr)
+      dst[static_cast<ptrdiff_t>(i) * g.pitch] =
+          to_cell<S>((i < g.m && j < g.n) ? acc[q] : T(0));
   }
 }
 
@@ -671,19 +843,70 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                "l"(src), "r"(ok ? 4 : 0));
 }
 
+// Quads: four adjacent cells of a float32 (16 bytes) or bfloat16 (8 bytes)
+// row, which the strip kernels copy, read and store whole.  A quad into
+// shared memory by cp.async (zeroed where !ok).
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src,
+                                              bool ok) {
+  cp_async16(dst, src, ok);
+}
+__device__ __forceinline__ void cp_async_quad(__nv_bfloat16* dst,
+                                              const __nv_bfloat16* src,
+                                              bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+// One cell, off the quads' grid: a 4-byte cp.async, or for bfloat16 (which
+// cp.async's 4-, 8- and 16-byte copies do not fit) a plain copy, which the
+// warp's __syncwarp after the copies' wait orders as well.
+__device__ __forceinline__ void copy_cell(float* dst, const float* src,
+                                          bool ok) {
+  cp_async4(dst, src, ok);
+}
+__device__ __forceinline__ void copy_cell(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src, bool ok) {
+  *reinterpret_cast<unsigned short*>(dst) =
+      ok ? *reinterpret_cast<const unsigned short*>(src) : 0;
+}
+// A quad of shared memory, widened to float.
+__device__ __forceinline__ float4 read_quad(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 read_quad(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  return make_float4(bf16_bits_to_float(u.x & 0xffffu),
+                     __uint_as_float(u.x & 0xffff0000u),
+                     bf16_bits_to_float(u.y & 0xffffu),
+                     __uint_as_float(u.y & 0xffff0000u));
+}
+// Four sums into a quad of device memory, rounded to the state's type.
+__device__ __forceinline__ void store_quad(float* dst, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(dst) = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ unsigned bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+__device__ __forceinline__ void store_quad(__nv_bfloat16* dst,
+                                           const float (&v)[4]) {
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(bf16_bits(v[0]) | bf16_bits(v[1]) << 16,
+                 bf16_bits(v[2]) | bf16_bits(v[3]) << 16);
+}
+
 // The lane's 4 cells of a residue point's row, at `xr` (the row's cell of
-// the lane's first column, shifted by dc): 16-byte loads from the aligned
-// quads around them (4-byte loads, lanes 16 bytes apart, would conflict 4
-// ways).  `cls` is dc & 3, uniform over the warp.
-__device__ __forceinline__ void residue_cells(const float* xr, int cls,
+// the lane's first column, shifted by dc): loads of the aligned quads
+// around them (one-cell loads, lanes a quad apart, would conflict 4 ways
+// in float32).  `cls` is dc & 3, uniform over the warp.
+template <typename S>
+__device__ __forceinline__ void residue_cells(const S* xr, int cls,
                                               float (&v)[4]) {
-  const float4* q = reinterpret_cast<const float4*>(xr - cls);
-  const float4 a = q[0];
+  const float4 a = read_quad(xr - cls);
   if (cls == 0) {
     v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
     return;
   }
-  const float4 b = q[1];
+  const float4 b = read_quad(xr - cls + 4);
   if (cls == 1) {
     v[0] = a.y, v[1] = a.z, v[2] = a.w, v[3] = b.x;
   } else if (cls == 2) {
@@ -694,25 +917,27 @@ __device__ __forceinline__ void residue_cells(const float* xr, int cls,
 }
 
 // One float32 step per cell of rows [i0, i0 + rows) x columns
-// [j0, j0 + 128) for each task of a warp; lane l owns columns j0 + 4 l ..
-// + 3.  `vec`: every row of `in` and `out` starts its window on a 16-byte
-// boundary and nr % 4 == 0.  Rows go by pairs: a residue point's weight,
-// offsets and load pattern serve two output rows.
+// [j0, j0 + 128) for each task of a warp, on a float32 or (S =
+// __nv_bfloat16) bfloat16 state: the ring holds the state's cells, the
+// sums are float32, each widened cell exact, and the store rounds to
+// nearest even.  Lane l owns columns j0 + 4 l .. + 3.  `vec`: every row of
+// `in` and `out` starts its window on a quad boundary (16 or 8 bytes) and
+// nr % 4 == 0.  Rows go by pairs: a residue point's weight, offsets and
+// load pattern serve two output rows.
 // The launch bound asks for one block per SM: ptxas then gives each
 // instantiation the registers its sums need (its own occupancy target
 // spilled a few instantiations' registers).
-template <int R, int NT>
+template <typename S, int R, int NT>
 __global__ void __launch_bounds__(kStripWarps * 32, 1)
-strip_kernel(const float* __restrict__ in, float* __restrict__ out,
+strip_kernel(const S* __restrict__ in, S* __restrict__ out,
              const __grid_constant__ StripPlan<float, R> pl, Grid2D g, int vec,
              int rows) {
   constexpr int W = 2 * R + 1;
   constexpr int Y = W + 1;  // column convs kept: a pair's 2R + 2 rows
-  __shared__ __align__(16) float
-      ring_all[kStripWarps][kStripRing][kStripRowCells];
+  __shared__ __align__(16) S ring_all[kStripWarps][kStripRing][kStripRowCells];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float(*ring)[kStripRowCells] = ring_all[warp];
+  S(*ring)[kStripRowCells] = ring_all[warp];
   const int col_tasks = (g.nr + kStripCols - 1) / kStripCols;
   const int tasks = col_tasks * ((g.mr + rows - 1) / rows);
   for (int task = blockIdx.x * kStripWarps + warp; task < tasks;
@@ -731,20 +956,20 @@ strip_kernel(const float* __restrict__ in, float* __restrict__ out,
     // commit group per call, empty past the last row
     auto fetch = [&](int s) {
       if (s < n_in) {
-        float* dst = ring[s & (kStripRing - 1)];
+        S* dst = ring[s & (kStripRing - 1)];
         const int gr = gr0 + s;
-        const float* src = in + static_cast<size_t>(gr) * g.pitch;
+        const S* src = in + static_cast<size_t>(gr) * g.pitch;
         if (vec) {
           for (int c = lane; c < kStripWindow / 4; c += 32) {
             const int gc = gc0 + 4 * c;
             const bool ok = gr < g.rows && gc >= 0 && gc + 4 <= g.pitch;
-            cp_async16(dst + 4 * c, ok ? src + gc : in, ok);
+            cp_async_quad(dst + 4 * c, ok ? src + gc : in, ok);
           }
         } else {
           for (int c = lane; c < kStripWindow; c += 32) {
             const int gc = gc0 + c;
             const bool ok = gr < g.rows && gc >= 0 && gc < g.pitch;
-            cp_async4(dst + c, ok ? src + gc : in, ok);
+            copy_cell(dst + c, ok ? src + gc : in, ok);
           }
         }
       }
@@ -778,12 +1003,11 @@ strip_kernel(const float* __restrict__ in, float* __restrict__ out,
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           // the lane's window of row s + h: columns j - 4 .. j + 7
-          const float4* row = reinterpret_cast<const float4*>(
-              ring[(s + h) & (kStripRing - 1)] + 4 * lane);
+          const S* row = ring[(s + h) & (kStripRing - 1)] + 4 * lane;
           float x[12];
 #pragma unroll
           for (int v = 0; v < 3; ++v) {
-            const float4 f = row[v];
+            const float4 f = read_quad(row + 4 * v);
             x[4 * v] = f.x;
             x[4 * v + 1] = f.y;
             x[4 * v + 2] = f.z;
@@ -862,21 +1086,18 @@ strip_kernel(const float* __restrict__ in, float* __restrict__ out,
           const int o = s + h - 2 * R;  // output row of the task
           if (o < 0 || o >= n_out) continue;
           const int i = i0 + o;
-          float* dst =
-              out + static_cast<size_t>(g.r0 + i) * g.pitch + g.c0 + j;
+          S* dst = out + static_cast<size_t>(g.r0 + i) * g.pitch + g.c0 + j;
           if (!(inside && i < g.m)) {
 #pragma unroll
             for (int c = 0; c < 4; ++c)
               if (i >= g.m || j + c >= g.n) acc[h][c] = 0.0f;
           }
           if (vec) {
-            if (j < g.nr)
-              *reinterpret_cast<float4*>(dst) =
-                  make_float4(acc[h][0], acc[h][1], acc[h][2], acc[h][3]);
+            if (j < g.nr) store_quad(dst, acc[h]);
           } else {
 #pragma unroll
             for (int c = 0; c < 4; ++c)
-              if (j + c < g.nr) dst[c] = acc[h][c];
+              if (j + c < g.nr) dst[c] = to_cell<S>(acc[h][c]);
           }
         }
       }
@@ -1201,25 +1422,28 @@ int size_strips(const void* kernel, int* resident, int out_cols,
   return 0;
 }
 
-// A launch of the strip kernel of the cell type: strip_kernel (float), or
-// strip64_kernel (double) with 16-byte copies (`vec`) or 8-byte ones.  The
-// float64 kernel takes VEC as a template parameter: on an H100, the walk of
-// an instance that also held the 8-byte copies took 4-8% longer.
-template <typename T, int R, int NT>
-int launch_strip(const T* in, T* out, const StripPlan<T, R>& pl,
+// A launch of the strip kernel of the cell type: strip_kernel (float or
+// bfloat16), or strip64_kernel (double) with 16-byte copies (`vec`) or
+// 8-byte ones.  The float64 kernel takes VEC as a template parameter: on an
+// H100, the walk of an instance that also held the 8-byte copies took 4-8%
+// longer.
+template <typename S, int R, int NT>
+int launch_strip(const S* in, S* out, const StripPlan<Compute<S>, R>& pl,
                  const Grid2D& g, int vec, cudaStream_t stream) {
-  constexpr bool kF64 = sizeof(T) == sizeof(double);
+  constexpr bool kF64 = std::is_same_v<S, double>;
   static int resident[2][kMaxDevices];  // per instance: 8- and 16-byte
-  const void* kernel =
-      !kF64 ? reinterpret_cast<const void*>(strip_kernel<R, NT>)
-      : vec ? reinterpret_cast<const void*>(strip64_kernel<R, NT, true>)
-            : reinterpret_cast<const void*>(strip64_kernel<R, NT, false>);
+  const void* kernel = nullptr;
+  if constexpr (kF64)
+    kernel = vec ? reinterpret_cast<const void*>(strip64_kernel<R, NT, true>)
+                 : reinterpret_cast<const void*>(strip64_kernel<R, NT, false>);
+  else
+    kernel = reinterpret_cast<const void*>(strip_kernel<S, R, NT>);
   int rows = 0, blocks = 0;
   const int e = size_strips(kernel, resident[kF64 && vec],
                             kF64 ? kStrip64Cols : kStripCols, g, rows, blocks);
   if (e != 0) return e;
   if constexpr (!kF64)
-    strip_kernel<R, NT><<<blocks, kStripWarps * 32, 0, stream>>>(
+    strip_kernel<S, R, NT><<<blocks, kStripWarps * 32, 0, stream>>>(
         in, out, pl, g, vec, rows);
   else if (vec)
     strip64_kernel<R, NT, true><<<blocks, kStripWarps * 32, 0, stream>>>(
@@ -1230,45 +1454,59 @@ int launch_strip(const T* in, T* out, const StripPlan<T, R>& pl,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int R>
-int strip_terms(const T* in, T* out, const T* plan, int n_terms, int n_res,
-                const Grid2D& g, int vec, cudaStream_t stream) {
-  StripPlan<T, R> pl = {};
+template <typename S, int R>
+int strip_terms(const S* in, S* out, const Compute<S>* plan, int n_terms,
+                int n_res, const Grid2D& g, int vec, cudaStream_t stream) {
+  StripPlan<Compute<S>, R> pl = {};
   if (!fill_strip_plan<R>(plan, n_terms, n_res, pl))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (n_terms) {
-    case 0: return launch_strip<T, R, 0>(in, out, pl, g, vec, stream);
-    case 1: return launch_strip<T, R, 1>(in, out, pl, g, vec, stream);
-    case 2: return launch_strip<T, R, 2>(in, out, pl, g, vec, stream);
-    case 3: return launch_strip<T, R, 3>(in, out, pl, g, vec, stream);
+    case 0: return launch_strip<S, R, 0>(in, out, pl, g, vec, stream);
+    case 1: return launch_strip<S, R, 1>(in, out, pl, g, vec, stream);
+    case 2: return launch_strip<S, R, 2>(in, out, pl, g, vec, stream);
+    case 3: return launch_strip<S, R, 3>(in, out, pl, g, vec, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// Cells of the 16-byte (float, double) or 8-byte (bfloat16) copies of the
+// strip kernels: a quad, or a double pair.
+template <typename S>
+constexpr int strip_vec() {
+  return std::is_same_v<S, double> ? 2 : 4;
+}
+
+// Whether a strip-walking kernel's rows and rounded interior lie on its
+// copies' grid (strip_vec cells), so that it copies and stores them whole.
+template <typename S>
+int strip_vec_ok(const S* in, const S* out, const Grid2D& g) {
+  constexpr int kVec = strip_vec<S>();
+  constexpr uintptr_t kBytes = kVec * sizeof(S);
+  return reinterpret_cast<uintptr_t>(in) % kBytes == 0 &&
+         reinterpret_cast<uintptr_t>(out) % kBytes == 0 &&
+         g.pitch % kVec == 0 && g.c0 % kVec == 0 && g.nr % kVec == 0;
+}
+
 // A step (k = 1) by the strip kernel of the cell type; `plan` is
-// plan_array's table in host memory, in the state's dtype.  Radii
+// plan_array's table in host memory, in the compute type.  Radii
 // 1..kStripMaxRadius with at most kStripMaxTerms terms, as LS_DISPATCH does
 // 1-D's narrow radii: the radius picks the instantiation; any other is
-// refused.  `vec`: 16-byte copies and stores (rows and the rounded interior
-// on the 16-byte grid).
-template <typename T>
-int launch_strip_step(const T* in, T* out, const T* plan, int plan_len,
-                      int n_terms, int R, int n_res, Grid2D g, int k,
-                      void* stream) {
-  constexpr int kVec = 16 / sizeof(T);  // cells in 16 bytes
+// refused.  `vec`: whole copies and stores (strip_vec_ok).
+template <typename S>
+int launch_strip_step(const S* in, S* out, const Compute<S>* plan,
+                      int plan_len, int n_terms, int R, int n_res, Grid2D g,
+                      int k, void* stream) {
+  using T = Compute<S>;
   if (k != 1 || !plan || bad_args<T>(plan_len, n_terms, R, n_res, g, R))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g.mr == 0 || g.nr == 0) return 0;
-  const int vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                  g.pitch % kVec == 0 && g.c0 % kVec == 0 &&
-                  g.nr % kVec == 0;
+  const int vec = strip_vec_ok(in, out, g);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (R) {
-    case 1: return strip_terms<T, 1>(in, out, plan, n_terms, n_res, g, vec, s);
-    case 2: return strip_terms<T, 2>(in, out, plan, n_terms, n_res, g, vec, s);
-    case 3: return strip_terms<T, 3>(in, out, plan, n_terms, n_res, g, vec, s);
-    case 4: return strip_terms<T, 4>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 1: return strip_terms<S, 1>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 2: return strip_terms<S, 2>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 3: return strip_terms<S, 3>(in, out, plan, n_terms, n_res, g, vec, s);
+    case 4: return strip_terms<S, 4>(in, out, plan, n_terms, n_res, g, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1361,8 +1599,10 @@ __device__ __forceinline__ void column_convs(const StripPlan<float, R>& pl,
 }
 
 // K fused float32 steps per cell of rows [i0, i0 + rows) x columns
-// [j0, j0 + fused_strip_cols(K)) for each task of a warp.  Lane l holds
-// the four columns jw + 4 l .. + 3 of every level, jw = j0 - 4 (K - 1).
+// [j0, j0 + fused_strip_cols(K)) for each task of a warp, on a float32 or
+// (S = __nv_bfloat16) bfloat16 state: the ring holds the state's cells,
+// every level is float32 in registers, and the store rounds once.  Lane l
+// holds the four columns jw + 4 l .. + 3 of every level, jw = j0 - 4 (K - 1).
 // Level 1 is the strip kernel's step on the input ring; level L >= 2
 // takes level L - 1's row from registers, its neighbours' cells by
 // shuffles (lane_windows), and keeps its own register ring of column convs,
@@ -1370,19 +1610,18 @@ __device__ __forceinline__ void column_convs(const StripPlan<float, R>& pl,
 // levels before the last to Grid2D's box, the last to the interior.  No
 // residue (the plan's n_res is 0); KINDS
 // holds the plan's flags.  `vec` and the launch bound as strip_kernel's.
-template <int R, int NT, int K, int KINDS>
+template <typename S, int R, int NT, int K, int KINDS>
 __global__ void __launch_bounds__(kStripWarps * 32, 1)
-fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
+fused_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
                    const __grid_constant__ StripPlan<float, R> pl, Grid2D g,
                    int vec, int rows) {
   constexpr int W = 2 * R + 1;
   constexpr int Y = W + 1;  // column convs kept per level: 2R + 2 rows
   constexpr int kOut = fused_strip_cols(K);
-  __shared__ __align__(16) float
-      ring_all[kStripWarps][kStripRing][kStripRowCells];
+  __shared__ __align__(16) S ring_all[kStripWarps][kStripRing][kStripRowCells];
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  float(*ring)[kStripRowCells] = ring_all[warp];
+  S(*ring)[kStripRowCells] = ring_all[warp];
   const int col_tasks = (g.nr + kOut - 1) / kOut;
   const int tasks = col_tasks * ((g.mr + rows - 1) / rows);
   const bool stores = lane >= K - 1 && lane <= 32 - K;
@@ -1399,7 +1638,7 @@ fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
     bool col_in[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) col_in[c] = j + c >= 0 && j + c < g.n;
-    // the lane's 16-byte copies of a window row (vec): quads lane and, for
+    // the lane's quad copies of a window row (vec): quads lane and, for
     // lanes 0 and 1, lane + 32, at the same columns in every row
     const int gq0 = gc0 + 4 * lane;
     const int gq1 = gq0 + 128;
@@ -1413,18 +1652,18 @@ fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
     // empty past the last row
     auto fetch = [&](int s) {
       if (s < n_in) {
-        float* dst = ring[s & (kStripRing - 1)];
+        S* dst = ring[s & (kStripRing - 1)];
         const int gr = gr0 + s;
-        const float* src = in + static_cast<size_t>(gr) * g.pitch;
+        const S* src = in + static_cast<size_t>(gr) * g.pitch;
         if (vec) {
-          cp_async16(dst + 4 * lane, ok0 ? src + gq0 : in, ok0);
+          cp_async_quad(dst + 4 * lane, ok0 ? src + gq0 : in, ok0);
           if (lane < kStripWindow / 4 - 32)
-            cp_async16(dst + 4 * lane + 128, ok1 ? src + gq1 : in, ok1);
+            cp_async_quad(dst + 4 * lane + 128, ok1 ? src + gq1 : in, ok1);
         } else {
           for (int c = lane; c < kStripWindow; c += 32) {
             const int gc = gc0 + c;
             const bool ok = gr < g.rows && gc >= 0 && gc < g.pitch;
-            cp_async4(dst + c, ok ? src + gc : in, ok);
+            copy_cell(dst + c, ok ? src + gc : in, ok);
           }
         }
       }
@@ -1468,11 +1707,10 @@ fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
           float x[2][12];
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const float4* row = reinterpret_cast<const float4*>(
-                ring[(s + h) & (kStripRing - 1)] + 4 * lane);
+            const S* row = ring[(s + h) & (kStripRing - 1)] + 4 * lane;
 #pragma unroll
             for (int v = 0; v < 3; ++v) {
-              const float4 f = row[v];
+              const float4 f = read_quad(row + 4 * v);
               x[h][4 * v] = f.x;
               x[h][4 * v + 1] = f.y;
               x[h][4 * v + 2] = f.z;
@@ -1536,16 +1774,14 @@ fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
         for (int h = 0; h < 2; ++h) {
           const int o = s + h - 2 * K * R;  // output row of the task
           if (o >= n_out) continue;
-          float* dst = out + static_cast<size_t>(g.r0 + i0 + o) * g.pitch +
-                       g.c0 + j;
+          S* dst = out + static_cast<size_t>(g.r0 + i0 + o) * g.pitch +
+                   g.c0 + j;
           if (vec) {
-            if (j < g.nr)
-              *reinterpret_cast<float4*>(dst) =
-                  make_float4(v[h][0], v[h][1], v[h][2], v[h][3]);
+            if (j < g.nr) store_quad(dst, v[h]);
           } else {
 #pragma unroll
             for (int c = 0; c < 4; ++c)
-              if (j + c < g.nr) dst[c] = v[h][c];
+              if (j + c < g.nr) dst[c] = to_cell<S>(v[h][c]);
           }
         }
       }
@@ -1553,27 +1789,25 @@ fused_strip_kernel(const float* __restrict__ in, float* __restrict__ out,
   }
 }
 
-template <int R, int NT, int K, int KINDS>
-int launch_fused_strip(const float* in, float* out,
-                       const StripPlan<float, R>& pl, const Grid2D& g, int vec,
-                       cudaStream_t stream) {
+template <typename S, int R, int NT, int K, int KINDS>
+int launch_fused_strip(const S* in, S* out, const StripPlan<float, R>& pl,
+                       const Grid2D& g, int vec, cudaStream_t stream) {
   static int resident[kMaxDevices];
   int rows = 0, blocks = 0;
   const int e = size_strips(
-      reinterpret_cast<const void*>(fused_strip_kernel<R, NT, K, KINDS>),
+      reinterpret_cast<const void*>(fused_strip_kernel<S, R, NT, K, KINDS>),
       resident, fused_strip_cols(K), g, rows, blocks);
   if (e != 0) return e;
-  fused_strip_kernel<R, NT, K, KINDS>
+  fused_strip_kernel<S, R, NT, K, KINDS>
       <<<blocks, kStripWarps * 32, 0, stream>>>(in, out, pl, g, vec, rows);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The instantiation of the plan's term count and kinds (every term has a
 // column or a row axis: 3 kinds of one term, 9 of two).
-template <int R>
-int fused_strip_terms(const float* in, float* out, const float* plan,
-                      int n_terms, const Grid2D& g, int vec,
-                      cudaStream_t stream) {
+template <typename S, int R>
+int fused_strip_terms(const S* in, S* out, const float* plan, int n_terms,
+                      const Grid2D& g, int vec, cudaStream_t stream) {
   StripPlan<float, R> pl = {};
   if (!fill_strip_plan<R>(plan, n_terms, 0, pl))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1584,10 +1818,10 @@ int fused_strip_terms(const float* in, float* out, const float* plan,
     if (kind == 0) return static_cast<int>(cudaErrorInvalidValue);
     kinds |= kind << (2 * t);
   }
-#define LS_FUSED(NT, KINDS)                                         \
-  case (NT) * 16 + (KINDS):                                         \
-    return launch_fused_strip<R, NT, 2, KINDS>(in, out, pl, g, vec, \
-                                               stream);
+#define LS_FUSED(NT, KINDS)                                            \
+  case (NT) * 16 + (KINDS):                                            \
+    return launch_fused_strip<S, R, NT, 2, KINDS>(in, out, pl, g, vec, \
+                                                  stream);
   switch (n_terms * 16 + kinds) {
     LS_FUSED(1, 1) LS_FUSED(1, 2) LS_FUSED(1, 3)
     LS_FUSED(2, 5) LS_FUSED(2, 6) LS_FUSED(2, 7)
@@ -1598,11 +1832,13 @@ int fused_strip_terms(const float* in, float* out, const float* plan,
 #undef LS_FUSED
 }
 
-// A float32 pass of k = 2 fused steps by the fused strip kernel; `plan` is
-// plan_array's table in host memory.  Radii 1..kStripMaxRadius, 1 or 2
-// terms, each with a column or a row axis, and no residue: the radius,
-// term count and term kinds pick the instantiation; any other is refused.
-int launch_fused_strip_pass(const float* in, float* out, const float* plan,
+// A float32 or bfloat16 pass of k = 2 fused steps by the fused strip
+// kernel; `plan` is plan_array's table in host memory, float32.  Radii
+// 1..kStripMaxRadius, 1 or 2 terms, each with a column or a row axis, and no
+// residue: the radius, term count and term kinds pick the instantiation;
+// any other is refused.
+template <typename S>
+int launch_fused_strip_pass(const S* in, S* out, const float* plan,
                             int plan_len, int n_terms, int R, int n_res,
                             Grid2D g, int k, void* stream) {
   if (k != 2 || !plan || n_res != 0 || n_terms < 1 ||
@@ -1610,15 +1846,13 @@ int launch_fused_strip_pass(const float* in, float* out, const float* plan,
       bad_args<float>(plan_len, n_terms, R, n_res, g, k * R))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g.mr == 0 || g.nr == 0) return 0;
-  const int vec = reinterpret_cast<uintptr_t>(in) % 16 == 0 &&
-                  reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                  g.pitch % 4 == 0 && g.c0 % 4 == 0 && g.nr % 4 == 0;
+  const int vec = strip_vec_ok(in, out, g);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (R) {
-    case 1: return fused_strip_terms<1>(in, out, plan, n_terms, g, vec, s);
-    case 2: return fused_strip_terms<2>(in, out, plan, n_terms, g, vec, s);
-    case 3: return fused_strip_terms<3>(in, out, plan, n_terms, g, vec, s);
-    case 4: return fused_strip_terms<4>(in, out, plan, n_terms, g, vec, s);
+    case 1: return fused_strip_terms<S, 1>(in, out, plan, n_terms, g, vec, s);
+    case 2: return fused_strip_terms<S, 2>(in, out, plan, n_terms, g, vec, s);
+    case 3: return fused_strip_terms<S, 3>(in, out, plan, n_terms, g, vec, s);
+    case 4: return fused_strip_terms<S, 4>(in, out, plan, n_terms, g, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1631,14 +1865,40 @@ int set_smem(const void* kernel, size_t smem) {
       static_cast<int>(smem)));
 }
 
-template <typename T>
-int launch_step(const T* in, T* out, const T* plan, int plan_len,
+// A step (k = 1) by the wide kernel.
+template <typename S>
+int launch_wide(const S* in, S* out, const Compute<S>* plan, int n_terms,
+                int R, int n_res, const Grid2D& g, cudaStream_t stream) {
+  using T = Compute<S>;
+  constexpr int kTileRows = tile_rows<T>();
+  const void* kernel =
+      reinterpret_cast<const void*>(wide_step_kernel<S, kTileRows>);
+  const size_t smem =
+      sizeof(T) * static_cast<size_t>(kTileRows + 2 * R) * kWideCols;
+  const int e = set_smem(kernel, smem);
+  if (e != 0) return e;
+  const dim3 grid((g.nr + kWideCols - 1) / kWideCols,
+                  (g.mr + kTileRows - 1) / kTileRows);
+  wide_step_kernel<S, kTileRows><<<grid, kThreads, smem, stream>>>(
+      in, out, plan, n_terms, R, n_res, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A pass of k steps by the step kernel (k = 1) or the fused kernel; a step
+// whose window does not fit a block's shared memory by the wide kernel.
+template <typename S>
+int launch_step(const S* in, S* out, const Compute<S>* plan, int plan_len,
                 int n_terms, int R, int n_res, Grid2D g, int k,
                 void* stream) {
+  using T = Compute<S>;
   constexpr int kTileRows = tile_rows<T>();
-  if (k < 1 || bad_args<T>(plan_len, n_terms, R, n_res, g, k * R))
+  if (k < 1 || !plan || bad_args<T>(plan_len, n_terms, R, n_res, g, k * R))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g.mr == 0 || g.nr == 0) return 0;
+  const size_t smem = sizeof(T) * step_cells<T>(k, R, plan_len);
+  if (k == 1 && smem > kMaxSmem)
+    return launch_wide(in, out, plan, n_terms, R, n_res, g,
+                       static_cast<cudaStream_t>(stream));
   // a box that is not the interior (a ghost boundary's ring) takes kBox
   const int form = k == 1 ? 0
                    : (g.lr != 0 || g.hr != g.m || g.lc != 0 || g.hc != g.n)
@@ -1646,61 +1906,62 @@ int launch_step(const T* in, T* out, const T* plan, int plan_len,
                        : 1;
   const void* kernel =
       form == 2   ? reinterpret_cast<const void*>(
-                      step_kernel<T, kTileRows, true, true>)
+                      step_kernel<S, kTileRows, true, true>)
       : form == 1 ? reinterpret_cast<const void*>(
-                        step_kernel<T, kTileRows, true, false>)
+                        step_kernel<S, kTileRows, true, false>)
                   : reinterpret_cast<const void*>(
-                        step_kernel<T, kTileRows, false, false>);
-  const size_t smem = sizeof(T) * step_cells<T>(k, R, plan_len);
+                        step_kernel<S, kTileRows, false, false>);
   const int e = set_smem(kernel, smem);
   if (e != 0) return e;
   const dim3 grid((g.nr + kTileCols - 1) / kTileCols,
                   (g.mr + kTileRows - 1) / kTileRows);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (form == 2)
-    step_kernel<T, kTileRows, true, true><<<grid, kThreads, smem, s>>>(
+    step_kernel<S, kTileRows, true, true><<<grid, kThreads, smem, s>>>(
         in, out, plan, plan_len, n_terms, R, n_res, g, k);
   else if (form == 1)
-    step_kernel<T, kTileRows, true, false><<<grid, kThreads, smem, s>>>(
+    step_kernel<S, kTileRows, true, false><<<grid, kThreads, smem, s>>>(
         in, out, plan, plan_len, n_terms, R, n_res, g, k);
   else
-    step_kernel<T, kTileRows, false, false><<<grid, kThreads, smem, s>>>(
+    step_kernel<S, kTileRows, false, false><<<grid, kThreads, smem, s>>>(
         in, out, plan, plan_len, n_terms, R, n_res, g, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_skew(const T* in, T* out, const T* plan, int plan_len,
+template <typename S>
+int launch_skew(const S* in, S* out, const Compute<S>* plan, int plan_len,
                 int n_terms, int R, int n_res, Grid2D g, int k,
                 void* stream) {
+  using T = Compute<S>;
   constexpr int kTileRows = tile_rows<T>();
   if (k < 2 || 2 * R > kTileRows ||
       bad_args<T>(plan_len, n_terms, R, n_res, g, k * R))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g.mr == 0 || g.nr == 0) return 0;
   const void* kernel =
-      reinterpret_cast<const void*>(skew_kernel<T, kTileRows>);
+      reinterpret_cast<const void*>(skew_kernel<S, kTileRows>);
   const size_t smem = sizeof(T) * skew_cells<T>(k, R, plan_len);
   const int e = set_smem(kernel, smem);
   if (e != 0) return e;
   const dim3 grid((g.nr + kTileCols - 1) / kTileCols,
                   (g.mr + kChunkRows - 1) / kChunkRows);
-  skew_kernel<T, kTileRows><<<grid, kThreads, smem,
+  skew_kernel<S, kTileRows><<<grid, kThreads, smem,
                               static_cast<cudaStream_t>(stream)>>>(
       in, out, plan, plan_len, n_terms, R, n_res, g, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_resident(const T* in, T* out0, T* out1, const T* plan,
+template <typename S>
+int launch_resident(const S* in, S* out0, S* out1, const Compute<S>* plan,
                     int plan_len, int n_terms, int R, int n_res, Grid2D g,
                     int steps, void* stream) {
+  using T = Compute<S>;
   constexpr int kTileRows = tile_rows<T>();
   if (steps < 1 || bad_args<T>(plan_len, n_terms, R, n_res, g, R))
     return static_cast<int>(cudaErrorInvalidValue);
   if (g.mr == 0 || g.nr == 0) return 0;
   const void* kernel =
-      reinterpret_cast<const void*>(resident_kernel<T, kTileRows>);
+      reinterpret_cast<const void*>(resident_kernel<S, kTileRows>);
   const size_t smem = sizeof(T) * step_cells<T>(1, R, plan_len);
   const int se = set_smem(kernel, smem);
   if (se != 0) return se;
@@ -1735,30 +1996,46 @@ int launch_resident(const T* in, T* out0, T* out1, const T* plan,
 // hr, lc, hc), after the steps; a run keeps the interior.
 #define LS_GRID(LR, HR, LC, HC) \
   Grid2D{rows, pitch, r0, c0, m, n, mr, nr, LR, HR, LC, HC}
-#define LS_ENTRY(NAME, FN, T)                                               \
-  extern "C" int NAME(const T* in, T* out, const T* plan, int plan_len,   \
-                      int n_terms, int radius, int n_res, int rows,       \
-                      int pitch, int r0, int c0, int m, int n, int mr,    \
-                      int nr, int k, int lr, int hr, int lc, int hc,      \
-                      void* stream) {                                     \
+#define LS_ENTRY(NAME, FN, S)                                               \
+  extern "C" int NAME(const S* in, S* out, const Compute<S>* plan,        \
+                      int plan_len, int n_terms, int radius, int n_res,   \
+                      int rows, int pitch, int r0, int c0, int m, int n,  \
+                      int mr, int nr, int k, int lr, int hr, int lc,      \
+                      int hc, void* stream) {                             \
     return FN(in, out, plan, plan_len, n_terms, radius, n_res,            \
               LS_GRID(lr, hr, lc, hc), k, stream);                        \
   }
+#ifndef LS_STENCIL2D_BF16
 LS_ENTRY(ls_stencil2d_step, launch_step<float>, float)
 LS_ENTRY(ls_stencil2d_strip, launch_strip_step<float>, float)
 LS_ENTRY(ls_stencil2d_strip_f64, launch_strip_step<double>, double)
-LS_ENTRY(ls_stencil2d_fused_strip, launch_fused_strip_pass, float)
+LS_ENTRY(ls_stencil2d_fused_strip, launch_fused_strip_pass<float>, float)
 LS_ENTRY(ls_stencil2d_step_f64, launch_step<double>, double)
 LS_ENTRY(ls_stencil2d_skew, launch_skew<float>, float)
 LS_ENTRY(ls_stencil2d_skew_f64, launch_skew<double>, double)
+#else
+// the bfloat16 state tier (csrc/stencil2d_bf16.cu): the float32 kernels'
+// instances on bf16 cells
+LS_ENTRY(ls_stencil2d_step_bf16, launch_step<__nv_bfloat16>, __nv_bfloat16)
+LS_ENTRY(ls_stencil2d_strip_bf16, launch_strip_step<__nv_bfloat16>,
+         __nv_bfloat16)
+LS_ENTRY(ls_stencil2d_fused_strip_bf16,
+         launch_fused_strip_pass<__nv_bfloat16>, __nv_bfloat16)
+LS_ENTRY(ls_stencil2d_skew_bf16, launch_skew<__nv_bfloat16>, __nv_bfloat16)
+#endif
 
-#define LS_RESIDENT(NAME, T)                                                \
-  extern "C" int NAME(const T* in, T* out0, T* out1, const T* plan,        \
-                      int plan_len, int n_terms, int radius, int n_res,    \
-                      int rows, int pitch, int r0, int c0, int m, int n,   \
-                      int mr, int nr, int steps, void* stream) {           \
+#define LS_RESIDENT(NAME, S)                                                \
+  extern "C" int NAME(const S* in, S* out0, S* out1,                       \
+                      const Compute<S>* plan, int plan_len, int n_terms,   \
+                      int radius, int n_res, int rows, int pitch, int r0,  \
+                      int c0, int m, int n, int mr, int nr, int steps,     \
+                      void* stream) {                                      \
     return launch_resident(in, out0, out1, plan, plan_len, n_terms, radius, \
                            n_res, LS_GRID(0, m, 0, n), steps, stream);     \
   }
+#ifndef LS_STENCIL2D_BF16
 LS_RESIDENT(ls_stencil2d_resident, float)
 LS_RESIDENT(ls_stencil2d_resident_f64, double)
+#else
+LS_RESIDENT(ls_stencil2d_resident_bf16, __nv_bfloat16)
+#endif

@@ -52,7 +52,8 @@
 // plan read from shared memory at run time and one 4- or 8-byte cp.async
 // per cell.  Its time goes to that work inside the SM (PERF.md: ~10% of
 // the byte bound in float32), not to device-memory bytes.  It takes any
-// radius <= 8, residue, any term mix and K <= 8.
+// radius <= 8 (0 too: a centre tap and z taps of one plane), residue, any
+// term mix and K <= 8.
 //
 // The march kernel is its redesign for Hopper, for radius 1, K = 1 or 2,
 // no residue and the registry's two term mixes (star3d1r's identity term
@@ -479,7 +480,7 @@ bool box_valid(const Pass& p) {
 
 bool valid(const Pass& p, int R) {
   const int W = 2 * R + 1;
-  return R >= 1 && R <= kMaxRadius && p.K >= 1 && p.K <= kMaxK &&
+  return R >= 0 && R <= kMaxRadius && p.K >= 1 && p.K <= kMaxK &&
          p.n_terms >= 0 && p.n_res >= 0 && p.n_buf >= 0 &&
          (p.ring == 1 || p.ring == W) && p.plan_len <= kMaxPlan &&
          p.plan_len == p.n_terms * term_stride(R) + 4 * p.n_res &&
@@ -576,6 +577,7 @@ int step(const T* in, T* out, const T* plan, const Pass& p, int radius,
   if (p.h == 0 || p.mr == 0 || p.nr == 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (radius) {
+    case 0: return launch<T, 0>(in, out, plan, p, s);
     case 1: return launch<T, 1>(in, out, plan, p, s);
     case 2: return launch<T, 2>(in, out, plan, p, s);
     case 3: return launch<T, 3>(in, out, plan, p, s);
@@ -1239,7 +1241,7 @@ extern "C" long long ls_stencil3d_smem_bytes(int radius, int K, int bm, int bn,
                                              int plan_len, int itemsize) {
   Pass p = make_pass(plan_len, 0, 0, n_buf, ring, K, 0, 0, 0, 0, 0, 0, 0, 0,
                      0, 0, 0, bm, bn, 1);
-  if (radius < 1 || radius > kMaxRadius || K < 1 || K > kMaxK || bm < 1 ||
+  if (radius < 0 || radius > kMaxRadius || K < 1 || K > kMaxK || bm < 1 ||
       bn < 1 || n_buf < 0 || plan_len < 0 ||
       (itemsize != 4 && itemsize != 8) ||
       level_cells(p, radius, 1) > kPerThread * kThreads)

@@ -46,7 +46,8 @@ or "df64", see below):
     autotune cache, which the port does not have yet (ROADMAP A12), and
     resolves 'extent' when the cache is empty;
   * 3-D shapes (star3d1r, box3d1r) at the JAX engine's fused depth
-    ``k = min(fused_steps_3d, 8 // radius)`` (2 by default; 1 for "df64")
+    ``k = min(fused_steps_3d, 8 // max(1, radius))`` (2 by default; 1 for
+    "df64"; a radius-0 spec takes the default too)
     through ``ops/stencil3d.py``: ``steps // k`` passes of k steps, then
     one pass of ``steps % k``;
   * ``boundary`` 'dirichlet0' (the reference's halo decay), 'periodic'
@@ -80,9 +81,22 @@ radius of 0 on the "xla" step, in 2-D the pair cap of the whole-grid run;
 the fused depth (1 in 2-D unless ``fused_steps`` is given, 2 on the 1-D
 lanes path and in 3-D).  ``run`` returns a float64 tensor.
 
-``residue_mxu`` takes the JAX engine's values; 'on' moves the TPU kernel's
-residue onto its matrix unit, which the card has no use for: every value
-runs the same exact CUDA-core sums.
+The bfloat16 state tier (dtype "bfloat16", 2-D only; 1-D and 3-D raise
+``NotImplementedError``, ROADMAP A6(c)) stores the state in bf16, half the
+bytes, and computes in fp32: the bfloat16 instances of the 2-D kernels,
+each rounding once a pass at its store (a whole-grid run every step; see
+``ops/stencil2d.py`` for the rule and where it differs from the JAX
+kernels).  It keeps the JAX engine's policies: 'auto' resolves to
+'mxu_hybrid' for a spec of at most two terms and no residue (star2d3r,
+whose passes fuse k = 2) and to 'mxu_hybrid1' otherwise, ``residue_mxu``
+'auto' labels 'mxu_hybrid1' on, the whole-grid run takes the JAX rule at 2
+bytes a cell, and backend 'xla' is refused.  ``run`` returns a bfloat16
+tensor.
+
+``residue_mxu`` takes the JAX engine's values (``residue_mxu_policy``, the
+engine's ``residue_mxu``); 'on' moves the TPU kernel's residue onto its
+matrix unit, which the card has no use for: every value runs the same
+exact CUDA-core sums.
 
 ``device`` defaults to "cuda" and raises when CUDA is absent: the engine
 never moves to the CPU by itself.  ``device="cpu"`` runs the plain twins.
@@ -93,6 +107,7 @@ on the current stream.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional, Tuple
 
 import numpy as np
@@ -103,7 +118,7 @@ from .models import factorize
 from .models.shapes import SeparableTerm, StencilSpec, get_shape
 
 from .ops import stencil1d, stencil2d, stencil3d, torch_ref
-from .ops.layout import (TILE_1D, Layout1D, Layout2D, Layout3D,
+from .ops.layout import (TILE_1D, Layout1D, Layout2D, Layout3D, as_state,
                          default_tile_2d, default_tile_3d, guard_1d, guard_2d,
                          guard_3d)
 
@@ -111,7 +126,7 @@ ALGORITHM_NAMES = ("auto", "vpu", "vpu_roll", "vpu_sep", "mxu", "mxu_split",
                    "mxu_hybrid", "mxu_hybrid1", "mxu_hybrid1r",
                    "mxu_hybrid3")
 DTYPES = {"float32": torch.float32, "float64": torch.float64,
-          "df64": torch.float64}
+          "df64": torch.float64, "bfloat16": torch.bfloat16}
 # the JAX 2-D layout's column guard (its LANE), which caps a 2-D pass's
 # reach k * radius in the JAX engine's fused-depth rules
 JAX_COL_GUARD = 128
@@ -120,14 +135,37 @@ JAX_COL_GUARD = 128
 def resolve_algorithm(spec: StencilSpec, name: str,
                       dtype: str = "float32") -> str:
     """Resolve algorithm='auto' as the JAX engine does: 'vpu_roll' for
-    float64; otherwise 'mxu' for 1-D, 'mxu_hybrid1' for 2-D, 'vpu' for
-    3-D.  Like the other exact names they run the CUDA kernels of their
-    dimension.  (The bf16 resolutions arrive with that ROADMAP item.)"""
+    float64; otherwise 'mxu' for 1-D, 'vpu' for 3-D, and for 2-D
+    'mxu_hybrid' on a bfloat16 state of at most two terms and no residue,
+    else 'mxu_hybrid1'.  Like the other exact names they run the CUDA
+    kernels of their dimension."""
     if name != "auto":
         return name
     if dtype == "float64":
         return "vpu_roll"
-    return {1: "mxu", 2: "mxu_hybrid1", 3: "vpu"}[spec.ndim]
+    if spec.ndim != 2:
+        return {1: "mxu", 3: "vpu"}[spec.ndim]
+    if dtype == "bfloat16" and len(spec.terms) <= 2 and not spec.residue:
+        return "mxu_hybrid"
+    return "mxu_hybrid1"
+
+
+def residue_mxu_policy(mode: str, dtype: str,
+                       algorithm: str = "mxu_hybrid1") -> bool:
+    """The JAX engine's ``residue_mxu`` resolution: 'auto' (or the
+    ``LORASTENCIL_RESIDUE_MXU`` variable's value, when 'auto' is given)
+    turns the residue's matrix-unit offload on for a bfloat16 state under
+    'mxu_hybrid1' only; 'on' forces it anywhere.  A label here: the TPU
+    kernel moves its residue onto the matrix unit, the card's kernels have
+    no matrix / vector split and run the same exact CUDA-core sums for
+    every value."""
+    if mode == "auto":
+        mode = os.environ.get("LORASTENCIL_RESIDUE_MXU", "auto")
+    if mode not in ("auto", "on", "off"):
+        raise ValueError(
+            f"residue_mxu must be 'auto', 'on' or 'off', got {mode!r}")
+    return mode == "on" or (mode == "auto" and dtype == "bfloat16"
+                            and algorithm == "mxu_hybrid1")
 
 
 def ping_pong_loop(step_fn, state, steps: int, k: int = 1):
@@ -258,6 +296,9 @@ class StencilEngine:
             self.algorithm = resolve_algorithm(spec, config.algorithm,
                                                config.dtype)
         self.df64_pallas = self.df64 and self.backend == "pallas"
+        # the JAX engine's label; every value runs the same sums here
+        self.residue_mxu = residue_mxu_policy(config.residue_mxu,
+                                              config.dtype, self.algorithm)
         # 1-D and the 'xla' step: every name runs
         if spec.ndim > 1 and not self.df64 and self.backend != "xla":
             kernel = stencil3d if spec.ndim == 3 else stencil2d
@@ -290,10 +331,14 @@ class StencilEngine:
 
     @staticmethod
     def _validate(spec: StencilSpec, config: EngineConfig):
-        if config.dtype == "bfloat16":
-            raise _not_ported(f"dtype {config.dtype!r}", "A6")
+        if config.dtype == "bfloat16" and spec.ndim != 2:
+            raise _not_ported(f"dtype 'bfloat16' in {spec.ndim}-D", "A6(c)")
         if config.dtype not in DTYPES:
             raise ValueError(f"unknown dtype {config.dtype!r}")
+        if config.dtype == "bfloat16" and config.backend == "xla":
+            raise ValueError(
+                "bfloat16 state is a Pallas-kernel throughput tier; the "
+                "XLA reference backend runs float32")
         if config.backend not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown backend {config.backend!r}")
         if config.algorithm not in ALGORITHM_NAMES:
@@ -457,10 +502,12 @@ class StencilEngine:
 
     def _fused_k(self) -> int:
         """The JAX engine's fused-depth rules: 1 for 'xla' and 'df64'; 1-D
-        (see below); 3-D ``min(max(1, fused_steps_3d), 8 // radius)``; 2-D
+        (see below); 3-D ``min(max(1, fused_steps_3d), 8 // max(1, radius))``
+        (the JAX layout's 8 sublanes); 2-D
         skew ``min(fused_steps or 2, 128 // radius)``, 2-D extent
         ``fused_steps`` or, unset, 2 for few-term specs without residue in
-        float32 and 1 otherwise, clamped to ``128 // radius``.  The clamp is
+        float32 or bfloat16 under 'mxu_hybrid1', 'mxu_hybrid' or 'vpu_roll'
+        and 1 otherwise, clamped to ``128 // radius``.  The clamp is
         the JAX layout's 128-column guard; the port's guard is its own
         (``guard_2d``), but the same config takes the same k and so the same
         launches."""
@@ -484,7 +531,7 @@ class StencilEngine:
             return min(k, stencil1d.MAX_FUSED)
         if self.spec.ndim == 3:
             return max(1, min(self.config.fused_steps_3d,
-                              8 // self.spec.radius))
+                              8 // max(1, self.spec.radius)))
         r = max(1, self.spec.radius)
         if self._fusion_mode() == "skew":
             return min(self.config.fused_steps or 2, JAX_COL_GUARD // r)
@@ -493,7 +540,8 @@ class StencilEngine:
             few_terms = (not self.spec.residue
                          and len(self.spec.terms) <= 2
                          and self.dtype != torch.float64
-                         and self.algorithm in ("mxu_hybrid1", "vpu_roll"))
+                         and self.algorithm in ("mxu_hybrid1", "mxu_hybrid",
+                                                "vpu_roll"))
             k = 2 if few_terms else 1
         return min(max(1, k), JAX_COL_GUARD // r)
 
@@ -686,12 +734,12 @@ class StencilEngine:
     # -- public API -------------------------------------------------------
     def to_internal(self, padded):
         """The internal state on the engine's device and in its dtype
-        (float32, or float64 for 'float64' and 'df64'): a new layout
-        buffer, or for backend 'xla' (which steps the padded layout) the
-        padded array as a tensor, which no step writes to."""
+        (float32, bfloat16, or float64 for 'float64' and 'df64'): a new
+        layout buffer, or for backend 'xla' (which steps the padded layout)
+        the padded array as a tensor, which no step writes to.  A float64
+        array becomes bfloat16 in one rounding to nearest even."""
         if self.backend == "xla":
-            return torch.as_tensor(padded, dtype=self.dtype,
-                                   device=self.device)
+            return as_state(padded, self.dtype, self.device)
         return self.layout.to_internal(padded, self.dtype, self.device)
 
     def from_internal(self, state):
@@ -729,8 +777,8 @@ class StencilEngine:
     def run(self, padded, steps: int):
         """Reference-semantics run on a user padded array (NumPy or
         torch); returns a new tensor of the engine's dtype (float64 in the
-        fp64-grade tier) on the engine's device.  The caller's array is
-        not modified."""
+        fp64-grade tier, bfloat16 in the bf16 tier) on the engine's device.
+        The caller's array is not modified."""
         out = self.from_internal(
             self.run_internal(self.to_internal(padded), steps))
         return out.clone(memory_format=torch.contiguous_format)
@@ -786,7 +834,7 @@ class StencilEngine:
         -- the adjoint engine's passes, the last unmasked correlation and
         the reflect fold-back -- runs in float64 there: fp64-grade, float64
         in and out."""
-        g = torch.as_tensor(cotangent, dtype=self.dtype, device=self.device)
+        g = as_state(cotangent, self.dtype, self.device)
         if steps <= 0:
             return g.clone()
         return _run_linear_bwd(self, steps, g)

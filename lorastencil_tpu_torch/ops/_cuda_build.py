@@ -3,8 +3,9 @@
 Counterpart, in pattern only, of ``lorastencil_tpu/native/build.py``.
 Each ``csrc/<name>.cu`` exposes a plain C interface; it is compiled at
 first use into ``lorastencil_tpu_torch/build/`` as a shared library named
-by a hash of its source and flags, so an edited source or flag builds
-anew and an unchanged one is reused.  No PyTorch headers are included,
+by a hash of its source, the ``csrc`` files it includes (``#include
+"..."``) and the flags, so an edited source or flag builds anew and an
+unchanged one is reused.  No PyTorch headers are included,
 which keeps a build to seconds.
 
 nvcc is looked up on PATH, then under ``torch.utils.cpp_extension``'s
@@ -17,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 
@@ -50,7 +52,11 @@ def build(name: str) -> str:
     as ``<library>.log``."""
     src = os.path.join(CSRC, f"{name}.cu")
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read())
+        text = f.read()
+    digest = hashlib.sha256(text)
+    for inc in re.findall(rb'^#include "([^"]+)"', text, re.M):
+        with open(os.path.join(CSRC, inc.decode()), "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     lib = os.path.join(BUILD, f"lib{name}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(lib):

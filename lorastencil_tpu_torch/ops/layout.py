@@ -18,10 +18,14 @@ the true interior are written as zeros on every step.
 
 The TPU layout's (8, 128) DMA alignment does not carry over: the guard
 only has to cover the halo and the stencil's reach, and is rounded up to
-four cells so that interior rows start on a 16-byte boundary in float32
-and a 32-byte one in float64 (the row pitch is a multiple of four cells
-too); the kernels' loads are of one cell, 4 or 8 bytes, so either dtype
-keeps them aligned.
+four cells so that interior rows start on a 16-byte boundary in float32,
+a 32-byte one in float64 and an 8-byte one in bfloat16 (the row pitch is a
+multiple of four cells too): the quads of four cells that the 2-D strip
+kernels copy and store are aligned in every dtype.
+
+``to_internal`` of a bfloat16 state rounds each value to bfloat16 once, to
+nearest even (``as_state``): torch's own float64 -> bfloat16 conversion
+goes through float32 and can round twice.
 """
 
 from __future__ import annotations
@@ -37,11 +41,38 @@ import torch
 TILE_1D = 2048
 TILE_2D = (32, 128)
 TILE_3D = (32, 64)
-GUARD_ALIGN = 4  # cells: 16 bytes of float32, 32 of float64
+GUARD_ALIGN = 4  # cells: 16 bytes of float32, 32 of float64, 8 of bf16
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def round_to_bf16(x):
+    """A float64 tensor rounded once to bfloat16, to nearest even: rounded
+    to float32 toward zero with the last bit set where inexact (round to
+    odd, which keeps the sticky bit), then to bfloat16 to nearest even --
+    exact, since float32 carries 16 bits more than bfloat16."""
+    f = x.to(torch.float32)
+    back = f.to(torch.float64)
+    inexact = back != x  # also NaN, which stays NaN
+    f = torch.where(inexact & (back.abs() > x.abs()),
+                    torch.nextafter(f, torch.zeros_like(f)), f)
+    bits = f.view(torch.int32)
+    bits = torch.where(inexact, bits | 1, bits)
+    return bits.view(torch.float32).to(torch.bfloat16)
+
+
+def as_state(padded, dtype=torch.float32, device=None):
+    """``padded`` (NumPy or torch) as a tensor of ``dtype`` on ``device``
+    (a view where nothing changes); a float64 source becomes bfloat16 in
+    one rounding (``round_to_bf16``)."""
+    if dtype != torch.bfloat16:
+        return torch.as_tensor(padded, dtype=dtype, device=device)
+    src = torch.as_tensor(padded, device=device)
+    if src.dtype == torch.float64:
+        return round_to_bf16(src)
+    return src.to(torch.bfloat16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,7 +122,7 @@ class Layout1D:
         """Embed a user padded array (NumPy or torch) into a new internal
         buffer; the user halo goes into the guard."""
         n, h = self.interior, self.halo
-        src = torch.as_tensor(padded, dtype=dtype, device=device)
+        src = as_state(padded, dtype, device)
         if tuple(src.shape) != (n + 2 * h,):
             raise ValueError(
                 f"padded array has shape {tuple(src.shape)}, layout "
@@ -151,7 +182,7 @@ class Layout2D:
         buffer; the user halo goes into the guard ring."""
         m, n = self.interior
         hm, hn = self.halo
-        src = torch.as_tensor(padded, dtype=dtype, device=device)
+        src = as_state(padded, dtype, device)
         want = (m + 2 * hm, n + 2 * hn)
         if tuple(src.shape) != want:
             raise ValueError(
@@ -221,7 +252,7 @@ class Layout3D:
     def to_internal(self, padded, dtype=torch.float32, device=None):
         """Embed a user padded array (NumPy or torch) into a new internal
         buffer; the user halo goes into the guard ring."""
-        src = torch.as_tensor(padded, dtype=dtype, device=device)
+        src = as_state(padded, dtype, device)
         want = tuple(e + 2 * h for e, h in zip(self.interior, self.halo))
         if tuple(src.shape) != want:
             raise ValueError(

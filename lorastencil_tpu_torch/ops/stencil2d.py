@@ -5,40 +5,65 @@ Counterpart of ``lorastencil_tpu/ops/pallas_2d.py`` ``stencil2d_step``
 (``_stencil2d_skew_kernel``) and ``stencil2d_resident``
 (``_stencil2d_resident_kernel``), and of ``lorastencil_tpu/ops/
 pallas_df64.py`` ``df64_step`` (``_df64_kernel``) and
-``stencil2d_resident_pair``.  ``csrc/stencil2d.cu`` has a float32 and a
-float64 instance of each kernel: a wrapper launches the one of its state's
-dtype.  On a CUDA tensor a wrapper launches or raises; only a CPU tensor
-runs the plain PyTorch twin (``*_plain``), which is also callable directly
-(the tests and ``chip_smoke.py`` hold the kernels against them on the
-card); the skew kernel's twin is the fused pass's.
+``stencil2d_resident_pair``.  ``csrc/stencil2d.cu`` has a float32, a
+float64 and a bfloat16 instance of each kernel: a wrapper launches the one
+of its state's dtype.  On a CUDA tensor a wrapper launches or raises; only
+a CPU tensor runs the plain PyTorch twin (``*_plain``), which is also
+callable directly (the tests and ``chip_smoke.py`` hold the kernels against
+them on the card); the skew kernel's twin is the fused pass's.
 
 ``algorithm``: the TPU kernel's exact-fp32 variants ``'mxu_hybrid1'``,
 ``'vpu_roll'`` and ``'vpu'`` differ only in how they use the TPU's matrix
 and vector units.  On Hopper they are one computation, so all three run
-this one CUDA-core kernel.  The TPU's df64 variants ``'vpu'``,
-``'vpu_roll'`` and ``'vpu_sep'`` (dense rolls, dense slices, separable
-form on (hi, lo) fp32 pairs) are likewise one native-fp64 computation:
-all three run the float64 instance.  The lossy or TPU-specific fp32
-variants are still to be ported (ROADMAP B13).
+this one CUDA-core kernel, and so does ``'mxu_hybrid'`` (both axes on the
+TPU's matrix unit, the bfloat16 tier's 'auto' for star2d3r), whose
+two-part split of a float32 state is ~6e-6 a step from exact and which on
+a bfloat16 state rounds a two-axis term's column conv to bf16 before its
+row conv: the port computes it exactly.  The TPU's df64 variants
+``'vpu'``, ``'vpu_roll'`` and ``'vpu_sep'`` (dense rolls, dense slices,
+separable form on (hi, lo) fp32 pairs) are likewise one native-fp64
+computation: all three run the float64 instance.  The lossy or
+TPU-specific fp32 variants are still to be ported (ROADMAP B13).
+
+The bfloat16 state tier stores bf16 and computes in fp32: each kernel
+widens a cell at its load (exact) and rounds at its store to nearest even,
+as JAX's ``astype`` and torch's ``.to`` do; the taps stay float32.  The
+rounding rule: a tiled pass (strip, fused strip, tile, fused and skew
+kernels) rounds once a pass, at its store; its fused levels stay fp32.
+That is JAX's 'vpu_roll' extent pass, and at k = 1 every JAX name but
+'mxu_hybrid' on a spec with a two-axis term.  JAX's 'mxu_hybrid' and
+'mxu_hybrid1' at k >= 2 also round a fused level through their matrix
+operand (``cur.astype(bfloat16)``), 'mxu_hybrid' a two-axis term's column
+conv, and JAX's skew kernel keeps its level carries in bf16; the port does
+not copy those roundings, so there the two packages agree to the tier's
+tolerance (7e-3 of the largest value after 4 steps), not bit for bit.  A
+whole-grid run rounds every step, as JAX's does (its state lives in the
+bf16 output between steps).  The bf16 twins upcast at the load, run the
+float32 twin's arithmetic and round at the store, by the same rule.
 
 A step (k = 1) of radius 1-4 with at most three terms, which is every
 2-D registry shape's, runs the strip kernel of its dtype (``strip_takes``):
 a warp walks down a strip of rows keeping the column convs in registers
-(four float32 or two float64 cells a lane), its plan by value in the
-launch's parameters (``plan_array`` in host memory, in the state's dtype).
-So every 2-D step of the fp64-grade tier (dtypes 'df64' and 'float64')
-runs the float64 strip kernel.  Every other step runs the tile kernel, as
-the fused levels do; the two give the same values cell for cell.
-``stencil2d_step.launches`` counts the float32 launches of both,
-``launches_f64`` the float64 ones, ``launches_k1`` the strip kernels' in
-either dtype.
+(four float32 or bf16 cells or two float64 cells a lane), its plan by value
+in the launch's parameters (``plan_array`` in host memory, in the compute
+dtype).  So every 2-D step of the fp64-grade tier (dtypes 'df64' and
+'float64') runs the float64 strip kernel.  Every other step runs the tile
+kernel, as the fused levels do, or, where the tile kernel's staged window
+does not fit a block's shared memory (radius above about 60 in float32, 35
+in float64: ``wide_takes``), the wide kernel, which reads its inputs
+through the read-only cache and stages only the column convs; the three
+give the same values cell for cell.  Radii up to 128 run, the reach the
+JAX engine's 128-column guard allows.  ``stencil2d_step.launches`` counts
+the float32 launches, ``launches_f64`` the float64 ones, ``launches_bf16``
+the bfloat16 ones, ``launches_k1`` the strip kernels' in any dtype and
+``launches_wide`` the wide kernel's.
 
-A float32 pass of two fused steps of radius 1-4 with one or two terms and
-no residue, star2d3r's (the one registry shape the engine fuses by
-default), runs the fused strip kernel (``fused_strip_takes``), from either
-wrapper: the strip kernel's walk with every level kept in registers, which
-computes the same values as the fused and the skewed tile kernels in
-another traversal.  Each wrapper counts its launches in
+A float32 or bfloat16 pass of two fused steps of radius 1-4 with one or
+two terms and no residue, star2d3r's (the one registry shape the engine
+fuses by default), runs the fused strip kernel (``fused_strip_takes``),
+from either wrapper: the strip kernel's walk with every level kept in
+registers, which computes the same values as the fused and the skewed tile
+kernels in another traversal.  Each wrapper counts its launches in
 ``launches_fused_strip`` too.  Every other fused or skewed pass runs the
 tile kernels.
 
@@ -60,10 +85,12 @@ parities.  Its capacity is the kernel's own (``resident_capacity``).
 Every other run
 takes ``csrc/stencil2d.cu``'s resident kernel, which streams the state
 through device memory with a grid barrier per step.  The wrapper counts
-both in ``launches`` / ``launches_f64``, the first in ``launches_smem``
-too.  On a card the runs are on by default below ``CUDA_RESIDENT_2D_BYTES``
-/ ``CUDA_RESIDENT_PAIR_2D_BYTES`` (measured on an H100); on the CPU the
-JAX package's caps hold, off by default.
+both in ``launches`` / ``launches_f64`` / ``launches_bf16``, the first in
+``launches_smem`` too.  On a card the runs are on by default below
+``CUDA_RESIDENT_2D_BYTES`` / ``CUDA_RESIDENT_PAIR_2D_BYTES`` (measured on an
+H100; a bfloat16 state is held to float32's cap counted in cells, until
+its own is measured); on the CPU the JAX package's caps hold, off by
+default.
 """
 
 from __future__ import annotations
@@ -81,15 +108,16 @@ from . import _cuda_build
 from .band_gemm import apply_spec, mask_to_interior, plan_array
 from .layout import Layout2D, check_bounds
 
-ALGORITHMS = ("mxu_hybrid1", "vpu_roll", "vpu")
+ALGORITHMS = ("mxu_hybrid1", "vpu_roll", "vpu", "mxu_hybrid")
 # the names pallas_df64.df64_step takes
 DF64_ALGORITHMS = ("vpu", "vpu_roll", "vpu_sep")
 # the names pallas_2d.stencil2d_skew_step takes
 SKEW_ALGORITHMS = ("vpu_roll", "mxu_hybrid1")
 # the TPU kernel's other variants, still to be ported (ROADMAP B13)
-UNPORTED_ALGORITHMS = ("mxu", "mxu_split", "mxu_hybrid", "mxu_hybrid1r",
-                       "mxu_hybrid3")
-MAX_RADIUS = 16  # csrc/stencil2d.cu kMaxRadius
+UNPORTED_ALGORITHMS = ("mxu", "mxu_split", "mxu_hybrid1r", "mxu_hybrid3")
+# csrc/stencil2d.cu kMaxRadius: the reach k * r <= 128 of the JAX layout's
+# column guard, at k = 1
+MAX_RADIUS = 128
 MAX_PLAN = 4096  # csrc/stencil2d.cu kMaxPlan
 MAX_SMEM = 232448  # csrc/stencil2d.cu kMaxSmem: bytes a block may use
 TILE_COLS = 128  # csrc/stencil2d.cu kTileCols
@@ -101,20 +129,29 @@ FUSED_STRIP_DEPTHS = (2,)
 FUSED_STRIP_MAX_TERMS = 2
 _ENTRIES = {
     "strip": {torch.float32: "ls_stencil2d_strip",
-              torch.float64: "ls_stencil2d_strip_f64"},
+              torch.float64: "ls_stencil2d_strip_f64",
+              torch.bfloat16: "ls_stencil2d_strip_bf16"},
     # the fused strip kernel, launched by stencil2d_step and by
     # stencil2d_skew_step: one entry, a kind for each wrapper's counts
-    "fused_strip": {torch.float32: "ls_stencil2d_fused_strip"},
-    "fused_strip_skew": {torch.float32: "ls_stencil2d_fused_strip"},
+    "fused_strip": {torch.float32: "ls_stencil2d_fused_strip",
+                    torch.bfloat16: "ls_stencil2d_fused_strip_bf16"},
+    "fused_strip_skew": {torch.float32: "ls_stencil2d_fused_strip",
+                         torch.bfloat16: "ls_stencil2d_fused_strip_bf16"},
     "step": {torch.float32: "ls_stencil2d_step",
-             torch.float64: "ls_stencil2d_step_f64"},
+             torch.float64: "ls_stencil2d_step_f64",
+             torch.bfloat16: "ls_stencil2d_step_bf16"},
     "skew": {torch.float32: "ls_stencil2d_skew",
-             torch.float64: "ls_stencil2d_skew_f64"},
+             torch.float64: "ls_stencil2d_skew_f64",
+             torch.bfloat16: "ls_stencil2d_skew_bf16"},
     "resident": {torch.float32: "ls_stencil2d_resident",
-                 torch.float64: "ls_stencil2d_resident_f64"}}
+                 torch.float64: "ls_stencil2d_resident_f64",
+                 torch.bfloat16: "ls_stencil2d_resident_bf16"}}
 # csrc/resident2d.cu's shared-memory resident kernel
 _RESIDENT_SMEM = {torch.float32: "ls_stencil2d_resident_smem",
-                  torch.float64: "ls_stencil2d_resident_smem_f64"}
+                  torch.float64: "ls_stencil2d_resident_smem_f64",
+                  torch.bfloat16: "ls_stencil2d_resident_smem_bf16"}
+# the code of each state dtype in ls_stencil2d_resident_capacity
+_CAPACITY_KIND = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 # csrc/resident2d.cu kWindowBytes: a window's bytes, at most (two of them
 # beside the residue's 81 offsets in a block's 232,448 bytes)
 RESIDENT_SMEM_BYTES = (232448 - 4 * 81) // 2
@@ -160,28 +197,44 @@ CUDA_RESIDENT_PAIR_2D_BYTES = cuda_cap("LORASTENCIL_RESIDENT2D_PAIR_KB",
                                        H100_RESIDENT_PAIR_2D_BYTES)
 
 
+def compute_dtype(dtype):
+    """The dtype a kernel of a ``dtype`` state computes in and takes its
+    plan in: float32 for a bfloat16 state, else the state's."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def _fits(layout, dtype, cap: int, cuda_cap: int, device, spec) -> bool:
+    """On the CPU the JAX rule, the buffer's bytes under ``cap``; on a card
+    its cells at the compute dtype's bytes under ``cuda_cap`` (a bfloat16
+    state takes float32's cap counted in cells), its bytes under the
+    capacity of the kernel that takes ``spec``, and, for
+    ``csrc/stencil2d.cu``'s resident kernel, a step's window within a
+    block's shared memory (a radius past about 60 runs tiled passes)."""
     if not isinstance(layout, Layout2D) or layout.extra_row_tiles:
         return False
     R, C = layout.shape
     nbytes = R * C * dtype.itemsize
     if device is None or torch.device(device).type != "cuda":
         return nbytes <= cap
-    if nbytes > cuda_cap:
+    if R * C * compute_dtype(dtype).itemsize > cuda_cap:
         return False
-    capacity = (None if spec is None
-                else resident_capacity(spec, dtype, device))
-    return capacity is None or nbytes <= capacity
+    if spec is None:
+        return True
+    if not resident_takes(spec, dtype):
+        return smem_bytes("step", 1, spec.radius, plan_len(spec),
+                          dtype) <= MAX_SMEM
+    return nbytes <= resident_capacity(spec, dtype, device)
 
 
 def fits_resident_2d(layout, itemsize: int = 4, device=None,
                      spec: StencilSpec = None) -> bool:
-    """Whether the float32 (or, at ``itemsize`` 8, float64) state runs all
-    its steps in one ``stencil2d_resident`` launch: under
+    """Whether the float32 (at ``itemsize`` 8 float64, at 2 bfloat16)
+    state runs all its steps in one ``stencil2d_resident`` launch: under
     ``RESIDENT_2D_BYTES``, or on a CUDA ``device`` under
     ``CUDA_RESIDENT_2D_BYTES`` and the capacity of the kernel that takes
     ``spec`` (``resident_capacity``)."""
-    dtype = torch.float64 if itemsize == 8 else torch.float32
+    dtype = {8: torch.float64, 2: torch.bfloat16}.get(itemsize,
+                                                      torch.float32)
     return _fits(layout, dtype, RESIDENT_2D_BYTES, CUDA_RESIDENT_2D_BYTES,
                  device, spec)
 
@@ -198,17 +251,22 @@ def fits_resident_pair_2d(layout, device=None,
 
 def resident_takes(spec: StencilSpec, dtype) -> bool:
     """Whether a whole-grid run in ``dtype`` runs the shared-memory
-    resident kernel: float32 or float64, radius 1-4, at most three terms
-    (every registry shape); else ``csrc/stencil2d.cu``'s resident kernel."""
+    resident kernel: float32, float64 or bfloat16, radius 1-4, at most
+    three terms (every registry shape); else ``csrc/stencil2d.cu``'s
+    resident kernel."""
     return (dtype in _RESIDENT_SMEM and spec.radius in STRIP_RADII
             and len(spec.terms) <= STRIP_MAX_TERMS)
 
 
-def resident_capacity_bytes(itemsize: int, blocks: int) -> int:
+def resident_capacity_bytes(itemsize: int, blocks: int,
+                            window_itemsize: int = None) -> int:
     """csrc/resident2d.cu capacity_bytes: the largest internal buffer
-    (rows x pitch cells) a launch over ``blocks`` blocks (one per SM)
-    takes, 4/5 of the cells their windows hold."""
-    return 4 * blocks * (RESIDENT_SMEM_BYTES // itemsize) // 5 * itemsize
+    (rows x pitch cells of ``itemsize`` bytes) a launch over ``blocks``
+    blocks (one per SM) takes, 4/5 of the cells their windows hold at
+    ``window_itemsize`` bytes a cell (the compute dtype's: 4 for a
+    bfloat16 state; ``itemsize`` when None)."""
+    cell = window_itemsize or itemsize
+    return 4 * blocks * (RESIDENT_SMEM_BYTES // cell) // 5 * itemsize
 
 
 def resident_capacity(spec: StencilSpec, dtype, device):
@@ -218,15 +276,15 @@ def resident_capacity(spec: StencilSpec, dtype, device):
     ``csrc/stencil2d.cu``'s kernel, which streams through device memory."""
     if not resident_takes(spec, dtype):
         return None
-    return _capacity(dtype == torch.float64, spec.radius, len(spec.terms),
+    return _capacity(_CAPACITY_KIND[dtype], spec.radius, len(spec.terms),
                      torch.device(device).index or 0)
 
 
 @functools.lru_cache(maxsize=None)
-def _capacity(f64: bool, radius: int, n_terms: int, index: int) -> int:
+def _capacity(kind: int, radius: int, n_terms: int, index: int) -> int:
     with torch.cuda.device(index):
         cap = _resident_lib().ls_stencil2d_resident_capacity(
-            int(f64), radius, n_terms)
+            kind, radius, n_terms)
     if cap <= 0:
         raise RuntimeError(f"resident capacity query failed: {cap}")
     return cap
@@ -240,8 +298,8 @@ def tile_rows(dtype) -> int:
 
 def strip_takes(spec: StencilSpec, dtype, depth: int = 1) -> bool:
     """Whether a launch of ``depth`` fused steps in ``dtype`` runs a strip
-    kernel: float32 or float64, one step, radius 1-4, at most three
-    terms."""
+    kernel: float32, float64 or bfloat16, one step, radius 1-4, at most
+    three terms."""
     return (dtype in _ENTRIES["strip"] and depth == 1
             and spec.radius in STRIP_RADII
             and len(spec.terms) <= STRIP_MAX_TERMS)
@@ -249,14 +307,23 @@ def strip_takes(spec: StencilSpec, dtype, depth: int = 1) -> bool:
 
 def fused_strip_takes(spec: StencilSpec, dtype, depth: int) -> bool:
     """Whether a launch of ``depth`` fused steps in ``dtype`` runs the
-    fused strip kernel: float32, two steps, radius 1-4, one or two terms,
-    each with a row or a column axis, and no residue."""
-    return (dtype == torch.float32 and depth in FUSED_STRIP_DEPTHS
+    fused strip kernel: float32 or bfloat16, two steps, radius 1-4, one or
+    two terms, each with a row or a column axis, and no residue."""
+    return (dtype in _ENTRIES["fused_strip"] and depth in FUSED_STRIP_DEPTHS
             and spec.radius in STRIP_RADII
             and 1 <= len(spec.terms) <= FUSED_STRIP_MAX_TERMS
             and all(any(a is not None for a in term.taps)
                     for term in spec.terms)
             and not spec.residue)
+
+
+def wide_takes(spec: StencilSpec, dtype, depth: int = 1) -> bool:
+    """Whether a launch of ``depth`` fused steps in ``dtype`` runs the wide
+    kernel: one step that the strip kernels do not take and whose tile
+    window does not fit a block's shared memory."""
+    return (depth == 1 and not strip_takes(spec, dtype, depth)
+            and smem_bytes("step", 1, spec.radius, plan_len(spec),
+                           dtype) > MAX_SMEM)
 
 
 def plan_len(spec: StencilSpec) -> int:
@@ -269,7 +336,8 @@ def smem_bytes(kind: str, k: int, radius: int, n_plan: int,
                dtype=torch.float32) -> int:
     """Shared memory of one launch (csrc/stencil2d.cu step_cells and
     skew_cells): ``kind`` "step" (a pass of k fused steps, or one step of
-    a resident run at k = 1) or "skew"."""
+    a resident run at k = 1) or "skew"; cells of the compute dtype (a
+    bfloat16 state's windows hold float32)."""
     tm, R = tile_rows(dtype), radius
     if kind == "skew":
         band = tm + 2 * R
@@ -281,7 +349,7 @@ def smem_bytes(kind: str, k: int, radius: int, n_plan: int,
         cells = ((tm + 2 * E) * (TILE_COLS + 2 * E)
                  + ((tm + 2 * e1) * (TILE_COLS + 2 * e1) if k > 1 else 0)
                  + (tm + 2 * E) * (TILE_COLS + 2 * e1) + n_plan)
-    return cells * (8 if dtype == torch.float64 else 4)
+    return cells * compute_dtype(dtype).itemsize
 
 
 @functools.lru_cache(maxsize=None)
@@ -309,7 +377,8 @@ def _check_state(cur, spec: StencilSpec, layout: Layout2D, reach: int):
             f"guard {layout.guard} is narrower than the pass's reach "
             f"{reach} (fused steps x radius {spec.radius})")
     if cur.dtype not in _ENTRIES["step"]:
-        raise TypeError(f"cur must be float32 or float64, got {cur.dtype}")
+        raise TypeError(
+            f"cur must be float32, float64 or bfloat16, got {cur.dtype}")
     if tuple(cur.shape) != layout.shape:
         raise ValueError(
             f"cur has shape {tuple(cur.shape)}, layout is {layout.shape}")
@@ -327,7 +396,7 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout2D,
     if algorithm in UNPORTED_ALGORITHMS:
         raise NotImplementedError(
             f"algorithm {algorithm!r} is not ported yet (ROADMAP B13); "
-            f"the port runs {ALGORITHMS} through one exact fp32 kernel")
+            f"the port runs {ALGORITHMS} through one exact kernel")
     if algorithm not in algorithms:
         raise ValueError(f"unknown algorithm {algorithm!r}; this wrapper "
                          f"takes {algorithms}")
@@ -357,12 +426,15 @@ def stencil2d_step_plain(cur, donor, spec: StencilSpec, layout: Layout2D,
     zeroes its cells outside the true interior (levels before the last:
     outside ``bounds``, ``(rlo, rhi, clo, chi)``, the interior when None);
     level k is written to the rounded interior of ``donor`` in place,
-    which is returned.  The guard ring of ``donor`` is left as it is."""
+    which is returned.  The guard ring of ``donor`` is left as it is.  A
+    bfloat16 state is widened to float32 at the load, computed as float32
+    and rounded to nearest even at the store: once a pass."""
     r = spec.radius
     r0, c0 = layout.origin
     mr, nr = layout.rounded
     e = fused_steps * r
-    val = cur[r0 - e: r0 + mr + e, c0 - e: c0 + nr + e]
+    val = cur[r0 - e: r0 + mr + e, c0 - e: c0 + nr + e].to(
+        compute_dtype(cur.dtype))
     for level in range(1, fused_steps + 1):
         e -= r
         val = mask_to_interior(apply_spec(val, spec, (r, r)),
@@ -375,7 +447,8 @@ def stencil2d_step_plain(cur, donor, spec: StencilSpec, layout: Layout2D,
 def stencil2d_resident_plain(cur, spec: StencilSpec, layout: Layout2D,
                              steps: int):
     """The resident kernel's plain twin: ``steps`` single steps between
-    two new zeroed buffers; returns the last one written."""
+    two new zeroed buffers; returns the last one written (a bfloat16
+    state rounds every step)."""
     bufs = (torch.zeros_like(cur), torch.zeros_like(cur))
     for s in range(steps):
         cur = stencil2d_step_plain(cur, bufs[s % 2], spec, layout)
@@ -384,9 +457,9 @@ def stencil2d_resident_plain(cur, spec: StencilSpec, layout: Layout2D,
 
 @functools.lru_cache(maxsize=None)
 def _plan_buffer(spec: StencilSpec, device: torch.device, dtype):
-    """The tap/residue table in ``dtype`` on ``device``, built once per
-    (spec, device, dtype) and never per step."""
-    plan = plan_array(spec, dtype)
+    """The tap/residue table in the compute dtype of a ``dtype`` state on
+    ``device``, built once per (spec, device, dtype) and never per step."""
+    plan = plan_array(spec, compute_dtype(dtype))
     if plan.numel() > MAX_PLAN:
         raise ValueError(
             f"{spec.name}: tap table of {plan.numel()} entries exceeds the "
@@ -401,26 +474,43 @@ _HOST_PLAN = ("strip", "fused_strip", "fused_strip_skew")
 
 @functools.lru_cache(maxsize=None)
 def _plan_host(spec: StencilSpec, dtype):
-    """The tap/residue table in ``dtype`` in host memory, which the strip
-    kernels' launches copy into their parameters: a float64 tap rounded
-    through float32 would change the float64 kernel's sums."""
-    return plan_array(spec, dtype).contiguous()
+    """The tap/residue table in the compute dtype of a ``dtype`` state, in
+    host memory, which the strip kernels' launches copy into their
+    parameters: a float64 tap rounded through float32 would change the
+    float64 kernel's sums."""
+    return plan_array(spec, compute_dtype(dtype)).contiguous()
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    """The kernel library, built and bound once per process."""
-    lib = _cuda_build.load("stencil2d")
+def _bind(name: str, bf16: bool):
+    """``csrc/<name>.cu``, built and its entries of the bfloat16 instances
+    (``bf16``) or the others bound."""
+    lib = _cuda_build.load(name)
     for kind, entries in _ENTRIES.items():
         # a run: 4 pointers; a pass: 3, and 4 ints more, its bounds
         pointers = 4 if kind == "resident" else 3
         ints = 13 if kind == "resident" else 17
-        for entry in entries.values():
+        for dtype, entry in entries.items():
+            if (dtype == torch.bfloat16) != bf16:
+                continue
             fn = getattr(lib, entry)
             fn.restype = ctypes.c_int
             fn.argtypes = ([ctypes.c_void_p] * pointers + [ctypes.c_int] * ints
                            + [ctypes.c_void_p])
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The float32 and float64 instances' library, built and bound once
+    per process."""
+    return _bind("stencil2d", False)
+
+
+@functools.lru_cache(maxsize=None)
+def _lib_bf16():
+    """The bfloat16 instances' library (``csrc/stencil2d_bf16.cu``, the
+    same source built apart), built and bound once per process."""
+    return _bind("stencil2d_bf16", True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -446,8 +536,10 @@ def _launch_resident_smem(cur, spec: StencilSpec, layout: Layout2D,
     plan = _plan_host(spec, cur.dtype)
     out = torch.zeros_like(cur)
     mr, nr = layout.rounded
-    xch = torch.zeros(2 * mr * nr * (cur.element_size() // 4),
-                      dtype=torch.int64, device=cur.device)
+    # two parities of tagged 8-byte words, one a 4-byte compute cell
+    words = compute_dtype(cur.dtype).itemsize // 4
+    xch = torch.zeros(2 * mr * nr * words, dtype=torch.int64,
+                      device=cur.device)
     rows, pitch = layout.shape
     r0, c0 = layout.origin
     m, n = layout.interior
@@ -462,12 +554,16 @@ def _launch_resident_smem(cur, spec: StencilSpec, layout: Layout2D,
         raise RuntimeError(
             f"stencil2d shared-memory resident kernel launch failed: CUDA "
             f"error {err}")
-    if cur.dtype == torch.float64:
-        stencil2d_resident.launches_f64 += 1
-    else:
-        stencil2d_resident.launches += 1
+    _count(stencil2d_resident, cur.dtype)
     stencil2d_resident.launches_smem += 1
     return out
+
+
+def _count(wrapper, dtype):
+    """One launch of the instance of ``dtype`` on ``wrapper``."""
+    attr = {torch.float64: "launches_f64",
+            torch.bfloat16: "launches_bf16"}.get(dtype, "launches")
+    setattr(wrapper, attr, getattr(wrapper, attr) + 1)
 
 
 def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
@@ -490,7 +586,8 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
         check_bounds(bounds, layout.interior, layout.guard))
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib(), _ENTRIES[kind][cur.dtype])(
+        lib = _lib_bf16() if cur.dtype == torch.bfloat16 else _lib()
+        err = getattr(lib, _ENTRIES[kind][cur.dtype])(
             *(b.data_ptr() for b in buffers), plan.data_ptr(), plan.numel(),
             len(spec.terms), spec.radius, len(spec.residue), rows, pitch, r0,
             c0, m, n, mr, nr, depth, *box, stream)
@@ -502,14 +599,13 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
                "skew": stencil2d_skew_step,
                "fused_strip_skew": stencil2d_skew_step,
                "resident": stencil2d_resident}[kind]
-    if cur.dtype == torch.float64:
-        wrapper.launches_f64 += 1
-    else:
-        wrapper.launches += 1
+    _count(wrapper, cur.dtype)
     if kind == "strip":
         wrapper.launches_k1 += 1
     elif kind.startswith("fused_strip"):
         wrapper.launches_fused_strip += 1
+    elif kind == "step" and wide_takes(spec, cur.dtype, depth):
+        wrapper.launches_wide += 1
 
 
 def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
@@ -560,10 +656,13 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     kernel's instance of its dtype (or raises); a CPU tensor runs
     ``stencil2d_step_plain``.  On a float64 state (dtypes 'float64' and
     'df64') it is also the fp64-grade step of ``pallas_df64.df64_step``
-    and takes that wrapper's name 'vpu_sep'.  ``launches`` counts the
-    float32 instances' launches, ``launches_f64`` the float64 ones',
-    ``launches_k1`` those of the steps a strip kernel ran (either dtype)
-    and ``launches_fused_strip`` those of the fused strip kernel.
+    and takes that wrapper's name 'vpu_sep'.  A bfloat16 state rounds once
+    a launch, at its store (see the module's rounding rule).
+    ``launches`` counts the float32 instances' launches, ``launches_f64``
+    the float64 ones', ``launches_bf16`` the bfloat16 ones',
+    ``launches_k1`` those of the steps a strip kernel ran (any dtype),
+    ``launches_fused_strip`` those of the fused strip kernel and
+    ``launches_wide`` those of the wide kernel.
 
     ``bounds`` (4 ints ``(rlo, rhi, clo, chi)``, interior coordinates; the
     interior when None; ``check_bounds``) is the box that the fused levels
@@ -638,13 +737,14 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
     return outs[(steps - 1) % 2]
 
 
-# kernel launches per instance, for chip_smoke.py: float32 and float64, and
-# the strip kernels' launches apart (launches_k1: the strip kernel's steps
-# in either dtype; launches_fused_strip: the fused strip kernel's passes;
-# launches_smem: the shared-memory resident kernel's runs)
+# kernel launches per instance, for chip_smoke.py: float32, float64 and
+# bfloat16, and the strip kernels' launches apart (launches_k1: the strip
+# kernel's steps in any dtype; launches_fused_strip: the fused strip
+# kernel's passes; launches_wide: the wide kernel's steps; launches_smem:
+# the shared-memory resident kernel's runs)
 for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
-    _wrapper.launches = _wrapper.launches_f64 = 0
-stencil2d_step.launches_k1 = 0
+    _wrapper.launches = _wrapper.launches_f64 = _wrapper.launches_bf16 = 0
+stencil2d_step.launches_k1 = stencil2d_step.launches_wide = 0
 stencil2d_resident.launches_smem = 0
 for _wrapper in (stencil2d_step, stencil2d_skew_step):
     _wrapper.launches_fused_strip = 0

@@ -127,10 +127,10 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
             "(ROADMAP A11)")
     if spec.ndim != 3:
         raise ValueError(f"{spec.name} is {spec.ndim}-D, not 3-D")
-    if not 1 <= spec.radius <= MAX_RADIUS:
+    if not 0 <= spec.radius <= MAX_RADIUS:
         raise ValueError(
             f"radius {spec.radius} outside the kernel's range "
-            f"[1, {MAX_RADIUS}]")
+            f"[0, {MAX_RADIUS}]")
     if not 1 <= fused_steps <= MAX_FUSED:
         raise ValueError(
             f"fused_steps {fused_steps} outside [1, {MAX_FUSED}]")

@@ -58,8 +58,9 @@ def dense_step(grid, spec: StencilSpec):
 def conv_full(grid, spec: StencilSpec):
     """Unmasked correlation over the FULL padded extent, zero beyond the
     array: out[p] = sum_o S[o] * grid[p + o] for every p, in ``grid``'s
-    dtype on its device, one shifted slice-add per nonzero tap in
-    ``np.argwhere`` order.  The last factor of the dirichlet0 adjoint
+    dtype on its device (a bfloat16 grid sums in float32 and rounds once),
+    one shifted slice-add per nonzero tap in ``np.argwhere`` order.  The
+    last factor of the dirichlet0 adjoint
     (``engine.StencilEngine.run_diff``): unlike ``dense_step`` it writes
     the halo too, since step one of the forward pass reads the input
     halo.  ``utils/reference.conv_full`` is its float64 host twin."""
@@ -69,12 +70,14 @@ def conv_full(grid, spec: StencilSpec):
     S = spec.dense_coeffs()
     r = spec.radius
     gp = F.pad(grid, (r, r) * grid.ndim)
+    if grid.dtype == torch.bfloat16:
+        gp = gp.float()
     acc = None
     for idx in np.argwhere(np.abs(S) > 0):
         v = float(S[tuple(idx)]) * gp[tuple(
             slice(int(i), int(i) + s) for i, s in zip(idx, grid.shape))]
         acc = v if acc is None else acc + v
-    return torch.zeros_like(grid) if acc is None else acc
+    return torch.zeros_like(grid) if acc is None else acc.to(grid.dtype)
 
 
 def separable_step(grid, spec: StencilSpec):

@@ -98,7 +98,7 @@ def test_refused_launches_raise(cuda):
     with pytest.raises(ValueError, match="contiguous"):
         stencil2d.stencil2d_step(cur.t().contiguous().t(), donor, spec, lay)
     wide = get_shape("star2d1r").__class__(
-        name="wide", ndim=2, radius=17, halo=(4, 4), terms=(), residue=(), fuse_factor=1)
+        name="wide", ndim=2, radius=129, halo=(4, 4), terms=(), residue=(), fuse_factor=1)
     with pytest.raises(ValueError, match="cap"):
         stencil2d.stencil2d_step(cur, donor, wide, lay)
     before = stencil2d.stencil2d_step.launches
@@ -1280,3 +1280,319 @@ def test_inverse_source_example_on_card(cuda):
     card, cpu = np.array(losses["cuda"]), np.array(losses["cpu"])
     assert (np.diff(card) < 0).all()
     assert np.abs(card - cpu).max() <= 1e-5 * cpu.max()
+
+
+# -- the bfloat16 state tier (ROADMAP A6(c), 2-D) ------------------------------------
+# Every bf16 instance computes the float32 instance's sums on the widened state and
+# rounds once, at its store, to nearest even (torch's .to rounds so too): a bf16
+# pass equals the float32 pass of the widened input, rounded, bit for bit on any fill
+# (the inf fill: NaN where it has NaN).  A whole-grid run stores every step in bf16,
+# so it equals bf16 single steps.  On the integer fill the twins agree bit for bit.
+BF16 = torch.bfloat16
+
+
+def _bf16_fills(spec, interior, seed):
+    g0 = reference.random_padded(spec, interior, seed=seed)
+    inf = g0 * (np.pi / 100)
+    inf.flat[inf.size // 3] = np.inf
+    return g0, g0 * (np.pi / 100), inf
+
+
+def _same(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+
+
+def _bf16_counts(wrapper):
+    return (wrapper.launches, wrapper.launches_f64, wrapper.launches_bf16)
+
+
+@pytest.mark.parametrize("guard", ["aligned", (5, 7)])
+@pytest.mark.parametrize("interior", [(96, 256), (130, 131), (37, 45)])
+@pytest.mark.parametrize("case", STRIP_CASES, ids=str)
+def test_bf16_strip_kernel_rounds_the_float32_step(cuda, case, interior, guard):
+    """#1's bf16 strip kernel (8-byte quads, or one-cell copies off the quad
+    grid at guard (5, 7)) against the float32 strip kernel and the bf16 tile
+    kernel, and the twin on the integer fill."""
+    spec = get_shape(case) if isinstance(case, str) else _custom_2d(*case, seed=sum(case))
+    assert stencil2d.strip_takes(spec, BF16)
+    lay = Layout2D(interior=interior, halo=spec.halo, tile=default_tile_2d(*interior),
+                   guard=guard_2d(spec.halo, spec.radius) if guard == "aligned" else guard)
+    g0, pi, inf = _bf16_fills(spec, interior, 6)
+    counter = stencil2d.stencil2d_step
+    for fill in (g0, pi, inf):
+        x = lay.to_internal(fill, BF16, cuda)
+        before = _bf16_counts(counter), counter.launches_k1
+        got = stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay)
+        assert (_bf16_counts(counter), counter.launches_k1) == (
+            (before[0][0], before[0][1], before[0][2] + 1), before[1] + 1)
+        f32 = x.float()
+        _same(got, stencil2d.stencil2d_step(f32, torch.zeros_like(f32), spec, lay).to(BF16))
+        tile = torch.zeros_like(x)
+        stencil2d._launch("step", (x, tile), spec, lay, 1)
+        _same(got, tile)
+        if fill is g0:
+            _same(got, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay))
+
+
+@pytest.mark.parametrize("guard", ["aligned", (8, 9)])
+@pytest.mark.parametrize("interior", [(96, 256), (37, 45)])
+@pytest.mark.parametrize("case", FUSED_STRIP_CASES, ids=str)
+def test_bf16_fused_strip_kernel_rounds_the_float32_pass(cuda, case, interior, guard):
+    """#1 and #2's bf16 fused strip kernel, from both wrappers, against the
+    float32 fused strip pass and the bf16 tile-based fused and skew kernels."""
+    spec = get_shape(case) if isinstance(case, str) else _kinds_2d(*case, seed=case[0])
+    assert stencil2d.fused_strip_takes(spec, BF16, 2)
+    lay = _layout_2d(spec, interior, 2) if guard == "aligned" else Layout2D(
+        interior=interior, halo=spec.halo, tile=default_tile_2d(*interior), guard=guard)
+    g0, pi, inf = _bf16_fills(spec, interior, 7)
+    for fill in (g0 % 2, pi, inf):
+        x = lay.to_internal(fill, BF16, cuda)
+        f32 = x.float()
+        want = stencil2d.stencil2d_step(f32, torch.zeros_like(f32), spec, lay,
+                                        fused_steps=2).to(BF16)
+        for wrapper, kw in ((stencil2d.stencil2d_step, {"fused_steps": 2}),
+                            (stencil2d.stencil2d_skew_step, {"skew_steps": 2})):
+            before = wrapper.launches_bf16, wrapper.launches_fused_strip
+            got = wrapper(x, torch.zeros_like(x), spec, lay, **kw)
+            assert (wrapper.launches_bf16, wrapper.launches_fused_strip) == (
+                before[0] + 1, before[1] + 1)
+            _same(got, want)
+        for kind in ("step", "skew"):
+            tile = torch.zeros_like(x)
+            stencil2d._launch(kind, (x, tile), spec, lay, 2)
+            _same(tile, want)
+        if fill is not pi and fill is not inf:
+            _same(want, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, 2))
+
+
+@pytest.mark.parametrize("k", [2, 3])
+@pytest.mark.parametrize("name,interior", SHAPES_FUSED)
+def test_bf16_fused_and_skew_kernels_round_the_float32_pass(cuda, name, interior, k):
+    """#1 and #2 at k = 2-3 through the tile-based kernels (the fused strip
+    kernel where it takes the pass): one rounding a pass."""
+    spec = get_shape(name)
+    lay = _layout_2d(spec, interior, k)
+    for fill in _bf16_fills(spec, interior, 3):
+        x = lay.to_internal(fill, BF16, cuda)
+        f32 = x.float()
+        want = stencil2d.stencil2d_step(f32, torch.zeros_like(f32), spec, lay,
+                                        fused_steps=k).to(BF16)
+        _same(stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay, fused_steps=k), want)
+        _same(stencil2d.stencil2d_skew_step(x, torch.zeros_like(x), spec, lay, skew_steps=k),
+              want)
+
+
+@pytest.mark.parametrize("name,interior", [("star2d1r", (512, 512)), ("box2d3r", (100, 131)),
+                                           ("star2d3r", (37, 45)), ("box2d1r", (300, 140)),
+                                           ("r5", (300, 140))])
+def test_bf16_resident_kernels_round_every_step(cuda, name, interior):
+    """#3's bf16 instances: the shared-memory resident kernel (registry
+    shapes) and csrc/stencil2d.cu's (a radius-5 spec) against bf16 single
+    steps bit for bit, and the twin on the integer fill."""
+    spec = _custom_2d(5, 2, 4, seed=5) if name == "r5" else get_shape(name)
+    lay = _layout_2d(spec, interior, 1)
+    counter = stencil2d.stencil2d_resident
+    for integer, fill in zip((True, False, False), _bf16_fills(spec, interior, 5)):
+        x = lay.to_internal(fill, BF16, cuda)
+        keep = x.clone()
+        for steps in (1, 2, 5):
+            before = _bf16_counts(counter), counter.launches_smem
+            got = stencil2d.stencil2d_resident(x, spec, lay, steps)
+            assert _bf16_counts(counter) == before[0][:2] + (before[0][2] + 1,)
+            assert counter.launches_smem - before[1] == (name != "r5")
+            _same(got, _steps(stencil2d.stencil2d_step, x, spec, lay, steps))
+            if name != "r5":
+                _same(got, _resident_grid_synced(x, spec, lay, steps))
+            if integer and steps <= 2:
+                _same(got, stencil2d.stencil2d_resident_plain(x, spec, lay, steps))
+        assert torch.equal(x, keep)
+
+
+@pytest.mark.parametrize("name", ["star2d1r", "box2d3r"])
+def test_bf16_resident_capacity_counts_float32_windows(cuda, name):
+    """The bf16 run's windows hold float32 cells: its capacity is float32's
+    in cells, at 2 bytes a cell; a layout beyond it is refused."""
+    spec = get_shape(name)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cap = stencil2d.resident_capacity(spec, BF16, cuda)
+    assert cap == stencil2d.resident_capacity_bytes(2, sms, 4) == \
+        stencil2d.resident_capacity(spec, torch.float32, cuda) // 2
+    n = 512
+    lay = _layout_2d(spec, (n, n), 1)
+    x = lay.to_internal(reference.random_padded(spec, (n, n), seed=8) * (np.pi / 100), BF16,
+                        cuda)
+    _same(stencil2d.stencil2d_resident(x, spec, lay, 2),
+          _steps(stencil2d.stencil2d_step, x, spec, lay, 2))
+    rows = cap // 2 // lay.shape[1] + 64
+    over = Layout2D(interior=(rows, n), halo=spec.halo, tile=lay.tile, guard=lay.guard)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        stencil2d.stencil2d_resident(torch.zeros(over.shape, dtype=BF16, device=cuda), spec,
+                                     over, 2)
+
+
+@pytest.mark.parametrize("name", ["star2d1r", "box2d1r", "box2d3r", "star2d3r"])
+def test_bf16_engine_on_card(cuda, name, monkeypatch):
+    """The bf16 engine on the card equals the twins' engine on the CPU bit for
+    bit on the integer fill at 1-2 steps (every sum exact) and within 1e-2
+    at 3-4, tiled (the whole-grid runs off) and under the default caps,
+    launching only bf16 instances; within 5e-2 of the ground truth after 4
+    steps."""
+    interior = (200, 300)
+    g0 = reference.random_padded(get_shape(name), interior, seed=2)
+    twin = engine.StencilEngine.for_shape(name, interior, device="cpu", dtype="bfloat16")
+    for tiled in (True, False):
+        if tiled:
+            monkeypatch.setattr(stencil2d, "CUDA_RESIDENT_2D_BYTES", 0)
+        else:
+            monkeypatch.undo()
+        eng = engine.StencilEngine.for_shape(name, interior, device=cuda, dtype="bfloat16")
+        assert eng._resident_2d() == (not tiled and eng.algorithm != "mxu_hybrid")
+        wrappers = (stencil2d.stencil2d_step, stencil2d.stencil2d_skew_step,
+                    stencil2d.stencil2d_resident)
+        for steps in (1, 2, 3, 4):
+            before = [_bf16_counts(w) for w in wrappers]
+            out = eng.run(g0, steps)
+            after = [_bf16_counts(w) for w in wrappers]
+            assert all(a[:2] == b[:2] for a, b in zip(after, before))
+            assert sum(a[2] - b[2] for a, b in zip(after, before)) >= 1
+            assert out.dtype == BF16 and out.is_cuda
+            want = twin.run(g0, steps)
+            if steps <= 2:
+                assert torch.equal(out.cpu(), want)
+            else:
+                err = (out.cpu().double() - want.double()).abs().max().item()
+                assert err <= 1e-2 * want.double().abs().max().item()
+        want = reference.run(g0, eng.spec, 4)
+        got = out.cpu().double().numpy()
+        assert np.abs(got - want).max() <= 5e-2 * np.abs(want).max()
+
+
+# -- ROADMAP C3: 2-D radii above 16, up to 128 (the wide kernel beyond the tile
+# kernel's shared memory) -------------------------------------------------------
+def _cross_spec(radius):
+    S = np.zeros((2 * radius + 1,) * 2)
+    S[radius, :] = S[:, radius] = 1.0
+    return engine.StencilEngine.for_coeffs(S, (32, 32), device="cpu").spec
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, BF16])
+@pytest.mark.parametrize("case", ["cross17", "cross64", "r40", "r128"])
+def test_wide_radius_steps_match_twin(cuda, case, dtype):
+    """A step and a k = 2 pass at radius 17-128: the tile and fused kernels
+    where their windows fit, the wide kernel (counted in launches_wide) where
+    a step's does not; against the twin within rel 1e-5 (float32 fuses
+    multiply-adds), bit for bit in float64, and in bf16 against the float32
+    pass of the widened input, rounded."""
+    spec = (_cross_spec(int(case[5:])) if case.startswith("cross")
+            else _custom_2d(int(case[1:]), 3, 5, seed=int(case[1:])))
+    interior = (70, 300)
+    lay = _layout_2d(spec, interior, 2)
+    x = lay.to_internal(reference.random_padded(spec, interior, seed=9) * (np.pi / 100),
+                        dtype, cuda)
+    counter = stencil2d.stencil2d_step
+    for k in (1, 2):
+        before = counter.launches_wide
+        got = stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay, fused_steps=k)
+        wide = stencil2d.wide_takes(spec, dtype)
+        kmax = stencil2d.max_fused_steps("step", spec.radius, stencil2d.plan_len(spec), dtype)
+        assert counter.launches_wide - before == (k if wide and kmax == 1 else
+                                                  int(wide and k == 1))
+        if dtype == BF16:
+            f32 = x.float()
+            want = _steps(stencil2d.stencil2d_step, f32, spec, lay, k, k)
+            if k > kmax:  # a launch a step: each rounds
+                want = _steps(stencil2d.stencil2d_step, x, spec, lay, k)
+            else:
+                want = want.to(BF16)
+            _same(got, want)
+            continue
+        want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k)
+        torch.cuda.synchronize()
+        if dtype == torch.float64:
+            assert torch.equal(got, want)
+        else:
+            assert (got - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64", "df64"])
+@pytest.mark.parametrize("radius", [17, 64])
+def test_wide_radius_cross_engine_on_card(cuda, radius, dtype):
+    """for_coeffs of a radius-17 and a radius-64 cross through the engine's
+    default dispatch on the card (tiled passes: no whole-grid run takes a
+    radius the resident kernels' windows refuse) against the fp64 ground
+    truth: rel 1e-5 in float32, 1e-13 in the fp64-grade tier."""
+    S = np.zeros((2 * radius + 1,) * 2)
+    S[radius, :] = S[:, radius] = 1.0
+    interior = (40, 300)
+    eng = engine.StencilEngine.for_coeffs(S, interior, device=cuda, dtype=dtype)
+    g0 = reference.random_padded(eng.spec, interior, seed=4)
+    for steps in (1, 2, 3):
+        want = reference.run(g0, eng.spec, steps)
+        got = eng.run(g0, steps).cpu().double().numpy()
+        tol = 1e-5 if dtype == "float32" else 1e-13
+        assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+# -- ROADMAP C4: a 3-D radius-0 spec -------------------------------------------------
+@pytest.mark.parametrize("boundary", ["dirichlet0", "periodic", "reflect"])
+@pytest.mark.parametrize("dtype", ["float32", "float64", "df64"])
+def test_radius0_3d_engine_on_card(cuda, dtype, boundary):
+    """The general 3-D kernel's radius-0 instances: k = 2 (df64: 1), error 0
+    against the ground truth of each boundary (0.75 is dyadic)."""
+    interior = (9, 10, 13)
+    eng = engine.StencilEngine.for_coeffs(np.array([[[0.75]]]), interior, device=cuda,
+                                          dtype=dtype, boundary=boundary)
+    assert eng._fused_k() == (1 if dtype == "df64" else 2)
+    truth = {"dirichlet0": reference.run, "periodic": reference.run_periodic,
+             "reflect": reference.run_reflect}[boundary]
+    g0 = reference.random_padded(eng.spec, interior, seed=3)
+    counter = stencil3d.stencil3d_step
+    for steps in (1, 2, 3):
+        before = counter.launches + counter.launches_f64
+        got = eng.run(g0, steps).cpu().double().numpy()
+        assert counter.launches + counter.launches_f64 - before == -(-steps // eng._fused_k())
+        assert np.array_equal(got, truth(g0, eng.spec, steps))
+
+
+@pytest.mark.parametrize("boundary", ["periodic", "reflect"])
+@pytest.mark.parametrize("name", ["star2d1r", "star2d3r"])
+def test_bf16_ghost_engine_on_card(cuda, tiled_2d, name, boundary):
+    """bf16 under a ghost boundary: the bf16 strip kernel (k = 1) and the
+    bf16 fused strip kernel with the ring's bounds (k = 2) against the twins'
+    engine on the CPU, bit for bit on the integer fill at 1-2 steps."""
+    interior = (96, 256)
+    kw = dict(dtype="bfloat16", boundary=boundary)
+    eng = engine.StencilEngine.for_shape(name, interior, device=cuda, **kw)
+    twin = engine.StencilEngine.for_shape(name, interior, device="cpu", **kw)
+    g0 = reference.random_padded(eng.spec, interior, seed=12)
+    for steps in (1, 2, 3):
+        before = stencil2d.stencil2d_step.launches_bf16
+        out = eng.run(g0, steps)
+        assert stencil2d.stencil2d_step.launches_bf16 - before == -(-steps // eng._fused_k())
+        want = twin.run(g0, steps)
+        if steps <= 2:
+            assert torch.equal(out.cpu(), want)
+        else:
+            assert (out.cpu().double() - want.double()).abs().max() <= \
+                1e-2 * want.double().abs().max()
+
+
+@pytest.mark.parametrize("kw", [{}, {"fused_steps": 2}])
+def test_bf16_custom_spec_and_adjoint_on_card(cuda, tiled_2d, kw):
+    """A for_coeffs 5x5 of integer coefficients with a residue in bf16 (the
+    strip kernel at k = 1, the tile fused kernel at k = 2) and its run_vjp
+    against the twins' engine on the CPU: bit for bit on the integer fill at
+    2 steps; run_vjp within 1e-2 (its adjoint passes run the kernels)."""
+    S = np.outer([1, 2, 3, 2, 1], [1, 0, 2, 0, 1]).astype(np.float64)
+    S[0, 4] += 1.0
+    interior = (96, 256)
+    eng = engine.StencilEngine.for_coeffs(S, interior, device=cuda, dtype="bfloat16", **kw)
+    twin = engine.StencilEngine.for_coeffs(S, interior, device="cpu", dtype="bfloat16", **kw)
+    g0 = reference.random_padded(eng.spec, interior, seed=13)
+    assert torch.equal(eng.run(g0, 2).cpu(), twin.run(g0, 2))
+    g = np.random.default_rng(3).integers(0, 4, g0.shape).astype(np.float64)
+    got = eng.run_vjp(g, 3).cpu().double()
+    want = twin.run_vjp(g, 3).double()
+    assert got.dtype == want.dtype and (got - want).abs().max() <= 1e-2 * want.abs().max()

@@ -92,16 +92,32 @@ def test_launches_count_only_kernel_launches():
 @pytest.mark.parametrize("name,kw,item", [
     ("star2d3r", {"algorithm": "mxu"}, "B13"),
     ("star2d1r", {"algorithm": "mxu_hybrid3"}, "B13"),
-    ("star2d1r", {"dtype": "bfloat16"}, "A6"),
-    ("star2d1r", {"fusion": "skew", "dtype": "bfloat16"}, "A6"),
     ("star2d1r", {"algorithm": "mxu_split"}, "B13"),
-    ("box2d3r", {"residue_mxu": "on", "dtype": "bfloat16"}, "A6"),
     ("box3d1r", {"dtype": "bfloat16"}, "A6"),
+    ("1d2r", {"dtype": "bfloat16"}, "A6"),
 ])
 def test_unsupported_configs_name_their_roadmap_item(name, kw, item):
     interior = {1: (256,), 2: (16, 16), 3: (8, 16, 16)}[get_shape(name).ndim]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         engine.StencilEngine.for_shape(name, interior, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("star2d1r", {"dtype": "bfloat16"}),
+    ("star2d1r", {"fusion": "skew", "dtype": "bfloat16"}),
+    ("box2d3r", {"residue_mxu": "on", "dtype": "bfloat16"}),
+])
+def test_bf16_configs_now_run(name, kw):
+    """The 2-D bfloat16 configs these were refused with (ROADMAP A6(c)) run,
+    within the JAX tier's 5e-2 of the fp64 ground truth after 4 steps
+    (tests/test_torch_bf16_2d*.py hold them against the JAX engine)."""
+    spec = get_shape(name)
+    g0 = reference.random_padded(spec, (16, 16), seed=5)
+    eng = engine.StencilEngine.for_shape(name, (16, 16), device="cpu", **kw)
+    got = eng.run(g0, 4)
+    assert got.dtype == torch.bfloat16
+    want = reference.run(g0, spec, 4)
+    assert np.abs(got.double().numpy() - want).max() <= 5e-2 * np.abs(want).max()
 
 
 @pytest.mark.parametrize("name,kw", [
@@ -132,12 +148,16 @@ def test_unported_entry_points_and_bad_values_raise():
     # for_coeffs in 2-D and 3-D and autodiff are ported (ROADMAP A6(b), A10)
     assert eng.adjoint().spec == eng.spec.flipped()
     assert engine.StencilEngine.for_coeffs(np.ones((3, 3)), (16, 16), device="cpu").spec.ndim == 2
-    for call in (lambda: engine.StencilEngine.for_shape("star2d1r", (16, 16), device="cpu",
-                                                        dtype="bfloat16"),
-                 lambda: engine.StencilEngine.for_coeffs(np.ones((3, 3)), (16, 16),
-                                                         device="cpu", dtype="bfloat16")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A"):
-            call()
+    # the 2-D bf16 tier is ported (ROADMAP A6(c)), on the kernels only
+    for eng in (engine.StencilEngine.for_shape("star2d1r", (16, 16), device="cpu",
+                                               dtype="bfloat16"),
+                engine.StencilEngine.for_coeffs(np.ones((3, 3)), (16, 16), device="cpu",
+                                                dtype="bfloat16")):
+        assert eng.run(np.zeros((24, 24) if eng.spec.halo == (4, 4) else (18, 18)),
+                       1).dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="bfloat16"):
+        engine.StencilEngine.for_shape("star2d1r", (16, 16), device="cpu", dtype="bfloat16",
+                                       backend="xla")
     with pytest.raises(ValueError, match="run_diff"):
         engine.StencilEngine.for_shape("star2d1r", (16, 16), device="cpu",
                                        dtype="df64").run_diff(np.zeros((24, 24)), 1)
@@ -176,7 +196,7 @@ def test_cli_check_passes_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["star2d1r", "32", "32", "2", "--device", "cpu", "--dtype", "bfloat16"], "A6"),
+    (["1d2r", "4096", "2", "--device", "cpu", "--dtype", "bfloat16"], "A6"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--mesh", "2", "2"], "A11"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--autotune"], "A12"),
 ])
@@ -194,4 +214,13 @@ def test_cli_boundary_check_passes_on_cpu(boundary, dtype, capsys):
     the mode's ground truth (run_periodic / run_reflect)."""
     assert cli.main(["star3d1r", "8", "16", "16", "2", "--device", "cpu", "--dtype", dtype,
                      "--boundary", boundary, "--check"]) == 0
+    assert "Correct!" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("shape", ["star2d1r", "star2d3r"])
+def test_cli_bf16_check_passes_on_cpu(shape, capsys):
+    """--dtype bfloat16, once refused (ROADMAP A6(c)), runs in 2-D and --check
+    holds it to the JAX CLI's bf16 tolerance, 2e-2 of the ground truth."""
+    assert cli.main([shape, "40", "300", "3", "--device", "cpu", "--dtype", "bfloat16",
+                     "--check"]) == 0
     assert "Correct!" in capsys.readouterr().out

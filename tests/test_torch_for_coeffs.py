@@ -13,6 +13,7 @@ engine's run and ``utils.reference.run`` / ``run_periodic`` /
 1 as the JAX tests do; helpers: tests/torch_custom_common.py).  3-D and
 the fp64-grade tier: tests/test_torch_for_coeffs3d.py."""
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -20,10 +21,10 @@ from lorastencil_tpu import engine as jax_engine
 from lorastencil_tpu_torch import convert, engine
 from lorastencil_tpu_torch.models.shapes import StencilSpec, get_shape
 from lorastencil_tpu_torch.utils import reference
-from torch_custom_common import check, engines
+from torch_custom_common import check, engines, rel
 
 PORT_NAMES = ("auto", "vpu", "vpu_roll", "mxu_hybrid1")
-UNPORTED = ("mxu", "mxu_split", "mxu_hybrid", "mxu_hybrid1r", "mxu_hybrid3")
+UNPORTED = ("mxu", "mxu_split", "mxu_hybrid1r", "mxu_hybrid3")
 
 
 def dense_spec(S, halo):
@@ -151,6 +152,24 @@ def test_unported_algorithm_names_stay_refused(alg):
         engine.StencilEngine.for_coeffs(S, (24, 136), device="cpu", algorithm=alg)
     engine.StencilEngine.for_coeffs(S, (24, 136), device="cpu", algorithm=alg,
                                     backend="xla")
+
+
+def test_mxu_hybrid_runs_the_exact_kernel():
+    """'mxu_hybrid', refused until the bf16 tier made it the 'auto' of
+    star2d3r-like specs there (ROADMAP A6(c)), runs the one exact kernel of
+    the dtype: bit for bit the run under 'mxu_hybrid1', within rel 1e-5 of
+    the ground truth, and within 1e-4 of the JAX engine's two-part split
+    (~6e-6 a step)."""
+    S = _random_low_rank(np.random.default_rng(5), 5, 2, 1)
+    peng, jeng = engines(S, (24, 136), algorithm="mxu_hybrid")
+    g0 = np.random.default_rng(6).uniform(-1, 1, peng.spec.padded_shape((24, 136)))
+    got = peng.run(g0, 3).numpy()
+    exact = engine.StencilEngine.for_coeffs(S, (24, 136), device="cpu",
+                                            algorithm="mxu_hybrid1").run(g0, 3).numpy()
+    assert np.array_equal(got, exact)
+    want = reference.run(g0, peng.spec, 3)
+    assert rel(got, want) < 1e-5
+    assert rel(got, np.asarray(jeng.run(jnp.asarray(g0, jnp.float32), 3))) < 1e-4
 
 
 # -- the decomposition's options, the checks -----------------------------------
