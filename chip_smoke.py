@@ -346,7 +346,27 @@ Phases, each printing one line or more and raising on failure:
    JAX engine takes), 1d1r 4096 x 64 and star3d1r / box3d1r 256^3 x 64 in
    bf16 beside float32, in turns; every bf16 instance's pass or run timed
    beside its float32 counterpart (in turns), its twin, a bf16
-   ``F.conv1d`` / ``F.conv3d`` step and its bound at 2-byte cells.
+   ``F.conv1d`` / ``F.conv3d`` step and its bound at 2-byte cells;
+25. the sharded 2-D engines (ROADMAP A11(a), ``parallel/domain.py``) on one
+   card, every shard on ``cuda:0``, the strips swapped by device copies:
+   each 2-D kernel's region launches (strip, fused strip, tile and its
+   fused levels, wide; float32 and bf16) over the five windows of a 3 x 3
+   split and a one-tile window with a shard's box, bit for bit against the
+   twin with the same window, the cells outside it untouched; the flagship
+   star2d1r 8192^2 x 256 float32 dirichlet0 over a (2, 2) mesh, with the
+   overlapped exchange and without, bit for bit against the single-device
+   engine and timed beside it in turns, launches and host microseconds a
+   pass; a one-rank NCCL group through ``multihost`` (``run_replicated``
+   bit for bit against the in-process run); each case of
+   ``SHARDED_CASES`` (every region kernel in float32 and bf16, the
+   non-divisible 8190 x 8191 under periodic and reflect on (2, 2) and
+   (3, 3), box2d3r reflect on (4, 1), df64's ring-out step) counted from
+   zero, bit for bit against the single-device engine at the same depth
+   and within the tier's tolerance of a float64 dense stencil after 2
+   steps, timed in turns; the bytes a shard exchanges a pass beside the
+   NVLink 4 data sheet's 450 GB/s (a prediction: no strip crosses NVLink
+   here); each region kernel's launch over its shard's inner window beside
+   its twin, ``F.conv2d`` and its bound; a ``{"sharded": ...}`` line.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -471,6 +491,8 @@ def _counters():
            "stencil2d_resident_bf16": (stencil2d.stencil2d_resident,
                                        "launches_bf16"),
            "stencil2d_wide": (stencil2d.stencil2d_step, "launches_wide"),
+           # stencil2d_step's launches over a region (ROADMAP A11(a))
+           "stencil2d_region": (stencil2d.stencil2d_step, "launches_region"),
            # ... and in 1-D and 3-D (each wrapper's launches_bf16)
            "stencil1d_lanes_step_bf16": (stencil1d.stencil1d_lanes_step,
                                          "launches_bf16"),
@@ -4796,6 +4818,447 @@ def bf16_phase_nd(device, card):
     return entries
 
 
+# Phase 25: the sharded 2-D engines (ROADMAP A11(a)) on one card.  NCCL takes
+# one card per rank, so one H100 shows the sharded path as a mesh of shards that
+# all sit on the card and swap their strips by device copies (the counterpart of
+# the JAX tests' virtual CPU devices), and a one-rank NCCL group; no strip
+# crosses NVLink.  Each case: (label, shape or phase 22's custom array, interior,
+# steps, engine options, mesh, the region kernel its passes run or None where
+# they take the ring-out step, and the counter of its kernel).
+SHARD_MESH = (2, 2)
+# NVIDIA H100 SXM data sheet: NVLink 4, 900 GB/s over both directions, 450 GB/s
+# each way -- a prediction of a strip's time between two cards, not a
+# measurement
+NVLINK_BYTES_PER_S = 450e9
+SHARDED_CASES = (
+    ("fused strip", "star2d3r", INTERIOR, FUSED_STEPS,
+     dict(fused_steps=2, boundary="periodic"), (2, 2), "stencil2d_fused_strip"),
+    ("strip", "box2d3r", INTERIOR, 8, dict(boundary="reflect"), (4, 1),
+     "stencil2d_k1"),
+    ("strip", "star2d1r", (8190, 8191), 8, dict(boundary="periodic"), (2, 2),
+     "stencil2d_k1"),
+    ("strip", "star2d1r", (8190, 8191), 8, dict(boundary="reflect"), (2, 2),
+     "stencil2d_k1"),
+    (None, "star2d1r", (8190, 8191), 8, dict(boundary="periodic"), (3, 3),
+     "stencil2d_k1"),
+    (None, "star2d1r", (8190, 8191), 8, dict(boundary="reflect"), (3, 3),
+     "stencil2d_k1"),
+    ("tile", "9x9 rank 4", (4096, 4096), 4, {}, (2, 2), "stencil2d"),
+    ("wide", "cross r64", (2048, 2048), 2, dict(tile=(64, 128)), (2, 2),
+     "stencil2d_wide"),
+    ("strip bf16", "star2d1r", INTERIOR, BENCH_STEPS, dict(dtype="bfloat16"),
+     (2, 2), "stencil2d_k1"),
+    ("fused strip bf16", "star2d3r", (4096, 4096), 8,
+     dict(dtype="bfloat16", fused_steps=2), (2, 2), "stencil2d_fused_strip"),
+    ("tile bf16", "9x9 rank 4", (2048, 2048), 2, dict(dtype="bfloat16"),
+     (2, 2), "stencil2d_bf16"),
+    ("wide bf16", "cross r64", (2048, 2048), 2,
+     dict(dtype="bfloat16", tile=(64, 128)), (2, 2), "stencil2d_wide"),
+    (None, "star2d1r", INTERIOR, 32, dict(dtype="df64"), (2, 2), "df64_step"),
+)
+# each region kernel alone: (kernel, shape, k, counter), on REGION_INTERIOR over
+# the five windows of a 3 x 3 split and a one-tile window
+REGION_KERNELS = (("strip", "star2d1r", 1, "stencil2d_k1"),
+                  ("fused strip", "star2d3r", 2, "stencil2d_fused_strip"),
+                  ("tile", "9x9 rank 4", 1, None),
+                  ("fused tile", "star2d1r", 2, None),
+                  ("wide", "cross r64", 1, "stencil2d_wide"))
+REGION_INTERIOR = (1000, 1100)
+REGION_NAMES = {"strip": "strip_kernel", "fused strip": "fused_strip_kernel",
+                "tile": "step_kernel", "wide": "wide_step_kernel"}
+
+
+def shard_spec(name):
+    """A registry shape, phase 22's "9x9 rank 4" or C3's radius-64 cross."""
+    if name == "cross r64":
+        from lorastencil_tpu_torch import engine
+
+        return engine.StencilEngine.for_coeffs(
+            c3_cross(64), (8, 8), name=name, device="cpu").spec
+    return bf16_spec(name)
+
+
+def split_windows(gi, gj):
+    """The five windows of a 3 x 3 split of a gi x gj tile grid and a one-tile
+    window (the last tile)."""
+    a, b, c, d = gi // 3, 2 * gi // 3, gj // 3, 2 * gj // 3
+    return [((0, a), (0, gj)), ((b, gi), (0, gj)), ((a, b), (0, c)),
+            ((a, b), (d, gj)), ((a, b), (c, d)), ((gi - 1, gi), (gj - 1, gj))]
+
+
+def check_regions(device):
+    """Phase 25 (c): each region kernel alone, float32 and bf16, over every
+    window of ``split_windows`` with a shard's box (a start beyond the guard,
+    an end inside the interior), bit for bit against the twin with the same
+    window, the cells outside the window left as they were (NaN): the
+    spec's dyadic twin (``dyadic``: the same plan, exact float32 sums) on a
+    0/1 fill, where the kernels' fused multiply-adds round nothing.
+    Returns {(kernel, dtype): max abs err}."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.ops.layout import Layout2D, guard_2d
+
+    gen = torch.Generator(device=device).manual_seed(25)
+    errs = {}
+    for kernel, name, k, counter in REGION_KERNELS:
+        spec = dyadic(shard_spec(name))
+        lay = Layout2D(interior=REGION_INTERIOR, halo=spec.halo,
+                       tile=(32, 128), guard=guard_2d(spec.halo,
+                                                      k * spec.radius))
+        m, n = REGION_INTERIOR
+        bounds = (-5000, m - 10, -5000, n - 100)
+        for dtype in (torch.float32, BF16):
+            x = torch.randint(0, 2, lay.shape, generator=gen,
+                              device=device).to(dtype)
+            err = 0.0
+            for region in split_windows(*lay.grid):
+                nan = torch.full_like(x, float("nan"))
+                reset_counts()
+                got = s2.stencil2d_step(x, nan.clone(), spec, lay,
+                                        fused_steps=k, bounds=bounds,
+                                        region=region)
+                torch.cuda.synchronize()
+                c = counts()
+                if c["stencil2d_region"] != 1 or (counter and c[counter] != 1):
+                    raise AssertionError(f"region {kernel} {dtype}: {c}")
+                want = s2.stencil2d_step_plain(x, nan, spec, lay, k, bounds,
+                                               region)
+                if not torch.equal(got.nan_to_num(-1.0),
+                                   want.nan_to_num(-1.0)):
+                    raise AssertionError(f"region {kernel} {dtype} {region}"
+                                         f": not the twin's cells")
+                err = max(err, (got - want).nan_to_num(0.0).abs().max()
+                          .item())
+            errs[(kernel, str(dtype)[6:])] = err
+    return errs
+
+
+def bit_equal(a, b) -> bool:
+    """Whether two tensors of one dtype hold the same bits, cell for cell:
+    NaN included (``torch.equal`` calls two NaN unequal).  A [0, 0.01) fill
+    overflows after ~20 steps of star2d1r (100x a step) and inf - inf
+    within a term with taps of both signs gives NaN."""
+    ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return a.dtype == b.dtype and torch.equal(a.view(ints), b.view(ints))
+
+
+def sharded_input(spec, interior, mode, device, gen):
+    """A uniform [0, 0.01) float64 padded array on the card, with a random
+    halo under dirichlet0 and a zero one under a ghost boundary."""
+    shape = spec.padded_shape(interior)
+    g = torch.rand(shape, generator=gen, device=device,
+                   dtype=torch.float64) * 0.01
+    if mode != "dirichlet0":
+        hm, hn = spec.halo
+        ring = torch.ones(shape, dtype=torch.bool, device=device)
+        ring[hm: hm + interior[0], hn: hn + interior[1]] = False
+        g[ring] = 0.0
+    return g
+
+
+def sharded_engines(name, interior, kw, mesh, device):
+    """(the sharded engine over ``mesh`` shards on the card, the
+    single-device engine of the same spec, dtype, boundary and fused depth)."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.parallel import domain
+
+    spec = shard_spec(name)
+    devices = [device] * int(np.prod(mesh))
+    eng = domain.sharded_engine(spec, interior, mesh, devices=devices, **kw)
+    single = engine.StencilEngine(spec, interior, engine.EngineConfig(
+        dtype=kw.get("dtype", "float32"), boundary=kw.get("boundary",
+                                                          "dirichlet0"),
+        fused_steps=eng.fused_steps), device=device)
+    return eng, single
+
+
+def sharded_turns(eng, single, padded, steps):
+    """Device ms of a run of ``steps`` through the sharded engine's ``_run``
+    and the single-device ``run_internal`` on the same input, in turns
+    (sharded, single, single, sharded), best of each."""
+    from lorastencil_tpu_torch.utils import metrics
+
+    state, inner = eng.to_sharded(padded), single.to_internal(padded)
+    fns = {"sharded": lambda: eng._run(state, steps),
+           "single": lambda: single.run_internal(inner, steps)}
+    ms = {}
+    for key in ("sharded", "single", "single", "sharded"):
+        secs, _ = metrics.time_run(fns[key], repeats=2, warmup=1)
+        ms[key] = min(ms.get(key, float("inf")), secs * 1e3)
+    return ms
+
+
+def host_per_pass(eng, padded, passes=16):
+    """Host microseconds a pass of the sharded engine: the wall time of
+    issuing ``passes`` passes with the card idle before them."""
+    state = eng.to_sharded(padded)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._run(state, passes * eng.fused_steps)
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / passes * 1e6
+
+
+def sharded_case(case, device, card, gen):
+    """Phase 25 (b) for one case: run(steps) with the launches counted from
+    zero, bit for bit against the single-device engine (the same kernel at
+    the same depth, or the float64 instance for df64), run(2) against the
+    float64 dense stencil on the card, the two timed in turns.  Returns its
+    record."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    kernel, name, interior, steps, kw, mesh, counter = case
+    mode = kw.get("boundary", "dirichlet0")
+    eng, single = sharded_engines(name, interior, kw, mesh, device)
+    spec = eng.spec
+    padded = sharded_input(spec, interior, mode, device, gen)
+    reset_counts()
+    got = eng.run(padded, steps)
+    torch.cuda.synchronize()
+    c = counts()
+    regions = c["stencil2d_region"]
+    if not c[counter] or (kernel is not None) != bool(regions):
+        raise AssertionError(f"sharded {name} {kw} {mesh}: launched {c}, "
+                             f"{regions} region launches")
+    want = single.run(padded, steps)
+    if not bit_equal(got, want):
+        raise AssertionError(f"sharded {name} {kw} {mesh}: not the "
+                             f"single-device engine's result")
+    finite = int(torch.isfinite(got).sum())
+    del want
+    truth = dense_truth(padded, spec, 2, mode)
+    got2 = eng.run(padded, 2).double()
+    err = rel_err(got2, truth)
+    tol = {"bfloat16": 1e-2, "df64": 1e-13}.get(kw.get("dtype"), 1e-5)
+    if not err <= tol:
+        raise AssertionError(f"sharded {name} {kw} {mesh}: rel {err} of the "
+                             f"float64 dense stencil after 2 steps")
+    abs_err = (got2 - truth).abs().max().item()
+    del got, got2, truth
+    ms = sharded_turns(eng, single, padded, steps)
+    passes = -(-steps // eng.fused_steps)
+    rec = dict(
+        label=f"{kw.get('dtype', 'float32')} {name} {interior[0]}x"
+              f"{interior[1]} x{steps} {mode} mesh {mesh}",
+        step=eng._step_fn().__name__, kernel=kernel, k=eng.fused_steps,
+        local_interior=eng.local_interior, tile_grid=eng.layout.grid,
+        launches=c[counter], region_launches=regions,
+        launches_per_pass=sum(c[n] for n in ("stencil2d", "df64_step",
+                                             "stencil2d_bf16")) / passes,
+        sharded_ms=ms["sharded"], single_ms=ms["single"],
+        host_us_per_pass=host_per_pass(eng, padded),
+        exchange_bytes_per_pass=eng.exchange_bytes(),
+        nvlink_prediction_us=eng.exchange_bytes() / NVLINK_BYTES_PER_S * 1e6,
+        rel_err_2=err, max_abs_err_2=abs_err, finite_cells=finite)
+    print(f"phase 25: sharded {rec['label']} ({rec['step']}, k={rec['k']}, "
+          f"local {rec['local_interior']}, tiles {rec['tile_grid']}): "
+          f"bit-exact against the single-device engine ({finite} finite "
+          f"cells of the padded result); 2 steps rel {err} of "
+          f"the float64 dense stencil; {c[counter]} launches ({counter}), "
+          f"{regions} over a region, {rec['launches_per_pass']} a pass; "
+          f"sharded {ms['sharded']} ms, single {ms['single']} ms in turns; "
+          f"host {rec['host_us_per_pass']} us a pass; exchanged "
+          f"{rec['exchange_bytes_per_pass']} bytes a pass a shard "
+          f"(prediction at the NVLink 4 data sheet's 450 GB/s one way: "
+          f"{rec['nvlink_prediction_us']} us, not measured) [{card}]",
+          flush=True)
+    return rec
+
+
+def flagship(device, card, gen):
+    """Phase 25 (a): star2d1r 8192^2 x 256 float32 dirichlet0 over a (2, 2)
+    mesh on the card, overlapped and ``overlap=False``, each bit for bit
+    against the single-device engine (its default depth; float32 fused levels
+    equal single steps bit for bit); device ms a run in turns with the
+    single-device run, launches and host microseconds a pass."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.parallel import domain
+    from lorastencil_tpu_torch.utils import metrics
+
+    spec = shard_spec("star2d1r")
+    padded = sharded_input(spec, INTERIOR, "dirichlet0", device, gen)
+    single = engine.StencilEngine.for_shape("star2d1r", INTERIOR,
+                                            device=device)
+    want = single.run(padded, BENCH_STEPS)
+    engs, out = {}, {}
+    for overlap in (True, False):
+        eng = domain.sharded_engine("star2d1r", INTERIOR, SHARD_MESH,
+                                    devices=[device] * 4, overlap=overlap)
+        reset_counts()
+        got = eng.run(padded, BENCH_STEPS)
+        torch.cuda.synchronize()
+        c = counts()
+        if not bit_equal(got, want):
+            raise AssertionError(f"flagship overlap={overlap}: not the "
+                                 f"single-device engine's result")
+        del got
+        # a fill 1e-30 as large stays finite for 16 steps (its values grow
+        # 100x a step): the same run there, held to a float64 dense stencil
+        small = eng.run(padded * 1e-30, 16).double()
+        truth = dense_truth(padded * 1e-30, spec, 16, "dirichlet0")
+        if not (bit_equal(small, single.run(padded * 1e-30, 16).double())
+                and rel_err(small, truth) <= 1e-5):
+            raise AssertionError(f"flagship overlap={overlap}: 16 finite "
+                                 f"steps")
+        del small, truth
+        engs[overlap] = eng
+        out[overlap] = dict(step=eng._step_fn().__name__,
+                            strip_launches=c["stencil2d_k1"],
+                            region_launches=c["stencil2d_region"],
+                            launches_per_pass=c["stencil2d"] / BENCH_STEPS,
+                            host_us_per_pass=host_per_pass(eng, padded),
+                            exchange_bytes_per_pass=eng.exchange_bytes())
+    states = {o: e.to_sharded(padded) for o, e in engs.items()}
+    inner = single.to_internal(padded)
+    fns = {"overlap": lambda: engs[True]._run(states[True], BENCH_STEPS),
+           "sequential": lambda: engs[False]._run(states[False], BENCH_STEPS),
+           "single": lambda: single.run_internal(inner, BENCH_STEPS)}
+    ms = {}
+    for key in list(fns) + list(fns)[::-1]:
+        secs, _ = metrics.time_run(fns[key], repeats=2, warmup=1)
+        ms[key] = min(ms.get(key, float("inf")), secs * 1e3)
+    out[True]["ms"], out[False]["ms"] = ms["overlap"], ms["sequential"]
+    for overlap in (True, False):
+        rec = out[overlap]
+        print(f"phase 25: star2d1r {INTERIOR[0]}x{INTERIOR[1]} x{BENCH_STEPS} "
+              f"float32 over a {SHARD_MESH} mesh on one card, overlap="
+              f"{overlap} ({rec['step']}): bit-exact against the "
+              f"single-device engine (the fill overflows after ~20 steps: "
+              f"inf and NaN compared as bits), and at 16 steps of the fill "
+              f"x 1e-30, finite, within 1e-5 of the float64 dense stencil; "
+              f"{rec['ms']} ms a run beside the "
+              f"single-device {ms['single']} ms in turns; "
+              f"{rec['launches_per_pass']} launches a pass "
+              f"({rec['region_launches']} over a region, "
+              f"{rec['strip_launches']} of the strip kernel in all), host "
+              f"{rec['host_us_per_pass']} us a pass; exchanged "
+              f"{rec['exchange_bytes_per_pass']} bytes a pass a shard "
+              f"(prediction at NVLink 4's data-sheet 450 GB/s one way: "
+              f"{rec['exchange_bytes_per_pass'] / NVLINK_BYTES_PER_S * 1e6} "
+              f"us, not measured) [{card}]", flush=True)
+    return {"single_ms": ms["single"], "overlap": out[True],
+            "sequential": out[False]}, engs[True], padded
+
+
+def one_rank_nccl(eng, padded, device):
+    """Phase 25 (d): a one-rank NCCL group (``multihost.initialize`` on a free
+    local port), the (2, 2) mesh of cards of that rank (``global_mesh``), and
+    ``run_replicated`` against the in-process run, bit for bit.  One card
+    holds every shard, so no strip crosses NCCL."""
+    from lorastencil_tpu_torch.parallel import domain, multihost
+
+    multihost.initialize(f"localhost:{multihost.free_port()}", 1, 0,
+                         device=device)
+    try:
+        want = "nccl" if device.type == "cuda" else "gloo"
+        if torch.distributed.get_backend() != want:
+            raise AssertionError(f"the group is not {want}")
+        mesh = multihost.global_mesh(SHARD_MESH, [device] * 4)
+        meng = domain.sharded_engine("star2d1r", INTERIOR, SHARD_MESH,
+                                     mesh=mesh)
+        got = multihost.run_replicated(meng, padded, 8)
+        if not bit_equal(got, eng.run(padded, 8)):
+            raise AssertionError("run_replicated is not the in-process run")
+        total = meng.run_checksum(padded * 1e-30, 8)
+        torch.distributed.all_reduce(total)  # one NCCL collective
+        if float(total) != float(eng.run_checksum(padded * 1e-30, 8)):
+            raise AssertionError("the NCCL all-reduce of one rank moved the "
+                                 "checksum")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def region_timing(device, card, cases):
+    """Phase 25's records of the region kernels: for each sharded case with a
+    region kernel, one launch over the inner window of its shard's layout
+    (a uniform fill), its twin over the same window, one F.conv2d of the
+    window's size in the state's dtype and the bound of the window's cells."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    gen = torch.Generator(device=device).manual_seed(26)
+    records = {}
+    for case in SHARDED_CASES:
+        kernel, name, interior, _, kw, mesh, _ = case
+        if kernel is None or kernel in records:
+            continue
+        eng, _ = sharded_engines(name, interior, kw, mesh, device)
+        spec, lay, k = eng.spec, eng.layout, eng.fused_steps
+        gi, gj = lay.grid
+        region = ((1, gi - 1), (1, gj - 1))
+        dims = ((gi - 2) * lay.tile[0], (gj - 2) * lay.tile[1])
+        x = (torch.rand(lay.shape, generator=gen, device=device) * 0.01).to(
+            eng.dtype)
+        t = time_calls({"kernel": lambda a, b: s2.stencil2d_step(
+            a, b, spec, lay, fused_steps=k, region=region)}, x,
+            torch.zeros_like(x), 10)["kernel"]
+        plain = time_calls({"plain": lambda a, b: s2.stencil2d_step_plain(
+            a, b, spec, lay, k, None, region)}, x, torch.zeros_like(x),
+            2)["plain"]
+        bound, by = bound_ms(spec, dims, k, eng.dtype.itemsize)
+        lib = library_ms(spec, dims, device, eng.dtype, repeats=1)
+        del x
+        records[kernel] = dict(
+            kernel=REGION_NAMES[kernel.removesuffix(" bf16")],
+            ms=t, plain_ms=plain, bound_ms=bound, bound_by=by,
+            library_ms=lib, steps_per_launch=k, library_steps=1,
+            shape=f"{eng.config.dtype if eng.dtype != torch.float64 else 'df64'}"
+                  f" {name} window {dims[0]}x{dims[1]} of a "
+                  f"{lay.interior[0]}x{lay.interior[1]} shard",
+            launches=cases[kernel]["launches"])
+        print(f"phase 25: {kernel} kernel over the inner window {region} of a "
+              f"{name} {lay.interior} shard ({dims[0]}x{dims[1]} cells, "
+              f"k={k}): {t} ms ({bound / t:.4f} of its {bound} ms {by} "
+              f"bound), plain twin {plain} ms, one F.conv2d {lib} ms "
+              f"[{card}]", flush=True)
+    return records
+
+
+def sharded_phase(device, card):
+    """Phase 25; returns the kernels' record entries."""
+    gen = torch.Generator(device=device).manual_seed(18)
+    errs = check_regions(device)
+    for (kernel, dtype), err in errs.items():
+        print(f"phase 25: {kernel} kernel {dtype}, {REGION_INTERIOR}: over "
+              f"the five windows of a 3 x 3 split and a one-tile window with "
+              f"a shard's box, bit for bit against the twin with the same "
+              f"window (the spec's dyadic twin on a 0/1 fill), the cells "
+              f"outside it untouched; one "
+              f"region launch each; max abs err {err}", flush=True)
+    flag, eng, padded = flagship(device, card, gen)
+    one_rank_nccl(eng, padded, device)
+    print("phase 25: a one-rank NCCL group (multihost.initialize on a free "
+          "local port): global_mesh over (2, 2) shards of cuda:0, "
+          "run_replicated(8) bit-exact against the in-process run, one NCCL "
+          "all-reduce of its checksum; no strip crosses NCCL on one card",
+          flush=True)
+    del eng, padded
+    cases = {}
+    for case in SHARDED_CASES:
+        rec = sharded_case(case, device, card, gen)
+        if case[0] is not None:
+            cases.setdefault(case[0], rec)
+    cases["strip"] = dict(cases["strip"], launches=flag["overlap"][
+        "strip_launches"])
+    timing = region_timing(device, card, cases)
+    print(json.dumps({"sharded": {"flagship": flag, "cases": cases}},
+                     default=str), flush=True)
+    entries = []
+    for kernel, rec in timing.items():
+        rec = dict(rec)
+        dtype = "bf16" if kernel.endswith("bf16") else "float32"
+        base = kernel[:-5] if dtype == "bf16" else kernel
+        entries.append(dict({
+            "name": f"stencil2d_step[region {base} {dtype}]", "route": "cuda",
+            "source": SOURCES["stencil2d_bf16" if dtype == "bf16"
+                              else "stencil2d"],
+            "replaces": REPLACES["stencil2d"],
+            "launches": rec.pop("launches"),
+            "max_abs_err": errs[(base, "bfloat16" if dtype == "bf16"
+                                 else "float32")]}, **rec))
+    return entries
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -5100,6 +5563,7 @@ def main() -> int:
 
     bf16_entries = bf16_phase(device, card)
     bf16_entries += bf16_phase_nd(device, card)
+    sharded_entries = sharded_phase(device, card)
 
     loaded = loaded_reference_modules()
     if loaded:
@@ -5194,6 +5658,7 @@ def main() -> int:
             "max_abs_err": errs_fp64_3d[name]}, **timing_fp64_3d[name]))
     kernels += custom_kernel_entries(custom)
     kernels += bf16_entries
+    kernels += sharded_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

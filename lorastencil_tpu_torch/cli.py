@@ -13,9 +13,11 @@ for float64, 1e-11 for df64), plus ``--device cuda|cpu``.  ``--dtype
 float64`` and ``df64`` run the fp64-grade tier for 1-D, 2-D and 3-D
 shapes.
 On ``cuda`` the run is timed with CUDA events; ``cpu`` runs the kernels'
-plain PyTorch twins and is not timed.  The JAX CLI's flags and values the
-port does not run yet are refused with the ROADMAP item that will port
-them.
+plain PyTorch twins and is not timed.  ``--mesh dx dy`` (2-D shapes)
+shards the grid over a mesh (``parallel/domain.py``), one card per shard
+on ``cuda``, a CPU shard each on ``cpu``; ``--no-overlap`` turns the
+overlapped exchange off.  The JAX CLI's flags and values the port does not
+run yet are refused with the ROADMAP item that will port them.
 """
 
 from __future__ import annotations
@@ -88,8 +90,12 @@ def _parser() -> argparse.ArgumentParser:
                    default="dirichlet0")
     p.add_argument("--tile", type=int, nargs=2, default=None)
     p.add_argument("--mesh", type=int, nargs="+", default=None,
-                   metavar="D")
-    p.add_argument("--no-overlap", action="store_true")
+                   metavar="D",
+                   help="shard the grid over a mesh (2-D: dx dy): one "
+                        "CUDA device per shard, or CPU shards with "
+                        "--device cpu")
+    p.add_argument("--no-overlap", action="store_true",
+                   help="with --mesh: disable the overlapped exchange")
     p.add_argument("--autotune", action="store_true")
     p.add_argument("--repeats", type=int, default=3)
     p.add_argument("--seed", type=int, default=0)
@@ -101,17 +107,16 @@ def _parser() -> argparse.ArgumentParser:
 def main(argv=None) -> int:
     p = _parser()
     args = p.parse_args(argv)
-    if args.mesh is not None or args.no_overlap:
-        p.error("--mesh / --no-overlap: the sharded engines are not "
-                "ported yet (ROADMAP A11)")
-    if args.autotune:
-        p.error("--autotune is not ported yet (ROADMAP A12)")
     spec = get_shape(args.shape)
     if len(args.sizes) != spec.ndim + 1:
         p.error(f"{args.shape} needs {spec.ndim} size(s) + steps, got "
                 f"{len(args.sizes)} numbers")
     interior = tuple(args.sizes[: spec.ndim])
     steps = args.sizes[spec.ndim]
+    if args.mesh is not None:
+        return _run_sharded(p, args, spec, interior, steps)
+    if args.autotune:
+        p.error("--autotune is not ported yet (ROADMAP A12)")
     try:
         eng = engine.StencilEngine.for_shape(
             args.shape, interior, device=args.device,
@@ -131,6 +136,76 @@ def main(argv=None) -> int:
             lambda: eng.run_checksum(grid0, steps), repeats=args.repeats)
         res = metrics.bench_result(spec, interior, steps, secs,
                                    f"cuda-{eng.backend}", args.precision,
+                                   args.repeats)
+        print(res.human(), flush=True)
+        if args.json:
+            print(res.json(), flush=True)
+    else:
+        print("INFO: not timed (--device cpu runs the plain PyTorch "
+              "twins; timing needs a CUDA device)", flush=True)
+    if args.check:
+        return _check(spec, grid0, steps, eng.run, args.dtype,
+                      args.boundary)
+    return 0
+
+
+def _run_sharded(p, args, spec, interior, steps) -> int:
+    """--mesh: domain decomposition over a mesh of shards, after the JAX
+    CLI's ``_run_sharded`` (its checks and messages, in its order)."""
+    import torch
+
+    from .parallel import domain
+
+    mesh_shape = tuple(args.mesh)
+    # 1-D shapes: (dx); 2-D: (dx, dy); 3-D: (dx, dy) or (dz, dx, dy)
+    want_axes = {1: (1,), 2: (2,), 3: (2, 3)}[spec.ndim]
+    if len(mesh_shape) == 1 and spec.ndim > 1:
+        mesh_shape = (mesh_shape[0], 1)
+    if len(mesh_shape) not in want_axes:
+        p.error(f"--mesh for {args.shape} needs "
+                f"{' or '.join(map(str, want_axes))} integer(s), "
+                f"got {len(args.mesh)}")
+    if spec.ndim != 2:
+        p.error(f"--mesh: the sharded {spec.ndim}-D engines are not ported "
+                f"to lorastencil_tpu_torch yet (ROADMAP "
+                f"{'A11(b)' if spec.ndim == 1 else 'A11(c)'})")
+    if args.dtype == "float64":
+        p.error("--mesh supports float32/bfloat16/df64 state (the fp64 "
+                "tier is the single-process CPU regime)")
+    if args.autotune:
+        p.error("--autotune tunes the single-chip engine; pass --tile/"
+                "--fused-steps explicitly with --mesh")
+    n_need = int(np.prod(mesh_shape))
+    if args.device == "cuda":
+        n_have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        if n_have < n_need:
+            p.error(f"--mesh {mesh_shape} needs {n_need} devices, have "
+                    f"{n_have} (--device cpu shards on the CPU)")
+        devices = [f"cuda:{i}" for i in range(n_need)]
+    else:
+        devices = ["cpu"] * n_need
+    sh_kw = dict(tile=tuple(args.tile) if args.tile else None,
+                 dtype=args.dtype, precision=args.precision,
+                 algorithm=args.algorithm, boundary=args.boundary,
+                 overlap=not args.no_overlap)
+    if args.fused_steps is not None:
+        sh_kw["fused_steps"] = args.fused_steps
+    try:
+        eng = domain.sharded_engine(args.shape, interior, mesh_shape,
+                                    devices=devices, **sh_kw)
+    except (NotImplementedError, RuntimeError, ValueError) as e:
+        p.error(str(e))
+    print(f"INFO: shape = {spec.name}, sizes = {interior}, steps = "
+          f"{steps}, device = {args.device}", flush=True)
+    print(f"INFO: mesh = {mesh_shape}, local interior = "
+          f"{eng.local_interior}, overlapped exchange = "
+          f"{eng._can_overlap()}", flush=True)
+    grid0 = make_input(spec, interior, args.fill, args.seed)
+    if args.device == "cuda":
+        secs, _ = metrics.time_run(
+            lambda: eng.run_checksum(grid0, steps), repeats=args.repeats)
+        res = metrics.bench_result(spec, interior, steps, secs,
+                                   f"cuda-mesh{mesh_shape}", args.precision,
                                    args.repeats)
         print(res.human(), flush=True)
         if args.json:

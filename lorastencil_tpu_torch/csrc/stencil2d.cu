@@ -50,8 +50,12 @@
 // decays, as the reference's step-by-step semantics require.  Under a ghost
 // boundary (periodic, reflect) a fused pass's levels before the last keep the
 // interior and the ring the host refilled instead (Grid2D's box, the JAX
-// kernels' `bounds`); the last level keeps the interior.  The guard ring
-// of the output buffer is never written.  The order of each sum is the plain
+// kernels' `bounds`); the last level keeps the interior.  A shard of the
+// sharded engines (parallel/domain.py) gives a box that may start beyond the
+// guard (an inner shard's ring holds its neighbours' cells) and end inside
+// the interior (the last shard of an axis that the mesh does not divide:
+// cells past the true edge are padding); its last level keeps the box cut to
+// the interior.  The guard ring of the output buffer is never written.  The order of each sum is the plain
 // twin's (ops/band_gemm.py apply_spec): per term the column conv, then the
 // row conv, taps in ascending offset, zero taps skipped; then the residue
 // point by point.  fp32 fuses each multiply-add (fmaf), so integer data agree
@@ -146,6 +150,14 @@
 // Taps and residue come from a small device table in the state's dtype
 // (ops/band_gemm.py plan_array), staged into shared memory by every block;
 // the strip kernels take the same table from host memory by value.
+//
+// A pass may cover a window of the rounded interior only, whole layout
+// tiles (the JAX kernel's `region`: the sharded engine's overlapped step
+// computes its boundary frame first, then the inner window while the strips
+// travel).  No kernel tests a window: the host moves the launch's origin to
+// the window's first cell and its rounded extent to the window's (in_window),
+// so the blocks start there, every store stays inside it, and a launch over
+// the whole interior is the launch it was.
 //
 // C interface, loaded with ctypes: ls_stencil2d_step (the wide kernel
 // beyond the step kernel's shared memory), ls_stencil2d_strip,
@@ -463,10 +475,35 @@ struct Grid2D {
   // the box [lr, hr) x [lc, hc), interior coordinates, that a pass's fused
   // levels before the last keep: the interior, or under a ghost boundary
   // the interior and its ring, which the host refilled (the JAX kernels'
-  // `bounds`).  The last level keeps the interior whatever the box: the
-  // ring it would keep is refilled before the next pass reads it.
+  // `bounds`).  The last level keeps the interior cut at the box's ends
+  // (in_window folds them into m, n): the ring it would keep beyond the
+  // interior is refilled before the next pass reads it.
   int lr, hr, lc, hc;
 };
+
+// The grid of a launch over the window rows [i0, i1) x columns [j0, j1) of
+// the rounded interior (the whole of it for a pass without a region): the
+// window's first cell becomes interior cell (0, 0) and its extent the
+// rounded interior, so the blocks start at the window's origin and store
+// nothing outside it; the interior's ends and the box move with it.  The
+// interior's ends are cut at the box's (hr, hc) first, so that the last
+// level keeps the box cut to the interior.  A window outside the rounded
+// interior gives a grid that bad_args refuses.
+Grid2D in_window(Grid2D g, int i0, int i1, int j0, int j1) {
+  if (i0 < 0 || i1 <= i0 || i1 > g.mr || j0 < 0 || j1 <= j0 || j1 > g.nr) {
+    g.mr = -1;
+    return g;
+  }
+  auto clamp = [](int v, int lo, int hi) {
+    return v < lo ? lo : (v > hi ? hi : v);
+  };
+  const int m = clamp((g.hr < g.m ? g.hr : g.m) - i0, 0, i1 - i0);
+  const int n = clamp((g.hc < g.n ? g.hc : g.n) - j0, 0, j1 - j0);
+  const int hr = g.hr - i0 > m ? g.hr - i0 : m;
+  const int hc = g.hc - j0 > n ? g.hc - j0 : n;
+  return Grid2D{g.rows, g.pitch, g.r0 + i0, g.c0 + j0, m, n, i1 - i0,
+                j1 - j0, g.lr - i0, hr, g.lc - j0, hc};
+}
 
 template <typename T>
 __device__ __forceinline__ Plan<T> stage_plan(const T* plan, int plan_len,
@@ -1993,7 +2030,8 @@ int launch_resident(const S* in, S* out0, S* out1, const Compute<S>* plan,
 // the interior (m, n), the rounded interior (mr, nr), the steps of the
 // launch, and the stream.
 // A pass also takes the box its levels before the last keep (Grid2D's lr,
-// hr, lc, hc), after the steps; a run keeps the interior.
+// hr, lc, hc), after the steps, then its window, rows [wi0, wi1) x columns
+// [wj0, wj1) of the rounded interior (in_window); a run keeps the interior.
 #define LS_GRID(LR, HR, LC, HC) \
   Grid2D{rows, pitch, r0, c0, m, n, mr, nr, LR, HR, LC, HC}
 #define LS_ENTRY(NAME, FN, S)                                               \
@@ -2001,9 +2039,11 @@ int launch_resident(const S* in, S* out0, S* out1, const Compute<S>* plan,
                       int plan_len, int n_terms, int radius, int n_res,   \
                       int rows, int pitch, int r0, int c0, int m, int n,  \
                       int mr, int nr, int k, int lr, int hr, int lc,      \
-                      int hc, void* stream) {                             \
+                      int hc, int wi0, int wi1, int wj0, int wj1,         \
+                      void* stream) {                                     \
     return FN(in, out, plan, plan_len, n_terms, radius, n_res,            \
-              LS_GRID(lr, hr, lc, hc), k, stream);                        \
+              in_window(LS_GRID(lr, hr, lc, hc), wi0, wi1, wj0, wj1), k,  \
+              stream);                                                    \
   }
 #ifndef LS_STENCIL2D_BF16
 LS_ENTRY(ls_stencil2d_step, launch_step<float>, float)

@@ -178,13 +178,15 @@ def residue_mxu_policy(mode: str, dtype: str,
                             and algorithm == "mxu_hybrid1")
 
 
-def ping_pong_loop(step_fn, state, steps: int, k: int = 1):
+def ping_pong_loop(step_fn, state, steps: int, k: int = 1,
+                   zeros=torch.zeros_like):
     """Run ``steps`` timesteps as ``steps // k`` passes of
     ``step_fn(cur, donor, k) -> out`` and then, if ``steps % k``, one
     pass of ``step_fn(cur, donor, steps % k)`` (the JAX engine's
     remainder pass).
 
-    Two zero buffers are made here and alternate as the donor, so the
+    Two zero buffers are made here (``zeros(state)``: a sharded state is a
+    buffer per shard) and alternate as the donor, so the
     input ``state`` is read but never written: its guard ring holds the
     user halo and must never become an output buffer (the halo would
     stop decaying).  ``step_fn`` writes the donor's interior in place;
@@ -194,7 +196,7 @@ def ping_pong_loop(step_fn, state, steps: int, k: int = 1):
         return state
     passes, rem = divmod(steps, k)
     depths = [k] * passes + ([rem] if rem else [])
-    bufs = (torch.zeros_like(state), torch.zeros_like(state))
+    bufs = (zeros(state), zeros(state))
     cur = state
     for i, depth in enumerate(depths):
         cur = step_fn(cur, bufs[i % 2], depth)

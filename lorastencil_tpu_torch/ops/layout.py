@@ -311,13 +311,23 @@ def guard_3d(halo: Tuple[int, int, int],
     return (max(halo[0], reach, 1),) + guard_2d(halo[1:], reach)
 
 
-def check_bounds(bounds, interior, guard) -> Tuple[int, ...]:
+def check_bounds(bounds, interior, guard, shard: bool = False
+                 ) -> Tuple[int, ...]:
     """A pass's ``bounds`` as flat ints ``(lo, hi)`` per axis, checked: the
     box ``[lo, hi)`` (interior coordinates) that the fused levels before
     the last keep, the interior and at most the guard beyond it (``lo <=
     0``, ``hi >= n``, ``-lo`` and ``hi - n`` within the guard).  None is
     the interior.  A 3-D pass also takes 4 values, the rows' and the
-    columns' (the z box is then ``[0, h)``), as the JAX kernels do."""
+    columns' (the z box is then ``[0, h)``), as the JAX kernels do.
+
+    ``shard``: the box of a shard of a sharded 2-D engine
+    (``parallel/domain.py``), as the JAX engine builds it: ``lo <= 0`` may
+    lie beyond the guard (an inner shard, whose ring holds its neighbours'
+    cells) and is cut to it, which keeps the same cells, since no level
+    reaches past the guard; ``hi`` may lie inside the interior (the last
+    shard of an axis the mesh does not divide, whose cells past the true
+    edge are padding) or beyond the guard, and is cut to ``[0, n + g]``.
+    The 2-D pass's last level keeps this box cut to the interior."""
     dims = tuple(interior)
     if bounds is None:
         return tuple(v for s in dims for v in (0, s))
@@ -332,10 +342,14 @@ def check_bounds(bounds, interior, guard) -> Tuple[int, ...]:
             f"bounds of a {len(dims)}-D pass take "
             f"{'4 or 6' if len(dims) == 3 else 2 * len(dims)} values, got "
             f"{len(flat)}")
+    out = []
     for a, (s, g) in enumerate(zip(dims, guard)):
         lo, hi = flat[2 * a], flat[2 * a + 1]
-        if not (-g <= lo <= 0 and s <= hi <= s + g):
+        if shard and lo <= 0:
+            lo, hi = max(lo, -g), min(max(hi, 0), s + g)
+        elif not (-g <= lo <= 0 and s <= hi <= s + g):
             raise ValueError(
                 f"bounds [{lo}, {hi}) on axis {a} must hold the interior "
                 f"[0, {s}) and reach at most the guard {g} beyond it")
-    return flat
+        out += [lo, hi]
+    return tuple(out)

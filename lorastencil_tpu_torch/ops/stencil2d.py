@@ -91,6 +91,14 @@ both in ``launches`` / ``launches_f64`` / ``launches_bf16``, the first in
 H100; a bfloat16 state is held to float32's cap counted in cells, until
 its own is measured); on the CPU the JAX package's caps hold, off by
 default.
+
+A pass may write a window of the layout's tiles only (``region``, the JAX
+wrapper's argument, which the sharded engine's overlapped step takes:
+``parallel/domain.py``): the launch covers the window's rows and columns
+alone, and every other cell of the output stays as it was.  A shard's
+``bounds`` may start beyond the guard and end inside the interior
+(``check_bounds(..., shard=True)``); the last level keeps them cut to the
+interior.
 """
 
 from __future__ import annotations
@@ -412,29 +420,58 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout2D,
         raise ValueError("donor must be a different buffer from cur")
 
 
+def region_cells(region, layout: Layout2D):
+    """A pass's window ``((ti0, ti1), (tj0, tj1))`` of ``layout.grid``
+    tiles (the JAX wrapper's ``region``) as cells ``(i0, i1, j0, j1)`` of
+    the rounded interior; None is all of it.  Raises where the JAX wrapper
+    asserts: a window that is empty or leaves the tile grid."""
+    mr, nr = layout.rounded
+    if region is None:
+        return (0, mr, 0, nr)
+    try:
+        (ti0, ti1), (tj0, tj1) = ((int(a), int(b)) for a, b in region)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"region must be ((ti0, ti1), (tj0, tj1)), got {region!r}"
+        ) from None
+    gi, gj = layout.grid
+    if not (0 <= ti0 < ti1 <= gi and 0 <= tj0 < tj1 <= gj):
+        raise ValueError(
+            f"region {region!r} is not a window of the layout's {gi}x{gj} "
+            f"tile grid")
+    tm, tn = layout.tile
+    return (ti0 * tm, ti1 * tm, tj0 * tn, tj1 * tn)
+
+
 def stencil2d_step_plain(cur, donor, spec: StencilSpec, layout: Layout2D,
-                         fused_steps: int = 1, bounds=None):
+                         fused_steps: int = 1, bounds=None, region=None):
     """The step and fused kernels' plain PyTorch twin: the same pass with
     tensor ops on whatever device and dtype ``cur`` has.  Level L = 1..k
-    steps the window at reach (k - L) r around the rounded interior and
-    zeroes its cells outside the true interior (levels before the last:
-    outside ``bounds``, ``(rlo, rhi, clo, chi)``, the interior when None);
-    level k is written to the rounded interior of ``donor`` in place,
-    which is returned.  The guard ring of ``donor`` is left as it is.  A
-    bfloat16 state is widened to float32 at the load, computed as float32
-    and rounded to nearest even at the store: once a pass."""
+    steps the window at reach (k - L) r around the rounded interior (or
+    around ``region``'s cells, ``region_cells``) and zeroes its cells
+    outside the box ``bounds``, ``(rlo, rhi, clo, chi)`` (the interior
+    when None; a shard's box, ``check_bounds(..., shard=True)``); level k,
+    masked to the box cut to the interior, is written to the same cells of
+    ``donor`` in place, which is returned.  Every other cell of ``donor``,
+    its guard ring among them, is left as it is.  A bfloat16 state is
+    widened to float32 at the load, computed as float32 and rounded to
+    nearest even at the store: once a pass."""
     r = spec.radius
     r0, c0 = layout.origin
-    mr, nr = layout.rounded
+    m, n = layout.interior
+    i0, i1, j0, j1 = region_cells(region, layout)
+    box = check_bounds(bounds, layout.interior, layout.guard, shard=True)
+    last = (0, min(box[1], m), 0, min(box[3], n))
     e = fused_steps * r
-    val = cur[r0 - e: r0 + mr + e, c0 - e: c0 + nr + e].to(
+    val = cur[r0 + i0 - e: r0 + i1 + e, c0 + j0 - e: c0 + j1 + e].to(
         compute_dtype(cur.dtype))
     for level in range(1, fused_steps + 1):
         e -= r
-        val = mask_to_interior(apply_spec(val, spec, (r, r)),
-                               *layout.interior, margin=e,
-                               bounds=bounds if level < fused_steps else None)
-    donor[r0: r0 + mr, c0: c0 + nr] = val
+        rlo, rhi, clo, chi = box if level < fused_steps else last
+        val = mask_to_interior(apply_spec(val, spec, (r, r)), m - i0, n - j0,
+                               margin=e, bounds=(rlo - i0, rhi - i0,
+                                                 clo - j0, chi - j0))
+    donor[r0 + i0: r0 + i1, c0 + j0: c0 + j1] = val
     return donor
 
 
@@ -480,9 +517,10 @@ def _bind(name: str, bf16: bool):
     (``bf16``) or the others bound."""
     lib = _cuda_build.load(name)
     for kind, entries in _ENTRIES.items():
-        # a run: 4 pointers; a pass: 3, and 4 ints more, its bounds
+        # a run: 4 pointers; a pass: 3, and 8 ints more, its bounds and its
+        # window
         pointers = 4 if kind == "resident" else 3
-        ints = 13 if kind == "resident" else 17
+        ints = 13 if kind == "resident" else 21
         for dtype, entry in entries.items():
             if (dtype == torch.bfloat16) != bf16:
                 continue
@@ -561,14 +599,18 @@ def _count(wrapper, dtype):
 
 
 def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
-            depth: int, bounds=None):
+            depth: int, bounds=None, region=None):
     """One launch of ``kind``'s instance of the buffers' dtype: ``depth``
     fused steps ("step", "strip", "skew", and the fused strip kernel as
     "fused_strip" for ``stencil2d_step`` or "fused_strip_skew" for
     ``stencil2d_skew_step``) or the steps of a run ("resident"); raises if
     refused, and counts it on the wrapper it serves.  A pass's levels
-    before the last keep ``bounds`` (``check_bounds``' flat ints; the
-    interior when None); a run takes none."""
+    before the last keep ``bounds`` (``check_bounds``' flat ints, a shard's
+    box cut to the guard; the interior when None), its last the box cut to
+    the interior, and it writes ``region``'s cells (``region_cells``; the
+    rounded interior when None: the entry's window, which
+    ``csrc/stencil2d.cu`` in_window makes the launch's grid); a run takes
+    neither."""
     cur = buffers[0]
     plan = (_plan_host(spec, cur.dtype) if kind in _HOST_PLAN
             else _plan_buffer(spec, cur.device, cur.dtype))
@@ -577,7 +619,8 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
     m, n = layout.interior
     mr, nr = layout.rounded
     box = () if kind == "resident" else (
-        check_bounds(bounds, layout.interior, layout.guard))
+        check_bounds(bounds, layout.interior, layout.guard, shard=True)
+        + region_cells(region, layout))
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
         lib = _lib_bf16() if cur.dtype == torch.bfloat16 else _lib()
@@ -594,6 +637,8 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
                "fused_strip_skew": stencil2d_skew_step,
                "resident": stencil2d_resident}[kind]
     _count(wrapper, cur.dtype)
+    if region is not None:
+        wrapper.launches_region += 1
     if kind == "strip":
         wrapper.launches_k1 += 1
     elif kind.startswith("fused_strip"):
@@ -614,10 +659,8 @@ def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
     past the first reads a buffer that ``refresh`` (if given) has refilled
     the ring of: the previous launch masked its last level to the
     interior and never writes the ring."""
-    kmax = max_fused_steps(kind, spec.radius, plan_len(spec), cur.dtype)
-    depths = [kmax] * (k // kmax) + ([k % kmax] if k % kmax else [])
     src, spare = cur, None
-    for i, depth in enumerate(depths):
+    for i, depth in enumerate(launch_depths(kind, spec, cur.dtype, k)):
         if i == 0:
             dst = donor
         else:
@@ -626,20 +669,35 @@ def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
             dst = spare if src is donor else donor
             if refresh is not None:
                 src = refresh(src)
-        if depth == 1:
-            one = "strip" if strip_takes(spec, cur.dtype) else "step"
-        elif fused_strip_takes(spec, cur.dtype, depth):
-            one = "fused_strip" if kind == "step" else "fused_strip_skew"
-        else:
-            one = kind
-        _launch(one, (src, dst), spec, layout, depth, bounds)
+        _launch(_one_kind(kind, spec, cur.dtype, depth), (src, dst), spec,
+                layout, depth, bounds)
         src = dst
     return src
 
 
+def launch_depths(kind: str, spec: StencilSpec, dtype, k: int):
+    """The depths of the launches a pass of ``kind`` ("step" or "skew") and
+    k steps takes: launches of the largest depth one launch holds
+    (``max_fused_steps``), then the rest."""
+    kmax = max_fused_steps(kind, spec.radius, plan_len(spec), dtype)
+    return [kmax] * (k // kmax) + ([k % kmax] if k % kmax else [])
+
+
+def _one_kind(kind: str, spec: StencilSpec, dtype, depth: int) -> str:
+    """The kernel of one launch of ``depth`` steps of a ``kind`` pass: the
+    strip kernel for a single step that ``strip_takes`` (else the step
+    kernel), the fused strip kernel where ``fused_strip_takes`` (counted on
+    the wrapper of ``kind``), else ``kind``'s own."""
+    if depth == 1:
+        return "strip" if strip_takes(spec, dtype) else "step"
+    if fused_strip_takes(spec, dtype, depth):
+        return "fused_strip" if kind == "step" else "fused_strip_skew"
+    return kind
+
+
 def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
                    algorithm: str = "mxu_hybrid1", fused_steps: int = 1,
-                   bounds=None, refresh=None):
+                   bounds=None, refresh=None, region=None):
     """``fused_steps`` timesteps on the internal layout: reads ``cur``,
     writes the rounded interior of ``donor`` in place and returns it (past
     ``max_fused_steps`` of one launch, the buffer the last launch wrote).
@@ -655,26 +713,47 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     ``launches`` counts the float32 instances' launches, ``launches_f64``
     the float64 ones', ``launches_bf16`` the bfloat16 ones',
     ``launches_k1`` those of the steps a strip kernel ran (any dtype),
-    ``launches_fused_strip`` those of the fused strip kernel and
-    ``launches_wide`` those of the wide kernel.
+    ``launches_fused_strip`` those of the fused strip kernel,
+    ``launches_wide`` those of the wide kernel and ``launches_region`` the
+    launches of any kernel over a ``region``.
 
     ``bounds`` (4 ints ``(rlo, rhi, clo, chi)``, interior coordinates; the
-    interior when None; ``check_bounds``) is the box that the fused levels
-    keep, the JAX wrapper's argument: a ghost boundary's ring, which the
-    caller has filled, stays alive through them.  Only the levels before
-    the last take it: the next level reads them.  The last level is
-    masked to the interior in every case: the ring and round-up cells it
-    would keep are rewritten by the next pass's ring refresh (or the
-    sharded exchange) before anything reads them, so the output is the
-    JAX kernel's where it matters.  A single step (the strip kernels)
-    therefore ignores ``bounds`` beyond checking them.  ``refresh``
-    refills the ring of the buffer between two launches of a pass too
-    deep for one (``_split_pass``)."""
+    interior when None; ``check_bounds(..., shard=True)``) is the box that
+    the fused levels keep, the JAX wrapper's argument: a ghost boundary's
+    ring, which the caller has filled, or a shard's exchanged ring stays
+    alive through them.  The levels before the last take it whole: the
+    next level reads them.  The last level keeps it cut to the interior:
+    the ring and round-up cells it would keep are rewritten by the next
+    pass's ring refresh (or the sharded exchange) before anything reads
+    them, so the output is the JAX kernel's where it matters, and a shard's
+    padding past the true edge (``rhi < m``) is zeroed as the JAX kernel
+    zeroes it.  A box that holds the interior leaves a single step as it
+    is without one.  ``refresh`` refills the ring of the buffer between two
+    launches of a pass too deep for one (``_split_pass``).
+
+    ``region`` (``((ti0, ti1), (tj0, tj1))``, a window of ``layout.grid``
+    tiles; the whole grid when None) writes that window of ``donor`` only
+    and leaves its other cells as they were.  A pass deeper than one launch
+    (``launch_depths``) cannot keep a window -- its second launch would
+    read cells the first did not write -- so such a call raises
+    ``ValueError``, on the CPU as on a card."""
     _check(cur, donor, spec, layout, algorithm, fused_steps)
-    check_bounds(bounds, layout.interior, layout.guard)
+    check_bounds(bounds, layout.interior, layout.guard, shard=True)
+    region_cells(region, layout)
+    if region is not None:
+        depths = launch_depths("step", spec, cur.dtype, fused_steps)
+        if len(depths) > 1:
+            raise ValueError(
+                f"a region needs a pass of one launch: {fused_steps} fused "
+                f"steps of radius {spec.radius} take {len(depths)} (one "
+                f"launch holds {depths[0]})")
     if cur.device.type == "cpu":
         return stencil2d_step_plain(cur, donor, spec, layout, fused_steps,
-                                    bounds)
+                                    bounds, region)
+    if region is not None:
+        _launch(_one_kind("step", spec, cur.dtype, fused_steps), (cur, donor),
+                spec, layout, fused_steps, bounds, region)
+        return donor
     return _split_pass("step", cur, donor, spec, layout, fused_steps, bounds,
                        refresh)
 
@@ -734,11 +813,13 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
 # kernel launches per instance, for chip_smoke.py: float32, float64 and
 # bfloat16, and the strip kernels' launches apart (launches_k1: the strip
 # kernel's steps in any dtype; launches_fused_strip: the fused strip
-# kernel's passes; launches_wide: the wide kernel's steps; launches_smem:
-# the shared-memory resident kernel's runs)
+# kernel's passes; launches_wide: the wide kernel's steps; launches_region:
+# stencil2d_step's launches over a region; launches_smem: the shared-memory
+# resident kernel's runs)
 for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
     _wrapper.launches = _wrapper.launches_f64 = _wrapper.launches_bf16 = 0
 stencil2d_step.launches_k1 = stencil2d_step.launches_wide = 0
+stencil2d_step.launches_region = 0
 stencil2d_resident.launches_smem = 0
 for _wrapper in (stencil2d_step, stencil2d_skew_step):
     _wrapper.launches_fused_strip = 0

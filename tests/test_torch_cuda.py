@@ -1838,3 +1838,74 @@ def test_bf16_3d_engine_on_card(cuda, name, boundary):
              "reflect": reference.run_reflect}[boundary]
     want = truth(g0, eng.spec, 3)
     assert np.abs(out.cpu().double().numpy() - want).max() <= 5e-2 * np.abs(want).max()
+
+
+# -- region launches and the sharded 2-D engines (ROADMAP A11(a)) ------------------
+def _region_cases():
+    ones11, ones129 = (1.0,) * 11, (1.0,) * 129
+    box_r5 = StencilSpec(name="box r5", ndim=2, radius=5, halo=(5, 5),
+                         terms=(SeparableTerm(taps=(ones11, ones11)),), residue=(),
+                         fuse_factor=1)
+    cross_r64 = StencilSpec(name="cross r64", ndim=2, radius=64, halo=(64, 64),
+                            terms=(SeparableTerm(taps=(ones129, None)),
+                                   SeparableTerm(taps=(None, ones129))),
+                            residue=(), fuse_factor=1)
+    # (kernel, spec, k, the counter its launches add to)
+    return {"strip": (get_shape("star2d1r"), 1, "launches_k1"),
+            "fused strip": (get_shape("star2d3r"), 2, "launches_fused_strip"),
+            "tile": (box_r5, 1, None),
+            "fused tile": (get_shape("star2d1r"), 2, None),
+            "wide": (cross_r64, 1, "launches_wide")}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["strip", "fused strip", "tile", "fused tile", "wide"])
+def test_region_launches_match_the_twin(cuda, kernel, dtype):
+    """Each 2-D kernel over the five windows of a 3 x 3 split of the tile grid
+    and a one-tile window, with a shard's box (a start beyond the guard, an end
+    inside the interior): bit for bit against the twin with the same window on
+    the integer fill, every cell outside the window left as it was (NaN)."""
+    spec, k, counter = _region_cases()[kernel]
+    interior = (300, 1100)
+    lay = Layout2D(interior=interior, halo=spec.halo, tile=(32, 128),
+                   guard=guard_2d(spec.halo, k * spec.radius))
+    gi, gj = lay.grid
+    a, b, c, d = gi // 3, 2 * gi // 3, gj // 3, 2 * gj // 3
+    windows = [((0, a), (0, gj)), ((b, gi), (0, gj)), ((a, b), (0, c)), ((a, b), (d, gj)),
+               ((a, b), (c, d)), ((gi - 1, gi), (gj - 1, gj))]
+    bounds = (-1000, interior[0] - 10, -1000, interior[1] - 100)
+    g = np.random.default_rng(8).integers(0, 100, lay.shape).astype(np.float32)
+    x = torch.as_tensor(g, device=cuda).to(dtype)
+    step = stencil2d.stencil2d_step
+    for region in windows:
+        before = (step.launches_region, getattr(step, counter) if counter else 0)
+        got = step(x, torch.full_like(x, float("nan")), spec, lay, fused_steps=k,
+                   bounds=bounds, region=region)
+        want = stencil2d.stencil2d_step_plain(x, torch.full_like(x, float("nan")), spec,
+                                              lay, k, bounds, region)
+        torch.cuda.synchronize()
+        assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0)), (kernel, region)
+        assert step.launches_region == before[0] + 1
+        if counter:
+            assert getattr(step, counter) == before[1] + 1
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "df64"])
+@pytest.mark.parametrize("boundary", ["dirichlet0", "periodic", "reflect"])
+def test_sharded_engine_on_card(cuda, tiled_2d, boundary, dtype):
+    """A (2, 2) mesh of shards on one card against the single-device engine at
+    the same depth, bit for bit, the overlapped step's region launches (or
+    df64's ring-out step) counted."""
+    from lorastencil_tpu_torch.parallel import domain
+
+    name, interior = "star2d1r", (300, 1200)
+    spec = get_shape(name)
+    g0 = reference.random_padded(spec, interior, seed=6) * (np.pi / 100)
+    kw = dict(dtype=dtype, boundary=boundary)
+    eng = domain.sharded_engine(name, interior, (2, 2), devices=[cuda] * 4, **kw)
+    single = engine.StencilEngine.for_shape(name, interior, device=cuda, fused_steps=1, **kw)
+    before = stencil2d.stencil2d_step.launches_region
+    got = eng.run(g0, 3)
+    assert torch.equal(got, single.run(g0, 3))
+    regions = stencil2d.stencil2d_step.launches_region - before
+    assert regions == (0 if dtype == "df64" else 3 * 4 * 5)

@@ -199,7 +199,7 @@ def test_cli_check_passes_on_cpu(capsys):
 
 @pytest.mark.parametrize("argv,item", [
     (["1d2r", "4096", "2", "--device", "cpu", "--mesh", "2"], "A11"),
-    (["star2d1r", "32", "32", "2", "--device", "cpu", "--mesh", "2", "2"], "A11"),
+    (["star3d1r", "8", "32", "32", "2", "--device", "cpu", "--mesh", "2", "2"], "A11"),
     (["star2d1r", "32", "32", "2", "--device", "cpu", "--autotune"], "A12"),
 ])
 def test_cli_refuses_unported_flags(argv, item, capsys):

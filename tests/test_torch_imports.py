@@ -26,7 +26,9 @@ def test_port_modules_load_no_jax_and_no_jax_package():
     modules = _port_modules()
     assert {"lorastencil_tpu_torch.ops.stencil3d", "lorastencil_tpu_torch.models.shapes",
             "lorastencil_tpu_torch.models.factorize", "lorastencil_tpu_torch.ops.torch_ref",
-            "lorastencil_tpu_torch.utils.reference", "lorastencil_tpu_torch.cli"} <= set(modules)
+            "lorastencil_tpu_torch.utils.reference", "lorastencil_tpu_torch.cli",
+            "lorastencil_tpu_torch.parallel.domain",
+            "lorastencil_tpu_torch.parallel.multihost"} <= set(modules)
     # the port's examples too (examples/ on the path)
     scripts = ["chip_smoke", "launch_overhead", "torch_inverse_source"]
     code = ("import importlib, sys\n"
