@@ -502,7 +502,13 @@ def _counters():
                stencil1d.stencil1d_resident_lanes, "launches_bf16"),
            "stencil1d_resident_bf16": (stencil1d.stencil1d_resident,
                                        "launches_bf16"),
-           "stencil3d_bf16": (stencil3d.stencil3d_step, "launches_bf16")}
+           "stencil3d_bf16": (stencil3d.stencil3d_step, "launches_bf16"),
+           # the 1-D and 3-D pass wrappers' launches over a region (ROADMAP
+           # A11(b), A11(c))
+           "stencil1d_region": (stencil1d.stencil1d_step, "launches_region"),
+           "stencil1d_lanes_region": (stencil1d.stencil1d_lanes_step,
+                                      "launches_region"),
+           "stencil3d_region": (stencil3d.stencil3d_step, "launches_region")}
     out.update({name: (getattr(stencil1d, name), "launches")
                 for name in KERNELS_1D})
     out.update({name: (getattr(stencil1d, wrapper), "launches_f64")
@@ -5259,6 +5265,425 @@ def sharded_phase(device, card):
     return entries
 
 
+# Phase 26: the sharded 1-D and 3-D engines (ROADMAP A11(b), A11(c)) on one
+# card, as phase 25 does for 2-D: every shard on cuda:0, strips moved by
+# device copies, and a one-rank NCCL group.  (a) each kernel that gained a
+# window -- #4's wide_kernel and pass_kernel, #5's lanes_kernel, #8's march
+# and general kernels, float32 and bf16 (pass_kernel: float32 and float64) --
+# over random windows with a shard's box, bit for bit against its twin and the
+# full launch cut to the window, the overlapped pass's windows together equal
+# to one full launch; (b) the engines at full width against the single-device
+# engine, bit for bit, timed in turns; (c) the NCCL group and the dry run.
+# Each case: (label, shape, interior, steps, engine options, mesh, the region
+# kernel its overlapped passes run or None where they take the ring-out step).
+SHARDED_ND_CASES = (
+    ("lanes", "1d2r", (N_1D_LARGE,), BENCH_STEPS, dict(fused_steps=3), (4,)),
+    (None, "1d2r", (N_1D_LARGE,), BENCH_STEPS, dict(fused_steps=3, overlap=False),
+     (4,)),
+    ("wide", "1d1r", (N_1D_LARGE - 5,), 64, dict(boundary="periodic"), (4,)),
+    ("wide", "1d1r", (N_1D_LARGE - 5,), 64, dict(boundary="reflect"), (4,)),
+    ("march", "star3d1r", INTERIOR_3D, BENCH_STEPS_3D,
+     dict(fused_steps=2, tile=(32, 32)), (2, 2)),
+    (None, "box3d1r", INTERIOR_3D, BENCH_STEPS_3D,
+     dict(fused_steps=2, boundary="reflect"), (2, 2, 2)),
+    ("general", "star3d1r", INTERIOR_3D, 16, dict(fused_steps=4, tile=(32, 32)),
+     (2, 2)),
+    ("lanes bf16", "1d2r", (N_1D_LARGE,), BENCH_STEPS,
+     dict(dtype="bfloat16", fused_steps=3), (4,)),
+    ("wide bf16", "1d1r", (N_1D_LARGE - 5,), 16,
+     dict(dtype="bfloat16", boundary="periodic"), (4,)),
+    ("march bf16", "star3d1r", INTERIOR_3D, BENCH_STEPS_3D,
+     dict(dtype="bfloat16", fused_steps=2, tile=(32, 32)), (2, 2)),
+    ("general bf16", "star3d1r", INTERIOR_3D, 16,
+     dict(dtype="bfloat16", fused_steps=4, tile=(32, 32)), (2, 2)),
+    (None, "1d2r", (N_1D_LARGE,), BENCH_STEPS, dict(dtype="df64"), (4,)),
+    (None, "box3d1r", INTERIOR_3D, BENCH_STEPS_3D, dict(dtype="df64"),
+     (2, 2, 2)),
+)
+# the region kernels: (kernel, shape, k, the wrapper's launches_region counter,
+# the CUDA source, the TPU kernel it replaces)
+REGION_ND_KERNELS = {
+    "wide": ("1d2r", 3, "stencil1d_region", "stencil1d", "stencil1d_step"),
+    "lanes": ("1d2r", 2, "stencil1d_lanes_region", "stencil1d",
+              "stencil1d_lanes_step"),
+    "march": ("star3d1r", 2, "stencil3d_region", "stencil3d", "stencil3d"),
+    "general": ("star3d1r", 4, "stencil3d_region", "stencil3d", "stencil3d")}
+REGION_ND_NAMES = {"wide": "wide_kernel", "lanes": "lanes_kernel",
+                   "pass": "pass_kernel", "march": "march_kernel",
+                   "general": "stencil3d_kernel"}
+REGION_1D_N = 9 * 2048 + 300
+REGION_3D_INTERIOR = (20, 200, 330)
+
+
+def random_windows(g, gen, count=2):
+    """``count`` random windows (t0, t1) of a g-tile grid."""
+    out = []
+    for _ in range(count):
+        t0 = int(torch.randint(0, g, (1,), generator=gen, device="cpu"))
+        t1 = int(torch.randint(t0 + 1, g + 1, (1,), generator=gen, device="cpu"))
+        out.append((t0, t1))
+    return out
+
+
+def region_nd_call(kernel, dtype):
+    """(wrapper call, its twin, a layout maker, counter) of one region
+    kernel: the call takes (x, donor, spec, lay, k, bounds, region)."""
+    from lorastencil_tpu_torch.ops import stencil1d as s1
+    from lorastencil_tpu_torch.ops import stencil3d as s3
+
+    if kernel == "pass":  # pass_kernel: float32 (no path), float64 (#12)
+        def call(x, d, spec, lay, k, bounds, region):
+            if x.dtype == torch.float64:
+                return s1.stencil1d_lanes_step(x, d, spec, lay, fused_steps=k,
+                                               bounds=bounds, region=region)
+            box = s1.check_bounds(bounds, (lay.interior,), (lay.guard,), True)
+            return s1._pass(x, d, spec, lay, k, True, box,
+                            None if region is None else s1.region_cells(
+                                region, lay))
+        return call, s1.stencil1d_lanes_step_plain
+    if kernel in ("wide", "lanes"):
+        wrapper = s1.stencil1d_step if kernel == "wide" else \
+            s1.stencil1d_lanes_step
+
+        def call(x, d, spec, lay, k, bounds, region):
+            return wrapper(x, d, spec, lay, fused_steps=k, bounds=bounds,
+                           region=region)
+        return call, (s1.stencil1d_step_plain if kernel == "wide"
+                      else s1.stencil1d_lanes_step_plain)
+
+    def call(x, d, spec, lay, k, bounds, region):
+        return s3.stencil3d_step(x, d, spec, lay, fused_steps=k, bounds=bounds,
+                                 region=region)
+    return call, s3.stencil3d_step_plain
+
+
+def check_regions_nd(device):
+    """Phase 26 (a): each region kernel over the overlapped pass's windows
+    and two random ones, with a shard's box (a start beyond the guard, an end
+    inside the interior; in 3-D a z-sharded box), on the integer fill: bit
+    for bit against its twin with the same window and against the full
+    launch cut to the window, the cells outside the window left as they
+    were (NaN), one region launch counted each; the overlapped windows into
+    one output equal the full launch.  Returns {(kernel, dtype): max abs
+    err}."""
+    from lorastencil_tpu_torch.ops.layout import (TILE_1D, Layout1D, Layout3D,
+                                                  guard_1d, guard_3d)
+
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    errs = {}
+    cases = [("wide", torch.float32), ("wide", BF16), ("lanes", torch.float32),
+             ("lanes", BF16), ("pass", torch.float32), ("pass", torch.float64),
+             ("march", torch.float32), ("march", BF16),
+             ("general", torch.float32), ("general", BF16)]
+    for kernel, dtype in cases:
+        name, k = (("1d2r", 2) if kernel == "pass"
+                   else REGION_ND_KERNELS[kernel][:2])
+        spec = bf16_spec(name)
+        call, twin = region_nd_call(kernel, dtype)
+        if spec.ndim == 1:
+            n = REGION_1D_N
+            lay = Layout1D(interior=n, halo=spec.halo[0], tile=TILE_1D,
+                           guard=guard_1d(spec.halo[0], k * spec.radius))
+            (g,) = lay.grid
+            overlap = [(0, 1), (g - 1, g), (1, g - 1)]
+            windows = overlap + random_windows(g, gen)
+            bounds = (-3 * n, n - 77)
+        else:
+            lay = Layout3D(interior=REGION_3D_INTERIOR, halo=spec.halo,
+                           tile=(32, 64),
+                           guard=guard_3d(spec.halo, k * spec.radius))
+            gi, gj = lay.grid
+            overlap = [((0, 1), (0, gj)), ((gi - 1, gi), (0, gj)),
+                       ((1, gi - 1), (0, 1)), ((1, gi - 1), (gj - 1, gj)),
+                       ((1, gi - 1), (1, gj - 1))]
+            windows = overlap + list(zip(random_windows(gi, gen),
+                                         random_windows(gj, gen)))
+            h, m, nn = REGION_3D_INTERIOR
+            bounds = (-50, h - 3, -1000, m - 11, -1000, nn - 70)
+        x = torch.randint(0, 100, lay.shape, device=device).to(dtype)
+        nan = torch.full_like(x, float("nan"))
+        full = call(x, nan.clone(), spec, lay, k, bounds, None)
+        union = nan.clone()
+        err = 0.0
+        for i, region in enumerate(windows):
+            reset_counts()
+            got = call(x, nan.clone(), spec, lay, k, bounds, region)
+            torch.cuda.synchronize()
+            c = counts()
+            regions = c["stencil1d_region"] + c["stencil1d_lanes_region"] + \
+                c["stencil3d_region"]
+            if regions != (0 if kernel == "pass" and dtype == torch.float32
+                           else 1):
+                raise AssertionError(f"region {kernel} {dtype}: {c}")
+            want = twin(x, nan.clone(), spec, lay, k, bounds, region)
+            inside = ~want.isnan()
+            if not (torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0))
+                    and torch.equal(got[inside], full[inside])):
+                raise AssertionError(f"region {kernel} {dtype} {region}: not "
+                                     f"the twin's or the full launch's cells")
+            err = max(err, (got - want).nan_to_num(0.0).abs().max().item())
+            if i < len(overlap):
+                call(x, union, spec, lay, k, bounds, region)
+        if not torch.equal(union.nan_to_num(-1.0), full.nan_to_num(-1.0)):
+            raise AssertionError(f"region {kernel} {dtype}: the overlapped "
+                                 f"windows are not the full launch")
+        errs[(kernel, str(dtype)[6:])] = err
+    return errs
+
+
+def sharded_input_nd(spec, interior, mode, device, gen):
+    """A uniform [0, 0.01) float64 padded array on the card in any dimension,
+    with a random halo under dirichlet0 and a zero one under a ghost
+    boundary."""
+    from lorastencil_tpu_torch.utils import reference
+
+    shape = spec.padded_shape(interior)
+    g = torch.rand(shape, generator=gen, device=device,
+                   dtype=torch.float64) * 0.01
+    if mode != "dirichlet0":
+        it = reference.interior_slices(spec, shape)
+        inner = g[it].clone()
+        g.zero_()
+        g[it] = inner
+    return g
+
+
+def sharded_engines_nd(name, interior, kw, mesh, device):
+    """(the sharded engine over ``mesh`` shards on the card, the single-device
+    engine of the same spec, dtype, boundary and depth, on the same kernel
+    family: 1-D the narrow sums where ``lanes``, else the wide ones)."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.parallel import domain
+
+    spec = bf16_spec(name)
+    eng = domain.sharded_engine(spec, interior, mesh,
+                                devices=[device] * int(np.prod(mesh)), **kw)
+    dtype = kw.get("dtype", "float32")
+    cfg = dict(dtype=dtype, boundary=kw.get("boundary", "dirichlet0"))
+    if spec.ndim == 1:
+        cfg.update(fused_steps=eng.fused_steps, algorithm=(
+            "auto" if dtype == "df64" else "mxu" if eng.lanes else "vpu"))
+    else:
+        cfg.update(fused_steps_3d=eng.fused_steps)
+    return eng, engine.StencilEngine(spec, interior,
+                                     engine.EngineConfig(**cfg), device=device)
+
+
+def sharded_case_nd(case, device, card, gen):
+    """Phase 26 (b) for one case: run(steps) with the launches counted from
+    zero, bit for bit against the single-device engine; run(2) (run(4) in
+    df64) against the float64 dense stencil on the card; the two timed in
+    turns; host microseconds, launches and exchanged bytes a pass."""
+    kernel, name, interior, steps, kw, mesh = case
+    mode = kw.get("boundary", "dirichlet0")
+    dtype = kw.get("dtype", "float32")
+    eng, single = sharded_engines_nd(name, interior, kw, mesh, device)
+    spec = eng.spec
+    padded = sharded_input_nd(spec, interior, mode, device, gen)
+    reset_counts()
+    got = eng.run(padded, steps)
+    torch.cuda.synchronize()
+    c = counts()
+    regions = c["stencil1d_region"] + c["stencil1d_lanes_region"] + \
+        c["stencil3d_region"]
+    launches = sum(c[k] for k in (
+        "stencil1d_step", "stencil1d_step_bf16", "stencil1d_lanes_step",
+        "stencil1d_lanes_step_bf16", "df64_1d_step", "df64_1d_flat_step",
+        "stencil3d", "stencil3d_bf16", "df64_3d_step"))
+    step = eng._step_fn().__name__
+    if (kernel is not None) != bool(regions) or (kernel is not None) != (
+            step == "_local_step_overlap") or not launches:
+        raise AssertionError(f"sharded {name} {kw} {mesh}: {step}, launched "
+                             f"{c}, {regions} region launches")
+    if not bit_equal(got, single.run(padded, steps)):
+        raise AssertionError(f"sharded {name} {kw} {mesh}: not the "
+                             f"single-device engine's result")
+    finite = int(torch.isfinite(got).sum())
+    del got
+    few = 4 if dtype == "df64" else 2
+    truth = dense_truth(padded, spec, few, mode)
+    got2 = eng.run(padded, few).double()
+    err = rel_err(got2, truth)
+    tol = {"bfloat16": 1e-2, "df64": 1e-13}.get(dtype, 1e-5)
+    if not err <= tol:
+        raise AssertionError(f"sharded {name} {kw} {mesh}: rel {err} of the "
+                             f"float64 dense stencil after {few} steps")
+    del got2, truth
+    ms = sharded_turns(eng, single, padded, steps)
+    passes = -(-steps // eng.fused_steps)
+    shape = "x".join(map(str, interior))
+    rec = dict(
+        label=f"{dtype} {name} {shape} x{steps} {mode} mesh {mesh}",
+        step=step, kernel=kernel, k=eng.fused_steps,
+        local_interior=eng.local_interior, tile_grid=eng.layout.grid,
+        launches=launches, region_launches=regions,
+        launches_per_pass=launches / passes,
+        sharded_ms=ms["sharded"], single_ms=ms["single"],
+        host_us_per_pass=host_per_pass(eng, padded),
+        exchange_bytes_per_pass=eng.exchange_bytes(),
+        nvlink_prediction_us=eng.exchange_bytes() / NVLINK_BYTES_PER_S * 1e6,
+        rel_err=err, truth_steps=few, finite_cells=finite)
+    print(f"phase 26: sharded {rec['label']} ({step}, k={rec['k']}, local "
+          f"{rec['local_interior']}, tiles {rec['tile_grid']}): bit-exact "
+          f"against the single-device engine ({finite} finite cells); {few} "
+          f"steps rel {err} of the float64 dense stencil; {launches} launches, "
+          f"{regions} over a region, {rec['launches_per_pass']} a pass; "
+          f"sharded {ms['sharded']} ms, single {ms['single']} ms in turns; "
+          f"host {rec['host_us_per_pass']} us a pass; exchanged "
+          f"{rec['exchange_bytes_per_pass']} bytes a pass a shard (at the "
+          f"NVLink 4 data sheet's 450 GB/s one way: "
+          f"{rec['nvlink_prediction_us']} us, a prediction, not measured) "
+          f"[{card}]", flush=True)
+    return rec, eng, padded
+
+
+def one_rank_nccl_nd(eng, padded, device):
+    """Phase 26 (c): a one-rank NCCL group, a mesh of ``eng``'s shape over
+    cuda:0 (``global_mesh``), ``run_replicated`` against the in-process run
+    bit for bit, one NCCL all-reduce of a checksum."""
+    from lorastencil_tpu_torch.parallel import domain, multihost
+
+    multihost.initialize(f"localhost:{multihost.free_port()}", 1, 0,
+                         device=device)
+    try:
+        if torch.distributed.get_backend() != "nccl":
+            raise AssertionError("the group is not NCCL")
+        shape = eng.mesh.shape
+        mesh = multihost.global_mesh(shape, [device] * int(np.prod(shape)))
+        cfg = eng.config
+        meng = domain.sharded_engine(
+            eng.spec, eng.interior, cfg.mesh_shape, mesh=mesh, tile=cfg.tile,
+            dtype=cfg.dtype, fused_steps=cfg.fused_steps, overlap=cfg.overlap,
+            boundary=cfg.boundary)
+        got = multihost.run_replicated(meng, padded, 4)
+        if not bit_equal(got, eng.run(padded, 4)):
+            raise AssertionError("run_replicated is not the in-process run")
+        total = meng.run_checksum(padded * 1e-30, 4)
+        torch.distributed.all_reduce(total)
+        if float(total) != float(eng.run_checksum(padded * 1e-30, 4)):
+            raise AssertionError("the NCCL all-reduce of one rank moved the "
+                                 "checksum")
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def region_timing_nd(device, card, engines, launches):
+    """Phase 26's records of the region kernels: for each, one launch over
+    the inner window of a shard of its case (a uniform fill), its twin over
+    the same window, one library call of the window's size (``F.conv1d`` as
+    CUDA graphs, ``F.conv3d``) and the bound of the window's cells."""
+    gen = torch.Generator(device=device).manual_seed(27)
+    records = {}
+    for kernel, eng in engines.items():
+        base = kernel.removesuffix(" bf16")
+        spec, lay, k = eng.spec, eng.layout, eng.fused_steps
+        call, twin = region_nd_call(base, eng.dtype)
+        if spec.ndim == 1:
+            (g,) = lay.grid
+            region = (1, g - 1)
+            dims = ((g - 2) * lay.tile,)
+        else:
+            gi, gj = lay.grid
+            region = ((1, gi - 1), (1, gj - 1))
+            dims = (lay.interior[0], (gi - 2) * lay.tile[0],
+                    (gj - 2) * lay.tile[1])
+        bounds = eng._bounds(eng.local[0])
+        x = (torch.rand(lay.shape, generator=gen, device=device) * 0.01).to(
+            eng.dtype)
+        calls = 4 if base == "general" else 10
+        both = time_calls({
+            "window": lambda a, b: call(a, b, spec, lay, k, bounds, region),
+            "full": lambda a, b: call(a, b, spec, lay, k, bounds, None)}, x,
+            torch.zeros_like(x), calls)
+        t = both["window"]
+        # the full launch's time for the window's cells, at its per-cell rate
+        full = both["full"] * int(np.prod(dims)) / int(np.prod(
+            (lay.interior,) if spec.ndim == 1 else lay.interior))
+        plain = time_calls({"p": lambda a, b: twin(a, b, spec, lay, k, bounds,
+                                                   region)}, x,
+                           torch.zeros_like(x), 1)["p"]
+        bound, by = bound_ms(spec, dims, k, eng.dtype.itemsize)
+        lib = (conv1d_ms(spec, dims[0], device, eng.dtype) if spec.ndim == 1
+               else library_ms(spec, dims, device, eng.dtype, repeats=1))
+        del x
+        records[kernel] = dict(
+            kernel=REGION_ND_NAMES[base], ms=t, plain_ms=plain,
+            bound_ms=bound, bound_by=by, library_ms=lib,
+            full_launch_ms_per_window=full, full_launch_ms=both["full"],
+            steps_per_launch=k,
+            library_steps=1,
+            shape=f"{'bf16' if eng.dtype == BF16 else 'float32'} {spec.name} "
+                  f"window {'x'.join(map(str, dims))} of a "
+                  f"{'x'.join(map(str, np.atleast_1d(lay.interior)))} shard",
+            launches=launches[kernel])
+        print(f"phase 26: {kernel} kernel over the inner window {region} of a "
+              f"{spec.name} shard ({'x'.join(map(str, dims))} cells, k={k}): "
+              f"{t} ms ({bound / t:.4f} of its {bound} ms {by} bound); the "
+              f"full launch over the shard {both['full']} ms in the same "
+              f"turns, {full} ms at its per-cell rate for the window's cells "
+              f"(window {t / full:.3f}x); plain twin {plain} ms, one library "
+              f"step {lib} ms [{card}]", flush=True)
+    return records
+
+
+def sharded_phase_nd(device, card):
+    """Phase 26; returns the kernels' record entries."""
+    from lorastencil_tpu_torch.parallel import dryrun
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=device).manual_seed(19)
+    errs = check_regions_nd(device)
+    for (kernel, dtype), err in errs.items():
+        print(f"phase 26: {REGION_ND_NAMES[kernel]} {dtype}: over the "
+              f"overlapped pass's windows and two random ones with a shard's "
+              f"box, bit for bit against the twin with the same window and "
+              f"the full launch cut to it, the cells outside untouched, the "
+              f"overlapped windows together the full launch; max abs err "
+              f"{err}", flush=True)
+    cases, engines, launches, nccl = [], {}, {}, {}
+    for case in SHARDED_ND_CASES:
+        rec, eng, padded = sharded_case_nd(case, device, card, gen)
+        cases.append(rec)
+        kernel = case[0]
+        if kernel is not None:
+            launches[kernel] = launches.get(kernel, 0) + rec["region_launches"]
+            engines.setdefault(kernel, eng)
+        ndim = eng.spec.ndim
+        if ndim not in nccl and eng.dtype == torch.float32:
+            nccl[ndim] = (eng, padded)
+        del eng, padded
+    for ndim, (eng, padded) in sorted(nccl.items()):
+        one_rank_nccl_nd(eng, padded, device)
+        print(f"phase 26: a one-rank NCCL group: global_mesh over "
+              f"{eng.mesh.shape} shards of cuda:0, the {ndim}-D engine's "
+              f"run_replicated(4) bit-exact against the in-process run, one "
+              f"NCCL all-reduce of its checksum", flush=True)
+    nccl.clear()
+    t1 = time.perf_counter()
+    dryrun.dryrun_multichip(8, devices=[device] * 8)
+    print(f"phase 26: dryrun_multichip(8, devices=['cuda:0'] * 8) passed in "
+          f"{time.perf_counter() - t1:.1f} s", flush=True)
+    timing = region_timing_nd(device, card, engines, launches)
+    print(json.dumps({"sharded_nd": {"cases": cases}}, default=str),
+          flush=True)
+    entries = []
+    for kernel, rec in timing.items():
+        rec = dict(rec)
+        base = kernel.removesuffix(" bf16")
+        dtype = "bf16" if kernel.endswith("bf16") else "float32"
+        name, _, _, source, replaces = REGION_ND_KERNELS[base]
+        wrapper = {"wide": "stencil1d_step", "lanes": "stencil1d_lanes_step"
+                   }.get(base, "stencil3d_step")
+        entries.append(dict({
+            "name": f"{wrapper}[region {base} {dtype}]", "route": "cuda",
+            "source": SOURCES[source + ("_bf16" if dtype == "bf16" else "")],
+            "replaces": REPLACES[replaces], "launches": rec.pop("launches"),
+            "max_abs_err": errs[(base, "bfloat16" if dtype == "bf16"
+                                 else "float32")]}, **rec))
+    print(f"phase 26: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
 def loaded_reference_modules():
     return sorted(m for m in sys.modules
                   if m == "jax" or m.startswith("jax.")
@@ -5564,6 +5989,7 @@ def main() -> int:
     bf16_entries = bf16_phase(device, card)
     bf16_entries += bf16_phase_nd(device, card)
     sharded_entries = sharded_phase(device, card)
+    sharded_entries += sharded_phase_nd(device, card)
 
     loaded = loaded_reference_modules()
     if loaded:

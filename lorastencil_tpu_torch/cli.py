@@ -13,9 +13,10 @@ for float64, 1e-11 for df64), plus ``--device cuda|cpu``.  ``--dtype
 float64`` and ``df64`` run the fp64-grade tier for 1-D, 2-D and 3-D
 shapes.
 On ``cuda`` the run is timed with CUDA events; ``cpu`` runs the kernels'
-plain PyTorch twins and is not timed.  ``--mesh dx dy`` (2-D shapes)
-shards the grid over a mesh (``parallel/domain.py``), one card per shard
-on ``cuda``, a CPU shard each on ``cpu``; ``--no-overlap`` turns the
+plain PyTorch twins and is not timed.  ``--mesh`` shards the grid over a
+mesh (``parallel/domain.py``): ``dx`` for 1-D shapes, ``dx dy`` for 2-D,
+``dx dy`` or ``dz dx dy`` for 3-D (a z-sharded mesh), one card per shard on
+``cuda``, a CPU shard each on ``cpu``; ``--no-overlap`` turns the
 overlapped exchange off.  The JAX CLI's flags and values the port does not
 run yet are refused with the ROADMAP item that will port them.
 """
@@ -91,9 +92,9 @@ def _parser() -> argparse.ArgumentParser:
     p.add_argument("--tile", type=int, nargs=2, default=None)
     p.add_argument("--mesh", type=int, nargs="+", default=None,
                    metavar="D",
-                   help="shard the grid over a mesh (2-D: dx dy): one "
-                        "CUDA device per shard, or CPU shards with "
-                        "--device cpu")
+                   help="shard the grid over a mesh (1-D: dx; 2-D: dx dy; "
+                        "3-D: dx dy or dz dx dy): one CUDA device per shard, "
+                        "or CPU shards with --device cpu")
     p.add_argument("--no-overlap", action="store_true",
                    help="with --mesh: disable the overlapped exchange")
     p.add_argument("--autotune", action="store_true")
@@ -165,10 +166,6 @@ def _run_sharded(p, args, spec, interior, steps) -> int:
         p.error(f"--mesh for {args.shape} needs "
                 f"{' or '.join(map(str, want_axes))} integer(s), "
                 f"got {len(args.mesh)}")
-    if spec.ndim != 2:
-        p.error(f"--mesh: the sharded {spec.ndim}-D engines are not ported "
-                f"to lorastencil_tpu_torch yet (ROADMAP "
-                f"{'A11(b)' if spec.ndim == 1 else 'A11(c)'})")
     if args.dtype == "float64":
         p.error("--mesh supports float32/bfloat16/df64 state (the fp64 "
                 "tier is the single-process CPU regime)")

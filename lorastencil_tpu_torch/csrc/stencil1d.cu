@@ -128,7 +128,12 @@
 // exchange words and the host's (B, m) plan; ls_stencil1d_run_lanes(_f64)
 // the same with the narrow plan's host arrays in place of the wide taps.
 // The *_bf16 entries take the same arguments, with bfloat16 buffers and
-// float32 weights.
+// float32 weights.  The two pass entries end with a window of the rounded
+// interior (the JAX kernels' `region`: the sharded engine's overlapped step
+// runs its head and tail tiles first, then the inner window while the edge
+// strips travel); in_window makes it the launch's grid on the host, so no
+// kernel tests a window and a launch over the whole interior is the launch
+// it was.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -1464,16 +1469,42 @@ int resident(const T* in, T* out0, T* out1, const T* taps, int r, int steps,
             origin, n, rounded, s);
 }
 
+// The launch of a pass over the window [w0, w1) of the rounded interior
+// (the whole of it for a pass without a region): the window's first cell
+// becomes interior cell 0 and its extent the rounded interior, so the
+// blocks start at the window and store nothing outside it; the interior's
+// end and the box [lo, hi) move with it.  The interior's end is cut at the
+// box's (hi) first, so that the last substep keeps the box cut to the
+// interior (a shard's box may end inside it).  False for a window outside
+// the rounded interior.  No kernel tests a window.
+bool in_window(int& origin, int& n, int& rounded, int& lo, int& hi, int w0,
+               int w1) {
+  if (w0 < 0 || w1 <= w0 || w1 > rounded) return false;
+  const int end = (hi < n ? hi : n) - w0;
+  const int nw = end < 0 ? 0 : (end > w1 - w0 ? w1 - w0 : end);
+  origin += w0;
+  n = nw;
+  rounded = w1 - w0;
+  lo -= w0;
+  hi = hi - w0 > nw ? hi - w0 : nw;
+  return true;
+}
+
 }  // namespace
 
 // The passes' entries end with the cells [lo, hi) that the substeps before
-// the last keep (the interior [0, n), or it and a ghost ring).
+// the last keep (the interior [0, n), or it and a ghost ring, or a shard's
+// box), then the window [w0, w1) of the rounded interior that the launch
+// covers (in_window).  A narrow pass's window starts on its quads (16 bytes
+// of float32) or is refused: no scalar copies stand in.
 #define LS_PASS(NAME, S)                                                   \
   extern "C" int NAME(const S* in, S* out, const Compute<S>* taps, int r, \
                       int k, int narrow, int len, int origin, int n,      \
                       int rounded, void* stream, const int* wide_off,     \
                       const Compute<S>* wide_w, int wide_n, int tile,     \
-                      int lo, int hi) {                                   \
+                      int lo, int hi, int w0, int w1) {                   \
+    if (!in_window(origin, n, rounded, lo, hi, w0, w1))                   \
+      return static_cast<int>(cudaErrorInvalidValue);                     \
     return pass(in, out, taps, wide_off, wide_w, wide_n, r, k, narrow,    \
                 len, origin, n, rounded, tile, lo, hi, stream);           \
   }
@@ -1482,7 +1513,9 @@ int resident(const T* in, T* out0, T* out1, const T* taps, int r, int steps,
                       const float* wp, const float* wm, int centre,       \
                       float c, int r, int k, int len, int origin, int n,  \
                       int rounded, int tile, void* stream, int lo,        \
-                      int hi) {                                           \
+                      int hi, int w0, int w1) {                           \
+    if (w0 % 4 != 0 || !in_window(origin, n, rounded, lo, hi, w0, w1))    \
+      return static_cast<int>(cudaErrorInvalidValue);                     \
     return lanes(in, out, kinds, wp, wm, centre, c, r, k, len, origin, n, \
                  rounded, tile, lo, hi, stream);                          \
   }

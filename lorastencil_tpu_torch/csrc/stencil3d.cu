@@ -117,6 +117,14 @@
 // neighbouring tasks often meet in the L2), and each output cell written
 // once.
 //
+// A pass may cover a window of the rounded plane only, whole layout tiles,
+// every plane (the JAX kernel's `region`: the sharded engine's overlapped
+// step computes its boundary frame first, then the inner window while the
+// strips travel).  No kernel tests a window: the host moves the pass's
+// origin to the window's first cell and its rounded plane to the window's
+// (in_window), so the blocks and tasks start there, every store stays
+// inside it, and a pass over the whole plane is the pass it was.
+//
 // C interface, loaded with ctypes: ls_stencil3d_smem_bytes sizes a launch
 // of the general kernel (in either build), ls_stencil3d_step (float),
 // ls_stencil3d_step_f64 (double) and ls_stencil3d_step_bf16 (bfloat16 cells,
@@ -160,9 +168,12 @@ struct Pass {
   // the box [zl, zh) x [rl, rh) x [cl, ch), interior coordinates, that the
   // levels before the last keep: the interior, or under a ghost boundary
   // the interior and its ring, which the host refilled (the JAX kernels'
-  // `bounds`).  The last level keeps the interior whatever the box: the
-  // ring it would keep is refilled before the next pass reads it.
+  // `bounds`), or a shard's box.  The last level keeps the interior cut at
+  // the box's ends, [0, hz) x [0, m) x [0, n) (in_window cuts m, n and
+  // sets hz <= h; every level without a box keeps the same): the ring it
+  // would keep is refilled before the next pass reads it.
   int zl, zh, rl, rh, cl, ch;
+  int hz;  // planes the unboxed levels keep: h, or a shard's zh below it
 };
 
 __host__ __device__ inline int term_stride(int R) { return 3 + 3 * (2 * R + 1); }
@@ -500,7 +511,7 @@ stencil3d_kernel(const S* __restrict__ in, S* __restrict__ out,
       // output.
       const int zv = zs - K * R + v;  // interior z of the plane
       const bool zok = BOX && L < K ? zv >= p.zl && zv < p.zh
-                                    : zv >= 0 && zv < p.h;
+                                    : zv >= 0 && zv < p.hz;
       T* dst = smem + ring_off(p, R, L) + (v % p.ring) * cells + tid;
       S* gdst = out + static_cast<size_t>(p.z0 + zv) * plane_stride +
                     static_cast<size_t>(p.r0) * p.pitch + p.c0;
@@ -532,10 +543,10 @@ stencil3d_kernel(const S* __restrict__ in, S* __restrict__ out,
   }
 }
 
-// The box holds the interior.
+// The box holds the (cut) interior.
 bool box_valid(const Pass& p) {
-  return p.zl <= 0 && p.zh >= p.h && p.rl <= 0 && p.rh >= p.m && p.cl <= 0 &&
-         p.ch >= p.n;
+  return p.hz >= 0 && p.hz <= p.h && p.zl <= 0 && p.zh >= p.hz &&
+         p.rl <= 0 && p.rh >= p.m && p.cl <= 0 && p.ch >= p.n;
 }
 
 bool valid(const Pass& p, int R) {
@@ -572,8 +583,8 @@ int launch_box(const S* in, S* out, const Compute<S>* plan, const Pass& p,
 // A box that is not the interior (a ghost boundary's ring, at K >= 2) takes
 // the BOX instance.
 bool has_box(const Pass& p) {
-  return p.zl != 0 || p.zh != p.h || p.rl != 0 || p.rh != p.m || p.cl != 0 ||
-         p.ch != p.n;
+  return p.zl != 0 || p.zh != p.hz || p.rl != 0 || p.rh != p.m ||
+         p.cl != 0 || p.ch != p.n;
 }
 
 template <typename S, int R>
@@ -614,6 +625,7 @@ Pass make_pass(int plan_len, int n_terms, int n_res, int n_buf, int ring,
   p.rh = m;
   p.cl = 0;
   p.ch = n;
+  p.hz = h;
   return p;
 }
 
@@ -625,6 +637,42 @@ Pass with_box(Pass p, int zl, int zh, int rl, int rh, int cl, int ch) {
   p.rh = rh;
   p.cl = cl;
   p.ch = ch;
+  return p;
+}
+
+// The pass of `p` over the window rows [i0, i1) x columns [j0, j1) of the
+// rounded plane, every plane (the whole plane for a pass without a
+// region): the window's first cell becomes interior cell (0, 0) of each
+// plane and its extent the rounded plane, so the blocks (or the march's
+// tasks) start at the window's origin and store nothing outside it; the
+// interior's ends and the box move with it.  The interior's ends are cut
+// at the box's (zh, rh, ch) first, so that the last level keeps the box
+// cut to the interior (a shard's box may end inside it: the padding of
+// the last shard of an axis the mesh does not divide).  A window outside
+// the rounded plane gives a pass that valid() refuses.
+Pass in_window(Pass p, int i0, int i1, int j0, int j1) {
+  if (i0 < 0 || i1 <= i0 || i1 > p.mr || j0 < 0 || j1 <= j0 || j1 > p.nr) {
+    p.mr = -1;
+    return p;
+  }
+  auto clamp = [](int v, int lo, int hi) {
+    return v < lo ? lo : (v > hi ? hi : v);
+  };
+  const int hz = clamp(p.zh < p.h ? p.zh : p.h, 0, p.h);
+  const int m = clamp((p.rh < p.m ? p.rh : p.m) - i0, 0, i1 - i0);
+  const int n = clamp((p.ch < p.n ? p.ch : p.n) - j0, 0, j1 - j0);
+  p.zh = p.zh > hz ? p.zh : hz;
+  p.hz = hz;
+  p.r0 += i0;
+  p.c0 += j0;
+  p.m = m;
+  p.n = n;
+  p.mr = i1 - i0;
+  p.nr = j1 - j0;
+  p.rl -= i0;
+  p.rh = p.rh - i0 > m ? p.rh - i0 : m;
+  p.cl -= j0;
+  p.ch = p.ch - j0 > n ? p.ch - j0 : n;
   return p;
 }
 
@@ -1164,7 +1212,7 @@ march_kernel(const Cell* __restrict__ in, Cell* __restrict__ out,
           if constexpr (BOX) {
             mask(u - R, lv, kBoxBit, p.zl, p.zh);
           } else {
-            mask(u - R, lv, 0, 0, p.h);
+            mask(u - R, lv, 0, 0, p.hz);
           }
           if constexpr (K == 1) store(u - R, lv);
         }
@@ -1188,7 +1236,7 @@ march_kernel(const Cell* __restrict__ in, Cell* __restrict__ out,
             T acc[CH][V];
             level_step<S, NT, KINDS>(pl, xl + win, back, pend[1], held[1], acc);
             if (u >= 4 * R) {
-              mask(u - 2 * R, acc, 0, 0, p.h);
+              mask(u - 2 * R, acc, 0, 0, p.hz);
               store(u - 2 * R, acc);
             }
           }
@@ -1353,7 +1401,9 @@ extern "C" long long ls_stencil3d_smem_bytes(int radius, int K, int bm, int bn,
 // Each entry: the input and output buffers, the plan and its counts, the term
 // mix, K, the buffer extents, the origin of interior cell (0, 0, 0), the
 // interior, the rounded plane, the block tile, the z chunk, the box of the
-// levels before the last (Pass's zl .. ch) and the stream.
+// levels before the last (Pass's zl .. ch), the window of the rounded plane
+// the launch covers, rows [wi0, wi1) x columns [wj0, wj1) (in_window), and
+// the stream.
 #define LS_ENTRY(NAME, T)                                                     \
   extern "C" int NAME(const T* in, T* out, const Compute<T>* plan,          \
                       int plan_len,                                         \
@@ -1361,12 +1411,15 @@ extern "C" long long ls_stencil3d_smem_bytes(int radius, int K, int bm, int bn,
                       int ring, int K, int nz, int rows, int pitch, int z0, \
                       int r0, int c0, int h, int m, int n, int mr, int nr,  \
                       int bm, int bn, int zc, int zl, int zh, int rl,       \
-                      int rh, int cl, int ch, void* stream) {               \
+                      int rh, int cl, int ch, int wi0, int wi1, int wj0,    \
+                      int wj1, void* stream) {                              \
     return step(in, out, plan,                                              \
-                with_box(make_pass(plan_len, n_terms, n_res, n_buf, ring,   \
-                                   K, nz, rows, pitch, z0, r0, c0, h, m, n, \
-                                   mr, nr, bm, bn, zc),                     \
-                         zl, zh, rl, rh, cl, ch),                           \
+                in_window(with_box(make_pass(plan_len, n_terms, n_res,      \
+                                             n_buf, ring, K, nz, rows,      \
+                                             pitch, z0, r0, c0, h, m, n,    \
+                                             mr, nr, bm, bn, zc),           \
+                                   zl, zh, rl, rh, cl, ch),                 \
+                          wi0, wi1, wj0, wj1),                              \
                 radius, stream);                                            \
   }
 #ifndef LS_STENCIL3D_BF16
@@ -1379,23 +1432,27 @@ LS_ENTRY(ls_stencil3d_step_bf16, __nv_bfloat16)
 // The march kernel's entries: the input and output buffers, the tap table
 // in host memory and its counts, K, the buffer extents, the origin of
 // interior cell (0, 0, 0), the interior, the rounded plane, the box of
-// level 1 at K = 2 (Pass's zl .. ch) and the stream.
+// level 1 at K = 2 (Pass's zl .. ch), the window (as LS_ENTRY's) and the
+// stream.
 #define LS_MARCH(NAME, T)                                                    \
   extern "C" int NAME(const T* in, T* out, const Compute<T>* plan,          \
                       int plan_len,                                         \
                       int n_terms, int radius, int n_res, int K, int nz,    \
                       int rows, int pitch, int z0, int r0, int c0, int h,   \
                       int m, int n, int mr, int nr, int zl, int zh, int rl, \
-                      int rh, int cl, int ch, void* stream) {               \
+                      int rh, int cl, int ch, int wi0, int wi1, int wj0,    \
+                      int wj1, void* stream) {                              \
     return march(in, out, plan,                                             \
-                 with_box(make_pass(plan_len, n_terms, n_res, 0, 1, K, nz,  \
-                                    rows, pitch, z0, r0, c0, h, m, n, mr,   \
-                                    nr, kMarchTileRows,                     \
-                                    kMarchTileQuads * 16 /                  \
-                                        static_cast<int>(                   \
-                                            sizeof(Compute<T>)),            \
-                                    1),                                     \
-                          zl, zh, rl, rh, cl, ch),                          \
+                 in_window(with_box(make_pass(plan_len, n_terms, n_res, 0,  \
+                                              1, K, nz, rows, pitch, z0,    \
+                                              r0, c0, h, m, n, mr, nr,      \
+                                              kMarchTileRows,               \
+                                              kMarchTileQuads * 16 /        \
+                                                  static_cast<int>(         \
+                                                      sizeof(Compute<T>)),  \
+                                              1),                           \
+                                    zl, zh, rl, rh, cl, ch),                \
+                           wi0, wi1, wj0, wj1),                             \
                  radius, stream);                                           \
   }
 #ifndef LS_STENCIL3D_BF16

@@ -320,14 +320,17 @@ def check_bounds(bounds, interior, guard, shard: bool = False
     the interior.  A 3-D pass also takes 4 values, the rows' and the
     columns' (the z box is then ``[0, h)``), as the JAX kernels do.
 
-    ``shard``: the box of a shard of a sharded 2-D engine
-    (``parallel/domain.py``), as the JAX engine builds it: ``lo <= 0`` may
-    lie beyond the guard (an inner shard, whose ring holds its neighbours'
-    cells) and is cut to it, which keeps the same cells, since no level
-    reaches past the guard; ``hi`` may lie inside the interior (the last
-    shard of an axis the mesh does not divide, whose cells past the true
-    edge are padding) or beyond the guard, and is cut to ``[0, n + g]``.
-    The 2-D pass's last level keeps this box cut to the interior."""
+    ``shard``: the box of a shard of a sharded engine
+    (``parallel/domain.py``), as the JAX engines build it -- in 1-D
+    ``[-ix*nl - d, N - ix*nl + d)``, in 2-D one such range per axis, in
+    3-D 4 values or 6 (z included on a z-sharded mesh, or the z guard
+    under a ghost boundary): ``lo <= 0`` may lie beyond the guard (an inner
+    shard, whose ring holds its neighbours' cells) and is cut to it, which
+    keeps the same cells, since no level reaches past the guard; ``hi`` may
+    lie inside the interior (the last shard of an axis the mesh does not
+    divide, whose cells past the true edge are padding) or beyond the
+    guard, and is cut to ``[0, n + g]``.  The pass's last level keeps this
+    box cut to the interior, in every dimension."""
     dims = tuple(interior)
     if bounds is None:
         return tuple(v for s in dims for v in (0, s))

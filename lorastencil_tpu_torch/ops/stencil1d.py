@@ -70,6 +70,17 @@ and exchange words are float32's: the windows hold the compute type
 (``compute_dtype``).  Each wrapper counts the bf16 launches in
 ``launches_bf16``.
 
+A pass may write a window of the layout's tiles only (``region``, the JAX
+wrapper's ``(t0, t1)``, which the sharded engine's overlapped step takes:
+``parallel/domain.py``): the launch covers the window's cells
+``[t0 * tile, t1 * tile)`` alone (``region_cells``; on the card the entries'
+``in_window`` moves the launch's origin and extent to the window), and
+every other cell of the donor stays as it was.  The ``bounds`` may be a
+shard's box (``check_bounds(..., shard=True)``): a start beyond the guard
+is cut to it, and an end inside the interior (the last shard of a mesh
+that does not divide the grid) makes the last substep keep the box cut to
+the interior, as the JAX kernel's mask does.
+
 On a CUDA tensor each wrapper launches its kernel or raises; only a CPU
 tensor runs the plain twin (``*_plain``), which sums in the kernel's order,
 in the tensor's dtype (a bf16 twin widens, sums in float32 and rounds by
@@ -400,53 +411,87 @@ def _run_plain(cur, spec: StencilSpec, layout: Layout1D, steps: int,
         x = torch.nn.functional.pad(val, (r, r))  # zero beyond [0, n)
 
 
+def region_cells(region, layout: Layout1D):
+    """A pass's window ``(t0, t1)`` of ``layout.grid`` tiles (the JAX
+    wrapper's ``region``) as cells ``(c0, c1)`` of the rounded interior;
+    None is all of it.  Raises where the JAX wrapper asserts: a window
+    that is empty or leaves the tile grid."""
+    if region is None:
+        return (0, layout.rounded)
+    try:
+        t0, t1 = (int(t) for t in region)
+    except (TypeError, ValueError):
+        raise ValueError(f"region must be (t0, t1), got {region!r}") from None
+    (g,) = layout.grid
+    if not 0 <= t0 < t1 <= g:
+        raise ValueError(
+            f"region {region!r} is not a window of the layout's {g}-tile "
+            f"grid")
+    return (t0 * layout.tile, t1 * layout.tile)
+
+
 def _pass_plain(cur, spec: StencilSpec, layout: Layout1D, steps: int,
-                pairs: bool, bounds=None):
+                pairs: bool, bounds=None, window=None):
     """A pass's ``steps`` masked substeps, as the pass kernels take them:
-    substep s over the rounded interior and (steps - s) * r_eff cells each
+    substep s over the cells ``window`` ``(c0, c1)`` of the rounded
+    interior (all of it when None) and (steps - s) * r_eff cells each
     side, read from the buffer, keeping the cells in ``bounds`` ``(lo,
-    hi)`` (the interior when None), the last one the interior; returns
-    the rounded interior in the compute dtype.  With no bounds the same
-    values as ``_run_plain``'s.  A bfloat16 state is widened; the narrow
-    pass (``pairs``) rounds every substep, the wide one only where the
-    caller stores it."""
+    hi)`` (the interior when None), the last one the box cut to the
+    interior; returns the window's cells in the compute dtype.  With no
+    bounds the same values as ``_run_plain``'s.  A bfloat16 state is
+    widened; the narrow pass (``pairs``) rounds every substep, the wide one
+    only where the caller stores it."""
     taps, r = _taps(spec)
-    o, n, nr = layout.origin, layout.interior, layout.rounded
+    o, n = layout.origin, layout.interior
+    c0, c1 = (0, layout.rounded) if window is None else window
     lo, hi = (0, n) if bounds is None else bounds
     e = steps * r
-    x = cur[o - e: o + nr + e].to(compute_dtype(cur.dtype))
+    x = cur[o + c0 - e: o + c1 + e].to(compute_dtype(cur.dtype))
     for s in range(1, steps + 1):
-        e -= r  # the substep's extent beyond the rounded interior
+        e -= r  # the substep's extent beyond the window
         x = _conv(x, taps, r, pairs)
         if pairs:
             x = _round_bf16(x, cur.dtype)
-        a, b = (lo, hi) if s < steps else (0, n)
-        x[:max(0, e + a)] = 0
-        x[max(0, e + b):] = 0
+        a, b = (lo, hi) if s < steps else (0, min(hi, n))
+        x[:max(0, e + a - c0)] = 0
+        x[max(0, e + b - c0):] = 0
     return x
+
+
+def _plain_pass(cur, donor, spec, layout, fused_steps, pairs, bounds,
+                region):
+    """A twin's store: the pass's cells of ``region`` (``region_cells``)
+    into ``donor``, whose other cells stay as they are; ``bounds`` a
+    shard's box (``check_bounds(..., shard=True)``; the interior when
+    None)."""
+    o = layout.origin
+    c0, c1 = region_cells(region, layout)
+    box = check_bounds(bounds, (layout.interior,), (layout.guard,),
+                       shard=True)
+    donor[o + c0: o + c1] = _pass_plain(cur, spec, layout, fused_steps,
+                                        pairs, box, (c0, c1))
+    return donor
 
 
 def stencil1d_lanes_step_plain(cur, donor, spec: StencilSpec,
                                layout: Layout1D, fused_steps: int = 1,
-                               bounds=None):
+                               bounds=None, region=None):
     """The narrow pass's twin: writes the rounded interior of ``donor``
-    and returns it; ``donor``'s guard is left as it is.  Substeps before
-    the last keep ``bounds`` ``(lo, hi)``, the last the interior.  A
-    bfloat16 state rounds every substep."""
-    o, nr = layout.origin, layout.rounded
-    donor[o: o + nr] = _pass_plain(cur, spec, layout, fused_steps, True,
-                                   bounds)
-    return donor
+    (``region``'s cells of it) and returns it; ``donor``'s guard and every
+    other cell are left as they are.  Substeps before the last keep
+    ``bounds`` ``(lo, hi)`` (a shard's box, ``check_bounds(...,
+    shard=True)``), the last that box cut to the interior.  A bfloat16
+    state rounds every substep."""
+    return _plain_pass(cur, donor, spec, layout, fused_steps, True, bounds,
+                       region)
 
 
 def stencil1d_step_plain(cur, donor, spec: StencilSpec, layout: Layout1D,
-                         fused_steps: int = 1, bounds=None):
+                         fused_steps: int = 1, bounds=None, region=None):
     """The wide pass's twin (see ``stencil1d_lanes_step_plain``); a
     bfloat16 state rounds once, at the store."""
-    o, nr = layout.origin, layout.rounded
-    donor[o: o + nr] = _pass_plain(cur, spec, layout, fused_steps, False,
-                                   bounds)
-    return donor
+    return _plain_pass(cur, donor, spec, layout, fused_steps, False, bounds,
+                       region)
 
 
 def stencil1d_resident_lanes_plain(cur, spec: StencilSpec, layout: Layout1D,
@@ -483,7 +528,7 @@ def _bind(name: str, dtypes):
             if fn is not None:
                 fn.restype = ctypes.c_int
         pass_fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [
-            ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
+            ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
         if run_fn is not None:
             run_fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [
                 ctypes.c_void_p]
@@ -499,7 +544,7 @@ def _bind(name: str, dtypes):
             lanes_fn.restype = ctypes.c_int
             lanes_fn.argtypes = [ctypes.c_void_p] * 5 + [
                 ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * 7 + [
-                ctypes.c_void_p] + [ctypes.c_int] * 2
+                ctypes.c_void_p] + [ctypes.c_int] * 4
             entries["lanes"] = lanes_fn
     return entries
 
@@ -615,53 +660,67 @@ def _check_lanes(spec: StencilSpec, algorithm: str, reach_steps: int):
     return r
 
 
-def _refuse_unported(region):
-    if region is not None:
-        raise NotImplementedError(
-            "region (the overlapped sharded engine) is not ported yet "
-            "(ROADMAP A11)")
+def _check_region(region, layout: Layout1D):
+    """``region_cells`` of a pass's window, refused where the kernels cannot
+    take it: a window is whole tiles of the kernels' ``TILE_1D`` cells (the
+    entries refuse any other extent), so its first cell sits on the
+    narrow pass's 16-byte quads."""
+    cells = region_cells(region, layout)
+    if region is not None and layout.tile % TILE_1D:
+        raise ValueError(
+            f"a region needs tiles of a multiple of {TILE_1D} cells (the "
+            f"kernels' block tile); the layout's tile is {layout.tile}")
+    return cells
 
 
-def _pass(cur, donor, spec, layout, k: int, narrow: bool, bounds=None):
+def _pass(cur, donor, spec, layout, k: int, narrow: bool, bounds=None,
+          window=None):
     """A pass on ``pass_kernel`` (narrow: #12's float64 pass, and in float32
     the kernel ``lanes_kernel`` replaced; no bfloat16 instance) or
     ``wide_kernel``, its substeps before the last keeping ``bounds`` (the
-    interior when None)."""
-    lo, hi = check_bounds(bounds, (layout.interior,), (layout.guard,))
+    interior when None; a shard's box, cut), over the cells ``window``
+    ``(c0, c1)`` of the rounded interior (all of it when None)."""
+    lo, hi = check_bounds(bounds, (layout.interior,), (layout.guard,),
+                          shard=True)
+    c0, c1 = (0, layout.rounded) if window is None else window
     if narrow:
         taps = _taps_buffer(spec, cur.device, cur.dtype).data_ptr()
         off, w, n_taps, tile = None, None, 0, 0
     else:
         taps = None
         off, w, n_taps = _wide_table(spec, cur.dtype)
-        tile = pass_tile(layout.rounded, _sm_count(cur.device.index))
+        tile = pass_tile(c1 - c0, _sm_count(cur.device.index))
     with torch.cuda.device(cur.device):
         err = _entries(cur.dtype)[cur.dtype][0](
             cur.data_ptr(), donor.data_ptr(), taps,
             effective_radius(spec), k, int(narrow), layout.shape[0],
             layout.origin, layout.interior, layout.rounded,
             torch.cuda.current_stream().cuda_stream, off, w, n_taps, tile,
-            lo, hi)
+            lo, hi, c0, c1)
     if err != 0:
         raise RuntimeError(f"stencil1d pass launch failed: CUDA error {err}")
     return donor
 
 
 def _lanes(cur, donor, spec, layout, k: int, tile: int = None,
-           bounds=None):
+           bounds=None, window=None):
     """A float32 or bfloat16 narrow pass on ``lanes_kernel``, in tiles of
-    ``tile`` cells (``lanes_tile``'s if None), its substeps before the last
-    keeping ``bounds`` (the interior when None)."""
+    ``tile`` cells (``lanes_tile``'s of the window if None), its substeps
+    before the last keeping ``bounds`` (the interior when None; a shard's
+    box, cut), over the cells ``window`` ``(c0, c1)`` of the rounded
+    interior (all of it when None)."""
     kinds, wp, wm, has_centre, centre = _lanes_table(spec)
-    lo, hi = check_bounds(bounds, (layout.interior,), (layout.guard,))
+    lo, hi = check_bounds(bounds, (layout.interior,), (layout.guard,),
+                          shard=True)
+    c0, c1 = (0, layout.rounded) if window is None else window
     if tile is None:
-        tile = lanes_tile(layout.rounded, _sm_count(cur.device.index))
+        tile = lanes_tile(c1 - c0, _sm_count(cur.device.index))
     with torch.cuda.device(cur.device):
         err = _entries(cur.dtype)["lanes"](
             cur.data_ptr(), donor.data_ptr(), kinds, wp, wm, has_centre,
             centre, effective_radius(spec), k, layout.shape[0],
             layout.origin, layout.interior, layout.rounded, tile,
-            torch.cuda.current_stream().cuda_stream, lo, hi)
+            torch.cuda.current_stream().cuda_stream, lo, hi, c0, c1)
     if err != 0:
         raise RuntimeError(f"stencil1d lanes launch failed: CUDA error {err}")
     return donor
@@ -757,28 +816,39 @@ def stencil1d_lanes_step(cur, donor, spec: StencilSpec, layout: Layout1D,
     every substep.
 
     ``bounds`` ``(lo, hi)`` (interior coordinates; the interior when None;
-    ``layout.check_bounds``): the cells that the substeps before the last
-    keep, the JAX wrapper's argument, so that a ghost ring the caller
-    filled stays alive through them.  The last substep keeps the interior
-    in every case: the ring and round-up cells it would keep are rewritten
+    a shard's box, ``layout.check_bounds(..., shard=True)``): the cells
+    that the substeps before the last keep, the JAX wrapper's argument, so
+    that a ghost ring the caller filled stays alive through them; a start
+    beyond the guard is cut to it.  The last substep keeps that box cut to
+    the interior: the ring and round-up cells it would keep are rewritten
     by the next pass's ring refresh before anything reads them (see
-    ``stencil2d.stencil2d_step``), so a one-step pass only checks
-    ``bounds``."""
-    _refuse_unported(region)
+    ``stencil2d.stencil2d_step``), and a last shard's cells past the true
+    edge are zeroed as the JAX kernel zeroes them.
+
+    ``region`` (``(t0, t1)``, a window of ``layout.grid`` tiles; the whole
+    grid when None) writes that window of ``donor`` only and leaves its
+    other cells as they were (``launches_region`` counts such launches).
+    The kernels' windows are whole ``TILE_1D`` tiles: a layout of another
+    tile refuses a region, on the CPU as on a card."""
     r = _check_lanes(spec, algorithm, fused_steps)
     if fused_steps < 1:
         raise ValueError(f"fused_steps must be >= 1, got {fused_steps}")
     _check(cur, spec, layout, fused_steps * r, donor)
-    box = check_bounds(bounds, (layout.interior,), (layout.guard,))
+    box = check_bounds(bounds, (layout.interior,), (layout.guard,),
+                       shard=True)
+    window = _check_region(region, layout)
     if cur.device.type == "cpu":
         return stencil1d_lanes_step_plain(cur, donor, spec, layout,
-                                          fused_steps, box)
+                                          fused_steps, box, region)
     if cur.dtype == torch.float64:
-        _pass(cur, donor, spec, layout, fused_steps, True, box)
+        _pass(cur, donor, spec, layout, fused_steps, True, box, window)
     else:
-        _lanes(cur, donor, spec, layout, fused_steps, bounds=box)
+        _lanes(cur, donor, spec, layout, fused_steps, bounds=box,
+               window=window)
         stencil1d_lanes_step.launches_lanes += 1
     _count(stencil1d_lanes_step, cur.dtype)
+    if region is not None:
+        stencil1d_lanes_step.launches_region += 1
     return donor
 
 
@@ -788,8 +858,8 @@ def stencil1d_step(cur, donor, spec: StencilSpec, layout: Layout1D,
     ``fused_steps`` up to 64, the reach within ``max_pass_reach``); see
     ``stencil1d_lanes_step``.  On a float64 state it is the fp64-grade
     step of ``pallas_df64_1d.df64_1d_flat_step`` (r_eff 33-127).
-    ``bounds`` as ``stencil1d_lanes_step``'s."""
-    _refuse_unported(region)
+    ``bounds`` and ``region`` as ``stencil1d_lanes_step``'s: the
+    pass is always one launch, so every window of whole tiles is taken."""
     if not 1 <= fused_steps <= MAX_FUSED:
         raise ValueError(
             f"fused_steps {fused_steps} outside [1, {MAX_FUSED}]")
@@ -800,12 +870,16 @@ def stencil1d_step(cur, donor, spec: StencilSpec, layout: Layout1D,
         raise ValueError(
             f"a {cur.dtype} pass of reach {reach} (fused steps x effective "
             f"radius) exceeds the kernel's shared memory ({cap})")
-    box = check_bounds(bounds, (layout.interior,), (layout.guard,))
+    box = check_bounds(bounds, (layout.interior,), (layout.guard,),
+                       shard=True)
+    window = _check_region(region, layout)
     if cur.device.type == "cpu":
         return stencil1d_step_plain(cur, donor, spec, layout, fused_steps,
-                                    box)
-    _pass(cur, donor, spec, layout, fused_steps, False, box)
+                                    box, region)
+    _pass(cur, donor, spec, layout, fused_steps, False, box, window)
     _count(stencil1d_step, cur.dtype)
+    if region is not None:
+        stencil1d_step.launches_region += 1
     return donor
 
 
@@ -847,12 +921,13 @@ def stencil1d_resident(cur, spec: StencilSpec, layout: Layout1D, steps: int):
 
 
 # kernel launches per instance, for chip_smoke.py: float32, float64 and
-# bfloat16; and of the redesigned kernels, lanes_kernel (float32 and bf16
+# bfloat16; of the redesigned kernels, lanes_kernel (float32 and bf16
 # narrow passes) and run_kernel (narrow and wide runs, any dtype, each
-# wrapper its own)
+# wrapper its own); and each pass wrapper's launches over a region
 for _wrapper in (stencil1d_lanes_step, stencil1d_step,
                  stencil1d_resident_lanes, stencil1d_resident):
     _wrapper.launches = _wrapper.launches_f64 = _wrapper.launches_bf16 = 0
 del _wrapper
 stencil1d_lanes_step.launches_lanes = 0
+stencil1d_lanes_step.launches_region = stencil1d_step.launches_region = 0
 stencil1d_resident_lanes.launches_run = stencil1d_resident.launches_run = 0

@@ -44,6 +44,17 @@ launches (``plan_pass``; none at the engine's default depth of the
 registry shapes) rounds between them, where its intermediate buffer holds
 the state.  The twin widens, computes in float32 and rounds at the store;
 ``launches_bf16`` counts the bf16 launches.
+
+A pass may write a window of the layout's (row, column) tiles only
+(``region``, the JAX wrapper's ``((i0, i1), (j0, j1))``; z is always
+whole), which the sharded engine's overlapped step takes
+(``parallel/domain.py``): the launch covers the window's rows and columns
+alone (on the card the entries' ``in_window`` moves its origin and extent),
+and every other cell of the donor stays as it was.  A pass that the general
+kernel's shared memory splits into launches (``launch_depths``) cannot keep
+a window and refuses one.  The ``bounds`` may be a shard's box
+(``check_bounds(..., shard=True)``), and the last level keeps it cut to the
+interior.
 """
 
 from __future__ import annotations
@@ -77,6 +88,9 @@ Z_CHUNKS = (64, 32, 16)  # output planes per block, largest first
 _MARCH_ENTRIES = {torch.float32: "ls_stencil3d_march",
                   torch.float64: "ls_stencil3d_march_f64",
                   torch.bfloat16: "ls_stencil3d_march_bf16"}
+# csrc/stencil3d.cu: cells of one level plane a general-kernel thread holds
+# at most (kPerThread) and its block's threads (kThreads)
+PER_THREAD, THREADS = 10, 256
 MARCH_RADII = (1,)  # kMarchMaxRadius
 MARCH_DEPTHS = (1, 2)
 MARCH_TILE_ROWS = 32  # kMarchTileRows
@@ -125,6 +139,28 @@ def march_takes(spec: StencilSpec, dtype, depth: int) -> bool:
             and (len(spec.terms), term_kinds(spec)) in MARCH_KINDS)
 
 
+def region_cells(region, layout: Layout3D):
+    """A pass's window ``((i0, i1), (j0, j1))`` of ``layout.grid`` (row,
+    column) tiles (the JAX wrapper's ``region``) as cells ``(r0, r1, c0,
+    c1)`` of the rounded plane; None is all of it.  Raises where the JAX
+    wrapper asserts: a window that is empty or leaves the tile grid."""
+    _, mr, nr = layout.rounded
+    if region is None:
+        return (0, mr, 0, nr)
+    try:
+        (i0, i1), (j0, j1) = ((int(a), int(b)) for a, b in region)
+    except (TypeError, ValueError):
+        raise ValueError(
+            f"region must be ((i0, i1), (j0, j1)), got {region!r}") from None
+    gi, gj = layout.grid
+    if not (0 <= i0 < i1 <= gi and 0 <= j0 < j1 <= gj):
+        raise ValueError(
+            f"region {region!r} is not a window of the layout's {gi}x{gj} "
+            f"tile grid")
+    tm, tn = layout.tile
+    return (i0 * tm, i1 * tm, j0 * tn, j1 * tn)
+
+
 def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
            fused_steps: int, bounds, region):
     # a float64 state also takes the df64 kernel's name
@@ -137,10 +173,6 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
     if algorithm not in algorithms:
         raise ValueError(f"unknown algorithm {algorithm!r}; this wrapper "
                          f"takes {algorithms}")
-    if region is not None:
-        raise NotImplementedError(
-            "region (the overlapped sharded engine) is not ported yet "
-            "(ROADMAP A11)")
     if spec.ndim != 3:
         raise ValueError(f"{spec.name} is {spec.ndim}-D, not 3-D")
     if not 0 <= spec.radius <= MAX_RADIUS:
@@ -173,35 +205,49 @@ def _check(cur, donor, spec: StencilSpec, layout: Layout3D, algorithm: str,
             f"cur on {cur.device} but donor on {donor.device}")
     if cur.data_ptr() == donor.data_ptr():
         raise ValueError("donor must be a different buffer from cur")
-    return check_bounds(bounds, layout.interior, layout.guard)
+    box = check_bounds(bounds, layout.interior, layout.guard, shard=True)
+    region_cells(region, layout)
+    if region is not None:
+        depths = launch_depths(spec, cur.dtype, fused_steps)
+        if len(depths) > 1:
+            raise ValueError(
+                f"a region needs a pass of one launch: {fused_steps} fused "
+                f"steps of radius {spec.radius} take {len(depths)} (one "
+                f"launch holds {depths[0]})")
+    return box
 
 
 def stencil3d_step_plain(cur, donor, spec: StencilSpec, layout: Layout3D,
-                         fused_steps: int = 1, bounds=None):
+                         fused_steps: int = 1, bounds=None, region=None):
     """The kernel's plain PyTorch twin: the same K-level pass with tensor
     ops on whatever device and dtype ``cur`` has, each level masked to the
-    global interior (levels before the last: to ``bounds``, 4 or 6 ints,
-    see ``stencil3d_step``).  Writes the rounded interior of ``donor`` in
-    place (zero beyond the true interior) and returns it; the guard ring
-    of ``donor`` is left as it is.  A bfloat16 state is widened, computed
+    global interior (levels before the last: to ``bounds``, 4 or 6 ints, a
+    shard's box, ``check_bounds(..., shard=True)``; the last: that box cut
+    to the interior).  Writes the rounded interior of ``donor`` in place
+    (``region``'s rows and columns of it, ``region_cells``; zero beyond the
+    true interior) and returns it; the guard ring of ``donor`` and every
+    other cell are left as they are.  A bfloat16 state is widened, computed
     in float32 and rounded once, at the store."""
     K, r = fused_steps, spec.radius
     h, m, n = layout.interior
-    _, mr, nr = layout.rounded
     z0, r0, c0 = layout.origin
-    box = check_bounds(bounds, layout.interior, layout.guard)
+    i0, i1, j0, j1 = region_cells(region, layout)
+    box = check_bounds(bounds, layout.interior, layout.guard, shard=True)
+    last = (0, min(box[1], h), 0, min(box[3], m), 0, min(box[5], n))
+    start = (0, i0, j0)  # the window's first cell in each axis
     e = K * r
-    level = cur[z0 - e: z0 + h + e, r0 - e: r0 + mr + e,
-                c0 - e: c0 + nr + e].to(compute_dtype(cur.dtype))
+    level = cur[z0 - e: z0 + h + e, r0 + i0 - e: r0 + i1 + e,
+                c0 + j0 - e: c0 + j1 + e].to(compute_dtype(cur.dtype))
     for L in range(1, K + 1):
-        e = (K - L) * r  # the level's extent beyond the rounded interior
+        e = (K - L) * r  # the level's extent beyond the window
         full = apply_spec_3d(level, spec)
-        lohi = box if L < K else (0, h, 0, m, 0, n)
-        inside = tuple(slice(max(0, e + lohi[2 * a]), e + lohi[2 * a + 1])
+        lohi = box if L < K else last
+        inside = tuple(slice(max(0, e + lohi[2 * a] - start[a]),
+                             max(0, e + lohi[2 * a + 1] - start[a]))
                        for a in range(3))
         level = torch.zeros_like(full)
         level[inside] = full[inside]
-    donor[z0: z0 + h, r0: r0 + mr, c0: c0 + nr] = level
+    donor[z0: z0 + h, r0 + i0: r0 + i1, c0 + j0: c0 + j1] = level
     return donor
 
 
@@ -225,7 +271,7 @@ def _bind(name: str, bf16: bool):
     lib = _cuda_build.load(name)
     lib.ls_stencil3d_smem_bytes.restype = ctypes.c_longlong
     lib.ls_stencil3d_smem_bytes.argtypes = [ctypes.c_int] * 8
-    for entries, ints in ((_ENTRIES, 27), (_MARCH_ENTRIES, 22)):
+    for entries, ints in ((_ENTRIES, 31), (_MARCH_ENTRIES, 26)):
         for dtype, entry in entries.items():
             if (dtype == torch.bfloat16) != bf16:
                 continue
@@ -271,23 +317,45 @@ def _term_mix(spec: StencilSpec):
     return len(buffered), ring
 
 
+def smem_bytes(radius: int, K: int, bm: int, bn: int, n_buf: int, ring: int,
+               plan_len: int, itemsize: int) -> int:
+    """Shared-memory bytes of a general-kernel launch (``csrc/stencil3d.cu``
+    ``ls_stencil3d_smem_bytes``, which the card tests hold it against): the
+    tap table rounded up to 4 cells, the level rings (the input's one plane
+    more) and each buffered term's conv rings, at the level extents of a
+    (bm x bn) tile; -1 if the arguments are out of range."""
+    if not (0 <= radius <= MAX_RADIUS and 1 <= K <= MAX_FUSED and bm >= 1
+            and bn >= 1 and n_buf >= 0 and plan_len >= 0
+            and itemsize in (4, 8)):
+        return -1
+
+    def cells(L):
+        e = (K - L) * radius
+        return (bm + 2 * e) * (bn + 2 * e)
+
+    if cells(1) > PER_THREAD * THREADS:
+        return -1
+    total = -(-plan_len // 4) * 4
+    total += sum((ring + (L == 0)) * cells(L) for L in range(K))
+    total += sum((2 * radius + 1) * n_buf * cells(L) for L in range(1, K + 1))
+    return itemsize * total
+
+
 @functools.lru_cache(maxsize=None)
 def plan_pass(spec: StencilSpec, fused_steps: int, itemsize: int):
     """(K, block tile) of the kernel's passes for ``fused_steps`` levels of
     ``itemsize``-byte cells (4 float32, 8 float64, 2 bfloat16, whose rings
-    hold float32: float32's plan, asked of the bf16 library): the largest
-    tile whose shared-memory rings fit at that K, and if none fits, the
-    largest K <= ``fused_steps`` for which one does (the wrapper then runs
-    several passes)."""
-    lib = _lib_bf16() if itemsize == 2 else _lib()
+    hold float32: float32's plan): the largest tile whose shared-memory
+    rings fit at that K (``smem_bytes``), and if none fits, the largest K
+    <= ``fused_steps`` for which one does (the wrapper then runs several
+    passes)."""
     itemsize = max(itemsize, 4)
     n_buf, ring = _term_mix(spec)
     plan_len = plan_array(spec).numel()
     for K in range(fused_steps, 0, -1):
         for bm, bn in BLOCK_TILES:
-            need = lib.ls_stencil3d_smem_bytes(spec.radius, K, bm, bn,
-                                               n_buf, ring, plan_len,
-                                               itemsize)
+            need = smem_bytes(spec.radius, K, bm, bn, n_buf, ring, plan_len,
+                              itemsize)
             if 0 <= need <= MAX_SMEM:
                 return K, (bm, bn)
     raise ValueError(
@@ -295,16 +363,27 @@ def plan_pass(spec: StencilSpec, fused_steps: int, itemsize: int):
         f"at one step per pass")
 
 
+def launch_depths(spec: StencilSpec, dtype, k: int):
+    """The depths of the launches a pass of k steps in ``dtype`` takes: one
+    where ``march_takes``, else launches of the largest depth the general
+    kernel's shared memory holds (``plan_pass``), then the rest."""
+    if march_takes(spec, dtype, k):
+        return [k]
+    K = plan_pass(spec, k, dtype.itemsize)[0]
+    return [K] * (k // K) + ([k % K] if k % K else [])
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _z_chunk(layout: Layout3D, tile, device: torch.device) -> int:
-    """Output planes per block: the largest chunk that still gives every
-    SM a block, else the smallest.  A block recomputes K*r planes of
-    lookback at each end of its chunk, so longer chunks cost less."""
-    h, mr, nr = layout.rounded
+def _z_chunk(dims, tile, device: torch.device) -> int:
+    """Output planes per block over ``dims`` ``(h, rows, cols)``: the
+    largest chunk that still gives every SM a block, else the smallest.  A
+    block recomputes K*r planes of lookback at each end of its chunk, so
+    longer chunks cost less."""
+    h, mr, nr = dims
     tiles = -(-mr // tile[0]) * -(-nr // tile[1])
     for zc in Z_CHUNKS:
         if tiles * -(-h // zc) >= _sm_count(device):
@@ -313,61 +392,70 @@ def _z_chunk(layout: Layout3D, tile, device: torch.device) -> int:
 
 
 def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile,
-            box=None):
+            box=None, window=None):
     """One launch of the instance of ``cur``'s dtype, its levels before
-    the last kept to ``box`` (``check_bounds``' 6 ints; the interior when
-    None); raises if refused, and counts it."""
+    the last kept to ``box`` (``check_bounds``' 6 ints, a shard's box cut;
+    the interior when None), over the rows and columns ``window`` (``(r0,
+    r1, c0, c1)`` of the rounded plane; all of it when None); raises if
+    refused, and counts it (in ``launches_region`` too for a window)."""
     plan = _plan_buffer(spec, cur.device, cur.dtype)
     n_buf, ring = _term_mix(spec)
     nz, rows, pitch = layout.shape
     z0, r0, c0 = layout.origin
     h, m, n = layout.interior
     _, mr, nr = layout.rounded
-    zc = _z_chunk(layout, tile, cur.device)
-    box = check_bounds(box, layout.interior, layout.guard)
+    win = (0, mr, 0, nr) if window is None else window
+    zc = _z_chunk((h, win[1] - win[0], win[3] - win[2]), tile, cur.device)
+    box = check_bounds(box, layout.interior, layout.guard, shard=True)
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib_of(cur.dtype), _ENTRIES[cur.dtype])(
             cur.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.numel(),
             len(spec.terms), spec.radius, len(spec.residue), n_buf, ring, K,
             nz, rows, pitch, z0, r0, c0, h, m, n, mr, nr, tile[0], tile[1],
-            zc, *box, stream)
+            zc, *box, *win, stream)
     if err != 0:
         raise RuntimeError(
             f"stencil3d kernel launch failed: CUDA error {err}")
-    _count(cur.dtype)
+    _count(cur.dtype, window)
     return out
 
 
 def _launch_march(cur, out, spec: StencilSpec, layout: Layout3D, K: int,
-                  box):
+                  box, window=None):
     """One launch of the march kernel's instance of ``cur``'s dtype, its
-    first level kept to ``box`` at K = 2 (``check_bounds``' 6 ints);
-    raises if refused, and counts it."""
+    first level kept to ``box`` at K = 2 (``check_bounds``' 6 ints), over
+    the rows and columns ``window`` (all of the rounded plane when None);
+    raises if refused, and counts it (in ``launches_region`` too for a
+    window)."""
     plan = _plan_host(spec, cur.dtype)
     nz, rows, pitch = layout.shape
     z0, r0, c0 = layout.origin
     h, m, n = layout.interior
     _, mr, nr = layout.rounded
+    win = (0, mr, 0, nr) if window is None else window
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = getattr(_lib_of(cur.dtype), _MARCH_ENTRIES[cur.dtype])(
             cur.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.numel(),
             len(spec.terms), spec.radius, len(spec.residue), K, nz, rows,
-            pitch, z0, r0, c0, h, m, n, mr, nr, *box, stream)
+            pitch, z0, r0, c0, h, m, n, mr, nr, *box, *win, stream)
     if err != 0:
         raise RuntimeError(
             f"stencil3d march kernel launch failed: CUDA error {err}")
-    _count(cur.dtype)
+    _count(cur.dtype, window)
     stencil3d_step.launches_march += 1
     return out
 
 
-def _count(dtype):
-    """One launch of the instance of ``dtype``."""
+def _count(dtype, window=None):
+    """One launch of the instance of ``dtype``, over ``window`` if not
+    None."""
     attr = {torch.float64: "launches_f64",
             torch.bfloat16: "launches_bf16"}.get(dtype, "launches")
     setattr(stencil3d_step, attr, getattr(stencil3d_step, attr) + 1)
+    if window is not None:
+        stencil3d_step.launches_region += 1
 
 
 def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
@@ -392,39 +480,50 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
 
     ``bounds``, as the JAX wrapper's: 4 ints ``(rlo, rhi, clo, chi)`` or 6
     ``(zlo, zhi, rlo, rhi, clo, chi)`` in interior coordinates (the
-    interior when None; ``layout.check_bounds``), the box that the fused
-    levels before the last keep, so that a ghost ring the caller filled
-    stays alive through them.  The last level is masked to the interior
-    in every case (see ``stencil2d.stencil2d_step``): a one-step pass
-    only checks ``bounds``.  ``refresh`` refills the ring of the buffer
-    between two launches of a pass split for shared memory.  ``region``
-    is not ported (ROADMAP A11)."""
+    interior when None; a shard's box, ``layout.check_bounds(...,
+    shard=True)``), the box that the fused levels before the last keep, so
+    that a ghost ring the caller filled stays alive through them.  The last
+    level keeps that box cut to the interior (see
+    ``stencil2d.stencil2d_step``).  ``refresh`` refills the ring of the buffer between two
+    launches of a pass split for shared memory.
+
+    ``region`` (``((i0, i1), (j0, j1))``, a window of ``layout.grid``
+    tiles; the whole plane when None) writes those rows and columns of
+    ``donor`` only, every plane, and leaves its other cells as they were
+    (``launches_region`` counts such launches).  A pass the general
+    kernel's shared memory splits (``launch_depths``) cannot keep a
+    window -- its second launch would read cells the first did not write --
+    so such a call raises ``ValueError``, on the CPU as on a card."""
     del conv_carry  # bit-identical by contract; see the module docstring
     box = _check(cur, donor, spec, layout, algorithm, fused_steps, bounds,
                  region)
     if cur.device.type == "cpu":
         return stencil3d_step_plain(cur, donor, spec, layout, fused_steps,
-                                    box)
+                                    box, region)
     if cur.device.type != "cuda":
         raise ValueError(f"no stencil3d kernel for device {cur.device}")
-    return _kernel_pass(cur, donor, spec, layout, fused_steps, box, refresh)
+    return _kernel_pass(cur, donor, spec, layout, fused_steps, box, refresh,
+                        None if region is None else region_cells(region,
+                                                                 layout))
 
 
 def _kernel_pass(cur, donor, spec: StencilSpec, layout: Layout3D,
-                 fused_steps: int, box=None, refresh=None):
+                 fused_steps: int, box=None, refresh=None, window=None):
     """A checked pass on the card: the march kernel where ``march_takes``
-    says so, else the general kernel's launches, each keeping ``box``
-    (``check_bounds``' ints; the interior when None), the ring refilled
-    by ``refresh`` before each launch past the first."""
-    box = check_bounds(box, layout.interior, layout.guard)
+    says so, else the general kernel's launches (``launch_depths``), each
+    keeping ``box`` (``check_bounds``' ints; the interior when None), the
+    ring refilled by ``refresh`` before each launch past the first, over
+    the rows and columns ``window`` (all of the plane when None; a pass of
+    one launch only)."""
+    box = check_bounds(box, layout.interior, layout.guard, shard=True)
+    win = () if window is None else (window,)
     if march_takes(spec, cur.dtype, fused_steps):
-        return _launch_march(cur, donor, spec, layout, fused_steps, box)
+        return _launch_march(cur, donor, spec, layout, fused_steps, box, *win)
     itemsize = cur.element_size()
-    K, tile = plan_pass(spec, fused_steps, itemsize)
-    depths = [K] * (fused_steps // K) + (
-        [fused_steps % K] if fused_steps % K else [])
+    depths = launch_depths(spec, cur.dtype, fused_steps)
     if len(depths) == 1:
-        return _launch(cur, donor, spec, layout, K, tile, box)
+        return _launch(cur, donor, spec, layout, fused_steps,
+                       plan_pass(spec, fused_steps, itemsize)[1], box, *win)
     # alternate donor and a scratch buffer so the last pass lands in donor
     bufs = (donor, torch.zeros_like(donor))
     src = cur
@@ -432,14 +531,16 @@ def _kernel_pass(cur, donor, spec: StencilSpec, layout: Layout3D,
         dst = bufs[(len(depths) - 1 - i) % 2]
         if i and refresh is not None:
             src = refresh(src)
-        _launch(src, dst, spec, layout, k,
-                tile if k == K else plan_pass(spec, k, itemsize)[1], box)
+        _launch(src, dst, spec, layout, k, plan_pass(spec, k, itemsize)[1],
+                box)
         src = dst
     return donor
 
 
 # kernel launches per instance, for chip_smoke.py: float32, float64 and
-# bfloat16, and the march kernel's (of any dtype) apart
+# bfloat16, the march kernel's (of any dtype) apart, and the launches over a
+# region
 stencil3d_step.launches = stencil3d_step.launches_f64 = 0
 stencil3d_step.launches_bf16 = 0
 stencil3d_step.launches_march = 0
+stencil3d_step.launches_region = 0

@@ -3,8 +3,9 @@
 Counterpart of ``lorastencil_tpu/parallel/multihost.py``: ``initialize``
 starts the process group (``jax.distributed.initialize`` there,
 ``torch.distributed.init_process_group`` here), ``global_mesh`` builds a
-mesh over every process's devices and ``run_replicated`` runs a sharded
-engine so that every process receives the whole global result.
+mesh of any shape -- (dx,), (dx, dy) or (dz, dx, dy) -- over every
+process's devices and ``run_replicated`` runs a sharded engine of any
+dimension so that every process receives the whole global result.
 
 Nothing here reads a cluster from the environment: the caller names the
 coordinator (``host:port``, any free port of one of the hosts), the

@@ -97,16 +97,16 @@ def test_one_step_pass_ignores_bounds():
 
 
 @pytest.mark.parametrize("name,interior,wrapper,bad", [
-    ("1d2r", (3001,), stencil1d.stencil1d_lanes_step, [(1, 3001), (0, 3000), (-99, 3001),
-                                                       (0, 3001 + 99), (0,), "ab"]),
+    # every wrapper takes a shard's box (an end inside the interior, a start
+    # beyond the guard: test_torch_region{1,2,3}d.py), not a start inside it
+    ("1d2r", (3001,), stencil1d.stencil1d_lanes_step, [(1, 3001), (7, 3000), (0, 3001, 0),
+                                                       (0,), "ab"]),
     ("1d1r", (3001,), stencil1d.stencil1d_step, [(1, 3001), (0, 3000, 0, 1)]),
-    # the 2-D wrapper takes a shard's box (an end inside the interior, a start
-    # beyond the guard: test_torch_region2d.py), not a start inside it
     ("star2d1r", (37, 45), stencil2d.stencil2d_step, [(1, 37, 0, 45), (0, 37, 2, 45),
                                                       (0, 37), "ab"]),
-    ("box3d1r", (9, 20, 70), stencil3d.stencil3d_step, [(0, 20, 0, 69), (1, 9, 0, 20, 0, 70),
+    ("box3d1r", (9, 20, 70), stencil3d.stencil3d_step, [(0, 20, 3, 70), (1, 9, 0, 20, 0, 70),
                                                         (0, 9, 0, 20, 0, 70, 0),
-                                                        (0, 9 + 99, 0, 20, 0, 70)]),
+                                                        (0, 9, 2, 20, 0, 70)]),
 ])
 def test_wrappers_refuse_bad_bounds(name, interior, wrapper, bad):
     eng = ghost_engine(name, interior, "periodic", {})

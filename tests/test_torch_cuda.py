@@ -1909,3 +1909,153 @@ def test_sharded_engine_on_card(cuda, tiled_2d, boundary, dtype):
     assert torch.equal(got, single.run(g0, 3))
     regions = stencil2d.stencil2d_step.launches_region - before
     assert regions == (0 if dtype == "df64" else 3 * 4 * 5)
+
+
+# -- region launches in 1-D and 3-D, the sharded 1-D and 3-D engines (A11(b), (c)) --
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("kernel", ["wide", "narrow"])
+def test_region_1d_launches_match_the_twin(cuda, kernel, dtype):
+    """Each 1-D pass kernel (wide_kernel; lanes_kernel, or pass_kernel<double>
+    in float64) over the overlapped step's windows (head, tail, inner), a
+    split into thirds and a one-tile window, with a shard's box (a start beyond
+    the guard, an end inside the interior): bit for bit against the twin with
+    the same window, every cell outside the window left as it was (NaN)."""
+    spec = get_shape("1d2r")
+    k = 3 if kernel == "wide" else 2
+    n = 5 * TILE_1D + 100
+    lay = Layout1D(interior=n, halo=4, tile=TILE_1D, guard=guard_1d(4, k * 4))
+    (g,) = lay.grid
+    windows = [(0, 1), (g - 1, g), (1, g - 1), (0, 2), (2, 4), (4, g), (3, 4)]
+    bounds = (-5000, n - 150)
+    x = torch.as_tensor(np.random.default_rng(8).integers(0, 100, lay.shape),
+                        device=cuda).to(dtype)
+    step = stencil1d.stencil1d_step if kernel == "wide" else stencil1d.stencil1d_lanes_step
+    for region in windows:
+        before = (step.launches_region, stencil1d.stencil1d_lanes_step.launches_lanes)
+        got = step(x, torch.full_like(x, float("nan")), spec, lay, fused_steps=k,
+                   bounds=bounds, region=region)
+        plain = (stencil1d.stencil1d_step_plain if kernel == "wide"
+                 else stencil1d.stencil1d_lanes_step_plain)
+        want = plain(x, torch.full_like(x, float("nan")), spec, lay, k, bounds, region)
+        torch.cuda.synchronize()
+        assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0)), (kernel, region)
+        assert step.launches_region == before[0] + 1
+        lanes = kernel == "narrow" and dtype != torch.float64
+        assert stencil1d.stencil1d_lanes_step.launches_lanes == before[1] + lanes
+
+
+def test_region_1d_refuses_a_window_off_the_quads(cuda):
+    """The narrow pass's entry refuses a window whose first cell is off its
+    16-byte quads: no scalar copies stand in."""
+    spec = get_shape("1d2r")
+    lay = Layout1D(interior=4 * TILE_1D, halo=4, tile=TILE_1D, guard=8)
+    x = torch.ones(lay.shape, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        stencil1d._lanes(x, torch.zeros_like(x), spec, lay, 1, window=(2, 2 + TILE_1D))
+    stencil1d._lanes(x, torch.zeros_like(x), spec, lay, 1, window=(4, 4 + TILE_1D))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("kernel", ["march", "general"])
+def test_region_3d_launches_match_the_twin(cuda, kernel, dtype):
+    """The march kernel (star3d1r, k = 2) and the general kernel (star3d1r,
+    k = 4) over the overlapped step's five windows and a one-tile window,
+    with a z-sharded shard's box (starts beyond the guard, ends inside the
+    interior in every axis): bit for bit against the twin with the same
+    window on the integer fill (power-of-two taps: the kernels' fused
+    multiply-adds round nothing), the rest left as it was."""
+    spec, k = get_shape("star3d1r"), (2 if kernel == "march" else 4)
+    interior = (9, 100, 300)
+    lay = Layout3D(interior=interior, halo=spec.halo, tile=(32, 64),
+                   guard=guard_3d(spec.halo, k * spec.radius))
+    gi, gj = lay.grid
+    windows = [((0, 1), (0, gj)), ((gi - 1, gi), (0, gj)), ((1, gi - 1), (0, 1)),
+               ((1, gi - 1), (gj - 1, gj)), ((1, gi - 1), (1, gj - 1)), ((1, 2), (2, 3))]
+    bounds = (-100, 7, -1000, 90, -1000, 270)
+    x = torch.as_tensor(np.random.default_rng(9).integers(0, 100, lay.shape),
+                        device=cuda).to(dtype)
+    step = stencil3d.stencil3d_step
+    for region in windows:
+        before = (step.launches_region, step.launches_march)
+        got = step(x, torch.full_like(x, float("nan")), spec, lay, fused_steps=k,
+                   bounds=bounds, region=region)
+        want = stencil3d.stencil3d_step_plain(x, torch.full_like(x, float("nan")), spec, lay,
+                                              k, bounds, region)
+        torch.cuda.synchronize()
+        assert torch.equal(got.nan_to_num(-1.0), want.nan_to_num(-1.0)), (kernel, region)
+        assert step.launches_region == before[0] + 1
+        assert step.launches_march == before[1] + (kernel == "march")
+
+
+def test_smem_bytes_mirror_matches_the_kernel(cuda):
+    """``stencil3d.smem_bytes`` (which sizes every general-kernel pass, and the
+    region refusal on the CPU) against the kernel's own
+    ``ls_stencil3d_smem_bytes``, over radii, depths, tiles and term mixes."""
+    lib = stencil3d._lib()
+    for radius in range(0, 9):
+        for K in range(1, 9):
+            for bm, bn in stencil3d.BLOCK_TILES:
+                for n_buf, ring, plan_len in ((0, 1, 7), (1, 3, 13), (6, 5, 100), (14, 9, 400)):
+                    for itemsize in (4, 8):
+                        assert stencil3d.smem_bytes(radius, K, bm, bn, n_buf, ring, plan_len,
+                                                    itemsize) == lib.ls_stencil3d_smem_bytes(
+                            radius, K, bm, bn, n_buf, ring, plan_len, itemsize)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "df64"])
+@pytest.mark.parametrize("boundary", ["dirichlet0", "periodic", "reflect"])
+def test_sharded_1d_engine_on_card(cuda, boundary, dtype):
+    """A (4,) mesh of shards on one card (a tailed last block under a ghost
+    boundary) against the single-device engine's kernel family at the same
+    depth, bit for bit; the overlapped step's region launches counted."""
+    from lorastencil_tpu_torch.parallel import domain
+
+    name, n = "1d2r", 50_001
+    spec = get_shape(name)
+    g0 = reference.random_padded(spec, (n,), seed=6) * (np.pi / 100)
+    eng = domain.sharded_engine(name, n, (4,), devices=[cuda] * 4, dtype=dtype,
+                                boundary=boundary)
+    alg = "auto" if dtype == "df64" else "mxu" if eng.lanes else "vpu"
+    single = engine.StencilEngine(spec, (n,), engine.EngineConfig(
+        dtype=dtype, boundary=boundary, fused_steps=eng.fused_steps, algorithm=alg), device=cuda)
+    before = stencil1d.stencil1d_step.launches_region
+    got = eng.run(g0, 3)
+    regions = stencil1d.stencil1d_step.launches_region - before
+    want = single.run(g0, 3)
+    if dtype == "df64" and not eng.lanes:
+        assert (got - want).abs().max() <= 1e-15 * want.abs().max()
+    else:
+        assert torch.equal(got, want)
+    assert regions == (0 if dtype == "df64" else 3 * 4 * 3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "df64"])
+@pytest.mark.parametrize("boundary", ["dirichlet0", "periodic", "reflect"])
+@pytest.mark.parametrize("mesh", [(2, 2), (2, 2, 2)])
+def test_sharded_3d_engine_on_card(cuda, mesh, boundary, dtype):
+    """Meshes of shards on one card -- (2, 2) overlapped, (2, 2, 2) z-sharded
+    ring-out -- against the single-device engine at the same depth, bit for
+    bit; the region launches counted."""
+    from lorastencil_tpu_torch.parallel import domain
+
+    name, interior = "star3d1r", (10, 180, 760)
+    spec = get_shape(name)
+    g0 = reference.random_padded(spec, interior, seed=6) * (np.pi / 100)
+    k = 1 if dtype == "df64" else 2
+    eng = domain.sharded_engine(name, interior, mesh, devices=[cuda] * int(np.prod(mesh)),
+                                dtype=dtype, boundary=boundary, fused_steps=k, tile=(32, 64))
+    single = engine.StencilEngine(spec, interior, engine.EngineConfig(
+        dtype=dtype, boundary=boundary, fused_steps_3d=k), device=cuda)
+    before = stencil3d.stencil3d_step.launches_region
+    got = eng.run(g0, 4)
+    regions = stencil3d.stencil3d_step.launches_region - before
+    assert torch.equal(got, single.run(g0, 4))
+    overlapped = eng._step_fn().__name__ == "_local_step_overlap"
+    assert overlapped == (len(mesh) == 2 and dtype != "df64")
+    assert regions == (4 // k * 4 * 5 if overlapped else 0)
+
+
+def test_dryrun_multichip_on_card(cuda):
+    from lorastencil_tpu_torch.parallel import dryrun
+
+    dryrun.dryrun_multichip(8, devices=[cuda] * 8)

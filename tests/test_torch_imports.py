@@ -28,6 +28,7 @@ def test_port_modules_load_no_jax_and_no_jax_package():
             "lorastencil_tpu_torch.models.factorize", "lorastencil_tpu_torch.ops.torch_ref",
             "lorastencil_tpu_torch.utils.reference", "lorastencil_tpu_torch.cli",
             "lorastencil_tpu_torch.parallel.domain",
+            "lorastencil_tpu_torch.parallel.dryrun",
             "lorastencil_tpu_torch.parallel.multihost"} <= set(modules)
     # the port's examples too (examples/ on the path)
     scripts = ["chip_smoke", "launch_overhead", "torch_inverse_source"]

@@ -246,11 +246,21 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     wide, _ = _specs("r40")
     lanes, flat = stencil1d.stencil1d_lanes_step, stencil1d.stencil1d_step
     flat(cur, donor, spec, lay, bounds=(0, 100))  # the interior: ported (A6)
-    for bad in ((1, 100), (0, 99), (-9, 100), (0, 100, 0)):
+    # a shard's box (an end inside the interior, a start beyond the guard:
+    # test_torch_region1d.py) is taken, a start inside the interior is not
+    flat(cur, donor, spec, lay, bounds=(-9, 99))
+    for bad in ((1, 100), (5, 99), (0, 100, 0), "ab"):
         with pytest.raises(ValueError, match="bounds"):
             flat(cur, donor, spec, lay, bounds=bad)
-    with pytest.raises(NotImplementedError, match="A11"):
-        lanes(cur, donor, spec, lay, region=(0, 1))
+    # region, once refused (ROADMAP A11(b)), runs: a window of whole tiles
+    # writes its cells only; a window off the tile grid is refused
+    nan = torch.full(lay.shape, float("nan"))
+    got = lanes(cur + 1, nan.clone(), spec, lay, region=(0, 1))
+    assert not got[lay.origin: lay.origin + lay.rounded].isnan().any()
+    assert got[:lay.origin].isnan().all()
+    for bad in ((0, 2), (1, 1), (0,), "ab"):
+        with pytest.raises(ValueError, match="region"):
+            lanes(cur, donor, spec, lay, region=bad)
     with pytest.raises(ValueError, match="effective radius 40"):
         lanes(cur, donor, wide, _port_layout(wide, 100, 40))
     with pytest.raises(ValueError, match="k\\*r_eff = 36"):

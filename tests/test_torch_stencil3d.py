@@ -272,11 +272,20 @@ def test_wrapper_refuses_what_the_kernel_does_not_take():
         stencil3d.stencil3d_step(cur, donor, spec, lay, algorithm="mxu")
     stencil3d.stencil3d_step(cur, donor, spec, lay, bounds=(0, 4, 0, 8, 0, 8))  # ported (A6)
     stencil3d.stencil3d_step(cur, donor, spec, lay, bounds=(-2, 4, -4, 12, -4, 12))
-    for bad in ((0, 4, 0, 8, 0, 7), (1, 4, 0, 8, 0, 8), (0, 4, -5, 8, 0, 8), (0, 4, 0, 8, 0)):
+    # a shard's box (an end inside the interior, a start beyond the guard:
+    # test_torch_region3d.py) is taken, a start inside the interior is not
+    stencil3d.stencil3d_step(cur, donor, spec, lay, bounds=(0, 4, -5, 7, 0, 8))
+    for bad in ((0, 4, 0, 8, 2, 8), (1, 4, 0, 8, 0, 8), (0, 4, 3, 8), (0, 4, 0, 8, 0)):
         with pytest.raises(ValueError, match="bounds"):
             stencil3d.stencil3d_step(cur, donor, spec, lay, bounds=bad)
-    with pytest.raises(NotImplementedError, match="A11"):
-        stencil3d.stencil3d_step(cur, donor, spec, lay, region=((0, 1), (0, 1)))
+    # region, once refused (ROADMAP A11(c)), runs: a window of whole tiles
+    # writes its rows and columns only; a window off the tile grid is refused
+    nan = torch.full(lay.shape, float("nan"))
+    got = stencil3d.stencil3d_step(cur + 1, nan.clone(), spec, lay, region=((0, 1), (0, 1)))
+    assert not got[2:6, 4:12, 4:12].isnan().any() and got[:2].isnan().all()
+    for bad in (((0, 2), (0, 1)), ((0, 1), (1, 1)), ((0, 1),), "ab"):
+        with pytest.raises(ValueError, match="region"):
+            stencil3d.stencil3d_step(cur, donor, spec, lay, region=bad)
     with pytest.raises(ValueError, match="unknown algorithm"):
         stencil3d.stencil3d_step(cur, donor, spec, lay, algorithm="fast")
     with pytest.raises(ValueError, match="reach"):
