@@ -389,7 +389,29 @@ Phases, each printing one line or more and raising on failure:
    bit, a snapshot's ms and bytes; (e) ``examples/torch_heat_diffusion.py``
    on the card printing what it prints on the CPU; (f) TPU kernel #11's
    radius-0 float64 instance timed at 256^3 beside its bound and a float64
-   ``F.conv3d`` 1x1x1 step.
+   ``F.conv3d`` 1x1x1 step;
+28. the plan strip and plan march kernels (``csrc/plan2d.cu``,
+   ``csrc/plan3d.cu``, the redesigns of ``step_kernel`` and
+   ``stencil3d_kernel``): their ptxas lines, failing on a spill; (a) each on
+   its own entry in every dtype and depth it takes (``plan_check_cases``)
+   bit for bit against its twin (0/1 fill, dyadic taps, two passes; float64
+   the pi/100 fill too) and against the kernel it replaces (pi/100 fill),
+   under a ring box and over a window; (b) ``PLAN_CASES`` through
+   StencilEngine with their launches counted from zero on the kernel the
+   routing rules name, the dyadic twin's run bit for bit against the
+   twins', and the main path's routes unchanged (star2d1r 8192^2 x 256:
+   256 strip launches, star2d3r x 64: 32 fused strip launches, star3d1r and
+   box3d1r 256^3 x 64: 32 march launches, none of a plan kernel); (c) every
+   case of ``PLAN_CASES`` timed at full size on its plan kernel beside the
+   kernel it replaces (and k strip launches where the strip kernel takes
+   the spec's steps: the routing rule ``stencil2d.strips_beat_plan``), its
+   twin, one cuDNN step and its bound, and phase 25's tile case over its
+   shard's inner window; (d) each case of (c) that runs k strip launches,
+   under a periodic ring: through StencilEngine, counted (2k strip launches
+   in run(2k), none of a plan kernel) and bit for bit against the twins'
+   fused run on the dyadic 0/1 fill, then one pass timed on the plan strip
+   kernel with the ring's box beside k strip launches with the ring
+   refresh between them and beside the wrapper's pass, in turns.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -400,6 +422,7 @@ was loaded.
 
 import concurrent.futures
 import functools
+import itertools
 import json
 import subprocess
 import sys
@@ -426,7 +449,11 @@ SOURCES = {"stencil2d": "lorastencil_tpu_torch/csrc/stencil2d.cu",
            "stencil3d_bf16": "lorastencil_tpu_torch/csrc/stencil3d_bf16.cu",
            "stencil1d": "lorastencil_tpu_torch/csrc/stencil1d.cu",
            "stencil1d_bf16": "lorastencil_tpu_torch/csrc/stencil1d_bf16.cu",
-           "resident2d": "lorastencil_tpu_torch/csrc/resident2d.cu"}
+           "resident2d": "lorastencil_tpu_torch/csrc/resident2d.cu",
+           "plan2d": "lorastencil_tpu_torch/csrc/plan2d.cu",
+           "plan2d_bf16": "lorastencil_tpu_torch/csrc/plan2d_bf16.cu",
+           "plan3d": "lorastencil_tpu_torch/csrc/plan3d.cu",
+           "plan3d_bf16": "lorastencil_tpu_torch/csrc/plan3d_bf16.cu"}
 REPLACES = {"stencil2d": "lorastencil_tpu/ops/pallas_2d.py:127",
             "stencil2d_skew": "lorastencil_tpu/ops/pallas_2d.py:686",
             "stencil2d_resident": "lorastencil_tpu/ops/pallas_2d.py:981",
@@ -491,6 +518,12 @@ def _counters():
            "stencil3d": (stencil3d.stencil3d_step, "launches"),
            "df64_3d_step": (stencil3d.stencil3d_step, "launches_f64"),
            "stencil3d_march": (stencil3d.stencil3d_step, "launches_march"),
+           # the plan strip and plan march kernels (csrc/plan2d.cu,
+           # csrc/plan3d.cu), of any dtype
+           "stencil2d_plan_strip": (stencil2d.stencil2d_step,
+                                    "launches_plan_strip"),
+           "stencil3d_plan_march": (stencil3d.stencil3d_step,
+                                    "launches_plan_march"),
            "df64_step": (stencil2d.stencil2d_step, "launches_f64"),
            "stencil2d_skew": (stencil2d.stencil2d_skew_step, "launches"),
            "stencil2d_skew_f64": (stencil2d.stencil2d_skew_step,
@@ -3051,12 +3084,16 @@ RUN_COUNTERS = ("stencil2d_resident", "stencil2d_resident_pair",
 GHOST_KERNELS = (
     ("fused_strip_kernel", "star2d3r", (1000, 1000), "float32", {}, 2,
      "stencil2d_fused_strip"),
+    ("plan_strip_kernel", "star2d1r", (1000, 1000), "float32",
+     {"fused_steps": 2}, 2, "stencil2d_plan_strip"),
+    ("plan_strip_kernel", "box2d3r", (300, 140), "float32",
+     {"fused_steps": 3}, 3, "stencil2d_plan_strip"),
+    ("plan_strip_kernel<double>", "star2d1r", (1000, 1000), "float64",
+     {"fused_steps": 2}, 2, "stencil2d_plan_strip"),
     ("step_kernel<float> fused", "star2d1r", (1000, 1000), "float32",
-     {"fused_steps": 2}, 2, "stencil2d"),
-    ("step_kernel<float> fused", "box2d3r", (300, 140), "float32",
-     {"fused_steps": 3}, 3, "stencil2d"),
+     {"fused_steps": 4}, 4, "stencil2d"),
     ("step_kernel<double> fused", "star2d1r", (1000, 1000), "float64",
-     {"fused_steps": 2}, 2, "df64_step"),
+     {"fused_steps": 3}, 3, "df64_step"),
     ("march_kernel<float> K=2", "star3d1r", (37, 45, 130), "float32", {}, 2,
      "stencil3d_march"),
     ("march_kernel<float> K=2", "box3d1r", (37, 45, 130), "float32", {}, 2,
@@ -3153,8 +3190,9 @@ def check_ghost_kernels(device):
                           fused_steps=k, bounds=bounds)
             torch.cuda.synchronize()
             c = counts()
-            if c[counter] != 1 or (kernel.startswith("step_kernel<float>")
-                                   and c["stencil2d_fused_strip"]) or (
+            if c[counter] != 1 or (kernel.startswith("step_kernel")
+                                   and (c["stencil2d_fused_strip"]
+                                        or c["stencil2d_plan_strip"])) or (
                     kernel.startswith("stencil3d_kernel")
                     and c["stencil3d_march"]):
                 raise AssertionError(f"{kernel} {name} {mode}: launches "
@@ -3294,24 +3332,24 @@ def custom_coeffs():
 
 
 # (coefficients, engine options, (terms, residue points), the kernel a pass
-# runs in float32 and in df64, the boundary modes): the dispatch the wrappers'
-# rules must give, checked before each run
+# runs in float32 and in df64, the boundary modes): the dispatch the
+# wrappers' rules must give, checked before each run
 CUSTOM_CASES = (
     ("5x5 asym", {}, (3, 4), ("strip_kernel", "strip64_kernel"),
      ("dirichlet0", "periodic", "reflect")),
     ("5x5 asym", {"fused_steps": 2}, (3, 4),
-     ("step_kernel<float> fused", None), ("dirichlet0", "periodic")),
+     ("strip_kernel x2", None), ("dirichlet0", "periodic")),
     ("heat5x5", {}, (2, 0), ("fused_strip_kernel", "strip64_kernel"),
      ("dirichlet0", "periodic")),
     ("heat5x5", {"fused_steps": 1}, (2, 0), ("strip_kernel", None),
      ("dirichlet0", "periodic")),
     ("3x3 inverse-source", {}, (1, 0),
      ("fused_strip_kernel", "strip64_kernel"), ("dirichlet0", "periodic")),
-    ("9x9 rank 4", {}, (4, 0), ("step_kernel<float>", "step_kernel<double>"),
+    ("9x9 rank 4", {}, (4, 0), ("plan_strip_kernel", "plan_strip_kernel<double>"),
      ("dirichlet0", "periodic")),
     ("separable-z", {}, (1, 0), ("march_kernel", "march_kernel"),
      ("dirichlet0", "periodic")),
-    ("per-plane", {}, (6, 3), ("stencil3d_kernel", "stencil3d_kernel"),
+    ("per-plane", {}, (6, 3), ("plan_march_kernel", "plan_march_kernel"),
      ("dirichlet0", "periodic")))
 # the whole-grid runs of a custom spec: (coefficients, interior)
 CUSTOM_RESIDENT = ("5x5 asym", SMALL_2D)
@@ -3332,13 +3370,23 @@ def custom_kernel(eng):
     if spec.ndim == 3:
         if s3.march_takes(spec, eng.dtype, k):
             return "march_kernel", "stencil3d_march", ()
+        if s3.plan_march_takes(spec, eng.dtype, k):
+            return ("plan_march_kernel", "stencil3d_plan_march",
+                    ("stencil3d_march",))
         return ("stencil3d_kernel", "df64_3d_step" if f64 else "stencil3d",
-                ("stencil3d_march",))
+                ("stencil3d_march", "stencil3d_plan_march"))
+    strip = "strip64_kernel" if f64 else "strip_kernel"
     if k == 1 and s2.strip_takes(spec, eng.dtype):
-        return ("strip64_kernel" if f64 else "strip_kernel", "stencil2d_k1",
-                ())
+        return strip, "stencil2d_k1", ()
     if s2.fused_strip_takes(spec, eng.dtype, k):
         return "fused_strip_kernel", "stencil2d_fused_strip", ()
+    if k > 1 and s2.strips_beat_plan(spec, eng.dtype, k):
+        return (f"{strip} x{k}", "stencil2d_k1",
+                ("stencil2d_plan_strip", "stencil2d_fused_strip"))
+    if s2.plan_strip_takes(spec, eng.dtype, k):
+        return ("plan_strip_kernel<double>" if f64 else "plan_strip_kernel",
+                "stencil2d_plan_strip", ("stencil2d_k1",
+                                         "stencil2d_fused_strip"))
     kernel = "step_kernel<double>" if f64 else "step_kernel<float>"
     return (kernel + (" fused" if k > 1 else ""),
             "df64_step" if f64 else "stencil2d",
@@ -3601,13 +3649,13 @@ def check_custom_kernels(device):
             x = eng.to_internal(custom_fills(
                 spec.padded_shape(eng.interior), device)[1])
             if spec.ndim == 3:
-                if kernel != "march_kernel":
+                if kernel not in ("march_kernel", "plan_march_kernel"):
                     continue
                 other = "stencil3d_kernel"
                 want = general_3d(x, spec, lay, k)
                 got = s3.stencil3d_step(x, torch.zeros_like(x), spec, lay,
                                         fused_steps=k)
-            elif kernel.startswith(("strip", "fused_strip")):
+            elif kernel.startswith(("strip", "fused_strip", "plan_strip")):
                 other = ("step_kernel<double>" if eng.df64 else
                          "step_kernel<float>") + (" fused" if k > 1 else "")
                 want = torch.zeros_like(x)
@@ -3908,7 +3956,9 @@ def custom_paths(device, card):
             if expect is None:
                 continue
             for mode in modes:
-                rec = check_custom(name, kw, dtype, mode, device, expect)
+                rec = check_custom(name, kw, dtype, mode, device,
+                                   expect.get(mode) if isinstance(expect, dict)
+                                   else expect)
                 if (rec["terms"], rec["residue"]) != (terms, residue):
                     raise AssertionError(f"{name}: {rec['terms']} terms, "
                                          f"{rec['residue']} residue points")
@@ -3972,7 +4022,9 @@ def custom_kernel_entries(custom):
                       "stencil3d_step" if wrapper == "stencil3d" else wrapper)
                      + f"[{'k=2, ' if k == 2 and dims == 2 else ''}custom "
                        f"{name}]")
-            source = "stencil3d" if dims == 3 else "stencil2d"
+            source = ("plan3d" if t["kernel"].startswith("plan_march")
+                      else "plan2d" if t["kernel"].startswith("plan_strip")
+                      else "stencil3d" if dims == 3 else "stencil2d")
         entries.append(dict({
             "name": label, "route": "cuda", "source": SOURCES[source],
             "replaces": REPLACES[wrapper], "launches": rec["launches_4"],
@@ -3987,7 +4039,8 @@ def custom_kernel_entries(custom):
 BF16 = torch.bfloat16
 # Each bf16 instance's check cases: (kernel, spec, interior, k or "run",
 # the wrapper of the pass, the counter its launches count in besides the
-# wrapper's launches_bf16).  "5x5 asym" is phase 22's custom spec.
+# wrapper's launches_bf16; None: a tile kernel's, which counts in none of
+# STRIP_COUNTERS).  "5x5 asym" is phase 22's custom spec.
 BF16_CHECKS = (
     ("strip_kernel<bf16>", "star2d1r", INTERIOR, 1, "step", "stencil2d_k1"),
     ("strip_kernel<bf16>", "box2d3r", INTERIOR, 1, "step", "stencil2d_k1"),
@@ -3995,8 +4048,11 @@ BF16_CHECKS = (
      "stencil2d_fused_strip"),
     ("fused_strip_kernel<bf16>", "star2d3r", INTERIOR, 2, "skew",
      "stencil2d_skew_fused_strip"),
-    ("step_kernel<bf16> fused", "star2d1r", (1000, 1000), 3, "step", None),
-    ("step_kernel<bf16> fused", "5x5 asym", INTERIOR, 2, "step", None),
+    ("plan_strip_kernel<bf16>", "star2d1r", (1000, 1000), 3, "step",
+     "stencil2d_plan_strip"),
+    ("plan_strip_kernel<bf16>", "5x5 asym", INTERIOR, 2, "step",
+     "stencil2d_plan_strip"),
+    ("step_kernel<bf16> fused", "star2d1r", (1000, 1000), 4, "step", None),
     ("step_kernel<bf16>", "custom_r5", (1000, 1000), 1, "step", None),
     ("skew_kernel<bf16>", "star2d1r", INTERIOR, 2, "skew", None),
     ("resident_smem_kernel<bf16>", "star2d1r", SMALL_2D, "run", None,
@@ -4012,8 +4068,11 @@ BF16_PATHS = (
      "stencil2d_k1", BENCH_STEPS, ("stencil2d_fused_strip",)),
     ("fused_strip_kernel<bf16>", "star2d3r", INTERIOR, {}, FUSED_STEPS,
      "stencil2d_fused_strip", FUSED_STEPS // 2, ("stencil2d_k1",)),
-    ("step_kernel<bf16> fused", "star2d1r", INTERIOR, {"fused_steps": 3}, 6,
-     "stencil2d_bf16", 2, ("stencil2d_k1", "stencil2d_fused_strip")),
+    ("plan_strip_kernel<bf16>", "star2d1r", INTERIOR, {"fused_steps": 3}, 6,
+     "stencil2d_plan_strip", 2, ("stencil2d_k1", "stencil2d_fused_strip")),
+    ("step_kernel<bf16> fused", "star2d1r", INTERIOR, {"fused_steps": 4}, 8,
+     "stencil2d_bf16", 2, ("stencil2d_k1", "stencil2d_fused_strip",
+                           "stencil2d_plan_strip")),
     ("step_kernel<bf16>", "custom_r5", INTERIOR, {"fused_steps": 1}, 4,
      "stencil2d_bf16", 4,
      ("stencil2d_k1", "stencil2d_fused_strip", "stencil2d_wide")),
@@ -4028,6 +4087,10 @@ BF16_PATHS = (
 # the counters of the other dtypes, which no bf16 run may add to
 NOT_BF16 = ("stencil2d", "df64_step", "stencil2d_skew", "stencil2d_skew_f64",
             "stencil2d_resident", "stencil2d_resident_pair")
+# the counters of the strip kernels' launches and the wide kernel's, which a
+# tile kernel's launch leaves as they are
+STRIP_COUNTERS = ("stencil2d_k1", "stencil2d_fused_strip",
+                  "stencil2d_plan_strip", "stencil2d_wide")
 # C3's crosses: radius, interior, dtype, the counter of its passes' kernel
 C3_CASES = ((17, INTERIOR, "float32", "stencil2d"),
             (64, INTERIOR, "float32", "stencil2d_wide"),
@@ -4114,7 +4177,8 @@ def bf16_check(kernel, name, interior, k, kind, counter, device):
         torch.cuda.synchronize()
         c = counts()
         if c[wrapper_bf16] != 1 or any(c[n] for n in NOT_BF16) or (
-                counter and c[counter] != 1):
+                c[counter] != 1 if counter
+                else any(c[n] for n in STRIP_COUNTERS)):
             raise AssertionError(f"{kernel} {name}: launched {c}")
         if k == "run":
             want = run_steps(s2.stencil2d_step, x, spec, lay, 4)
@@ -4455,6 +4519,7 @@ def bf16_phase(device, card):
                     f"{' k=' + str(t['steps_per_launch']) if 'resident' not in kernel else ''}]",
             "route": "cuda",
             "source": SOURCES["resident2d" if "smem" in kernel
+                              else "plan2d_bf16" if "plan_strip" in kernel
                               else "stencil2d"],
             "replaces": REPLACES[replaces.get(kernel, "stencil2d")],
             "launches": launches[kernel], "max_abs_err": errs[kernel]}, **t))
@@ -4821,7 +4886,8 @@ SHARDED_CASES = (
      "stencil2d_k1"),
     (None, "star2d1r", (8190, 8191), 8, dict(boundary="reflect"), (3, 3),
      "stencil2d_k1"),
-    ("tile", "9x9 rank 4", (4096, 4096), 4, {}, (2, 2), "stencil2d"),
+    ("tile", "9x9 rank 4", (4096, 4096), 4, {}, (2, 2),
+     "stencil2d_plan_strip"),
     ("wide", "cross r64", (2048, 2048), 2, dict(tile=(64, 128)), (2, 2),
      "stencil2d_wide"),
     ("strip bf16", "star2d1r", INTERIOR, BENCH_STEPS, dict(dtype="bfloat16"),
@@ -4829,7 +4895,7 @@ SHARDED_CASES = (
     ("fused strip bf16", "star2d3r", (4096, 4096), 8,
      dict(dtype="bfloat16", fused_steps=2), (2, 2), "stencil2d_fused_strip"),
     ("tile bf16", "9x9 rank 4", (2048, 2048), 2, dict(dtype="bfloat16"),
-     (2, 2), "stencil2d_bf16"),
+     (2, 2), "stencil2d_plan_strip"),
     ("wide bf16", "cross r64", (2048, 2048), 2,
      dict(dtype="bfloat16", tile=(64, 128)), (2, 2), "stencil2d_wide"),
     (None, "star2d1r", INTERIOR, 32, dict(dtype="df64"), (2, 2), "df64_step"),
@@ -4843,7 +4909,7 @@ REGION_KERNELS = (("strip", "star2d1r", 1, "stencil2d_k1"),
                   ("wide", "cross r64", 1, "stencil2d_wide"))
 REGION_INTERIOR = (1000, 1100)
 REGION_NAMES = {"strip": "strip_kernel", "fused strip": "fused_strip_kernel",
-                "tile": "step_kernel", "wide": "wide_step_kernel"}
+                "tile": "plan_strip_kernel", "wide": "wide_step_kernel"}
 
 
 def shard_spec(name):
@@ -5228,8 +5294,8 @@ def sharded_phase(device, card):
         base = kernel[:-5] if dtype == "bf16" else kernel
         entries.append(dict({
             "name": f"stencil2d_step[region {base} {dtype}]", "route": "cuda",
-            "source": SOURCES["stencil2d_bf16" if dtype == "bf16"
-                              else "stencil2d"],
+            "source": SOURCES[("plan2d" if base == "tile" else "stencil2d")
+                              + ("_bf16" if dtype == "bf16" else "")],
             "replaces": REPLACES["stencil2d"],
             "launches": rec.pop("launches"),
             "max_abs_err": errs[(base, "bfloat16" if dtype == "bf16"
@@ -6096,6 +6162,544 @@ def loaded_reference_modules():
                   or m.startswith("lorastencil_tpu."))
 
 
+# Phase 28: the plan strip kernel (csrc/plan2d.cu) and the plan march kernel
+# (csrc/plan3d.cu), the redesigns for Hopper of the tile kernel (step_kernel:
+# its k = 1 step and its fused pass) and of the general 3-D kernel
+# (stencil3d_kernel) on the plans no registry shape gives.  Each kernel
+# against its plain twin and the kernel it replaces on the card, through
+# StencilEngine with its launches counted, the main path's routes
+# unchanged, and its times beside the replaced kernel's, in turns.
+PLAN_R4_TAPS = (-1 / 560, 8 / 315, -1 / 5, 8 / 5, -205 / 72, 8 / 5, -1 / 5,
+                8 / 315, -1 / 560)
+
+
+def star_r4():
+    """The 8th-order central-difference Laplacian heat step: the identity
+    plus 0.1 x the Laplacian of per-axis second-derivative taps
+    ``PLAN_R4_TAPS``, a 25-point 3-D star of radius 4 (``for_coeffs``
+    decomposes it into two buffered terms and eight residue points along z)."""
+    S = np.zeros((9, 9, 9))
+    for axis in range(3):
+        for i, w in enumerate(PLAN_R4_TAPS):
+            idx = [4, 4, 4]
+            idx[axis] = i
+            S[tuple(idx)] += 0.1 * w
+    S[4, 4, 4] += 1.0
+    return S
+
+
+def plan_coeffs(name):
+    """Phase 22's custom arrays, the radius-2 and radius-4 3-D stars and the
+    registry shapes' (by name)."""
+    if name == "star r4":
+        return star_r4()
+    if name == "star r2":
+        S = np.zeros((5, 5, 5))
+        for axis in range(3):
+            for i, w in enumerate((-1 / 12, 4 / 3, -5 / 2, 4 / 3, -1 / 12)):
+                idx = [2, 2, 2]
+                idx[axis] = i
+                S[tuple(idx)] += 0.1 * w
+        S[2, 2, 2] += 1.0
+        return S
+    return custom_coeffs()[name]
+
+
+def plan_spec(name):
+    """The spec of ``plan_coeffs(name)`` (``for_coeffs``), or a registry
+    shape."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+
+    if name in ("star2d1r", "box2d1r", "box2d3r", "star3d1r"):
+        return get_shape(name)
+    S = plan_coeffs(name)
+    return engine.StencilEngine.for_coeffs(
+        S, (8,) * S.ndim, name=name, device="cpu").spec
+
+
+# (spec, interior, depths): every depth in each dtype that takes it
+# (float64: 1-2 in 2-D), on the kernel's own entry
+PLAN_CHECKS_2D = (("9x9 rank 4", (1000, 1000), (1, 2)),
+                  ("5x5 asym", (333, 517), (1, 2, 3)),
+                  ("star2d1r", (1000, 1000), (2, 3)),
+                  ("box2d3r", (300, 140), (2, 3)),
+                  ("heat5x5", (200, 600), (3,)))
+PLAN_CHECKS_3D = (("per-plane", (37, 45, 130), (1, 2)),
+                  ("star r2", (24, 40, 200), (1, 2)),
+                  ("star r4", (37, 45, 130), (1, 2)),
+                  ("per-plane", (64, 96, 200), (2,)))
+PLAN_DTYPES = (torch.float32, BF16, torch.float64)
+
+
+def plan_fills(spec, shape, dtype, device, seed):
+    """(the 0/1 fill with the spec's dyadic twin, the pi/100 fill with the
+    spec) on a buffer of ``shape``: the first bit for bit against the twin
+    in every dtype, the second in float64 (each product and sum rounded in
+    the twin's order) and against the replaced kernel in every dtype."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    g = torch.randint(0, 100, shape, generator=gen, device=device,
+                      dtype=torch.float64)
+    return ((dyadic(spec), (g % 2).to(dtype)),
+            (spec, (g * (np.pi / 100)).to(dtype)))
+
+
+def check_plan_case(dims, name, interior, k, dtype, device):
+    """Phase 28 (a) for one case: the plan kernel on its own entry at depth
+    k in ``dtype``: two passes on the 0/1 fill with the dyadic twin bit for
+    bit against the plain twin (the pi/100 fill too in float64); the pi/100
+    fill bit for bit against the kernel it replaces (``step_kernel``,
+    ``stencil3d_kernel``: the same sums in the same order); one pass under a
+    ghost ring's box (levels before the last) and one over a window of tiles
+    against the twin; each launch counted.  Returns a line."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.ops import stencil3d as s3
+    from lorastencil_tpu_torch.ops.layout import (Layout2D, Layout3D,
+                                                  check_bounds,
+                                                  default_tile_2d,
+                                                  default_tile_3d, guard_2d,
+                                                  guard_3d)
+
+    real = plan_spec(name)
+    r = real.radius
+    takes = s2.plan_strip_takes if dims == 2 else s3.plan_march_takes
+    if not takes(real, dtype, k) and not (dims == 2 and k == 1):
+        raise AssertionError(f"{name} {dtype} k={k}: the plan kernel refuses")
+    if dims == 2:
+        lay = Layout2D(interior=interior, halo=real.halo,
+                       tile=default_tile_2d(*interior),
+                       guard=guard_2d(real.halo, k * r))
+        plain = s2.stencil2d_step_plain
+    else:
+        lay = Layout3D(interior=interior, halo=real.halo,
+                       tile=default_tile_3d(*interior[1:]),
+                       guard=guard_3d(real.halo, k * r))
+        plain = s3.stencil3d_step_plain
+
+    def kernel(x, spec, box=None, region=None, out=None):
+        out = torch.zeros_like(x) if out is None else out
+        if dims == 2:
+            s2._launch("plan_strip", (x, out), spec, lay, k, box, region)
+        else:
+            s3._launch_plan_march(
+                x, out, spec, lay, k,
+                check_bounds(box, lay.interior, lay.guard, shard=True),
+                *(() if region is None else (s3.region_cells(region, lay),)))
+        return out
+
+    def twin(x, spec, box=None, region=None):
+        return plain(x, torch.zeros_like(x), spec, lay, k, box, region)
+
+    def replaced(x, spec):
+        out = torch.zeros_like(x)
+        if dims == 2:
+            s2._launch("step", (x, out), spec, lay, k)
+            return out
+        return general_3d(x, spec, lay, k, out)
+
+    counter = "stencil2d_plan_strip" if dims == 2 else "stencil3d_plan_march"
+    label = f"{name} {interior} {str(dtype)[6:]} k={k}"
+    (dspec, x01), (spec, xpi) = plan_fills(real, lay.shape, dtype, device,
+                                           seed=28 + k)
+    fills = [(dspec, x01, "0/1 fill, dyadic taps")]
+    if dtype == torch.float64:
+        fills.append((spec, xpi, "pi/100 fill"))
+    for sp, x, what in fills:
+        reset_counts()
+        a = kernel(x, sp)
+        b = kernel(a, sp)
+        torch.cuda.synchronize()
+        if counts()[counter] != 2:
+            raise AssertionError(f"{label}: launches {counts()}")
+        wa = twin(x, sp)
+        same_bits(a, wa, f"plan kernel {label} {what}, pass 1")
+        same_bits(b, twin(wa, sp), f"plan kernel {label} {what}, pass 2")
+    same_bits(kernel(xpi, spec), replaced(xpi, spec),
+              f"plan kernel {label} vs the replaced kernel, pi/100 fill")
+    if k >= 2:
+        box = tuple(v for e in lay.interior for v in (-r, e + r))
+        same_bits(kernel(x01, dspec, box=box), twin(x01, dspec, box=box),
+                  f"plan kernel {label} under the box {box}")
+    gi, gj = lay.grid
+    region = ((min(1, gi - 1), gi), (0, max(1, gj - 1)))
+    out = torch.full_like(x01, 7.0)
+    want = out.clone()
+    kernel(x01, dspec, region=region, out=out)
+    plain(x01, want, dspec, lay, k, None, region)
+    same_bits(out, want, f"plan kernel {label} over {region}")
+    return (f"{'plan_strip' if dims == 2 else 'plan_march'}_kernel {label}: "
+            f"bit for bit against its twin (0/1 fill, dyadic taps"
+            f"{'; pi/100 fill' if dtype == torch.float64 else ''}; 2 passes), "
+            f"the replaced kernel (pi/100 fill), "
+            f"{'under a ring box, ' if k >= 2 else ''}over the window {region}")
+
+
+def plan_check_cases():
+    """(dims, spec, interior, k, dtype) of every depth in each dtype that
+    takes it (2-D float64: 1-2)."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    for dims, cases in ((2, PLAN_CHECKS_2D), (3, PLAN_CHECKS_3D)):
+        for name, interior, depths in cases:
+            for dtype, k in itertools.product(PLAN_DTYPES, depths):
+                if dims == 2 and k not in s2.PLAN_STRIP_DEPTHS[dtype]:
+                    continue
+                yield dims, name, interior, k, dtype
+
+
+def check_plan_kernels(device):
+    """Phase 28 (a): ``check_plan_case`` for every case of
+    ``plan_check_cases``.  Returns lines."""
+    return [check_plan_case(*case, device) for case in plan_check_cases()]
+
+
+# The named cases, each through StencilEngine (a counted run of 2k steps)
+# and timed at full size: (label, spec, interior, engine options).
+PLAN_CASES = (
+    ("9x9 rank 4 k=1", "9x9 rank 4", INTERIOR, {}),
+    ("df64 9x9 rank 4 k=1", "9x9 rank 4", INTERIOR, {"dtype": "df64"}),
+    ("5x5 asym k=2", "5x5 asym", INTERIOR, {"fused_steps": 2}),
+    ("float64 5x5 asym k=2", "5x5 asym", INTERIOR,
+     {"fused_steps": 2, "dtype": "float64"}),
+    ("star2d1r k=2", "star2d1r", INTERIOR, {"fused_steps": 2}),
+    ("box2d3r k=3", "box2d3r", INTERIOR, {"fused_steps": 3}),
+    ("bf16 star2d1r k=3", "star2d1r", INTERIOR,
+     {"fused_steps": 3, "dtype": "bfloat16"}),
+    ("bf16 5x5 asym k=2", "5x5 asym", INTERIOR,
+     {"fused_steps": 2, "dtype": "bfloat16"}),
+    ("per-plane k=2", "per-plane", INTERIOR_3D, {}),
+    ("df64 per-plane k=1", "per-plane", INTERIOR_3D, {"dtype": "df64"}),
+    ("star r4 k=2", "star r4", INTERIOR_3D, {}))
+
+
+def plan_engine(name, interior, device, **kw):
+    """The engine of a phase 28 case: a registry shape's, or
+    ``for_coeffs`` of ``plan_coeffs(name)``."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import get_shape
+
+    if name in ("star2d1r", "box2d3r"):
+        return engine.StencilEngine(get_shape(name), interior,
+                                    engine.EngineConfig(**kw), device=device)
+    return engine.StencilEngine.for_coeffs(plan_coeffs(name), interior,
+                                           name=name, device=device, **kw)
+
+
+def plan_route(eng):
+    """(the counter of an engine's passes, its launches a step pair, the
+    counters that stay zero), from the wrappers' rules: a plan kernel, or
+    k strip launches where ``stencil2d.strips_beat_plan``."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.ops import stencil3d as s3
+
+    spec, k, dtype = eng.spec, eng._fused_k(), eng.dtype
+    if spec.ndim == 3:
+        if not s3.plan_march_takes(spec, dtype, k):
+            raise AssertionError(f"{spec.name} k={k}: not the plan march")
+        return "stencil3d_plan_march", 1, ("stencil3d_march",)
+    if k >= 2 and s2.strips_beat_plan(spec, dtype, k):
+        return "stencil2d_k1", k, ("stencil2d_plan_strip",
+                                   "stencil2d_fused_strip")
+    if not s2.plan_strip_takes(spec, dtype, k):
+        raise AssertionError(f"{spec.name} k={k}: not the plan strip")
+    return "stencil2d_plan_strip", 1, ("stencil2d_k1",
+                                       "stencil2d_fused_strip")
+
+
+def plan_paths(device):
+    """Phase 28 (b): each case of ``PLAN_CASES`` through StencilEngine:
+    run(2k) of the dyadic twin on the 0/1 fill, its launches counted from
+    zero (the counter ``plan_route`` names, the others zero), bit for bit
+    against the engine's run with the plain twins; run(2k) of the spec on
+    the pi/100 fill against the twins' run (float64: bit for bit); and the
+    main path's routes, counted: star2d1r 8192^2 x 256 on the strip kernel
+    (256 launches), star2d3r x 64 on the fused strip kernel (32), star3d1r
+    and box3d1r 256^3 x 64 on the march kernel (32 each), none of a plan
+    kernel.  Returns ({label: (launches, max abs err, counter)}, lines)."""
+    from lorastencil_tpu_torch import engine
+
+    out_rec, lines = {}, []
+    for label, name, interior, kw in PLAN_CASES:
+        eng = plan_engine(name, interior, device, **kw)
+        spec, k = eng.spec, eng._fused_k()
+        counter, per_pass, zero = plan_route(eng)
+        steps = 2 * k
+        deng = engine.StencilEngine(dyadic(spec), interior, eng.config,
+                                    device=device)
+        g01, gpi = custom_fills(spec.padded_shape(interior), device)
+        reset_counts()
+        out = deng.run(g01, steps)
+        torch.cuda.synchronize()
+        c = counts()
+        if c[counter] != 2 * per_pass or any(c[z] for z in zero):
+            raise AssertionError(f"{label} run({steps}): {c}")
+        with twins():
+            same_bits(out, deng.run(g01, steps),
+                      f"{label} run({steps}) vs the twins")
+        got = eng.run(gpi, steps)
+        with twins():
+            want = eng.run(gpi, steps)
+        if eng.dtype == torch.float64:
+            same_bits(got, want, f"{label} run({steps}) pi/100 fill vs twins")
+        err = float((got.double() - want.double()).abs().max())
+        out_rec[label] = (c[counter], err, counter)
+        lines.append(f"{label} {interior}: run({steps}) at k={k}: "
+                     f"{c[counter]} launches counted in {counter}, none in "
+                     f"{zero}; the dyadic twin's run bit for bit against the "
+                     f"twins' run; pi/100 fill max abs err {err} against it")
+        del out, got, want, g01, gpi
+    for name, interior, steps, counter, want in (
+            ("star2d1r", INTERIOR, BENCH_STEPS, "stencil2d_k1", BENCH_STEPS),
+            ("star2d3r", INTERIOR, FUSED_STEPS, "stencil2d_fused_strip",
+             FUSED_STEPS // 2),
+            ("star3d1r", INTERIOR_3D, BENCH_STEPS_3D, "stencil3d_march",
+             BENCH_STEPS_3D // 2),
+            ("box3d1r", INTERIOR_3D, BENCH_STEPS_3D, "stencil3d_march",
+             BENCH_STEPS_3D // 2)):
+        eng = engine.StencilEngine.for_shape(name, interior, device=device)
+        state = torch.zeros(eng.layout.shape, device=device)
+        reset_counts()
+        eng.run_internal(state, steps)
+        torch.cuda.synchronize()
+        c = counts()
+        if (c[counter] != want or c["stencil2d_plan_strip"]
+                or c["stencil3d_plan_march"]):
+            raise AssertionError(f"main path {name} x{steps}: {c}")
+        lines.append(f"main path {name} {interior} x{steps}: {c[counter]} "
+                     f"launches in {counter}, none of a plan kernel")
+        del state
+    return out_rec, lines
+
+
+def plan_timing(device, card):
+    """Phase 28 (c): one pass of each case of ``PLAN_CASES`` at full size
+    (the engine's layout and depth) on its plan kernel and on the kernel it
+    replaces, in turns (then reversed, best of), its plain twin, the library
+    step (cuDNN, TF32 off, the dtype; one step) and the pass's bound; at 2-D
+    k >= 2 on a spec whose single steps the strip kernel takes, k strip
+    launches too (the routing rule of ``stencil2d.strips_beat_plan``).  Also
+    the region launch of phase 25's tile case (9x9 rank 4 over the inner
+    1984 x 1792 window of a 2048^2 shard).  Returns {label: record}."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.ops import stencil3d as s3
+
+    gen = torch.Generator(device=device).manual_seed(28)
+    records = {}
+    for label, name, interior, kw in PLAN_CASES:
+        eng = plan_engine(name, interior, device, **kw)
+        spec, lay, k = eng.spec, eng.layout, eng._fused_k()
+        x = (torch.rand(lay.shape, generator=gen, device=device)
+             * 0.01).to(eng.dtype)
+        tmp = torch.zeros_like(x)
+        if spec.ndim == 2:
+            fns = {"plan": lambda a, b: s2._launch("plan_strip", (a, b),
+                                                   spec, lay, k),
+                   "replaced": lambda a, b: s2._launch("step", (a, b), spec,
+                                                       lay, k)}
+            if k >= 2 and s2.strip_takes(spec, eng.dtype):
+                def strips(a, b):
+                    src = a
+                    for i in range(k):  # the last launch writes b
+                        dst = b if (k - i) % 2 == 1 else tmp
+                        s2._launch("strip", (src, dst), spec, lay, 1)
+                        src = dst
+                fns["strips"] = strips
+
+            def plain(a, b):
+                return s2.stencil2d_step_plain(a, b, spec, lay, k)
+        else:
+            K, tile = s3.plan_pass(spec, k, x.element_size())
+            if K != k:
+                raise AssertionError(f"{label}: the general kernel splits")
+            box = s3.check_bounds(None, lay.interior, lay.guard)
+            fns = {"plan": lambda a, b: s3._launch_plan_march(
+                       a, b, spec, lay, k, box),
+                   "replaced": lambda a, b: s3._launch(a, b, spec, lay, k,
+                                                       tile)}
+
+            def plain(a, b):
+                return s3.stencil3d_step_plain(a, b, spec, lay, k)
+        ms = time_calls(fns, x, torch.zeros_like(x), 10)
+        plain_ms = time_calls({"plain": plain}, x, torch.zeros_like(x),
+                              2)["plain"]
+        del x, tmp
+        bound, by = bound_ms(spec, interior, k, eng.dtype.itemsize)
+        lib = library_ms(spec, interior, device, eng.dtype, repeats=2)
+        rec = dict(kernel=("plan_strip_kernel" if spec.ndim == 2
+                           else "plan_march_kernel"),
+                   ms=ms["plan"], replaced_ms=ms["replaced"],
+                   strips_ms=ms.get("strips"), plain_ms=plain_ms,
+                   bound_ms=bound, bound_by=by, library_ms=lib,
+                   steps_per_launch=k, library_steps=1,
+                   shape=f"{label} {'x'.join(map(str, interior))}")
+        records[label] = rec
+        print(f"phase 28: {label} {interior}: plan kernel {ms['plan']} ms "
+              f"({bound / ms['plan']:.4f} of the {by} bound {bound} ms), the "
+              f"kernel it replaces {ms['replaced']} ms"
+              + (f", {k} strip launches {ms['strips']} ms" if "strips" in ms
+                 else "")
+              + f", plain twin {plain_ms} ms, one library step {lib} ms "
+                f"[{card}]", flush=True)
+    eng, _ = sharded_engines("9x9 rank 4", (4096, 4096), {}, (2, 2), device)
+    spec, lay = eng.spec, eng.layout
+    gi, gj = lay.grid
+    region = ((1, gi - 1), (1, gj - 1))
+    dims = ((gi - 2) * lay.tile[0], (gj - 2) * lay.tile[1])
+    x = torch.rand(lay.shape, generator=gen, device=device) * 0.01
+    ms = time_calls({
+        "plan": lambda a, b: s2._launch("plan_strip", (a, b), spec, lay, 1,
+                                        None, region),
+        "replaced": lambda a, b: s2._launch("step", (a, b), spec, lay, 1,
+                                            None, region)},
+        x, torch.zeros_like(x), 10)
+    plain_ms = time_calls({"plain": lambda a, b: s2.stencil2d_step_plain(
+        a, b, spec, lay, 1, None, region)}, x, torch.zeros_like(x),
+        2)["plain"]
+    del x
+    bound, by = bound_ms(spec, dims, 1, 4)
+    lib = library_ms(spec, dims, device, repeats=2)
+    records["region 9x9 rank 4"] = dict(
+        kernel="plan_strip_kernel", ms=ms["plan"], replaced_ms=ms["replaced"],
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib,
+        steps_per_launch=1, library_steps=1,
+        shape=f"9x9 rank 4 window {dims[0]}x{dims[1]} of a "
+              f"{lay.interior[0]}x{lay.interior[1]} shard")
+    print(f"phase 28: region 9x9 rank 4 window {dims[0]}x{dims[1]} of a "
+          f"{lay.interior} shard: plan kernel {ms['plan']} ms "
+          f"({bound / ms['plan']:.4f} of the {by} bound {bound} ms), the "
+          f"kernel it replaces {ms['replaced']} ms, plain twin {plain_ms} "
+          f"ms, one library step {lib} ms [{card}]", flush=True)
+    reset_counts()
+    eng.run(torch.zeros(spec.padded_shape((4096, 4096)), device=device), 2)
+    torch.cuda.synchronize()
+    records["region 9x9 rank 4"]["launches"] = counts()[
+        "stencil2d_plan_strip"]
+    return records
+
+
+def plan_ring_split(device, card):
+    """Phase 28 (d): each 2-D case of ``PLAN_CASES`` whose pass
+    ``stencil2d.strips_beat_plan`` sends to strip launches, under a periodic
+    boundary, where the engine's ``refresh`` refills the ring between them:
+    run(2k) of the dyadic twin on the 0/1 fill counted from zero (2k strip
+    launches, none of a plan or fused strip kernel) and bit for bit against
+    the twins' run, whose fused levels keep the ring; then one pass at full
+    size on a uniform [0, 0.01) fill, timed in turns (then reversed, best
+    of): the plan strip kernel with the ring's box, k strip launches with
+    the ring refresh between them, and ``stencil2d_step`` with the engine's
+    bounds and refresh (the route taken: the strip launches, their refresh
+    and spare buffer).  Returns {label: {timing}}."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    gen = torch.Generator(device=device).manual_seed(28)
+    records = {}
+    for label, name, interior, kw in PLAN_CASES:
+        eng = plan_engine(name, interior, device, boundary="periodic", **kw)
+        spec, lay, k = eng.spec, eng.layout, eng._fused_k()
+        if spec.ndim != 2 or k < 2 or not s2.strips_beat_plan(spec, eng.dtype,
+                                                              k):
+            continue
+        deng = engine.StencilEngine(dyadic(spec), interior, eng.config,
+                                    device=device)
+        g01, _ = custom_fills(spec.padded_shape(interior), device)
+        reset_counts()
+        out = deng.run(g01, 2 * k)
+        torch.cuda.synchronize()
+        c = counts()
+        if (c["stencil2d_k1"] != 2 * k or c["stencil2d_plan_strip"]
+                or c["stencil2d_fused_strip"]):
+            raise AssertionError(f"{label} periodic run({2 * k}): {c}")
+        with twins():
+            same_bits(out, deng.run(g01, 2 * k),
+                      f"{label} periodic run({2 * k}) vs the twins")
+        del out, g01
+        bounds = eng._ghost_bounds()
+
+        def refresh(state):
+            return eng._ring_refresh(state, "periodic")
+
+        x = refresh((torch.rand(lay.shape, generator=gen, device=device)
+                     * 0.01).to(eng.dtype))
+        tmp = torch.zeros_like(x)
+
+        def strips(a, b):
+            src = a
+            for i in range(k):  # the last launch writes b
+                dst = b if (k - i) % 2 == 1 else tmp
+                if i:
+                    src = refresh(src)
+                s2._launch("strip", (src, dst), spec, lay, 1, bounds)
+                src = dst
+
+        ms = time_calls({
+            "plan": lambda a, b: s2._launch("plan_strip", (a, b), spec, lay,
+                                            k, bounds),
+            "strips": strips,
+            "route": lambda a, b: s2.stencil2d_step(
+                a, b, spec, lay, fused_steps=k, bounds=bounds,
+                refresh=refresh)}, x, torch.zeros_like(x), 10)
+        del x, tmp
+        records[label] = ms
+        print(f"phase 28: {label} {interior} periodic: run({2 * k}) "
+              f"{c['stencil2d_k1']} strip launches, none of a plan kernel, "
+              f"bit for bit against the twins' fused run (dyadic 0/1 fill); "
+              f"a pass: plan strip kernel with the ring's box {ms['plan']} "
+              f"ms, {k} strip launches with the ring refresh between them "
+              f"{ms['strips']} ms, the wrapper's pass {ms['route']} ms "
+              f"[{card}]", flush=True)
+    return records
+
+
+def plan_phase(device, card, builds=None):
+    """Phase 28; returns the kernels' record entries."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if builds is not None:
+        for name in ("plan2d", "plan2d_bf16", "plan3d", "plan3d_bf16"):
+            ptxas = builds[name][1]
+            # every function of these builds is a plan kernel's instance
+            spills = [ln for ln in ptxas if "spill" in ln and
+                      "0 bytes spill stores, 0 bytes spill loads" not in ln]
+            regs = sorted({int(ln.split("Used ")[1].split()[0])
+                           for ln in ptxas if "Used " in ln})
+            print(f"phase 28: {SOURCES[name]} built in {builds[name][0]:.1f} "
+                  f"s, {len(regs) and sum('Used ' in ln for ln in ptxas)} "
+                  f"instances, registers {regs[0]}-{regs[-1]}, no spill",
+                  flush=True)
+            if spills:
+                raise AssertionError(f"{name} spills: {spills}")
+    t0 = time.perf_counter()
+    for line in check_plan_kernels(device):
+        print(f"phase 28: {line}", flush=True)
+    launches, lines = plan_paths(device)
+    for line in lines:
+        print(f"phase 28: {line}", flush=True)
+    timing = plan_timing(device, card)
+    plan_ring_split(device, card)
+    entries = []
+    for label, t in timing.items():
+        dims = 3 if t["kernel"] == "plan_march_kernel" else 2
+        f64 = "float64" in label or "df64" in label
+        wrapper = {(2, False): "stencil2d", (2, True): "df64_step",
+                   (3, False): "stencil3d", (3, True): "df64_3d_step"}[
+                       (dims, f64)]
+        n, err, counter = launches.get(
+            label, (t.pop("launches", 0), 0.0, "stencil2d_plan_strip"))
+        if counter not in ("stencil2d_plan_strip", "stencil3d_plan_march"):
+            continue  # the engine runs strip launches: printed above
+        entries.append(dict({
+            "name": f"{'stencil2d_step' if dims == 2 else 'stencil3d_step'}"
+                    f"[plan, {label}]",
+            "route": "cuda",
+            "source": SOURCES[("plan2d" if dims == 2 else "plan3d")
+                              + ("_bf16" if "bf16" in label else "")],
+            "replaces": REPLACES[wrapper], "launches": n,
+            "max_abs_err": err}, **t))
+    print(f"phase 28: seconds {time.perf_counter() - t0:.1f}", flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6397,6 +7001,7 @@ def main() -> int:
     nd_entries, nd_cases = sharded_phase_nd(device, card)
     sharded_entries += nd_entries
     slice_entries = slice_phase(device, card, nd_cases)
+    plan_entries = plan_phase(device, card, builds)
 
     loaded = loaded_reference_modules()
     if loaded:
@@ -6493,6 +7098,7 @@ def main() -> int:
     kernels += bf16_entries
     kernels += sharded_entries
     kernels += slice_entries
+    kernels += plan_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2045,6 +2045,9 @@ int launch_resident(const S* in, S* out0, S* out1, const Compute<S>* plan,
               in_window(LS_GRID(lr, hr, lc, hc), wi0, wi1, wj0, wj1), k,  \
               stream);                                                    \
   }
+// csrc/plan2d.cu includes this source for its helpers and LS_ENTRY
+// (LS_STENCIL2D_NO_ENTRIES) and defines entries of its own.
+#ifndef LS_STENCIL2D_NO_ENTRIES
 #ifndef LS_STENCIL2D_BF16
 LS_ENTRY(ls_stencil2d_step, launch_step<float>, float)
 LS_ENTRY(ls_stencil2d_strip, launch_strip_step<float>, float)
@@ -2079,3 +2082,4 @@ LS_RESIDENT(ls_stencil2d_resident_f64, double)
 #else
 LS_RESIDENT(ls_stencil2d_resident_bf16, __nv_bfloat16)
 #endif
+#endif  // LS_STENCIL2D_NO_ENTRIES

@@ -1382,6 +1382,9 @@ int march(const Cell* in, Cell* out, const Compute<Cell>* plan, const Pass& p,
 
 }  // namespace
 
+// csrc/plan3d.cu includes this source for its helpers
+// (LS_STENCIL3D_NO_ENTRIES) and defines entries of its own.
+#ifndef LS_STENCIL3D_NO_ENTRIES
 // Shared-memory bytes of a pass with this radius, K, block tile, term mix
 // (n_buf buffered terms; ring = 1 or 2r+1 planes per level), plan length and
 // element size (4 or 8 bytes); -1 if the arguments are out of range.
@@ -1463,3 +1466,4 @@ LS_MARCH(ls_stencil3d_march_f64, double)
 // instances on bf16 cells
 LS_MARCH(ls_stencil3d_march_bf16, __nv_bfloat16)
 #endif
+#endif  // LS_STENCIL3D_NO_ENTRIES

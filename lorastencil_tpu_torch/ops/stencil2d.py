@@ -69,8 +69,23 @@ fuses by default), runs the fused strip kernel (``fused_strip_takes``),
 from either wrapper: the strip kernel's walk with every level kept in
 registers, which computes the same values as the fused and the skewed tile
 kernels in another traversal.  Each wrapper counts its launches in
-``launches_fused_strip`` too.  Every other fused or skewed pass runs the
-tile kernels.
+``launches_fused_strip`` too.
+
+Every other launch of radius 1-4 that ``stencil2d_step`` makes -- a step of
+more than three terms, a fused pass of depth 2 or 3 (float64: 2) with
+residue points, three or more terms or a term with neither axis, up to
+``PLAN_MAX_TERMS`` terms -- runs the plan strip kernel of
+``csrc/plan2d.cu`` (``plan_strip_takes``; ``launches_plan_strip`` counts
+it): the strip kernels' walk for any plan, each fused level in a per-warp
+ring of rows, the column convs in registers or a per-lane shared ring.  It
+gives the tile kernels' values cell for cell.  A float32 or float64 pass
+that the plan strip kernel would take on a spec whose single steps the
+strip kernel takes runs as single strip launches instead
+(``strips_beat_plan``), where it keeps no ring or the caller refreshes the
+ring between them (a ghost boundary); a shard's exchanged ring keeps the
+fused pass, and a bfloat16 pass stays one launch, which rounds once.  The
+skewed passes and everything beyond (radius 5 up to the wide radii, deeper
+passes) run the tile kernels.
 
 Shared memory bounds the reach of one launch: a fused pass holds about
 three (32 + 2kr) x (128 + 2kr) windows (16 rows in float64), a skewed one a
@@ -139,6 +154,12 @@ STRIP_MAX_TERMS = 3
 # csrc/stencil2d.cu's fused strip kernel: the depths and terms it takes
 FUSED_STRIP_DEPTHS = (2,)
 FUSED_STRIP_MAX_TERMS = 2
+# csrc/plan2d.cu's plan strip kernel: the depths of each dtype and the terms
+# (kPlanMaxTerms) it takes
+PLAN_STRIP_DEPTHS = {torch.float32: (1, 2, 3), torch.bfloat16: (1, 2, 3),
+                     torch.float64: (1, 2)}
+PLAN_MAX_TERMS = 9
+PLAN_MAX_RESIDUE = 81  # kStripMaxRes: every point of a radius-4 square
 _ENTRIES = {
     "strip": {torch.float32: "ls_stencil2d_strip",
               torch.float64: "ls_stencil2d_strip_f64",
@@ -157,7 +178,11 @@ _ENTRIES = {
              torch.bfloat16: "ls_stencil2d_skew_bf16"},
     "resident": {torch.float32: "ls_stencil2d_resident",
                  torch.float64: "ls_stencil2d_resident_f64",
-                 torch.bfloat16: "ls_stencil2d_resident_bf16"}}
+                 torch.bfloat16: "ls_stencil2d_resident_bf16"},
+    # csrc/plan2d.cu (built apart, plan2d_bf16.cu its bfloat16 instances)
+    "plan_strip": {torch.float32: "ls_stencil2d_plan_strip",
+                   torch.float64: "ls_stencil2d_plan_strip_f64",
+                   torch.bfloat16: "ls_stencil2d_plan_strip_bf16"}}
 # csrc/resident2d.cu's shared-memory resident kernel
 _RESIDENT_SMEM = {torch.float32: "ls_stencil2d_resident_smem",
                   torch.float64: "ls_stencil2d_resident_smem_f64",
@@ -321,6 +346,42 @@ def fused_strip_takes(spec: StencilSpec, dtype, depth: int) -> bool:
             and all(any(a is not None for a in term.taps)
                     for term in spec.terms)
             and not spec.residue)
+
+
+def plan_strip_takes(spec: StencilSpec, dtype, depth: int) -> bool:
+    """Whether a launch of ``depth`` fused steps in ``dtype`` runs the
+    plan strip kernel: radius 1-4, at most ``PLAN_MAX_TERMS`` terms, depth
+    1-3 (float64 1-2), and not a launch that the strip kernel (a step of at
+    most three terms) or the fused strip kernel takes."""
+    return (depth in PLAN_STRIP_DEPTHS.get(dtype, ())
+            and spec.radius in STRIP_RADII
+            and len(spec.terms) <= PLAN_MAX_TERMS
+            and len(spec.residue) <= PLAN_MAX_RESIDUE
+            and not strip_takes(spec, dtype, depth)
+            and not fused_strip_takes(spec, dtype, depth))
+
+
+def strips_beat_plan(spec: StencilSpec, dtype, depth: int) -> bool:
+    """Whether a pass of ``depth`` steps that the plan strip kernel would
+    take runs as ``depth`` single strip launches instead (``_split_pass``):
+    float32 or float64, and the strip kernel takes the spec's single steps.
+    A bfloat16 pass stays one launch: it rounds once.  Without a ring the
+    two give the same values bit for bit (every level masked as a single
+    step masks it); under a ghost boundary the caller's refresh refills the
+    ring between the launches, the boundary's padding at each step: bit for
+    bit under a periodic ring, where a ring cell sums what its interior
+    cell sums in the same order; a reflected ring cell sums its mirror
+    image in the mirrored order, which can round otherwise.  The card's
+    timing (chip_smoke.py phase 28, NVIDIA H100 80GB HBM3, 700.00 W, ms a
+    pass at 8192^2, the plan strip pass / k strip launches in turns): 5x5
+    asym k = 2 0.760 / 0.684, its float64 3.903 / 1.171, star2d1r k = 2
+    0.892 / 0.643, box2d3r k = 3 3.176 / 1.098; under a periodic ring, with
+    the refresh between the launches, 0.752 / 0.695, 3.866 / 1.162, 0.866 /
+    0.636, 3.139 / 1.123.  Both are issue-bound, and a fused level does a
+    step's sums plus its level ring and overlap."""
+    return (dtype in (torch.float32, torch.float64)
+            and depth >= 2 and strip_takes(spec, dtype)
+            and plan_strip_takes(spec, dtype, depth))
 
 
 def wide_takes(spec: StencilSpec, dtype, depth: int = 1) -> bool:
@@ -505,7 +566,7 @@ def _plan_buffer(spec: StencilSpec, device: torch.device, dtype):
 
 # the kinds whose launch copies the plan from host memory into the
 # kernel's parameters
-_HOST_PLAN = ("strip", "fused_strip", "fused_strip_skew")
+_HOST_PLAN = ("strip", "fused_strip", "fused_strip_skew", "plan_strip")
 
 
 @functools.lru_cache(maxsize=None)
@@ -517,11 +578,14 @@ def _plan_host(spec: StencilSpec, dtype):
     return plan_array(spec, compute_dtype(dtype)).contiguous()
 
 
-def _bind(name: str, bf16: bool):
+def _bind(name: str, bf16: bool, kinds=None):
     """``csrc/<name>.cu``, built and its entries of the bfloat16 instances
-    (``bf16``) or the others bound."""
+    (``bf16``) or the others bound, those of ``kinds`` (when None, all but
+    the plan strip kernel's, which ``csrc/plan2d.cu`` holds)."""
     lib = _cuda_build.load(name)
     for kind, entries in _ENTRIES.items():
+        if kind not in (kinds or [k for k in _ENTRIES if k != "plan_strip"]):
+            continue
         # a run: 4 pointers; a pass: 3, and 8 ints more, its bounds and its
         # window
         pointers = 4 if kind == "resident" else 3
@@ -548,6 +612,28 @@ def _lib_bf16():
     """The bfloat16 instances' library (``csrc/stencil2d_bf16.cu``, the
     same source built apart), built and bound once per process."""
     return _bind("stencil2d_bf16", True)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_lib():
+    """csrc/plan2d.cu's float32 and float64 instances, built and bound
+    once per process."""
+    return _bind("plan2d", False, ("plan_strip",))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_lib_bf16():
+    """csrc/plan2d_bf16.cu (its bfloat16 instances), built and bound once
+    per process."""
+    return _bind("plan2d_bf16", True, ("plan_strip",))
+
+
+def _lib_of(kind: str, dtype):
+    """The library of ``kind``'s instance of ``dtype``."""
+    bf16 = dtype == torch.bfloat16
+    if kind == "plan_strip":
+        return _plan_lib_bf16() if bf16 else _plan_lib()
+    return _lib_bf16() if bf16 else _lib()
 
 
 @functools.lru_cache(maxsize=None)
@@ -628,7 +714,7 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
         + region_cells(region, layout))
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
-        lib = _lib_bf16() if cur.dtype == torch.bfloat16 else _lib()
+        lib = _lib_of(kind, cur.dtype)
         err = getattr(lib, _ENTRIES[kind][cur.dtype])(
             *(b.data_ptr() for b in buffers), plan.data_ptr(), plan.numel(),
             len(spec.terms), spec.radius, len(spec.residue), rows, pitch, r0,
@@ -637,7 +723,7 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
         raise RuntimeError(
             f"stencil2d {kind} kernel launch failed: CUDA error {err}")
     wrapper = {"strip": stencil2d_step, "step": stencil2d_step,
-               "fused_strip": stencil2d_step,
+               "fused_strip": stencil2d_step, "plan_strip": stencil2d_step,
                "skew": stencil2d_skew_step,
                "fused_strip_skew": stencil2d_skew_step,
                "resident": stencil2d_resident}[kind]
@@ -648,29 +734,56 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
         wrapper.launches_k1 += 1
     elif kind.startswith("fused_strip"):
         wrapper.launches_fused_strip += 1
+    elif kind == "plan_strip":
+        wrapper.launches_plan_strip += 1
     elif kind == "step" and wide_takes(spec, cur.dtype, depth):
         wrapper.launches_wide += 1
+
+
+def _spare_like(donor, layout: Layout2D):
+    """A buffer like ``donor`` whose cells outside the rounded interior are
+    zero: every launch writes each cell of the rounded interior, so only the
+    ring needs a fill (a full one costs a memset of the grid a pass)."""
+    spare = torch.empty_like(donor)
+    r0, c0 = layout.origin
+    mr, nr = layout.rounded
+    spare[:r0] = 0
+    spare[r0 + mr:] = 0
+    spare[r0:r0 + mr, :c0] = 0
+    spare[r0:r0 + mr, c0 + nr:] = 0
+    return spare
 
 
 def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
                 k: int, bounds=None, refresh=None):
     """A pass of k steps as launches of at most the k one launch takes,
     from ``cur`` into ``donor`` and, past the first, a spare zero-guarded
-    buffer by turns; returns the buffer the last launch wrote.  A
+    buffer (``_spare_like``) by turns; returns the buffer the last launch wrote.  A
     leftover single step runs the strip kernel where ``strip_takes`` says
     so (else the step kernel); a launch that ``fused_strip_takes`` runs
     the fused strip kernel, counted on the wrapper of ``kind``.  Each
     launch keeps ``bounds`` on its levels before the last, and a launch
     past the first reads a buffer that ``refresh`` (if given) has refilled
     the ring of: the previous launch masked its last level to the
-    interior and never writes the ring."""
+    interior and never writes the ring.  A launch that ``strips_beat_plan``
+    runs as single strip launches where the pass keeps no ring (``bounds``
+    the interior) or ``refresh`` refills it between them (a ghost ring); a
+    shard's exchanged ring, which no refresh refills, lives through the
+    fused levels of one launch."""
     src, spare = cur, None
-    for i, depth in enumerate(launch_depths(kind, spec, cur.dtype, k)):
+    no_ring = (check_bounds(bounds, layout.interior, layout.guard, shard=True)
+               == check_bounds(None, layout.interior, layout.guard))
+    depths = []
+    for depth in launch_depths(kind, spec, cur.dtype, k):
+        split = (kind == "step" and (no_ring or refresh is not None)
+                 and strips_beat_plan(spec, cur.dtype, depth))
+        depths += [1] * depth if split else [depth]
+    for i, depth in enumerate(depths):
         if i == 0:
             dst = donor
         else:
             if spare is None:
-                spare = torch.zeros_like(donor)
+                spare = _spare_like(donor, layout)
             dst = spare if src is donor else donor
             if refresh is not None:
                 src = refresh(src)
@@ -690,13 +803,19 @@ def launch_depths(kind: str, spec: StencilSpec, dtype, k: int):
 
 def _one_kind(kind: str, spec: StencilSpec, dtype, depth: int) -> str:
     """The kernel of one launch of ``depth`` steps of a ``kind`` pass: the
-    strip kernel for a single step that ``strip_takes`` (else the step
-    kernel), the fused strip kernel where ``fused_strip_takes`` (counted on
-    the wrapper of ``kind``), else ``kind``'s own."""
+    strip kernel for a single step that ``strip_takes``, the fused strip
+    kernel where ``fused_strip_takes`` (counted on the wrapper of
+    ``kind``), the plan strip kernel where ``plan_strip_takes`` (a single
+    step, or a ``stencil2d_step`` pass), else the step kernel (a single
+    step) or ``kind``'s own."""
     if depth == 1:
-        return "strip" if strip_takes(spec, dtype) else "step"
+        if strip_takes(spec, dtype):
+            return "strip"
+        return "plan_strip" if plan_strip_takes(spec, dtype, 1) else "step"
     if fused_strip_takes(spec, dtype, depth):
         return "fused_strip" if kind == "step" else "fused_strip_skew"
+    if kind == "step" and plan_strip_takes(spec, dtype, depth):
+        return "plan_strip"
     return kind
 
 
@@ -719,6 +838,7 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     the float64 ones', ``launches_bf16`` the bfloat16 ones',
     ``launches_k1`` those of the steps a strip kernel ran (any dtype),
     ``launches_fused_strip`` those of the fused strip kernel,
+    ``launches_plan_strip`` those of the plan strip kernel,
     ``launches_wide`` those of the wide kernel and ``launches_region`` the
     launches of any kernel over a ``region``.
 
@@ -734,7 +854,8 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     padding past the true edge (``rhi < m``) is zeroed as the JAX kernel
     zeroes it.  A box that holds the interior leaves a single step as it
     is without one.  ``refresh`` refills the ring of the buffer between two
-    launches of a pass too deep for one (``_split_pass``).
+    launches of a split pass (``_split_pass``): one too deep for a launch,
+    or k strip launches (``strips_beat_plan``).
 
     ``region`` (``((ti0, ti1), (tj0, tj1))``, a window of ``layout.grid``
     tiles; the whole grid when None) writes that window of ``donor`` only
@@ -818,13 +939,15 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
 # kernel launches per instance, for chip_smoke.py: float32, float64 and
 # bfloat16, and the strip kernels' launches apart (launches_k1: the strip
 # kernel's steps in any dtype; launches_fused_strip: the fused strip
-# kernel's passes; launches_wide: the wide kernel's steps; launches_region:
+# kernel's passes; launches_plan_strip: the plan strip kernel's launches;
+# launches_wide: the wide kernel's steps; launches_region:
 # stencil2d_step's launches over a region; launches_smem: the shared-memory
 # resident kernel's runs)
 for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
     _wrapper.launches = _wrapper.launches_f64 = _wrapper.launches_bf16 = 0
 stencil2d_step.launches_k1 = stencil2d_step.launches_wide = 0
 stencil2d_step.launches_region = 0
+stencil2d_step.launches_plan_strip = 0
 stencil2d_resident.launches_smem = 0
 for _wrapper in (stencil2d_step, stencil2d_skew_step):
     _wrapper.launches_fused_strip = 0

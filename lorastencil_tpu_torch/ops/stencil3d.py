@@ -30,9 +30,15 @@ and box3d1r, float32 and float64, one or two steps) runs the march kernel,
 the source's redesign for Hopper (z-sums in registers, compile-time term
 kinds, 16-byte copies); ``march_takes`` is its fixed rule on spec, dtype and
 depth, and ``stencil3d_step.launches_march`` counts its launches (they also
-count in ``launches`` / ``launches_f64``).  Every other pass -- radius above
-1, residue, another term mix, more than two steps -- runs the general
-kernel, ``stencil3d_kernel``.  Neither falls back to the other.
+count in ``launches`` / ``launches_f64``).  Every other pass of one or two
+steps and radius 1-4 -- residue, another term mix, radius 2-4, up to
+``PLAN_MAX_TERMS`` terms and ``PLAN_MAX_RESIDUE`` points -- runs the plan
+march kernel of ``csrc/plan3d.cu`` (``plan_march_takes``;
+``launches_plan_march`` counts it): the march kernel's z-march for any
+plan, each level's plane summed once, when the plane R beyond it has
+landed, from the last 2r + 1 planes in shared memory.  What neither takes
+-- more than two steps, radius 0 or 5-8 -- runs the general kernel,
+``stencil3d_kernel``.  None falls back to another.
 
 The bfloat16 state tier: both kernels have a bfloat16 instance (built
 apart as ``csrc/stencil3d_bf16.cu``: ``_lib_bf16``), the float32 kernel on
@@ -104,6 +110,15 @@ MARCH_KINDS = (
     (3, (IDENTITY_Z << 2) | ((CENTRE << 2 | _HAS_ROW) << 4)
      | ((CENTRE << 2 | _HAS_COL) << 8)),
     (1, BUFFERED << 2 | _HAS_COL | _HAS_ROW))
+# the plan march kernel (csrc/plan3d.cu): its entries, radii, depths and
+# the plans it takes (kGenMaxTerms, kGenMaxRes)
+_PLAN_ENTRIES = {torch.float32: "ls_stencil3d_plan_march",
+                 torch.float64: "ls_stencil3d_plan_march_f64",
+                 torch.bfloat16: "ls_stencil3d_plan_march_bf16"}
+PLAN_RADII = (1, 2, 3, 4)
+PLAN_DEPTHS = (1, 2)
+PLAN_MAX_TERMS = 12
+PLAN_MAX_RESIDUE = 48
 
 
 def _classify_terms(spec: StencilSpec):
@@ -138,6 +153,18 @@ def march_takes(spec: StencilSpec, dtype, depth: int) -> bool:
             and spec.ndim == 3 and spec.radius in MARCH_RADII
             and not spec.residue
             and (len(spec.terms), term_kinds(spec)) in MARCH_KINDS)
+
+
+def plan_march_takes(spec: StencilSpec, dtype, depth: int) -> bool:
+    """Whether a pass of ``depth`` fused steps in ``dtype`` runs the plan
+    march kernel: float32, float64 or bfloat16, one or two steps, radius
+    1-4, at most ``PLAN_MAX_TERMS`` terms and ``PLAN_MAX_RESIDUE`` residue
+    points, and not a pass the march kernel takes."""
+    return (dtype in _PLAN_ENTRIES and depth in PLAN_DEPTHS
+            and spec.ndim == 3 and spec.radius in PLAN_RADII
+            and len(spec.terms) <= PLAN_MAX_TERMS
+            and len(spec.residue) <= PLAN_MAX_RESIDUE
+            and not march_takes(spec, dtype, depth))
 
 
 def region_cells(region, layout: Layout3D):
@@ -269,6 +296,14 @@ def _bind(name: str, bf16: bool):
     """``csrc/<name>.cu``, built and its entries of the bfloat16 instances
     (``bf16``) or the others bound, and the shared-memory sizing entry."""
     lib = _cuda_build.load(name)
+    if name.startswith("plan3d"):
+        for dtype, entry in _PLAN_ENTRIES.items():
+            if (dtype == torch.bfloat16) == bf16:
+                fn = getattr(lib, entry)
+                fn.restype = ctypes.c_int
+                fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 26
+                               + [ctypes.c_void_p])
+        return lib
     lib.ls_stencil3d_smem_bytes.restype = ctypes.c_longlong
     lib.ls_stencil3d_smem_bytes.argtypes = [ctypes.c_int] * 8
     for entries, ints in ((_ENTRIES, 31), (_MARCH_ENTRIES, 26)):
@@ -298,6 +333,20 @@ def _lib_bf16():
 
 def _lib_of(dtype):
     return _lib_bf16() if dtype == torch.bfloat16 else _lib()
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_lib():
+    """csrc/plan3d.cu's float32 and float64 instances, built and bound once
+    per process."""
+    return _bind("plan3d", False)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan_lib_bf16():
+    """csrc/plan3d_bf16.cu (its bfloat16 instances), built and bound once
+    per process."""
+    return _bind("plan3d_bf16", True)
 
 
 @functools.lru_cache(maxsize=None)
@@ -365,9 +414,10 @@ def plan_pass(spec: StencilSpec, fused_steps: int, itemsize: int):
 
 def launch_depths(spec: StencilSpec, dtype, k: int):
     """The depths of the launches a pass of k steps in ``dtype`` takes: one
-    where ``march_takes``, else launches of the largest depth the general
-    kernel's shared memory holds (``plan_pass``), then the rest."""
-    if march_takes(spec, dtype, k):
+    where ``march_takes`` or ``plan_march_takes``, else launches of the
+    largest depth the general kernel's shared memory holds (``plan_pass``),
+    then the rest."""
+    if march_takes(spec, dtype, k) or plan_march_takes(spec, dtype, k):
         return [k]
     K = plan_pass(spec, k, dtype.itemsize)[0]
     return [K] * (k // K) + ([k % K] if k % K else [])
@@ -422,30 +472,47 @@ def _launch(cur, out, spec: StencilSpec, layout: Layout3D, K: int, tile,
 
 
 def _launch_march(cur, out, spec: StencilSpec, layout: Layout3D, K: int,
-                  box, window=None):
-    """One launch of the march kernel's instance of ``cur``'s dtype, its
-    first level kept to ``box`` at K = 2 (``check_bounds``' 6 ints), over
-    the rows and columns ``window`` (all of the rounded plane when None);
-    raises if refused, and counts it (in ``launches_region`` too for a
-    window)."""
+                  box, window=None, plan_march=False):
+    """One launch of the march kernel's (``plan_march``: the plan march
+    kernel's) instance of ``cur``'s dtype, its first level kept to ``box``
+    at K = 2 (``check_bounds``' 6 ints), over the rows and columns
+    ``window`` (all of the rounded plane when None); raises if refused, and
+    counts it (in ``launches_region`` too for a window).  Both kernels take
+    the tap table from host memory and one signature."""
     plan = _plan_host(spec, cur.dtype)
     nz, rows, pitch = layout.shape
     z0, r0, c0 = layout.origin
     h, m, n = layout.interior
     _, mr, nr = layout.rounded
     win = (0, mr, 0, nr) if window is None else window
+    if plan_march:
+        bf16 = cur.dtype == torch.bfloat16
+        fn = getattr(_plan_lib_bf16() if bf16 else _plan_lib(),
+                     _PLAN_ENTRIES[cur.dtype])
+    else:
+        fn = getattr(_lib_of(cur.dtype), _MARCH_ENTRIES[cur.dtype])
     with torch.cuda.device(cur.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(_lib_of(cur.dtype), _MARCH_ENTRIES[cur.dtype])(
-            cur.data_ptr(), out.data_ptr(), plan.data_ptr(), plan.numel(),
-            len(spec.terms), spec.radius, len(spec.residue), K, nz, rows,
-            pitch, z0, r0, c0, h, m, n, mr, nr, *box, *win, stream)
+        err = fn(cur.data_ptr(), out.data_ptr(), plan.data_ptr(),
+                 plan.numel(), len(spec.terms), spec.radius,
+                 len(spec.residue), K, nz, rows, pitch, z0, r0, c0, h, m, n,
+                 mr, nr, *box, *win, stream)
+    kernel = "plan march" if plan_march else "march"
     if err != 0:
         raise RuntimeError(
-            f"stencil3d march kernel launch failed: CUDA error {err}")
+            f"stencil3d {kernel} kernel launch failed: CUDA error {err}")
     _count(cur.dtype, window)
-    stencil3d_step.launches_march += 1
+    if plan_march:
+        stencil3d_step.launches_plan_march += 1
+    else:
+        stencil3d_step.launches_march += 1
     return out
+
+
+def _launch_plan_march(cur, out, spec: StencilSpec, layout: Layout3D,
+                       K: int, box, window=None):
+    """One launch of the plan march kernel (``_launch_march``)."""
+    return _launch_march(cur, out, spec, layout, K, box, window, True)
 
 
 def _count(dtype, window=None):
@@ -472,7 +539,9 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
     the float64 ones and counts in ``launches_f64``, a bfloat16 state the
     bfloat16 ones and counts in ``launches_bf16``.  A pass that
     ``march_takes`` runs the march kernel in one launch, also counted in
-    ``launches_march``.  Any other runs the general kernel: one launch
+    ``launches_march``; a pass that ``plan_march_takes`` runs the plan
+    march kernel in one launch, also counted in ``launches_plan_march``.
+    Any other runs the general kernel: one launch
     does all ``fused_steps`` levels when a block's shared-memory rings fit
     at that depth; otherwise it runs passes of the largest depth that
     fits, through one extra zero-ringed buffer, and the launch counter
@@ -510,7 +579,8 @@ def stencil3d_step(cur, donor, spec: StencilSpec, layout: Layout3D,
 def _kernel_pass(cur, donor, spec: StencilSpec, layout: Layout3D,
                  fused_steps: int, box=None, refresh=None, window=None):
     """A checked pass on the card: the march kernel where ``march_takes``
-    says so, else the general kernel's launches (``launch_depths``), each
+    says so, the plan march kernel where ``plan_march_takes``, else the
+    general kernel's launches (``launch_depths``), each
     keeping ``box`` (``check_bounds``' ints; the interior when None), the
     ring refilled by ``refresh`` before each launch past the first, over
     the rows and columns ``window`` (all of the plane when None; a pass of
@@ -519,6 +589,9 @@ def _kernel_pass(cur, donor, spec: StencilSpec, layout: Layout3D,
     win = () if window is None else (window,)
     if march_takes(spec, cur.dtype, fused_steps):
         return _launch_march(cur, donor, spec, layout, fused_steps, box, *win)
+    if plan_march_takes(spec, cur.dtype, fused_steps):
+        return _launch_plan_march(cur, donor, spec, layout, fused_steps, box,
+                                  *win)
     itemsize = cur.element_size()
     depths = launch_depths(spec, cur.dtype, fused_steps)
     if len(depths) == 1:
@@ -538,9 +611,10 @@ def _kernel_pass(cur, donor, spec: StencilSpec, layout: Layout3D,
 
 
 # kernel launches per instance, for chip_smoke.py: float32, float64 and
-# bfloat16, the march kernel's (of any dtype) apart, and the launches over a
-# region
+# bfloat16, the march and plan march kernels' (of any dtype) apart, and the
+# launches over a region
 stencil3d_step.launches = stencil3d_step.launches_f64 = 0
 stencil3d_step.launches_bf16 = 0
 stencil3d_step.launches_march = 0
+stencil3d_step.launches_plan_march = 0
 stencil3d_step.launches_region = 0

@@ -828,8 +828,15 @@ SHAPES_FUSED = [("star2d3r", (96, 256)), ("box2d1r", (100, 131)), ("star2d1r", (
 @pytest.mark.parametrize("name,interior", SHAPES_FUSED)
 def test_fused_kernel_matches_single_steps_and_twin(cuda, name, interior, dtype, k):
     """#1 at k > 1; "split": one step deeper than a launch takes, so the pass
-    runs as two launches."""
+    runs as two launches.  A launch the plan strip kernel would take runs as
+    single strip launches (``stencil2d.strips_beat_plan``; every shape here
+    takes the strip kernel's single steps): one launch a step.  The launches
+    are pinned: star2d3r's float32 k = 2 pass is one fused strip launch,
+    every other k = 2 pass and each float32 k = 3 pass k strip launches, a
+    float64 k = 3 and every k = 4 pass one tile launch."""
     spec = get_shape(name)
+    launches = {2: 1 if (name, dtype) == ("star2d3r", torch.float32) else 2,
+                3: 3 if dtype == torch.float32 else 1, 4: 1, "split": 2}[k]
     kmax = stencil2d.max_fused_steps("step", spec.radius, stencil2d.plan_len(spec), dtype)
     k = kmax + 1 if k == "split" else k
     lay = _layout_2d(spec, interior, k)
@@ -840,7 +847,7 @@ def test_fused_kernel_matches_single_steps_and_twin(cuda, name, interior, dtype,
         before = stencil2d.stencil2d_step.launches + stencil2d.stencil2d_step.launches_f64
         got = stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay, fused_steps=k)
         after = stencil2d.stencil2d_step.launches + stencil2d.stencil2d_step.launches_f64
-        assert after - before == -(-k // kmax)
+        assert after - before == launches
         _agree(got, _steps(stencil2d.stencil2d_step, x, spec, lay, k), True)
         want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k)
         _agree(got, want, dtype == torch.float64 or (integer and k <= 3))
@@ -2126,3 +2133,120 @@ def test_sharded_checkpoint_round_trip_on_card(cuda, tmp_path):
     assert all(b.device == state0[c].device for c, b in back.items())
     got = eng._run(back, 3)
     assert all(torch.equal(got[c], want[c]) for c in want)
+
+
+# -- the plan strip and plan march kernels (csrc/plan2d.cu, csrc/plan3d.cu) ----
+def _plan_cases():
+    import chip_smoke
+
+    for dims, name, interior, k, dtype in chip_smoke.plan_check_cases():
+        yield pytest.param(dims, name, interior, k, dtype,
+                           id=f"{name}-{interior}-k{k}-{str(dtype)[6:]}")
+
+
+@pytest.mark.parametrize("dims,name,interior,k,dtype", list(_plan_cases()))
+def test_plan_kernel_on_card(cuda, dims, name, interior, k, dtype):
+    """Each plan kernel on its own entry in every dtype and depth it takes
+    (chip_smoke.py phase 28 (a)): bit for bit against its twin on the 0/1
+    fill with dyadic taps at 1 and 2 passes (float64 on the pi/100 fill
+    too), against the kernel it replaces (step_kernel, stencil3d_kernel) on
+    the pi/100 fill, under a ghost ring's box and over a window of tiles;
+    each launch counted."""
+    import chip_smoke
+
+    assert chip_smoke.check_plan_case(dims, name, interior, k, dtype, cuda)
+
+
+def _plan_engine_cases():
+    # reflect fuses only per-axis symmetric coefficients (the engine's rule):
+    # the asymmetric specs take it at one step a pass
+    for name, interior, kw, counter in (
+            ("9x9 rank 4", (100, 300), {}, "stencil2d_plan_strip"),
+            ("9x9 rank 4", (100, 300), {"dtype": "df64"}, "stencil2d_plan_strip"),
+            ("5x5 asym", (70, 250), {"fused_steps": 2, "dtype": "bfloat16"},
+             "stencil2d_plan_strip"),
+            ("star2d1r", (64, 200), {"fused_steps": 3, "dtype": "bfloat16"},
+             "stencil2d_plan_strip"),
+            ("per-plane", (20, 40, 70), {}, "stencil3d_plan_march"),
+            ("per-plane", (20, 40, 70), {"dtype": "df64"}, "stencil3d_plan_march"),
+            ("star r4", (20, 40, 70), {}, "stencil3d_plan_march")):
+        for boundary in ("dirichlet0", "periodic", "reflect"):
+            opts = kw
+            if boundary == "reflect" and name == "5x5 asym":
+                continue  # at one step a pass the strip kernel's (phase 22)
+            if boundary == "reflect" and name == "per-plane" and not kw:
+                opts = {"fused_steps_3d": 1}
+            yield pytest.param(name, interior, opts, counter, boundary,
+                               id=f"{name}-{opts}-{boundary}")
+
+
+@pytest.mark.parametrize("name,interior,kw,counter,boundary", list(_plan_engine_cases()))
+def test_plan_kernels_through_the_engine_every_boundary(cuda, tiled_2d, name, interior,
+                                                        kw, counter, boundary):
+    """The named cases through StencilEngine under each boundary (the ghost
+    rings' bounds on the plan kernels' levels before the last): run(2k) of
+    the dyadic twin on the 0/1 fill, every launch the plan kernel's, bit
+    for bit against the engine's run with the plain twins."""
+    import chip_smoke
+
+    eng = chip_smoke.plan_engine(name, interior, cuda, boundary=boundary, **kw)
+    k = eng._fused_k()
+    deng = engine.StencilEngine(chip_smoke.dyadic(eng.spec), interior, eng.config,
+                                device=cuda)
+    g01 = reference.random_padded(eng.spec, interior, seed=21) % 2
+    chip_smoke.reset_counts()
+    got = deng.run(g01, 2 * k)
+    torch.cuda.synchronize()
+    c = chip_smoke.counts()
+    assert c[counter] == 2 and not c["stencil2d_k1"] and not c["stencil3d_march"]
+    with chip_smoke.twins():
+        want = deng.run(g01, 2 * k)
+    _same(got, want)
+
+
+def _ghost_split_cases():
+    for name, interior, kw in (("star2d1r", (64, 200), {"fused_steps": 2}),
+                               ("star2d1r", (64, 200), {"fused_steps": 2, "dtype": "float64"}),
+                               ("box2d3r", (60, 140), {"fused_steps": 3}),
+                               ("5x5 asym", (70, 250), {"fused_steps": 2})):
+        for boundary in ("periodic", "reflect"):
+            if boundary == "reflect" and name == "5x5 asym":
+                continue  # reflect fuses only per-axis symmetric coefficients
+            yield pytest.param(name, interior, kw, boundary, id=f"{name}-{kw}-{boundary}")
+
+
+@pytest.mark.parametrize("name,interior,kw,boundary", list(_ghost_split_cases()))
+def test_ghost_ring_pass_runs_strip_launches(cuda, tiled_2d, monkeypatch, name, interior,
+                                            kw, boundary):
+    """A float32 or float64 pass that ``stencil2d.strips_beat_plan`` sends to
+    strip launches keeps that route under a ghost ring, the engine's refresh
+    refilling the ring between them: run(2k) of the dyadic twin on the 0/1
+    fill is 2k strip launches, none of a plan or fused strip kernel, bit for
+    bit against the same launches' plain versions with the refreshes between
+    them.  Periodic also bit for bit against the engine's run with the plain
+    twins, whose fused levels keep the ring: a wrapped ring cell sums what
+    its interior cell sums, in the same order.  A reflected one sums its
+    mirror image in the mirrored order, which can round otherwise once the
+    sums pass 2**24 (box2d3r's six steps)."""
+    import chip_smoke
+
+    eng = chip_smoke.plan_engine(name, interior, cuda, boundary=boundary, **kw)
+    k = eng._fused_k()
+    deng = engine.StencilEngine(chip_smoke.dyadic(eng.spec), interior, eng.config,
+                                device=cuda)
+    g01 = reference.random_padded(eng.spec, interior, seed=21) % 2
+    chip_smoke.reset_counts()
+    got = deng.run(g01, 2 * k)
+    torch.cuda.synchronize()
+    c = chip_smoke.counts()
+    assert (c["stencil2d_k1"], c["stencil2d_plan_strip"], c["stencil2d_fused_strip"]) == (
+        2 * k, 0, 0)
+    if boundary == "periodic":
+        with chip_smoke.twins():
+            _same(got, deng.run(g01, 2 * k))
+
+    def plain(kind, buffers, spec, layout, depth, bounds=None, region=None):
+        stencil2d.stencil2d_step_plain(*buffers, spec, layout, depth, bounds, region)
+
+    monkeypatch.setattr(stencil2d, "_launch", plain)
+    _same(got, deng.run(g01, 2 * k))

@@ -327,8 +327,11 @@ def test_split_pass_launches_the_fused_strip_kernel_by_the_rule(kind, name, dtyp
     """_split_pass sends a pass the rule takes to the fused strip kernel, as
     "fused_strip" from stencil2d_step and "fused_strip_skew" from
     stencil2d_skew_step (each wrapper counts its own launches), and every
-    other pass to the tile kernel of its wrapper; each launch replaced by the
-    twin, the pass equals the unsplit twin."""
+    other pass to the plan strip kernel (stencil2d_step) or the skew kernel
+    (stencil2d_skew_step).  The pass keeps a shard's ring (a box past the
+    interior, no refresh), which holds it to one launch whatever the rule
+    of strip launches (tests/test_torch_plan_kernels.py holds that rule);
+    each launch replaced by the twin, the pass equals the unsplit twin."""
     spec = get_shape(name)
     lay = _layout(spec, (37, 45), k)
     x = lay.to_internal(reference.random_padded(spec, (37, 45), seed=4) % 2, dtype)
@@ -339,11 +342,14 @@ def test_split_pass_launches_the_fused_strip_kernel_by_the_rule(kind, name, dtyp
         stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds)
 
     monkeypatch.setattr(stencil2d, "_launch", fake_launch)
-    got = stencil2d._split_pass(kind, x, torch.zeros_like(x), spec, lay, k)
-    expect = kind if want is None else want + ("_skew" if kind == "skew" else "")
+    r = spec.radius
+    ring = (-r, 37 + r, -r, 45 + r)
+    got = stencil2d._split_pass(kind, x, torch.zeros_like(x), spec, lay, k, ring)
+    other = "plan_strip" if kind == "step" else kind
+    expect = other if want is None else want + ("_skew" if kind == "skew" else "")
     assert kinds == [expect]
     assert stencil2d._ENTRIES[expect][dtype]
-    _same(got, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k))
+    _same(got, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k, ring))
 
 
 @pytest.mark.parametrize("boundary", ["periodic", "reflect"])
