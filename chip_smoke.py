@@ -411,7 +411,20 @@ Phases, each printing one line or more and raising on failure:
    in run(2k), none of a plan kernel) and bit for bit against the twins'
    fused run on the dyadic 0/1 fill, then one pass timed on the plan strip
    kernel with the ring's box beside k strip launches with the ring
-   refresh between them and beside the wrapper's pass, in turns.
+   refresh between them and beside the wrapper's pass, in turns;
+29. the strip walk past the plan strip kernel's first reach (the plan strip
+   kernel at depth 4 and radius 5-8, ``stencil2d_skew_step`` on the walk:
+   the redesigns of ``skew_kernel`` and of ``step_kernel`` there): the
+   ptxas lines, failing on a spill; (a) each new instance on its own entry
+   (``REACH_CHECKS``) against its twin and ``step_kernel``, under a ring box
+   and over a window, and each skewed pass (``REACH_SKEW_CHECKS``) against
+   ``skew_kernel`` and the twin; (b) ``REACH_CASES`` through StencilEngine,
+   their launches counted from zero (none of ``step_kernel`` or
+   ``skew_kernel`` but where ``stencil2d.tile_beats_plan`` keeps them),
+   bit for bit against the twins' run; (c) each case timed at full size
+   beside the kernel it replaces, its twin, one cuDNN step and its bound,
+   and region launches over a shard's inner window; (d) one radius-5 and
+   one 17x17 step at 1024^2-8192^2 on the plan strip and the tile kernel.
 
 It then prints the kernels' JSON record and, last, the device record.  It
 needs one CUDA device and exits non-zero without one.  Neither JAX nor any
@@ -524,6 +537,16 @@ def _counters():
                                     "launches_plan_strip"),
            "stencil3d_plan_march": (stencil3d.stencil3d_step,
                                     "launches_plan_march"),
+           # the tile kernels' launches (step_kernel from stencil2d_step,
+           # skew_kernel from stencil2d_skew_step), and the strip walk's
+           # launches of a skewed pass, in any dtype
+           "stencil2d_tile": (stencil2d.stencil2d_step, "launches_tile"),
+           "stencil2d_skew_tile": (stencil2d.stencil2d_skew_step,
+                                   "launches_tile"),
+           "stencil2d_skew_k1": (stencil2d.stencil2d_skew_step,
+                                 "launches_k1"),
+           "stencil2d_skew_plan_strip": (stencil2d.stencil2d_skew_step,
+                                         "launches_plan_strip"),
            "df64_step": (stencil2d.stencil2d_step, "launches_f64"),
            "stencil2d_skew": (stencil2d.stencil2d_skew_step, "launches"),
            "stencil2d_skew_f64": (stencil2d.stencil2d_skew_step,
@@ -682,9 +705,10 @@ def check_kernel(name, interior, device):
 
 
 def check_wide_radius(device):
-    """Phase 2: a radius-5 step (beyond the strip kernel's radii: the tile
-    kernel) against its twin on the integer fill at 1-2 steps; returns its
-    launches of the tile kernel (1 per step, none of the strip kernel)."""
+    """Phase 2: a radius-5 step (beyond the strip kernel's radii: the plan
+    strip kernel's radius-5 instance, which replaced the tile kernel there)
+    against its twin on the integer fill at 1-2 steps; returns its launches
+    (1 per step, none of the strip kernel or the tile kernel)."""
     from lorastencil_tpu_torch.models.shapes import SeparableTerm, StencilSpec
     from lorastencil_tpu_torch.ops import stencil2d
     from lorastencil_tpu_torch.utils import reference
@@ -704,10 +728,13 @@ def check_wide_radius(device):
         want = run_steps(stencil2d.stencil2d_step_plain, x, spec, lay, steps)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
-            raise AssertionError(f"radius 5 {interior}: the tile kernel "
-                                 f"differs from its twin after {steps} steps")
+            raise AssertionError(f"radius 5 {interior}: the plan strip "
+                                 f"kernel differs from its twin after "
+                                 f"{steps} steps")
     launched = counts()
-    if (launched["stencil2d"], launched["stencil2d_k1"]) != (3, 0):
+    if (launched["stencil2d"], launched["stencil2d_k1"],
+            launched["stencil2d_plan_strip"],
+            launched["stencil2d_tile"]) != (3, 0, 3, 0):
         raise AssertionError(f"radius 5 steps launched {launched}")
     return launched["stencil2d"]
 
@@ -3090,10 +3117,16 @@ GHOST_KERNELS = (
      {"fused_steps": 3}, 3, "stencil2d_plan_strip"),
     ("plan_strip_kernel<double>", "star2d1r", (1000, 1000), "float64",
      {"fused_steps": 2}, 2, "stencil2d_plan_strip"),
-    ("step_kernel<float> fused", "star2d1r", (1000, 1000), "float32",
-     {"fused_steps": 4}, 4, "stencil2d"),
-    ("step_kernel<double> fused", "star2d1r", (1000, 1000), "float64",
-     {"fused_steps": 3}, 3, "df64_step"),
+    ("plan_strip_kernel K=4", "star2d1r", (1000, 1000), "float32",
+     {"fused_steps": 4}, 4, "stencil2d_plan_strip"),
+    # the tile kernel's fused pass (kBox) where the strip walk leaves it:
+    # radius 9, and a bfloat16 pass deeper than 4
+    ("step_kernel<float> fused", "custom_r9", (1000, 1000), "float32",
+     {"fused_steps": 2}, 2, "stencil2d"),
+    ("step_kernel<double> fused", "custom_r9", (1000, 1000), "float64",
+     {"fused_steps": 2}, 2, "df64_step"),
+    ("step_kernel<bf16> fused", "star2d1r", (1000, 1000), "bfloat16",
+     {"fused_steps": 5}, 5, "stencil2d_bf16"),
     ("march_kernel<float> K=2", "star3d1r", (37, 45, 130), "float32", {}, 2,
      "stencil3d_march"),
     ("march_kernel<float> K=2", "box3d1r", (37, 45, 130), "float32", {}, 2,
@@ -3164,13 +3197,15 @@ def check_ghost_kernels(device):
 
     launched = {}
     for kernel, name, interior, dtype, kw, k, counter in GHOST_KERNELS:
-        spec = get_shape(name)
+        spec = reach_spec(name) or get_shape(name)
         g0 = reference.random_padded(spec, interior, seed=21) % 2
-        tol = 1e-13 if dtype == "float64" else 1e-6
+        # bfloat16 rounds once a pass: 2**-8 of the largest value
+        tol = {"float64": 1e-13, "bfloat16": 2.0 ** -8}.get(dtype, 1e-6)
         for mode in GHOST_MODES:
-            eng = engine.StencilEngine.for_shape(
-                name, interior, device=device, boundary=mode, dtype=dtype,
-                **kw)
+            eng = engine.StencilEngine(
+                spec, interior,
+                engine._config(dict(kw, boundary=mode, dtype=dtype)),
+                device=device)
             if eng._fused_k() != k:
                 raise AssertionError(f"{kernel}: the engine's k is "
                                      f"{eng._fused_k()}, not {k}")
@@ -3192,7 +3227,8 @@ def check_ghost_kernels(device):
             c = counts()
             if c[counter] != 1 or (kernel.startswith("step_kernel")
                                    and (c["stencil2d_fused_strip"]
-                                        or c["stencil2d_plan_strip"])) or (
+                                        or c["stencil2d_plan_strip"]
+                                        or c["stencil2d_tile"] != 1)) or (
                     kernel.startswith("stencil3d_kernel")
                     and c["stencil3d_march"]):
                 raise AssertionError(f"{kernel} {name} {mode}: launches "
@@ -4052,9 +4088,9 @@ BF16_CHECKS = (
      "stencil2d_plan_strip"),
     ("plan_strip_kernel<bf16>", "5x5 asym", INTERIOR, 2, "step",
      "stencil2d_plan_strip"),
-    ("step_kernel<bf16> fused", "star2d1r", (1000, 1000), 4, "step", None),
-    ("step_kernel<bf16>", "custom_r5", (1000, 1000), 1, "step", None),
-    ("skew_kernel<bf16>", "star2d1r", INTERIOR, 2, "skew", None),
+    ("step_kernel<bf16> fused", "star2d1r", (1000, 1000), 5, "step", None),
+    ("step_kernel<bf16>", "custom_r9", (1000, 1000), 1, "step", None),
+    ("skew_kernel<bf16>", "star2d1r", INTERIOR, 5, "skew", None),
     ("resident_smem_kernel<bf16>", "star2d1r", SMALL_2D, "run", None,
      "stencil2d_resident_smem"),
     ("resident_kernel<bf16>", "custom_r5", R5_2D, "run", None, None))
@@ -4062,7 +4098,8 @@ BF16_CHECKS = (
 # zero: (kernel, spec, interior, engine options, steps of the counted run,
 # the counter, its launches, the counters that stay zero).  custom_r5's bf16
 # 'auto' is 'mxu_hybrid' (one term, no residue): k = 2 and no whole-grid run,
-# so its paths name k = 1 and 'vpu_roll'.
+# so its paths name k = 1 and 'vpu_roll'.  The tile kernels' cases take what
+# the strip walk leaves them (phase 29): a pass deeper than 4, radius 9.
 BF16_PATHS = (
     ("strip_kernel<bf16>", "star2d1r", INTERIOR, {}, BENCH_STEPS,
      "stencil2d_k1", BENCH_STEPS, ("stencil2d_fused_strip",)),
@@ -4070,14 +4107,17 @@ BF16_PATHS = (
      "stencil2d_fused_strip", FUSED_STEPS // 2, ("stencil2d_k1",)),
     ("plan_strip_kernel<bf16>", "star2d1r", INTERIOR, {"fused_steps": 3}, 6,
      "stencil2d_plan_strip", 2, ("stencil2d_k1", "stencil2d_fused_strip")),
-    ("step_kernel<bf16> fused", "star2d1r", INTERIOR, {"fused_steps": 4}, 8,
+    ("step_kernel<bf16> fused", "star2d1r", INTERIOR, {"fused_steps": 5}, 10,
      "stencil2d_bf16", 2, ("stencil2d_k1", "stencil2d_fused_strip",
                            "stencil2d_plan_strip")),
-    ("step_kernel<bf16>", "custom_r5", INTERIOR, {"fused_steps": 1}, 4,
+    ("step_kernel<bf16>", "custom_r9", INTERIOR, {"fused_steps": 1}, 4,
      "stencil2d_bf16", 4,
-     ("stencil2d_k1", "stencil2d_fused_strip", "stencil2d_wide")),
-    ("skew_kernel<bf16>", "star2d1r", INTERIOR, {"fusion": "skew"}, 4,
-     "stencil2d_skew_bf16", 2, ("stencil2d_skew_fused_strip",)),
+     ("stencil2d_k1", "stencil2d_fused_strip", "stencil2d_plan_strip",
+      "stencil2d_wide")),
+    ("skew_kernel<bf16>", "star2d1r", INTERIOR,
+     {"fusion": "skew", "fused_steps": 5}, 10, "stencil2d_skew_bf16", 2,
+     ("stencil2d_skew_fused_strip", "stencil2d_skew_plan_strip",
+      "stencil2d_skew_k1")),
     ("resident_smem_kernel<bf16>", "star2d1r", SMALL_2D, {}, FUSED_STEPS,
      "stencil2d_resident_smem", 1, ("stencil2d_bf16",)),
     ("resident_kernel<bf16>", "custom_r5", R5_2D, {"algorithm": "vpu_roll"},
@@ -4099,12 +4139,13 @@ C3_CASES = ((17, INTERIOR, "float32", "stencil2d"),
 
 
 def bf16_spec(name):
-    """A registry shape, ``custom_r5`` or phase 22's custom array's spec."""
+    """A registry shape, a spec of ``reach_spec`` (``custom_r5``,
+    ``custom_r9``, ...) or phase 22's custom array's spec."""
     from lorastencil_tpu_torch import engine
     from lorastencil_tpu_torch.models.shapes import get_shape
 
-    if name == "custom_r5":
-        return custom_r5()
+    if reach_spec(name) is not None:
+        return reach_spec(name)
     if name in custom_coeffs():
         return engine.StencilEngine.for_coeffs(custom_coeffs()[name], (8, 8),
                                                name=name, device="cpu").spec
@@ -4204,8 +4245,8 @@ def bf16_check(kernel, name, interior, k, kind, counter, device):
 def bf16_engine(name, interior, device, **kw):
     from lorastencil_tpu_torch import engine
 
-    if name == "custom_r5":
-        return engine.StencilEngine(custom_r5(), interior,
+    if reach_spec(name) is not None:
+        return engine.StencilEngine(reach_spec(name), interior,
                                     engine._config(dict(kw, dtype="bfloat16")),
                                     device=device)
     return engine.StencilEngine.for_shape(name, interior, device=device,
@@ -6206,13 +6247,15 @@ def plan_coeffs(name):
 
 
 def plan_spec(name):
-    """The spec of ``plan_coeffs(name)`` (``for_coeffs``), or a registry
-    shape."""
+    """The spec of ``plan_coeffs(name)`` (``for_coeffs``), a registry shape
+    or a phase 29 spec (``reach_spec``)."""
     from lorastencil_tpu_torch import engine
     from lorastencil_tpu_torch.models.shapes import get_shape
 
     if name in ("star2d1r", "box2d1r", "box2d3r", "star3d1r"):
         return get_shape(name)
+    if reach_spec(name) is not None:
+        return reach_spec(name)
     S = plan_coeffs(name)
     return engine.StencilEngine.for_coeffs(
         S, (8,) * S.ndim, name=name, device="cpu").spec
@@ -6700,6 +6743,505 @@ def plan_phase(device, card, builds=None):
     return entries
 
 
+# Phase 29: the strip walk past the reach phase 28 gave it.  The plan strip
+# kernel (csrc/plan2d.cu) at depth 4 (float32, bfloat16) and at radius 5-8
+# (depth 1-2, bfloat16 1-4), and stencil2d_skew_step on the walk (single strip
+# launches, the fused strip and plan strip kernels): the redesign for Hopper of
+# the skew kernel (skew_kernel, TPU kernel #2) and of the tile kernel past the
+# plan strip kernel's first reach (step_kernel, #1 and #9).  Each case against
+# its twin and the kernel it replaces on the card, through StencilEngine with
+# its launches counted (none of step_kernel or skew_kernel but where the
+# measured rule stencil2d.tile_beats_plan keeps them), and timed beside the
+# replaced kernel in turns.
+def reach_spec(name):
+    """A phase 29 spec: ``custom_r5``, a radius-9 box (``custom_r9``: past
+    the walk, the tile kernel's), the 17x17 of rank 4 (``for_coeffs``), a
+    radius-6 plan of three terms with zero taps and residue points in every
+    column class (``r6 residue``); None for another name."""
+    from lorastencil_tpu_torch import engine
+    from lorastencil_tpu_torch.models.shapes import SeparableTerm, StencilSpec
+
+    if name == "custom_r5":
+        return custom_r5()
+    if name == "custom_r9":
+        ones = (1.0,) * 19
+        return StencilSpec(name=name, ndim=2, radius=9, halo=(9, 9),
+                           terms=(SeparableTerm(taps=(ones, ones)),),
+                           residue=(), fuse_factor=1)
+    if name == "17x17 rank 4":
+        rng = np.random.default_rng(22)
+        S = sum(np.outer(rng.standard_normal(17), rng.standard_normal(17))
+                for _ in range(4))
+        return engine.StencilEngine.for_coeffs(S, (8, 8), name=name,
+                                               device="cpu").spec
+    if name == "r6 residue":
+        rng = np.random.default_rng(6)
+
+        def taps():
+            t = rng.standard_normal(13)
+            t[rng.random(13) < 0.3] = 0.0
+            return tuple(float(v) for v in t)
+
+        return StencilSpec(
+            name=name, ndim=2, radius=6, halo=(6, 6),
+            terms=(SeparableTerm(taps=(taps(), taps())),
+                   SeparableTerm(taps=(taps(), None)),
+                   SeparableTerm(taps=(None, taps()))),
+            residue=tuple((off, float(rng.standard_normal())) for off in (
+                (-6, -5), (6, 3), (0, 6), (-3, -6), (5, -1), (2, 2),
+                (-1, -2))), fuse_factor=1)
+    return None
+
+
+# (spec, interior, depths): each depth in each dtype the plan strip kernel
+# takes, on its own entry (check_plan_case: the twin, the replaced
+# step_kernel, a ring box, a window)
+REACH_CHECKS = (("star2d1r", (1000, 1000), (4,)),
+                ("5x5 asym", (333, 517), (4,)),
+                ("custom_r5", (333, 517), (1, 2, 3, 4)),
+                ("r6 residue", (300, 140), (1, 2, 3, 4)),
+                ("17x17 rank 4", (1000, 1000), (1, 2)))
+# the skewed passes checked against skew_kernel: (spec, interior, k)
+REACH_SKEW_CHECKS = (("star2d1r", (1000, 1000), 2),
+                     ("5x5 asym", (333, 517), 2),
+                     ("9x9 rank 4", (1000, 1000), 2),
+                     ("custom_r5", (333, 517), 2),
+                     ("r6 residue", (300, 140), 3))
+# The cases through StencilEngine, counted and timed at full size: (label,
+# spec, interior, engine options).
+REACH_CASES = (
+    ("skew star2d1r k=2", "star2d1r", INTERIOR, {"fusion": "skew"}),
+    ("bf16 skew star2d1r k=2", "star2d1r", INTERIOR,
+     {"fusion": "skew", "dtype": "bfloat16"}),
+    ("float64 skew star2d1r k=2", "star2d1r", INTERIOR,
+     {"fusion": "skew", "dtype": "float64"}),
+    ("skew 5x5 asym k=2", "5x5 asym", INTERIOR,
+     {"fusion": "skew", "fused_steps": 2}),
+    ("skew 9x9 rank 4 k=2", "9x9 rank 4", INTERIOR,
+     {"fusion": "skew", "fused_steps": 2}),
+    ("star2d1r k=4", "star2d1r", INTERIOR, {"fused_steps": 4}),
+    ("bf16 star2d1r k=4", "star2d1r", INTERIOR,
+     {"fused_steps": 4, "dtype": "bfloat16"}),
+    ("float64 9x9 rank 4 k=3", "9x9 rank 4", INTERIOR,
+     {"fused_steps": 3, "dtype": "float64"}))
+REACH_CASES += tuple(
+    (f"{dt + ' ' if dt != 'float32' else ''}{name} k={k}", name, INTERIOR,
+     {"fused_steps": k, "dtype": dt})
+    for name in ("custom_r5", "17x17 rank 4") for k in (1, 2)
+    for dt in ("float32", "bfloat16", "float64"))
+REACH_CASES += (("periodic custom_r5 k=2", "custom_r5", INTERIOR,
+                 {"fused_steps": 2, "boundary": "periodic"}),)
+# the counters of the kernels phase 29 moves launches off
+TILE_COUNTERS = ("stencil2d_tile", "stencil2d_skew_tile")
+# the region launches: (spec, dtype) of a sharded engine of REACH_REGION over
+# a (2, 2) mesh
+REACH_REGION = (4096, 4096)
+REACH_REGION_CASES = (("custom_r5", "float32"), ("custom_r5", "bfloat16"),
+                      ("17x17 rank 4", "float32"))
+
+
+def reach_engine(name, interior, device, **kw):
+    """The engine of a phase 29 case: a registry shape's, a spec of
+    ``reach_spec``, or ``for_coeffs`` of phase 22's arrays."""
+    from lorastencil_tpu_torch import engine
+
+    spec = reach_spec(name)
+    if spec is None:
+        return plan_engine(name, interior, device, **kw)
+    return engine.StencilEngine(spec, interior, engine._config(kw),
+                                device=device)
+
+
+def check_reach_skew(name, interior, k, dtype, device):
+    """Phase 29 (a) for one skewed pass: ``stencil2d_skew_step`` (its
+    launches counted from zero: all on the skew wrapper, none of the tile
+    kernels, unless ``stencil2d.tile_beats_plan`` keeps them) against
+    skew_kernel launched
+    directly and the twin, on the 0/1
+    fill with the dyadic twin and on the pi/100 fill (the replaced kernel
+    bit for bit; the twin in float64).  Returns a line."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+    from lorastencil_tpu_torch.ops.layout import (Layout2D, default_tile_2d,
+                                                  guard_2d)
+
+    real = plan_spec(name)
+    lay = Layout2D(interior=interior, halo=real.halo,
+                   tile=default_tile_2d(*interior),
+                   guard=guard_2d(real.halo, k * real.radius))
+    label = f"skew {name} {interior} {str(dtype)[6:]} k={k}"
+    # the measured exceptions (stencil2d.tile_beats_plan) keep skew_kernel
+    tile = any(s2._one_kind("skew", real, dtype, d) in ("step", "skew")
+               for d in s2.launch_depths("skew", real, dtype, k))
+    (dspec, x01), (spec, xpi) = plan_fills(real, lay.shape, dtype, device,
+                                           seed=29)
+    for sp, x, what in ((dspec, x01, "0/1 fill, dyadic taps"),
+                        (spec, xpi, "pi/100 fill")):
+        reset_counts()
+        got = s2.stencil2d_skew_step(x, torch.zeros_like(x), sp, lay,
+                                     skew_steps=k)
+        torch.cuda.synchronize()
+        c = counts()
+        if not tile and (any(c[t] for t in TILE_COUNTERS) or c["stencil2d"]
+                         or c["df64_step"] or c["stencil2d_bf16"]):
+            raise AssertionError(f"{label}: launches {c}")
+        old = torch.zeros_like(x)
+        s2._launch("skew", (x, old), sp, lay, k)
+        same_bits(got, old, f"{label} {what} vs skew_kernel")
+        if what.startswith("0/1") or dtype == torch.float64:
+            same_bits(got, s2.stencil2d_step_plain(x, torch.zeros_like(x), sp,
+                                                   lay, k),
+                      f"{label} {what} vs the twin")
+    route = {n: v for n, v in c.items() if v}
+    return (f"{label}: the wrapper's launches {route}, "
+            + ("the tile kernels' by stencil2d.tile_beats_plan; " if tile
+               else "none of skew_kernel; ") +
+            f"bit for bit against skew_kernel (0/1 and pi/100 fills) and the "
+            f"twin (0/1 fill, dyadic taps"
+            f"{'; pi/100 fill' if dtype == torch.float64 else ''})")
+
+
+def reach_check_cases():
+    """(spec, interior, k, dtype) of ``REACH_CHECKS`` that the plan strip
+    kernel takes."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    for name, interior, depths in REACH_CHECKS:
+        spec = plan_spec(name)
+        for dtype, k in itertools.product(PLAN_DTYPES, depths):
+            if s2.plan_strip_takes(spec, dtype, k):
+                yield name, interior, k, dtype
+
+
+def reach_route(eng):
+    """The launches of a run of two passes of an engine, by counter, from
+    the wrappers' rules: each launch of ``launch_depths`` on the kernel
+    ``_one_kind`` names, or as single launches where ``strips_beat_plan``,
+    counted on the wrapper of the engine's fusion mode (the tile kernels'
+    in "stencil2d_tile" / "stencil2d_skew_tile")."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    spec, k, dtype = eng.spec, eng._fused_k(), eng.dtype
+    kind = "skew" if eng._fusion_mode() == "skew" else "step"
+    pre = "stencil2d_skew_" if kind == "skew" else "stencil2d_"
+    want = {}
+    for depth in s2.launch_depths(kind, spec, dtype, k):
+        if depth >= 2 and s2.strips_beat_plan(spec, dtype, depth):
+            kinds = [s2._one_kind(kind, spec, dtype, 1)] * depth
+        else:
+            kinds = [s2._one_kind(kind, spec, dtype, depth)]
+        for one in kinds:
+            counter = pre + {"strip": "k1", "plan_strip": "plan_strip",
+                             "fused_strip": "fused_strip", "step": "tile",
+                             "skew": "tile"}[one]
+            want[counter] = want.get(counter, 0) + 2
+    return want
+
+
+def reach_paths(device):
+    """Phase 29 (b): each case of ``REACH_CASES`` through StencilEngine:
+    run(2k) of the dyadic twin on the 0/1 fill, its launches counted from
+    zero (``reach_route``'s, none of step_kernel or skew_kernel), bit for
+    bit against the engine's run with the plain twins; run(2k) of the spec
+    on the pi/100 fill against the twins' run (float64: bit for bit).
+    Returns ({label: (launches, max abs err, counters)}, lines)."""
+    from lorastencil_tpu_torch import engine
+
+    out_rec, lines = {}, []
+    for label, name, interior, kw in REACH_CASES:
+        eng = reach_engine(name, interior, device, **kw)
+        spec, k = eng.spec, eng._fused_k()
+        want = reach_route(eng)
+        steps = 2 * k
+        deng = engine.StencilEngine(dyadic(spec), interior, eng.config,
+                                    device=device)
+        g01, gpi = custom_fills(spec.padded_shape(interior), device)
+        reset_counts()
+        out = deng.run(g01, steps)
+        torch.cuda.synchronize()
+        c = counts()
+        got = {n: c[n] for n in want}
+        if got != want or any(c[t] for t in TILE_COUNTERS if t not in want):
+            raise AssertionError(f"{label} run({steps}): {c}, want {want}")
+        with twins():
+            same_bits(out, deng.run(g01, steps),
+                      f"{label} run({steps}) vs the twins")
+        res = eng.run(gpi, steps)
+        with twins():
+            ref = eng.run(gpi, steps)
+        if eng.dtype == torch.float64:
+            same_bits(res, ref, f"{label} run({steps}) pi/100 fill vs twins")
+        err = float((res.double() - ref.double()).abs().max())
+        out_rec[label] = (sum(want.values()), err, want)
+        tile = [t for t in TILE_COUNTERS if t in want]
+        lines.append(f"{label} {interior}: run({steps}) at k={k}: launches "
+                     f"{want}"
+                     + (f" (the tile kernel by stencil2d.tile_beats_plan)"
+                        if tile else f", none in {TILE_COUNTERS}")
+                     + "; the dyadic twin's run "
+                     f"bit for bit against the twins' run; pi/100 fill max "
+                     f"abs err {err} against it")
+        del out, res, ref, g01, gpi
+    return out_rec, lines
+
+
+def reach_timing(device, card):
+    """Phase 29 (c): one pass of each case of ``REACH_CASES`` at full size
+    (the engine's layout and depth) through its wrapper's route (the
+    launches ``reach_route`` names) and on the kernel it replaces (one
+    launch of step_kernel or skew_kernel at the same depth), in turns (then
+    reversed, best of); at k = 4 in float32 the plan strip kernel's one
+    launch and k strip launches too (the routing rule of
+    ``stencil2d.strips_beat_plan``); its plain twin, one library step
+    (cuDNN, TF32 off, the dtype) and the pass's bound.  The periodic case
+    with the engine's bounds and refresh, the replaced kernel with the
+    ring's box.  Also one region launch at radius 5 (custom_r5 over the
+    inner window of a 4096^2 shard of a (2, 2) mesh).  Returns {label:
+    record}."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    gen = torch.Generator(device=device).manual_seed(29)
+    records = {}
+    for label, name, interior, kw in REACH_CASES:
+        eng = reach_engine(name, interior, device, **kw)
+        spec, lay, k = eng.spec, eng.layout, eng._fused_k()
+        skew = eng._fusion_mode() == "skew"
+        x = (torch.rand(lay.shape, generator=gen, device=device)
+             * 0.01).to(eng.dtype)
+        bounds = refresh = None
+        if eng.config.boundary != "dirichlet0":
+            bounds = eng._ghost_bounds()
+
+            def refresh(state):
+                return eng._ring_refresh(state, eng.config.boundary)
+
+            x = refresh(x)
+        if skew:
+            fns = {"route": lambda a, b: s2.stencil2d_skew_step(
+                       a, b, spec, lay, skew_steps=k),
+                   "replaced": lambda a, b: s2._launch("skew", (a, b), spec,
+                                                       lay, k)}
+        else:
+            fns = {"route": lambda a, b: s2.stencil2d_step(
+                       a, b, spec, lay, fused_steps=k, bounds=bounds,
+                       refresh=refresh),
+                   "replaced": lambda a, b: s2._launch("step", (a, b), spec,
+                                                       lay, k, bounds)}
+        if s2.plan_strip_takes(spec, eng.dtype, k):
+            fns["plan"] = lambda a, b: s2._launch("plan_strip", (a, b), spec,
+                                                  lay, k, bounds)
+        single = s2._one_kind("step", spec, eng.dtype, 1)
+        if k >= 2 and eng.dtype != BF16 and single in ("strip", "plan_strip"):
+            tmp = torch.zeros_like(x)
+
+            def singles(a, b):
+                src = a
+                for i in range(k):  # the last launch writes b
+                    dst = b if (k - i) % 2 == 1 else tmp
+                    if i and refresh is not None:
+                        src = refresh(src)
+                    s2._launch(single, (src, dst), spec, lay, 1, bounds)
+                    src = dst
+
+            fns["singles"] = singles
+        ms = time_calls(fns, x, torch.zeros_like(x), 10)
+        plain_ms = time_calls({"plain": lambda a, b: s2.stencil2d_step_plain(
+            a, b, spec, lay, k, bounds)}, x, torch.zeros_like(x), 1)["plain"]
+        del x
+        fns.clear()
+        bound, by = bound_ms(spec, interior, k, eng.dtype.itemsize)
+        lib = library_ms(spec, interior, device, eng.dtype, repeats=2)
+        records[label] = dict(
+            kernel=label, ms=ms["route"], replaced_ms=ms["replaced"],
+            plan_ms=ms.get("plan"), singles_ms=ms.get("singles"),
+            plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib,
+            steps_per_launch=k, library_steps=1,
+            shape=f"{label} {'x'.join(map(str, interior))}")
+        print(f"phase 29: {label} {interior}: the route {ms['route']} ms "
+              f"({bound / ms['route']:.4f} of the {by} bound {bound} ms), "
+              f"the kernel it replaces ({'skew' if skew else 'step'}_kernel) "
+              f"{ms['replaced']} ms"
+              + (f", one plan strip launch {ms['plan']} ms" if "plan" in ms
+                 else "")
+              + (f", {k} single launches ({single}) {ms['singles']} ms"
+                 if "singles" in ms else "")
+              + f", plain twin {plain_ms} ms, one library step {lib} ms "
+                f"[{card}]", flush=True)
+    for name, dtype in REACH_REGION_CASES:
+        records.update(reach_region(name, dtype, device, card, gen))
+    return records
+
+
+def reach_region(name, dtype, device, card, gen):
+    """Phase 29 (c): one step of a shard of ``REACH_REGION`` over a (2, 2)
+    mesh, on the card: over the inner window of the overlapped step (the
+    route's launch, the tile kernel's; the wrapper's pass bit for bit
+    against the twin on a 0/1 fill with the dyadic taps, its launches
+    counted) and over the whole shard, device time of each launch from
+    CUDA graphs of 10 (the host's launch work left out, which at these
+    sizes is longer than the kernels), in turns.  Returns {label:
+    record}."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    eng, _ = sharded_engines(name, REACH_REGION, {"dtype": dtype}, (2, 2),
+                             device)
+    spec, lay = eng.spec, eng.layout
+    gi, gj = lay.grid
+    region = ((1, gi - 1), (1, gj - 1))
+    dims = ((gi - 2) * lay.tile[0], (gj - 2) * lay.tile[1])
+    tdtype = getattr(torch, dtype)
+    x = (torch.rand(lay.shape, generator=gen, device=device)
+         * 0.01).to(tdtype)
+    route = s2._one_kind("step", spec, tdtype, 1)
+    out = torch.zeros_like(x)
+    fns = {"route": lambda: s2._launch(route, (x, out), spec, lay, 1, None,
+                                       region),
+           "replaced": lambda: s2._launch("step", (x, out), spec, lay, 1,
+                                          None, region),
+           "shard": lambda: s2._launch(route, (x, out), spec, lay, 1),
+           "shard_tile": lambda: s2._launch("step", (x, out), spec, lay, 1)}
+    ms = {}
+    for key in list(fns) + list(fns)[::-1]:
+        ms[key] = min(ms.get(key, float("inf")), graph_ms(fns[key], 10))
+    del fns, out
+    plain_ms = time_calls({"plain": lambda a, b: s2.stencil2d_step_plain(
+        a, b, spec, lay, 1, None, region)}, x, torch.zeros_like(x),
+        1)["plain"]
+    dspec = dyadic(spec)
+    x01 = torch.randint(0, 2, lay.shape, generator=gen,
+                        device=device).to(tdtype)
+    out = torch.full_like(x01, 7.0)
+    want = out.clone()
+    reset_counts()
+    s2.stencil2d_step(x01, out, dspec, lay, region=region)
+    torch.cuda.synchronize()
+    c = counts()
+    counter = {"plan_strip": "stencil2d_plan_strip",
+               "step": "stencil2d_tile"}[route]
+    if (c[counter], c["stencil2d_region"]) != (1, 1):
+        raise AssertionError(f"region {name}: launches {c}")
+    s2.stencil2d_step_plain(x01, want, dspec, lay, 1, None, region)
+    same_bits(out, want, f"region {name} {dtype} vs the twin")
+    err = float((out.double() - want.double()).abs().max())
+    del x, x01, out, want
+    bound, by = bound_ms(spec, dims, 1, tdtype.itemsize)
+    lib = library_ms(spec, dims, device, tdtype, repeats=2)
+    label = f"region {'' if dtype == 'float32' else dtype + ' '}{name}"
+    print(f"phase 29: {label} window {dims[0]}x{dims[1]} of a "
+          f"{lay.interior} shard: the route ({route}) {ms['route']} ms "
+          f"({bound / ms['route']:.4f} of the {by} bound {bound} ms), the "
+          f"tile kernel {ms['replaced']} ms, plain twin {plain_ms} ms, one "
+          f"library step {lib} ms, bit for bit against the twin; the whole "
+          f"shard: the route {ms['shard']} ms, the tile kernel "
+          f"{ms['shard_tile']} ms (device time, CUDA graphs) [{card}]",
+          flush=True)
+    return {label: dict(
+        kernel=label, ms=ms["route"], replaced_ms=ms["replaced"],
+        shard_ms=ms["shard"], shard_tile_ms=ms["shard_tile"],
+        plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib,
+        steps_per_launch=1, library_steps=1, launches=1, max_abs_err=err,
+        launches_by_kernel={counter: 1},
+        shape=f"{name} {dtype} window {dims[0]}x{dims[1]} of a "
+              f"{lay.interior[0]}x{lay.interior[1]} shard")}
+
+
+# one step of each spec at n^2 in each dtype, the plan strip kernel beside the
+# tile kernel (CUDA graphs): what the walk costs on small grids, where a
+# warp's task is a few rows
+REACH_SIZES = (1024, 2048, 4096, 8192)
+REACH_SIZE_CASES = (("custom_r5", "float32"), ("custom_r5", "bfloat16"),
+                    ("17x17 rank 4", "float32"))
+
+
+def reach_sizes(device, card):
+    """Phase 29 (d): one step of each case of ``REACH_SIZE_CASES`` at
+    ``REACH_SIZES``: the plan strip kernel's launch and the tile kernel's,
+    device time from CUDA graphs of 10, in turns; the route is the plan
+    strip kernel at every size.  Returns {(spec, dtype, n): (plan strip ms,
+    tile ms)}."""
+    from lorastencil_tpu_torch.ops import stencil2d as s2
+
+    gen = torch.Generator(device=device).manual_seed(29)
+    out_rec = {}
+    for name, dtype in REACH_SIZE_CASES:
+        spec = reach_spec(name)
+        tdtype = getattr(torch, dtype)
+        row = []
+        for n in REACH_SIZES:
+            lay = port_layout(spec, (n, n))
+            x = (torch.rand(lay.shape, generator=gen, device=device)
+                 * 0.01).to(tdtype)
+            out = torch.zeros_like(x)
+            fns = {"route": lambda: s2._launch("plan_strip", (x, out), spec,
+                                               lay, 1),
+                   "tile": lambda: s2._launch("step", (x, out), spec, lay,
+                                              1)}
+            ms = {}
+            for key in ("route", "tile", "tile", "route"):
+                ms[key] = min(ms.get(key, float("inf")),
+                              graph_ms(fns[key], 10))
+            out_rec[(name, dtype, n)] = (ms["route"], ms["tile"])
+            row.append(f"{n}^2 {ms['route']} / {ms['tile']}")
+            del x, out, fns
+        print(f"phase 29: {name} {dtype} one step, the plan strip kernel / "
+              f"the tile kernel (ms, CUDA graphs): {'; '.join(row)} "
+              f"[{card}]", flush=True)
+    return out_rec
+
+
+def reach_phase(device, card, builds=None):
+    """Phase 29; returns the kernels' record entries."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if builds is not None:
+        for name in ("plan2d", "plan2d_bf16"):
+            ptxas = builds[name][1]
+            spills = [ln for ln in ptxas if "spill" in ln and
+                      "0 bytes spill stores, 0 bytes spill loads" not in ln]
+            print(f"phase 29: {SOURCES[name]} built in {builds[name][0]:.1f} "
+                  f"s, {sum('Used ' in ln for ln in ptxas)} instances",
+                  flush=True)
+            if spills:
+                raise AssertionError(f"{name} spills: {spills}")
+    t0 = time.perf_counter()
+    for name, interior, k, dtype in reach_check_cases():
+        print(f"phase 29: {check_plan_case(2, name, interior, k, dtype, device)}",
+              flush=True)
+    for name, interior, k in REACH_SKEW_CHECKS:
+        for dtype in PLAN_DTYPES:
+            print(f"phase 29: "
+                  f"{check_reach_skew(name, interior, k, dtype, device)}",
+                  flush=True)
+    launches, lines = reach_paths(device)
+    for line in lines:
+        print(f"phase 29: {line}", flush=True)
+    timing = reach_timing(device, card)
+    reach_sizes(device, card)
+    entries = []
+    for label, t in timing.items():
+        n, err, counters = launches.get(
+            label, (t.pop("launches", 0), t.pop("max_abs_err", 0.0),
+                    t.pop("launches_by_kernel", {})))
+        t.pop("launches", None), t.pop("max_abs_err", None)
+        t.pop("launches_by_kernel", None)
+        skew = any(cn.startswith("stencil2d_skew_") for cn in counters)
+        f64 = "float64" in label
+        strip_only = all(cn.endswith("k1") for cn in counters)
+        tile_only = all(cn.endswith("tile") for cn in counters)
+        entries.append(dict({
+            "name": f"{'stencil2d_skew_step' if skew else 'stencil2d_step'}"
+                    f"[walk, {label}]",
+            "route": "cuda",
+            "source": SOURCES["stencil2d" if strip_only or tile_only
+                              else "plan2d_bf16" if "bf16" in label
+                              or "bfloat16" in label else "plan2d"],
+            "replaces": REPLACES["stencil2d_skew" if skew else "df64_step"
+                                 if f64 else "stencil2d"],
+            "launches": n, "max_abs_err": err,
+            "launches_by_kernel": counters}, **t))
+    print(f"phase 29: seconds {time.perf_counter() - t0:.1f}", flush=True)
+    return entries
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6736,9 +7278,10 @@ def main() -> int:
                   f"step), {errs[4][1]:.3e} (4 steps) <= 1e-6; strip kernel "
                   f"bit-equal to the tile kernel", flush=True)
     wide_launches = check_wide_radius(device)
-    print(f"phase 2: radius 5 (300, 140): the tile kernel bit-exact against "
-          f"its twin at 1-2 steps on the integer fill, {wide_launches} "
-          f"launches, none of the strip kernel", flush=True)
+    print(f"phase 2: radius 5 (300, 140): the plan strip kernel bit-exact "
+          f"against its twin at 1-2 steps on the integer fill, "
+          f"{wide_launches} launches, none of the strip or tile kernel",
+          flush=True)
     spec2 = get_shape("star2d1r")
     ms2, plain_ms2, tile_ms2 = time_step(spec2, port_layout(spec2, INTERIOR),
                                          device)
@@ -7002,6 +7545,7 @@ def main() -> int:
     sharded_entries += nd_entries
     slice_entries = slice_phase(device, card, nd_cases)
     plan_entries = plan_phase(device, card, builds)
+    reach_entries = reach_phase(device, card, builds)
 
     loaded = loaded_reference_modules()
     if loaded:
@@ -7099,6 +7643,7 @@ def main() -> int:
     kernels += sharded_entries
     kernels += slice_entries
     kernels += plan_entries
+    kernels += reach_entries
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

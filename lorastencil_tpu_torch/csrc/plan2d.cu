@@ -1,19 +1,24 @@
-// The plan strip kernel: a 2-D pass of k = 1..3 fused dirichlet0 (or boxed)
-// steps of any low-rank plan of radius 1..4 -- up to kPlanMaxTerms terms and
-// any residue -- on the port's internal layout, in float32, bfloat16 (built
-// apart as csrc/plan2d_bf16.cu) or float64.
+// The plan strip kernel: a 2-D pass of k fused dirichlet0 (or boxed) steps
+// of any low-rank plan of radius 1..8 -- up to kPlanMaxTerms terms and up to
+// kStripMaxRes residue points -- on the port's internal layout, in float32,
+// bfloat16 (built apart as csrc/plan2d_bf16.cu) or float64: k = 1..4 at
+// radius 1..4 (float64 1..2), k = 1..2 at radius 5..8 (bfloat16 1..4, which
+// rounds once a launch and so cannot split a pass), plan_max_k.
 //
-// What it replaces.  The TPU kernel lorastencil_tpu/ops/pallas_2d.py::
-// _stencil2d_kernel (:127, pallas_2d.stencil2d_step, extent fusion) and, on
-// a float64 state, lorastencil_tpu/ops/pallas_df64.py::_df64_kernel (:419,
-// df64_step) wherever the strip kernels of csrc/stencil2d.cu do not take the
-// pass: a step (k = 1) of more than three terms (the 9x9 of rank 4), and a
-// fused pass (k = 2, 3) with residue points, three or more terms or a term
-// with neither axis (the 5x5 of 3 terms and 4 residue points, star2d1r's
-// one term and 8 residue points at k = 3).  It takes the role that
-// csrc/stencil2d.cu's step_kernel (the tile kernel at k = 1 and its fused
-// instance at k >= 2) had there; step_kernel stays for radius 5 up to the
-// wide radii and for deeper passes.
+// What it replaces.  The TPU kernels lorastencil_tpu/ops/pallas_2d.py::
+// _stencil2d_kernel (:127, pallas_2d.stencil2d_step, extent fusion),
+// pallas_2d.py::_stencil2d_skew_kernel (:686, stencil2d_skew_step: a skewed
+// pass computes the fused pass's values, so it runs the same launches) and,
+// on a float64 state, lorastencil_tpu/ops/pallas_df64.py::_df64_kernel
+// (:419, df64_step) wherever the strip kernels of csrc/stencil2d.cu do not
+// take the launch: a step of more than three terms (the 9x9 of rank 4) or of
+// radius 5..8 (an 11x11 box), and a fused pass with residue points, three
+// or more terms, a term with neither axis, or a radius past 4 (the 5x5 of 3
+// terms and 4 residue points, star2d1r's one term and 8 residue points at k
+// = 3 or 4).  It takes the role that csrc/stencil2d.cu's step_kernel (the
+// tile kernel at k = 1 and its fused instance at k >= 2) and skew_kernel had
+// there; they stay for radius 9 up to the wide radii, plans past this
+// kernel's caps or shared memory, and bfloat16 passes deeper than 4.
 //
 // What bounds it.  A pass reads and writes each cell once (4, 2 or 8 bytes)
 // and does ~40-150 multiply-adds a cell per level for these plans, so the
@@ -47,11 +52,17 @@
 //     of a pair;
 //   * fused levels follow the fused strip kernel's scheme: level L lags
 //     level L - 1 by R rows.  Each level before the last writes its masked
-//     rows into a per-warp ring of its own (16 rows, the input ring's shape),
-//     which the next level reads as it reads the input: its windows, and its
-//     residue points.  Lanes 0 and 31 lack a neighbour, so level L is right
-//     on lanes L - 1 .. 32 - L, a warp stores 128 - 8 (k - 1) columns, and
-//     the strips overlap by 8 (k - 1) columns.
+//     rows into a per-warp ring of its own (plan_level_ring: the 2R + 2 rows
+//     its next level's residue reads, a power of two), which the next level
+//     reads as it reads the input: its windows, and its residue points.  A
+//     lane's windows reach Q = plan_quads(R) quads each side of its four
+//     cells (one up to radius 4, two beyond), so level L is right on lanes
+//     (L - 1) Q .. 31 - (L - 1) Q, a warp stores 128 - 8 Q (k - 1) columns,
+//     and the strips overlap by 8 Q (k - 1) columns;
+//   * radius 5..8 widens the window pad to 8 cells (plan_pad) and the input
+//     ring to 32 rows (plan_ring: a row pair's 2R + 2 residue rows and the
+//     kStripAhead rows in flight), and takes its term count at run time (the
+//     shared ring of column convs), which holds the build down.
 // The sums are step_kernel's (tile_sums and level()), cell for cell: per
 // term the column conv, then the row conv, nonzero taps ascending, each
 // multiply-add fused in fp32 and rounded product then sum in fp64; the terms
@@ -72,12 +83,55 @@
 
 namespace {
 
+constexpr int kPlanMaxRadius = 8;
 constexpr int kPlanMaxTerms = 9;   // a plan of rank up to 2R + 1 at R = 4
-constexpr int kPlanMaxK = 3;       // fused levels of one launch
+constexpr int kPlanMaxK = 4;       // fused levels of one launch
 constexpr int kPlanMaxWarps = 8;   // warps a block, each on its own tasks
 // column-conv values (in units of 4 bytes) a thread keeps in registers:
 // k levels x terms x (2R + 2) rows x 4 cells; past this a shared ring
 constexpr int kPlanRegFloats = 144;
+
+// The walk's widths at radius R.  A lane's windows reach plan_quads(R)
+// quads each side of its four cells (one up to radius 4, two up to 8), so
+// the window pad is plan_pad(R) >= R cells and level L is right on lanes
+// (L - 1) Q .. 31 - (L - 1) Q: a warp stores plan_cols(R, K) columns.  A
+// ring holds a row pair's 2R + 2 residue rows and the kStripAhead rows in
+// flight: 16 rows up to radius 4, 32 beyond.  A level's ring holds the
+// 2R + 2 rows its next level's residue reads (plan_level_ring, a power of
+// two).  At R <= 4 the widths are the strip kernels' kStripPad,
+// kStripRowCells, kStripRing and fused_strip_cols(K).
+__host__ __device__ constexpr int plan_quads(int R) { return (R + 3) / 4; }
+__host__ __device__ constexpr int plan_pad(int R) { return 4 * plan_quads(R); }
+__host__ __device__ constexpr int plan_row_cells(int R) {
+  return kStripCols + 2 * plan_pad(R) + 4;
+}
+__host__ __device__ constexpr int plan_ring(int R) {
+  return kStripAhead + 2 * R + 2 <= kStripRing ? kStripRing : 2 * kStripRing;
+}
+__host__ __device__ constexpr int plan_level_ring(int R) {
+  int rows = 2;
+  while (rows < 2 * R + 2) rows *= 2;
+  return rows;
+}
+__host__ __device__ constexpr int plan_cols(int R, int K) {
+  return kStripCols - 8 * plan_quads(R) * (K - 1);
+}
+static_assert(kStripAhead + 2 * kPlanMaxRadius + 2 <= plan_ring(kPlanMaxRadius),
+              "the ring must hold a row pair's residue rows and the rows "
+              "ahead");
+static_assert(plan_pad(4) == kStripPad && plan_row_cells(4) == kStripRowCells &&
+                  plan_ring(4) == kStripRing &&
+                  plan_cols(4, 3) == fused_strip_cols(3),
+              "radius 1-4 keep the strip kernels' widths");
+
+// The deepest launch of a state type at radius R: 4 levels in float32 and
+// bfloat16 (radius 5-8: 2 in float32, whose deeper passes split into
+// launches with the same values, 4 in bfloat16, which rounds once a
+// launch), 2 in float64.
+template <typename S, int R>
+__host__ __device__ constexpr int plan_max_k() {
+  return std::is_same_v<S, double> ? 2 : (R <= 4 || kBf16<S>) ? kPlanMaxK : 2;
+}
 
 // plan_array's table for one R, by value.
 template <typename T, int R>
@@ -92,14 +146,15 @@ struct PlanStripPlan {
   int res_dc[kStripMaxRes];
   T res_w[kStripMaxRes];
 };
-static_assert(sizeof(PlanStripPlan<double, kStripMaxRadius>) + 128 <= 4096,
+static_assert(sizeof(PlanStripPlan<double, kPlanMaxRadius>) + 128 <= 4096,
               "the plan strip kernel's parameters must fit in 4 KB");
 
 // Whether a pass of K levels and NT terms keeps its column convs in
-// registers (the instances with NT > 0).
+// registers (the instances with NT > 0; radius 1-4 only: the wider radii
+// take their term count at run time, which holds their build down).
 template <typename T, int R, int K, int NT>
 __host__ __device__ constexpr bool plan_in_registers() {
-  return K >= 2 && NT >= 1 && NT <= 3 &&
+  return R <= 4 && K >= 2 && NT >= 1 && NT <= 3 &&
          K * NT * (2 * R + 2) * 4 * static_cast<int>(sizeof(T)) / 4 <=
              kPlanRegFloats;
 }
@@ -239,17 +294,19 @@ struct ConvRing {
 template <typename S, int R, int K, int NT>
 __host__ __device__ constexpr size_t plan_warp_bytes(int nt) {
   using T = Compute<S>;
-  return static_cast<size_t>(kStripRing) * kStripRowCells * sizeof(S) +
-         static_cast<size_t>(K - 1) * kStripRing * kStripRowCells * sizeof(T) +
+  constexpr size_t kRow = plan_row_cells(R);
+  return plan_ring(R) * kRow * sizeof(S) +
+         static_cast<size_t>(K - 1) * plan_level_ring(R) * kRow * sizeof(T) +
          (NT > 0 ? 0
                  : static_cast<size_t>(K) * nt * (2 * R + 2) * 32 * 4 *
                        sizeof(T));
 }
 
 // K fused steps (K = 1: one step) per cell of rows [i0, i0 + rows) x columns
-// [j0, j0 + fused_strip_cols(K)) for each task of a warp.  Lane l holds the
-// four columns jw + 4 l .. + 3 of every level, jw = j0 - 4 (K - 1).  Input
-// row s (interior row i0 - K R + s) lands in ring slot s % kStripRing; level
+// [j0, j0 + plan_cols(R, K)) for each task of a warp.  Lane l holds the four
+// columns jw + 4 l .. + 3 of every level, jw = j0 - 4 Q (K - 1), Q =
+// plan_quads(R).  Input row s (interior row i0 - K R + s) lands in ring slot
+// s % plan_ring(R); level
 // L's row a (interior row i0 - (K - L) R + a) is yielded at the input pair
 // holding row a + 2 L R, from the column convs of level L - 1's rows
 // a .. a + 2R (conv ring slot (row) % Y) and, for its residue, the rows of
@@ -263,7 +320,14 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
   using T = Compute<S>;
   constexpr int W = 2 * R + 1;
   constexpr int Y = W + 1;  // conv rows kept per level: a pair's 2R + 2
-  constexpr int kOut = fused_strip_cols(K);
+  constexpr int kQ = plan_quads(R);
+  constexpr int kPad = plan_pad(R);          // window cells each side
+  constexpr int kRow = plan_row_cells(R);    // cells a ring row
+  constexpr int kRing = plan_ring(R);        // rows the input ring
+  constexpr int kLevelRing = plan_level_ring(R);  // rows a level's ring
+  constexpr int kWin = kStripCols + 2 * kPad;  // window cells a row
+  constexpr int X = 4 + 2 * kPad;            // a lane's window cells
+  constexpr int kOut = plan_cols(R, K);
   constexpr int kTU = NT > 0 ? NT : 1;  // the term loops' unrolling
   extern __shared__ __align__(16) unsigned char plan_smem[];
   const int warps = blockDim.x / 32;
@@ -272,25 +336,25 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
   const int nt = NT > 0 ? NT : pl.n_terms;
   unsigned char* const mine =
       plan_smem + warp * plan_warp_bytes<S, R, K, NT>(nt);
-  S(*const ring)[kStripRowCells] = reinterpret_cast<S(*)[kStripRowCells]>(mine);
-  // level L's ring (L = 1 .. K - 1), rows of kStripRowCells cells
+  S(*const ring)[kRow] = reinterpret_cast<S(*)[kRow]>(mine);
+  // level L's ring (L = 1 .. K - 1), rows of kRow cells
   T* const lv0 = reinterpret_cast<T*>(
-      mine + static_cast<size_t>(kStripRing) * kStripRowCells * sizeof(S));
+      mine + static_cast<size_t>(kRing) * kRow * sizeof(S));
   auto lvrow = [&](int L, int a) -> T* {
-    return lv0 + (static_cast<size_t>(L - 1) * kStripRing + (a & (kStripRing - 1))) *
-                     kStripRowCells;
+    return lv0 + (static_cast<size_t>(L - 1) * kLevelRing +
+                  (a & (kLevelRing - 1))) * kRow;
   };
   ConvRing<T, K, NT, Y> yr;
-  yr.sh = lv0 + static_cast<size_t>(K - 1) * kStripRing * kStripRowCells;
+  yr.sh = lv0 + static_cast<size_t>(K - 1) * kLevelRing * kRow;
   yr.nt = nt;
   yr.lane = lane;
   // the level rings' pads (columns no lane writes) read as zeros
-  for (int q = lane; q < (K - 1) * kStripRing * kStripRowCells; q += 32)
+  for (int q = lane; q < (K - 1) * kLevelRing * kRow; q += 32)
     lv0[q] = T(0);
 
   const int col_tasks = (g.nr + kOut - 1) / kOut;
   const int tasks = col_tasks * ((g.mr + rows - 1) / rows);
-  const bool stores = lane >= K - 1 && lane <= 32 - K;
+  const bool stores = lane >= kQ * (K - 1) && lane <= 31 - kQ * (K - 1);
   for (int task = blockIdx.x * warps + warp; task < tasks;
        task += gridDim.x * warps) {
     const int i0 = task / col_tasks * rows;
@@ -298,34 +362,34 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
     const int n_out = min(rows, g.mr - i0);
     const int n_in = n_out + 2 * K * R;
     const int gr0 = g.r0 + i0 - K * R;  // buffer row of input row 0 (>= 0)
-    const int jw = j0 - 4 * (K - 1);    // interior column of lane 0's first
-    const int gc0 = g.c0 + jw - kStripPad;  // buffer column of window col 0
+    const int jw = j0 - 4 * kQ * (K - 1);  // interior column of lane 0's first
+    const int gc0 = g.c0 + jw - kPad;      // buffer column of window col 0
     const int j = jw + 4 * lane;            // the lane's first column
     bool col_in[4];
 #pragma unroll
     for (int c = 0; c < 4; ++c) col_in[c] = j + c >= 0 && j + c < g.n;
     // the lane's quad copies of a window row (vec): quads lane and, for
-    // lanes 0 and 1, lane + 32, at the same columns in every row
+    // lanes below 2 Q, lane + 32, at the same columns in every row
     const int gq0 = gc0 + 4 * lane;
     const int gq1 = gq0 + 128;
     const bool ok0 = gq0 >= 0 && gq0 + 4 <= g.pitch;
-    const bool ok1 = lane < kStripWindow / 4 - 32 && gq1 >= 0 &&
+    const bool ok1 = lane < kWin / 4 - 32 && gq1 >= 0 &&
                      gq1 + 4 <= g.pitch;
     __syncwarp();  // the previous task's reads of the rings are done
 
-    // input row s into ring slot s % kStripRing, 0 outside the buffer; one
+    // input row s into ring slot s % kRing, 0 outside the buffer; one
     // commit group per call, empty past the last row
     auto fetch = [&](int s) {
       if (s < n_in) {
-        S* dst = ring[s & (kStripRing - 1)];
+        S* dst = ring[s & (kRing - 1)];
         const int gr = gr0 + s;
         const S* src = in + static_cast<size_t>(gr) * g.pitch;
         if (vec) {
           cp_async_quad(dst + 4 * lane, ok0 ? src + gq0 : in, ok0);
-          if (lane < kStripWindow / 4 - 32)
+          if (lane < kWin / 4 - 32)
             cp_async_quad(dst + 4 * lane + 128, ok1 ? src + gq1 : in, ok1);
         } else {
-          for (int c = lane; c < kStripWindow; c += 32) {
+          for (int c = lane; c < kWin; c += 32) {
             const int gc = gc0 + c;
             const bool ok = gr < g.rows && gc >= 0 && gc < g.pitch;
             copy_cell(dst + c, ok ? src + gc : in, ok);
@@ -348,8 +412,9 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
     }
 
     // Every term's column convs of a level's row pair, from the lane's
-    // windows x (columns j - 4 .. j + 7), into conv ring L's slots q0, q1.
-    auto column_convs = [&](int L, const T (&x)[2][12], int q0, int q1) {
+    // windows x (columns j - kPad .. j + 3 + kPad), into conv ring L's
+    // slots q0, q1.
+    auto column_convs = [&](int L, const T (&x)[2][X], int q0, int q1) {
 #pragma unroll (kTU)
       for (int t = 0; t < nt; ++t) {
         T y0[4], y1[4];
@@ -358,13 +423,13 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
           for (int c = 0; c < 4; ++c) y0[c] = y1[c] = T(0);
 #pragma unroll
           for (int q = 0; q < W; ++q)
-            mad8(pl.ct[t][q], &x[0][kStripPad - R + q],
-                 &x[1][kStripPad - R + q], y0, y1);
+            mad8(pl.ct[t][q], &x[0][kPad - R + q], &x[1][kPad - R + q], y0,
+                 y1);
         } else {
 #pragma unroll
           for (int c = 0; c < 4; ++c) {
-            y0[c] = x[0][kStripPad + c];
-            y1[c] = x[1][kStripPad + c];
+            y0[c] = x[0][kPad + c];
+            y1[c] = x[1][kPad + c];
           }
         }
         yr.put(L, t, q0, y0);
@@ -387,13 +452,13 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
         fetch(s + kStripAhead);
         fetch(s + kStripAhead + 1);
         {
-          T x[2][12];
+          T x[2][X];
 #pragma unroll
           for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int v = 0; v < 3; ++v) {
+            for (int v = 0; v < X / 4; ++v) {
               T f[4];
-              ld4(ring[(s + h) & (kStripRing - 1)] + 4 * lane + 4 * v, f);
+              ld4(ring[(s + h) & (kRing - 1)] + 4 * lane + 4 * v, f);
 #pragma unroll
               for (int c = 0; c < 4; ++c) x[h][4 * v + c] = f[c];
             }
@@ -405,11 +470,11 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
         for (int L = 1; L <= K; ++L) {
           if (L > 1) {  // level L - 1 yielded rows b, b + 1: their convs
             const int b = s - 2 * (L - 1) * R;
-            T x[2][12];
+            T x[2][X];
 #pragma unroll
             for (int h = 0; h < 2; ++h)
 #pragma unroll
-              for (int q = 0; q < 3; ++q) {
+              for (int q = 0; q < X / 4; ++q) {
                 T f[4];
                 ld4(lvrow(L - 1, b + h) + 4 * lane + 4 * q, f);
 #pragma unroll
@@ -463,11 +528,10 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
             for (int h = 0; h < 2; ++h) {
               T vv[4];
               if (L == 1)
-                residue4(ring[(rb + h) & (kStripRing - 1)] + 4 * lane +
-                             kStripPad + dc,
+                residue4(ring[(rb + h) & (kRing - 1)] + 4 * lane + kPad + dc,
                          dc & 3, vv);
               else
-                residue4(lvrow(L - 1, rb + h) + 4 * lane + kStripPad + dc,
+                residue4(lvrow(L - 1, rb + h) + 4 * lane + kPad + dc,
                          dc & 3, vv);
 #pragma unroll
               for (int c = 0; c < 4; ++c) acc[h][c] = mad(w, vv[c], acc[h][c]);
@@ -491,8 +555,8 @@ plan_strip_kernel(const S* __restrict__ in, S* __restrict__ out,
           }
           if (L < K) {  // into level L's ring, for level L + 1
             const int a = s - 2 * L * R;
-            st4(lvrow(L, a) + kStripPad + 4 * lane, v[0]);
-            st4(lvrow(L, a + 1) + kStripPad + 4 * lane, v[1]);
+            st4(lvrow(L, a) + kPad + 4 * lane, v[0]);
+            st4(lvrow(L, a + 1) + kPad + 4 * lane, v[1]);
             __syncwarp();
           }
         }
@@ -573,7 +637,7 @@ int launch_plan(const S* in, S* out, const PlanStripPlan<Compute<S>, R>& pl,
   if (ce != cudaSuccess) return static_cast<int>(ce);
   if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
   const int resident = per_sm * sms;
-  const int col_tasks = (g.nr + fused_strip_cols(K) - 1) / fused_strip_cols(K);
+  const int col_tasks = (g.nr + plan_cols(R, K) - 1) / plan_cols(R, K);
   int share = resident * warps / col_tasks;
   if (share < 1) share = 1;
   int rows = (g.mr + share - 1) / share;
@@ -586,29 +650,47 @@ int launch_plan(const S* in, S* out, const PlanStripPlan<Compute<S>, R>& pl,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The instance of the plan's term count: its column convs in registers
-// where plan_in_registers, else the shared ring.
-template <typename S, int R, int K>
-int plan_terms(const S* in, S* out, const PlanStripPlan<Compute<S>, R>& pl,
-               const Grid2D& g, int vec, cudaStream_t stream) {
+// Calls f(K, NT) (std::integral_constant values) with the instance that a
+// launch of k fused steps of a plan of nt terms runs, and returns its result:
+// k up to plan_max_k, the column convs in registers where plan_in_registers
+// (NT = nt), else the shared ring (NT = 0); -1 past the kernel's depths.
+// Both the launch (plan_depth) and the sizing entry go through it.
+template <typename S, int R, int K, typename F>
+int plan_terms(int nt, F&& f) {
   using T = Compute<S>;
-  switch (pl.n_terms) {
+  using Depth = std::integral_constant<int, K>;
+  switch (nt) {
     case 1:
       if constexpr (plan_in_registers<T, R, K, 1>())
-        return launch_plan<S, R, K, 1>(in, out, pl, g, vec, stream);
+        return f(Depth{}, std::integral_constant<int, 1>{});
       break;
     case 2:
       if constexpr (plan_in_registers<T, R, K, 2>())
-        return launch_plan<S, R, K, 2>(in, out, pl, g, vec, stream);
+        return f(Depth{}, std::integral_constant<int, 2>{});
       break;
     case 3:
       if constexpr (plan_in_registers<T, R, K, 3>())
-        return launch_plan<S, R, K, 3>(in, out, pl, g, vec, stream);
+        return f(Depth{}, std::integral_constant<int, 3>{});
       break;
     default:
       break;
   }
-  return launch_plan<S, R, K, 0>(in, out, pl, g, vec, stream);
+  return f(Depth{}, std::integral_constant<int, 0>{});
+}
+
+template <typename S, int R, typename F>
+int plan_instance(int k, int nt, F&& f) {
+  switch (k) {
+    case 1: return plan_terms<S, R, 1>(nt, f);
+    case 2: return plan_terms<S, R, 2>(nt, f);
+    case 3:
+      if constexpr (plan_max_k<S, R>() >= 3) return plan_terms<S, R, 3>(nt, f);
+      break;
+    case 4:
+      if constexpr (plan_max_k<S, R>() >= 4) return plan_terms<S, R, 4>(nt, f);
+      break;
+  }
+  return -1;
 }
 
 template <typename S, int R>
@@ -616,24 +698,50 @@ int plan_depth(const S* in, S* out, const Compute<S>* plan, int n_terms,
                int n_res, const Grid2D& g, int k, int vec,
                cudaStream_t stream) {
   PlanStripPlan<Compute<S>, R> pl = {};
-  if (!fill_plan_strip<R>(plan, n_terms, n_res, pl))
+  if (k > plan_max_k<S, R>() || !fill_plan_strip<R>(plan, n_terms, n_res, pl))
     return static_cast<int>(cudaErrorInvalidValue);
-  switch (k) {
-    case 1: return plan_terms<S, R, 1>(in, out, pl, g, vec, stream);
-    case 2: return plan_terms<S, R, 2>(in, out, pl, g, vec, stream);
-    case 3:
-      if constexpr (!std::is_same_v<S, double>)
-        return plan_terms<S, R, 3>(in, out, pl, g, vec, stream);
-      break;
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  const int e = plan_instance<S, R>(k, pl.n_terms, [&](auto K, auto NT) {
+    return launch_plan<S, R, decltype(K)::value, decltype(NT)::value>(
+        in, out, pl, g, vec, stream);
+  });
+  return e < 0 ? static_cast<int>(cudaErrorInvalidValue) : e;
 }
 
-// A pass of k = 1..3 steps (float64: 1..2) by the plan strip kernel; `plan`
-// is plan_array's table in host memory, in the compute type.  Radii
-// 1..kStripMaxRadius, up to kPlanMaxTerms terms, any residue within the
-// radius; any other is refused.  `vec`: every row of `in` and `out` starts
-// its window on a quad of cells and nr % 4 == 0.
+// A warp's shared memory (launch_plan's per_warp) of the instance that a
+// launch of k steps of n_terms terms at radius R runs; -1 where the kernel
+// refuses the radius, the depth or the term count.
+template <typename S, int R>
+int warp_bytes_at(int n_terms, int k) {
+  return plan_instance<S, R>(k, n_terms, [&](auto K, auto NT) {
+    return static_cast<int>(
+        plan_warp_bytes<S, R, decltype(K)::value, decltype(NT)::value>(
+            n_terms));
+  });
+}
+
+template <typename S>
+int plan_strip_warp_bytes(int n_terms, int R, int k) {
+  if (n_terms < 1 || n_terms > kPlanMaxTerms) return -1;
+  switch (R) {
+    case 1: return warp_bytes_at<S, 1>(n_terms, k);
+    case 2: return warp_bytes_at<S, 2>(n_terms, k);
+    case 3: return warp_bytes_at<S, 3>(n_terms, k);
+    case 4: return warp_bytes_at<S, 4>(n_terms, k);
+    case 5: return warp_bytes_at<S, 5>(n_terms, k);
+    case 6: return warp_bytes_at<S, 6>(n_terms, k);
+    case 7: return warp_bytes_at<S, 7>(n_terms, k);
+    case 8: return warp_bytes_at<S, 8>(n_terms, k);
+    default: return -1;
+  }
+}
+
+// A pass of k steps by the plan strip kernel, k up to plan_max_k (radius
+// 1-4: 4, float64 2; radius 5-8: 2, bfloat16 4); `plan` is plan_array's
+// table in host memory, in the compute type.  Radii 1..kPlanMaxRadius, up
+// to kPlanMaxTerms terms, any residue within the radius (at most
+// kStripMaxRes points), and a warp's shared memory within a block's; any
+// other is refused.  `vec`: every row of `in` and `out` starts its window
+// on a quad of cells and nr % 4 == 0.
 template <typename S>
 int launch_plan_strip(const S* in, S* out, const Compute<S>* plan,
                       int plan_len, int n_terms, int R, int n_res, Grid2D g,
@@ -653,6 +761,10 @@ int launch_plan_strip(const S* in, S* out, const Compute<S>* plan,
     case 2: return plan_depth<S, 2>(in, out, plan, n_terms, n_res, g, k, vec, s);
     case 3: return plan_depth<S, 3>(in, out, plan, n_terms, n_res, g, k, vec, s);
     case 4: return plan_depth<S, 4>(in, out, plan, n_terms, n_res, g, k, vec, s);
+    case 5: return plan_depth<S, 5>(in, out, plan, n_terms, n_res, g, k, vec, s);
+    case 6: return plan_depth<S, 6>(in, out, plan, n_terms, n_res, g, k, vec, s);
+    case 7: return plan_depth<S, 7>(in, out, plan, n_terms, n_res, g, k, vec, s);
+    case 8: return plan_depth<S, 8>(in, out, plan, n_terms, n_res, g, k, vec, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -663,10 +775,24 @@ int launch_plan_strip(const S* in, S* out, const Compute<S>* plan,
 // buffers, the plan (host memory) and its counts, the buffer shape, the
 // origin, the interior and rounded interior, k, the box of the levels before
 // the last, the window, and the stream.
+// ls_stencil2d_plan_strip_warp_bytes* (n_terms, R, k): plan_strip_warp_bytes,
+// which ops/stencil2d.py plan_warp_bytes mirrors (the card tests hold the
+// two together).
 #ifndef LS_PLAN2D_BF16
 LS_ENTRY(ls_stencil2d_plan_strip, launch_plan_strip<float>, float)
 LS_ENTRY(ls_stencil2d_plan_strip_f64, launch_plan_strip<double>, double)
+extern "C" int ls_stencil2d_plan_strip_warp_bytes(int n_terms, int R, int k) {
+  return plan_strip_warp_bytes<float>(n_terms, R, k);
+}
+extern "C" int ls_stencil2d_plan_strip_warp_bytes_f64(int n_terms, int R,
+                                                      int k) {
+  return plan_strip_warp_bytes<double>(n_terms, R, k);
+}
 #else
 LS_ENTRY(ls_stencil2d_plan_strip_bf16, launch_plan_strip<__nv_bfloat16>,
          __nv_bfloat16)
+extern "C" int ls_stencil2d_plan_strip_warp_bytes_bf16(int n_terms, int R,
+                                                       int k) {
+  return plan_strip_warp_bytes<__nv_bfloat16>(n_terms, R, k);
+}
 #endif

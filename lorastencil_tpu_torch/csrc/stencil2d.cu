@@ -5,14 +5,20 @@
 //
 //   * the strip kernel (ls_stencil2d_strip: float32; ls_stencil2d_strip_f64,
 //     strip64_kernel: float64; k = 1, radius 1..4, at most kStripMaxTerms
-//     terms), the step kernel (ls_stencil2d_step with k = 1: the steps the
-//     strip kernels do not take) and the fused kernel, k >= 2 levels per
-//     pass over device memory (the same entry with k >= 2), replace
-//     lorastencil_tpu/ops/pallas_2d.py::_stencil2d_kernel
-//     (pallas_2d.stencil2d_step, extent fusion);
+//     terms), the step kernel (ls_stencil2d_step with k = 1) and the fused
+//     kernel, k >= 2 levels per pass over device memory (the same entry
+//     with k >= 2), replace lorastencil_tpu/ops/pallas_2d.py::
+//     _stencil2d_kernel (pallas_2d.stencil2d_step, extent fusion);
 //   * the skew kernel (ls_stencil2d_skew) replaces
 //     pallas_2d.py::_stencil2d_skew_kernel (stencil2d_skew_step, time-skewed
 //     row bands);
+//   * the step, fused and skew kernels (the tile kernels) serve only what
+//     the strip walk leaves: csrc/plan2d.cu's plan strip kernel takes every
+//     other launch of radius 1..8 within its caps, from either wrapper
+//     (ops/stencil2d.py _one_kind), so they keep radius 9 up to the wide
+//     radii, plans past its terms, residue or shared memory, bfloat16
+//     launches deeper than 4, and the float64 launches the card measured
+//     faster here (ops/stencil2d.py tile_beats_plan);
 //   * the fused strip kernel (ls_stencil2d_fused_strip: float32, k = 2,
 //     radius 1..4, 1 or 2 terms, no residue) serves both of those wrappers
 //     where it takes their pass: one traversal for the two TPU kernels;
@@ -108,7 +114,8 @@
 //     is a predicated FMA (fma8_nonzero): per-term flags read at run time
 //     and a branch per tap were both slower on the card.  The sums are
 //     tile_sums' and level()'s, cell for cell;
-//   * step (k = 1): one block per (kTileRows x 128) output tile stages its
+//   * step (k = 1; past the strip walk's reach): one block per
+//     (kTileRows x 128) output tile stages its
 //     halo'd window in shared memory with coalesced row loads (a warp per
 //     window row), computes the column conv into a shared intermediate 2r rows
 //     taller than the tile, the row conv and residue into kTileRows / 2
@@ -119,7 +126,9 @@
 //     coordinates (level); level k is the step's tile_sums.  Shared memory
 //     grows with k*r (about three windows), so the host splits a deeper pass
 //     into launches of the largest k that fits (ops/stencil2d.py);
-//   * skew: a block owns a 128-column strip and a chunk of kChunkRows output
+//   * skew (past the strip walk's reach; a skewed pass within it takes the
+//     fused pass's launches): a block owns a 128-column strip and a chunk of
+//     kChunkRows output
 //     rows and marches down it in bands of kTileRows rows.  Level j lags level
 //     j - 1 by r rows; each level keeps the last 2r rows of its previous band
 //     in shared memory as the carry, so every level row is computed once per
@@ -513,7 +522,8 @@ __device__ __forceinline__ Plan<T> stage_plan(const T* plan, int plan_len,
   return Plan<T>{s_plan, n_terms, R, n_res};
 }
 
-// k steps per block tile: the step kernel (kFused false, k = 1) and the
+// k steps per block tile, past the strip walk's reach (csrc/plan2d.cu takes
+// radius 1..8 within its caps): the step kernel (kFused false, k = 1) and the
 // fused one (kFused true, k >= 2; with kBox its levels before the last keep
 // Grid2D's box, a ghost boundary's ring, the instance without it being the
 // dirichlet0 pass's), compiled apart so that the step kernel
@@ -570,8 +580,9 @@ step_kernel(const S* __restrict__ in, S* __restrict__ out,
                              g.n, acc);
 }
 
-// k >= 2 time-skewed steps per block: a 128-column strip, output rows
-// [a, a + kChunkRows) of the rounded interior, bands of kTileRows rows.
+// k >= 2 time-skewed steps per block, past the strip walk's reach (a skewed
+// pass within it runs the fused pass's launches): a 128-column strip, output
+// rows [a, a + kChunkRows) of the rounded interior, bands of kTileRows rows.
 template <typename S, int kTileRows>
 __global__ void __launch_bounds__(kThreads)
 skew_kernel(const S* __restrict__ in, S* __restrict__ out,

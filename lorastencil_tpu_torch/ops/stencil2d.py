@@ -52,15 +52,16 @@ a warp walks down a strip of rows keeping the column convs in registers
 (four float32 or bf16 cells or two float64 cells a lane), its plan by value
 in the launch's parameters (``plan_array`` in host memory, in the compute
 dtype).  So every 2-D step of the fp64-grade tier (dtypes 'df64' and
-'float64') runs the float64 strip kernel.  Every other step runs the tile
-kernel, as the fused levels do, or, where the tile kernel's staged window
-does not fit a block's shared memory (radius above about 60 in float32, 35
-in float64: ``wide_takes``), the wide kernel, which reads its inputs
-through the read-only cache and stages only the column convs; the three
-give the same values cell for cell.  Radii up to 128 run, the reach the
-JAX engine's 128-column guard allows.  ``stencil2d_step.launches`` counts
-the float32 launches, ``launches_f64`` the float64 ones, ``launches_bf16``
-the bfloat16 ones, ``launches_k1`` the strip kernels' in any dtype and
+'float64') runs the float64 strip kernel.  A step past the strip walk's
+reach (below) runs the tile kernel, as the fused levels there do, or,
+where the tile kernel's staged window does not fit a block's shared memory
+(radius above about 60 in float32, 35 in float64: ``wide_takes``), the wide
+kernel, which reads its inputs through the read-only cache and stages only
+the column convs; the kernels give the same values cell for cell.  Radii up
+to 128 run, the reach the JAX engine's 128-column guard allows.
+``stencil2d_step.launches`` counts the float32 launches, ``launches_f64``
+the float64 ones, ``launches_bf16`` the bfloat16 ones, ``launches_k1`` the
+strip kernels' in any dtype, ``launches_tile`` the tile kernel's and
 ``launches_wide`` the wide kernel's.
 
 A float32 or bfloat16 pass of two fused steps of radius 1-4 with one or
@@ -71,27 +72,39 @@ registers, which computes the same values as the fused and the skewed tile
 kernels in another traversal.  Each wrapper counts its launches in
 ``launches_fused_strip`` too.
 
-Every other launch of radius 1-4 that ``stencil2d_step`` makes -- a step of
-more than three terms, a fused pass of depth 2 or 3 (float64: 2) with
-residue points, three or more terms or a term with neither axis, up to
-``PLAN_MAX_TERMS`` terms -- runs the plan strip kernel of
+Every other launch of radius 1-8 that either wrapper makes -- a step of
+more than three terms or of radius 5-8, a fused pass of depth 2-4 (radius
+5-8 and float64: 2; bfloat16 at radius 5-8: 4) with residue points, three
+or more terms, a term with neither axis or a radius past 4, up to
+``PLAN_MAX_TERMS`` terms, ``PLAN_MAX_RESIDUE`` residue points and a warp's
+shared memory within a block's -- runs the plan strip kernel of
 ``csrc/plan2d.cu`` (``plan_strip_takes``; ``launches_plan_strip`` counts
-it): the strip kernels' walk for any plan, each fused level in a per-warp
-ring of rows, the column convs in registers or a per-lane shared ring.  It
-gives the tile kernels' values cell for cell.  A float32 or float64 pass
-that the plan strip kernel would take on a spec whose single steps the
-strip kernel takes runs as single strip launches instead
-(``strips_beat_plan``), where it keeps no ring or the caller refreshes the
-ring between them (a ghost boundary); a shard's exchanged ring keeps the
-fused pass, and a bfloat16 pass stays one launch, which rounds once.  The
-skewed passes and everything beyond (radius 5 up to the wide radii, deeper
-passes) run the tile kernels.
+it on the wrapper whose pass made it): the strip kernels' walk for any
+plan, each fused level in a per-warp ring of rows, the column convs in
+registers or a per-lane shared ring.  It gives the tile kernels' values
+cell for cell.  A float32 or float64 launch of two or more steps that the
+plan strip kernel would take runs as single launches of the walk instead
+(``strips_beat_plan``: the strip kernel's where it takes the spec, else
+the plan strip kernel's single step), where it keeps no ring or the caller
+refreshes the ring between them (a ghost boundary); a
+shard's exchanged ring keeps the fused pass, and a bfloat16 launch stays
+one launch, which rounds once.  A skewed pass (``stencil2d_skew_step``)
+computes the fused pass's values, so it takes the same launches, counted
+on its own wrapper (``launches_k1``, ``launches_fused_strip``,
+``launches_plan_strip``).  The tile kernels keep what lies beyond: radius 9
+up to the wide radii, plans past the plan strip kernel's caps, bfloat16
+launches deeper than 4, and the launches the card measured faster there
+(``tile_beats_plan``); ``launches_tile`` counts step_kernel's and
+skew_kernel's launches on their wrappers.
 
-Shared memory bounds the reach of one launch: a fused pass holds about
-three (32 + 2kr) x (128 + 2kr) windows (16 rows in float64), a skewed one a
-band of every level.  A pass deeper than the largest k that fits
-(``max_fused_steps``) runs as launches of that k, each counted; the values
-do not change, because every level is masked to the interior.  Under a
+A float32 or float64 pass deeper than the walk's deepest launch
+(``walk_depth``: 4 at radius 1-4 in float32, else 2) runs as launches of
+that depth, each counted; the values do not change, because every level is
+masked to the interior.  A bfloat16 pass rounds once a launch, so it keeps
+the tile kernels' split: shared memory bounds their reach, about three
+(32 + 2kr) x (128 + 2kr) windows for a fused pass (16 rows in float64), a
+band of every level for a skewed one, and a pass deeper than the largest k
+that fits (``max_fused_steps``) runs as launches of that k.  Under a
 ghost boundary the levels before a launch's last keep the ring
 (``bounds``) and the engine's ``refresh`` refills it between launches: a
 refresh at any step is the boundary condition's padding at that step.
@@ -154,22 +167,23 @@ STRIP_MAX_TERMS = 3
 # csrc/stencil2d.cu's fused strip kernel: the depths and terms it takes
 FUSED_STRIP_DEPTHS = (2,)
 FUSED_STRIP_MAX_TERMS = 2
-# csrc/plan2d.cu's plan strip kernel: the depths of each dtype and the terms
-# (kPlanMaxTerms) it takes
-PLAN_STRIP_DEPTHS = {torch.float32: (1, 2, 3), torch.bfloat16: (1, 2, 3),
+# csrc/plan2d.cu's plan strip kernel: its radii (kPlanMaxRadius), the depths
+# of each dtype at radius 1-4 and at radius 5-8 (plan_max_k), the terms
+# (kPlanMaxTerms) and residue points (kStripMaxRes) it takes
+PLAN_RADII = (1, 2, 3, 4, 5, 6, 7, 8)
+PLAN_STRIP_DEPTHS = {torch.float32: (1, 2, 3, 4), torch.bfloat16: (1, 2, 3, 4),
                      torch.float64: (1, 2)}
+PLAN_STRIP_WIDE_DEPTHS = {torch.float32: (1, 2), torch.bfloat16: (1, 2, 3, 4),
+                          torch.float64: (1, 2)}
 PLAN_MAX_TERMS = 9
 PLAN_MAX_RESIDUE = 81  # kStripMaxRes: every point of a radius-4 square
+PLAN_REG_FLOATS = 144  # kPlanRegFloats
 _ENTRIES = {
     "strip": {torch.float32: "ls_stencil2d_strip",
               torch.float64: "ls_stencil2d_strip_f64",
               torch.bfloat16: "ls_stencil2d_strip_bf16"},
-    # the fused strip kernel, launched by stencil2d_step and by
-    # stencil2d_skew_step: one entry, a kind for each wrapper's counts
     "fused_strip": {torch.float32: "ls_stencil2d_fused_strip",
                     torch.bfloat16: "ls_stencil2d_fused_strip_bf16"},
-    "fused_strip_skew": {torch.float32: "ls_stencil2d_fused_strip",
-                         torch.bfloat16: "ls_stencil2d_fused_strip_bf16"},
     "step": {torch.float32: "ls_stencil2d_step",
              torch.float64: "ls_stencil2d_step_f64",
              torch.bfloat16: "ls_stencil2d_step_bf16"},
@@ -183,6 +197,8 @@ _ENTRIES = {
     "plan_strip": {torch.float32: "ls_stencil2d_plan_strip",
                    torch.float64: "ls_stencil2d_plan_strip_f64",
                    torch.bfloat16: "ls_stencil2d_plan_strip_bf16"}}
+# the kinds of csrc/plan2d.cu's library
+_PLAN_KINDS = ("plan_strip",)
 # csrc/resident2d.cu's shared-memory resident kernel
 _RESIDENT_SMEM = {torch.float32: "ls_stencil2d_resident_smem",
                   torch.float64: "ls_stencil2d_resident_smem_f64",
@@ -348,40 +364,128 @@ def fused_strip_takes(spec: StencilSpec, dtype, depth: int) -> bool:
             and not spec.residue)
 
 
+def plan_strip_depths(radius: int, dtype):
+    """The depths one plan strip launch takes at ``radius`` in ``dtype``
+    (csrc/plan2d.cu plan_max_k): 1-4 in float32 and bfloat16 and 1-2 in
+    float64 at radius 1-4; 1-2 at radius 5-8, and 1-4 in bfloat16, whose
+    pass rounds once a launch; none elsewhere."""
+    if radius not in PLAN_RADII:
+        return ()
+    return (PLAN_STRIP_DEPTHS if radius <= 4
+            else PLAN_STRIP_WIDE_DEPTHS).get(dtype, ())
+
+
+def plan_warp_bytes(spec: StencilSpec, dtype, depth: int) -> int:
+    """Shared memory of one warp of a plan strip launch (csrc/plan2d.cu
+    plan_warp_bytes): the input ring of state cells and ``depth - 1`` level
+    rings of compute cells, rows of ``plan_row_cells`` (``plan_ring`` and
+    ``plan_level_ring`` of them), and, unless ``plan_in_registers``, the
+    column convs of every term: per level and term 2R + 2 rows of 32 lanes x
+    4 cells."""
+    R, nt = spec.radius, len(spec.terms)
+    cell, comp = dtype.itemsize, compute_dtype(dtype).itemsize
+    row = TILE_COLS + 8 * ((R + 3) // 4) + 4
+    ring = 16 if 6 + 2 * R + 2 <= 16 else 32
+    level_ring = 1 << max(1, (2 * R + 1).bit_length())
+    regs = (R <= 4 and depth >= 2 and 1 <= nt <= 3
+            and depth * nt * (2 * R + 2) * comp <= PLAN_REG_FLOATS)
+    conv = 0 if regs else depth * nt * (2 * R + 2) * 32 * 4 * comp
+    return (ring * row * cell + (depth - 1) * level_ring * row * comp
+            + conv)
+
+
 def plan_strip_takes(spec: StencilSpec, dtype, depth: int) -> bool:
     """Whether a launch of ``depth`` fused steps in ``dtype`` runs the
-    plan strip kernel: radius 1-4, at most ``PLAN_MAX_TERMS`` terms, depth
-    1-3 (float64 1-2), and not a launch that the strip kernel (a step of at
-    most three terms) or the fused strip kernel takes."""
-    return (depth in PLAN_STRIP_DEPTHS.get(dtype, ())
-            and spec.radius in STRIP_RADII
+    plan strip kernel: radius 1-8, the depths of ``plan_strip_depths``, at
+    most ``PLAN_MAX_TERMS`` terms and ``PLAN_MAX_RESIDUE`` residue points, a
+    warp's shared memory (``plan_warp_bytes``) within a block's, and not a
+    launch that the strip kernel (a step of at most three terms) or the
+    fused strip kernel takes."""
+    return (depth in plan_strip_depths(spec.radius, dtype)
             and len(spec.terms) <= PLAN_MAX_TERMS
             and len(spec.residue) <= PLAN_MAX_RESIDUE
+            and plan_warp_bytes(spec, dtype, depth) <= MAX_SMEM
             and not strip_takes(spec, dtype, depth)
             and not fused_strip_takes(spec, dtype, depth))
 
 
+# the fewest warps a block of a float64 plan strip launch may hold before the
+# tile kernel beats it (``tile_beats_plan``)
+PLAN_MIN_WARPS_F64 = 3
+
+
+def tile_beats_plan(spec: StencilSpec, dtype, depth: int) -> bool:
+    """Whether a launch the plan strip kernel takes runs the tile kernel
+    instead, where the card measured the tile kernel faster: a float64
+    launch whose block holds fewer than ``PLAN_MIN_WARPS_F64`` warps
+    (csrc/plan2d.cu launch_plan: as many as a block's shared memory fits,
+    ``plan_warp_bytes`` each; the column convs in the shared ring leave one
+    or two, too few to hide float64's latency).  The card's timing
+    (chip_smoke.py phase 29, NVIDIA H100 80GB HBM3, 700.00 W, ms at 8192^2,
+    the plan strip kernel / the tile kernel in turns): float64 17x17 of rank
+    4 k = 1 (2 warps) 7.599 / 5.870, k = 2 (1 warp) 54.944 / 27.549; float64
+    custom_r5 k = 2 (2 warps) 7.204 / 3.623; float64 9x9 of rank 4 k = 3
+    (its k = 2 launch 1 warp) 31.137 / 28.037.  At 3 or more warps the plan
+    strip kernel won: float64 custom_r5 k = 1 (4 warps) 0.917 / 1.083, df64
+    9x9 of rank 4 k = 1 (3 warps, phase 28) 2.531 / 2.800."""
+    return (dtype == torch.float64 and MAX_SMEM // plan_warp_bytes(
+        spec, dtype, depth) < PLAN_MIN_WARPS_F64)
+
+
+def _walk_kind(spec: StencilSpec, dtype, depth: int):
+    """The strip walk's kernel of a launch of ``depth`` steps: "strip",
+    "fused_strip" or "plan_strip"; None past its reach (the tile kernels'
+    launches)."""
+    if strip_takes(spec, dtype, depth):
+        return "strip"
+    if fused_strip_takes(spec, dtype, depth):
+        return "fused_strip"
+    if (plan_strip_takes(spec, dtype, depth)
+            and not tile_beats_plan(spec, dtype, depth)):
+        return "plan_strip"
+    return None
+
+
+def walk_depth(spec: StencilSpec, dtype) -> int:
+    """The deepest launch of the strip walk (the strip, fused strip and plan
+    strip kernels) on a float32 or float64 pass of ``spec``: a deeper pass
+    runs as launches of at most this depth (``launch_depths``), with the
+    same values, every level masked as a single step masks it.  0 where the
+    walk takes no launch of the spec, and for bfloat16, whose pass rounds
+    once a launch: there the split stays the tile kernel's."""
+    if dtype not in (torch.float32, torch.float64):
+        return 0
+    return max((d for d in plan_strip_depths(spec.radius, dtype)
+                if _walk_kind(spec, dtype, d)), default=0)
+
+
 def strips_beat_plan(spec: StencilSpec, dtype, depth: int) -> bool:
-    """Whether a pass of ``depth`` steps that the plan strip kernel would
-    take runs as ``depth`` single strip launches instead (``_split_pass``):
-    float32 or float64, and the strip kernel takes the spec's single steps.
-    A bfloat16 pass stays one launch: it rounds once.  Without a ring the
-    two give the same values bit for bit (every level masked as a single
-    step masks it); under a ghost boundary the caller's refresh refills the
-    ring between the launches, the boundary's padding at each step: bit for
-    bit under a periodic ring, where a ring cell sums what its interior
-    cell sums in the same order; a reflected ring cell sums its mirror
-    image in the mirrored order, which can round otherwise.  The card's
-    timing (chip_smoke.py phase 28, NVIDIA H100 80GB HBM3, 700.00 W, ms a
-    pass at 8192^2, the plan strip pass / k strip launches in turns): 5x5
+    """Whether a launch of ``depth`` >= 2 steps that the plan strip kernel
+    would run runs as ``depth`` single launches of the strip walk instead
+    (``_split_pass``), from either wrapper: float32 or float64, each single
+    step on the strip kernel (``strip_takes``) or the plan strip kernel.  A
+    bfloat16 pass stays one launch: it rounds once.  Without a ring the two
+    give the same values bit for bit (every level masked as a single step
+    masks it); under a ghost boundary the caller's refresh refills the ring
+    between the launches, the boundary's padding at each step: bit for bit
+    under a periodic ring, where a ring cell sums what its interior cell
+    sums in the same order; a reflected ring cell sums its mirror image in
+    the mirrored order, which can round otherwise.  Every fused plan strip
+    pass the card timed lost to single launches, which keep no level rings
+    and no overlap and hold more warps an SM.  The card's timing (NVIDIA
+    H100 80GB HBM3, 700.00 W, ms a pass at 8192^2, the plan strip pass / k
+    single launches in turns): chip_smoke.py phase 28, strip launches: 5x5
     asym k = 2 0.760 / 0.684, its float64 3.903 / 1.171, star2d1r k = 2
     0.892 / 0.643, box2d3r k = 3 3.176 / 1.098; under a periodic ring, with
     the refresh between the launches, 0.752 / 0.695, 3.866 / 1.162, 0.866 /
-    0.636, 3.139 / 1.123.  Both are issue-bound, and a fused level does a
-    step's sums plus its level ring and overlap."""
-    return (dtype in (torch.float32, torch.float64)
-            and depth >= 2 and strip_takes(spec, dtype)
-            and plan_strip_takes(spec, dtype, depth))
+    0.636, 3.139 / 1.123; phase 29: star2d1r k = 4 1.934 / 1.256 (strip
+    launches), and on the plan strip kernel's single steps the 9x9 of rank
+    4 k = 2 2.881 / 1.331, custom_r5 k = 2 0.953 / 0.622 (float64 7.212 /
+    1.841), the 17x17 of rank 4 k = 2 9.027 / 3.048.  Both are issue-bound,
+    and a fused level does a step's sums plus its level ring and overlap."""
+    return (dtype in (torch.float32, torch.float64) and depth >= 2
+            and _walk_kind(spec, dtype, depth) == "plan_strip"
+            and _walk_kind(spec, dtype, 1) is not None)
 
 
 def wide_takes(spec: StencilSpec, dtype, depth: int = 1) -> bool:
@@ -566,7 +670,7 @@ def _plan_buffer(spec: StencilSpec, device: torch.device, dtype):
 
 # the kinds whose launch copies the plan from host memory into the
 # kernel's parameters
-_HOST_PLAN = ("strip", "fused_strip", "fused_strip_skew", "plan_strip")
+_HOST_PLAN = ("strip", "fused_strip", "plan_strip")
 
 
 @functools.lru_cache(maxsize=None)
@@ -584,7 +688,8 @@ def _bind(name: str, bf16: bool, kinds=None):
     the plan strip kernel's, which ``csrc/plan2d.cu`` holds)."""
     lib = _cuda_build.load(name)
     for kind, entries in _ENTRIES.items():
-        if kind not in (kinds or [k for k in _ENTRIES if k != "plan_strip"]):
+        if kind not in (kinds or [k for k in _ENTRIES
+                                  if k not in _PLAN_KINDS]):
             continue
         # a run: 4 pointers; a pass: 3, and 8 ints more, its bounds and its
         # window
@@ -618,20 +723,20 @@ def _lib_bf16():
 def _plan_lib():
     """csrc/plan2d.cu's float32 and float64 instances, built and bound
     once per process."""
-    return _bind("plan2d", False, ("plan_strip",))
+    return _bind("plan2d", False, _PLAN_KINDS)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan_lib_bf16():
     """csrc/plan2d_bf16.cu (its bfloat16 instances), built and bound once
     per process."""
-    return _bind("plan2d_bf16", True, ("plan_strip",))
+    return _bind("plan2d_bf16", True, _PLAN_KINDS)
 
 
 def _lib_of(kind: str, dtype):
     """The library of ``kind``'s instance of ``dtype``."""
     bf16 = dtype == torch.bfloat16
-    if kind == "plan_strip":
+    if kind in _PLAN_KINDS:
         return _plan_lib_bf16() if bf16 else _plan_lib()
     return _lib_bf16() if bf16 else _lib()
 
@@ -690,13 +795,14 @@ def _count(wrapper, dtype):
 
 
 def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
-            depth: int, bounds=None, region=None):
+            depth: int, bounds=None, region=None, wrapper=None):
     """One launch of ``kind``'s instance of the buffers' dtype: ``depth``
-    fused steps ("step", "strip", "skew", and the fused strip kernel as
-    "fused_strip" for ``stencil2d_step`` or "fused_strip_skew" for
-    ``stencil2d_skew_step``) or the steps of a run ("resident"); raises if
-    refused, and counts it on the wrapper it serves.  A pass's levels
-    before the last keep ``bounds`` (``check_bounds``' flat ints, a shard's
+    fused steps ("step" and "skew", the tile kernels; "strip",
+    "fused_strip" and "plan_strip", the strip walk's) or the steps of a run
+    ("resident"); raises if refused, and counts it on ``wrapper``, the
+    wrapper it serves (when None: ``stencil2d_resident`` for a run,
+    ``stencil2d_skew_step`` for "skew", else ``stencil2d_step``).  A pass's
+    levels before the last keep ``bounds`` (``check_bounds``' flat ints, a shard's
     box cut to the guard; the interior when None), its last the box cut to
     the interior, and it writes ``region``'s cells (``region_cells``; the
     rounded interior when None: the entry's window, which
@@ -722,22 +828,22 @@ def _launch(kind: str, buffers, spec: StencilSpec, layout: Layout2D,
     if err != 0:
         raise RuntimeError(
             f"stencil2d {kind} kernel launch failed: CUDA error {err}")
-    wrapper = {"strip": stencil2d_step, "step": stencil2d_step,
-               "fused_strip": stencil2d_step, "plan_strip": stencil2d_step,
-               "skew": stencil2d_skew_step,
-               "fused_strip_skew": stencil2d_skew_step,
-               "resident": stencil2d_resident}[kind]
+    if wrapper is None:
+        wrapper = {"resident": stencil2d_resident,
+                   "skew": stencil2d_skew_step}.get(kind, stencil2d_step)
     _count(wrapper, cur.dtype)
     if region is not None:
         wrapper.launches_region += 1
     if kind == "strip":
         wrapper.launches_k1 += 1
-    elif kind.startswith("fused_strip"):
+    elif kind == "fused_strip":
         wrapper.launches_fused_strip += 1
     elif kind == "plan_strip":
         wrapper.launches_plan_strip += 1
     elif kind == "step" and wide_takes(spec, cur.dtype, depth):
         wrapper.launches_wide += 1
+    elif kind in ("step", "skew"):
+        wrapper.launches_tile += 1
 
 
 def _spare_like(donor, layout: Layout2D):
@@ -756,26 +862,25 @@ def _spare_like(donor, layout: Layout2D):
 
 def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
                 k: int, bounds=None, refresh=None):
-    """A pass of k steps as launches of at most the k one launch takes,
-    from ``cur`` into ``donor`` and, past the first, a spare zero-guarded
-    buffer (``_spare_like``) by turns; returns the buffer the last launch wrote.  A
-    leftover single step runs the strip kernel where ``strip_takes`` says
-    so (else the step kernel); a launch that ``fused_strip_takes`` runs
-    the fused strip kernel, counted on the wrapper of ``kind``.  Each
-    launch keeps ``bounds`` on its levels before the last, and a launch
-    past the first reads a buffer that ``refresh`` (if given) has refilled
-    the ring of: the previous launch masked its last level to the
-    interior and never writes the ring.  A launch that ``strips_beat_plan``
-    runs as single strip launches where the pass keeps no ring (``bounds``
-    the interior) or ``refresh`` refills it between them (a ghost ring); a
-    shard's exchanged ring, which no refresh refills, lives through the
-    fused levels of one launch."""
+    """A pass of k steps as launches of at most the k one launch takes
+    (``launch_depths``), from ``cur`` into ``donor`` and, past the first, a
+    spare zero-guarded buffer (``_spare_like``) by turns; returns the buffer
+    the last launch wrote.  Each launch runs the kernel ``_one_kind`` names,
+    counted on the wrapper of ``kind``.  Each launch keeps ``bounds`` on its
+    levels before the last, and a launch past the first reads a buffer that
+    ``refresh`` (if given) has refilled the ring of: the previous launch
+    masked its last level to the interior and never writes the ring.  A
+    launch that ``strips_beat_plan`` runs as single strip launches where the
+    pass keeps no ring (``bounds`` the interior) or ``refresh`` refills it
+    between them (a ghost ring); a shard's exchanged ring, which no refresh
+    refills, lives through the fused levels of one launch."""
     src, spare = cur, None
     no_ring = (check_bounds(bounds, layout.interior, layout.guard, shard=True)
                == check_bounds(None, layout.interior, layout.guard))
+    wrapper = stencil2d_skew_step if kind == "skew" else stencil2d_step
     depths = []
     for depth in launch_depths(kind, spec, cur.dtype, k):
-        split = (kind == "step" and (no_ring or refresh is not None)
+        split = ((no_ring or refresh is not None)
                  and strips_beat_plan(spec, cur.dtype, depth))
         depths += [1] * depth if split else [depth]
     for i, depth in enumerate(depths):
@@ -788,35 +893,39 @@ def _split_pass(kind: str, cur, donor, spec: StencilSpec, layout: Layout2D,
             if refresh is not None:
                 src = refresh(src)
         _launch(_one_kind(kind, spec, cur.dtype, depth), (src, dst), spec,
-                layout, depth, bounds)
+                layout, depth, bounds, wrapper=wrapper)
         src = dst
     return src
 
 
 def launch_depths(kind: str, spec: StencilSpec, dtype, k: int):
     """The depths of the launches a pass of ``kind`` ("step" or "skew") and
-    k steps takes: launches of the largest depth one launch holds
-    (``max_fused_steps``), then the rest."""
-    kmax = max_fused_steps(kind, spec.radius, plan_len(spec), dtype)
+    k steps takes: launches of the largest depth one launch holds, then
+    the rest.  A float32 or float64 pass that the strip walk takes holds
+    ``walk_depth`` (the values do not move: every level is masked as a
+    single step masks it); any other, a bfloat16 pass among them (it rounds
+    once a launch), the tile kernel's (``max_fused_steps``).  The sharded
+    2-D engine splits its passes here too, each launch a pass with its own
+    exchange (``parallel/domain.py``): the card measured the walk's launches
+    and their exchanges faster than one tile launch (tools/kernel_turns.py,
+    PERF.md)."""
+    kmax = walk_depth(spec, dtype) or max_fused_steps(
+        kind, spec.radius, plan_len(spec), dtype)
     return [kmax] * (k // kmax) + ([k % kmax] if k % kmax else [])
 
 
 def _one_kind(kind: str, spec: StencilSpec, dtype, depth: int) -> str:
-    """The kernel of one launch of ``depth`` steps of a ``kind`` pass: the
-    strip kernel for a single step that ``strip_takes``, the fused strip
-    kernel where ``fused_strip_takes`` (counted on the wrapper of
-    ``kind``), the plan strip kernel where ``plan_strip_takes`` (a single
-    step, or a ``stencil2d_step`` pass), else the step kernel (a single
-    step) or ``kind``'s own."""
-    if depth == 1:
-        if strip_takes(spec, dtype):
-            return "strip"
-        return "plan_strip" if plan_strip_takes(spec, dtype, 1) else "step"
-    if fused_strip_takes(spec, dtype, depth):
-        return "fused_strip" if kind == "step" else "fused_strip_skew"
-    if kind == "step" and plan_strip_takes(spec, dtype, depth):
-        return "plan_strip"
-    return kind
+    """The kernel of one launch of ``depth`` steps of a ``kind`` pass
+    ("step" or "skew"): the strip walk's (``_walk_kind``: the strip kernel
+    for a single step that ``strip_takes``, the fused strip kernel where
+    ``fused_strip_takes``, the plan strip kernel where ``plan_strip_takes``
+    at radius 1-8 within its caps and ``tile_beats_plan`` does not say
+    otherwise), from either wrapper; else the tile kernels: the step kernel
+    for a single step, or ``kind``'s own (radius 9 up to the wide radii,
+    plans past the plan strip kernel's caps, a bfloat16 pass deeper than 4,
+    the launches of ``tile_beats_plan``)."""
+    return (_walk_kind(spec, dtype, depth)
+            or ("step" if depth == 1 else kind))
 
 
 def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
@@ -839,6 +948,7 @@ def stencil2d_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     ``launches_k1`` those of the steps a strip kernel ran (any dtype),
     ``launches_fused_strip`` those of the fused strip kernel,
     ``launches_plan_strip`` those of the plan strip kernel,
+    ``launches_tile`` those of the tile kernel (step_kernel),
     ``launches_wide`` those of the wide kernel and ``launches_region`` the
     launches of any kernel over a ``region``.
 
@@ -892,10 +1002,14 @@ def stencil2d_skew_step(cur, donor, spec: StencilSpec, layout: Layout2D,
     Takes what that wrapper takes: algorithm 'vpu_roll' or 'mxu_hybrid1',
     a guard covering ``skew_steps * radius`` (the port's layout, which
     needs no extra row tiles), a band of ``tile_rows`` rows at least 2r
-    deep.  Counts its launches as ``stencil2d_step`` does, the fused strip
-    kernel's in ``launches_fused_strip`` too.  The kernel
-    changes only the traversal, never a value, so its plain twin, which a
-    CPU tensor runs, is the fused pass's, ``stencil2d_step_plain``."""
+    deep.  The skew kernel changes only the traversal, never a value, so a
+    CUDA pass takes the fused pass's launches where the strip walk reaches
+    (``_one_kind``: single strip launches, the fused strip or the plan strip
+    kernel), skew_kernel beyond; each counted here as ``stencil2d_step``
+    counts its own, the strip walk's in ``launches_k1``,
+    ``launches_fused_strip`` and ``launches_plan_strip`` too and
+    skew_kernel's in ``launches_tile``.  Its plain twin, which a CPU tensor
+    runs, is the fused pass's, ``stencil2d_step_plain``."""
     if algorithm not in SKEW_ALGORITHMS:
         raise ValueError(
             f"skewed fusion supports algorithm 'vpu_roll' or "
@@ -937,20 +1051,21 @@ def stencil2d_resident(cur, spec: StencilSpec, layout: Layout2D,
 
 
 # kernel launches per instance, for chip_smoke.py: float32, float64 and
-# bfloat16, and the strip kernels' launches apart (launches_k1: the strip
-# kernel's steps in any dtype; launches_fused_strip: the fused strip
-# kernel's passes; launches_plan_strip: the plan strip kernel's launches;
-# launches_wide: the wide kernel's steps; launches_region:
-# stencil2d_step's launches over a region; launches_smem: the shared-memory
-# resident kernel's runs)
+# bfloat16, and each kernel's launches apart, in any dtype, on the wrapper
+# whose pass made them (launches_k1: the strip kernel's steps;
+# launches_fused_strip: the fused strip kernel's passes;
+# launches_plan_strip: the plan strip kernel's launches; launches_tile: the
+# tile kernels' -- step_kernel's from stencil2d_step, skew_kernel's from
+# stencil2d_skew_step; launches_wide: the wide kernel's steps;
+# launches_region: stencil2d_step's launches over a region; launches_smem:
+# the shared-memory resident kernel's runs)
 for _wrapper in (stencil2d_step, stencil2d_skew_step, stencil2d_resident):
     _wrapper.launches = _wrapper.launches_f64 = _wrapper.launches_bf16 = 0
-stencil2d_step.launches_k1 = stencil2d_step.launches_wide = 0
-stencil2d_step.launches_region = 0
-stencil2d_step.launches_plan_strip = 0
+stencil2d_step.launches_wide = stencil2d_step.launches_region = 0
 stencil2d_resident.launches_smem = 0
 for _wrapper in (stencil2d_step, stencil2d_skew_step):
-    _wrapper.launches_fused_strip = 0
+    _wrapper.launches_k1 = _wrapper.launches_fused_strip = 0
+    _wrapper.launches_plan_strip = _wrapper.launches_tile = 0
 del _wrapper
 
 

@@ -128,13 +128,14 @@ def test_no_whole_grid_run_under_a_ghost_boundary(monkeypatch):
 
 @pytest.mark.parametrize("boundary", ["periodic", "reflect"])
 def test_split_pass_refills_the_ring_between_launches(boundary, monkeypatch):
-    """A pass deeper than one launch takes (max_fused_steps) runs as several
-    launches, each masking its last level to the interior: the ring of the
-    buffer between them is refilled by the engine's refresh, which is exact
-    (a refresh at any step is np.pad at that step).  The remainder of two
-    steps runs as two strip launches (``strips_beat_plan``), the refresh
-    between them too.  Each launch replaced by the twin, the pass matches
-    the ground truth."""
+    """A pass deeper than one launch of the tile kernel takes
+    (max_fused_steps) runs as several launches, each masking its last level
+    to the interior: the ring of the buffer between them is refilled by the
+    engine's refresh, which is exact (a refresh at any step is np.pad at that
+    step).  Each launch of the strip walk's depth (``walk_depth``) runs as
+    single strip launches (``strips_beat_plan``), the refresh between them
+    too.  Each launch replaced by the twin, the pass matches the ground
+    truth."""
     spec = get_shape("star2d1r")
     k = stencil2d.max_fused_steps("step", spec.radius, stencil2d.plan_len(spec)) + 2
     interior = (k * spec.radius + 5, 2 * k * spec.radius)
@@ -142,7 +143,7 @@ def test_split_pass_refills_the_ring_between_launches(boundary, monkeypatch):
                                          boundary=boundary, fused_steps=k)
     launches = []
 
-    def fake_launch(kind, buffers, spec_, layout, depth, bounds=None):
+    def fake_launch(kind, buffers, spec_, layout, depth, bounds=None, **_):
         launches.append((kind, depth, bounds))
         stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds)
 
@@ -152,8 +153,7 @@ def test_split_pass_refills_the_ring_between_launches(boundary, monkeypatch):
     out = stencil2d._split_pass("step", x, torch.zeros_like(x), spec, eng.layout, k,
                                 eng._ghost_bounds(),
                                 lambda s: eng._ring_refresh(s, boundary))
-    assert [(kind, d) for kind, d, _ in launches] == [("step", k - 2), ("strip", 1),
-                                                      ("strip", 1)]
+    assert [(kind, d) for kind, d, _ in launches] == [("strip", 1)] * k
     assert all(b == eng._ghost_bounds() for _, _, b in launches)
     got = eng.from_internal(eng._ring_refresh(out, "zero")).numpy()
     assert rel_err(got, truth(boundary, padded, spec, k)) <= 1e-6

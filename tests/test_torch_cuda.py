@@ -162,17 +162,25 @@ def test_strip_kernel_equals_the_tile_kernel_on_any_fill(cuda, case, interior, g
 
 
 def test_steps_beyond_the_strip_radii_run_the_tile_kernel(cuda):
+    """A radius-5 step, beyond the strip kernel's radii: once the tile
+    kernel's, now the plan strip kernel's radius-5 instance (counted in
+    launches_plan_strip, none in launches_tile), equal to the tile kernel
+    launched directly and to the twin."""
     spec = _custom_2d(5, 2, 4, seed=5)
     assert not stencil2d.strip_takes(spec, torch.float32)
     lay = Layout2D(interior=(70, 140), halo=spec.halo, tile=default_tile_2d(70, 140),
                    guard=guard_2d(spec.halo, spec.radius))
     x = lay.to_internal(reference.random_padded(spec, (70, 140), seed=2), device=cuda)
-    before = (stencil2d.stencil2d_step.launches, stencil2d.stencil2d_step.launches_k1)
+    step = stencil2d.stencil2d_step
+    before = (step.launches, step.launches_k1, step.launches_plan_strip, step.launches_tile)
     got = stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay)
     torch.cuda.synchronize()
-    assert (stencil2d.stencil2d_step.launches - before[0],
-            stencil2d.stencil2d_step.launches_k1 - before[1]) == (1, 0)
+    assert (step.launches - before[0], step.launches_k1 - before[1],
+            step.launches_plan_strip - before[2], step.launches_tile - before[3]) == (1, 0, 1, 0)
     assert torch.equal(got, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay))
+    tile = torch.zeros_like(x)
+    stencil2d._launch("step", (x, tile), spec, lay, 1)
+    assert torch.equal(got, tile)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -827,18 +835,19 @@ SHAPES_FUSED = [("star2d3r", (96, 256)), ("box2d1r", (100, 131)), ("star2d1r", (
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name,interior", SHAPES_FUSED)
 def test_fused_kernel_matches_single_steps_and_twin(cuda, name, interior, dtype, k):
-    """#1 at k > 1; "split": one step deeper than a launch takes, so the pass
-    runs as two launches.  A launch the plan strip kernel would take runs as
-    single strip launches (``stencil2d.strips_beat_plan``; every shape here
-    takes the strip kernel's single steps): one launch a step.  The launches
-    are pinned: star2d3r's float32 k = 2 pass is one fused strip launch,
-    every other k = 2 pass and each float32 k = 3 pass k strip launches, a
-    float64 k = 3 and every k = 4 pass one tile launch."""
+    """#1 at k > 1; "split": one step deeper than a tile launch takes.  A
+    float32 or float64 pass runs as launches of at most the strip walk's
+    depth (``stencil2d.walk_depth``), and a launch the plan strip kernel
+    would take runs as single strip launches (``stencil2d.strips_beat_plan``;
+    every shape here takes the strip kernel's single steps): one launch a
+    step.  The launches are pinned: star2d3r's float32 k = 2 pass is one
+    fused strip launch, every other pass k strip launches."""
     spec = get_shape(name)
     launches = {2: 1 if (name, dtype) == ("star2d3r", torch.float32) else 2,
-                3: 3 if dtype == torch.float32 else 1, 4: 1, "split": 2}[k]
+                3: 3, 4: 4, "split": None}[k]
     kmax = stencil2d.max_fused_steps("step", spec.radius, stencil2d.plan_len(spec), dtype)
-    k = kmax + 1 if k == "split" else k
+    if k == "split":
+        k = launches = kmax + 1
     lay = _layout_2d(spec, interior, k)
     g0 = reference.random_padded(spec, interior, seed=3)
     for integer, fill in ((True, g0 % 2), (False, g0 * (np.pi / 100))):
@@ -858,19 +867,28 @@ def test_fused_kernel_matches_single_steps_and_twin(cuda, name, interior, dtype,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("name,interior", SHAPES_FUSED)
 def test_skew_kernel_matches_fused_kernel_and_twin(cuda, name, interior, dtype, k):
+    """#2 through ``stencil2d_skew_step``, every launch on the skew wrapper:
+    star2d3r's float32 k = 2 pass one fused strip launch, every other pass k
+    strip launches (``stencil2d.strips_beat_plan``), none of skew_kernel;
+    equal to the extent pass and to skew_kernel launched directly, and to
+    the twin."""
     spec = get_shape(name)
+    launches = 1 if (name, dtype, k) == ("star2d3r", torch.float32, 2) else k
+    wrapper = stencil2d.stencil2d_skew_step
     lay = _layout_2d(spec, interior, k)
     g0 = reference.random_padded(spec, interior, seed=4)
     for integer, fill in ((True, g0 % 2), (False, g0 * (np.pi / 100))):
         x = lay.to_internal(fill, dtype, cuda)
-        before = stencil2d.stencil2d_skew_step.launches + \
-            stencil2d.stencil2d_skew_step.launches_f64
+        before = (wrapper.launches + wrapper.launches_f64, wrapper.launches_tile)
         got = stencil2d.stencil2d_skew_step(x, torch.zeros_like(x), spec, lay,
                                             skew_steps=k)
-        assert (stencil2d.stencil2d_skew_step.launches
-                + stencil2d.stencil2d_skew_step.launches_f64 - before) == 1
+        assert (wrapper.launches + wrapper.launches_f64 - before[0],
+                wrapper.launches_tile - before[1]) == (launches, 0)
         _agree(got, stencil2d.stencil2d_step(x, torch.zeros_like(x), spec, lay,
                                              fused_steps=k), True)
+        old = torch.zeros_like(x)
+        stencil2d._launch("skew", (x, old), spec, lay, k)
+        _agree(got, old, True)
         want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k)
         _agree(got, want, dtype == torch.float64 or integer)
 
@@ -2245,8 +2263,104 @@ def test_ghost_ring_pass_runs_strip_launches(cuda, tiled_2d, monkeypatch, name, 
         with chip_smoke.twins():
             _same(got, deng.run(g01, 2 * k))
 
-    def plain(kind, buffers, spec, layout, depth, bounds=None, region=None):
+    def plain(kind, buffers, spec, layout, depth, bounds=None, region=None, **_):
         stencil2d.stencil2d_step_plain(*buffers, spec, layout, depth, bounds, region)
 
     monkeypatch.setattr(stencil2d, "_launch", plain)
     _same(got, deng.run(g01, 2 * k))
+
+
+# -- the strip walk's reach (chip_smoke.py phase 29): the plan strip kernel at depth 4
+# and radius 5-8, stencil2d_skew_step on the walk; none of step_kernel or skew_kernel
+def _reach_cases():
+    import chip_smoke
+
+    for name, interior, k, dtype in chip_smoke.reach_check_cases():
+        yield pytest.param(name, interior, k, dtype,
+                           id=f"{name}-{interior}-k{k}-{str(dtype)[6:]}")
+
+
+@pytest.mark.parametrize("name,interior,k,dtype", list(_reach_cases()))
+def test_reach_kernel_on_card(cuda, name, interior, k, dtype):
+    """Each new plan strip instance on its own entry (chip_smoke.py phase 29
+    (a), ``check_plan_case``): bit for bit against its twin on the 0/1 fill
+    with dyadic taps at 1 and 2 passes (float64 on the pi/100 fill too),
+    against step_kernel on the pi/100 fill, under a ghost ring's box and over
+    a window of tiles."""
+    import chip_smoke
+
+    assert chip_smoke.check_plan_case(2, name, interior, k, dtype, cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+def test_plan_warp_bytes_are_the_kernels(cuda, dtype):
+    """``stencil2d.plan_warp_bytes``, which decides ``plan_strip_takes`` and
+    ``tile_beats_plan``, equals the shared memory a warp of the kernel's own
+    launch takes (csrc/plan2d.cu ls_stencil2d_plan_strip_warp_bytes*, through
+    the launch's own choice of instance) at every radius 1-8, term count 1-9
+    and depth of ``plan_strip_depths``; the kernel refuses every other
+    depth."""
+    import ctypes
+
+    lib = stencil2d._plan_lib_bf16() if dtype == torch.bfloat16 else stencil2d._plan_lib()
+    fn = getattr(lib, "ls_stencil2d_plan_strip_warp_bytes"
+                 + {torch.float64: "_f64", torch.bfloat16: "_bf16"}.get(dtype, ""))
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3
+    for R in range(1, 9):
+        taps = (1.0,) * (2 * R + 1)
+        for nt in range(1, stencil2d.PLAN_MAX_TERMS + 1):
+            spec = StencilSpec(name=f"r{R} x{nt}", ndim=2, radius=R, halo=(R, R),
+                               terms=(SeparableTerm(taps=(taps, taps)),) * nt,
+                               residue=(), fuse_factor=1)
+            for k in range(1, 5):
+                want = (stencil2d.plan_warp_bytes(spec, dtype, k)
+                        if k in stencil2d.plan_strip_depths(R, dtype) else -1)
+                assert fn(nt, R, k) == want, (R, nt, k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float64])
+@pytest.mark.parametrize("name,interior,k", [("star2d1r", (200, 300), 2),
+                                             ("5x5 asym", (133, 217), 2),
+                                             ("custom_r5", (133, 217), 2),
+                                             ("r6 residue", (100, 140), 3)])
+def test_reach_skew_on_card(cuda, name, interior, k, dtype):
+    """``stencil2d_skew_step`` on the walk (chip_smoke.py phase 29 (a),
+    ``check_reach_skew``): every launch on the skew wrapper, none of
+    skew_kernel, bit for bit against skew_kernel and the twin."""
+    import chip_smoke
+
+    assert chip_smoke.check_reach_skew(name, interior, k, dtype, cuda)
+
+
+def _reach_engine_cases():
+    import chip_smoke
+
+    for label, name, _, kw in chip_smoke.REACH_CASES:
+        yield pytest.param(label, name, kw, id=label)
+
+
+@pytest.mark.parametrize("label,name,kw", list(_reach_engine_cases()))
+def test_reach_engine_on_card(cuda, tiled_2d, label, name, kw):
+    """Each phase 29 case through StencilEngine at a small interior: run(2k)
+    of the dyadic twin on the 0/1 fill, its launches those of
+    ``chip_smoke.reach_route`` (step_kernel or skew_kernel only where
+    ``stencil2d.tile_beats_plan`` says), bit for bit against the engine's
+    run with the plain twins."""
+    import chip_smoke
+
+    interior = (100, 300)
+    eng = chip_smoke.reach_engine(name, interior, cuda, **kw)
+    k = eng._fused_k()
+    want = chip_smoke.reach_route(eng)
+    deng = engine.StencilEngine(chip_smoke.dyadic(eng.spec), interior, eng.config,
+                                device=cuda)
+    g01 = reference.random_padded(eng.spec, interior, seed=29) % 2
+    chip_smoke.reset_counts()
+    got = deng.run(g01, 2 * k)
+    torch.cuda.synchronize()
+    c = chip_smoke.counts()
+    assert {n: c[n] for n in want} == want
+    assert not any(c[t] for t in chip_smoke.TILE_COUNTERS if t not in want)
+    with chip_smoke.twins():
+        _same(got, deng.run(g01, 2 * k))

@@ -122,10 +122,12 @@ def test_depth_above_one_launch_matches_jax():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_deep_pass_splits_into_launches(dtype, monkeypatch):
-    """The wrapper's split of a pass deeper than one launch, on the CPU: each
-    launch replaced by its twin, the pass ping-pongs between the donor and a
-    spare buffer and equals the unsplit pass bit for bit.  The leftover
-    single step is the strip kernel's, in float32 and in float64."""
+    """The wrapper's split of a pass deeper than one launch of the tile
+    kernel, on the CPU: each launch replaced by its twin, the pass
+    ping-pongs between the donor and a spare buffer and equals the unsplit
+    pass bit for bit.  In float32 and in float64 every launch is the strip
+    kernel's single step (launches of the strip walk's depth, each split by
+    ``strips_beat_plan``)."""
     spec = get_shape("star2d3r")  # taps summing to 28: 23 steps stay finite in fp32
     k = 2 * stencil2d.max_fused_steps("step", spec.radius, stencil2d.plan_len(spec),
                                       dtype) + 1
@@ -135,8 +137,8 @@ def test_deep_pass_splits_into_launches(dtype, monkeypatch):
     x = eng.to_internal(reference.random_padded(spec, (37, 45), seed=3) * PI)
     depths = []
 
-    def fake_launch(kind, buffers, spec_, layout, depth, bounds=None):
-        assert kind == ("strip" if depth == 1 else "step")
+    def fake_launch(kind, buffers, spec_, layout, depth, bounds=None, **_):
+        assert kind == "strip" and depth == 1
         assert buffers[0] is not buffers[1]
         depths.append(depth)
         stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds)
@@ -144,8 +146,7 @@ def test_deep_pass_splits_into_launches(dtype, monkeypatch):
     monkeypatch.setattr(stencil2d, "_launch", fake_launch)
     donor = torch.zeros_like(x)
     got = stencil2d._split_pass("step", x, donor, spec, eng.layout, k)
-    kmax = (k - 1) // 2
-    assert depths == [kmax, kmax, 1] and got is donor
+    assert depths == [1] * k and got is donor
     want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, eng.layout, k)
     assert bool(torch.isfinite(got).all()) and torch.equal(got, want)
 

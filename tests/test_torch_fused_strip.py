@@ -324,11 +324,10 @@ def test_fused_strip_dispatch_refuses_radius_terms_and_residue():
 ])
 def test_split_pass_launches_the_fused_strip_kernel_by_the_rule(kind, name, dtype, k, want,
                                                                  monkeypatch):
-    """_split_pass sends a pass the rule takes to the fused strip kernel, as
-    "fused_strip" from stencil2d_step and "fused_strip_skew" from
-    stencil2d_skew_step (each wrapper counts its own launches), and every
-    other pass to the plan strip kernel (stencil2d_step) or the skew kernel
-    (stencil2d_skew_step).  The pass keeps a shard's ring (a box past the
+    """_split_pass sends a pass the rule takes to the fused strip kernel
+    ("fused_strip") and every other pass to the plan strip kernel
+    ("plan_strip"), from either wrapper, each launch counted on the wrapper
+    of its pass (``_launch``'s ``wrapper``).  The pass keeps a shard's ring (a box past the
     interior, no refresh), which holds it to one launch whatever the rule
     of strip launches (tests/test_torch_plan_kernels.py holds that rule);
     each launch replaced by the twin, the pass equals the unsplit twin."""
@@ -337,17 +336,17 @@ def test_split_pass_launches_the_fused_strip_kernel_by_the_rule(kind, name, dtyp
     x = lay.to_internal(reference.random_padded(spec, (37, 45), seed=4) % 2, dtype)
     kinds = []
 
-    def fake_launch(kind_, buffers, spec_, layout, depth, bounds=None):
-        kinds.append(kind_)
+    def fake_launch(kind_, buffers, spec_, layout, depth, bounds=None, wrapper=None):
+        kinds.append((kind_, wrapper))
         stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds)
 
     monkeypatch.setattr(stencil2d, "_launch", fake_launch)
     r = spec.radius
     ring = (-r, 37 + r, -r, 45 + r)
     got = stencil2d._split_pass(kind, x, torch.zeros_like(x), spec, lay, k, ring)
-    other = "plan_strip" if kind == "step" else kind
-    expect = other if want is None else want + ("_skew" if kind == "skew" else "")
-    assert kinds == [expect]
+    expect = want or "plan_strip"
+    wrapper = stencil2d.stencil2d_skew_step if kind == "skew" else stencil2d.stencil2d_step
+    assert kinds == [(expect, wrapper)]
     assert stencil2d._ENTRIES[expect][dtype]
     _same(got, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k, ring))
 

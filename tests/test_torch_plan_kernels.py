@@ -58,7 +58,9 @@ def _with_terms(spec, n):
     (get_shape("star2d1r"), BF16, 3, True),
     (get_shape("star2d1r"), F64, 2, True),
     (get_shape("star2d1r"), F64, 3, False),   # float64: depth 1-2
-    (get_shape("star2d1r"), F32, 4, False),   # the tile kernel's depths
+    (get_shape("star2d1r"), F32, 4, True),    # depth 4 in float32 and bf16
+    (get_shape("star2d1r"), BF16, 4, True),
+    (get_shape("star2d1r"), F32, 5, False),   # deeper: launches of at most 4
     (get_shape("star2d3r"), F32, 2, False),   # the fused strip kernel
     (get_shape("star2d3r"), BF16, 2, False),
     (get_shape("star2d3r"), F32, 3, True),
@@ -79,7 +81,11 @@ def _with_terms(spec, n):
     (RANK4, torch.float16, 1, False),
     (_with_terms(RANK4, 9), F32, 1, True),
     (_with_terms(RANK4, 10), F32, 1, False),  # past kPlanMaxTerms
-    (_rank(5, 4), F32, 1, False),             # radius 5: the tile kernel
+    (_rank(5, 4), F32, 1, True),              # radius 5-8: depth 1-2
+    (_rank(8, 4), F64, 2, True),
+    (_rank(5, 4), F32, 3, False),
+    (_rank(8, 1), BF16, 4, True),             # bf16 to depth 4: one rounding
+    (_rank(9, 4), F32, 1, False),             # radius 9: the tile kernel
 ])
 def test_plan_strip_rule(spec, dtype, depth, want):
     assert stencil2d.plan_strip_takes(spec, dtype, depth) == want
@@ -97,24 +103,29 @@ def test_main_path_routes_do_not_move(name, dtype):
     assert stencil2d._one_kind("step", spec, dtype, 1) == "strip"
     if name == "star2d3r" and dtype != F64:
         assert stencil2d._one_kind("step", spec, dtype, 2) == "fused_strip"
-        assert stencil2d._one_kind("skew", spec, dtype, 2) == "fused_strip_skew"
+        assert stencil2d._one_kind("skew", spec, dtype, 2) == "fused_strip"
 
 
 @pytest.mark.parametrize("spec,dtype,depth,want", [
     (RANK4, F32, 1, "plan_strip"),
     (RANK4, F64, 1, "plan_strip"),
     (ASYM, F32, 2, "plan_strip"),
-    (ASYM, F32, 4, "step"),                   # deeper: the tile kernel
+    (ASYM, F32, 4, "plan_strip"),             # depth 4
+    (ASYM, BF16, 5, "step"),                  # a bf16 launch past 4: the tile kernel
     (get_shape("star2d1r"), BF16, 3, "plan_strip"),
-    (_rank(5, 4), F32, 1, "step"),
+    (_rank(5, 4), F32, 1, "plan_strip"),
+    (_rank(9, 4), F32, 1, "step"),
 ])
 def test_one_kind_sends_the_plan_strip_kernel_its_launches(spec, dtype, depth, want):
     assert stencil2d._one_kind("step", spec, dtype, depth) == want
-    # a skewed pass keeps its kernel; its leftover single step is a step's
-    if depth >= 2:
-        assert stencil2d._one_kind("skew", spec, dtype, depth) in ("skew",
-                                                                   "fused_strip_skew")
-    assert stencil2d._ENTRIES[want][dtype]
+    # a skewed launch takes the same kernel (counted on the skew wrapper by
+    # _split_pass); past the walk's reach the skew kernel
+    skew = stencil2d._one_kind("skew", spec, dtype, depth)
+    if want != "step":
+        assert skew == want
+    else:
+        assert skew == ("step" if depth == 1 else "skew")
+    assert stencil2d._ENTRIES[want][dtype] and stencil2d._ENTRIES[skew][dtype]
 
 
 def _layout(spec, interior, k):
@@ -146,11 +157,11 @@ def _ring_case(spec, dtype, k, box):
     (ASYM, F32, 2), (ASYM, F64, 2), (get_shape("star2d1r"), F32, 3),
     (get_shape("box2d3r"), F32, 2), (ASYM, BF16, 2), (RANK4, F32, 2)])
 def test_split_pass_routing_rule(spec, dtype, k, box, monkeypatch):
-    """A float32 or float64 pass the plan strip kernel would take, on a spec
-    whose single steps the strip kernel takes, runs as k strip launches
-    where it keeps no ring or a refreshed ghost ring, else (a shard's ring)
-    one plan strip launch; a bf16 pass, or a spec the strip kernel refuses
-    (four terms), stays one launch.  Each launch replaced by the twin, the
+    """A float32 or float64 pass the plan strip kernel would take runs as k
+    single launches -- strip launches on a spec whose single steps the strip
+    kernel takes, else (four terms) single plan strip launches -- where it
+    keeps no ring or a refreshed ghost ring, else (a shard's ring) one plan
+    strip launch; a bf16 pass stays one launch.  Each launch replaced by the twin, the
     pass equals the unsplit twin on the interior (a periodic ring: the
     refresh gives the ring cells the values the fused levels compute there;
     a refreshed buffer keeps its ring, which the next pass's refresh
@@ -158,17 +169,18 @@ def test_split_pass_routing_rule(spec, dtype, k, box, monkeypatch):
     lay, x, bounds, refresh = _ring_case(spec, dtype, k, box)
     kinds = []
 
-    def fake_launch(kind_, buffers, spec_, layout, depth, bounds_=None):
+    def fake_launch(kind_, buffers, spec_, layout, depth, bounds_=None, **_):
         kinds.append((kind_, depth))
         stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds_)
 
     monkeypatch.setattr(stencil2d, "_launch", fake_launch)
     got = stencil2d._split_pass("step", x, torch.zeros_like(x), spec, lay, k, bounds,
                                 refresh)
-    split = dtype != BF16 and stencil2d.strip_takes(spec, dtype)
+    split = dtype != BF16
     assert stencil2d.strips_beat_plan(spec, dtype, k) == split
+    single = "strip" if stencil2d.strip_takes(spec, dtype) else "plan_strip"
     split = split and box != "shard"
-    assert kinds == ([("strip", 1)] * k if split else [("plan_strip", k)])
+    assert kinds == ([(single, 1)] * k if split else [("plan_strip", k)])
     want = stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k, bounds)
     torch.testing.assert_close(_interior(got, lay), _interior(want, lay), rtol=0, atol=0)
 
@@ -191,7 +203,7 @@ def test_a_pass_that_keeps_a_ring_is_not_split(box, monkeypatch):
         bounds, refresh = (0, 37, 0, 45), None
     kinds, refreshed = [], []
 
-    def fake_launch(kind_, buffers, spec_, layout, depth, bounds_=None):
+    def fake_launch(kind_, buffers, spec_, layout, depth, bounds_=None, **_):
         kinds.append((kind_, depth))
         stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds_)
 

@@ -124,25 +124,31 @@ def test_float64_strip_dispatch_refuses_radius_5_and_four_terms():
 ])
 def test_split_pass_sends_float64_single_steps_to_the_strip_kernel(kind, k, want,
                                                                    monkeypatch):
-    """_split_pass runs each single float64 step (a k = 1 pass, or the
-    leftover step of a pass deeper than one launch takes) on the strip
-    kernel and every deeper launch on the tile kernels; each launch replaced
-    by the twin, the pass equals the unsplit twin."""
+    """_split_pass runs each single float64 step (a k = 1 pass, or a pass
+    deeper than one launch of the tile kernels takes) on the strip kernel:
+    the deeper launches of a spec whose steps the strip kernel takes run as
+    single strip launches (``strips_beat_plan``), counted on the pass's
+    wrapper; each launch replaced by the twin, the pass equals the unsplit
+    twin."""
     spec = get_shape("box2d3r")
     if k is None:
         k = stencil2d.max_fused_steps(kind, spec.radius, stencil2d.plan_len(spec), F64) + 1
-        want = [kind, "strip"]
+        want = ["strip"] * k
     lay = _layout(spec, (37, 45), guard=guard_2d(spec.halo, k * spec.radius))
     x = lay.to_internal(reference.random_padded(spec, (37, 45), seed=4) % 2, F64)
     kinds = []
 
-    def fake_launch(kind_, buffers, spec_, layout, depth, bounds=None):
+    def fake_launch(kind_, buffers, spec_, layout, depth, bounds=None, wrapper=None):
         kinds.append(kind_)
+        wrappers.add(wrapper)
         stencil2d.stencil2d_step_plain(*buffers, spec_, layout, depth, bounds)
 
+    wrappers = set()
     monkeypatch.setattr(stencil2d, "_launch", fake_launch)
     got = stencil2d._split_pass(kind, x, torch.zeros_like(x), spec, lay, k)
     assert kinds == want
+    assert wrappers == {stencil2d.stencil2d_skew_step if kind == "skew"
+                        else stencil2d.stencil2d_step}
     _same(got, stencil2d.stencil2d_step_plain(x, torch.zeros_like(x), spec, lay, k))
 
 
